@@ -1,0 +1,32 @@
+"""Move the JAX package's parameters and Kronecker states into the port.
+
+The tests hand both packages the same numbers: they take what the JAX
+package computed, as numpy arrays, and turn it into the port's tensors on a
+given device, so that both compute the same thing from there.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from psgd_tf_tpu_torch.groups.kron import KronState
+
+
+def tensors(arrays: Sequence[np.ndarray], device: torch.device | str = "cpu") -> list[torch.Tensor]:
+    """numpy arrays (e.g. `np.asarray` of JAX parameters) -> tensors."""
+    return [torch.from_numpy(np.array(a, copy=True)).to(device) for a in arrays]
+
+
+def kron_states(
+    states: Sequence[tuple[np.ndarray, np.ndarray, tuple[str, str]]],
+    device: torch.device | str = "cpu",
+) -> list[KronState]:
+    """(ql, qr, fmt) triples, e.g. from a JAX KronState list as
+    `[(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in states]`."""
+    out = []
+    for ql, qr, fmt in states:
+        a, b = tensors([ql, qr], device)
+        out.append(KronState(ql=a, qr=b, fmt=(fmt[0], fmt[1])))
+    return out

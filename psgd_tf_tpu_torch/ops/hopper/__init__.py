@@ -1,0 +1,68 @@
+"""Hand-written Hopper (sm_90a) kernels for the hot structured linear algebra.
+
+Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
+
+  - tri: exact upper-triangular inverse of a list of factors (K3).
+  - kron_dd: the (dense, dense) Kronecker factor update; `fused_update`
+    takes one layer (K2), and `kron_multi.fused_update_multi` a whole
+    layer list in one fixed chain of grouped launches (K1).
+
+Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
+CPU (the CPU path, and the oracle the kernels are checked against), and
+launches its CUDA kernel for a tensor on a CUDA device, or raises. The
+`disabled()` context forces the plain versions on every device; only the
+tests and the A/B timing of `chip_smoke.py` use it.
+
+`counts` holds one launch counter per kernel; a wrapper adds one where it
+launches its kernel, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+counts: dict[str, int] = {"tri": 0, "kron_dd": 0, "kron_multi": 0}
+_disabled_depth = 0
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+@contextlib.contextmanager
+def disabled():
+    """Force the plain PyTorch versions inside this context."""
+    global _disabled_depth
+    _disabled_depth += 1
+    try:
+        yield
+    finally:
+        _disabled_depth -= 1
+
+
+def use_kernel(x: torch.Tensor | torch.device | str) -> bool:
+    """True when a wrapper must launch its kernel for tensor `x` (or for a
+    tensor on device `x`): on a CUDA device outside `disabled()`. False on
+    the CPU. Raises for any other device."""
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    if dev.type == "cpu" or _disabled_depth:
+        return False
+    if dev.type == "cuda":
+        return True
+    raise NotImplementedError(f"no Hopper kernel path for device {dev}")
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every operand is a contiguous fp32 tensor on one CUDA
+    device: the kernels take nothing else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: kernel takes contiguous float32 CUDA tensors on one "
+                f"device, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})"
+            )
+

@@ -1,0 +1,61 @@
+"""LeNet5 digit classification with (dense, dense) Kronecker preconditioners.
+
+Counterpart of `psgd_tf_tpu/workloads/mnist_lenet5.py`, with its
+hyperparameters: batch 64, lr 0.1 annealed by 0.01^(1/9) per epoch,
+grad-norm clip 0.1*sqrt(num_params), identity Kron Qs, preconditioner step
+0.1, exact Hvp. Data: the hard procedural digit set
+(`data.mnist.synthetic_hard`); the success bar is a best test error below
+5%, the JAX workload's bar for that set.
+"""
+from __future__ import annotations
+
+import torch
+
+from psgd_tf_tpu_torch.data import mnist
+from psgd_tf_tpu_torch.models import lenet5
+from psgd_tf_tpu_torch.optim.psgd import PSGD
+
+
+def run(
+    epochs: int = 10,
+    steps_per_epoch: int = 200,
+    batch_size: int = 64,
+    seed: int = 0,
+    device: torch.device | str = "cpu",
+    lr: float = 0.1,
+    eval_size: int = 2000,
+) -> dict:
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = lenet5.init(g)
+    num_params = sum(p.numel() for p in params)
+    opt = PSGD(
+        preconditioner="kron",
+        kron_formats=[("dense", "dense")] * 5,
+        lr_params=lr,
+        lr_preconditioner=0.1,
+        grad_clip_max_norm=0.1 * num_params**0.5,
+    )
+    state = opt.init(params, seed=seed)
+    test_batch = mnist.synthetic_hard(g, eval_size)
+
+    anneal = 0.01 ** (1.0 / 9.0)
+    best_err = 1.0
+    loss = None
+    for epoch in range(epochs):
+        for _ in range(steps_per_epoch):
+            x, y = mnist.synthetic_hard(g, batch_size)
+            params, state, aux = opt.step(lenet5.loss, params, state, g, x, y)
+            loss = aux["loss"]
+        err = float(lenet5.error_rate(params, *test_batch))
+        best_err = min(best_err, err)
+        state = PSGD.set_hyper(state, lr_params=lr * anneal ** (epoch + 1))
+    return {
+        "loss": float(loss),
+        "best_test_error": best_err,
+        "success": best_err < 0.05,
+        "steps": epochs * steps_per_epoch,
+    }
+
+
+if __name__ == "__main__":
+    print(run(device="cuda" if torch.cuda.is_available() else "cpu"))
