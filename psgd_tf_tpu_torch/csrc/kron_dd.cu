@@ -1,50 +1,72 @@
-// K1/K2: the (dense, dense) Kronecker factor update for a list of layers.
+// K1/K2/K5: the Kronecker factor update for a list of layers of mixed kinds.
 //
 // Replaces psgd_tf_tpu/ops/pallas/kron_multi.py `fused_update_multi` (:222,
-// its pallas_call at :202, dd kind) and psgd_tf_tpu/ops/pallas/kron_dd.py
-// `fused_update` (:181, the single-layer kernel at :210): the lone layer is
-// the L = 1 case of the same chain. Per layer, with balanced factors
-//   rho = sqrt(max diag Ql / max diag Qr),  Ql <- Ql / rho,  Qr <- rho Qr:
-//   A     = Ql dG Qr^T
-//   Bt    = Ql^{-T} dX Qr^{-1}
-//   grad1 = triu(A A^T - Bt Bt^T),  grad2 = triu(A^T A - Bt^T Bt)
-//   Ql'   = Ql - s1 grad1 Ql,  s1 = min(step / (max|grad1| + tiny), FLT_MAX)
-//   Qr'   = Qr - s2 grad2 Qr   (likewise)
+// its pallas_call at :202, kinds dd/ds/nd/ns), psgd_tf_tpu/ops/pallas/
+// kron_dd.py `fused_update` (:181, the single-layer kernel at :210) and
+// psgd_tf_tpu/ops/pallas/kron_sparse.py `fused_update_ns/ds/nd` (:311/:329/
+// :345, the single-layer kernel at :297): a lone layer is the L = 1 case of
+// the same chain. Kinds (the left factor first; mirrors arrive transposed):
+//   dd  dense (m, m)    x dense (n, n)
+//   ds  dense (m, m)    x scale (n,)
+//   nd  arrow (2, m)    x dense (n, n)
+//   ns  arrow (2, m)    x scale (n,)
+// An arrow factor is diag(q0) with last column [q1[:-1]; q0[-1]], q1[-1] = 0.
+// Per layer, with balanced factors (rho = sqrt(max diag Ql / max diag Qr),
+// Ql <- Ql / rho, Qr <- rho Qr, an arrow's two rows and a scale vector
+// scaled likewise):
+//   A  = Ql dG Qr^T,  Bt = Ql^{-T} dX Qr^{-1}
+//   dense side:  grad = triu(A A^T - Bt Bt^T) (left) or triu(A^T A - Bt^T Bt)
+//                (right), Q' = Q - s grad Q
+//   scale side:  grad2 = colsum(A*A - Bt*Bt), q' = q - s grad2 q
+//   arrow side:  diag = rowsum(A*A - Bt*Bt), bias_i = A_i.A_last - Bt_i.Bt_last
+//                (0 on the last row), q0' = q0 - s diag q0,
+//                q1' = q1 - s (diag q1 + q0_last bias)
+//   s = min(step / (max|grad| + tiny), FLT_MAX), the arrow's max over both
+//   diag and bias. The arrow inverse is closed form: Bt's rows are
+//   dX_i / q0_i, the last row corrected by corr = sum_i w_i dX_i,
+//   w_i = q1_i / (q0_i q0_last).
 //
 // The TPU kernel keeps every layer resident in VMEM and does all of this in
 // one launch. Hopper cannot: one 257x257 fp32 factor (LeNet5's largest) is
 // 264 KB, more than a block's 227 KB of shared memory. So the update is a
 // short FIXED chain of grouped launches, each covering every layer of the
-// list, with no host synchronisation between them:
+// list, with no host synchronisation between them (a stage with nothing
+// to do for the list is not launched):
 //   (a) balance_kernel   rho on the device, balanced copies to scratch,
-//                        the max|grad| slots zeroed;
-//   (b) tri.cu           exact inverses of both balanced factors (K3);
-//   (c) gemm_kernel x4   a hand-written grouped fp32 tiled GEMM over
-//                        per-problem descriptors:
-//                        [T1 = dG Qr^T, W = Ql^{-T} dX],
-//                        [A = Ql T1,    Bt = W Qr^{-1}],
-//                        [grad1, grad2] each as ONE product over the
-//                        concatenated [A | Bt] (the Bt half subtracted), with
-//                        a triu epilogue and max|grad| by block reduction
-//                        plus atomicMax on the float bits (a max does not
-//                        depend on order, so the result is deterministic),
-//   (d)                  [Ql', Qr'] = Q - s grad Q, s read on the device.
-// Seven launches per step for the whole list; no product goes to cuBLAS.
+//                        the two max|grad| slots of each layer zeroed;
+//   (b) tri.cu           exact inverses of EVERY dense factor of every
+//                        layer in one K3 launch pair;
+//   (c0) arrow_kernel    nd/ns: the arrow products Ql dG and Ql^{-T} dX
+//                        (ns: scaled by the right factor, i.e. A and Bt);
+//   (c1, c2) gemm_kernel a hand-written grouped fp32 tiled GEMM over
+//                        per-problem descriptors: A and Bt of dd (two
+//                        stages), ds (column-scale epilogue) and nd;
+//   (c3) gemm_kernel     the dense sides' triu Grams, each as ONE product
+//                        over the concatenated [A | Bt] (the Bt half
+//                        subtracted), with max|grad| by block reduction plus
+//                        atomicMax on the float bits (a max does not depend
+//                        on order, so the result is deterministic);
+//   (s) stats_kernel     the scale sides' column sums and the arrow sides'
+//                        row sums (diag, bias), with their max|grad|;
+//   (d) gemm_kernel      the dense sides' Q' = Q - s grad Q, s on the device;
+//   (v) vec_kernel       the arrow and scale sides' rewrites.
+// No product goes to cuBLAS.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. LeNet5's five
-// layers need 164 MFLOP per step in all (most in the (257, 120) layer) and
-// a few MB of traffic, yet each stage is only a few dozen 64x64 tiles, and
-// each tile's block walks its whole K loop (up to 2 * 257) alone. Measured
-// on an H100 80GB HBM3 at its 700 W limit: 0.30 ms of device time per
-// step for the chain, 57 us per GEMM launch on average. Grouping every
-// layer into each launch keeps the launch count fixed as layers are added;
-// split-K or wgmma tiles are the next step once it matters end to end.
+// layers need 164 MFLOP per step in all and a few MB of traffic, the toy
+// NMT list less, yet each stage is only a few dozen 64x64 tiles or rows,
+// and each tile's block walks its whole K loop alone. Measured on an H100
+// 80GB HBM3 at its 700 W limit (dd-only LeNet5 list): 0.30 ms of device
+// time per step for the chain, 57 us per GEMM launch on average; the toy
+// NMT list (kinds ds, ns, ds, dd, ds, ns, ns) 145 us, 78 us of it GEMMs and
+// 20 us the arrow pre-pass. Grouping every layer into each launch keeps the
+// launch count fixed as layers are added; split-K or wgmma tiles are the
+// next step once it matters end to end.
 //
-// One difference from the Pallas kernel: kron_dd._finish (kron_dd.py:150-151)
-// divides step / (max + tiny) WITHOUT the saturation of linalg.step_scale,
-// so a zero probe gives inf * 0 = NaN there. This chain saturates at
-// FLT_MAX, as the XLA path and the port's plain version do, so a zero
-// group gradient gives a zero update.
+// One difference from the Pallas kernels: they divide step / (max + tiny)
+// WITHOUT the saturation of linalg.step_scale, so a zero probe gives
+// inf * 0 = NaN there. This chain saturates at FLT_MAX, as the XLA path and
+// the port's plain versions do, so a zero group gradient gives a zero update.
 #include "psgd.cuh"
 
 #include <algorithm>
@@ -55,30 +77,10 @@
 #define GEMM_BN 64
 #define GEMM_BK 16
 #define GEMM_THREADS 256
-#define MAX_GEMMS (2 * PSGD_MAX_LAYERS)
 
-enum Epilogue { EPI_STORE = 0, EPI_TRIU_MAX = 1, EPI_UPDATE = 2 };
-
-// C (M x N) = op(a) op(b) [- op(a2) op(b2)], op(X) = X or X^T by flag.
-// op(a) is M x K: a[i*lda + k], or a[k*lda + i] when ta. op(b) is K x N:
-// b[k*ldb + j], or b[j*ldb + k] when tb. a2/b2 share the flags and strides.
-struct GemmProb {
-    const float* a;
-    const float* b;
-    const float* a2;     // nullptr: no second product
-    const float* b2;
-    float* c;            // ldc == N
-    const float* q;      // EPI_UPDATE: the factor being updated, (M, N)
-    unsigned int* mx;    // EPI_TRIU_MAX writes, EPI_UPDATE reads max|grad|
-    float step;
-    int M, N, K, lda, ldb, ta, tb, epi;
-};
-
-struct GemmBatch {
-    GemmProb p[MAX_GEMMS];
-    int tiles[MAX_GEMMS + 1];
-    int count;
-};
+enum Kind { KIND_DD = 0, KIND_DS = 1, KIND_ND = 2, KIND_NS = 3 };
+static inline bool left_arrow(int k) { return k == KIND_ND || k == KIND_NS; }
+static inline bool right_scale(int k) { return k == KIND_DS || k == KIND_NS; }
 
 struct BalanceLayer {
     const float* ql;
@@ -86,13 +88,65 @@ struct BalanceLayer {
     float* qlb;
     float* qrb;
     unsigned int* mx;  // two max|grad| slots, zeroed here
-    int m, n;
+    int m, n, arrow, scale;
 };
 
 struct BalanceBatch {
     BalanceLayer l[PSGD_MAX_LAYERS];
     int count;
 };
+
+// (c0): the arrow pre-pass of one layer, 32 columns per block
+#define ARROW_WARPS 8
+static_assert(ARROW_WARPS * 32 == 256, "arrow_kernel runs in launch_jobs' 256-thread blocks");
+struct ArrowJob {
+    const float* qlb;  // (2, m) balanced arrow
+    const float* qrb;  // (n,) balanced scale, or nullptr (nd)
+    const float* dx;
+    const float* dg;
+    float* pa;         // Ql dG [* qr]
+    float* pb;         // Ql^{-T} dX [/ qr]
+    int m, n;
+};
+
+// (s): rows = 1: one warp per row, diag and bias; rows = 0: one thread per
+// column, the column sums of A*A - Bt*Bt
+struct StatJob {
+    const float* a;
+    const float* bt;
+    float* out0;       // diag (rows) or grad2 (columns)
+    float* out1;       // bias (rows)
+    unsigned int* mx;
+    int m, n, rows;
+};
+
+// (v): arrow = 1: q (2, m) <- arrow rewrite from g0 = diag, g1 = bias;
+// arrow = 0: q (len,) <- q - s g0 q
+struct VecJob {
+    const float* q;
+    const float* g0;
+    const float* g1;
+    const unsigned int* mx;
+    float* out;
+    int len, arrow;
+};
+
+template <class Job>
+struct JobBatch {
+    Job j[2 * PSGD_MAX_LAYERS];
+    int blocks[2 * PSGD_MAX_LAYERS + 1];
+    int count;
+};
+
+__device__ __forceinline__ int find_job(const int* prefix, int count, int t) {
+    int p = 0;
+    while (p + 1 < count && t >= prefix[p + 1]) ++p;
+    return p;
+}
+
+__device__ __forceinline__ float step_scale(float step, const unsigned int* mx) {
+    return fminf(step / (__uint_as_float(*mx) + psgd_tiny()), FLT_MAX);
+}
 
 __device__ __forceinline__ float block_reduce_max(float v, float* red) {
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -105,14 +159,21 @@ __device__ __forceinline__ float block_reduce_max(float v, float* red) {
     return v;
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
 // grid (blocks per layer, layers); every block recomputes its layer's
 // diagonal maxima (m + n loads) and scales its share of both factors.
 __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
     const BalanceLayer L = b.l[blockIdx.y];
     __shared__ float red[8];
     float ml = -INFINITY, mr = -INFINITY;
-    for (int i = threadIdx.x; i < L.m; i += blockDim.x) ml = fmaxf(ml, L.ql[(size_t)i * L.m + i]);
-    for (int i = threadIdx.x; i < L.n; i += blockDim.x) mr = fmaxf(mr, L.qr[(size_t)i * L.n + i]);
+    for (int i = threadIdx.x; i < L.m; i += blockDim.x)
+        ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.m + i]);
+    for (int i = threadIdx.x; i < L.n; i += blockDim.x)
+        mr = fmaxf(mr, L.scale ? L.qr[i] : L.qr[(size_t)i * L.n + i]);
     ml = block_reduce_max(ml, red);
     mr = block_reduce_max(mr, red);
     const float rho = sqrtf(ml / mr);
@@ -120,11 +181,110 @@ __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
         L.mx[0] = 0u;
         L.mx[1] = 0u;
     }
-    const size_t mm = (size_t)L.m * L.m, total = mm + (size_t)L.n * L.n;
+    const size_t nl = L.arrow ? 2 * (size_t)L.m : (size_t)L.m * L.m;
+    const size_t total = nl + (L.scale ? (size_t)L.n : (size_t)L.n * L.n);
     for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
          e += (size_t)gridDim.x * blockDim.x) {
-        if (e < mm) L.qlb[e] = L.ql[e] / rho;
-        else L.qrb[e - mm] = rho * L.qr[e - mm];
+        if (e < nl) L.qlb[e] = L.ql[e] / rho;
+        else L.qrb[e - nl] = rho * L.qr[e - nl];
+    }
+}
+
+// One block per 32-column tile: lane = column, warp = row group. Each warp
+// walks rows warp, warp + 8, ... (a warp's loads are one 128-byte row
+// segment), and the block sums its warps' corr partials for the last row,
+// so the serial chain per thread is m / 8 rows, not m.
+__global__ void __launch_bounds__(256) arrow_kernel(const JobBatch<ArrowJob> b) {
+    const int p = find_job(b.blocks, b.count, blockIdx.x);
+    const ArrowJob J = b.j[p];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int j = (blockIdx.x - b.blocks[p]) * 32 + lane;
+    const int m = J.m, n = J.n;
+    const float* q0 = J.qlb;
+    const float* q1 = J.qlb + m;
+    const float q0_last = q0[m - 1];
+    __shared__ float red[ARROW_WARPS][32];
+    float corr = 0.f, s = 1.f;
+    if (j < n) {
+        const float g_last = J.dg[(size_t)(m - 1) * n + j];
+        if (J.qrb) s = J.qrb[j];
+        for (int i = warp; i < m; i += ARROW_WARPS) {
+            const size_t o = (size_t)i * n + j;
+            const float x = J.dx[o];
+            float a = q0[i] * J.dg[o] + q1[i] * g_last;
+            corr += (q1[i] / (q0[i] * q0_last)) * x;
+            if (J.qrb) a *= s;
+            J.pa[o] = a;
+            if (i < m - 1) J.pb[o] = J.qrb ? x / q0[i] / s : x / q0[i];
+        }
+    }
+    red[warp][lane] = corr;
+    __syncthreads();
+    if (warp == 0 && j < n) {
+        for (int w = 1; w < ARROW_WARPS; ++w) corr += red[w][lane];
+        const size_t o = (size_t)(m - 1) * n + j;
+        const float last = J.dx[o] / q0_last - corr;
+        J.pb[o] = J.qrb ? last / s : last;
+    }
+}
+
+__global__ void __launch_bounds__(256) stats_kernel(const JobBatch<StatJob> b) {
+    const int p = find_job(b.blocks, b.count, blockIdx.x);
+    const StatJob J = b.j[p];
+    const int t = blockIdx.x - b.blocks[p];
+    __shared__ float red[8];
+    float local = 0.f;
+    if (J.rows) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        const int i = t * 8 + warp;
+        if (i < J.m) {
+            const float* ar = J.a + (size_t)i * J.n;
+            const float* br = J.bt + (size_t)i * J.n;
+            const float* al = J.a + (size_t)(J.m - 1) * J.n;
+            const float* bl = J.bt + (size_t)(J.m - 1) * J.n;
+            float d = 0.f, s = 0.f;
+            for (int j = lane; j < J.n; j += 32) {
+                const float av = ar[j], bv = br[j];
+                d += av * av - bv * bv;
+                s += av * al[j] - bv * bl[j];
+            }
+            d = warp_sum(d);
+            s = (i == J.m - 1) ? 0.f : warp_sum(s);
+            if (lane == 0) {
+                J.out0[i] = d;
+                J.out1[i] = s;
+            }
+            local = fmaxf(fabsf(d), fabsf(s));
+        }
+    } else {
+        const int j = t * blockDim.x + threadIdx.x;
+        if (j < J.n) {
+            float s = 0.f;
+            for (int i = 0; i < J.m; ++i) {
+                const float av = J.a[(size_t)i * J.n + j], bv = J.bt[(size_t)i * J.n + j];
+                s += av * av - bv * bv;
+            }
+            J.out0[j] = s;
+            local = fabsf(s);
+        }
+    }
+    // |grad| >= 0, so its float bits order like unsigned integers
+    local = block_reduce_max(local, red);
+    if (threadIdx.x == 0) atomicMax(J.mx, __float_as_uint(local));
+}
+
+__global__ void __launch_bounds__(256) vec_kernel(const JobBatch<VecJob> b, float step) {
+    const int p = find_job(b.blocks, b.count, blockIdx.x);
+    const VecJob J = b.j[p];
+    const int i = (blockIdx.x - b.blocks[p]) * blockDim.x + threadIdx.x;
+    if (i >= J.len) return;
+    const float s = step_scale(step, J.mx);
+    if (J.arrow) {
+        const float q0 = J.q[i], q1 = J.q[J.len + i], d = J.g0[i];
+        J.out[i] = q0 - s * d * q0;
+        J.out[J.len + i] = q1 - s * (d * q1 + J.q[J.len - 1] * J.g1[i]);
+    } else {
+        J.out[i] = J.q[i] - s * J.g0[i] * J.q[i];
     }
 }
 
@@ -140,8 +300,7 @@ __device__ __forceinline__ float load_b(const GemmProb& P, const float* b, int k
 
 // One 64x64 output tile per block, 256 threads, 4x4 outputs per thread.
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
-    int p = 0;
-    while (p + 1 < g.count && (int)blockIdx.x >= g.tiles[p + 1]) ++p;
+    const int p = find_job(g.tiles, g.count, blockIdx.x);
     const GemmProb& P = g.p[p];
     const int t = blockIdx.x - g.tiles[p];
     const int tiles_n = (P.N + GEMM_BN - 1) / GEMM_BN;
@@ -191,9 +350,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
         }
     }
 
-    float s = 0.f;
-    if (P.epi == EPI_UPDATE)
-        s = fminf(P.step / (__uint_as_float(*P.mx) + psgd_tiny()), FLT_MAX);
+    const float s = P.epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
     float local_max = 0.f;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -209,6 +366,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
                 local_max = fmaxf(local_max, fabsf(v));
             } else if (P.epi == EPI_UPDATE) {
                 v = P.q[o] - s * v;
+            } else if (P.epi == EPI_COLMUL) {
+                v = v * P.v[j];
+            } else if (P.epi == EPI_COLDIV) {
+                v = v / P.v[j];
             }
             P.c[o] = v;
         }
@@ -220,7 +381,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
     }
 }
 
-static void launch_gemms(GemmBatch& g, cudaStream_t stream) {
+void launch_gemms(GemmBatch& g, cudaStream_t stream) {
+    if (g.count == 0) return;
     g.tiles[0] = 0;
     for (int p = 0; p < g.count; ++p) {
         const GemmProb& P = g.p[p];
@@ -229,8 +391,8 @@ static void launch_gemms(GemmBatch& g, cudaStream_t stream) {
     gemm_kernel<<<g.tiles[g.count], GEMM_THREADS, 0, stream>>>(g);
 }
 
-static GemmProb prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,
-                     float* c, int M, int N, int K) {
+GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,
+                   float* c, int M, int N, int K) {
     GemmProb P = {};
     P.a = a; P.b = b; P.c = c;
     P.ta = ta; P.tb = tb; P.lda = lda; P.ldb = ldb;
@@ -239,93 +401,207 @@ static GemmProb prob(const float* a, int ta, int lda, const float* b, int tb, in
     return P;
 }
 
-static size_t align4(size_t x) { return (x + 3) & ~(size_t)3; }
-
-// Scratch per layer, in floats: Qlb, Linv, grad1 (m^2 each); Qrb, Rinv,
-// grad2 (n^2 each); T1, A, W, Bt (m n each); after 2L max|grad| slots.
-extern "C" size_t psgd_kron_dd_scratch_floats(int L, const int* m, const int* n) {
-    size_t total = align4(2 * (size_t)L);
-    for (int l = 0; l < L; ++l) {
-        const size_t mm = align4((size_t)m[l] * m[l]), nn = align4((size_t)n[l] * n[l]);
-        total += 3 * mm + 3 * nn + 4 * align4((size_t)m[l] * n[l]);
-    }
-    return total;
+// Fill the prefix of block counts and launch, unless the batch is empty.
+template <class Job, class Kernel, class... Args>
+static void launch_jobs(Kernel kernel, JobBatch<Job>& b, const int* blocks,
+                        cudaStream_t stream, Args... args) {
+    if (b.count == 0) return;
+    b.blocks[0] = 0;
+    for (int p = 0; p < b.count; ++p) b.blocks[p + 1] = b.blocks[p] + blocks[p];
+    kernel<<<b.blocks[b.count], 256, 0, stream>>>(b, args...);
 }
 
-extern "C" int psgd_kron_dd_update(int L, void** ql, void** qr, void** dx, void** dg,
-                                   void** out_ql, void** out_qr, const int* m, const int* n,
-                                   float step, void* scratch, void* stream_ptr) {
-    if (L < 1 || L > PSGD_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+// Per-layer scratch, as offsets in floats from the start of the scratch.
+struct LayerScratch {
+    size_t qlb, linv, g1, diag, bias;  // left: dense (m^2 each) or arrow (2m; m; m)
+    size_t qrb, rinv, g2;              // right: dense (n^2 each) or scale (n each)
+    size_t t1, w, pa, pb, a, bt;       // probes (m n each), as the kind needs
+};
+
+static size_t plan(int L, const int* kind, const int* m, const int* n, LayerScratch* s) {
+    size_t cur = psgd_align4(2 * (size_t)L);  // the max|grad| slots
+    auto take = [&](size_t count) { size_t o = cur; cur += psgd_align4(count); return o; };
+    for (int l = 0; l < L; ++l) {
+        const size_t mm = (size_t)m[l] * m[l], nn = (size_t)n[l] * n[l], mn = (size_t)m[l] * n[l];
+        LayerScratch x = {};
+        if (left_arrow(kind[l])) {
+            x.qlb = take(2 * (size_t)m[l]); x.diag = take(m[l]); x.bias = take(m[l]);
+        } else {
+            x.qlb = take(mm); x.linv = take(mm); x.g1 = take(mm);
+        }
+        if (right_scale(kind[l])) {
+            x.qrb = take(n[l]); x.g2 = take(n[l]);
+        } else {
+            x.qrb = take(nn); x.rinv = take(nn); x.g2 = take(nn);
+        }
+        x.a = take(mn); x.bt = take(mn);
+        if (kind[l] == KIND_DD) { x.t1 = take(mn); x.w = take(mn); }
+        if (kind[l] == KIND_ND) { x.pa = take(mn); x.pb = take(mn); }
+        if (s) s[l] = x;
+    }
+    return cur;
+}
+
+static bool valid(int L, const int* kind, const int* m, const int* n) {
+    if (L < 1 || L > PSGD_MAX_LAYERS) return false;
+    for (int l = 0; l < L; ++l)
+        if (kind[l] < KIND_DD || kind[l] > KIND_NS || m[l] < 1 || n[l] < 1) return false;
+    return true;
+}
+
+extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const int* m, const int* n) {
+    if (!valid(L, kind, m, n)) return 0;
+    return plan(L, kind, m, n, nullptr);
+}
+
+extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** qr, void** dx,
+                                      void** dg, void** out_ql, void** out_qr, const int* m,
+                                      const int* n, float step, void* scratch, void* stream_ptr) {
+    if (!valid(L, kind, m, n)) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     float* base = static_cast<float*>(scratch);
     unsigned int* mx = reinterpret_cast<unsigned int*>(base);
-    float* cur = base + align4(2 * (size_t)L);
-    auto take = [&](size_t count) { float* p = cur; cur += align4(count); return p; };
+    LayerScratch off[PSGD_MAX_LAYERS];
+    plan(L, kind, m, n, off);
+    auto F = [&](size_t o) { return base + o; };
 
-    struct LayerScratch { float *qlb, *linv, *g1, *qrb, *rinv, *g2, *t1, *a, *w, *bt; };
-    LayerScratch s[PSGD_MAX_LAYERS];
     BalanceBatch bal;
     bal.count = L;
     TriBatch tri;
-    tri.count = 2 * L;
-    int max_side = 1;
+    tri.count = 0;
+    int max_elems = 1;
     for (int l = 0; l < L; ++l) {
-        if (m[l] < 1 || n[l] < 1) return (int)cudaErrorInvalidValue;
-        const size_t mm = (size_t)m[l] * m[l], nn = (size_t)n[l] * n[l], mn = (size_t)m[l] * n[l];
-        s[l].qlb = take(mm); s[l].linv = take(mm); s[l].g1 = take(mm);
-        s[l].qrb = take(nn); s[l].rinv = take(nn); s[l].g2 = take(nn);
-        s[l].t1 = take(mn); s[l].a = take(mn); s[l].w = take(mn); s[l].bt = take(mn);
+        const LayerScratch& s = off[l];
+        const bool arrow = left_arrow(kind[l]), scale = right_scale(kind[l]);
         bal.l[l] = {static_cast<const float*>(ql[l]), static_cast<const float*>(qr[l]),
-                    s[l].qlb, s[l].qrb, mx + 2 * l, m[l], n[l]};
-        tri.u[2 * l] = s[l].qlb;     tri.x[2 * l] = s[l].linv;     tri.n[2 * l] = m[l];
-        tri.u[2 * l + 1] = s[l].qrb; tri.x[2 * l + 1] = s[l].rinv; tri.n[2 * l + 1] = n[l];
-        max_side = std::max(max_side, std::max(m[l], n[l]));
+                    F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale};
+        if (!arrow) { tri.u[tri.count] = F(s.qlb); tri.x[tri.count] = F(s.linv); tri.n[tri.count++] = m[l]; }
+        if (!scale) { tri.u[tri.count] = F(s.qrb); tri.x[tri.count] = F(s.rinv); tri.n[tri.count++] = n[l]; }
+        max_elems = std::max(max_elems, (arrow ? 2 * m[l] : m[l] * m[l]) + (scale ? n[l] : n[l] * n[l]));
     }
 
     // (a) balance: enough blocks per layer for the largest factor pair
-    const int bal_blocks = std::min(64, std::max(1, (2 * max_side * max_side + 4095) / 4096));
+    const int bal_blocks = std::min(64, std::max(1, (max_elems + 4095) / 4096));
     balance_kernel<<<dim3(bal_blocks, L), 256, 0, stream>>>(bal);
-    // (b) K3 on both balanced factors of every layer
-    launch_tri_inv(tri, stream);
+    // (b) K3 on every dense factor of every layer
+    if (tri.count) launch_tri_inv(tri, stream);
+
+    // (c0) the arrow products of nd and ns layers
+    JobBatch<ArrowJob> arrows;
+    int blocks[2 * PSGD_MAX_LAYERS];
+    arrows.count = 0;
+    for (int l = 0; l < L; ++l) {
+        if (!left_arrow(kind[l])) continue;
+        const LayerScratch& s = off[l];
+        const bool ns = kind[l] == KIND_NS;
+        blocks[arrows.count] = (n[l] + 31) / 32;
+        arrows.j[arrows.count++] = {F(s.qlb), ns ? F(s.qrb) : nullptr,
+                                    static_cast<const float*>(dx[l]), static_cast<const float*>(dg[l]),
+                                    ns ? F(s.a) : F(s.pa), ns ? F(s.bt) : F(s.pb), m[l], n[l]};
+    }
+    launch_jobs(arrow_kernel, arrows, blocks, stream);
 
     GemmBatch g;
-    // (c1) T1 = dG Qr^T,  W = Linv^T dX
-    g.count = 2 * L;
+    // (c1) dd: T1 = dG Qr^T, W = Linv^T dX;  ds: A = (Ql dG) qr, Bt = (Linv^T dX) / qr;
+    //      nd: A = (arrow dG) Qr^T, Bt = (arrow^{-T} dX) Rinv
+    g.count = 0;
     for (int l = 0; l < L; ++l) {
+        const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        g.p[2 * l] = prob(static_cast<const float*>(dg[l]), 0, N, s[l].qrb, 1, N, s[l].t1, M, N, N);
-        g.p[2 * l + 1] = prob(s[l].linv, 1, M, static_cast<const float*>(dx[l]), 0, N, s[l].w, M, N, M);
+        const float* DG = static_cast<const float*>(dg[l]);
+        const float* DX = static_cast<const float*>(dx[l]);
+        if (kind[l] == KIND_DD) {
+            g.p[g.count++] = gemm_prob(DG, 0, N, F(s.qrb), 1, N, F(s.t1), M, N, N);
+            g.p[g.count++] = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.w), M, N, M);
+        } else if (kind[l] == KIND_DS) {
+            GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, N, F(s.a), M, N, M);
+            pa.epi = EPI_COLMUL; pa.v = F(s.qrb);
+            GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.bt), M, N, M);
+            pb.epi = EPI_COLDIV; pb.v = F(s.qrb);
+            g.p[g.count++] = pa;
+            g.p[g.count++] = pb;
+        } else if (kind[l] == KIND_ND) {
+            g.p[g.count++] = gemm_prob(F(s.pa), 0, N, F(s.qrb), 1, N, F(s.a), M, N, N);
+            g.p[g.count++] = gemm_prob(F(s.pb), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+        }
     }
     launch_gemms(g, stream);
-    // (c2) A = Qlb T1,  Bt = W Rinv
+    // (c2) dd: A = Qlb T1,  Bt = W Rinv
+    g.count = 0;
     for (int l = 0; l < L; ++l) {
+        if (kind[l] != KIND_DD) continue;
+        const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        g.p[2 * l] = prob(s[l].qlb, 0, M, s[l].t1, 0, N, s[l].a, M, N, M);
-        g.p[2 * l + 1] = prob(s[l].w, 0, N, s[l].rinv, 0, N, s[l].bt, M, N, N);
+        g.p[g.count++] = gemm_prob(F(s.qlb), 0, M, F(s.t1), 0, N, F(s.a), M, N, M);
+        g.p[g.count++] = gemm_prob(F(s.w), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
     }
     launch_gemms(g, stream);
-    // (c3) grad1 = triu([A|Bt] [A|-Bt]^T) (m x m, K = 2n),
-    //      grad2 = triu([A|Bt]^T [A|-Bt]) (n x n, K = 2m), with max|grad|
+    // (c3) dense left:  grad1 = triu([A|Bt] [A|-Bt]^T) (m x m, K = n);
+    //      dense right: grad2 = triu([A|Bt]^T [A|-Bt]) (n x n, K = m); with max|grad|
+    g.count = 0;
     for (int l = 0; l < L; ++l) {
+        const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        GemmProb g1 = prob(s[l].a, 0, N, s[l].a, 1, N, s[l].g1, M, M, N);
-        g1.a2 = s[l].bt; g1.b2 = s[l].bt; g1.epi = EPI_TRIU_MAX; g1.mx = mx + 2 * l;
-        GemmProb g2 = prob(s[l].a, 1, N, s[l].a, 0, N, s[l].g2, N, N, M);
-        g2.a2 = s[l].bt; g2.b2 = s[l].bt; g2.epi = EPI_TRIU_MAX; g2.mx = mx + 2 * l + 1;
-        g.p[2 * l] = g1;
-        g.p[2 * l + 1] = g2;
+        if (!left_arrow(kind[l])) {
+            GemmProb g1 = gemm_prob(F(s.a), 0, N, F(s.a), 1, N, F(s.g1), M, M, N);
+            g1.a2 = F(s.bt); g1.b2 = F(s.bt); g1.epi = EPI_TRIU_MAX; g1.mx = mx + 2 * l;
+            g.p[g.count++] = g1;
+        }
+        if (!right_scale(kind[l])) {
+            GemmProb g2 = gemm_prob(F(s.a), 1, N, F(s.a), 0, N, F(s.g2), N, N, M);
+            g2.a2 = F(s.bt); g2.b2 = F(s.bt); g2.epi = EPI_TRIU_MAX; g2.mx = mx + 2 * l + 1;
+            g.p[g.count++] = g2;
+        }
     }
     launch_gemms(g, stream);
-    // (d) Q' = Q - s grad Q, s = min(step / (max|grad| + tiny), FLT_MAX)
+    // (s) arrow left: diag, bias by rows;  scale right: grad2 by columns
+    JobBatch<StatJob> stats;
+    stats.count = 0;
     for (int l = 0; l < L; ++l) {
+        const LayerScratch& s = off[l];
+        if (left_arrow(kind[l])) {
+            blocks[stats.count] = (m[l] + 7) / 8;
+            stats.j[stats.count++] = {F(s.a), F(s.bt), F(s.diag), F(s.bias), mx + 2 * l, m[l], n[l], 1};
+        }
+        if (right_scale(kind[l])) {
+            blocks[stats.count] = (n[l] + 255) / 256;
+            stats.j[stats.count++] = {F(s.a), F(s.bt), F(s.g2), nullptr, mx + 2 * l + 1, m[l], n[l], 0};
+        }
+    }
+    launch_jobs(stats_kernel, stats, blocks, stream);
+    // (d) dense sides: Q' = Q - s grad Q, s = min(step / (max|grad| + tiny), FLT_MAX)
+    g.count = 0;
+    for (int l = 0; l < L; ++l) {
+        const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        GemmProb u1 = prob(s[l].g1, 0, M, s[l].qlb, 0, M, static_cast<float*>(out_ql[l]), M, M, M);
-        u1.epi = EPI_UPDATE; u1.q = s[l].qlb; u1.mx = mx + 2 * l; u1.step = step;
-        GemmProb u2 = prob(s[l].g2, 0, N, s[l].qrb, 0, N, static_cast<float*>(out_qr[l]), N, N, N);
-        u2.epi = EPI_UPDATE; u2.q = s[l].qrb; u2.mx = mx + 2 * l + 1; u2.step = step;
-        g.p[2 * l] = u1;
-        g.p[2 * l + 1] = u2;
+        if (!left_arrow(kind[l])) {
+            GemmProb u1 = gemm_prob(F(s.g1), 0, M, F(s.qlb), 0, M, static_cast<float*>(out_ql[l]), M, M, M);
+            u1.epi = EPI_UPDATE; u1.q = F(s.qlb); u1.mx = mx + 2 * l; u1.step = step;
+            g.p[g.count++] = u1;
+        }
+        if (!right_scale(kind[l])) {
+            GemmProb u2 = gemm_prob(F(s.g2), 0, N, F(s.qrb), 0, N, static_cast<float*>(out_qr[l]), N, N, N);
+            u2.epi = EPI_UPDATE; u2.q = F(s.qrb); u2.mx = mx + 2 * l + 1; u2.step = step;
+            g.p[g.count++] = u2;
+        }
     }
     launch_gemms(g, stream);
+    // (v) arrow and scale sides
+    JobBatch<VecJob> vecs;
+    vecs.count = 0;
+    for (int l = 0; l < L; ++l) {
+        const LayerScratch& s = off[l];
+        if (left_arrow(kind[l])) {
+            blocks[vecs.count] = (m[l] + 255) / 256;
+            vecs.j[vecs.count++] = {F(s.qlb), F(s.diag), F(s.bias), mx + 2 * l,
+                                    static_cast<float*>(out_ql[l]), m[l], 1};
+        }
+        if (right_scale(kind[l])) {
+            blocks[vecs.count] = (n[l] + 255) / 256;
+            vecs.j[vecs.count++] = {F(s.qrb), F(s.g2), nullptr, mx + 2 * l + 1,
+                                    static_cast<float*>(out_qr[l]), n[l], 0};
+        }
+    }
+    launch_jobs(vec_kernel, vecs, blocks, stream, step);
     return (int)cudaGetLastError();
 }

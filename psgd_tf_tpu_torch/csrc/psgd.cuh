@@ -12,6 +12,8 @@
 #define PSGD_MAX_LAYERS 16
 // Most triangular factors one tri launch inverts (two per layer).
 #define PSGD_MAX_TRI (2 * PSGD_MAX_LAYERS)
+// Most problems of one grouped GEMM launch (two per layer).
+#define PSGD_MAX_GEMMS (2 * PSGD_MAX_LAYERS)
 
 struct TriBatch {
     const float* u[PSGD_MAX_TRI];  // (n, n) upper triangular, row-major
@@ -25,5 +27,43 @@ struct TriBatch {
 // The caller fills u, x, n and count; this fills tiles.
 void launch_tri_inv(TriBatch& b, cudaStream_t stream);
 
+// The grouped fp32 GEMM of kron_dd.cu:
+//   C (M x N) = op(a) op(b) [- op(a2) op(b2)],  op(X) = X or X^T by flag.
+// op(a) is M x K: a[i*lda + k], or a[k*lda + i] when ta. op(b) is K x N:
+// b[k*ldb + j], or b[j*ldb + k] when tb. a2/b2 share the flags and strides.
+// The epilogue then stores C as is, masks it to its upper triangle and
+// folds max|C| into *mx, rewrites q - s C with s read from *mx, or scales
+// column j of C by v[j] (multiply or divide).
+enum Epilogue { EPI_STORE = 0, EPI_TRIU_MAX = 1, EPI_UPDATE = 2, EPI_COLMUL = 3, EPI_COLDIV = 4 };
+
+struct GemmProb {
+    const float* a;
+    const float* b;
+    const float* a2;     // nullptr: no second product
+    const float* b2;
+    float* c;            // ldc == N
+    const float* q;      // EPI_UPDATE: the factor being updated, (M, N)
+    const float* v;      // EPI_COLMUL / EPI_COLDIV: (N,) column scales
+    unsigned int* mx;    // EPI_TRIU_MAX writes, EPI_UPDATE reads max|grad|
+    float step;
+    int M, N, K, lda, ldb, ta, tb, epi;
+};
+
+struct GemmBatch {
+    GemmProb p[PSGD_MAX_GEMMS];
+    int tiles[PSGD_MAX_GEMMS + 1];
+    int count;
+};
+
+// A problem with the EPI_STORE epilogue and no second product.
+GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,
+                   float* c, int M, int N, int K);
+// Launch every problem of `g` in one grid on `stream` (kron_dd.cu); fills
+// g.tiles. Nothing is launched when g.count == 0.
+void launch_gemms(GemmBatch& g, cudaStream_t stream);
+
 // The fp32 smallest subnormal, 2^-149: needs denormals kept (no fast-math).
 __device__ __forceinline__ float psgd_tiny() { return __int_as_float(1); }
+
+// Scratch carving: floats rounded up to a multiple of 4 (16-byte alignment).
+static inline size_t psgd_align4(size_t x) { return (x + 3) & ~(size_t)3; }

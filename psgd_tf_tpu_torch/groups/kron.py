@@ -1,13 +1,20 @@
 """Kronecker-factored preconditioner for matrix parameters.
 
-Counterpart of `psgd_tf_tpu/groups/kron.py`, limited to what the first
-slice of the port needs: the (dense, dense) pair. P = (Qr^T Qr) ⊗ (Ql^T Ql)
-acts on an (m, n) gradient as Ql^T Ql @ G @ Qr^T Qr, with Ql (m, m) and
-Qr (n, n) upper-triangular factors.
+Counterpart of `psgd_tf_tpu/groups/kron.py`. P = (Qr^T Qr) ⊗ (Ql^T Ql) acts
+on an (m, n) gradient as Ql^T Ql @ G @ Qr^T Qr. Each side is one of three
+formats, in the JAX package's layouts:
 
-The other format pairs ((norm, dense), (dense, scale), (norm, scale) and
-their mirrors) raise NotImplementedError: they come with the NMT slice
-(ROADMAP queue 1, slice 2).
+  dense : (d, d) upper-triangular factor
+  norm  : (2, d) "arrow" factor; row 0 = diag(Q), row 1 = last column of Q
+          (its last entry is 0 by convention)
+  scale : (d,) diagonal factor
+
+The seven supported pairs are (dense, dense), (norm, dense), (dense, norm),
+(dense, scale), (scale, dense), (norm, scale) and (scale, norm). Mirrors
+transpose into their canonical sibling (dd, nd, ds, ns), as in the JAX
+package. The plain per-pair updates and applies below are the CPU path and
+the oracle of every kernel; on a CUDA device `update` and `update_multi`
+route to the Hopper kernels as `route` reports.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Literal, Sequence
 import torch
 
 from psgd_tf_tpu_torch.ops import hopper
-from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_multi
+from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_multi, kron_sparse, kron_sparse_big
 
 Format = Literal["dense", "norm", "scale"]
 
@@ -31,10 +38,9 @@ _CANON = {
     ("norm", "scale"): ("ns", False),
     ("scale", "norm"): ("ns", True),
 }
-_NOT_PORTED = (
-    "Kronecker format pair {fmt} is not ported yet: the sparse pairs come "
-    "with the NMT slice (ROADMAP queue 1, slice 2)"
-)
+# psgd_tf_tpu/ops/pallas/kron_dd.py MAX_SIDE: the side up to which a
+# (dense, dense) layer is eligible for K1 in the JAX package
+DD_MULTI_MAX_SIDE = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +53,25 @@ class KronState:
         return dataclasses.replace(self, **kwargs)
 
 
-def _check_ported(fmt) -> None:
+def _canon(fmt) -> tuple[str, bool]:
     fmt = tuple(fmt)
     if fmt not in _CANON:
         raise ValueError(f"unsupported Kronecker format pair: {fmt}")
-    if _CANON[fmt][0] != "dd":
-        raise NotImplementedError(_NOT_PORTED.format(fmt=fmt))
+    return _CANON[fmt]
+
+
+def _factor_init(fmt: Format, d: int, scale: float, dtype, device) -> torch.Tensor:
+    """Typical initial guesses (the TF reference's README)."""
+    if fmt == "dense":
+        return scale * torch.eye(d, dtype=dtype, device=device)
+    if fmt == "norm":
+        return torch.stack([
+            torch.full((d,), scale, dtype=dtype, device=device),
+            torch.zeros((d,), dtype=dtype, device=device),
+        ])
+    if fmt == "scale":
+        return torch.full((d,), scale, dtype=dtype, device=device)
+    raise ValueError(f"unknown kron factor format: {fmt!r}")
 
 
 def auto_format(shape: tuple[int, int], dense_max: int = 1024) -> tuple[Format, Format]:
@@ -76,12 +95,29 @@ def init(
     if fmt == "auto":
         fmt = auto_format(shape)
     fmt = (fmt[0], fmt[1])
-    _check_ported(fmt)
+    _canon(fmt)
     return KronState(
-        ql=init_scale * torch.eye(m, dtype=dtype, device=device),
-        qr=init_scale * torch.eye(n, dtype=dtype, device=device),
+        ql=_factor_init(fmt[0], m, init_scale, dtype, device),
+        qr=_factor_init(fmt[1], n, init_scale, dtype, device),
         fmt=fmt,
     )
+
+
+# ---------------------------------------------------------------------------
+# plain per-pair applies (psgd_tf_tpu/groups/kron.py:122-241)
+# ---------------------------------------------------------------------------
+# The plain per-pair updates live beside their kernels' wrappers
+# (kron_dd.update_plain, kron_sparse.update_plain_*; kron_multi.PLAIN maps
+# each kind to its own), which take them for CPU tensors.
+
+_norm_matmul = kron_sparse.norm_matmul
+
+
+def _norm_t_matmul(ql, X):
+    """Ql^T @ X: diag mult + correction added to the last row."""
+    out = ql[0][:, None] * X
+    out[-1] += ql[1] @ X
+    return out
 
 
 def _apply_dd(Ql, Qr, G):
@@ -91,13 +127,95 @@ def _apply_dd(Ql, Qr, G):
     return Ql.T @ (Ql @ (G @ (Qr.T @ Qr)))
 
 
+def _apply_nd(ql, Qr, G):
+    preG = _norm_matmul(ql, G)
+    if preG.shape[0] < preG.shape[1]:
+        preG = (preG @ Qr.T) @ Qr
+    else:
+        preG = preG @ (Qr.T @ Qr)
+    return _norm_t_matmul(ql, preG)
+
+
+def _apply_ds(Ql, qr, G):
+    if G.shape[0] < G.shape[1]:
+        preG = (Ql.T @ Ql) @ G
+    else:
+        preG = Ql.T @ (Ql @ G)
+    return preG * (qr * qr)[None, :]
+
+
+def _apply_ns(ql, qr, G):
+    return _norm_t_matmul(ql, _norm_matmul(ql, G) * (qr * qr)[None, :])
+
+
+_APPLY = {"dd": _apply_dd, "nd": _apply_nd, "ds": _apply_ds, "ns": _apply_ns}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _oriented(state: KronState, dX, dG):
+    """(kind, mirrored, a, b, dx, dg): mirrors transpose into their sibling."""
+    kind, mirrored = _canon(state.fmt)
+    if mirrored:
+        return kind, True, state.qr, state.ql, dX.T, dG.T
+    return kind, False, state.ql, state.qr, dX, dG
+
+
+def _kernel_route(kind: str, m: int, n: int) -> str:
+    """The route name of a canonical (kind, m, n) layer on a CUDA device."""
+    if kind == "dd":
+        return "kron_dd"
+    if kron_sparse.fits(m, n):
+        return f"kron_sparse:{kind}"
+    if kron_sparse_big.fits_grid(kind, m, n):
+        if kind == "ns" and -(-n // 128) * 128 > kron_sparse_big.MAX_LANES:
+            return "kron_sparse_big:ns_wide"
+        return f"kron_sparse_big:{kind}"
+    return "xla"
+
+
+_UNPORTED = {
+    "kron_sparse_big:nd": "K9 (kron_sparse_big.fused_update_nd)",
+    "kron_sparse_big:ns_wide": "K7/K8 (kron_sparse_big wide (norm, scale) path)",
+}
+
+
+def _sparse_dispatch(kind, a, b, dX, dG, step):
+    """Route one canonical sparse-pair update: the single-layer kernel K5
+    for probes `kron_sparse.fits`, the streaming kernels K6 (ns) / K10 (ds)
+    up to the JAX package's capacity envelope, else the plain update (the
+    JAX package's XLA path). Every wrapper takes its plain version for CPU
+    tensors. K9 and K7/K8 are not ported: a CUDA tensor there raises."""
+    m, n = dX.shape
+    r = _kernel_route(kind, m, n)
+    if r.startswith("kron_sparse:"):
+        return kron_sparse.FUSED_UPDATE[kind](a, b, dX, dG, step)
+    if r == "kron_sparse_big:ns":
+        return kron_sparse_big.fused_update_ns(a, b, dX, dG, step)
+    if r == "kron_sparse_big:ds":
+        return kron_sparse_big.fused_update_ds(a, b, dX, dG, step)
+    if r in _UNPORTED and hopper.use_kernel(dX):
+        raise NotImplementedError(
+            f"route {r} for ({kind}, {m}x{n}): its kernel {_UNPORTED[r]} is "
+            "not ported yet (ROADMAP queue 2)"
+        )
+    return kron_multi.PLAIN[kind](a, b, dX, dG, step)
+
+
 def update(state: KronState, dX: torch.Tensor, dG: torch.Tensor, step: float = 0.01) -> KronState:
-    """One Lie-group step on one layer. A (dense, dense) layer goes through
-    `kron_dd.fused_update` (K2 on a CUDA device, the plain version on the
-    CPU)."""
-    _check_ported(state.fmt)
-    ql, qr = kron_dd.fused_update(state.ql, state.qr, dX, dG, step)
-    return state.replace(ql=ql, qr=qr)
+    """One Lie-group step on one layer. (dense, dense) goes through
+    `kron_dd.fused_update` (K2); the sparse pairs through `_sparse_dispatch`.
+    `step` is a Python number."""
+    kind, mirrored, a, b, dx, dg = _oriented(state, dX, dG)
+    if kind == "dd":
+        na, nb = kron_dd.fused_update(a, b, dx, dg, step)
+    else:
+        na, nb = _sparse_dispatch(kind, a, b, dx, dg, step)
+    if mirrored:
+        na, nb = nb, na
+    return state.replace(ql=na, qr=nb)
 
 
 def update_multi(
@@ -106,35 +224,84 @@ def update_multi(
     dGs: Sequence[torch.Tensor],
     step: float = 0.01,
 ) -> list[KronState]:
-    """Element-wise `update` over a layer list. With two or more layers,
-    every (dense, dense) member goes through K1 (`kron_multi`) in one fixed
-    chain of launches; a lone layer goes through `update`."""
+    """Element-wise `update` over a layer list, with the JAX package's
+    eligibility rule: a (dense, dense) layer of side <= 1024 and a sparse
+    layer that `kron_sparse.fits` are eligible; when two or more are, they
+    all go through K1 (`kron_multi`) in one fixed chain of launches, and
+    every other layer goes through `update`. Mirrors transpose in, as in
+    `update`. Per layer identical to `update`."""
     states = list(states)
     if not (len(states) == len(dXs) == len(dGs)):
         raise ValueError("states/dXs/dGs length mismatch")
-    for st in states:
-        _check_ported(st.fmt)
-    if len(states) < 2:
-        return [update(st, dx, dg, step) for st, dx, dg in zip(states, dXs, dGs)]
-    qls, qrs = kron_multi.fused_update_multi(
-        [st.ql for st in states], [st.qr for st in states], list(dXs), list(dGs), step
-    )
-    return [st.replace(ql=a, qr=b) for st, a, b in zip(states, qls, qrs)]
+    eligible, entries = [], []
+    for i, st in enumerate(states):
+        if st.ql.dtype != torch.float32:
+            continue
+        kind, mirrored, a, b, dx, dg = _oriented(st, dXs[i], dGs[i])
+        ok = (max(dx.shape) <= DD_MULTI_MAX_SIDE if kind == "dd"
+              else kron_sparse.fits(*dx.shape))
+        if ok:
+            eligible.append(i)
+            entries.append((kind, mirrored, a, b, dx, dg))
+    out: list = [None] * len(states)
+    if len(eligible) >= 2:
+        res = kron_multi.fused_update_multi(
+            [e[0] for e in entries], [e[2] for e in entries], [e[3] for e in entries],
+            [e[4] for e in entries], [e[5] for e in entries], step,
+        )
+        for (kind, mirrored, *_), i, (na, nb) in zip(entries, eligible, res):
+            ql, qr = (nb, na) if mirrored else (na, nb)
+            out[i] = states[i].replace(ql=ql, qr=qr)
+    for i in range(len(states)):
+        if out[i] is None:
+            out[i] = update(states[i], dXs[i], dGs[i], step)
+    return out
 
 
 def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.device | str) -> str:
-    """Which path would serve the update of a layer with this format pair
-    and probe shape on `device`: 'kron_dd' (the CUDA chain) on a CUDA device,
-    'plain' on the CPU or inside `hopper.disabled()`. The chain has no side
-    cap (it tiles every operand), so every (dense, dense) shape routes to it.
+    """Which path serves the single-layer update of a layer with this
+    format pair and probe shape on `device`: 'plain' on the CPU or inside
+    `hopper.disabled()`; on a CUDA device the JAX package's route names:
+
+      'kron_dd'                 (dense, dense): K2 (K1 when listed)
+      'kron_sparse:<kind>'      single-launch sparse kernel K5
+      'kron_sparse_big:<kind>'  streaming kernel, K6 (ns), K10 (ds), K9 (nd)
+      'kron_sparse_big:ns_wide' the wide (norm, scale) path, K7/K8
+      'xla'                     no kernel; the plain update on the device
+
+    Mirrors report their canonical sibling's route. One difference from the
+    JAX package: the port's (dense, dense) chain has no side cap, so
+    (dense, dense) reports 'kron_dd' at every side where JAX reports 'xla'
+    above 1024. 'kron_sparse_big:nd' and ':ns_wide' raise
+    NotImplementedError for a CUDA tensor: their kernels are not ported.
     """
-    del shape
-    _check_ported(fmt)
-    return "kron_dd" if hopper.use_kernel(device) else "plain"
+    kind, mirrored = _canon(fmt)
+    if not hopper.use_kernel(device):
+        return "plain"
+    m, n = (shape[1], shape[0]) if mirrored else shape
+    return _kernel_route(kind, m, n)
 
 
 def apply(state: KronState, G: torch.Tensor) -> torch.Tensor:
-    """P G = Ql^T Ql G Qr^T Qr, by plain matmuls (as the JAX package leaves
-    it to XLA outside any kernel)."""
-    _check_ported(state.fmt)
-    return _apply_dd(state.ql, state.qr, G)
+    """P G by plain torch for every pair (the JAX package leaves every
+    apply to XLA too)."""
+    kind, mirrored = _canon(state.fmt)
+    if mirrored:
+        return _APPLY[kind](state.qr, state.ql, G.T).T
+    return _APPLY[kind](state.ql, state.qr, G)
+
+
+def _factor_dense(fmt: Format, q: torch.Tensor) -> torch.Tensor:
+    if fmt == "dense":
+        return q
+    if fmt == "scale":
+        return torch.diag(q)
+    # norm: diag(q[0]) with last column [q[1, :-1]; q[0, -1]]
+    m = torch.diag(q[0])
+    m[:-1, -1] = q[1, :-1]
+    return m
+
+
+def materialize(state: KronState) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense (Ql, Qr) factors, for tests only."""
+    return _factor_dense(state.fmt[0], state.ql), _factor_dense(state.fmt[1], state.qr)

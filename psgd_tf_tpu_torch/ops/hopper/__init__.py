@@ -3,9 +3,13 @@
 Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
 
   - tri: exact upper-triangular inverse of a list of factors (K3).
-  - kron_dd: the (dense, dense) Kronecker factor update; `fused_update`
-    takes one layer (K2), and `kron_multi.fused_update_multi` a whole
-    layer list in one fixed chain of grouped launches (K1).
+  - kron_dd: the Kronecker factor update chain of `csrc/kron_dd.cu`;
+    `fused_update` takes one (dense, dense) layer (K2),
+    `kron_sparse.fused_update_*` one sparse layer (K5), and
+    `kron_multi.fused_update_multi` a whole layer list of any kinds in one
+    fixed chain of grouped launches (K1).
+  - kron_sparse_big: the streaming (norm, scale) reductions (K6) and the
+    streaming (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`.
 
 Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
 CPU (the CPU path, and the oracle the kernels are checked against), and
@@ -22,7 +26,10 @@ import contextlib
 
 import torch
 
-counts: dict[str, int] = {"tri": 0, "kron_dd": 0, "kron_multi": 0}
+counts: dict[str, int] = {
+    "tri": 0, "kron_dd": 0, "kron_multi": 0, "kron_sparse": 0,
+    "kron_sparse_big_ns": 0, "kron_sparse_big_ds": 0,
+}
 _disabled_depth = 0
 
 

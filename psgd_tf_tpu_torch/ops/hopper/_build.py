@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of `psgd_tf_tpu_torch/csrc/`.
 
-Every `*.cu` file is compiled by `nvcc` for sm_90a into one shared library
-with a plain C interface, loaded with ctypes. The build runs at the first
-CUDA call, never at import, into `psgd_tf_tpu_torch/_build/<hash>/`, keyed
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already built.
+Every `*.cu` file is compiled by its own `nvcc` for sm_90a, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes. The build runs at the first CUDA call,
+never at import, into `psgd_tf_tpu_torch/_build/<hash>/`, keyed by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged
+one loads the library already built.
 
 No `--use_fast_math` and no `-ftz=true`: the step normalizer adds the fp32
 denormal `tiny` (1.4e-45), and flushing it to zero turns a zero group
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -34,11 +35,19 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: (restype, argtypes)
 _SIGNATURES = {
     "psgd_tri_inv_upper": (ctypes.c_int, [ctypes.c_int, _PP, _PP, _IP, _P]),
-    "psgd_kron_dd_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, _IP, _IP]),
-    "psgd_kron_dd_update": (
+    "psgd_kron_multi_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, _IP, _IP, _IP]),
+    "psgd_kron_multi_update": (
         ctypes.c_int,
-        [ctypes.c_int, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP,
+        [ctypes.c_int, _IP, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP,
          ctypes.c_float, _P, _P],
+    ),
+    "psgd_kron_ns_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_kron_ns_big": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 14),
+    "psgd_kron_ds_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_kron_ds_big": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
+         _P, _P, _P, _P],
     ),
 }
 
@@ -72,22 +81,7 @@ def lib() -> ctypes.CDLL:
     so = out_dir / "libpsgd_hopper.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build to a private name, then rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *FLAGS, f"-I{CSRC}", "-o", tmp,
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, so)
+        _compile_and_link(out_dir, so)
     loaded = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(loaded, name)
@@ -95,6 +89,35 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
     _lib = loaded
     return _lib
+
+
+def _run_all(cmds: list[list[str]], log) -> None:
+    """Run the commands concurrently; log each one's output; raise if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.write(" ".join(cmd) + "\n" + out + "\n")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _compile_and_link(out_dir: Path, so: Path) -> None:
+    """One nvcc per source, all at once, then one link. The library is
+    linked to a private name and renamed: concurrent builders never load a
+    half-written library."""
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    objs = [tmp / (src.stem + ".o") for src in sorted(CSRC.glob("*.cu"))]
+    with open(out_dir / "build.log", "w") as log:
+        _run_all([[nvcc, *FLAGS, f"-I{CSRC}", "-c", str(CSRC / (o.stem + ".cu")), "-o", str(o)]
+                  for o in objs], log)
+        _run_all([[nvcc, "-shared", "-o", str(tmp / so.name), *map(str, objs)]], log)
+    os.replace(tmp / so.name, so)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,30 +1,43 @@
-"""K1: every (dense, dense) layer of a list in one fixed chain of launches.
+"""K1: every eligible Kronecker layer of a list, of any kind, in one fixed
+chain of launches.
 
 Replaces `psgd_tf_tpu/ops/pallas/kron_multi.py` `fused_update_multi`
-(:222), dd kind. The Pallas kernel runs a whole layer list in one launch
-with one batched Newton chain; on Hopper the factors do not fit one
-block's shared memory, so the same list goes through the fixed chain of
-grouped launches of `csrc/kron_dd.cu`, each launch covering every layer.
-The other kinds of the Pallas kernel (ds, nd, ns) come with slice 2.
+(:222), kinds dd, ds, nd and ns. The Pallas kernel runs a whole layer list
+in one launch with one batched Newton chain; on Hopper the factors do not
+fit one block's shared memory, so the same list goes through the fixed
+chain of grouped launches of `csrc/kron_dd.cu`, each launch covering every
+layer of the list, and one K3 launch inverting every dense factor of every
+layer. Mirrors arrive transposed from `groups/kron.py`, as in the JAX
+package.
 """
 from __future__ import annotations
 
 from psgd_tf_tpu_torch.ops import hopper
-from psgd_tf_tpu_torch.ops.hopper import kron_dd
+from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_sparse
+
+KINDS = ("dd", "ds", "nd", "ns")
+# the plain update of each kind: the CPU path and the oracle of the chain
+PLAIN = {"dd": kron_dd.update_plain, **kron_sparse.PLAIN}
 
 
-def fused_update_multi(qls, qrs, dxs, dgs, step):
-    """(dense, dense) updates for a list of layers of any sizes; returns
-    (new_qls, new_qrs). Per layer identical to `kron_dd.fused_update`. The
-    plain version for CPU tensors, the CUDA chain for CUDA tensors, split
-    into launches of at most `kron_dd.MAX_LAYERS` layers."""
+def fused_update_multi(kinds, qls, qrs, dxs, dgs, step):
+    """Updates for a list of layers; kinds[i] in {dd, ds, nd, ns} with
+    (qls[i], qrs[i]) in that kind's layout. Returns a list of (ql', qr').
+    Per layer identical to the plain update of its kind. The plain versions
+    for CPU tensors, the CUDA chain for CUDA tensors, split into launches
+    of at most `kron_dd.MAX_LAYERS` layers. `step` is a Python number."""
+    for k in kinds:
+        if k not in KINDS:
+            raise ValueError(f"kron_multi: unknown kind {k!r}")
     if not hopper.use_kernel(qls[0]):
-        res = [kron_dd.update_plain(*a, step) for a in zip(qls, qrs, dxs, dgs, strict=True)]
-        return [r[0] for r in res], [r[1] for r in res]
-    new_qls, new_qrs = [], []
+        return [PLAIN[k](*a, step) for k, *a in zip(kinds, qls, qrs, dxs, dgs, strict=True)]
+    out = []
     for i in range(0, len(qls), kron_dd.MAX_LAYERS):
         sl = slice(i, i + kron_dd.MAX_LAYERS)
-        nql, nqr = kron_dd.launch(qls[sl], qrs[sl], dxs[sl], dgs[sl], step, "kron_multi")
-        new_qls += nql
-        new_qrs += nqr
-    return new_qls, new_qrs
+        nql, nqr = kron_dd.launch(
+            list(kinds[sl]), qls[sl], qrs[sl],
+            [x.contiguous() for x in dxs[sl]], [g.contiguous() for g in dgs[sl]],
+            step, "kron_multi",
+        )
+        out += list(zip(nql, nqr))
+    return out

@@ -1,0 +1,177 @@
+"""K6 and K10: the streaming sparse-format Kronecker updates, for layers
+past `kron_sparse.fits` (embedding and vocabulary-sized probes).
+
+Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
+  - K6, `fused_update_ns` (:377 → `pallas_call` :412, `_kernel_ns_big`
+    :172): (norm, scale), n padded to 128 up to MAX_LANES. The kernel part
+    is one pass over (dX, dG) that emits the per-row diag0 and biasa and
+    the per-column corr and colsum, row m-1 masked (`csrc/kron_sparse_big.cu`).
+  - K10, `fused_update_ds` (:711 → `pallas_call` :740, `_kernel_ds_big`
+    :675): (dense, scale), m <= MAX_DENSE. The kernel part is A = Ql dG qr,
+    Bt = Ql^{-T} dX / qr (by K3's exact inverse), the column gradient grad2
+    and the Gram difference A A^T - Bt Bt^T summed over every column.
+
+What the JAX package leaves to XLA stays plain torch here: the balancing,
+the O(m + n) arrow tail (B_last, the second dX matvec, `_norm_post`) and
+the (dense, scale) tail (triu, the step scales, grad1 @ Ql). Both return
+what the JAX functions return: the balanced, updated factors. One
+difference, shared with K1/K2: the step scales saturate at the fp32 max
+(`linalg.step_scale`), so a zero gradient gives a zero update, not NaN.
+
+Each kernel part has a plain torch version here, which the wrappers take
+for CPU tensors; on a CUDA tensor they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from psgd_tf_tpu_torch.ops import hopper, linalg
+from psgd_tf_tpu_torch.ops.hopper import _build
+
+# the JAX package's routing caps (kron_sparse_big.py:60-76)
+MAX_LANES = 131072      # 1-D-grid (norm, scale) kernel: lanes padded to 128
+MAX_LANES_NS = 1 << 23  # the wide (norm, scale) path's cap (K7/K8)
+MAX_DENSE = 1024        # dense-factor side of the streaming nd/ds kernels
+
+
+def fits_grid(kind: str, m: int, n: int) -> bool:
+    """Shapes the JAX package's streaming kernels accept."""
+    if kind == "ns":
+        return -(-n // 128) * 128 <= MAX_LANES_NS
+    if kind == "nd":
+        return n <= MAX_DENSE
+    if kind == "ds":
+        return m <= MAX_DENSE
+    raise ValueError(kind)
+
+
+# ----------------------------------------------------------------- (norm, scale)
+
+def ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al):
+    """K6's kernel part, plain: (diag0, biasa, corr, colsum) with row m-1
+    masked out of diag0, biasa and colsum (`_kernel_ns_big`)."""
+    m = dX.shape[0]
+    keep = (torch.arange(m, device=dX.device) != m - 1)[:, None]
+    dxm = torch.where(keep, dX, 0.0)
+    dgm = torch.where(keep, dG, 0.0)
+    a = (ql0[:, None] * dgm + ql1[:, None] * dgl[None, :]) * qr[None, :]
+    bt = dxm / ql0[:, None] / qr[None, :]
+    d2 = a * a - bt * bt
+    return d2.sum(1), (a * al[None, :]).sum(1), (w[:, None] * dX).sum(0), d2.sum(0)
+
+
+def ns_reductions(dX, dG, ql0, ql1, w, qr, dgl, al):
+    """K6's kernel part: the plain version for CPU tensors, the CUDA kernel
+    (`csrc/kron_sparse_big.cu`) for CUDA tensors."""
+    if not hopper.use_kernel(dX):
+        return ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al)
+    m, n = dX.shape
+    if -(-n // 128) * 128 > MAX_LANES:
+        raise ValueError(f"kron_sparse_big_ns: {n} lanes exceed MAX_LANES={MAX_LANES}")
+    vecs = [ql0, ql1, w, qr, dgl, al]
+    if dG.shape != (m, n) or [v.shape for v in vecs] != [(m,)] * 3 + [(n,)] * 3:
+        raise ValueError("kron_sparse_big_ns: operand shapes do not agree")
+    hopper.check_operands("kron_sparse_big_ns", dX, dG, *vecs)
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=dX.device)
+    outs = [torch.empty(m, **f), torch.empty(m, **f), torch.empty(n, **f), torch.empty(n, **f)]
+    scratch = torch.empty(lib.psgd_kron_ns_big_scratch_floats(m, n), **f)
+    rc = lib.psgd_kron_ns_big(
+        m, n, *[t.data_ptr() for t in (dX, dG, *vecs, *outs, scratch)],
+        torch.cuda.current_stream(dX.device).cuda_stream,
+    )
+    _build.check(rc, "kron_sparse_big_ns kernel")
+    hopper.counts["kron_sparse_big_ns"] += 1
+    return tuple(outs)
+
+
+def fused_update_ns(ql, qr, dX, dG, step):
+    """K6: (norm, scale) streaming update; ql (2, m), qr (n,). Returns the
+    balanced, updated (ql', qr'), as `kron_sparse_big.fused_update_ns`."""
+    m, n = dX.shape
+    dX, dG = dX.contiguous(), dG.contiguous()
+    rho = torch.sqrt(ql[0].amax() / qr.amax())
+    ql = ql / rho
+    qr_b = rho * qr
+    ql0, ql1 = ql[0], ql[1]
+    dX_last, dG_last = dX[-1], dG[-1]
+    A_last = ql0[-1] * dG_last * qr_b
+    w = ql1 / (ql0 * ql0[-1])  # w[-1] = 0
+    diag0, biasa, corr, colsum = ns_reductions(dX, dG, ql0, ql1, w, qr_b, dG_last, A_last)
+
+    # the O(m + n) tail and the second dX pass (XLA in the JAX package)
+    B_last = (dX_last / ql0[-1] - corr) / qr_b
+    diag = torch.cat([diag0[:-1], torch.sum(A_last**2 - B_last**2)[None]])
+    btdot = (dX @ (B_last / qr_b)) / ql0
+    bias = torch.cat([(biasa - btdot)[:-1], biasa.new_zeros(1)])
+    grad2 = colsum + A_last**2 - B_last**2
+    step1 = linalg.step_scale(
+        step, torch.maximum(linalg.max_abs(diag), linalg.max_abs(bias)), ql.dtype
+    )
+    new0 = ql0 - step1 * diag * ql0
+    new1 = ql1 - step1 * (diag * ql1 + ql0[-1] * bias)
+    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
+    return torch.stack([new0, new1]), qr_b - step2 * grad2 * qr_b
+
+
+# ---------------------------------------------------------------- (dense, scale)
+
+def ds_reductions_plain(Ql, qr, dX, dG):
+    """K10's kernel part, plain: (grad2, A A^T - Bt Bt^T) with A = Ql dG qr
+    and Bt = Ql^{-T} dX / qr (`_kernel_ds_big`)."""
+    A = (Ql @ dG) * qr[None, :]
+    Bt = linalg.solve_ut_t(Ql, dX) / qr[None, :]
+    return (A * A - Bt * Bt).sum(0), A @ A.T - Bt @ Bt.T
+
+
+def _as_row_major(x):
+    """(tensor, transposed): a transposed view of a contiguous tensor is
+    passed as that tensor with a flag (the mirrored layers arrive as dX.T),
+    anything else is made contiguous."""
+    if x.is_contiguous():
+        return x, 0
+    if x.T.is_contiguous():
+        return x.T, 1
+    return x.contiguous(), 0
+
+
+def ds_reductions(Ql, qr, dX, dG):
+    """K10's kernel part: the plain version for CPU tensors, the CUDA chain
+    (`csrc/kron_sparse_big.cu`: K3, grouped GEMMs, column sums, split-K
+    Grams) for CUDA tensors. dX and dG may be transposed views."""
+    if not hopper.use_kernel(dX):
+        return ds_reductions_plain(Ql, qr, dX, dG)
+    m, n = dX.shape
+    if m > MAX_DENSE:
+        raise ValueError(f"kron_sparse_big_ds: dense side {m} exceeds MAX_DENSE={MAX_DENSE}")
+    if Ql.shape != (m, m) or qr.shape != (n,) or dG.shape != (m, n):
+        raise ValueError("kron_sparse_big_ds: operand shapes do not agree")
+    (x, xt), (g, gt) = _as_row_major(dX), _as_row_major(dG)
+    hopper.check_operands("kron_sparse_big_ds", Ql, qr, x, g)
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=dX.device)
+    grad2, gram = torch.empty(n, **f), torch.empty(m, m, **f)
+    scratch = torch.empty(lib.psgd_kron_ds_big_scratch_floats(m, n), **f)
+    rc = lib.psgd_kron_ds_big(
+        m, n, Ql.data_ptr(), qr.data_ptr(), x.data_ptr(), xt, g.data_ptr(), gt,
+        grad2.data_ptr(), gram.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dX.device).cuda_stream,
+    )
+    _build.check(rc, "kron_sparse_big_ds kernel chain")
+    hopper.counts["kron_sparse_big_ds"] += 1
+    hopper.counts["tri"] += 1  # the chain's first step is K3
+    return grad2, gram
+
+
+def fused_update_ds(Ql, qr, dX, dG, step):
+    """K10: (dense, scale) streaming update; Ql (m, m) upper-triangular with
+    m <= MAX_DENSE, qr (n,). Returns the balanced, updated (Ql', qr'), as
+    `kron_sparse_big.fused_update_ds`."""
+    rho = torch.sqrt(torch.diagonal(Ql).amax() / qr.amax())
+    Ql_b = Ql / rho
+    qr_b = rho * qr
+    grad2, gram = ds_reductions(Ql_b, qr_b, dX, dG)
+    grad1 = linalg.triu(gram)
+    step1 = linalg.step_scale(step, linalg.max_abs(grad1), Ql.dtype)
+    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
+    return Ql_b - step1 * (grad1 @ Ql_b), qr_b - step2 * grad2 * qr_b

@@ -7,6 +7,11 @@ Counterpart of `psgd_tf_tpu/optim/psgd.py`. API shape:
     state = opt.init(params)                      # params: list of tensors
     params, state, aux = opt.step(loss_fn, params, state, generator, *batch)
 
+`kron_formats` takes any of the seven format pairs (per leaf, one pair for
+all, a callable of the shape, or 'auto'); every step updates all the
+Kronecker factors through `kron.update_multi`, which routes each layer to
+its kernel as `kron.route` reports.
+
 `generator` is a `torch.Generator` on the parameters' device; the probes of
 the Hvp are drawn from it. `step(..., probes=v)` takes the probes from the
 caller instead (the tests feed the JAX package and the port the same ones).

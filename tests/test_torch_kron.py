@@ -120,11 +120,15 @@ def test_route_and_unported_formats():
     with hopper.disabled():
         assert kron.route(DD, (26, 6), "cuda") == "plain"
     assert kron.route(DD, (26, 6), "cuda") == "kron_dd"
-    for fmt in [("norm", "dense"), ("dense", "scale"), ("scale", "norm")]:
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            kron.init((8, 4), fmt=fmt)
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            kron.route(fmt, (8, 4), "cpu")
+    # the sparse pairs are ported: each reports its kernel on CUDA, mirrors
+    # their canonical sibling's, and takes the plain update on the CPU
+    for fmt, cuda_route in [(("norm", "dense"), "kron_sparse:nd"),
+                            (("dense", "scale"), "kron_sparse:ds"),
+                            (("scale", "norm"), "kron_sparse:ns")]:
+        st = kron.init((8, 4), fmt=fmt)
+        assert st.fmt == fmt
+        assert kron.route(fmt, (8, 4), "cpu") == "plain"
+        assert kron.route(fmt, (8, 4), "cuda") == cuda_route
     with pytest.raises(ValueError):
         kron.init((8, 4), fmt=("norm", "norm"))
     st = kron.init((8, 4), fmt=DD, init_scale=0.5)
