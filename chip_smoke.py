@@ -6,9 +6,10 @@
 Run from the root of the repository on a machine with one CUDA card (an
 H100: the kernels are built for sm_90a). It builds the Hopper kernels from
 `psgd_tf_tpu_torch/csrc/` (into `psgd_tf_tpu_torch/_build/`), checks each
-against its plain PyTorch version at the shapes its path gives it, then
-drives the port's three paths, each with the launch counts set to 0 just
-before it and read just after:
+against its plain PyTorch version at the shapes its path gives it (and the
+flat families' kernels at the JAX bench's sizes), then drives the port's
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
   - LeNet5 with five (dense, dense) Kronecker preconditioners, exact Hvp,
     batch 64, the `mnist_lenet5` hyperparameters, on procedural digits
@@ -18,7 +19,16 @@ before it and read just after:
     draws them (K10, K6, K2, K3);
   - the NMT workload at its toy widths, as `nmt_attention.run()` runs it:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
-    kinds, K3).
+    kinds, K3);
+  - `hello_psgd.run()`: Rosenbrock with the dense family, 500 steps to a
+    loss below 1e-4 (K11, K3);
+  - `rnn_xor_lra.run()` at the reference widths (SimpleRNN, hidden 30,
+    1,021 parameters, rank 10, batch 128, sequences of 16) with the switch
+    to the FD Hvp at step 1000, to a train loss below 0.1 (K13);
+  - the `UVd` class on the same RNN, 200 steps, switching the Hvp and the
+    parameter lr on the way (K13);
+  - the dense family on the same RNN at hidden 60 (3,841 parameters), a
+    size the JAX package routes to its streaming dense kernel (K12, K3).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. TF32 is off for matmuls and convolutions, so every comparison
@@ -26,8 +36,12 @@ is in full fp32.
 
 Output: one line per phase; then a JSON line with every ported kernel
 (launches on the paths, max abs error against the plain version, ms per
-call with the kernel and with the plain version); then the card's name and
-power limit; then, last, the line `{"ok": true, "device": {...}}`.
+call with the kernel and with the plain version, the bound: the least time
+the card could take for the same work, the larger of its bytes over
+3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32 peak, with which one
+bounds it, and the time of one PyTorch call computing the same function
+where there is one); then the card's name and power limit; then, last, the
+line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -45,6 +59,17 @@ LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
 TOL_K3 = 1e-5    # max |X - X_plain| / max |X_plain|: both exact fp32 inverses
 TOL_K1 = 1e-4    # one update: GEMM sums in other orders, explicit inverse vs trsm
 TOL_TRAJ = 5e-4  # 20 chained updates: ROADMAP's trajectory bound
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores (TF32 is off)
+LRA_SIZES = [1021, 1 << 20]             # the RNN's n, and bench.py:610
+DENSE_K11 = [2, 1021, 1536]             # hello_psgd's n, the RNN's, dense_upd.MAX_N
+# the dense RNN's n (hidden 60: 30 full 128-row panels and a one-row
+# panel), then bench.py:617-619
+DENSE_K12 = [3841, 4096, 8192, 16384]
+COINS = [(False, False), (False, True), (True, False), (True, True)]  # (balance, update_u)
+RNN_MAX_ITERS = 20000
+UVD_STEPS = 200
+DENSE_RNN_STEPS = 50
 
 
 def _rel(a, b) -> float:
@@ -55,29 +80,53 @@ def _abs(a, b) -> float:
     return (a - b).abs().max().item()
 
 
+def _time(torch, fn, reps):
+    """ms per call of fn() from CUDA events over `reps` chained calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _time_ab(torch, hopper, fn, reps):
     """ms per call of fn() with the kernels and under hopper.disabled(),
-    from CUDA events, in turns plain, kernel, kernel, plain."""
-    def once():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
+    in turns plain, kernel, kernel, plain."""
     ms = {"kernel": [], "plain": []}
     for mode in ("plain", "kernel", "kernel", "plain"):
         if mode == "plain":
             with hopper.disabled():
-                ms[mode].append(once())
+                ms[mode].append(_time(torch, fn, reps))
         else:
-            ms[mode].append(once())
+            ms[mode].append(_time(torch, fn, reps))
     return sum(ms["kernel"]) / 2, sum(ms["plain"]) / 2
+
+
+def _bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the least time for the work on the card."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _kron_work(fmt, shape):
+    """(bytes, FLOPs) of one Kronecker factor update: dX, dG and both
+    factors read once, both factors written once (a dense factor's upper
+    triangle read, the whole written); per dense side of size k (the other
+    side o) the two products through it, its Gram and its update
+    (8 k^2 o + 2 k^3) and its inverse (k^3 / 3), per sparse side ~6 k o."""
+    m, n = shape
+    side = {"dense": lambda k: k * (k + 1) / 2 + k * k, "scale": lambda k: 2 * k,
+            "norm": lambda k: 4 * k}
+    nbytes = 4 * (2 * m * n + side[fmt[0]](m) + side[fmt[1]](n))
+    flops = 0.0
+    for f, k, o in ((fmt[0], m, n), (fmt[1], n, m)):
+        flops += 8 * k * k * o + 2 * k**3 + k**3 / 3 if f == "dense" else 6 * k * o
+    return nbytes, flops
 
 
 def _state_errs(got, ref):
@@ -93,12 +142,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
-    from psgd_tf_tpu_torch import PSGD, kron
-    from psgd_tf_tpu_torch.data import mnist, translation
-    from psgd_tf_tpu_torch.models import lenet5, nmt
+    from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra
+    from psgd_tf_tpu_torch.data import mnist, translation, xor
+    from psgd_tf_tpu_torch.models import lenet5, nmt, rnn
     from psgd_tf_tpu_torch.ops import hopper
-    from psgd_tf_tpu_torch.ops.hopper import _build, kron_dd, kron_sparse, tri
-    from psgd_tf_tpu_torch.workloads import nmt_attention
+    from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_sparse,
+                                              lra_upd, tri)
+    from psgd_tf_tpu_torch.workloads import hello_psgd, nmt_attention, rnn_xor_lra
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -156,8 +206,19 @@ def main() -> int:
           f"(tol {TOL_K3:.0e}) max abs err {k3_abs:.3e}", flush=True)
     check(k3_rel < TOL_K3, "k3 vs plain")
     k3_ms, k3_plain_ms = _time_ab(torch, hopper, lambda: tri.inverse_upper(lenet_us), 200)
-    print(f"k3 time, LeNet5's ten factors: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms",
-          flush=True)
+    # one library call: the ten factors identity-padded to the largest side,
+    # stacked, solved against the identity
+    side = max(u.shape[0] for u in lenet_us)
+    stack = torch.eye(side, device=dev).repeat(len(lenet_us), 1, 1)
+    for k, u in enumerate(lenet_us):
+        stack[k, :u.shape[0], :u.shape[0]] = u
+    eye = torch.eye(side, device=dev).expand_as(stack)
+    k3_lib_ms = _time(torch, lambda: torch.linalg.solve_triangular(stack, eye, upper=True), 200)
+    # each factor's upper triangle read, its whole inverse written
+    k3_bound = _bound(sum(4 * (k * (k + 1) / 2 + k * k) for k in (u.shape[0] for u in lenet_us)),
+                      sum(u.shape[0] ** 3 / 3 for u in lenet_us))
+    print(f"k3 time, LeNet5's ten factors: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, "
+          f"one solve_triangular of the stacked padded factors {k3_lib_ms:.4f} ms", flush=True)
 
     # 3. K1 (kind dd) on LeNet5's five layers, K2 on one (1024, 1024) and
     #    one (1, 10) layer, and a 20-step chained K1 trajectory
@@ -190,6 +251,7 @@ def main() -> int:
         print(f"k2: {shape} layer max rel err {rel:.3e} (tol {TOL_K1:.0e})", flush=True)
     k2_ms, k2_plain_ms = _time_ab(
         torch, hopper, lambda: kron_dd.fused_update(st.ql, st.qr, dx, dg, 0.1), 200)
+    k2_bound = _bound(*_kron_work(("dense", "dense"), (1, 10)))
     print(f"k2 time, (1, 10) layer: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms",
           flush=True)
     check(k2_rel < TOL_K1, "k2 vs plain")
@@ -233,6 +295,8 @@ def main() -> int:
     check(mix_rel < TOL_K1 and arrows_ok, "k1 mixed kinds vs plain")
     k1_ms, k1_plain_ms = _time_ab(
         torch, hopper, lambda: kron.update_multi(states, dxs, dgs, step=0.1), 200)
+    k1_work = [_kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
+    k1_bound = _bound(sum(w[0] for w in k1_work), sum(w[1] for w in k1_work))
     print(f"k1 time, toy NMT's seven layers: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms",
           flush=True)
     mix_traj = trajectory(nmt_fmts, toy_shapes)
@@ -263,6 +327,9 @@ def main() -> int:
               flush=True)
     k5_ms = sum(t[0] for t in k5_times.values()) / 3
     k5_plain_ms = sum(t[1] for t in k5_times.values()) / 3
+    k5_work = [_kron_work(f, (130, 65)) for f in [("norm", "scale"), ("dense", "scale"),
+                                                   ("norm", "dense")]]
+    k5_bound = _bound(sum(w[0] for w in k5_work) / 3, sum(w[1] for w in k5_work) / 3)
 
     # 6. K6 and K10 at the reference NMT layers, through kron.update (the
     #    (scale, dense) embeddings and attention are mirrored: K10 gets dX^T)
@@ -270,7 +337,7 @@ def main() -> int:
     ref_shapes = nmt.layer_shapes(ref_cfg)
     # per kernel: max abs error, and ms with the kernel and plain summed over
     # its three layers (one reference-width step's worth)
-    big = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    big = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0.0}
            for name in ("kron_sparse_big_ns", "kron_sparse_big_ds")}
     for fmt, shape in zip(nmt_fmts, ref_shapes):
         if fmt == ("dense", "dense"):
@@ -292,10 +359,117 @@ def main() -> int:
         acc["err"] = max(acc["err"], err)
         acc["ms"] += ms
         acc["plain_ms"] += plain_ms
+        nbytes, flops = _kron_work(fmt, shape)
+        acc["bytes"] += nbytes
+        acc["flops"] += flops
         print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
               f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
 
-    # 7. path: LeNet5, exact Hvp, batch 64
+    # 7. K13 at the RNN's n and at bench.py's 2^20, r = 10, under the four
+    #    coin pairs: against the chain's plain stages and the direct form
+    def lra_case(n, r=10):
+        """A state walked three plain updates off its init (U scaled up, so
+        a rebalance moves it) and fresh probes."""
+        st = lra.init(torch.Generator().manual_seed(n), n, rank=r, init_scale=0.8, device=dev)
+        st = lra.pack(3.0 * st.U, st.V, st.d)
+        with hopper.disabled():
+            for k in range(3):
+                st = lra.update(st, torch.randn(n, generator=g, device=dev),
+                                torch.randn(n, generator=g, device=dev), 0.05, COINS[k])
+        return st, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+
+    lra_err = lra_rel = 0.0
+    lra_times, lra_bounds = {}, {}
+    for n in LRA_SIZES:
+        st, (v, h, gr) = lra_case(n)
+        for coins in COINS:
+            before = hopper.counts["lra_upd"]
+            uv, d = lra_upd.fused_update(st.UV, st.d, v, h, 0.05, coins)
+            uv2, d2, pre = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            torch.cuda.synchronize()
+            check(hopper.counts["lra_upd"] == before + 2, f"k13 launched at n={n}")
+            with hopper.disabled():
+                ruv, rd, rpre = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            duv, dd_ = lra_upd.update_plain(st.UV, st.d, v, h, 0.05, coins)
+            pairs = [(uv, ruv), (d, rd), (uv2, ruv), (d2, rd), (pre, rpre), (uv, duv), (d, dd_)]
+            rel = max(_rel(a, b) for a, b in pairs)
+            lra_rel, lra_err = max(lra_rel, rel), max(lra_err, max(_abs(a, b) for a, b in pairs))
+            check(rel < TOL_K1, f"k13 vs plain at n={n}, coins {coins}")
+        lra_times[n] = _time_ab(torch, hopper, lambda: lra.update_apply(
+            st, v, h, gr, 0.05, (False, True)), 50 if n > 10**5 else 200)
+        # reads UV, d, v, h, g, writes UV', d', P' g; two Grams of 22 rows
+        lra_bounds[n] = _bound(4 * (4 * 10 * n + 6 * n), 2 * 2 * 22**2 * n + 30 * 10 * n)
+        print(f"k13: n={n} r=10, four coin pairs, max rel err {lra_rel:.3e} (tol {TOL_K1:.0e}); "
+              f"update+apply kernel {lra_times[n][0]:.4f} ms, plain {lra_times[n][1]:.4f} ms, "
+              f"bound {lra_bounds[n][0]:.4f} ms ({lra_bounds[n][1]})", flush=True)
+    kst, _ = lra_case(LRA_SIZES[0])
+    pst = kst
+    for k in range(20):
+        v, h = (torch.randn(LRA_SIZES[0], generator=g, device=dev) for _ in range(2))
+        kst = lra.update(kst, v, h, 0.05, COINS[k % 4])
+        with hopper.disabled():
+            pst = lra.update(pst, v, h, 0.05, COINS[k % 4])
+    lra_traj = max(_rel(kst.UV, pst.UV), _rel(kst.d, pst.d))
+    print(f"k13 trajectory: n={LRA_SIZES[0]}, 20 steps max rel err {lra_traj:.3e} "
+          f"(tol {TOL_TRAJ:.0e})", flush=True)
+    check(lra_traj < TOL_TRAJ, "k13 20-step trajectory vs plain")
+
+    # 8. K11 at hello_psgd's and the RNN's n and its cap, K12 at the bench
+    #    rows: update and update+apply against the plain rank-2 form
+    dense_err = {"dense_upd": 0.0, "dense_big": 0.0}
+    dense_times, dense_bound = {}, {}
+    for n in DENSE_K11 + DENSE_K12:
+        name, mod = ("dense_upd", dense_upd) if n <= dense_upd.MAX_N else ("dense_big", dense_big)
+        check(dense.route(n, dev) == name, f"dense route at n={n}")
+        q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        q += 0.8 * torch.eye(n, device=dev)
+        with hopper.disabled():
+            for _ in range(2):
+                q = dense_upd.fused_update(q, *(torch.randn(n, generator=g, device=dev)
+                                                for _ in range(2)), 0.1)
+        v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+        before, before_tri = hopper.counts[name], hopper.counts["tri"]
+        got = mod.fused_update(q, v, h, 0.1)
+        got_q, got_pre = mod.fused_update_apply(q, v, h, gr, 0.1)
+        torch.cuda.synchronize()
+        # K3 inverts the chain's 128x128 diagonal blocks, 32 to a launch
+        tri_launches = math.ceil(math.ceil(n / 128) / tri.MAX_FACTORS)
+        check(hopper.counts[name] == before + 2
+              and hopper.counts["tri"] == before_tri + 2 * tri_launches,
+              f"{name} and K3 launched at n={n}")
+        ref_q, ref_pre = dense_upd.update_apply_plain(q, v, h, gr, 0.1)
+        pairs = [(got, ref_q), (got_q, ref_q), (got_pre, ref_pre)]
+        rel = max(_rel(a, b) for a, b in pairs)
+        dense_err[name] = max(dense_err[name], max(_abs(a, b) for a, b in pairs))
+        tri_ok = torch.count_nonzero(torch.tril(got_q, -1)).item() == 0
+        check(rel < TOL_K1 and tri_ok, f"{name} vs plain at n={n}")
+        del ref_q, ref_pre
+        dense_times[n] = _time_ab(torch, hopper, lambda: dense.update_apply(
+            dense.DenseState(Q=q), v, h, gr, 0.1), 5 if n > 8192 else 20)
+        # Q's upper triangle read once, Q' written once (out of place, its
+        # zeros too), v, h, g read, P' g written; ~8 n^2 FLOPs
+        dense_bound[n] = _bound(4 * (n * (n + 1) / 2 + n * n + 4 * n), 8.0 * n * n)
+        print(f"{name}: n={n} max rel err {rel:.3e} (tol {TOL_K1:.0e}), lower part exactly 0: "
+              f"{tri_ok}; update+apply kernel {dense_times[n][0]:.4f} ms, plain "
+              f"{dense_times[n][1]:.4f} ms, bound {dense_bound[n][0]:.4f} ms "
+              f"({dense_bound[n][1]})", flush=True)
+    for n, m, mod in [(1021, 1024, dense_upd), (4000, 4096, dense_big)]:
+        # the TPU kernels' layout: Q padded with an identity block, zero probes
+        q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        q += 0.8 * torch.eye(n, device=dev)
+        v, h = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+        qp = torch.eye(m, device=dev)
+        qp[:n, :n] = q
+        pad = lambda x: torch.cat([x, x.new_zeros(m - n)])
+        got = mod.fused_update(qp, pad(v), pad(h), 0.1)
+        ext_ok = (torch.equal(got[n:, n:], torch.eye(m - n, device=dev))
+                  and torch.count_nonzero(got[:n, n:]).item() == 0)
+        rel = _rel(got[:n, :n], mod.fused_update(q, v, h, 0.1))
+        print(f"dense padded to {m}: identity extension untouched {ext_ok}, leading block max "
+              f"rel err {rel:.3e}", flush=True)
+        check(ext_ok and rel < TOL_K1, f"dense identity extension at {n} -> {m}")
+
+    # 9. path: LeNet5, exact Hvp, batch 64
     params = lenet5.init(g)
     n_params = sum(p.numel() for p in params)
     opt = PSGD(preconditioner="kron", kron_formats=dd, lr_params=0.1, lr_preconditioner=0.1,
@@ -338,7 +512,7 @@ def main() -> int:
     print(f"lenet5: {plain_steps_per_s:.1f} steps/s under disabled() (plain versions)",
           flush=True)
 
-    # 8. path: NMT at the reference widths, FD Hvp, lr 0.02, clip 1.0,
+    # 10. path: NMT at the reference widths, FD Hvp, lr 0.02, clip 1.0,
     #    random ids per vocabulary (batch 64, source 18, target 13)
     def nmt_ref_run():
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -382,7 +556,7 @@ def main() -> int:
     print(f"nmt ref: {ref_plain_rate:.2f} steps/s under disabled() (plain versions), loss "
           f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}", flush=True)
 
-    # 9. path: the NMT workload at its toy widths, as nmt_attention.run() runs it
+    # 11. path: the NMT workload at its toy widths, as nmt_attention.run() runs it
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -399,33 +573,138 @@ def main() -> int:
     check(math.isfinite(out["loss"]), "NMT toy: finite loss")
     check(out["token_accuracy"] > 0.75, "NMT toy: token accuracy above 0.75")
 
-    for name in ("kron_multi", "kron_dd", "tri", "kron_sparse_big_ns", "kron_sparse_big_ds"):
+    # 12. path: hello_psgd, Rosenbrock with the dense family
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = hello_psgd.run(device=dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"hello_psgd: {out['steps']} steps, launches {counts}, loss {out['loss']:.3e} "
+          f"(bar 1e-4), {out['steps'] / seconds:.1f} steps/s (host clock, init included)",
+          flush=True)
+    check(dense.route(2, dev) == "dense_upd", "hello_psgd routes to K11")
+    check(out["success"] and counts["dense_upd"] == out["steps"] == 500,
+          "hello_psgd: loss below 1e-4 in 500 steps, one K11 launch per step")
+
+    # 13. path: the delayed-XOR RNN with lra at the reference widths, the
+    #     switch to the FD Hvp at step 1000
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = rnn_xor_lra.run(device=dev, switch_to_fd_at=1000, max_iters=RNN_MAX_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"rnn_xor_lra: {out['steps']} steps (FD Hvp from step 1000), launches {counts}, train "
+          f"loss {out['loss']:.4f} (bar 0.1), {out['steps'] / seconds:.1f} steps/s with kernels "
+          f"(host clock, init included)", flush=True)
+    check(out["success"], "rnn_xor_lra: train loss below 0.1")
+    check(counts["lra_upd"] == out["steps"], "rnn_xor_lra: one K13 launch per step")
+
+    def rnn_window(steps=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rnn_xor_lra.run(device=dev, max_iters=steps, check_every=steps)
+        torch.cuda.synchronize()
+        return steps / (time.perf_counter() - t0)
+
+    rates = {"kernel": [], "plain": []}
+    for mode in ("plain", "kernel", "kernel", "plain"):
+        if mode == "plain":
+            with hopper.disabled():
+                rates[mode].append(rnn_window())
+        else:
+            rates[mode].append(rnn_window())
+    print(f"rnn_xor_lra: 200-step windows, {sum(rates['kernel']) / 2:.1f} steps/s with kernels, "
+          f"{sum(rates['plain']) / 2:.1f} under disabled() (plain versions)", flush=True)
+
+    # 14. path: the UVd class on the same RNN; exact -> FD Hvp at step 100,
+    #     lr_params halved at step 150
+    gen = torch.Generator(device=dev).manual_seed(1)
+    opt = UVd(rnn.init(gen), rank_of_modification=10, grad_clip_max_norm=1.0, seed=1,
+              generator=gen)
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    losses = []
+    for i in range(UVD_STEPS):
+        if i == 100:
+            opt.exact_hessian_vector_product = False
+        if i == 150:
+            opt.lr_params = 0.005
+        losses.append(opt.step(rnn.loss, *xor.batch(gen, 128, 16)))
+    losses = torch.stack(losses).cpu()
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"uvd: {UVD_STEPS} steps, launches {counts}, loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f}, lr_params {opt.lr_params}, exact Hvp "
+          f"{opt.exact_hessian_vector_product}", flush=True)
+    check(bool(torch.isfinite(losses).all()) and counts["lra_upd"] == UVD_STEPS,
+          "UVd: finite losses, one K13 launch per step")
+    check(opt.lr_params == 0.005 and not opt.exact_hessian_vector_product, "UVd: setters")
+
+    # 15. path: the dense family on the RNN at hidden 60 (3,841 parameters:
+    #     the JAX package's streaming dense route)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = rnn.init(gen, hidden=60)
+    n_dense = sum(p.numel() for p in params)
+    opt = PSGD(preconditioner="dense", lr_params=0.01, lr_preconditioner=0.01,
+               grad_clip_max_norm=1.0)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    losses = []
+    for _ in range(DENSE_RNN_STEPS):
+        params, state, aux = opt.step(rnn.loss, params, state, gen, *xor.batch(gen, 128, 16))
+        losses.append(aux["loss"])
+    losses = torch.stack(losses).cpu()
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"dense rnn: n={n_dense}, route {dense.route(n_dense, dev)}, {DENSE_RNN_STEPS} steps, "
+          f"launches {counts}, loss {losses[0].item():.4f} -> {losses[-1].item():.4f}", flush=True)
+    check(n_dense == DENSE_K12[0], f"dense RNN: n = {n_dense} is the n K12 was checked at")
+    check(dense.route(n_dense, dev) == "dense_big" and counts["dense_big"] == DENSE_RNN_STEPS
+          and counts["tri"] == DENSE_RNN_STEPS and bool(torch.isfinite(losses).all()),
+          "dense RNN: one K12 and one K3 launch per step, finite")
+
+    for name in ("kron_multi", "kron_dd", "tri", "kron_sparse_big_ns", "kron_sparse_big_ds",
+                 "lra_upd", "dense_upd", "dense_big"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
         return 1
     src = "psgd_tf_tpu_torch/csrc/"
     pallas = "psgd_tf_tpu/ops/pallas/"
+
+    def entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": pallas + replaces, "launches": launches[name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
+    big_n = DENSE_K12[-1]
     kernels = [
-        {"name": "kron_multi", "route": "cuda", "source": src + "kron_dd.cu",
-         "replaces": pallas + "kron_multi.py:222", "launches": launches["kron_multi"],
-         "max_abs_err": max(k1_abs, mix_abs), "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "kron_dd", "route": "cuda", "source": src + "kron_dd.cu",
-         "replaces": pallas + "kron_dd.py:181", "launches": launches["kron_dd"],
-         "max_abs_err": k2_abs, "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "tri", "route": "cuda", "source": src + "tri.cu",
-         "replaces": pallas + "tri.py:94", "launches": launches["tri"],
-         "max_abs_err": k3_abs, "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "kron_sparse", "route": "cuda", "source": src + "kron_dd.cu",
-         "replaces": pallas + "kron_sparse.py:293", "launches": launches["kron_sparse"],
-         "max_abs_err": k5_abs, "ms": k5_ms, "plain_ms": k5_plain_ms},
+        entry("kron_multi", "kron_dd.cu", "kron_multi.py:222", max(k1_abs, mix_abs), k1_ms,
+              k1_plain_ms, k1_bound),
+        entry("kron_dd", "kron_dd.cu", "kron_dd.py:181", k2_abs, k2_ms, k2_plain_ms, k2_bound),
+        entry("tri", "tri.cu", "tri.py:94", k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
+        entry("kron_sparse", "kron_dd.cu", "kron_sparse.py:293", k5_abs, k5_ms, k5_plain_ms,
+              k5_bound),
     ]
     for name, line in [("kron_sparse_big_ns", 377), ("kron_sparse_big_ds", 711)]:
         acc = big[name]
-        kernels.append({"name": name, "route": "cuda", "source": src + "kron_sparse_big.cu",
-                        "replaces": f"{pallas}kron_sparse_big.py:{line}",
-                        "launches": launches[name], "max_abs_err": acc["err"], "ms": acc["ms"],
-                        "plain_ms": acc["plain_ms"]})
+        kernels.append(entry(name, "kron_sparse_big.cu", f"kron_sparse_big.py:{line}", acc["err"],
+                             acc["ms"], acc["plain_ms"], _bound(acc["bytes"], acc["flops"])))
+    kernels += [
+        entry("lra_upd", "lra.cu", "lra_upd.py:217", lra_err, *lra_times[LRA_SIZES[1]],
+              lra_bounds[LRA_SIZES[1]]),
+        entry("dense_upd", "dense.cu", "dense_upd.py:90", dense_err["dense_upd"],
+              *dense_times[DENSE_K11[-1]], dense_bound[DENSE_K11[-1]]),
+        entry("dense_big", "dense.cu", "dense_big.py:230", dense_err["dense_big"],
+              *dense_times[big_n], dense_bound[big_n]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Move the JAX package's parameters and Kronecker states into the port.
+"""Move the JAX package's parameters and preconditioner states into the port.
 
 The tests hand both packages the same numbers: they take what the JAX
 package computed, as numpy arrays, and turn it into the port's tensors on a
@@ -11,7 +11,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from psgd_tf_tpu_torch.groups.dense import DenseState
+from psgd_tf_tpu_torch.groups.diag import DiagState
 from psgd_tf_tpu_torch.groups.kron import KronState
+from psgd_tf_tpu_torch.groups.lra import LRAState
 
 
 def tensors(arrays: Sequence[np.ndarray], device: torch.device | str = "cpu") -> list[torch.Tensor]:
@@ -30,3 +33,19 @@ def kron_states(
         a, b = tensors([ql, qr], device)
         out.append(KronState(ql=a, qr=b, fmt=(fmt[0], fmt[1])))
     return out
+
+
+def dense_state(Q: np.ndarray, device: torch.device | str = "cpu") -> DenseState:
+    """From a JAX DenseState's `np.asarray(s.Q)`."""
+    return DenseState(Q=tensors([Q], device)[0])
+
+
+def diag_state(q: np.ndarray, device: torch.device | str = "cpu") -> DiagState:
+    """From a JAX DiagState's `np.asarray(s.q)`."""
+    return DiagState(q=tensors([q], device)[0])
+
+
+def lra_state(UV: np.ndarray, d: np.ndarray, device: torch.device | str = "cpu") -> LRAState:
+    """From a JAX LRAState's packed `np.asarray(s.UV)` and `np.asarray(s.d)`."""
+    uv, dd = tensors([UV, d], device)
+    return LRAState(UV=uv, d=dd)

@@ -10,6 +10,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     fixed chain of grouped launches (K1).
   - kron_sparse_big: the streaming (norm, scale) reductions (K6) and the
     streaming (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`.
+  - dense_upd / dense_big: the dense family's rank-2 update, with the
+    fused apply (K11 / K12: one streaming chain, `csrc/dense.cu`, counted
+    under the JAX package's two routes).
+  - lra_upd: the low-rank family's streaming stages (K13, `csrc/lra.cu`).
 
 Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
 CPU (the CPU path, and the oracle the kernels are checked against), and
@@ -29,6 +33,7 @@ import torch
 counts: dict[str, int] = {
     "tri": 0, "kron_dd": 0, "kron_multi": 0, "kron_sparse": 0,
     "kron_sparse_big_ns": 0, "kron_sparse_big_ds": 0,
+    "lra_upd": 0, "dense_upd": 0, "dense_big": 0,
 }
 _disabled_depth = 0
 

@@ -49,6 +49,14 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
          _P, _P, _P, _P],
     ),
+    "psgd_dense_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
+    "psgd_dense_update": (
+        ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P],
+    ),
+    "psgd_lra_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 8),
+    "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 12),
+    "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
 }
 
 _lib: ctypes.CDLL | None = None

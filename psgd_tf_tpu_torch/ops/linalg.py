@@ -16,8 +16,12 @@ __all__ = [
     "delta_scale",
     "max_abs",
     "triu",
+    "tril",
     "solve_ut_t",
+    "solve_small",
     "step_scale",
+    "triu_outer_diff_matmul",
+    "triu_outer_diff_maxabs",
     "norm_clip_scale",
 ]
 
@@ -47,6 +51,11 @@ def triu(x: torch.Tensor) -> torch.Tensor:
     return torch.triu(x)
 
 
+def tril(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular part (`band_part(x, -1, 0)` in the TF reference)."""
+    return torch.tril(x)
+
+
 def solve_ut_t(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve U^T x = b with U upper triangular, in fp32 (or wider) even for
     half-precision states: substitution amplifies rounding."""
@@ -59,12 +68,36 @@ def solve_ut_t(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[:, 0] if b.ndim == 1 else out
 
 
+def solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense solve of a small (r, r) system in fp32 (or wider) even for
+    half-precision operands: the Woodbury cores of the lra family.
+    `solve_ex` skips the singularity check, so a solve on the device never
+    waits for the host."""
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    compute = torch.promote_types(out_dtype, torch.float32)
+    return torch.linalg.solve_ex(a.to(compute), b.to(compute))[0].to(out_dtype)
+
+
 def step_scale(step, max_grad: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`step / (max|grad| + tiny)` in fp32, saturated at the state dtype's
     finite max, so a group gradient of exactly 0 gives a zero update and
     not `inf * 0 = NaN`."""
     s = step / (max_grad.to(torch.float32) + tiny(dtype))
     return torch.clamp(s, max=torch.finfo(dtype).max).to(dtype)
+
+
+def triu_outer_diff_matmul(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """`triu(a a^T - b b^T) @ q` in O(n^2): row i of `triu(a a^T) @ q` is
+    `a_i * sum_{j >= i} a_j q[j, :]`, a reverse cumulative sum."""
+    sa = torch.flip(torch.cumsum(torch.flip(a[:, None] * q, (0,)), 0), (0,))
+    sb = torch.flip(torch.cumsum(torch.flip(b[:, None] * q, (0,)), 0), (0,))
+    return a[:, None] * sa - b[:, None] * sb
+
+
+def triu_outer_diff_maxabs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max over the upper triangle of |a a^T - b b^T|."""
+    m = torch.triu(a[:, None] * a[None, :] - b[:, None] * b[None, :])
+    return m.abs().amax()
 
 
 def norm_clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

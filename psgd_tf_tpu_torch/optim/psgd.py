@@ -1,25 +1,31 @@
-"""The PSGD optimizer, Kronecker branch.
+"""The PSGD optimizer: the Kronecker branch and the flat families.
 
 Counterpart of `psgd_tf_tpu/optim/psgd.py`. API shape:
 
-    opt = PSGD(preconditioner="kron", kron_formats=[("dense", "dense")] * 5,
-               lr_params=0.1, lr_preconditioner=0.1, grad_clip_max_norm=...)
-    state = opt.init(params)                      # params: list of tensors
+    opt = PSGD(preconditioner="lra", rank=10, lr_params=0.01, ...)
+    state = opt.init(params, seed=0)              # params: list of tensors
     params, state, aux = opt.step(loss_fn, params, state, generator, *batch)
 
-`kron_formats` takes any of the seven format pairs (per leaf, one pair for
-all, a callable of the shape, or 'auto'); every step updates all the
-Kronecker factors through `kron.update_multi`, which routes each layer to
-its kernel as `kron.route` reports.
+'kron' keeps one (Ql, Qr) pair per parameter tensor. `kron_formats` takes
+any of the seven format pairs (per leaf, one pair for all, a callable of
+the shape, or 'auto'); every step updates all the Kronecker factors
+through `kron.update_multi`, which routes each layer to its kernel as
+`kron.route` reports.
+
+'dense', 'diag' and 'lra' precondition the flattened parameter vector: the
+tensors raveled in list order and concatenated (the JAX package's
+`ravel_pytree` order for the same leaves). 'xmat', 'shift' and 'splu'
+raise NotImplementedError: they come with ROADMAP queue 1's next slice.
 
 `generator` is a `torch.Generator` on the parameters' device; the probes of
-the Hvp are drawn from it. `step(..., probes=v)` takes the probes from the
-caller instead (the tests feed the JAX package and the port the same ones).
-PyTorch runs eagerly, so the hyperparameters are plain Python numbers that
-`PSGD.set_hyper` replaces between steps.
-
-The flat families ('dense', 'diag', 'xmat', 'shift', 'splu', 'lra') raise
-NotImplementedError: they come with ROADMAP queue 1, slice 3.
+the Hvp are drawn from it (one flat probe for the flat families). The
+update coin, and lra's rebalance and U-vs-V coins, come from CPU
+generators in the state, so a draw never waits for the device.
+`step(..., probes=v, coins=(balance, update_u))` takes the probes (one per
+parameter tensor) and lra's coins from the caller instead (the tests feed
+the JAX package and the port the same ones). PyTorch runs eagerly, so the
+hyperparameters are plain Python numbers that `PSGD.set_hyper` replaces
+between steps.
 """
 from __future__ import annotations
 
@@ -30,8 +36,11 @@ from typing import Any, Callable, Sequence
 import torch
 
 from psgd_tf_tpu_torch import hvp
-from psgd_tf_tpu_torch.groups import kron
+from psgd_tf_tpu_torch.groups import dense, diag, kron, lra
 from psgd_tf_tpu_torch.ops import linalg
+
+_FLAT_FAMILIES = {"dense": dense, "diag": diag, "lra": lra}
+_UNPORTED = ("xmat", "shift", "splu")
 
 # psgd_tf_tpu/ops/pallas/kron_dd.py MAX_SIDE: the JAX package buckets only
 # (dense, dense) layers up to this side. Kept so the bucketing matches.
@@ -52,12 +61,14 @@ class Hyper:
 class PSGDState:
     count: int
     hyper: Hyper
-    precond: list  # list[kron.KronState], one per parameter tensor
+    precond: Any  # list[kron.KronState], one per tensor; or a flat family's state
     always_update: bool = False
     # True when the constructor's update probability is >= 1: no coin is
     # drawn. Otherwise the coin comes from `coin`, a CPU generator, so the
     # draw never waits for the device.
     coin: torch.Generator | None = None
+    # lra only: the CPU generator of the rebalance and U-vs-V coins
+    branch: torch.Generator | None = None
 
     def replace(self, **kwargs) -> "PSGDState":
         return dataclasses.replace(self, **kwargs)
@@ -65,7 +76,8 @@ class PSGDState:
 
 @dataclasses.dataclass(frozen=True)
 class PSGD:
-    preconditioner: str = "kron"
+    preconditioner: str = "lra"
+    rank: int = 10  # lra rank
     init_scale: float = 1.0
     lr_params: float = 0.01
     lr_preconditioner: float = 0.01
@@ -80,12 +92,15 @@ class PSGD:
 
     def init(self, params: Sequence[torch.Tensor], seed: int = 0) -> PSGDState:
         """State for a list of parameter tensors. `seed` seeds the CPU
-        generator of the update coin (unused at probability >= 1)."""
-        if self.preconditioner != "kron":
+        generators of the update coin (unused at probability >= 1) and of
+        lra's coins, and the draw of lra's initial U and V."""
+        if self.preconditioner in _UNPORTED:
             raise NotImplementedError(
-                f"preconditioner {self.preconditioner!r} is not ported yet: the "
-                "flat families come with ROADMAP queue 1, slice 3"
+                f"preconditioner {self.preconditioner!r} is not ported yet: it "
+                "comes with ROADMAP queue 1's next slice"
             )
+        if self.preconditioner != "kron" and self.preconditioner not in _FLAT_FAMILIES:
+            raise ValueError(f"unknown preconditioner {self.preconditioner!r}")
         hyper = Hyper(
             lr_params=float(self.lr_params),
             lr_preconditioner=float(self.lr_preconditioner),
@@ -96,9 +111,23 @@ class PSGD:
         )
         always = self.preconditioner_update_probability >= 1.0
         coin = None if always else torch.Generator().manual_seed(seed)
+        branch = None
+        if self.preconditioner == "kron":
+            precond = self._init_kron(params)
+        else:
+            params = list(params)
+            n = sum(p.numel() for p in params)
+            where = dict(dtype=self.dtype, device=params[0].device)
+            if self.preconditioner == "lra":
+                precond = lra.init(torch.Generator().manual_seed(seed), n, rank=self.rank,
+                                   init_scale=self.init_scale, **where)
+                branch = torch.Generator().manual_seed(seed + 1)
+            else:
+                precond = _FLAT_FAMILIES[self.preconditioner].init(
+                    n, init_scale=self.init_scale, **where)
         return PSGDState(
-            count=0, hyper=hyper, precond=self._init_kron(params),
-            always_update=always, coin=coin,
+            count=0, hyper=hyper, precond=precond,
+            always_update=always, coin=coin, branch=branch,
         )
 
     def _leaf_format(self, shape: tuple[int, int], index: int, n_leaves: int):
@@ -148,6 +177,7 @@ class PSGD:
         generator: torch.Generator | None,
         *args,
         probes: Sequence[torch.Tensor] | None = None,
+        coins: tuple[bool, bool] | None = None,
     ):
         """One PSGD step: maybe-update Q, precondition, clip, descend.
         Returns (new_params, new_state, aux); aux values are 0-d tensors."""
@@ -156,25 +186,9 @@ class PSGD:
         do_update = state.always_update or (
             torch.rand((), generator=state.coin).item() < hyper.update_probability
         )
-        if do_update:
-            v = list(probes) if probes is not None else hvp.random_like(generator, params)
-            if self.exact_hessian_vector_product:
-                loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
-            else:
-                loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
-            precond = kron.update_multi(
-                state.precond,
-                [_as_matrix(x).to(self.dtype) for x in v],
-                [_as_matrix(x).to(self.dtype) for x in hvs],
-                step=hyper.lr_preconditioner,
-            )
-        else:
-            loss, grads = hvp.grad_only(loss_fn, params, *args)
-            precond = state.precond
-        pre_grads = [
-            kron.apply(ks, _as_matrix(g.to(self.dtype))).reshape(g.shape)
-            for ks, g in zip(precond, grads)
-        ]
+        branch = self._flat_step if self.preconditioner != "kron" else self._kron_step
+        loss, grads, precond, pre_grads = branch(
+            loss_fn, params, state, generator, args, do_update, probes, coins)
 
         # global-norm clipping
         sq = sum(torch.sum(g * g) for g in pre_grads)
@@ -189,6 +203,75 @@ class PSGD:
             "lr_effective": lr,
         }
         return new_params, new_state, aux
+
+    def _kron_step(self, loss_fn, params, state, generator, args, do_update, probes, coins):
+        """(loss, grads, precond, pre_grads) of the Kronecker family."""
+        if do_update:
+            v = list(probes) if probes is not None else hvp.random_like(generator, params)
+            if self.exact_hessian_vector_product:
+                loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
+            else:
+                loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
+            precond = kron.update_multi(
+                state.precond,
+                [_as_matrix(x).to(self.dtype) for x in v],
+                [_as_matrix(x).to(self.dtype) for x in hvs],
+                step=state.hyper.lr_preconditioner,
+            )
+        else:
+            loss, grads = hvp.grad_only(loss_fn, params, *args)
+            precond = state.precond
+        pre_grads = [
+            kron.apply(ks, _as_matrix(g.to(self.dtype))).reshape(g.shape)
+            for ks, g in zip(precond, grads)
+        ]
+        return loss, grads, precond, pre_grads
+
+    def _flat_step(self, loss_fn, params, state, generator, args, do_update, probes, coins):
+        """(loss, grads, precond, pre_grads) of a flat family: one Q over the
+        raveled parameters."""
+        fam = _FLAT_FAMILIES[self.preconditioner]
+        hyper = state.hyper
+        shapes = [p.shape for p in params]
+
+        def unravel(flat):
+            return [x.reshape(s) for x, s in zip(torch.split(flat, [s.numel() for s in shapes]), shapes)]
+
+        if not do_update:
+            loss, grads = hvp.grad_only(loss_fn, params, *args)
+            g_flat = _ravel(grads)
+            pre = fam.apply(state.precond, g_flat.to(self.dtype))
+            return loss, grads, state.precond, unravel(pre.to(g_flat.dtype))
+
+        if probes is not None:
+            v = list(probes)
+            v_flat = _ravel(v)
+        else:
+            # the probe in the parameters' dtype (the Hvp runs through the
+            # model); cast to the preconditioner's dtype at the family
+            v_flat = torch.randn(sum(s.numel() for s in shapes), generator=generator,
+                                 dtype=params[0].dtype, device=params[0].device)
+            v = unravel(v_flat)
+        if self.exact_hessian_vector_product:
+            loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
+        else:
+            loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
+        g_flat = _ravel(grads)
+        extra = {}
+        if self.preconditioner == "lra":
+            if coins is None:
+                coins = (torch.rand((), generator=state.branch).item() < 0.01,
+                         torch.rand((), generator=state.branch).item() < 0.5)
+            extra["coins"] = coins
+        v_flat, h_flat = v_flat.to(self.dtype), _ravel(hvs).to(self.dtype)
+        if hasattr(fam, "update_apply"):
+            # Q update and preconditioning in one sweep (K11-K13)
+            precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_flat.to(self.dtype),
+                                            step=hyper.lr_preconditioner, **extra)
+        else:
+            precond = fam.update(state.precond, v_flat, h_flat, step=hyper.lr_preconditioner)
+            pre = fam.apply(precond, g_flat.to(self.dtype))
+        return loss, grads, precond, unravel(pre.to(g_flat.dtype))
 
     # ----------------------------------------------------------------- hyper
 
@@ -220,6 +303,11 @@ def _matrix_shape(shape: Sequence[int]) -> tuple[int, int]:
     if len(shape) == 2:
         return shape
     return (math.prod(shape[:-1]), shape[-1])
+
+
+def _ravel(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors raveled in list order and concatenated."""
+    return torch.cat([x.reshape(-1) for x in xs])
 
 
 def _as_matrix(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ the reference's per-layer mixed formats (`models.nmt.kron_formats`), lr
 default (`exact_hvp=True` for the exact one), batch 64, the procedural
 reversal-translation pair (`data.translation`). The bar is a teacher-forced
 token accuracy above 0.75 on a held-out 256-row batch after the default
-1000 steps.
+1000 steps. It runs on the card unless `device` says otherwise.
 
 Not ported: the real spa-eng corpus run (`data_path`), whose corpus is not
 in the repository.
@@ -29,7 +29,7 @@ def run(
     cfg: nmt.Config = nmt.Config(),
     lr: float = 0.05,
     data_path: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> dict:
     if data_path is not None:
         raise NotImplementedError(
@@ -76,4 +76,4 @@ def run(
 
 
 if __name__ == "__main__":
-    print(run(device="cuda" if torch.cuda.is_available() else "cpu"))
+    print(run())

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from psgd_tf_tpu_torch.ops import hopper
-from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_multi, kron_sparse, tri
+from psgd_tf_tpu_torch.ops.hopper import (dense_big, dense_upd, kron_dd, kron_multi, kron_sparse,
+                                          lra_upd, tri)
 
 torch.set_num_threads(1)
 
@@ -30,7 +31,8 @@ NMT_REF = [(9414, 256), (1281, 1024), (2048, 10), (1, 10), (4935, 256), (2305, 1
 def test_import_leaves_jax_out():
     code = (
         "import sys, psgd_tf_tpu_torch, psgd_tf_tpu_torch.workloads.mnist_lenet5, "
-        "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop\n"
+        "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
+        "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
         "assert not bad, bad\n"
@@ -57,7 +59,7 @@ def test_no_jax_import_in_package_source():
 
 def test_kernel_sources_are_present():
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
-        "kron_dd.cu", "kron_sparse_big.cu", "tri.cu"}
+        "kron_dd.cu", "kron_sparse_big.cu", "tri.cu", "dense.cu", "lra.cu"}
     for src in (PKG / "csrc").glob("*.cu"):
         text = src.read_text()
         assert "psgd_tf_tpu/ops/pallas/" in text  # names the kernel it replaces
@@ -149,7 +151,8 @@ def test_lenet5_steps_route_through_k1(cuda):
 
     g = torch.Generator(device=cuda).manual_seed(0)
     params = lenet5.init(g)
-    opt = PSGD(kron_formats=[("dense", "dense")] * 5, lr_params=0.1, lr_preconditioner=0.1,
+    opt = PSGD(preconditioner="kron", kron_formats=[("dense", "dense")] * 5, lr_params=0.1,
+               lr_preconditioner=0.1,
                grad_clip_max_norm=0.1 * sum(p.numel() for p in params) ** 0.5)
     state = opt.init(params)
     assert [kron.route(st.fmt, st.ql.shape[:1] + st.qr.shape[:1], cuda) for st in state.precond] == ["kron_dd"] * 5
@@ -249,3 +252,136 @@ def test_unported_routes_raise_on_card(cuda):
         z = torch.zeros(shape, device=cuda)
         with pytest.raises(NotImplementedError, match=name):
             kron.update(st, z, z, step=0.1)
+
+
+# ------------------------------------------------ the flat families (K11-K13)
+
+COINS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def _lra_case(g, n, r, dev):
+    """A packed (2r, n) state walked off its init by three plain updates,
+    with U scaled up so a rebalance moves it, and fresh probes."""
+    from psgd_tf_tpu_torch.groups import lra
+
+    st = lra.init(torch.Generator().manual_seed(n), n, rank=r, init_scale=0.8, device=dev)
+    st = lra.pack(3.0 * st.U, st.V, st.d)
+    with hopper.disabled():
+        for k in range(3):
+            v, h = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+            st = lra.update(st, v, h, 0.05, COINS[k])
+    v, h, grad = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+    return st, v, h, grad
+
+
+@pytest.mark.parametrize("n", [1021, 1 << 20])
+@pytest.mark.parametrize("coins", COINS, ids=str)
+def test_k13_matches_plain(cuda, n, coins):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    st, v, h, grad = _lra_case(g, n, 10, cuda)
+    before = hopper.counts["lra_upd"]
+    uv, d = lra_upd.fused_update(st.UV, st.d, v, h, 0.05, coins)
+    uv2, d2, pre = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+    torch.cuda.synchronize()
+    assert hopper.counts["lra_upd"] == before + 2
+    with hopper.disabled():
+        ruv, rd, rpre = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+    duv, dd = lra_upd.update_plain(st.UV, st.d, v, h, 0.05, coins)
+    for a, b in [(uv, ruv), (d, rd), (uv2, ruv), (d2, rd), (pre, rpre), (uv, duv), (d, dd)]:
+        assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.parametrize("n", [2, 1021, 1536, 4096])
+def test_k11_k12_match_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.triu(0.02 * torch.randn(n, n, generator=g, device=cuda)) + 0.8 * torch.eye(n, device=cuda)
+    with hopper.disabled():
+        for _ in range(2):
+            q = dense_upd.fused_update(q, *(torch.randn(n, generator=g, device=cuda) for _ in range(2)), 0.1)
+    v, h, grad = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
+    mod, name = (dense_upd, "dense_upd") if n <= dense_upd.MAX_N else (dense_big, "dense_big")
+    before = hopper.counts[name]
+    got = mod.fused_update(q, v, h, 0.1)
+    got_q, got_pre = mod.fused_update_apply(q, v, h, grad, 0.1)
+    torch.cuda.synchronize()
+    assert hopper.counts[name] == before + 2
+    ref_q, ref_pre = dense_upd.update_apply_plain(q, v, h, grad, 0.1)
+    assert _rel(got, ref_q) < 1e-4 and _rel(got_q, ref_q) < 1e-4 and _rel(got_pre, ref_pre) < 1e-4
+    assert torch.equal(got, got_q)
+    assert torch.count_nonzero(torch.tril(got, -1)).item() == 0
+
+
+def test_k11_identity_extension_is_untouched(cuda):
+    """Q padded to a multiple of 128 with an identity block and zero probes
+    (the TPU kernel's layout): the extension comes back exactly."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, m = 1021, 1024
+    q = torch.triu(0.02 * torch.randn(n, n, generator=g, device=cuda)) + 0.8 * torch.eye(n, device=cuda)
+    v, h = (torch.randn(n, generator=g, device=cuda) for _ in range(2))
+    qp = torch.eye(m, device=cuda)
+    qp[:n, :n] = q
+    pad = lambda x: torch.cat([x, x.new_zeros(m - n)])
+    got = dense_upd.fused_update(qp, pad(v), pad(h), 0.1)
+    assert torch.equal(got[n:, n:], torch.eye(m - n, device=cuda))
+    assert torch.count_nonzero(got[:n, n:]).item() == 0
+    assert _rel(got[:n, :n], dense_upd.fused_update(q, v, h, 0.1)) < 1e-5
+
+
+def test_flat_paths_route_through_their_kernels(cuda):
+    from psgd_tf_tpu_torch import PSGD, UVd, dense
+    from psgd_tf_tpu_torch.data import xor
+    from psgd_tf_tpu_torch.models import rnn
+
+    assert [dense.route(n, cuda) for n in (2, 1536, 1537, 16384, 16385)] == [
+        "dense_upd", "dense_upd", "dense_big", "dense_big", "xla"]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    params = rnn.init(g, hidden=8)
+    for fam, name in [("lra", "lra_upd"), ("dense", "dense_upd")]:
+        opt = PSGD(preconditioner=fam, grad_clip_max_norm=1.0)
+        state = opt.init(params)
+        before = hopper.counts[name]
+        p = params
+        for _ in range(3):
+            p, state, aux = opt.step(rnn.loss, p, state, g, *xor.batch(g, 16, 8))
+        assert np.isfinite(aux["loss"].item()) and hopper.counts[name] == before + 3
+    uvd = UVd(params, grad_clip_max_norm=1.0, generator=g)
+    before = hopper.counts["lra_upd"]
+    for _ in range(2):
+        loss = uvd.step(rnn.loss, *xor.batch(g, 16, 8))
+    assert np.isfinite(loss.item()) and hopper.counts["lra_upd"] == before + 2
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (5, 3), (255, 32), (4097, 2), (8193, 10)])
+def test_k13_edge_shapes(cuda, n, r):
+    """Ragged last tiles, a single lane, the largest rank, several Gram
+    blocks summed in order."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    st, v, h, grad = _lra_case(g, n, r, cuda)
+    for coins in COINS:
+        got = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        with hopper.disabled():
+            ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        for a, b in zip(got, ref, strict=True):
+            assert _rel(a, b) < 1e-4
+    wide = torch.zeros(2 * (lra_upd.MAX_RANK + 1), n, device=cuda)
+    with pytest.raises(ValueError, match="rank"):
+        lra_upd.fused_update(wide, st.d, v, h, 0.05, (False, True))
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 200, 1537, 2000, 3841, 4097])
+def test_k11_k12_edge_shapes(cuda, n):
+    """A single row, ragged panels and chunks, one past K11's cap, the
+    dense RNN's n (a one-row last panel), and 33 panels (two K3 launches)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.triu(0.05 * torch.randn(n, n, generator=g, device=cuda)) + 0.8 * torch.eye(n, device=cuda)
+    v, h, grad = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
+    mod = dense_upd if n <= dense_upd.MAX_N else dense_big
+    before_tri = hopper.counts["tri"]
+    got_q, got_pre = mod.fused_update_apply(q, v, h, grad, 0.1)
+    panels = (n + 127) // 128  # K3 inverts them, MAX_FACTORS to a launch
+    assert hopper.counts["tri"] == before_tri + (panels + tri.MAX_FACTORS - 1) // tri.MAX_FACTORS
+    ref_q, ref_pre = dense_upd.update_apply_plain(q, v, h, grad, 0.1)
+    assert _rel(got_q, ref_q) < 1e-4 and _rel(got_pre, ref_pre) < 1e-4
+    assert torch.count_nonzero(torch.tril(got_q, -1)).item() == 0
+    z = torch.zeros(n, device=cuda)
+    assert torch.equal(mod.fused_update(q, z, z, 0.1), q)  # a zero probe: a zero update

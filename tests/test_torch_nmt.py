@@ -167,13 +167,14 @@ def test_reference_width_tokens_stay_in_their_vocabularies():
 
 def test_workload_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="vocab_tgt"):
-        nmt_attention.run(steps=1, cfg=nmt.ref_config())
+        nmt_attention.run(steps=1, cfg=nmt.ref_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="corpus"):
-        nmt_attention.run(data_path="spa-eng.zip")
+        nmt_attention.run(data_path="spa-eng.zip", device="cpu")
 
 
 @pytest.mark.parametrize("exact_hvp", [False, True], ids=["fd", "exact"])
 def test_workload_runs_on_cpu(exact_hvp):
-    out = nmt_attention.run(steps=3, batch_size=8, max_len=6, cfg=CFG, exact_hvp=exact_hvp)
+    out = nmt_attention.run(steps=3, batch_size=8, max_len=6, cfg=CFG, exact_hvp=exact_hvp,
+                            device="cpu")
     assert out["steps"] == 3 and np.isfinite(out["loss"]) and np.isfinite(out["first_loss"])
     assert 0.0 <= out["token_accuracy"] <= 1.0 and out["success"] == (out["token_accuracy"] > 0.75)

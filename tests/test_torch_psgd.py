@@ -103,10 +103,11 @@ def test_init_layout_and_unported_paths():
     assert [(st.ql.shape[0], st.qr.shape[0]) for st in state.precond] == jlenet5.LAYER_SHAPES
     assert all(kron.route(st.fmt, (st.ql.shape[0], st.qr.shape[0]), "cpu") == "plain"
                for st in state.precond)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        PSGD(preconditioner="lra").init(params)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        PSGD(preconditioner="splu").init(params)
     # four (dense, dense) layers in one padded bucket take K4 in JAX
     same = [torch.zeros(100, 50) for _ in range(4)]
     with pytest.raises(NotImplementedError, match="K4"):
-        PSGD(kron_formats=DD).init(same)
-    assert len(PSGD(kron_formats=DD, kron_batch_min=5).init(same).precond) == 4
+        PSGD(preconditioner="kron", kron_formats=DD).init(same)
+    assert len(PSGD(preconditioner="kron", kron_formats=DD, kron_batch_min=5)
+               .init(same).precond) == 4
