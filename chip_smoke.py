@@ -28,7 +28,13 @@ after:
   - the `UVd` class on the same RNN, 200 steps, switching the Hvp and the
     parameter lr on the way (K13);
   - the dense family on the same RNN at hidden 60 (3,841 parameters), a
-    size the JAX package routes to its streaming dense kernel (K12, K3).
+    size the JAX package routes to its streaming dense kernel (K12, K3);
+  - `all_preconditioners`: the tensor decomposition (400 parameters) under
+    each of the seven families, 100 steps each, every one to a loss below
+    a tenth of its first (K15 for splu, K11 for dense, K13 for lra, K1 for
+    kron, no kernel for diag, xmat and shift);
+  - the sparse-LU family on the NMT model at the reference widths (rank
+    10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. TF32 is off for matmuls and convolutions, so every comparison
@@ -61,8 +67,11 @@ TOL_K1 = 1e-4    # one update: GEMM sums in other orders, explicit inverse vs tr
 TOL_TRAJ = 5e-4  # 20 chained updates: ROADMAP's trajectory bound
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores (TF32 is off)
-LRA_SIZES = [1021, 1 << 20]             # the RNN's n, and bench.py:610
-DENSE_K11 = [2, 1021, 1536]             # hello_psgd's n, the RNN's, dense_upd.MAX_N
+# the tensor decomposition's n, the RNN's, and bench.py:610
+LRA_SIZES = [400, 1021, 1 << 20]
+# hello_psgd's n, the tensor decomposition's (three full 128-row panels and
+# a 16-row one), the RNN's, dense_upd.MAX_N
+DENSE_K11 = [2, 400, 1021, 1536]
 # the dense RNN's n (hidden 60: 30 full 128-row panels and a one-row
 # panel), then bench.py:617-619
 DENSE_K12 = [3841, 4096, 8192, 16384]
@@ -70,6 +79,9 @@ COINS = [(False, False), (False, True), (True, False), (True, True)]  # (balance
 RNN_MAX_ITERS = 20000
 UVD_STEPS = 200
 DENSE_RNN_STEPS = 50
+SPLU_K15 = [400, 1 << 16]        # the tensor decomposition's n, and bench.py:615
+SPLU_K16 = [100_003, 1 << 20]    # a ragged n past K15's cap, and bench.py:616
+SPLU_NMT_STEPS = 10
 
 
 def _rel(a, b) -> float:
@@ -142,13 +154,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
-    from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra
+    from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra, splu
     from psgd_tf_tpu_torch.data import mnist, translation, xor
-    from psgd_tf_tpu_torch.models import lenet5, nmt, rnn
+    from psgd_tf_tpu_torch.models import lenet5, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_sparse,
-                                              lra_upd, tri)
-    from psgd_tf_tpu_torch.workloads import hello_psgd, nmt_attention, rnn_xor_lra
+                                              lra_upd, splu_one, splu_upd, tri)
+    from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, nmt_attention,
+                                             rnn_xor_lra)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -190,13 +203,20 @@ def main() -> int:
                 states = kron.update_multi(states, *probes(shapes), step=0.1)
         return states
 
-    # 2. K3 at LeNet5's ten factor sides and at 1024
+    # the kron list all_preconditioners gives K1 and K3: one factor pair per
+    # factor matrix of the tensor decomposition
+    decomp_pre = PSGD(preconditioner="kron").init(tensor_decomp.init(g)).precond
+    decomp_fmts = [st.fmt for st in decomp_pre]
+    decomp_shapes = [(st.ql.shape[-1], st.qr.shape[-1]) for st in decomp_pre]
+
+    # 2. K3 at LeNet5's ten factor sides, the tensor decomposition's six and
+    #    at 1024
     def triu_factor(n):
         u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
         return u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev))
 
     lenet_us = [triu_factor(n) for s in LENET5 for n in s]
-    us = lenet_us + [triu_factor(1024)]
+    us = lenet_us + [triu_factor(n) for s in decomp_shapes for n in s] + [triu_factor(1024)]
     got = tri.inverse_upper(us)
     torch.cuda.synchronize()
     ref = tri.inverse_upper_plain(us)
@@ -271,6 +291,24 @@ def main() -> int:
     print(f"k1 trajectory: LeNet5, 20 steps max rel err {traj_rel:.3e} (tol {TOL_TRAJ:.0e})",
           flush=True)
     check(traj_rel < TOL_TRAJ, "k1 20-step trajectory vs plain")
+
+    # 3b. K1 on the tensor decomposition's list, and a 20-step trajectory
+    states = walked_states(decomp_fmts, decomp_shapes)
+    dxs, dgs = probes(decomp_shapes)
+    before = hopper.counts["kron_multi"]
+    got = kron.update_multi(states, dxs, dgs, step=0.1)
+    torch.cuda.synchronize()
+    check(hopper.counts["kron_multi"] == before + 1, "decomposition list takes one K1 call")
+    with hopper.disabled():
+        ref = kron.update_multi(states, dxs, dgs, step=0.1)
+    dec_rel, dec_abs = _state_errs(got, ref)
+    dec_traj = trajectory(decomp_fmts, decomp_shapes)
+    print(f"k1: tensor decomposition {decomp_fmts} {decomp_shapes} max rel err {dec_rel:.3e} "
+          f"(tol {TOL_K1:.0e}) max abs err {dec_abs:.3e}; 20 steps max rel err {dec_traj:.3e} "
+          f"(tol {TOL_TRAJ:.0e})", flush=True)
+    check(dec_rel < TOL_K1 and all(torch.isfinite(s.ql).all() and torch.isfinite(s.qr).all()
+                                   for s in got), "k1 vs plain on the decomposition list")
+    check(dec_traj < TOL_TRAJ, "k1 20-step trajectory on the decomposition list")
 
     # 4. K1 with mixed kinds on the toy NMT list: [ds, ns, ds, dd, ds, ns, ns]
     toy = nmt.Config()
@@ -402,17 +440,18 @@ def main() -> int:
         print(f"k13: n={n} r=10, four coin pairs, max rel err {lra_rel:.3e} (tol {TOL_K1:.0e}); "
               f"update+apply kernel {lra_times[n][0]:.4f} ms, plain {lra_times[n][1]:.4f} ms, "
               f"bound {lra_bounds[n][0]:.4f} ms ({lra_bounds[n][1]})", flush=True)
-    kst, _ = lra_case(LRA_SIZES[0])
-    pst = kst
-    for k in range(20):
-        v, h = (torch.randn(LRA_SIZES[0], generator=g, device=dev) for _ in range(2))
-        kst = lra.update(kst, v, h, 0.05, COINS[k % 4])
-        with hopper.disabled():
-            pst = lra.update(pst, v, h, 0.05, COINS[k % 4])
-    lra_traj = max(_rel(kst.UV, pst.UV), _rel(kst.d, pst.d))
-    print(f"k13 trajectory: n={LRA_SIZES[0]}, 20 steps max rel err {lra_traj:.3e} "
-          f"(tol {TOL_TRAJ:.0e})", flush=True)
-    check(lra_traj < TOL_TRAJ, "k13 20-step trajectory vs plain")
+    for n in LRA_SIZES[:2]:
+        kst, _ = lra_case(n)
+        pst = kst
+        for k in range(20):
+            v, h = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+            kst = lra.update(kst, v, h, 0.05, COINS[k % 4])
+            with hopper.disabled():
+                pst = lra.update(pst, v, h, 0.05, COINS[k % 4])
+        lra_traj = max(_rel(kst.UV, pst.UV), _rel(kst.d, pst.d))
+        print(f"k13 trajectory: n={n}, 20 steps max rel err {lra_traj:.3e} "
+              f"(tol {TOL_TRAJ:.0e})", flush=True)
+        check(lra_traj < TOL_TRAJ, f"k13 20-step trajectory vs plain at n={n}")
 
     # 8. K11 at hello_psgd's and the RNN's n and its cap, K12 at the bench
     #    rows: update and update+apply against the plain rank-2 form
@@ -453,6 +492,18 @@ def main() -> int:
               f"{tri_ok}; update+apply kernel {dense_times[n][0]:.4f} ms, plain "
               f"{dense_times[n][1]:.4f} ms, bound {dense_bound[n][0]:.4f} ms "
               f"({dense_bound[n][1]})", flush=True)
+    n = DENSE_K11[1]
+    kst = pst = dense.init(n, init_scale=0.8, device=dev)
+    for _ in range(20):
+        v, h = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+        kst = dense.update(kst, v, h, 0.1)
+        with hopper.disabled():
+            pst = dense.update(pst, v, h, 0.1)
+    dense_traj = _rel(kst.Q, pst.Q)
+    tri_ok = torch.count_nonzero(torch.tril(kst.Q, -1)).item() == 0
+    print(f"dense_upd trajectory: n={n}, 20 steps max rel err {dense_traj:.3e} "
+          f"(tol {TOL_TRAJ:.0e}), lower part exactly 0: {tri_ok}", flush=True)
+    check(dense_traj < TOL_TRAJ and tri_ok, f"dense_upd 20-step trajectory at n={n}")
     for n, m, mod in [(1021, 1024, dense_upd), (4000, 4096, dense_big)]:
         # the TPU kernels' layout: Q padded with an identity block, zero probes
         q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
@@ -468,6 +519,78 @@ def main() -> int:
         print(f"dense padded to {m}: identity extension untouched {ext_ok}, leading block max "
               f"rel err {rel:.3e}", flush=True)
         check(ext_ok and rel < TOL_K1, f"dense identity extension at {n} -> {m}")
+
+    # 8b. K15 at the tensor decomposition's n and bench.py's 65,536, K16 at a
+    #     ragged n past the cap and bench.py's 2^20, all r = 10: update and
+    #     update+apply against the chain's plain stages and the direct form
+    def splu_case(n, r=10):
+        """A walked state (`splu.walked_state`) and fresh v, h, g."""
+        return splu.walked_state(n, r, g, dev), [torch.randn(n, generator=g, device=dev)
+                                                 for _ in range(3)]
+
+    def fields(st):
+        return st.Lt, st.l3, st.U12, st.u3
+
+    def splu_work(n, r=10, apply=True):
+        """(bytes, FLOPs) of one update (+ apply): Lt, U12, l3, u3, v, h (and
+        g) read once, Lt', U12', l3', u3' (and P' g) written once; the Gram
+        pairs, the tail images and the rewrite."""
+        nt = n - r
+        if apply:
+            flops = 2.0 * (2 * r * r + 5 * r + r * (r + 1) / 2 + 2 * r) * nt + 40 * r * nt
+            return 4 * (4 * r * n + 8 * n), flops
+        return 4 * (4 * r * n + 6 * n), 2.0 * (2 * r * r + 5 * r) * nt + 32 * r * nt
+
+    splu_err = {"splu_one": 0.0, "splu_upd": 0.0}
+    splu_times, splu_bounds = {}, {}
+    for n in SPLU_K15 + SPLU_K16:
+        name = "splu_one" if n in SPLU_K15 else "splu_upd"
+        check(splu.route(10, n, dev) == name, f"splu route at n={n}")
+        st, (v, h, gr) = splu_case(n)
+        before = dict(hopper.counts)
+        got = splu_upd.fused_update(*fields(st), v, h, 0.05) if name == "splu_upd" else \
+            splu_one.fused_update(*fields(st), v, h, 0.05)
+        got_st, got_pre = splu.update_apply(st, v, h, gr, 0.05)
+        torch.cuda.synchronize()
+        check(hopper.counts[name] == before[name] + 2, f"{name} launched at n={n}")
+        with hopper.disabled():
+            ref = splu_one.fused_update_apply(*fields(st), v, h, gr, 0.05)
+            direct = splu.update(st, v, h, 0.05)
+        pairs = list(zip(got, ref[:4])) + list(zip(fields(got_st), ref[:4]))
+        pairs += [(got_pre, ref[4])] + list(zip(got, fields(direct)))
+        rel = max(_rel(a, b) for a, b in pairs)
+        splu_err[name] = max(splu_err[name], max(_abs(a, b) for a, b in pairs))
+        L1, U1 = got_st.Lt[:, :10].T, got_st.U12[:, :10]
+        tri_ok = torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+        check(rel < TOL_K1 and tri_ok, f"{name} vs plain at n={n}")
+        reps = 20 if n > 10**5 else 100
+        if name == "splu_one":
+            splu_times[n] = _time_ab(torch, hopper, lambda: splu_one.fused_update_apply(
+                *fields(st), v, h, gr, 0.05), reps)
+        else:
+            splu_times[n] = _time_ab(torch, hopper, lambda: splu_upd.fused_update(
+                *fields(st), v, h, 0.05), reps)
+        with hopper.disabled():
+            direct_ms = _time(torch, lambda: splu.update_apply(st, v, h, gr, 0.05), reps)
+        splu_bounds[n] = _bound(*splu_work(n, apply=name == "splu_one"))
+        what = "update+apply" if name == "splu_one" else "update"
+        print(f"{name}: n={n} r=10 max rel err {rel:.3e} (tol {TOL_K1:.0e}), corner triangles "
+              f"exact: {tri_ok}; {what} kernel {splu_times[n][0]:.4f} ms, plain stages "
+              f"{splu_times[n][1]:.4f} ms, bound {splu_bounds[n][0]:.4f} ms "
+              f"({splu_bounds[n][1]}); the direct form's update+apply {direct_ms:.4f} ms",
+              flush=True)
+    for n in (SPLU_K15[0], SPLU_K16[0]):
+        kst, _ = splu_case(n)
+        pst = kst
+        for _ in range(20):
+            v, h = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+            kst = splu.update(kst, v, h, 0.05)
+            with hopper.disabled():
+                pst = splu.update(pst, v, h, 0.05)
+        traj = max(_rel(a, b) for a, b in zip(fields(kst), fields(pst)))
+        print(f"{splu.route(10, n, dev)} trajectory: n={n}, 20 steps against the direct form, "
+              f"max rel err {traj:.3e} (tol {TOL_TRAJ:.0e})", flush=True)
+        check(traj < TOL_TRAJ, f"splu 20-step trajectory at n={n}")
 
     # 9. path: LeNet5, exact Hvp, batch 64
     params = lenet5.init(g)
@@ -669,8 +792,113 @@ def main() -> int:
           and counts["tri"] == DENSE_RNN_STEPS and bool(torch.isfinite(losses).all()),
           "dense RNN: one K12 and one K3 launch per step, finite")
 
+    # 16. path: all_preconditioners, the tensor decomposition under each
+    #     family, 100 steps, each with its counts read alone
+    want_kernel = {"splu": "splu_one", "dense": "dense_upd", "lra": "lra_upd",
+                   "kron": "kron_multi"}
+
+    def decomp_pass():
+        """{family: (result, counts, steps/s)} over one run of every family."""
+        outs = {}
+        for fam in all_preconditioners.FAMILIES:
+            torch.cuda.synchronize()
+            hopper.reset_counts()
+            t0 = time.perf_counter()
+            out = all_preconditioners.run(fam, device=dev)
+            torch.cuda.synchronize()
+            outs[fam] = (out, dict(hopper.counts), out["steps"] / (time.perf_counter() - t0))
+        return outs
+
+    with hopper.disabled():
+        plain_outs = decomp_pass()
+    outs = decomp_pass()
+    for fam, (out, counts, rate) in outs.items():
+        for name, k in counts.items():
+            launches[name] += k
+        kern = want_kernel.get(fam)
+        print(f"all_preconditioners {fam}: loss {out['first_loss']:.1f} -> {out['loss']:.1f}, "
+              f"success {out['success']}, launches {({k: c for k, c in counts.items() if c})}, "
+              f"{rate:.1f} steps/s with kernels, {plain_outs[fam][2]:.1f} under disabled() "
+              f"(host clock, init included)", flush=True)
+        check(out["success"], f"all_preconditioners {fam}: loss below a tenth of the first")
+        if kern is None:
+            check(sum(counts.values()) == 0, f"all_preconditioners {fam}: no kernel launched")
+        else:
+            check(counts[kern] == out["steps"] == 100,
+                  f"all_preconditioners {fam}: one {kern} launch per step")
+
+    # 17. path: splu on the NMT model at the reference widths (FD Hvp, lr
+    #     0.02, clip 1.0, random ids): past K15's cap, so K16. The kernel
+    #     run keeps its last step's state and probes (`seen`), on which K16
+    #     is then held against the plain chain and the direct form.
+    seen = {}
+    splu_update_apply = splu.update_apply
+
+    def keep_last(state, v, h, g, step=0.01):
+        seen.update(state=state, v=v, h=h, step=step)
+        return splu_update_apply(state, v, h, g, step)
+
+    def nmt_splu_run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = nmt.init(gen, ref_cfg)
+        opt = PSGD(preconditioner="splu", rank=10, lr_params=0.02, lr_preconditioner=0.02,
+                   grad_clip_max_norm=1.0, exact_hessian_vector_product=False)
+        state = opt.init(params)
+        n = state.precond.Lt.shape[1]
+        batches = [translation.random_tokens(gen, ref_cfg.vocab_src, ref_cfg.vocab_tgt)
+                   for _ in range(SPLU_NMT_STEPS)]
+        losses = []
+        torch.cuda.synchronize()
+        hopper.reset_counts()
+        for i, (src, tgt) in enumerate(batches):
+            if i == 2:
+                ev0.record()
+            params, state, aux = opt.step(nmt.loss, params, state, gen, src, tgt)
+            losses.append(aux["loss"])
+        ev1.record()
+        ev1.synchronize()
+        rate = (SPLU_NMT_STEPS - 2) / (ev0.elapsed_time(ev1) / 1e3)
+        return n, torch.stack(losses).cpu(), dict(hopper.counts), rate
+
+    splu.update_apply = keep_last
+    try:
+        n_nmt, losses, counts, splu_rate = nmt_splu_run()
+    finally:
+        splu.update_apply = splu_update_apply
+    path_counts()
+    print(f"nmt ref splu: n={n_nmt}, route {splu.route(10, n_nmt, dev)}, {SPLU_NMT_STEPS} steps, "
+          f"launches {({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f}, {splu_rate:.2f} steps/s with kernels", flush=True)
+    check(splu.route(10, n_nmt, dev) == "splu_upd" and counts["splu_upd"] == SPLU_NMT_STEPS,
+          "NMT reference splu: one K16 launch per step")
+    check(bool(torch.isfinite(losses).all()), "NMT reference splu: finite losses")
+    st, v, h, step = seen.pop("state"), seen.pop("v"), seen.pop("h"), seen.pop("step")
+    got = splu_upd.fused_update(*fields(st), v, h, step)
+    torch.cuda.synchronize()
+    with hopper.disabled():
+        ref = splu_upd.fused_update(*fields(st), v, h, step)
+    pairs = list(zip(got, ref))
+    del ref
+    pairs += list(zip(got, fields(splu.update_plain(st, v, h, step))))
+    rel = max(_rel(a, b) for a, b in pairs)
+    splu_err["splu_upd"] = max(splu_err["splu_upd"], max(_abs(a, b) for a, b in pairs))
+    L1, U1 = got[0][:, :10].T, got[2][:, :10]
+    tri_ok = torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+    print(f"splu_upd: n={n_nmt} r=10, the path's last state and probes, max rel err {rel:.3e} "
+          f"(tol {TOL_K1:.0e}) against the plain chain and the direct form, corner triangles "
+          f"exact: {tri_ok}", flush=True)
+    check(rel < TOL_K1 and tri_ok, f"splu_upd vs plain at n={n_nmt}")
+    del st, v, h, got, pairs
+    with hopper.disabled():
+        _, plain_losses, _, splu_plain_rate = nmt_splu_run()
+    loss_rel = _rel(losses, plain_losses)
+    print(f"nmt ref splu: {splu_plain_rate:.2f} steps/s under disabled() (the direct form), loss "
+          f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}; the two loss traces "
+          f"differ by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
+    check(loss_rel < TOL_TRAJ, "NMT reference splu: kernel and direct-form losses agree")
+
     for name in ("kron_multi", "kron_dd", "tri", "kron_sparse_big_ns", "kron_sparse_big_ds",
-                 "lra_upd", "dense_upd", "dense_big"):
+                 "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -686,8 +914,8 @@ def main() -> int:
 
     big_n = DENSE_K12[-1]
     kernels = [
-        entry("kron_multi", "kron_dd.cu", "kron_multi.py:222", max(k1_abs, mix_abs), k1_ms,
-              k1_plain_ms, k1_bound),
+        entry("kron_multi", "kron_dd.cu", "kron_multi.py:222", max(k1_abs, mix_abs, dec_abs),
+              k1_ms, k1_plain_ms, k1_bound),
         entry("kron_dd", "kron_dd.cu", "kron_dd.py:181", k2_abs, k2_ms, k2_plain_ms, k2_bound),
         entry("tri", "tri.cu", "tri.py:94", k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
         entry("kron_sparse", "kron_dd.cu", "kron_sparse.py:293", k5_abs, k5_ms, k5_plain_ms,
@@ -698,12 +926,16 @@ def main() -> int:
         kernels.append(entry(name, "kron_sparse_big.cu", f"kron_sparse_big.py:{line}", acc["err"],
                              acc["ms"], acc["plain_ms"], _bound(acc["bytes"], acc["flops"])))
     kernels += [
-        entry("lra_upd", "lra.cu", "lra_upd.py:217", lra_err, *lra_times[LRA_SIZES[1]],
-              lra_bounds[LRA_SIZES[1]]),
+        entry("lra_upd", "lra.cu", "lra_upd.py:217", lra_err, *lra_times[LRA_SIZES[-1]],
+              lra_bounds[LRA_SIZES[-1]]),
         entry("dense_upd", "dense.cu", "dense_upd.py:90", dense_err["dense_upd"],
               *dense_times[DENSE_K11[-1]], dense_bound[DENSE_K11[-1]]),
         entry("dense_big", "dense.cu", "dense_big.py:230", dense_err["dense_big"],
               *dense_times[big_n], dense_bound[big_n]),
+        entry("splu_one", "splu.cu", "splu_one.py:223", splu_err["splu_one"],
+              *splu_times[SPLU_K15[-1]], splu_bounds[SPLU_K15[-1]]),
+        entry("splu_upd", "splu.cu", "splu_upd.py:636", splu_err["splu_upd"],
+              *splu_times[SPLU_K16[-1]], splu_bounds[SPLU_K16[-1]]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

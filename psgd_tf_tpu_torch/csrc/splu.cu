@@ -1,0 +1,705 @@
+// K15 and K16: the sparse-LU family's update, with the optional fused apply.
+//
+// Replaces psgd_tf_tpu/ops/pallas/splu_one.py `_call` (:223) → its
+// pallas_call (:286, `_kernel` :77), which holds the whole state in VMEM and
+// does the update and P' g in one launch, and psgd_tf_tpu/ops/pallas/
+// splu_upd.py `_update_impl` (:636), its routed pallas_calls at :686
+// (`_stage1_kernel`), :749 (`_stage2_kernel`) and :787 (`_stage3_kernel`),
+// with the corner algebra between them in jnp. Q = L U with
+//   L = [L1 0; L2 diag(l3)], U = [U1 U2; 0 diag(u3)],
+// stored rank-major at its logical shapes: Lt (r, n) = [L1^T | L2^T],
+// U12 (r, n) = [U1 | U2], l3 and u3 (nt,), nt = n - r. Tail lane j is
+// column r + j of Lt and U12 and entry j of l3 and u3; the kernels read the
+// state in place and mask the ragged last tile: nothing is padded.
+//
+// The state at n = 65,536 (r = 10) is ~5.2 MB, far past a block's 227 KB of
+// shared memory, so both kernels are one fixed chain of launches on one
+// stream, with no host synchronisation:
+//   stage 1   per lane Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2] (3r + 3
+//             rows, w = 1/(l3 u3)); the Gram entries the algebra reads
+//             (2r^2 + 5r of them), and max l3, max u3 for the balance;
+//   reduce    the blocks' partial Grams summed in block order, a warp a pair;
+//   corner A  one warp, lane k holding row k of the rank space: the four
+//             r x r triangular solves (substitution, one shuffle a row),
+//             Ug1, Qg1, iUtx1, iQtx1, LtQg1, Pg1, iLiQtx1, iPx1, max|gl1|,
+//             max|gu1|, and rho = sqrt(max(diag L1, l3) / max(diag U1, u3));
+//   stage 2   per lane the tail images (qg2, iqtx2, pg2, ipx2) and the exact
+//             maxima of |gl2|, |gl3|, |gu2|, |gu3| (gl2, gu2 never stored);
+//   corner B  the step scales min(step / (max + tiny), FLT_MAX), the stage-3
+//             coefficients and the corner rewrite L1', U1' (exactly
+//             triangular), with the balance folded in;
+//   stage 3   L2^T', U2', l3', u3'; with g also the apply Gram's partials of
+//             Z2 = [L2^T'; U2'; l3' u3' g2; g2];
+//   reduce, corner C, stage 4 (with g): P' g of the updated state.
+// The balance rescales L by 1/rho and U by rho; Q, the probe images and the
+// step scales do not change, so it folds into the outputs (JAX :765-784).
+// K16 is stages 1-3, K15 the whole chain (ops/hopper/splu_upd.py,
+// splu_one.py). No float atomics: a run repeats itself bit for bit.
+//
+// What bounds it on this card: memory. The update + apply reads Lt, U12
+// (their tails), l3, u3, v, h, g and writes the new state and P' g: about
+// (4rn + 10n) floats, 13 MB (3.9 us at 3.35 TB/s) at n = 65,536, r = 10;
+// the update alone (4rn + 6n), 193 MB (58 us) at 2^20. This version reads
+// the tail factors in stages 1, 2 and 3 (and the new ones in stage 4): ~2x
+// that, and the Gram sums read shared memory twice per FMA. At small n the ten short launches bound it. Ranks up to
+// SPLU_MAX_RANK: a warp holds a rank-space vector.
+#include "psgd.cuh"
+
+#include <cfloat>
+
+#define SPLU_TILE 256            // lanes of a tile = threads of a streaming block
+#define SPLU_MAX_RANK 32
+#define SPLU_LD (SPLU_MAX_RANK + 1)
+#define SPLU_MAX_BLOCKS 1024     // grid cap of the streaming passes (bounds the partials)
+#define SPLU_MAX_PAIRS1 (2 * SPLU_MAX_RANK * SPLU_MAX_RANK + 5 * SPLU_MAX_RANK)
+#define SPLU_MAX_PAIRS2 (SPLU_MAX_RANK * (SPLU_MAX_RANK + 1) / 2 + 2 * SPLU_MAX_RANK)
+#define SPLU_PPT1 ((SPLU_MAX_PAIRS1 + SPLU_TILE - 1) / SPLU_TILE)
+#define SPLU_PPT2 ((SPLU_MAX_PAIRS2 + SPLU_TILE - 1) / SPLU_TILE)
+#define SPLU_NCOEF 8
+
+// the rank-space state passed between the launches (in scratch)
+struct SpluRank {
+    float coef2[SPLU_MAX_RANK][SPLU_NCOEF];  // Ug1 iUtx1 LtQg1 iLiQtx1 Qg1 iQtx1 Pg1 dx1
+    float coef3[SPLU_MAX_RANK][SPLU_NCOEF];  // Ug1 iUtx1 LtQg1 iLiQtx1, sl L1^T Qg1,
+                                             // sl L1^T iQtx1, su U1 Pg1, su U1 dx1
+    float ipx1[SPLU_MAX_RANK];
+    float coef4[SPLU_MAX_RANK][2];           // Ug1', LtQg1' of the apply
+    float scal[8];                           // sl, su, 1/rho, rho, max|gl1|, max|gu1|
+};
+
+__device__ __forceinline__ float splu_neg_inf() { return __int_as_float(0xff800000); }
+__host__ __device__ __forceinline__ int splu_npairs1(int r) { return 2 * r * r + 5 * r; }
+__host__ __device__ __forceinline__ int splu_npairs2(int r) { return r * (r + 1) / 2 + 2 * r; }
+
+// the idx-th pair (a <= b) of an r x r symmetric block, row-major
+__device__ __forceinline__ void splu_sym(int r, int idx, int& a, int& b) {
+    a = 0;
+    while (idx >= r - a) {
+        idx -= r - a;
+        ++a;
+    }
+    b = a + idx;
+}
+
+// The Gram entries the algebra reads, as rows (a, b) of Z.
+// which = 1, stage 1: rows L2^T 0..r-1, U2 w r..2r-1, U2 2r..3r-1, dx2 w 3r,
+//   dg2 3r+1, l3 u3 dg2 3r+2; pairs (L, L) sym, (L, W) full, (W, W) sym,
+//   (L, X), (L, G), (W, X), (U, D).
+// which = 2, the apply: rows L2^T' 0..r-1, U2' r..2r-1, l3' u3' g2 2r, g2
+//   2r+1; pairs (L', L') sym, (L', l3' u3' g2), (U', g2).
+__device__ void splu_pair(int which, int r, int idx, int& a, int& b) {
+    const int T = r * (r + 1) / 2;
+    if (idx < T) {
+        splu_sym(r, idx, a, b);
+        return;
+    }
+    idx -= T;
+    if (which == 2) {
+        if (idx < r) {
+            a = idx;
+            b = 2 * r;
+        } else {
+            a = idx;  // r + (idx - r)
+            b = 2 * r + 1;
+        }
+        return;
+    }
+    if (idx < r * r) {
+        a = idx / r;
+        b = r + idx % r;
+        return;
+    }
+    idx -= r * r;
+    if (idx < T) {
+        splu_sym(r, idx, a, b);
+        a += r;
+        b += r;
+        return;
+    }
+    idx -= T;
+    const int seg = idx / r, i = idx % r;
+    if (seg == 0) {
+        a = i;
+        b = 3 * r;
+    } else if (seg == 1) {
+        a = i;
+        b = 3 * r + 2;
+    } else if (seg == 2) {
+        a = r + i;
+        b = 3 * r;
+    } else {
+        a = 2 * r + i;
+        b = 3 * r + 1;
+    }
+}
+
+template <int PPT>
+struct SpluPairs {
+    int a[PPT], b[PPT], count;
+};
+
+// this thread's pairs: the k-th is pair threadIdx.x + k * SPLU_TILE
+template <int PPT>
+__device__ void splu_my_pairs(int which, int r, int npairs, SpluPairs<PPT>& P) {
+    P.count = 0;
+    for (int idx = threadIdx.x; idx < npairs && P.count < PPT; idx += SPLU_TILE) {
+        splu_pair(which, r, idx, P.a[P.count], P.b[P.count]);
+        ++P.count;
+    }
+}
+
+// acc[k] += sum over the tile's lanes of zs[a_k] * zs[b_k]
+template <int PPT>
+__device__ __forceinline__ void splu_add_pairs(const float* zs, const SpluPairs<PPT>& P, float* acc) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+        if (k >= P.count) break;
+        const float* za = zs + P.a[k] * (SPLU_TILE + 1);
+        const float* zb = zs + P.b[k] * (SPLU_TILE + 1);
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        for (int l = 0; l < SPLU_TILE; l += 4) {
+            s0 += za[l] * zb[l];
+            s1 += za[l + 1] * zb[l + 1];
+            s2 += za[l + 2] * zb[l + 2];
+            s3 += za[l + 3] * zb[l + 3];
+        }
+        acc[k] += (s0 + s1) + (s2 + s3);
+    }
+}
+
+template <int PPT>
+__device__ __forceinline__ void splu_store_pairs(const SpluPairs<PPT>& P, const float* acc, int npairs,
+                                                 float* part) {
+    float* out = part + (size_t)blockIdx.x * npairs;
+    for (int k = 0; k < P.count; ++k) out[(int)threadIdx.x + k * SPLU_TILE] = acc[k];
+}
+
+// max over the block (blockDim == SPLU_TILE); every thread gets the result
+__device__ __forceinline__ float splu_block_max(float v, float* red) {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float m = red[0];
+    for (int k = 1; k < SPLU_TILE / 32; ++k) m = fmaxf(m, red[k]);
+    return m;
+}
+
+// ------------------------------------------------------------------ stage 1
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, float* __restrict__ part, float* __restrict__ maxpart) {
+    extern __shared__ float zs[];
+    __shared__ float red[SPLU_TILE / 32];
+    const int nt = n - r, npairs = splu_npairs1(r), t = threadIdx.x, ld = SPLU_TILE + 1;
+    SpluPairs<SPLU_PPT1> P;
+    splu_my_pairs(1, r, npairs, P);
+    float acc[SPLU_PPT1];
+#pragma unroll
+    for (int k = 0; k < SPLU_PPT1; ++k) acc[k] = 0.f;
+    float ml = splu_neg_inf(), mu = splu_neg_inf();
+    for (int base = blockIdx.x * SPLU_TILE; base < nt; base += gridDim.x * SPLU_TILE) {
+        const int j = base + t;
+        const bool ok = j < nt;
+        float w = 0.f, x = 0.f, d = 0.f, lud = 0.f;
+        if (ok) {
+            const float l = l3[j], u = u3[j], lu = l * u;
+            ml = fmaxf(ml, l);
+            mu = fmaxf(mu, u);
+            w = 1.f / lu;
+            x = v[r + j] * w;
+            d = h[r + j];
+            lud = lu * d;
+        }
+        for (int k = 0; k < r; ++k) {
+            const size_t off = (size_t)k * n + r + j;
+            const float lk = ok ? lt[off] : 0.f, uk = ok ? u12[off] : 0.f;
+            zs[k * ld + t] = lk;
+            zs[(r + k) * ld + t] = uk * w;
+            zs[(2 * r + k) * ld + t] = uk;
+        }
+        zs[3 * r * ld + t] = x;
+        zs[(3 * r + 1) * ld + t] = d;
+        zs[(3 * r + 2) * ld + t] = lud;
+        __syncthreads();
+        splu_add_pairs(zs, P, acc);
+        __syncthreads();
+    }
+    splu_store_pairs(P, acc, npairs, part);
+    ml = splu_block_max(ml, red);
+    mu = splu_block_max(mu, red);
+    if (t == 0) {
+        maxpart[2 * blockIdx.x] = ml;
+        maxpart[2 * blockIdx.x + 1] = mu;
+    }
+}
+
+// gram[a, b] = gram[b, a] = the sum over blocks, in block order, of pair
+// e = (a, b); one warp a pair
+__global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int zdim, int npairs,
+                                                          int blocks, const float* __restrict__ part,
+                                                          float* __restrict__ gram) {
+    const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+    if (e >= npairs) return;  // uniform across the warp
+    float s = 0.f;
+    for (int k = lane; k < blocks; k += 32) s += part[(size_t)k * npairs + e];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+        int a, b;
+        splu_pair(which, r, e, a, b);
+        gram[a * zdim + b] = s;
+        gram[b * zdim + a] = s;
+    }
+}
+
+// ------------------------------------------------------------ corner kernels
+// One warp; lane k holds entry k of every rank-space vector (0 past r).
+
+// y_k = sum_j M(k, j) x_j, M = A or A^T (trans); x shared through buf
+__device__ float splu_mv(const float (*A)[SPLU_LD], bool trans, float x, int r, float* buf) {
+    const int k = threadIdx.x;
+    __syncwarp();
+    buf[k] = x;
+    __syncwarp();
+    float s = 0.f;
+    if (k < r)
+        for (int j = 0; j < r; ++j) s += (trans ? A[j][k] : A[k][j]) * buf[j];
+    return s;
+}
+
+// Solve M y = b, M = A or A^T (trans), lower (forward) or upper (backward)
+// triangular; lane k holds b_k and gets y_k. Row i's y_i is final once the
+// rows before it are folded in; the lanes below it then subtract it.
+__device__ float splu_solve(const float (*A)[SPLU_LD], bool trans, bool lower, float b, int r) {
+    const int k = threadIdx.x;
+    float y = 0.f;
+    for (int s = 0; s < r; ++s) {
+        const int i = lower ? s : r - 1 - s;
+        const float yi = __shfl_sync(0xffffffffu, b, i) / A[i][i];
+        if (k == i) y = yi;
+        if (k < r && (lower ? k > i : k < i)) b -= (trans ? A[i][k] : A[k][i]) * yi;
+    }
+    return y;
+}
+
+__device__ __forceinline__ float splu_warp_max(float v) {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// L1 (lower) and U1 (upper) of an (r, n) pair into shared memory:
+// L1[i][j] = lt[j, i], U1[i][j] = u12[i, j]
+__device__ void splu_load_corner(int n, int r, const float* lt, const float* u12,
+                                 float (*L1)[SPLU_LD], float (*U1)[SPLU_LD]) {
+    for (int e = threadIdx.x; e < r * r; e += 32) {
+        const int i = e / r, j = e % r;
+        L1[i][j] = lt[(size_t)j * n + i];
+        U1[i][j] = u12[(size_t)i * n + j];
+    }
+    __syncwarp();
+}
+
+__global__ void __launch_bounds__(32) splu_corner_a_kernel(
+    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
+    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
+    const float* __restrict__ maxpart, SpluRank* __restrict__ rk) {
+    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD];
+    __shared__ float GLW[SPLU_MAX_RANK][SPLU_LD], GLL[SPLU_MAX_RANK][SPLU_LD],
+        GWW[SPLU_MAX_RANK][SPLU_LD];
+    __shared__ float buf[32], vq[32], viq[32], vpg[32], vdg[32], vdx[32], vipx[32];
+    const int k = threadIdx.x, zdim = 3 * r + 3;
+    const bool on = k < r;
+    splu_load_corner(n, r, lt, u12, L1, U1);
+    for (int e = k; e < r * r; e += 32) {
+        const int i = e / r, j = e % r;
+        GLW[i][j] = gram[i * zdim + r + j];
+        GLL[i][j] = gram[i * zdim + j];
+        GWW[i][j] = gram[(r + i) * zdim + r + j];
+    }
+    __syncwarp();
+    const float dx1 = on ? v[k] : 0.f, dg1 = on ? h[k] : 0.f;
+    const float U2_dg = on ? gram[(2 * r + k) * zdim + 3 * r + 1] : 0.f;
+    const float L2t_dxw = on ? gram[k * zdim + 3 * r] : 0.f;
+    const float L2t_lug = on ? gram[k * zdim + 3 * r + 2] : 0.f;
+    const float U2_w2dx = on ? gram[(r + k) * zdim + 3 * r] : 0.f;
+
+    const float Ug1 = splu_mv(U1, false, dg1, r, buf) + U2_dg;
+    const float Qg1 = splu_mv(L1, false, Ug1, r, buf);
+    const float iUtx1 = splu_solve(U1, true, true, dx1, r);
+    const float L2t_iqtx2 = L2t_dxw - splu_mv(GLW, false, iUtx1, r, buf);
+    const float iQtx1 = splu_solve(L1, true, false, iUtx1 - L2t_iqtx2, r);
+    const float L2t_qg2 = splu_mv(GLL, false, Ug1, r, buf) + L2t_lug;
+    const float LtQg1 = splu_mv(L1, true, Qg1, r, buf) + L2t_qg2;
+    const float Pg1 = splu_mv(U1, true, LtQg1, r, buf);
+    const float iLiQtx1 = splu_solve(L1, false, true, iQtx1, r);
+    const float U2_ipx2 =
+        (U2_w2dx - splu_mv(GWW, false, iUtx1, r, buf)) - splu_mv(GLW, true, iLiQtx1, r, buf);
+    const float iPx1 = splu_solve(U1, false, false, iLiQtx1 - U2_ipx2, r);
+
+    // max|gl1| over the lower triangle, max|gu1| over the upper (row k)
+    vq[k] = Qg1;
+    viq[k] = iQtx1;
+    vpg[k] = Pg1;
+    vdg[k] = dg1;
+    vdx[k] = dx1;
+    vipx[k] = iPx1;
+    __syncwarp();
+    float gl = 0.f, gu = 0.f;
+    if (on) {
+        for (int j = 0; j <= k; ++j) gl = fmaxf(gl, fabsf(vq[k] * vq[j] - viq[k] * viq[j]));
+        for (int j = k; j < r; ++j) gu = fmaxf(gu, fabsf(vpg[k] * vdg[j] - vdx[k] * vipx[j]));
+    }
+    gl = splu_warp_max(gl);
+    gu = splu_warp_max(gu);
+
+    // the balance from the signed maxima of diag(L1) ∪ l3 and diag(U1) ∪ u3
+    float ml = on ? L1[k][k] : splu_neg_inf(), mu = on ? U1[k][k] : splu_neg_inf();
+    for (int b = k; b < blocks; b += 32) {
+        ml = fmaxf(ml, maxpart[2 * b]);
+        mu = fmaxf(mu, maxpart[2 * b + 1]);
+    }
+    ml = splu_warp_max(ml);
+    mu = splu_warp_max(mu);
+    if (on) {
+        float* c = rk->coef2[k];
+        c[0] = Ug1;
+        c[1] = iUtx1;
+        c[2] = LtQg1;
+        c[3] = iLiQtx1;
+        c[4] = Qg1;
+        c[5] = iQtx1;
+        c[6] = Pg1;
+        c[7] = dx1;
+        rk->ipx1[k] = iPx1;
+    }
+    if (k == 0) {
+        const float rho = sqrtf(ml / mu);
+        rk->scal[2] = 1.f / rho;
+        rk->scal[3] = rho;
+        rk->scal[4] = gl;
+        rk->scal[5] = gu;
+    }
+}
+
+// ------------------------------------------------------------------ stage 2
+
+__device__ __forceinline__ void splu_images(int n, int r, int j, const float* __restrict__ lt,
+                                            const float* __restrict__ u12, float lu, float w,
+                                            float dx, float dg, const float (*c)[SPLU_NCOEF],
+                                            float& qg2, float& iqtx2, float& pg2, float& ipx2) {
+    float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+    for (int k = 0; k < r; ++k) {
+        const size_t off = (size_t)k * n + r + j;
+        const float lk = lt[off], uk = u12[off];
+        p0 += c[k][0] * lk;
+        p1 += c[k][1] * uk;
+        p2 += c[k][2] * uk;
+        p3 += c[k][3] * lk;
+    }
+    qg2 = p0 + lu * dg;
+    iqtx2 = w * (dx - p1);
+    pg2 = p2 + lu * qg2;
+    ipx2 = w * (iqtx2 - p3);
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const SpluRank* __restrict__ rk, float* __restrict__ maxpart) {
+    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
+    __shared__ float red[SPLU_TILE / 32];
+    for (int e = threadIdx.x; e < r * SPLU_NCOEF; e += SPLU_TILE) c[e / SPLU_NCOEF][e % SPLU_NCOEF] =
+        rk->coef2[e / SPLU_NCOEF][e % SPLU_NCOEF];
+    __syncthreads();
+    const int nt = n - r;
+    float ml = 0.f, mu = 0.f;
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt; j += gridDim.x * SPLU_TILE) {
+        const float lu = l3[j] * u3[j], w = 1.f / lu, dx = v[r + j], dg = h[r + j];
+        float qg2, iqtx2, pg2, ipx2;
+        splu_images(n, r, j, lt, u12, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+        ml = fmaxf(ml, fabsf(qg2 * qg2 - iqtx2 * iqtx2));
+        mu = fmaxf(mu, fabsf(pg2 * dg - dx * ipx2));
+        for (int k = 0; k < r; ++k) {
+            ml = fmaxf(ml, fabsf(c[k][4] * qg2 - c[k][5] * iqtx2));
+            mu = fmaxf(mu, fabsf(c[k][6] * dg - c[k][7] * ipx2));
+        }
+    }
+    ml = splu_block_max(ml, red);
+    mu = splu_block_max(mu, red);
+    if (threadIdx.x == 0) {
+        maxpart[2 * blockIdx.x] = ml;
+        maxpart[2 * blockIdx.x + 1] = mu;
+    }
+}
+
+// ----------------------------------------------------------------- corner B
+
+__global__ void __launch_bounds__(32) splu_corner_b_kernel(
+    int n, int r, int blocks, float step, const float* __restrict__ lt,
+    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
+    SpluRank* __restrict__ rk, float* __restrict__ lt_out, float* __restrict__ u12_out) {
+    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD];
+    __shared__ float buf[32], vq[32], viq[32], vpg[32], vdg[32], vdx[32], vipx[32];
+    const int k = threadIdx.x;
+    const bool on = k < r;
+    splu_load_corner(n, r, lt, u12, L1, U1);
+    float ml = 0.f, mu = 0.f;
+    for (int b = k; b < blocks; b += 32) {
+        ml = fmaxf(ml, maxpart[2 * b]);
+        mu = fmaxf(mu, maxpart[2 * b + 1]);
+    }
+    ml = fmaxf(splu_warp_max(ml), rk->scal[4]);
+    mu = fmaxf(splu_warp_max(mu), rk->scal[5]);
+    const float sl = fminf(step / (ml + psgd_tiny()), FLT_MAX);
+    const float su = fminf(step / (mu + psgd_tiny()), FLT_MAX);
+    const float inv_rho = rk->scal[2], rho = rk->scal[3];
+
+    float c[SPLU_NCOEF] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (on)
+        for (int q = 0; q < SPLU_NCOEF; ++q) c[q] = rk->coef2[k][q];
+    const float ipx = on ? rk->ipx1[k] : 0.f, dg1 = on ? h[k] : 0.f;
+    vq[k] = c[4];
+    viq[k] = c[5];
+    vpg[k] = c[6];
+    vdx[k] = c[7];
+    vipx[k] = ipx;
+    vdg[k] = dg1;
+    const float c4 = sl * splu_mv(L1, true, c[4], r, buf);
+    const float c5 = sl * splu_mv(L1, true, c[5], r, buf);
+    const float c6 = su * splu_mv(U1, false, c[6], r, buf);
+    const float c7 = su * splu_mv(U1, false, c[7], r, buf);
+    __syncwarp();
+    if (on) {
+        float* o = rk->coef3[k];
+        o[0] = c[0];
+        o[1] = c[1];
+        o[2] = c[2];
+        o[3] = c[3];
+        o[4] = c4;
+        o[5] = c5;
+        o[6] = c6;
+        o[7] = c7;
+        // row k of L1' = (L1 - sl gl1 L1) / rho, gl1 = tril(Qg1 Qg1^T - iQtx1 iQtx1^T),
+        // stored as column k of Lt's corner; exact zeros above the diagonal
+        for (int j = 0; j < r; ++j) {
+            float y = 0.f;
+            if (j <= k) {
+                float s = 0.f;
+                for (int q = 0; q <= k; ++q) s += (vq[k] * vq[q] - viq[k] * viq[q]) * L1[q][j];
+                y = inv_rho * (L1[k][j] - sl * s);
+            }
+            lt_out[(size_t)j * n + k] = y;
+        }
+        // row k of U1' = rho (U1 - su U1 gu1), gu1 = triu(Pg1 dg1^T - dx1 iPx1^T)
+        for (int j = 0; j < r; ++j) {
+            float y = 0.f;
+            if (j >= k) {
+                float s = 0.f;
+                for (int q = 0; q <= j; ++q) s += U1[k][q] * (vpg[q] * vdg[j] - vdx[q] * vipx[j]);
+                y = rho * (U1[k][j] - su * s);
+            }
+            u12_out[(size_t)k * n + j] = y;
+        }
+    }
+    if (k == 0) {
+        rk->scal[0] = sl;
+        rk->scal[1] = su;
+    }
+}
+
+// ------------------------------------------------------------------ stage 3
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const float* __restrict__ g, const SpluRank* __restrict__ rk,
+    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
+    float* __restrict__ u3_out, float* __restrict__ part) {
+    extern __shared__ float zs[];
+    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
+    const int t = threadIdx.x, nt = n - r, ld = SPLU_TILE + 1, npairs = splu_npairs2(r);
+    for (int e = t; e < r * SPLU_NCOEF; e += SPLU_TILE) c[e / SPLU_NCOEF][e % SPLU_NCOEF] =
+        rk->coef3[e / SPLU_NCOEF][e % SPLU_NCOEF];
+    const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
+    SpluPairs<SPLU_PPT2> P;
+    P.count = 0;
+    if (g) splu_my_pairs(2, r, npairs, P);
+    float acc[SPLU_PPT2];
+#pragma unroll
+    for (int k = 0; k < SPLU_PPT2; ++k) acc[k] = 0.f;
+    __syncthreads();
+    for (int base = blockIdx.x * SPLU_TILE; base < nt; base += gridDim.x * SPLU_TILE) {
+        const int j = base + t;
+        if (j < nt) {
+            const float l = l3[j], u = u3[j], lu = l * u, w = 1.f / lu, dx = v[r + j], dg = h[r + j];
+            float qg2, iqtx2, pg2, ipx2;
+            splu_images(n, r, j, lt, u12, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+            const float gl3 = qg2 * qg2 - iqtx2 * iqtx2, gu3 = pg2 * dg - dx * ipx2;
+            for (int k = 0; k < r; ++k) {
+                const size_t off = (size_t)k * n + r + j;
+                const float lk = lt[off], uk = u12[off];
+                const float nl = inv_rho * (lk - (c[k][4] * qg2 - c[k][5] * iqtx2) - sl * gl3 * lk);
+                const float nu = rho * (uk - (c[k][6] * dg - c[k][7] * ipx2) - su * gu3 * uk);
+                lt_out[off] = nl;
+                u12_out[off] = nu;
+                if (g) {
+                    zs[k * ld + t] = nl;
+                    zs[(r + k) * ld + t] = nu;
+                }
+            }
+            const float nl3 = inv_rho * (l - sl * gl3 * l), nu3 = rho * (u - su * gu3 * u);
+            l3_out[j] = nl3;
+            u3_out[j] = nu3;
+            if (g) {
+                const float gj = g[r + j];
+                zs[2 * r * ld + t] = nl3 * nu3 * gj;
+                zs[(2 * r + 1) * ld + t] = gj;
+            }
+        } else if (g) {
+            for (int k = 0; k < 2 * r + 2; ++k) zs[k * ld + t] = 0.f;
+        }
+        if (g) {
+            __syncthreads();
+            splu_add_pairs(zs, P, acc);
+            __syncthreads();
+        }
+    }
+    if (g) splu_store_pairs(P, acc, npairs, part);
+}
+
+// ------------------------------------------------------- corner C, stage 4
+
+__global__ void __launch_bounds__(32) splu_corner_c_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
+    const float* __restrict__ g, const float* __restrict__ gram2, SpluRank* __restrict__ rk,
+    float* __restrict__ pre) {
+    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD],
+        GLL[SPLU_MAX_RANK][SPLU_LD];
+    __shared__ float buf[32];
+    const int k = threadIdx.x, zdim = 2 * r + 2;
+    const bool on = k < r;
+    splu_load_corner(n, r, lt_out, u12_out, L1, U1);
+    for (int e = k; e < r * r; e += 32) GLL[e / r][e % r] = gram2[(e / r) * zdim + e % r];
+    __syncwarp();
+    const float g1 = on ? g[k] : 0.f;
+    const float U2g = on ? gram2[(r + k) * zdim + 2 * r + 1] : 0.f;
+    const float L2lug = on ? gram2[k * zdim + 2 * r] : 0.f;
+    const float Ug1 = splu_mv(U1, false, g1, r, buf) + U2g;
+    const float Qg1 = splu_mv(L1, false, Ug1, r, buf);
+    const float LtQg1 = splu_mv(L1, true, Qg1, r, buf) + splu_mv(GLL, false, Ug1, r, buf) + L2lug;
+    const float pre1 = splu_mv(U1, true, LtQg1, r, buf);
+    if (on) {
+        pre[k] = pre1;
+        rk->coef4[k][0] = Ug1;
+        rk->coef4[k][1] = LtQg1;
+    }
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ l3_out,
+    const float* __restrict__ u12_out, const float* __restrict__ u3_out,
+    const float* __restrict__ g, const SpluRank* __restrict__ rk, float* __restrict__ pre) {
+    __shared__ float c[SPLU_MAX_RANK][2];
+    for (int e = threadIdx.x; e < 2 * r; e += SPLU_TILE) c[e / 2][e % 2] = rk->coef4[e / 2][e % 2];
+    __syncthreads();
+    const int j = blockIdx.x * SPLU_TILE + threadIdx.x;
+    if (j >= n - r) return;
+    float a = 0.f, b = 0.f;
+    for (int k = 0; k < r; ++k) {
+        const size_t off = (size_t)k * n + r + j;
+        a += c[k][0] * lt_out[off];
+        b += c[k][1] * u12_out[off];
+    }
+    const float lu = l3_out[j] * u3_out[j];
+    pre[r + j] = b + lu * (a + lu * g[r + j]);
+}
+
+// ------------------------------------------------------------------ host side
+
+static size_t splu_smem1(int r) { return sizeof(float) * (size_t)(3 * r + 3) * (SPLU_TILE + 1); }
+static size_t splu_smem3(int r) { return sizeof(float) * (size_t)(2 * r + 2) * (SPLU_TILE + 1); }
+
+static cudaError_t splu_smem_attrs() {
+    static bool done = false;
+    if (done) return cudaSuccess;
+    cudaError_t e = cudaFuncSetAttribute(splu_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)splu_smem1(SPLU_MAX_RANK));
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(splu_stage3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)splu_smem3(SPLU_MAX_RANK));
+    done = e == cudaSuccess;
+    return e;
+}
+
+static int splu_blocks(int nt) {
+    const int tiles = (nt + SPLU_TILE - 1) / SPLU_TILE;
+    return tiles < SPLU_MAX_BLOCKS ? tiles : SPLU_MAX_BLOCKS;
+}
+
+struct SpluScratch {
+    float *part1, *max1, *gram1, *max2, *part2, *gram2;
+    SpluRank* rk;
+};
+
+static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
+    const size_t blocks = splu_blocks(n - r), z1 = 3 * r + 3, z2 = 2 * r + 2;
+    const size_t sizes[] = {blocks * splu_npairs1(r), 2 * blocks, z1 * z1, 2 * blocks,
+                            blocks * splu_npairs2(r), z2 * z2, sizeof(SpluRank) / sizeof(float)};
+    float** slots[] = {&s->part1, &s->max1, &s->gram1, &s->max2, &s->part2, &s->gram2, nullptr};
+    size_t off = 0;
+    for (int k = 0; k < 7; ++k) {
+        if (base) {
+            if (slots[k]) *slots[k] = base + off;
+            else s->rk = reinterpret_cast<SpluRank*>(base + off);
+        }
+        off += psgd_align4(sizes[k]);
+    }
+    return off;
+}
+
+extern "C" size_t psgd_splu_scratch_floats(int n, int r) {
+    SpluScratch s;
+    return splu_carve(n, r, nullptr, &s);
+}
+
+// The update of (lt, l3, u12, u3) into the *_out arrays (which must not
+// alias the inputs); with g (non-null) also pre = P' g of the new state.
+extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, const void* u12p,
+                                const void* u3p, const void* vp, const void* hp, const void* gp,
+                                float step, void* lt_outp, void* l3_outp, void* u12_outp,
+                                void* u3_outp, void* prep, void* scratch, void* stream_ptr) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = splu_smem_attrs();
+    if (e != cudaSuccess) return (int)e;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto o = [](void* p) { return static_cast<float*>(p); };
+    const float *lt = f(ltp), *l3 = f(l3p), *u12 = f(u12p), *u3 = f(u3p), *v = f(vp), *h = f(hp),
+                *g = f(gp);
+    float *lt_out = o(lt_outp), *l3_out = o(l3_outp), *u12_out = o(u12_outp), *u3_out = o(u3_outp);
+    SpluScratch s;
+    splu_carve(n, r, static_cast<float*>(scratch), &s);
+    const int nt = n - r, blocks = splu_blocks(nt);
+    const int np1 = splu_npairs1(r), np2 = splu_npairs2(r);
+
+    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(n, r, lt, l3, u12, u3, v, h,
+                                                                    s.part1, s.max1);
+    splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(1, r, 3 * r + 3, np1, blocks,
+                                                                   s.part1, s.gram1);
+    splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, blocks, lt, u12, v, h, s.gram1, s.max1, s.rk);
+    splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk, s.max2);
+    splu_corner_b_kernel<<<1, 32, 0, stream>>>(n, r, blocks, step, lt, u12, h, s.max2, s.rk, lt_out,
+                                               u12_out);
+    splu_stage3_kernel<<<blocks, SPLU_TILE, g ? splu_smem3(r) : 0, stream>>>(
+        n, r, lt, l3, u12, u3, v, h, g, s.rk, lt_out, l3_out, u12_out, u3_out, s.part2);
+    if (g) {
+        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 2 * r + 2, np2, blocks,
+                                                                       s.part2, s.gram2);
+        splu_corner_c_kernel<<<1, 32, 0, stream>>>(n, r, lt_out, u12_out, g, s.gram2, s.rk, o(prep));
+        splu_stage4_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+            n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk, o(prep));
+    }
+    return (int)cudaGetLastError();
+}

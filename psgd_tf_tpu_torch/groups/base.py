@@ -8,9 +8,9 @@ module over a state object, with three entry points:
     apply(state, g)                -> pre_grad   # P @ g with P = Q^T Q
 
 `v` is the random probe and `h` the Hessian-vector product H v. The kron
-family consumes per-tensor matrices; the flat families (dense, diag, lra)
-consume the raveled parameter vector, and dense and lra add
-`update_apply(state, v, h, g, step) -> (state, P' g)`. lra's `update`
+family consumes per-tensor matrices; the flat families (dense, diag, xmat,
+shift, splu, lra) consume the raveled parameter vector, and dense, splu
+and lra add `update_apply(state, v, h, g, step) -> (state, P' g)`. lra's `update`
 takes its two coins as `coins=(balance, update_u)` where the JAX package
 takes a key.
 """

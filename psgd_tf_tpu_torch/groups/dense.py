@@ -28,7 +28,7 @@ class DenseState:
 
 
 def init(n: int, init_scale: float = 1.0, dtype=torch.float32,
-         device: torch.device | str = "cpu") -> DenseState:
+         device: torch.device | str = "cuda") -> DenseState:
     """Identity-scaled init (`hello_psgd` uses 0.1 I)."""
     return DenseState(Q=init_scale * torch.eye(n, dtype=dtype, device=device))
 

@@ -25,7 +25,7 @@ class DiagState:
 
 
 def init(n: int, init_scale: float = 1.0, dtype=torch.float32,
-         device: torch.device | str = "cpu") -> DiagState:
+         device: torch.device | str = "cuda") -> DiagState:
     return DiagState(q=torch.full((n,), init_scale, dtype=dtype, device=device))
 
 

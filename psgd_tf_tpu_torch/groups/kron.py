@@ -89,7 +89,7 @@ def init(
     fmt: tuple[Format, Format] | Literal["auto"] = "auto",
     init_scale: float = 1.0,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> KronState:
     m, n = shape
     if fmt == "auto":

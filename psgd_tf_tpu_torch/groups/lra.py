@@ -37,7 +37,7 @@ class LRAState:
 
 
 def init(generator: torch.Generator, n: int, rank: int = 10, init_scale: float = 1.0,
-         dtype=torch.float32, device: torch.device | str = "cpu") -> LRAState:
+         dtype=torch.float32, device: torch.device | str = "cuda") -> LRAState:
     """U, V ~ N(0, 1/(n r)) drawn on the generator's device, d = init_scale."""
     scale = (1.0 / (n * rank)) ** 0.5
     uv = torch.randn(2 * rank, n, generator=generator, dtype=dtype, device=generator.device)

@@ -15,6 +15,9 @@ from psgd_tf_tpu_torch.groups.dense import DenseState
 from psgd_tf_tpu_torch.groups.diag import DiagState
 from psgd_tf_tpu_torch.groups.kron import KronState
 from psgd_tf_tpu_torch.groups.lra import LRAState
+from psgd_tf_tpu_torch.groups.shift import ShiftState
+from psgd_tf_tpu_torch.groups.splu import SpLUState
+from psgd_tf_tpu_torch.groups.xmat import XMatState
 
 
 def tensors(arrays: Sequence[np.ndarray], device: torch.device | str = "cpu") -> list[torch.Tensor]:
@@ -49,3 +52,22 @@ def lra_state(UV: np.ndarray, d: np.ndarray, device: torch.device | str = "cpu")
     """From a JAX LRAState's packed `np.asarray(s.UV)` and `np.asarray(s.d)`."""
     uv, dd = tensors([UV, d], device)
     return LRAState(UV=uv, d=dd)
+
+
+def splu_state(Lt: np.ndarray, l3: np.ndarray, U12: np.ndarray, u3: np.ndarray,
+               device: torch.device | str = "cpu") -> SpLUState:
+    """From a JAX SpLUState's fields, or a SpLUStreamState's logical views
+    (`np.asarray(s.Lt)`, `s.l3`, `s.U12`, `s.u3`: both are (r, n), (n - r,))."""
+    return SpLUState(*tensors([Lt, l3, U12, u3], device))
+
+
+def xmat_state(af: np.ndarray, bf: np.ndarray, ac: np.ndarray, odd: bool,
+               device: torch.device | str = "cpu") -> XMatState:
+    """From a JAX XMatState's folded `af`, `bf`, `ac` and its `odd`."""
+    return XMatState(*tensors([af, bf, ac], device), odd=bool(odd))
+
+
+def shift_state(af: np.ndarray, bf: np.ndarray, ac: np.ndarray, odd: bool,
+                device: torch.device | str = "cpu") -> ShiftState:
+    """From a JAX ShiftState's folded `af`, `bf`, `ac` and its `odd`."""
+    return ShiftState(*tensors([af, bf, ac], device), odd=bool(odd))

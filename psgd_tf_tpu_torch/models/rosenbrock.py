@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 
-def init(dtype=torch.float32, device: torch.device | str = "cpu") -> list[torch.Tensor]:
+def init(dtype=torch.float32, device: torch.device | str = "cuda") -> list[torch.Tensor]:
     """The reference's starting point (-1, 1)."""
     return [torch.tensor(-1.0, dtype=dtype, device=device),
             torch.tensor(1.0, dtype=dtype, device=device)]

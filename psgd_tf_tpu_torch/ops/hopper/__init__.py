@@ -14,6 +14,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     fused apply (K11 / K12: one streaming chain, `csrc/dense.cu`, counted
     under the JAX package's two routes).
   - lra_upd: the low-rank family's streaming stages (K13, `csrc/lra.cu`).
+  - splu_one / splu_upd: the sparse-LU family's update with the fused
+    apply (K15) and its streaming update (K16): one chain with the corner
+    algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX
+    package's two routes.
 
 Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
 CPU (the CPU path, and the oracle the kernels are checked against), and
@@ -33,7 +37,7 @@ import torch
 counts: dict[str, int] = {
     "tri": 0, "kron_dd": 0, "kron_multi": 0, "kron_sparse": 0,
     "kron_sparse_big_ns": 0, "kron_sparse_big_ds": 0,
-    "lra_upd": 0, "dense_upd": 0, "dense_big": 0,
+    "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
 }
 _disabled_depth = 0
 

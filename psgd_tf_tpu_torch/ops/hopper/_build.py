@@ -57,6 +57,10 @@ _SIGNATURES = {
     "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 8),
     "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 12),
     "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
+    "psgd_splu_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_splu_update": (
+        ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 7,
+    ),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,231 @@
+"""K16: the sparse-LU family's streaming update, and the chain K15 shares.
+
+Replaces `psgd_tf_tpu/ops/pallas/splu_upd.py` `_update_impl` (:636),
+reached through `fused_update_stream` (:861) and `fused_update` (:913),
+with its routed `pallas_call`s at :686 (`_stage1_kernel`, the packed
+Gram), :749 (`_stage2_kernel`, the tail images and exact maxima) and :787
+(`_stage3_kernel`, the rewrite). The corner algebra between those stages
+is `jnp` in JAX; here it runs in single-warp kernels on the device, so
+the chain waits for the host nowhere.
+
+The state stays at its logical shapes, which the kernels read in place:
+Lt (r, n) = [L1^T | L2^T], U12 (r, n) = [U1 | U2], l3 and u3 (n - r,);
+the tail is lanes r.. of every row, and the ragged last tile is masked.
+The chain (`csrc/splu.cu`, one C entry point, all on one stream):
+
+  stage 1   Gram Z Z^T of Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2],
+            w = 1/(l3 u3), only the entries the algebra reads, as
+            per-block partials summed in a fixed order; max l3, max u3
+  corner A  the four r x r triangular solves and the rank-space vectors
+            (Ug1, Qg1, iUtx1, iQtx1, LtQg1, Pg1, iLiQtx1, iPx1), max|gl1|,
+            max|gu1|, the balance rho from the signed maxima
+  stage 2   the tail images and max|gl2|, max|gl3|, max|gu2|, max|gu3|
+  corner B  the step scales sl, su (saturating, `linalg.step_scale`), the
+            stage-3 coefficients, and the corner rewrite L1', U1'
+  stage 3   L2^T', U2', l3', u3'; with g also the apply Gram of
+            [L2^T'; U2'; l3' u3' g2; g2]
+  corner C  with g: the apply's rank-space vectors and P' g on the corner
+  stage 4   with g: the tail of P' g
+
+Balancing (L / rho, U * rho) leaves Q = L U, every probe image and both
+step scales unchanged, so it folds into the stage-3 outputs and the
+corner rewrite (JAX :765-784): the result equals the direct form, which
+balances up front, to rounding. K16 runs stages 1-3 (`groups/splu`
+applies the updated state in torch after it, as JAX's `_apply_stream`
+does); K15 (`splu_one`) runs the whole chain.
+
+Each stage has a plain torch version below: the chain of them is what a
+wrapper runs for CPU tensors and inside `hopper.disabled()`, so that the
+algebra runs, and is held to the JAX package, without a card. The direct
+form (`groups/splu.update_plain`) is the independent oracle.
+"""
+from __future__ import annotations
+
+import torch
+
+from psgd_tf_tpu_torch.ops import hopper, linalg
+from psgd_tf_tpu_torch.ops.hopper import _build
+
+MAX_RANK = 32  # SPLU_MAX_RANK in csrc/splu.cu: one warp holds a rank-space vector
+
+
+# ------------------------------------------------------------ the stages, plain
+
+def _tail_images(L2t, U2, l3, u3, dx2, dg2, coef):
+    """(qg2, iqtx2, pg2, ipx2) per lane from coef columns 0-3 (Ug1, iUtx1,
+    LtQg1, iLiQtx1)."""
+    lu = l3 * u3
+    w = 1.0 / lu
+    qg2 = coef[:, 0] @ L2t + lu * dg2
+    iqtx2 = w * (dx2 - coef[:, 1] @ U2)
+    pg2 = coef[:, 2] @ U2 + lu * qg2
+    ipx2 = w * (iqtx2 - coef[:, 3] @ L2t)
+    return qg2, iqtx2, pg2, ipx2
+
+
+def stage1_plain(Lt, l3, U12, u3, v, h):
+    """(Z Z^T, [max l3, max u3]) with Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2]."""
+    r = U12.shape[0]
+    U2 = U12[:, r:]
+    lu = l3 * u3
+    w = 1.0 / lu
+    z = torch.cat([Lt[:, r:], U2 * w, U2, (v[r:] * w)[None], h[r:][None], (lu * h[r:])[None]])
+    return z @ z.T, torch.stack([l3.max(), u3.max()])
+
+
+def corner_a_plain(Lt, U12, v, h, gram, maxs3):
+    """The corner solves and rank-space vectors: (rs (r, 10) = [Ug1, iUtx1,
+    LtQg1, iLiQtx1, Qg1, iQtx1, Pg1, dx1, iPx1, dg1], [rho, max|gl1|, max|gu1|])."""
+    r = U12.shape[0]
+    L1, U1 = Lt[:, :r].T, U12[:, :r]
+    dx1, dg1 = v[:r], h[:r]
+    iL, iW, iU = slice(0, r), slice(r, 2 * r), slice(2 * r, 3 * r)
+    iX, iD, iG = 3 * r, 3 * r + 1, 3 * r + 2
+    G_LW, G_LL, G_WW = gram[iL, iW], gram[iL, iL], gram[iW, iW]
+
+    Ug1 = U1 @ dg1 + gram[iU, iD]
+    Qg1 = L1 @ Ug1
+    iUtx1 = linalg.solve_ut_t(U1, dx1)
+    iQtx1 = linalg.solve_lt_t(L1, iUtx1 - (gram[iL, iX] - G_LW @ iUtx1))
+    LtQg1 = L1.T @ Qg1 + (G_LL @ Ug1 + gram[iL, iG])
+    Pg1 = U1.T @ LtQg1
+    iLiQtx1 = linalg.solve_lt(L1, iQtx1)
+    iPx1 = linalg.solve_ut(U1, iLiQtx1 - ((gram[iW, iX] - G_WW @ iUtx1) - G_LW.T @ iLiQtx1))
+
+    gl1 = torch.tril(torch.outer(Qg1, Qg1) - torch.outer(iQtx1, iQtx1))
+    gu1 = torch.triu(torch.outer(Pg1, dg1) - torch.outer(dx1, iPx1))
+    max_l = torch.maximum(torch.diagonal(L1).max(), maxs3[0])
+    max_u = torch.maximum(torch.diagonal(U1).max(), maxs3[1])
+    rs = torch.stack([Ug1, iUtx1, LtQg1, iLiQtx1, Qg1, iQtx1, Pg1, dx1, iPx1, dg1], 1)
+    return rs, torch.stack([torch.sqrt(max_l / max_u), linalg.max_abs(gl1), linalg.max_abs(gu1)])
+
+
+def stage2_plain(Lt, l3, U12, u3, v, h, coef):
+    """[max(|gl2|, |gl3|), max(|gu2|, |gu3|)] over the tail; coef (r, 8) =
+    [Ug1, iUtx1, LtQg1, iLiQtx1, Qg1, iQtx1, Pg1, dx1]."""
+    r = U12.shape[0]
+    dx2, dg2 = v[r:], h[r:]
+    qg2, iqtx2, pg2, ipx2 = _tail_images(Lt[:, r:], U12[:, r:], l3, u3, dx2, dg2, coef)
+    gl3 = qg2 * qg2 - iqtx2 * iqtx2
+    gu3 = pg2 * dg2 - dx2 * ipx2
+    gl2 = coef[:, 4, None] * qg2 - coef[:, 5, None] * iqtx2
+    gu2 = coef[:, 6, None] * dg2 - coef[:, 7, None] * ipx2
+    return torch.stack([torch.maximum(linalg.max_abs(gl2), linalg.max_abs(gl3)),
+                        torch.maximum(linalg.max_abs(gu2), linalg.max_abs(gu3))])
+
+
+def corner_b_plain(Lt, U12, rs, cs, maxs2, step):
+    """(coef3 (r, 8), [sl, su, 1/rho, rho], L1', U1'): the step scales, the
+    stage-3 coefficients and the balanced corner rewrite."""
+    r = U12.shape[0]
+    f32 = torch.float32
+    L1, U1 = Lt[:, :r].T, U12[:, :r]
+    Qg1, iQtx1, Pg1, dx1, iPx1, dg1 = rs[:, 4], rs[:, 5], rs[:, 6], rs[:, 7], rs[:, 8], rs[:, 9]
+    rho = cs[0]
+    inv_rho = 1.0 / rho
+    sl = linalg.step_scale(step, torch.maximum(cs[1], maxs2[0]), f32)
+    su = linalg.step_scale(step, torch.maximum(cs[2], maxs2[1]), f32)
+    gl1 = torch.tril(torch.outer(Qg1, Qg1) - torch.outer(iQtx1, iQtx1))
+    gu1 = torch.triu(torch.outer(Pg1, dg1) - torch.outer(dx1, iPx1))
+    new_l1 = torch.tril(inv_rho * (L1 - sl * (gl1 @ L1)))
+    new_u1 = torch.triu(rho * (U1 - su * (U1 @ gu1)))
+    coef3 = torch.cat([rs[:, :4], torch.stack([sl * (L1.T @ Qg1), sl * (L1.T @ iQtx1),
+                                               su * (U1 @ Pg1), su * (U1 @ dx1)], 1)], 1)
+    return coef3, torch.stack([sl, su, inv_rho, rho]), new_l1, new_u1
+
+
+def stage3_plain(Lt, l3, U12, u3, v, h, coef, scal, g=None):
+    """(L2^T', U2', l3', u3', apply Gram or None): the tail rewrite; with g
+    also the Gram of [L2^T'; U2'; l3' u3' g2; g2]."""
+    r = U12.shape[0]
+    L2t, U2 = Lt[:, r:], U12[:, r:]
+    dx2, dg2 = v[r:], h[r:]
+    sl, su, inv_rho, rho = scal
+    qg2, iqtx2, pg2, ipx2 = _tail_images(L2t, U2, l3, u3, dx2, dg2, coef)
+    gl3 = qg2 * qg2 - iqtx2 * iqtx2
+    gu3 = pg2 * dg2 - dx2 * ipx2
+    new_l2t = inv_rho * (L2t - (coef[:, 4, None] * qg2 - coef[:, 5, None] * iqtx2) - sl * gl3 * L2t)
+    new_u2 = rho * (U2 - (coef[:, 6, None] * dg2 - coef[:, 7, None] * ipx2) - su * gu3 * U2)
+    new_l3 = inv_rho * (l3 - sl * gl3 * l3)
+    new_u3 = rho * (u3 - su * gu3 * u3)
+    if g is None:
+        return new_l2t, new_u2, new_l3, new_u3, None
+    g2 = g[r:]
+    z2 = torch.cat([new_l2t, new_u2, (new_l3 * new_u3 * g2)[None], g2[None]])
+    return new_l2t, new_u2, new_l3, new_u3, z2 @ z2.T
+
+
+def corner_c_plain(new_l1, new_u1, g1, gram2):
+    """(P' g on the corner, coef4 (r, 2) = [Ug1', LtQg1'])."""
+    r = new_l1.shape[0]
+    iL = slice(0, r)
+    ug1 = new_u1 @ g1 + gram2[r:2 * r, 2 * r + 1]
+    qg1 = new_l1 @ ug1
+    ltqg1 = new_l1.T @ qg1 + gram2[iL, iL] @ ug1 + gram2[iL, 2 * r]
+    return new_u1.T @ ltqg1, torch.stack([ug1, ltqg1], 1)
+
+
+def stage4_plain(new_l2t, new_u2, new_l3, new_u3, g2, coef4):
+    """The tail of P' g: U2'^T LtQg1' + l3' u3' (L2' Ug1' + l3' u3' g2)."""
+    lu = new_l3 * new_u3
+    return coef4[:, 1] @ new_u2 + lu * (coef4[:, 0] @ new_l2t + lu * g2)
+
+
+def chain_plain(Lt, l3, U12, u3, v, h, step, g=None):
+    """The stages in torch: (Lt', l3', U12', u3', P' g or None)."""
+    r = U12.shape[0]
+    gram, maxs3 = stage1_plain(Lt, l3, U12, u3, v, h)
+    rs, cs = corner_a_plain(Lt, U12, v, h, gram, maxs3)
+    maxs2 = stage2_plain(Lt, l3, U12, u3, v, h, rs[:, :8])
+    coef3, scal, new_l1, new_u1 = corner_b_plain(Lt, U12, rs, cs, maxs2, step)
+    new_l2t, new_u2, new_l3, new_u3, gram2 = stage3_plain(Lt, l3, U12, u3, v, h, coef3, scal, g)
+    out = (torch.cat([new_l1.T, new_l2t], 1), new_l3, torch.cat([new_u1, new_u2], 1), new_u3)
+    if g is None:
+        return out + (None,)
+    pre1, coef4 = corner_c_plain(new_l1, new_u1, g[:r], gram2)
+    return out + (torch.cat([pre1, stage4_plain(new_l2t, new_u2, new_l3, new_u3, g[r:], coef4)]),)
+
+
+# ------------------------------------------------------------ the chain, kernels
+
+def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
+    """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
+    P' g or None). Counts one launch of `name`."""
+    r, n = U12.shape
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"{name}: rank {r} must be in [1, {MAX_RANK}]")
+    if n - r < 1:
+        raise ValueError(f"{name}: needs n - r >= 1, got n = {n}, r = {r}")
+    vecs = [v, h] + ([g] if g is not None else [])
+    if (Lt.shape != (r, n) or l3.shape != (n - r,) or u3.shape != (n - r,)
+            or any(x.shape != (n,) for x in vecs)):
+        raise ValueError(f"{name}: operand shapes do not agree")
+    hopper.check_operands(name, Lt, l3, U12, u3, *vecs)
+    lib = _build.lib()
+    new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
+    pre = torch.empty_like(v) if g is not None else None
+    scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), dtype=torch.float32, device=Lt.device)
+    rc = lib.psgd_splu_update(
+        n, r, Lt.data_ptr(), l3.data_ptr(), U12.data_ptr(), u3.data_ptr(), v.data_ptr(),
+        h.data_ptr(), g.data_ptr() if g is not None else None, float(step), new_lt.data_ptr(),
+        new_l3.data_ptr(), new_u12.data_ptr(), new_u3.data_ptr(),
+        pre.data_ptr() if pre is not None else None, scratch.data_ptr(),
+        torch.cuda.current_stream(Lt.device).cuda_stream,
+    )
+    _build.check(rc, f"{name} kernel chain")
+    hopper.counts[name] += 1
+    return new_lt, new_l3, new_u12, new_u3, pre
+
+
+def run(name: str, Lt, l3, U12, u3, v, h, step, g=None):
+    """(Lt', l3', U12', u3', P' g or None): the plain chain for CPU tensors
+    and inside `hopper.disabled()`, the kernels, counted as `name`, for
+    CUDA tensors."""
+    if not hopper.use_kernel(Lt):
+        return chain_plain(Lt, l3, U12, u3, v, h, step, g)
+    return launch(name, Lt, l3, U12, u3, v, h, step, g)
+
+
+def fused_update(Lt, l3, U12, u3, v, h, step):
+    """One streaming update: (Lt', l3', U12', u3')."""
+    return run("splu_upd", Lt, l3, U12, u3, v, h, step)[:4]

@@ -17,7 +17,10 @@ __all__ = [
     "max_abs",
     "triu",
     "tril",
+    "solve_ut",
     "solve_ut_t",
+    "solve_lt",
+    "solve_lt_t",
     "solve_small",
     "step_scale",
     "triu_outer_diff_matmul",
@@ -42,8 +45,9 @@ def delta_scale(dtype: torch.dtype) -> float:
 
 
 def max_abs(x: torch.Tensor) -> torch.Tensor:
-    """max |x| over all entries — the Lie-group step normalizer."""
-    return x.abs().amax()
+    """max |x| over all entries — the Lie-group step normalizer; 0 for an
+    empty x (an splu tail when rank >= n, xmat's pairs when n = 1)."""
+    return x.abs().amax() if x.numel() else x.new_zeros(())
 
 
 def triu(x: torch.Tensor) -> torch.Tensor:
@@ -56,16 +60,34 @@ def tril(x: torch.Tensor) -> torch.Tensor:
     return torch.tril(x)
 
 
-def solve_ut_t(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve U^T x = b with U upper triangular, in fp32 (or wider) even for
-    half-precision states: substitution amplifies rounding."""
-    out_dtype = torch.promote_types(u.dtype, b.dtype)
+def _solve_tri(a: torch.Tensor, b: torch.Tensor, *, upper: bool) -> torch.Tensor:
+    """Solve a x = b with `a` triangular (`upper` says which), in fp32 (or
+    wider) even for half-precision states: substitution amplifies rounding."""
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
     compute = torch.promote_types(out_dtype, torch.float32)
     b2 = b[:, None] if b.ndim == 1 else b
-    out = torch.linalg.solve_triangular(
-        u.to(compute).mT, b2.to(compute), upper=False
-    ).to(out_dtype)
+    out = torch.linalg.solve_triangular(a.to(compute), b2.to(compute), upper=upper).to(out_dtype)
     return out[:, 0] if b.ndim == 1 else out
+
+
+def solve_ut(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve U x = b with U upper triangular."""
+    return _solve_tri(u, b, upper=True)
+
+
+def solve_ut_t(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve U^T x = b with U upper triangular."""
+    return _solve_tri(u.mT, b, upper=False)
+
+
+def solve_lt(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L x = b with L lower triangular."""
+    return _solve_tri(l, b, upper=False)
+
+
+def solve_lt_t(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L^T x = b with L lower triangular."""
+    return _solve_tri(l.mT, b, upper=True)
 
 
 def solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,10 @@ the shape, or 'auto'); every step updates all the Kronecker factors
 through `kron.update_multi`, which routes each layer to its kernel as
 `kron.route` reports.
 
-'dense', 'diag' and 'lra' precondition the flattened parameter vector: the
-tensors raveled in list order and concatenated (the JAX package's
-`ravel_pytree` order for the same leaves). 'xmat', 'shift' and 'splu'
-raise NotImplementedError: they come with ROADMAP queue 1's next slice.
+'dense', 'diag', 'xmat', 'shift', 'splu' and 'lra' precondition the
+flattened parameter vector: the tensors raveled in list order and
+concatenated (the JAX package's `ravel_pytree` order for the same leaves).
+`rank` is lra's rank and splu's corner order.
 
 `generator` is a `torch.Generator` on the parameters' device; the probes of
 the Hvp are drawn from it (one flat probe for the flat families). The
@@ -36,11 +36,11 @@ from typing import Any, Callable, Sequence
 import torch
 
 from psgd_tf_tpu_torch import hvp
-from psgd_tf_tpu_torch.groups import dense, diag, kron, lra
+from psgd_tf_tpu_torch.groups import dense, diag, kron, lra, shift, splu, xmat
 from psgd_tf_tpu_torch.ops import linalg
 
-_FLAT_FAMILIES = {"dense": dense, "diag": diag, "lra": lra}
-_UNPORTED = ("xmat", "shift", "splu")
+_FLAT_FAMILIES = {"dense": dense, "diag": diag, "xmat": xmat, "shift": shift, "splu": splu,
+                  "lra": lra}
 
 # psgd_tf_tpu/ops/pallas/kron_dd.py MAX_SIDE: the JAX package buckets only
 # (dense, dense) layers up to this side. Kept so the bucketing matches.
@@ -77,7 +77,7 @@ class PSGDState:
 @dataclasses.dataclass(frozen=True)
 class PSGD:
     preconditioner: str = "lra"
-    rank: int = 10  # lra rank
+    rank: int = 10  # lra rank, splu corner order
     init_scale: float = 1.0
     lr_params: float = 0.01
     lr_preconditioner: float = 0.01
@@ -94,11 +94,6 @@ class PSGD:
         """State for a list of parameter tensors. `seed` seeds the CPU
         generators of the update coin (unused at probability >= 1) and of
         lra's coins, and the draw of lra's initial U and V."""
-        if self.preconditioner in _UNPORTED:
-            raise NotImplementedError(
-                f"preconditioner {self.preconditioner!r} is not ported yet: it "
-                "comes with ROADMAP queue 1's next slice"
-            )
         if self.preconditioner != "kron" and self.preconditioner not in _FLAT_FAMILIES:
             raise ValueError(f"unknown preconditioner {self.preconditioner!r}")
         hyper = Hyper(
@@ -122,6 +117,8 @@ class PSGD:
                 precond = lra.init(torch.Generator().manual_seed(seed), n, rank=self.rank,
                                    init_scale=self.init_scale, **where)
                 branch = torch.Generator().manual_seed(seed + 1)
+            elif self.preconditioner == "splu":
+                precond = splu.init(n, rank=self.rank, init_scale=self.init_scale, **where)
             else:
                 precond = _FLAT_FAMILIES[self.preconditioner].init(
                     n, init_scale=self.init_scale, **where)
@@ -265,7 +262,7 @@ class PSGD:
             extra["coins"] = coins
         v_flat, h_flat = v_flat.to(self.dtype), _ravel(hvs).to(self.dtype)
         if hasattr(fam, "update_apply"):
-            # Q update and preconditioning in one sweep (K11-K13)
+            # Q update and preconditioning in one sweep (K11-K13, K15)
             precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_flat.to(self.dtype),
                                             step=hyper.lr_preconditioner, **extra)
         else:

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from psgd_tf_tpu import PSGD as JPSGD
 from psgd_tf_tpu.groups import dense as jdense
 from psgd_tf_tpu.groups import diag as jdiag
 from psgd_tf_tpu.groups import lra as jlra
@@ -218,9 +219,14 @@ def test_psgd_defaults_build_what_jax_builds():
     assert state.branch is not None and state.branch.device.type == "cpu"
     for fam, cls in [("dense", dense.DenseState), ("diag", diag.DiagState)]:
         assert isinstance(PSGD(preconditioner=fam).init(params).precond, cls)
-    for fam in ("xmat", "shift", "splu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PSGD(preconditioner=fam).init(params)
+    for fam in ("xmat", "shift", "splu"):  # ported: they build what JAX builds
+        jst = JPSGD(preconditioner=fam).init(
+            {"a": jnp.zeros((33, 30)), "b": jnp.zeros((31, 1))}, jax.random.PRNGKey(0)).precond
+        st = PSGD(preconditioner=fam).init(params).precond
+        assert type(st).__name__ == type(jst).__name__
+        for name in ("af", "bf", "Lt", "l3", "U12", "u3"):
+            if hasattr(st, name):
+                np.testing.assert_array_equal(getattr(st, name).numpy(), np.asarray(getattr(jst, name)))
     # the same seed draws the same U, V
     again = PSGD().init(params)
     assert torch.equal(state.precond.UV, again.precond.UV)

@@ -12,7 +12,7 @@ import torch
 
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import (dense_big, dense_upd, kron_dd, kron_multi, kron_sparse,
-                                          lra_upd, tri)
+                                          lra_upd, splu_one, splu_upd, tri)
 
 torch.set_num_threads(1)
 
@@ -32,7 +32,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, psgd_tf_tpu_torch, psgd_tf_tpu_torch.workloads.mnist_lenet5, "
         "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
-        "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra\n"
+        "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra, "
+        "psgd_tf_tpu_torch.workloads.all_preconditioners\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
         "assert not bad, bad\n"
@@ -59,7 +60,7 @@ def test_no_jax_import_in_package_source():
 
 def test_kernel_sources_are_present():
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
-        "kron_dd.cu", "kron_sparse_big.cu", "tri.cu", "dense.cu", "lra.cu"}
+        "kron_dd.cu", "kron_sparse_big.cu", "tri.cu", "dense.cu", "lra.cu", "splu.cu"}
     for src in (PKG / "csrc").glob("*.cu"):
         text = src.read_text()
         assert "psgd_tf_tpu/ops/pallas/" in text  # names the kernel it replaces
@@ -385,3 +386,78 @@ def test_k11_k12_edge_shapes(cuda, n):
     assert torch.count_nonzero(torch.tril(got_q, -1)).item() == 0
     z = torch.zeros(n, device=cuda)
     assert torch.equal(mod.fused_update(q, z, z, 0.1), q)  # a zero probe: a zero update
+
+
+# ------------------------------------------------ the sparse-LU family (K15, K16)
+
+def _splu_case(g, n, r, dev):
+    """A walked state (`splu.walked_state`) and fresh v, h, g."""
+    from psgd_tf_tpu_torch.groups import splu
+
+    st = splu.walked_state(n, r, g, dev)
+    return st, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+
+
+@pytest.mark.parametrize("n,r", [(2, 1), (11, 10), (400, 10), (65_537, 1), (65_536, 10),
+                                 (100_003, 10), (3_000, 32), (200_000, 32)])
+def test_k15_k16_match_plain(cuda, n, r):
+    """A single tail lane (nt = 1), r = 1 and r = 32, ragged last tiles, the
+    bench's n = 65,536 and past the cap: the chain against its plain stages
+    and the direct form, update and update + apply."""
+    from psgd_tf_tpu_torch.groups import splu
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    name = splu.route(r, n, cuda)
+    assert name == ("splu_one" if splu_one.fits(r, n) else "splu_upd")
+    before = dict(hopper.counts)
+    got = splu_upd.fused_update(*fields, v, h, 0.05)
+    got_k15 = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    new, pre = splu.update_apply(st, v, h, grad, 0.05)
+    torch.cuda.synchronize()
+    assert hopper.counts["splu_upd"] == before["splu_upd"] + 1 + (name == "splu_upd")
+    assert hopper.counts["splu_one"] == before["splu_one"] + 1 + (name == "splu_one")
+    with hopper.disabled():
+        ref = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    direct = splu.update_plain(st, v, h, 0.05)
+    for a, b in zip(got, ref[:4]):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip(got_k15, ref):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip((new.Lt, new.l3, new.U12, new.u3, pre), ref):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip(got, (direct.Lt, direct.l3, direct.U12, direct.u3)):
+        assert _rel(a, b) < 1e-4
+    L1, U1 = got_k15[0][:, :r].T, got_k15[2][:, :r]
+    assert torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+    # the chain repeats itself bit for bit (no float atomics)
+    again = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    assert all(torch.equal(a, b) for a, b in zip(again, got_k15))
+
+
+def test_splu_kernels_reject_what_they_do_not_take(cuda):
+    from psgd_tf_tpu_torch.groups import splu
+
+    st = splu.init(100, rank=splu_upd.MAX_RANK + 1, device=cuda)
+    z = torch.zeros(100, device=cuda)
+    with pytest.raises(ValueError, match="rank"):
+        splu_upd.fused_update(st.Lt, st.l3, st.U12, st.u3, z, z, 0.1)
+    st = splu.init(100, rank=10, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        splu_one.fused_update(st.Lt.double(), st.l3, st.U12, st.u3, z, z, 0.1)
+
+
+def test_all_preconditioners_routes_through_the_kernels(cuda):
+    from psgd_tf_tpu_torch.workloads import all_preconditioners
+
+    for fam, name in [("splu", "splu_one"), ("dense", "dense_upd"), ("lra", "lra_upd"),
+                      ("kron", "kron_multi"), ("xmat", None)]:
+        before = dict(hopper.counts)
+        out = all_preconditioners.run(fam, steps=5, device=cuda)
+        assert np.isfinite(out["loss"])
+        launched = {k for k in hopper.counts if hopper.counts[k] != before[k]}
+        if name is None:
+            assert not launched
+        else:
+            assert hopper.counts[name] == before[name] + 5

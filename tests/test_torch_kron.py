@@ -125,11 +125,11 @@ def test_route_and_unported_formats():
     for fmt, cuda_route in [(("norm", "dense"), "kron_sparse:nd"),
                             (("dense", "scale"), "kron_sparse:ds"),
                             (("scale", "norm"), "kron_sparse:ns")]:
-        st = kron.init((8, 4), fmt=fmt)
+        st = kron.init((8, 4), fmt=fmt, device="cpu")
         assert st.fmt == fmt
         assert kron.route(fmt, (8, 4), "cpu") == "plain"
         assert kron.route(fmt, (8, 4), "cuda") == cuda_route
     with pytest.raises(ValueError):
-        kron.init((8, 4), fmt=("norm", "norm"))
-    st = kron.init((8, 4), fmt=DD, init_scale=0.5)
+        kron.init((8, 4), fmt=("norm", "norm"), device="cpu")
+    st = kron.init((8, 4), fmt=DD, init_scale=0.5, device="cpu")
     assert torch.equal(st.ql, 0.5 * torch.eye(8)) and st.fmt == DD

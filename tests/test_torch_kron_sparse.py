@@ -158,7 +158,8 @@ def test_arrow_convention_preserved(shape):
     and streaming."""
     rng = np.random.default_rng(5)
     for fmt in [("norm", "scale"), ("norm", "dense"), ("scale", "norm")]:
-        st = kron.init(shape[::-1] if fmt[0] == "scale" else shape, fmt=fmt, init_scale=0.6)
+        st = kron.init(shape[::-1] if fmt[0] == "scale" else shape, fmt=fmt, init_scale=0.6,
+                       device="cpu")
         for _ in range(3):
             (dx,), (dg,) = _probes(rng, [st.ql.shape[-1:] + st.qr.shape[-1:]])
             st = kron.update(st, torch.from_numpy(dx), torch.from_numpy(dg), step=0.1)
@@ -228,12 +229,12 @@ def test_unported_route_on_cpu_takes_plain():
 def test_init_all_formats_and_interop_takes_sparse_arrays():
     for fmt in ALL:
         jst = jkron.init((9, 5), fmt=fmt, init_scale=0.7)
-        st = kron.init((9, 5), fmt=fmt, init_scale=0.7)
+        st = kron.init((9, 5), fmt=fmt, init_scale=0.7, device="cpu")
         np.testing.assert_array_equal(st.ql.numpy(), np.asarray(jst.ql))
         np.testing.assert_array_equal(st.qr.numpy(), np.asarray(jst.qr))
         (back,) = _to_port([jst])
         assert back.fmt == fmt and back.ql.shape == st.ql.shape and back.qr.shape == st.qr.shape
     with pytest.raises(ValueError):
-        kron.init((8, 4), fmt=("norm", "norm"))
+        kron.init((8, 4), fmt=("norm", "norm"), device="cpu")
     with pytest.raises(ValueError):
-        kron.init((8, 4), fmt=("scale", "scale"))
+        kron.init((8, 4), fmt=("scale", "scale"), device="cpu")

@@ -103,8 +103,9 @@ def test_init_layout_and_unported_paths():
     assert [(st.ql.shape[0], st.qr.shape[0]) for st in state.precond] == jlenet5.LAYER_SHAPES
     assert all(kron.route(st.fmt, (st.ql.shape[0], st.qr.shape[0]), "cpu") == "plain"
                for st in state.precond)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PSGD(preconditioner="splu").init(params)
+    # splu is ported: a rank-10 corner over LeNet5's 44,426 parameters
+    st = PSGD(preconditioner="splu").init(params).precond
+    assert st.Lt.shape == (10, N_PARAMS) and st.l3.shape == (N_PARAMS - 10,)
     # four (dense, dense) layers in one padded bucket take K4 in JAX
     same = [torch.zeros(100, 50) for _ in range(4)]
     with pytest.raises(NotImplementedError, match="K4"):

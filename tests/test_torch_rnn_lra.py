@@ -217,7 +217,7 @@ def test_uvd_hyperparameters_and_switches(monkeypatch):
 def test_hello_psgd_reaches_its_bar():
     out = hello_psgd.run(device="cpu", steps=500)
     assert out["steps"] == 500 and out["success"] and out["loss"] < 1e-4
-    assert rosenbrock.loss(rosenbrock.init()).item() == pytest.approx(4.0)
+    assert rosenbrock.loss(rosenbrock.init(device="cpu")).item() == pytest.approx(4.0)
 
 
 def test_rnn_xor_lra_smoke():
