@@ -17,6 +17,13 @@ after:
   - the NMT model at the reference widths (12,424,273 parameters) with
     its mixed formats, FD Hvp, random tokens as the JAX package's bench
     draws them (K10, K6, K2, K3);
+  - the same model and recipe under PSGD's default Kronecker formats
+    ('auto'): five (norm, dense) layers (K9 with its K3), the fc
+    (norm, scale) (K6) and the (1, 10) row (K2);
+  - the kron capacity envelope through `kron.update`, as the JAX bench
+    drives its kron_nd and kron_ns_wide rows: (131072, 512) (norm, dense)
+    (K9), (512, 1,000,000) (norm, scale) (K7) and (64, 3,000,017) past
+    2^21 lanes (K8), five steps each;
   - the NMT workload at its toy widths, as `nmt_attention.run()` runs it:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
     kinds, K3);
@@ -82,6 +89,14 @@ DENSE_RNN_STEPS = 50
 SPLU_K15 = [400, 1 << 16]        # the tensor decomposition's n, and bench.py:615
 SPLU_K16 = [100_003, 1 << 20]    # a ragged n past K15's cap, and bench.py:616
 SPLU_NMT_STEPS = 10
+K9_BENCH = (131072, 512)        # bench.py:678-683, the kron_nd row
+K9_MIRROR = (700, 1500)         # a (dense, norm) layer: K9 gets dX^T
+# (format, shape, counter): bench.py's kron_ns_wide row, a ragged mirrored
+# layer, and a ragged width past WIDE2_MAX_LANES
+WIDE_NS = [(("norm", "scale"), (512, 1_000_000), "kron_sparse_big_ns_wide2"),
+           (("scale", "norm"), (140_001, 70), "kron_sparse_big_ns_wide2"),
+           (("norm", "scale"), (64, 3_000_017), "kron_sparse_big_ns_wide_xla")]
+ENVELOPE_STEPS = 5
 
 
 def _rel(a, b) -> float:
@@ -128,16 +143,18 @@ def _bound(nbytes, flops):
 def _kron_work(fmt, shape):
     """(bytes, FLOPs) of one Kronecker factor update: dX, dG and both
     factors read once, both factors written once (a dense factor's upper
-    triangle read, the whole written); per dense side of size k (the other
-    side o) the two products through it, its Gram and its update
-    (8 k^2 o + 2 k^3) and its inverse (k^3 / 3), per sparse side ~6 k o."""
+    triangle read, the whole written). Per dense side of size k (the other
+    side o): the two products through its triangular factor and its
+    inverse (o k^2 each), the upper triangle of its Gram difference
+    (2 o k^2), the inverse and triu(grad) Q, a product of two triangles
+    (k^3 / 3 each); per sparse side ~6 k o."""
     m, n = shape
     side = {"dense": lambda k: k * (k + 1) / 2 + k * k, "scale": lambda k: 2 * k,
             "norm": lambda k: 4 * k}
     nbytes = 4 * (2 * m * n + side[fmt[0]](m) + side[fmt[1]](n))
     flops = 0.0
     for f, k, o in ((fmt[0], m, n), (fmt[1], n, m)):
-        flops += 8 * k * k * o + 2 * k**3 + k**3 / 3 if f == "dense" else 6 * k * o
+        flops += 4 * k * k * o + 2 * k**3 / 3 if f == "dense" else 6 * k * o
     return nbytes, flops
 
 
@@ -159,7 +176,7 @@ def main() -> int:
     from psgd_tf_tpu_torch.models import lenet5, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_sparse,
-                                              lra_upd, splu_one, splu_upd, tri)
+                                              kron_sparse_big, lra_upd, splu_one, splu_upd, tri)
     from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, nmt_attention,
                                              rnn_xor_lra)
 
@@ -189,6 +206,8 @@ def main() -> int:
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # every phase reseeds the shared generator with its own number, so its
+    # inputs do not depend on what the phases before it drew
     g = torch.Generator(device=dev).manual_seed(0)
 
     def probes(shapes):
@@ -203,6 +222,20 @@ def main() -> int:
                 states = kron.update_multi(states, *probes(shapes), step=0.1)
         return states
 
+    def kernel_part(st, dx, dg, reps):
+        """(ms with the kernel, ms plain) of the kernel part alone of a
+        (norm, dense) or (norm, scale) layer's update (`nd_reductions` or
+        `ns_reductions`, no torch tail), on its unbalanced state."""
+        ql0, ql1 = st.ql[0], st.ql[1]
+        w = ql1 / (ql0 * ql0[-1])
+        if st.fmt[1] == "dense":
+            u = dg[-1] @ st.qr.T
+            fn = lambda: kron_sparse_big.nd_reductions(dx, dg, st.ql, w, st.qr, u)
+        else:
+            al = ql0[-1] * dg[-1] * st.qr
+            fn = lambda: kron_sparse_big.ns_reductions(dx, dg, ql0, ql1, w, st.qr, dg[-1], al)
+        return _time_ab(torch, hopper, fn, reps)
+
     # the kron list all_preconditioners gives K1 and K3: one factor pair per
     # factor matrix of the tensor decomposition
     decomp_pre = PSGD(preconditioner="kron").init(tensor_decomp.init(g)).precond
@@ -215,6 +248,7 @@ def main() -> int:
         u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
         return u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev))
 
+    g.manual_seed(2)
     lenet_us = [triu_factor(n) for s in LENET5 for n in s]
     us = lenet_us + [triu_factor(n) for s in decomp_shapes for n in s] + [triu_factor(1024)]
     got = tri.inverse_upper(us)
@@ -242,6 +276,7 @@ def main() -> int:
 
     # 3. K1 (kind dd) on LeNet5's five layers, K2 on one (1024, 1024) and
     #    one (1, 10) layer, and a 20-step chained K1 trajectory
+    g.manual_seed(3)
     dd = [("dense", "dense")] * len(LENET5)
     states = walked_states(dd, LENET5)
     dxs, dgs = probes(LENET5)
@@ -277,7 +312,8 @@ def main() -> int:
     check(k2_rel < TOL_K1, "k2 vs plain")
 
     def trajectory(fmts, shapes):
-        """20 chained K1 updates against a plain replay from 0.8 I."""
+        """20 chained kernel updates (`update_multi`) against a plain replay
+        from 0.8 I."""
         kst = [kron.init(s, fmt=f, init_scale=0.8, device=dev) for f, s in zip(fmts, shapes)]
         pst = kst
         for _ in range(20):
@@ -293,6 +329,7 @@ def main() -> int:
     check(traj_rel < TOL_TRAJ, "k1 20-step trajectory vs plain")
 
     # 3b. K1 on the tensor decomposition's list, and a 20-step trajectory
+    g.manual_seed(31)
     states = walked_states(decomp_fmts, decomp_shapes)
     dxs, dgs = probes(decomp_shapes)
     before = hopper.counts["kron_multi"]
@@ -311,6 +348,7 @@ def main() -> int:
     check(dec_traj < TOL_TRAJ, "k1 20-step trajectory on the decomposition list")
 
     # 4. K1 with mixed kinds on the toy NMT list: [ds, ns, ds, dd, ds, ns, ns]
+    g.manual_seed(4)
     toy = nmt.Config()
     nmt_fmts, toy_shapes = nmt.kron_formats(toy), nmt.layer_shapes(toy)
     toy_routes = [kron.route(f, s, dev) for f, s in zip(nmt_fmts, toy_shapes)]
@@ -343,6 +381,7 @@ def main() -> int:
     check(mix_traj < TOL_TRAJ, "k1 mixed 20-step trajectory vs plain")
 
     # 5. K5: one (norm, scale), (dense, scale) and (norm, dense) layer at (130, 65)
+    g.manual_seed(5)
     k5_rel = k5_abs = 0.0
     k5_times = {}
     for kind, fmt in [("ns", ("norm", "scale")), ("ds", ("dense", "scale")),
@@ -371,6 +410,7 @@ def main() -> int:
 
     # 6. K6 and K10 at the reference NMT layers, through kron.update (the
     #    (scale, dense) embeddings and attention are mirrored: K10 gets dX^T)
+    g.manual_seed(6)
     ref_cfg = nmt.ref_config()
     ref_shapes = nmt.layer_shapes(ref_cfg)
     # per kernel: max abs error, and ms with the kernel and plain summed over
@@ -403,6 +443,96 @@ def main() -> int:
         print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
               f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
 
+    # 6b. K9 at the five (norm, dense) layers PSGD's default formats give
+    #     the reference NMT model, at bench.py's (131072, 512) and on a
+    #     mirrored (dense, norm) layer (K9 gets dX^T), through kron.update;
+    #     20-step trajectories at two of the NMT layers
+    g.manual_seed(61)
+    auto_fmts = [kron.auto_format(s) for s in ref_shapes]
+    nd_shapes = [s for f, s in zip(auto_fmts, ref_shapes) if f == ("norm", "dense")]
+    check(len(nd_shapes) == 5, f"five (norm, dense) NMT layers under auto: {nd_shapes}")
+    k9 = {"err": 0.0, "nmt_ms": 0.0, "nmt_plain_ms": 0.0}
+    k9_cases = [(("norm", "dense"), sh) for sh in nd_shapes + [K9_BENCH]]
+    for fmt, shape in k9_cases + [(("dense", "norm"), K9_MIRROR)]:
+        check(kron.route(fmt, shape, dev) == "kron_sparse_big:nd", f"k9 route at {fmt} {shape}")
+        (st,) = walked_states([fmt], [shape], steps=2)
+        (dx,), (dg,) = probes([shape])
+        before = dict(hopper.counts)
+        got = kron.update(st, dx, dg, step=0.1)
+        torch.cuda.synchronize()
+        check(hopper.counts["kron_sparse_big_nd"] == before["kron_sparse_big_nd"] + 1
+              and hopper.counts["tri"] == before["tri"] + 1, f"k9 and K3 launched at {shape}")
+        with hopper.disabled():
+            ref = kron.update(st, dx, dg, step=0.1)
+        rel, err = _state_errs([got], [ref])
+        arrow, dq = (got.qr, got.ql) if fmt[0] == "dense" else (got.ql, got.qr)
+        exact = arrow[1, -1].item() == 0.0 and torch.equal(dq, torch.triu(dq))
+        check(rel < TOL_K1 and exact, f"k9 vs plain at {fmt} {shape}")
+        k9["err"] = max(k9["err"], err)
+        ms, plain_ms = _time_ab(torch, hopper, lambda: kron.update(st, dx, dg, step=0.1),
+                                10 if shape == K9_BENCH else 50)
+        if shape in nd_shapes:
+            k9["nmt_ms"] += ms
+            k9["nmt_plain_ms"] += plain_ms
+        bound = _bound(*_kron_work(fmt, shape))
+        if shape == K9_BENCH:
+            k9.update(ms=ms, plain_ms=plain_ms, bound=bound)
+        print(f"kron_sparse_big_nd: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max "
+              f"abs err {err:.3e}, arrow and triangle exact {exact}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        if shape == K9_BENCH:
+            part, part_plain = kernel_part(st, dx, dg, 10)
+            m, n = shape
+            print(f"kron_sparse_big_nd: {shape} the kernel part alone (K3, both products, row "
+                  f"sums, corr, Gram), kernel {part:.4f} ms ({4 * m * n * n / part / 1e9:.2f} "
+                  f"TFLOP/s of its 4 m n^2), plain {part_plain:.4f} ms", flush=True)
+        del st, dx, dg, got, ref
+    print(f"kron_sparse_big_nd: the five NMT layers summed, kernel {k9['nmt_ms']:.4f} ms, plain "
+          f"{k9['nmt_plain_ms']:.4f} ms", flush=True)
+    for shape in (nd_shapes[2], nd_shapes[0]):
+        k9_traj = trajectory([("norm", "dense")], [shape])
+        print(f"kron_sparse_big_nd trajectory: {shape}, 20 steps max rel err {k9_traj:.3e} "
+              f"(tol {TOL_TRAJ:.0e})", flush=True)
+        check(k9_traj < TOL_TRAJ, f"k9 20-step trajectory vs plain at {shape}")
+
+    # 6c. K7 and K8: the wide (norm, scale) kernel at bench.py's
+    #     (512, 1,000,000), a ragged mirrored layer (dX^T), and a ragged
+    #     width past 2^21 lanes, through kron.update; the counter of the JAX
+    #     route moves, and no other
+    g.manual_seed(62)
+    wide = {}
+    for fmt, shape, name in WIDE_NS:
+        check(kron.route(fmt, shape, dev) == "kron_sparse_big:ns_wide", f"wide route at {shape}")
+        (st,) = walked_states([fmt], [shape], steps=2)
+        (dx,), (dg,) = probes([shape])
+        before = dict(hopper.counts)
+        got = kron.update(st, dx, dg, step=0.1)
+        torch.cuda.synchronize()
+        moved = {k for k in hopper.counts if hopper.counts[k] != before[k]}
+        check(moved == {name} and hopper.counts[name] == before[name] + 1,
+              f"{name} alone launched at {shape}: {moved}")
+        with hopper.disabled():
+            ref = kron.update(st, dx, dg, step=0.1)
+        rel, err = _state_errs([got], [ref])
+        arrow_ok = (got.qr if fmt[0] == "scale" else got.ql)[1, -1].item() == 0.0
+        check(rel < TOL_K1 and arrow_ok, f"{name} vs plain at {fmt} {shape}")
+        ms, plain_ms = _time_ab(torch, hopper, lambda: kron.update(st, dx, dg, step=0.1), 10)
+        bound = _bound(*_kron_work(fmt, shape))
+        acc = wide.setdefault(name, {"err": 0.0})
+        acc["err"] = max(acc["err"], err)
+        print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
+              f"{err:.3e}, arrow ok {arrow_ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+        if "ms" not in acc:  # the first row of each counter: bench.py's and the past-2^21 one
+            acc.update(ms=ms, plain_ms=plain_ms, bound=bound)
+            part, part_plain = kernel_part(st, dx, dg, 10)
+            m, n = shape
+            print(f"{name}: {shape} the kernel part alone (the wide kernel and its row "
+                  f"reduction), kernel {part:.4f} ms ({8 * m * n / part / 1e9:.3f} TB/s of the "
+                  f"probes' 8 m n bytes), plain {part_plain:.4f} ms", flush=True)
+        del st, dx, dg, got, ref
+        torch.cuda.empty_cache()
+
     # 7. K13 at the RNN's n and at bench.py's 2^20, r = 10, under the four
     #    coin pairs: against the chain's plain stages and the direct form
     def lra_case(n, r=10):
@@ -416,6 +546,7 @@ def main() -> int:
                                 torch.randn(n, generator=g, device=dev), 0.05, COINS[k])
         return st, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
 
+    g.manual_seed(7)
     lra_err = lra_rel = 0.0
     lra_times, lra_bounds = {}, {}
     for n in LRA_SIZES:
@@ -455,6 +586,7 @@ def main() -> int:
 
     # 8. K11 at hello_psgd's and the RNN's n and its cap, K12 at the bench
     #    rows: update and update+apply against the plain rank-2 form
+    g.manual_seed(8)
     dense_err = {"dense_upd": 0.0, "dense_big": 0.0}
     dense_times, dense_bound = {}, {}
     for n in DENSE_K11 + DENSE_K12:
@@ -541,6 +673,7 @@ def main() -> int:
             return 4 * (4 * r * n + 8 * n), flops
         return 4 * (4 * r * n + 6 * n), 2.0 * (2 * r * r + 5 * r) * nt + 32 * r * nt
 
+    g.manual_seed(81)
     splu_err = {"splu_one": 0.0, "splu_upd": 0.0}
     splu_times, splu_bounds = {}, {}
     for n in SPLU_K15 + SPLU_K16:
@@ -593,6 +726,7 @@ def main() -> int:
         check(traj < TOL_TRAJ, f"splu 20-step trajectory at n={n}")
 
     # 9. path: LeNet5, exact Hvp, batch 64
+    g.manual_seed(9)
     params = lenet5.init(g)
     n_params = sum(p.numel() for p in params)
     opt = PSGD(preconditioner="kron", kron_formats=dd, lr_params=0.1, lr_preconditioner=0.1,
@@ -637,12 +771,14 @@ def main() -> int:
 
     # 10. path: NMT at the reference widths, FD Hvp, lr 0.02, clip 1.0,
     #    random ids per vocabulary (batch 64, source 18, target 13)
-    def nmt_ref_run():
+    def nmt_ref_run(fmts):
+        """(routes, losses, counts, steps/s, Q states after step 1); `fmts`
+        None gives PSGD no kron_formats (its default, 'auto')."""
         gen = torch.Generator(device=dev).manual_seed(0)
         params = nmt.init(gen, ref_cfg)
-        opt = PSGD(preconditioner="kron", kron_formats=nmt_fmts, lr_params=0.02,
-                   lr_preconditioner=0.02, grad_clip_max_norm=1.0,
-                   exact_hessian_vector_product=False)
+        opt = PSGD(preconditioner="kron", lr_params=0.02, lr_preconditioner=0.02,
+                   grad_clip_max_norm=1.0, exact_hessian_vector_product=False,
+                   **({} if fmts is None else {"kron_formats": fmts}))
         state = opt.init(params)
         routes = [kron.route(st.fmt, (st.ql.shape[-1], st.qr.shape[-1]), dev)
                   for st in state.precond]
@@ -656,12 +792,14 @@ def main() -> int:
                 ev0.record()
             params, state, aux = opt.step(nmt.loss, params, state, gen, src, tgt)
             losses.append(aux["loss"])
+            if i == 0:
+                first = state.precond
         ev1.record()
         ev1.synchronize()
         rate = (NMT_REF_STEPS - NMT_REF_WARMUP) / (ev0.elapsed_time(ev1) / 1e3)
-        return routes, torch.stack(losses).cpu(), dict(hopper.counts), rate
+        return routes, torch.stack(losses).cpu(), dict(hopper.counts), rate, first
 
-    routes, losses, counts, ref_rate = nmt_ref_run()
+    routes, losses, counts, ref_rate, _ = nmt_ref_run(nmt_fmts)
     path_counts()
     want = ["kron_sparse_big:ds", "kron_sparse_big:ns", "kron_sparse_big:ds", "kron_dd",
             "kron_sparse_big:ds", "kron_sparse_big:ns", "kron_sparse_big:ns"]
@@ -675,9 +813,61 @@ def main() -> int:
         check(counts[name] == n * NMT_REF_STEPS, f"NMT reference: {n} {name} launches per step")
     check(bool(torch.isfinite(losses).all()), "NMT reference: finite losses")
     with hopper.disabled():
-        _, plain_losses, _, ref_plain_rate = nmt_ref_run()
+        _, plain_losses, _, ref_plain_rate, _ = nmt_ref_run(nmt_fmts)
     print(f"nmt ref: {ref_plain_rate:.2f} steps/s under disabled() (plain versions), loss "
           f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}", flush=True)
+
+    # 10b. path: the same model and recipe under PSGD's default formats
+    routes, losses, counts, auto_rate, auto_first = nmt_ref_run(None)
+    path_counts()
+    nd, ns = "kron_sparse_big:nd", "kron_sparse_big:ns"
+    print(f"nmt ref auto: {NMT_REF_STEPS} steps, formats {auto_fmts}, routes {routes}, launches "
+          f"{({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f}, {auto_rate:.2f} steps/s with kernels", flush=True)
+    check(routes == [nd, nd, nd, "kron_dd", nd, nd, ns], f"NMT reference auto routes {routes}")
+    # per step: five K9 chains (each with its K3), the fc's K6, the row's K2 (with its K3)
+    per_step = {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1, "tri": 6}
+    check(counts == {k: per_step.get(k, 0) * NMT_REF_STEPS for k in counts},
+          f"NMT reference auto: launches per step {per_step} and no other")
+    check(bool(torch.isfinite(losses).all()), "NMT reference auto: finite losses")
+    with hopper.disabled():
+        _, plain_losses, _, auto_plain_rate, plain_first = nmt_ref_run(None)
+    loss_rel = _rel(losses, plain_losses)
+    first_rel, _ = _state_errs(auto_first, plain_first)
+    print(f"nmt ref auto: {auto_plain_rate:.2f} steps/s under disabled() (plain versions), loss "
+          f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}; the loss traces differ "
+          f"by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e}), the Q states after step 1 by "
+          f"{first_rel:.3e} (tol {TOL_K1:.0e})", flush=True)
+    check(loss_rel < TOL_TRAJ, "NMT reference auto: kernel and plain losses agree")
+    check(first_rel < TOL_K1, "NMT reference auto: kernel and plain Q states agree after step 1")
+    del auto_first, plain_first
+
+    # 10c. path: the kron capacity envelope through kron.update, as
+    #      bench.py's bench_kron_sparse_gelem_per_sec drives its kron_nd and
+    #      kron_ns_wide rows, plus a width past 2^21 lanes
+    envelope = [(("norm", "dense"), K9_BENCH)] + [(f, s) for f, s, _ in WIDE_NS if f[0] == "norm"]
+    g.manual_seed(101)
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    finite = True
+    for fmt, shape in envelope:
+        st = kron.init(shape, fmt=fmt, init_scale=0.8, device=dev)
+        for _ in range(ENVELOPE_STEPS):
+            (dx,), (dg,) = probes([shape])
+            st = kron.update(st, dx, dg, step=0.02)
+        finite = finite and bool(torch.isfinite(st.ql).all() and torch.isfinite(st.qr).all())
+        del st, dx, dg
+    torch.cuda.synchronize()
+    counts = dict(hopper.counts)
+    path_counts()
+    torch.cuda.empty_cache()
+    print(f"kron envelope: {[s for _, s in envelope]}, {ENVELOPE_STEPS} updates each, launches "
+          f"{({k: c for k, c in counts.items() if c})}, finite {finite}", flush=True)
+    want = {"kron_sparse_big_nd": ENVELOPE_STEPS, "tri": ENVELOPE_STEPS,
+            "kron_sparse_big_ns_wide2": ENVELOPE_STEPS,
+            "kron_sparse_big_ns_wide_xla": ENVELOPE_STEPS}
+    check(counts == {k: want.get(k, 0) for k in counts} and finite,
+          "kron envelope: one K9 (+ K3), K7 and K8 launch per update, finite")
 
     # 11. path: the NMT workload at its toy widths, as nmt_attention.run() runs it
     torch.cuda.synchronize()
@@ -898,6 +1088,7 @@ def main() -> int:
     check(loss_rel < TOL_TRAJ, "NMT reference splu: kernel and direct-form losses agree")
 
     for name in ("kron_multi", "kron_dd", "tri", "kron_sparse_big_ns", "kron_sparse_big_ds",
+                 "kron_sparse_big_nd", "kron_sparse_big_ns_wide2", "kron_sparse_big_ns_wide_xla",
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
@@ -925,6 +1116,12 @@ def main() -> int:
         acc = big[name]
         kernels.append(entry(name, "kron_sparse_big.cu", f"kron_sparse_big.py:{line}", acc["err"],
                              acc["ms"], acc["plain_ms"], _bound(acc["bytes"], acc["flops"])))
+    for name, line, acc in [("kron_sparse_big_ns_wide2", 456, wide["kron_sparse_big_ns_wide2"]),
+                            ("kron_sparse_big_ns_wide_xla", 524,
+                             wide["kron_sparse_big_ns_wide_xla"]),
+                            ("kron_sparse_big_nd", 598, k9)]:
+        kernels.append(entry(name, "kron_sparse_big.cu", f"kron_sparse_big.py:{line}", acc["err"],
+                             acc["ms"], acc["plain_ms"], acc["bound"]))
     kernels += [
         entry("lra_upd", "lra.cu", "lra_upd.py:217", lra_err, *lra_times[LRA_SIZES[-1]],
               lra_bounds[LRA_SIZES[-1]]),

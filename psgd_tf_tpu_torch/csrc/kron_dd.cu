@@ -40,7 +40,8 @@
 //                        (ns: scaled by the right factor, i.e. A and Bt);
 //   (c1, c2) gemm_kernel a hand-written grouped fp32 tiled GEMM over
 //                        per-problem descriptors: A and Bt of dd (two
-//                        stages), ds (column-scale epilogue) and nd;
+//                        stages), ds (column-scale epilogue) and nd; each
+//                        K loop cut to its triangular operand's band;
 //   (c3) gemm_kernel     the dense sides' triu Grams, each as ONE product
 //                        over the concatenated [A | Bt] (the Bt half
 //                        subtracted), with max|grad| by block reduction plus
@@ -301,7 +302,9 @@ __device__ __forceinline__ float load_b(const GemmProb& P, const float* b, int k
 // One 64x64 output tile per block, 256 threads, 4x4 outputs per thread.
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
     const int p = find_job(g.tiles, g.count, blockIdx.x);
-    const GemmProb& P = g.p[p];
+    // a copy: the fields the loops read stay in registers, not re-read from
+    // the dynamically indexed parameter array
+    const GemmProb P = g.p[p];
     const int t = blockIdx.x - g.tiles[p];
     const int tiles_n = (P.N + GEMM_BN - 1) / GEMM_BN;
     const int row0 = (t / tiles_n) * GEMM_BM, col0 = (t % tiles_n) * GEMM_BN;
@@ -312,13 +315,20 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
 
     float acc[4][4] = {};
     // a tile wholly below the diagonal of a triu output is zero: skip the K loop
-    const bool skip = P.epi == EPI_TRIU_MAX && row0 > col0 + GEMM_BN - 1;
+    const bool triu = P.epi == EPI_TRIU_MAX || P.epi == EPI_TRIU;
+    const bool skip = triu && row0 > col0 + GEMM_BN - 1;
+    // the band of k where a triangular operand may be nonzero for this tile
+    int k_lo = 0, k_hi = P.K;
+    if (P.cut & CUT_A_UPPER) k_lo = max(k_lo, row0);             // a_ik = 0 for k < i
+    if (P.cut & CUT_A_LOWER) k_hi = min(k_hi, row0 + GEMM_BM);   // a_ik = 0 for k > i
+    if (P.cut & CUT_B_UPPER) k_hi = min(k_hi, col0 + GEMM_BN);   // b_kj = 0 for k > j
+    if (P.cut & CUT_B_LOWER) k_lo = max(k_lo, col0);             // b_kj = 0 for k < j
     for (int pass = 0; pass < 2 && !skip; ++pass) {
         const float* a = pass ? P.a2 : P.a;
         const float* b = pass ? P.b2 : P.b;
         if (a == nullptr) break;
         const float sign = pass ? -1.f : 1.f;
-        for (int k0 = 0; k0 < P.K; k0 += GEMM_BK) {
+        for (int k0 = k_lo; k0 < k_hi; k0 += GEMM_BK) {
             for (int e = threadIdx.x; e < GEMM_BK * GEMM_BM; e += GEMM_THREADS) {
                 // for a transposed operand, consecutive threads walk the
                 // contiguous dimension of memory
@@ -361,7 +371,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
             if (i >= P.M || j >= P.N) continue;
             const size_t o = (size_t)i * P.N + j;
             float v = acc[r][c];
-            if (P.epi == EPI_TRIU_MAX) {
+            if (triu) {
                 v = (i <= j) ? v : 0.f;
                 local_max = fmaxf(local_max, fabsf(v));
             } else if (P.epi == EPI_UPDATE) {
@@ -370,6 +380,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
                 v = v * P.v[j];
             } else if (P.epi == EPI_COLDIV) {
                 v = v / P.v[j];
+            } else if (P.epi == EPI_ARROW) {
+                v = (i == P.M - 1 ? 0.f : P.r[i] * v) + P.r[P.M + i] * P.v[j];
+            } else if (P.epi == EPI_ROWDIV) {
+                v = i == P.M - 1 ? 0.f : v / P.r[i];
             }
             P.c[o] = v;
         }
@@ -511,18 +525,22 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         const float* DG = static_cast<const float*>(dg[l]);
         const float* DX = static_cast<const float*>(dx[l]);
         if (kind[l] == KIND_DD) {
-            g.p[g.count++] = gemm_prob(DG, 0, N, F(s.qrb), 1, N, F(s.t1), M, N, N);
-            g.p[g.count++] = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.w), M, N, M);
+            g.p[g.count] = gemm_prob(DG, 0, N, F(s.qrb), 1, N, F(s.t1), M, N, N);
+            g.p[g.count++].cut = CUT_B_LOWER;
+            g.p[g.count] = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.w), M, N, M);
+            g.p[g.count++].cut = CUT_A_LOWER;
         } else if (kind[l] == KIND_DS) {
             GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, N, F(s.a), M, N, M);
-            pa.epi = EPI_COLMUL; pa.v = F(s.qrb);
+            pa.epi = EPI_COLMUL; pa.v = F(s.qrb); pa.cut = CUT_A_UPPER;
             GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.bt), M, N, M);
-            pb.epi = EPI_COLDIV; pb.v = F(s.qrb);
+            pb.epi = EPI_COLDIV; pb.v = F(s.qrb); pb.cut = CUT_A_LOWER;
             g.p[g.count++] = pa;
             g.p[g.count++] = pb;
         } else if (kind[l] == KIND_ND) {
-            g.p[g.count++] = gemm_prob(F(s.pa), 0, N, F(s.qrb), 1, N, F(s.a), M, N, N);
-            g.p[g.count++] = gemm_prob(F(s.pb), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+            g.p[g.count] = gemm_prob(F(s.pa), 0, N, F(s.qrb), 1, N, F(s.a), M, N, N);
+            g.p[g.count++].cut = CUT_B_LOWER;
+            g.p[g.count] = gemm_prob(F(s.pb), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+            g.p[g.count++].cut = CUT_B_UPPER;
         }
     }
     launch_gemms(g, stream);
@@ -532,8 +550,10 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         if (kind[l] != KIND_DD) continue;
         const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        g.p[g.count++] = gemm_prob(F(s.qlb), 0, M, F(s.t1), 0, N, F(s.a), M, N, M);
-        g.p[g.count++] = gemm_prob(F(s.w), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+        g.p[g.count] = gemm_prob(F(s.qlb), 0, M, F(s.t1), 0, N, F(s.a), M, N, M);
+        g.p[g.count++].cut = CUT_A_UPPER;
+        g.p[g.count] = gemm_prob(F(s.w), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+        g.p[g.count++].cut = CUT_B_UPPER;
     }
     launch_gemms(g, stream);
     // (c3) dense left:  grad1 = triu([A|Bt] [A|-Bt]^T) (m x m, K = n);
@@ -577,11 +597,13 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         if (!left_arrow(kind[l])) {
             GemmProb u1 = gemm_prob(F(s.g1), 0, M, F(s.qlb), 0, M, static_cast<float*>(out_ql[l]), M, M, M);
             u1.epi = EPI_UPDATE; u1.q = F(s.qlb); u1.mx = mx + 2 * l; u1.step = step;
+            u1.cut = CUT_A_UPPER | CUT_B_UPPER;
             g.p[g.count++] = u1;
         }
         if (!right_scale(kind[l])) {
             GemmProb u2 = gemm_prob(F(s.g2), 0, N, F(s.qrb), 0, N, static_cast<float*>(out_qr[l]), N, N, N);
             u2.epi = EPI_UPDATE; u2.q = F(s.qrb); u2.mx = mx + 2 * l + 1; u2.step = step;
+            u2.cut = CUT_A_UPPER | CUT_B_UPPER;
             g.p[g.count++] = u2;
         }
     }

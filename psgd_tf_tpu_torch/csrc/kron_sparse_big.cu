@@ -1,4 +1,4 @@
-// K6 and K10: the streaming sparse-format Kronecker reductions.
+// K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker reductions.
 //
 // K6 replaces psgd_tf_tpu/ops/pallas/kron_sparse_big.py `fused_update_ns`
 // (:377, its pallas_call at :412, `_kernel_ns_big` :172): the one pass over
@@ -26,22 +26,63 @@
 // :740, `_kernel_ds_big` :675): a (dense, scale) layer, m <= 1024, any n:
 //   1. Linv = Ql^{-1} through K3 (tri.cu), exact in fp32;
 //   2. the grouped GEMM of kron_dd.cu: A = (Ql dG) qr and Bt = (Linv^T dX) / qr
-//      over the whole width (column-scale epilogues);
+//      over the whole width (column-scale epilogues, K loops cut to the
+//      triangles of Ql and Linv^T);
 //   3. grad2_j = sum_i A_ij^2 - Bt_ij^2, one thread per column;
 //   4. the Gram difference A A^T - Bt Bt^T with K = n, split over column
 //      panels into a (splits, m, m) scratch (the TPU grid's own
 //      accumulation) and summed in a fixed order by a last small pass.
-// What bounds it: the two m x n products (2 m^2 n FLOPs each) and the
-// Gram (2 m^2 n again), all in fp32 SIMT tiles, against 2mn floats of
-// probes (19.3 MB at (256, 9414)). The split-K keeps the Gram's grid at
+// What bounds it: the two triangular m x n products (m^2 n FLOPs each)
+// and the Gram difference (4 m^2 n, of which the caller keeps the upper
+// triangle), all in fp32 SIMT tiles, against 2mn floats of probes
+// (19.3 MB at (256, 9414)). The split-K keeps the Gram's grid at
 // 16 x (m/64)^2 blocks instead of (m/64)^2 blocks that walk K = n alone.
-// Measured on an H100 80GB HBM3 at its 700 W limit, at (256, 9414): the
-// GEMMs take 441 us (4.9 GFLOP, 11 TFLOP/s of fp32 SIMT), K3 54 us; the
-// plain torch version (cuBLAS and a trsm) is faster there. Larger tiles and
-// skipping the Gram's lower tiles (the caller keeps only its triu) are the
-// next steps.
-// dX and dG may arrive transposed (a mirrored layer's probes are views of
-// (n, m) arrays): the GEMM reads them through its transpose flag, no copy.
+// The SIMT tiles run far below the fp32 peak, and the plain torch version
+// (cuBLAS and a trsm) is close at the reference NMT layers (PERF.md).
+// Larger tiles and skipping the Gram's lower tiles are the next steps.
+//
+// K9 replaces the same file's `fused_update_nd` (:598, its pallas_call at
+// :634, `_kernel_nd_big` :298): a (norm, dense) layer, n <= 1024, any m. With
+// row m-1 masked (the caller's tail patches it) and q0, q1 the arrow's rows:
+//   A  = (q0 dGm + q1 dG_last) Qr^T,   Bt = (dXm / q0) Qr^{-1}
+//   diag0_i = sum_j A^2 - Bt^2,  biasa_i = A_i . A_last,  corr = w^T dX
+//   (dX unmasked), and triu(A^T A - Bt^T Bt).
+// The TPU kernel inverts Qr's diagonal blocks at grid step 0, substitutes
+// block by block per row panel and carries corr and both Grams in VMEM.
+// Here: 1. Rinv = Qr^{-1} through K3 (tri.cu), exact in fp32, once per
+// call; 2. both products in one launch of kron_dd.cu's grouped GEMM over
+// the raw probes, each K loop cut to the band of its triangular factor;
+// the arrow's rows commute with the right product, so its epilogues apply
+// them once per output (A_i = q0_i (dG Qr^T)_i + q1_i u with
+// u = dG_last Qr^T, Bt_i = (dX Rinv)_i / q0_i, row m-1 zero) and no
+// scaled probe is stored; 3. the row sums, one warp
+// a row; 4. corr as per-panel partials; 5. the Gram difference split over
+// row panels into a (splits, n, n) scratch by the same GEMM (tiles below
+// the diagonal skipped), then both partial sets summed in a fixed order.
+// What bounds it: operations. Each triangular product is m n^2 FLOPs and
+// the upper triangle of the Gram difference 2 m n^2, 4 m n^2 in all,
+// against 2mn floats of probes: 18.8 GFLOP for the NMT model's five
+// (norm, dense) layers at the reference widths, 0.28 ms at the 67 TFLOP/s
+// fp32 peak. A and Bt are stored once (2mn floats) and read back by the
+// row sums and the Gram.
+//
+// K7 and K8 replace the same file's `_fused_update_ns_wide2` (:456, its
+// pallas_call at :494, `_kernel_ns_wide2` :197) and
+// `_fused_update_ns_wide_xla` (:524, :558, `_kernel_ns_wide` :265): the
+// (norm, scale) reductions of K6 for scale sides past 131,072 lanes, up to
+// 2^23. JAX splits them at 2^21 lanes only because its single-pass kernel
+// keeps full-width lane accumulators in VMEM; one kernel serves both here.
+// It is K6's grid transposed: each block owns a strip of 2,048 lanes and
+// walks every row, so corr and colsum are summed in registers and written
+// once per lane (at (512, 10^6) K6's (panels, n) scratch would be 256 MB);
+// the row partials go to a (strips, m) scratch that a second pass sums in
+// a fixed order. What bounds it: memory, 2mn floats read once (4.1 GB at
+// (512, 10^6), 1.22 ms at 3.35 TB/s). Offsets are size_t (m n passes 2^31),
+// lanes past n are never loaded and rows past m never visited.
+//
+// dX and dG may arrive transposed in K7/K8, K9 and K10 (a mirrored layer's
+// probes are views of (n, m) arrays): each kernel reads them through a
+// transpose flag, no copy.
 // The Pallas kernel's bf16x3 solve mode exists only because of Mosaic and
 // is not carried over: every product here is plain fp32.
 #include "psgd.cuh"
@@ -256,9 +297,11 @@ extern "C" int psgd_kron_ds_big(int m, int n, const void* qlb, const void* qrb, 
     g.p[0] = gemm_prob(Ql, 0, m, static_cast<const float*>(dg), dg_t, dg_t ? m : n, A, m, n, m);
     g.p[0].epi = EPI_COLMUL;
     g.p[0].v = qr;
+    g.p[0].cut = CUT_A_UPPER;
     g.p[1] = gemm_prob(linv, 1, m, static_cast<const float*>(dx), dx_t, dx_t ? m : n, Bt, m, n, m);
     g.p[1].epi = EPI_COLDIV;
     g.p[1].v = qr;
+    g.p[1].cut = CUT_A_LOWER;
     launch_gemms(g, stream);
     // 3. grad2 = colsum(A*A - Bt*Bt)
     colsum_diff_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, A, Bt, static_cast<float*>(grad2));
@@ -274,5 +317,298 @@ extern "C" int psgd_kron_ds_big(int m, int n, const void* qlb, const void* qrb, 
     launch_gemms(g, stream);
     sum_splits_kernel<<<(m * m + 255) / 256, 256, 0, stream>>>(
         m * m, mm, splits, part, static_cast<float*>(gram));
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- K9
+
+#define ND_MAX_SPLITS PSGD_MAX_GEMMS  // the Gram's row panels: one grouped launch
+#define ND_MAX_PANELS 64              // corr's row panels
+
+// one warp a row: diag0_i = sum_j A_ij^2 - Bt_ij^2, biasa_i = sum_j A_ij al_j
+// with A_last = al = q0_{m-1} u
+__global__ void __launch_bounds__(256) nd_rows_kernel(int m, int n, const float* __restrict__ a,
+                                                      const float* __restrict__ bt,
+                                                      const float* __restrict__ q0,
+                                                      const float* __restrict__ u,
+                                                      float* __restrict__ diag0,
+                                                      float* __restrict__ biasa) {
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * 8 + (threadIdx.x >> 5);
+    if (i >= m) return;
+    const float* ar = a + (size_t)i * n;
+    const float* br = bt + (size_t)i * n;
+    const float q0_last = q0[m - 1];
+    float d = 0.f, b = 0.f;
+    for (int j = lane; j < n; j += 32) {
+        const float av = ar[j], bv = br[j];
+        d += av * av - bv * bv;
+        b += av * (q0_last * u[j]);
+    }
+    d = warp_sum(d);
+    b = warp_sum(b);
+    if (lane == 0) {
+        diag0[i] = d;
+        biasa[i] = b;
+    }
+}
+
+// grid (column groups, row panels): pcorr[p n + j] = sum over panel p's rows
+// of w_i dX_ij. Row-major dX: lane = column, the warps walk the rows. A
+// transposed dX ((n, m) in memory): warp = column, the lanes walk the rows.
+__global__ void __launch_bounds__(256) corr_partial_kernel(int m, int n, int rows,
+                                                           const float* __restrict__ x, int xt,
+                                                           const float* __restrict__ w,
+                                                           float* __restrict__ pcorr) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int p = blockIdx.y;
+    const int r0 = p * rows, r1 = min(m, r0 + rows);
+    if (xt) {
+        const int j = blockIdx.x * 8 + warp;
+        if (j >= n) return;
+        const float* xr = x + (size_t)j * m;
+        float s = 0.f;
+        for (int i = r0 + lane; i < r1; i += 32) s += w[i] * xr[i];
+        s = warp_sum(s);
+        if (lane == 0) pcorr[(size_t)p * n + j] = s;
+        return;
+    }
+    __shared__ float red[8][32];
+    const int j = blockIdx.x * 32 + lane;
+    float s = 0.f;
+    if (j < n)
+        for (int i = r0 + warp; i < r1; i += 8) s += w[i] * x[(size_t)i * n + j];
+    red[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0 && j < n) {
+        for (int k = 1; k < 8; ++k) s += red[k][lane];
+        pcorr[(size_t)p * n + j] = s;
+    }
+}
+
+// corr's row panels (>= 256 rows each) and the Gram's K split (a multiple
+// of 16 rows, the GEMM's K tile, each >= 256)
+static void nd_grid(int m, int& panels, int& rows, int& splits, int& chunk) {
+    panels = std::max(1, std::min(ND_MAX_PANELS, m / 256));
+    rows = (m + panels - 1) / panels;
+    panels = (m + rows - 1) / rows;
+    splits = std::max(1, std::min(ND_MAX_SPLITS, m / 256));
+    chunk = (m + splits - 1) / splits;
+    chunk = (chunk + 15) / 16 * 16;
+    splits = (m + chunk - 1) / chunk;
+}
+
+extern "C" size_t psgd_kron_nd_big_scratch_floats(int m, int n) {
+    int panels, rows, splits, chunk;
+    nd_grid(m, panels, rows, splits, chunk);
+    const size_t nn = psgd_align4((size_t)n * n), mn = psgd_align4((size_t)m * n);
+    return nn + 2 * mn + psgd_align4((size_t)panels * n) + (size_t)splits * nn;
+}
+
+extern "C" int psgd_kron_nd_big(int m, int n, const void* dx, int dx_t, const void* dg, int dg_t,
+                                const void* ql, const void* w, const void* qr, const void* u,
+                                void* diag0, void* biasa, void* corr, void* gram, void* scratch,
+                                void* stream_ptr) {
+    if (m < 1 || n < 1 || n > 1024) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int panels, rows, splits, chunk;
+    nd_grid(m, panels, rows, splits, chunk);
+    const size_t nn = psgd_align4((size_t)n * n), mn = psgd_align4((size_t)m * n);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    float* rinv = static_cast<float*>(scratch);
+    float* A = rinv + nn;
+    float* Bt = A + mn;
+    float* pcorr = Bt + mn;
+    float* part = pcorr + psgd_align4((size_t)panels * n);
+
+    // 1. Rinv = Qr^{-1} (K3)
+    TriBatch tri;
+    tri.count = 1;
+    tri.u[0] = f(qr);
+    tri.x[0] = rinv;
+    tri.n[0] = n;
+    launch_tri_inv(tri, stream);
+    // 2. A = (q0 dGm + q1 dG_last) Qr^T and Bt = (dXm / q0) Rinv in one
+    //    grouped launch, the arrow's rows in the epilogues; Qr^T is lower
+    //    and Rinv upper triangular
+    GemmBatch g;
+    g.count = 2;
+    g.p[0] = gemm_prob(f(dg), dg_t, dg_t ? m : n, f(qr), 1, n, A, m, n, n);
+    g.p[0].epi = EPI_ARROW;
+    g.p[0].r = f(ql);
+    g.p[0].v = f(u);
+    g.p[0].cut = CUT_B_LOWER;
+    g.p[1] = gemm_prob(f(dx), dx_t, dx_t ? m : n, rinv, 0, n, Bt, m, n, n);
+    g.p[1].epi = EPI_ROWDIV;
+    g.p[1].r = f(ql);
+    g.p[1].cut = CUT_B_UPPER;
+    launch_gemms(g, stream);
+    // 3. diag0 and biasa
+    nd_rows_kernel<<<(m + 7) / 8, 256, 0, stream>>>(m, n, A, Bt, f(ql), f(u),
+                                                     static_cast<float*>(diag0),
+                                                     static_cast<float*>(biasa));
+    // 4. corr = w^T dX over row panels, summed in panel order
+    corr_partial_kernel<<<dim3(dx_t ? (n + 7) / 8 : (n + 31) / 32, panels), 256, 0, stream>>>(
+        m, n, rows, f(dx), dx_t, f(w), pcorr);
+    sum_splits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, n, panels, pcorr,
+                                                            static_cast<float*>(corr));
+    // 5. triu(A^T A - Bt^T Bt), split over row panels, summed in split order
+    g.count = splits;
+    for (int s = 0; s < splits; ++s) {
+        const size_t k0 = (size_t)s * chunk;
+        const int kc = std::min(chunk, m - (int)k0);
+        GemmProb Q = gemm_prob(A + k0 * n, 1, n, A + k0 * n, 0, n, part + (size_t)s * nn, n, n, kc);
+        Q.a2 = Bt + k0 * n;
+        Q.b2 = Bt + k0 * n;
+        Q.epi = EPI_TRIU;
+        g.p[s] = Q;
+    }
+    launch_gemms(g, stream);
+    sum_splits_kernel<<<(n * n + 255) / 256, 256, 0, stream>>>(n * n, nn, splits, part,
+                                                                static_cast<float*>(gram));
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- K7 / K8
+
+#define NSW_THREADS 256
+#define NSW_LANES 8                          // lanes a thread owns, NSW_THREADS apart
+#define NSW_STRIP (NSW_LANES * NSW_THREADS)  // lanes a block owns
+#define NSW_ROWS 4                           // rows a step of the walk loads at once
+
+// grid (strips): each block owns NSW_STRIP lanes and walks every row.
+__global__ void __launch_bounds__(NSW_THREADS) ns_wide_kernel(
+    int m, int n, const float* __restrict__ dx, int dx_t, const float* __restrict__ dg, int dg_t,
+    const float* __restrict__ ql0, const float* __restrict__ ql1, const float* __restrict__ w,
+    const float* __restrict__ qr, const float* __restrict__ dgl, const float* __restrict__ al,
+    float* __restrict__ corr, float* __restrict__ colsum, float* __restrict__ pdiag,
+    float* __restrict__ pbias) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    __shared__ float red[2][NSW_ROWS][NSW_THREADS / 32];
+    size_t j[NSW_LANES];
+    bool ok[NSW_LANES];
+    float rq[NSW_LANES], q[NSW_LANES], gl[NSW_LANES], la[NSW_LANES], cr[NSW_LANES], cs[NSW_LANES];
+#pragma unroll
+    for (int c = 0; c < NSW_LANES; ++c) {
+        j[c] = (size_t)blockIdx.x * NSW_STRIP + c * NSW_THREADS + threadIdx.x;
+        ok[c] = j[c] < (size_t)n;
+        // a lane past n is never loaded; its inert values add nothing
+        q[c] = ok[c] ? qr[j[c]] : 1.f;
+        rq[c] = 1.f / q[c];
+        gl[c] = ok[c] ? dgl[j[c]] : 0.f;
+        la[c] = ok[c] ? al[j[c]] : 0.f;
+        cr[c] = cs[c] = 0.f;
+    }
+    for (int i0 = 0; i0 < m; i0 += NSW_ROWS) {
+        float xv[NSW_ROWS][NSW_LANES], gv[NSW_ROWS][NSW_LANES];
+#pragma unroll
+        for (int r = 0; r < NSW_ROWS; ++r) {
+            const int i = i0 + r;
+#pragma unroll
+            for (int c = 0; c < NSW_LANES; ++c) {
+                const bool in = ok[c] && i < m;
+                xv[r][c] = in ? dx[dx_t ? j[c] * m + i : (size_t)i * n + j[c]] : 0.f;
+                gv[r][c] = in ? dg[dg_t ? j[c] * m + i : (size_t)i * n + j[c]] : 0.f;
+            }
+        }
+        float rd[NSW_ROWS], rb[NSW_ROWS];
+#pragma unroll
+        for (int r = 0; r < NSW_ROWS; ++r) {
+            const int i = i0 + r;
+            rd[r] = rb[r] = 0.f;
+            if (i >= m) continue;
+            // row m-1 is masked out of diag0, biasa and colsum (the caller's
+            // tail patches it), not out of corr
+            const bool keep = i != m - 1;
+            const float q0 = ql0[i], q1 = ql1[i], wi = w[i], r0 = 1.f / q0;
+#pragma unroll
+            for (int c = 0; c < NSW_LANES; ++c) {
+                const float x = xv[r][c];
+                const float a = (q0 * (keep ? gv[r][c] : 0.f) + q1 * gl[c]) * q[c];
+                const float b = (keep ? x : 0.f) * r0 * rq[c];
+                const float d2 = a * a - b * b;
+                rd[r] += d2;
+                rb[r] += a * la[c];
+                cr[c] += wi * x;
+                cs[c] += d2;
+            }
+        }
+        // the block's row partials, summed over its warps in order
+#pragma unroll
+        for (int r = 0; r < NSW_ROWS; ++r) {
+            const float d = warp_sum(rd[r]), b = warp_sum(rb[r]);
+            if (lane == 0) {
+                red[0][r][warp] = d;
+                red[1][r][warp] = b;
+            }
+        }
+        __syncthreads();
+        if (threadIdx.x < 2 * NSW_ROWS) {
+            const int which = threadIdx.x / NSW_ROWS, r = threadIdx.x % NSW_ROWS;
+            const int i = i0 + r;
+            if (i < m) {
+                float s = 0.f;
+                for (int k = 0; k < NSW_THREADS / 32; ++k) s += red[which][r][k];
+                (which ? pbias : pdiag)[(size_t)blockIdx.x * m + i] = s;
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int c = 0; c < NSW_LANES; ++c) {
+        if (ok[c]) {
+            corr[j[c]] = cr[c];
+            colsum[j[c]] = cs[c];
+        }
+    }
+}
+
+// block: 32 rows (lane) x 32 warps over the strips, summed in a fixed order
+__global__ void __launch_bounds__(1024) ns_wide_reduce_kernel(int m, int strips,
+                                                              const float* __restrict__ pdiag,
+                                                              const float* __restrict__ pbias,
+                                                              float* __restrict__ diag0,
+                                                              float* __restrict__ biasa) {
+    __shared__ float red[2][32][33];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i = blockIdx.x * 32 + lane;
+    float d = 0.f, b = 0.f;
+    if (i < m) {
+        for (int s = warp; s < strips; s += 32) {
+            d += pdiag[(size_t)s * m + i];
+            b += pbias[(size_t)s * m + i];
+        }
+    }
+    red[0][warp][lane] = d;
+    red[1][warp][lane] = b;
+    __syncthreads();
+    if (warp < 2 && i < m) {
+        float t = 0.f;
+        for (int k = 0; k < 32; ++k) t += red[warp][k][lane];
+        (warp ? biasa : diag0)[i] = t;
+    }
+}
+
+static int ns_wide_strips(int n) { return (n + NSW_STRIP - 1) / NSW_STRIP; }
+
+extern "C" size_t psgd_kron_ns_wide_scratch_floats(int m, int n) {
+    return 2 * psgd_align4((size_t)ns_wide_strips(n) * m);
+}
+
+extern "C" int psgd_kron_ns_wide(int m, int n, const void* dx, int dx_t, const void* dg, int dg_t,
+                                 const void* ql0, const void* ql1, const void* w, const void* qr,
+                                 const void* dgl, const void* al, void* diag0, void* biasa,
+                                 void* corr, void* colsum, void* scratch, void* stream_ptr) {
+    if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int strips = ns_wide_strips(n);
+    float* pdiag = static_cast<float*>(scratch);
+    float* pbias = pdiag + psgd_align4((size_t)strips * m);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    ns_wide_kernel<<<strips, NSW_THREADS, 0, stream>>>(
+        m, n, f(dx), dx_t, f(dg), dg_t, f(ql0), f(ql1), f(w), f(qr), f(dgl), f(al),
+        static_cast<float*>(corr), static_cast<float*>(colsum), pdiag, pbias);
+    ns_wide_reduce_kernel<<<(m + 31) / 32, 1024, 0, stream>>>(
+        m, strips, pdiag, pbias, static_cast<float*>(diag0), static_cast<float*>(biasa));
     return (int)cudaGetLastError();
 }

@@ -32,9 +32,19 @@ void launch_tri_inv(TriBatch& b, cudaStream_t stream);
 // op(a) is M x K: a[i*lda + k], or a[k*lda + i] when ta. op(b) is K x N:
 // b[k*ldb + j], or b[j*ldb + k] when tb. a2/b2 share the flags and strides.
 // The epilogue then stores C as is, masks it to its upper triangle and
-// folds max|C| into *mx, rewrites q - s C with s read from *mx, or scales
-// column j of C by v[j] (multiply or divide).
-enum Epilogue { EPI_STORE = 0, EPI_TRIU_MAX = 1, EPI_UPDATE = 2, EPI_COLMUL = 3, EPI_COLDIV = 4 };
+// folds max|C| into *mx, rewrites q - s C with s read from *mx, scales
+// column j of C by v[j] (multiply or divide), masks C to its upper
+// triangle alone, or applies an arrow factor's rows with row M-1 of C
+// taken as zero: q0_i C_i + q1_i v (EPI_ARROW, r = [q0; q1], (2, M)) or
+// C_i / q0_i (EPI_ROWDIV, r = q0). Both triu epilogues skip the K loop of
+// a tile wholly below the diagonal and store its zeros.
+enum Epilogue {
+    EPI_STORE = 0, EPI_TRIU_MAX = 1, EPI_UPDATE = 2, EPI_COLMUL = 3, EPI_COLDIV = 4, EPI_TRIU = 5,
+    EPI_ARROW = 6, EPI_ROWDIV = 7
+};
+// A triangular operand: its zeros are not summed, each tile's K loop is cut
+// to the band where both operands may be nonzero. The zeros must be exact.
+enum Cut { CUT_A_UPPER = 1, CUT_A_LOWER = 2, CUT_B_UPPER = 4, CUT_B_LOWER = 8 };
 
 struct GemmProb {
     const float* a;
@@ -43,10 +53,11 @@ struct GemmProb {
     const float* b2;
     float* c;            // ldc == N
     const float* q;      // EPI_UPDATE: the factor being updated, (M, N)
-    const float* v;      // EPI_COLMUL / EPI_COLDIV: (N,) column scales
+    const float* v;      // EPI_COLMUL / EPI_COLDIV: (N,) column scales; EPI_ARROW: (N,)
+    const float* r;      // EPI_ARROW / EPI_ROWDIV: the row scales
     unsigned int* mx;    // EPI_TRIU_MAX writes, EPI_UPDATE reads max|grad|
     float step;
-    int M, N, K, lda, ldb, ta, tb, epi;
+    int M, N, K, lda, ldb, ta, tb, epi, cut;
 };
 
 struct GemmBatch {
@@ -54,8 +65,9 @@ struct GemmBatch {
     int tiles[PSGD_MAX_GEMMS + 1];
     int count;
 };
+static_assert(sizeof(GemmBatch) <= 4096, "a GemmBatch is passed by value as a kernel parameter");
 
-// A problem with the EPI_STORE epilogue and no second product.
+// A problem with the EPI_STORE epilogue, no cut and no second product.
 GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,
                    float* c, int M, int N, int K);
 // Launch every problem of `g` in one grid on `stream` (kron_dd.cu); fills

@@ -163,6 +163,11 @@ def _oriented(state: KronState, dX, dG):
     return kind, False, state.ql, state.qr, dX, dG
 
 
+# the streaming kernels; the (norm, scale) one takes K7/K8 past MAX_LANES
+_BIG = {"ns": kron_sparse_big.fused_update_ns, "nd": kron_sparse_big.fused_update_nd,
+        "ds": kron_sparse_big.fused_update_ds}
+
+
 def _kernel_route(kind: str, m: int, n: int) -> str:
     """The route name of a canonical (kind, m, n) layer on a CUDA device."""
     if kind == "dd":
@@ -176,31 +181,18 @@ def _kernel_route(kind: str, m: int, n: int) -> str:
     return "xla"
 
 
-_UNPORTED = {
-    "kron_sparse_big:nd": "K9 (kron_sparse_big.fused_update_nd)",
-    "kron_sparse_big:ns_wide": "K7/K8 (kron_sparse_big wide (norm, scale) path)",
-}
-
-
 def _sparse_dispatch(kind, a, b, dX, dG, step):
     """Route one canonical sparse-pair update: the single-layer kernel K5
-    for probes `kron_sparse.fits`, the streaming kernels K6 (ns) / K10 (ds)
-    up to the JAX package's capacity envelope, else the plain update (the
-    JAX package's XLA path). Every wrapper takes its plain version for CPU
-    tensors. K9 and K7/K8 are not ported: a CUDA tensor there raises."""
+    for probes `kron_sparse.fits`, the streaming kernels K6/K7/K8 (ns), K9
+    (nd) and K10 (ds) up to the JAX package's capacity envelope, else the
+    plain update (the JAX package's XLA path). Every wrapper takes its
+    plain version for CPU tensors."""
     m, n = dX.shape
     r = _kernel_route(kind, m, n)
     if r.startswith("kron_sparse:"):
         return kron_sparse.FUSED_UPDATE[kind](a, b, dX, dG, step)
-    if r == "kron_sparse_big:ns":
-        return kron_sparse_big.fused_update_ns(a, b, dX, dG, step)
-    if r == "kron_sparse_big:ds":
-        return kron_sparse_big.fused_update_ds(a, b, dX, dG, step)
-    if r in _UNPORTED and hopper.use_kernel(dX):
-        raise NotImplementedError(
-            f"route {r} for ({kind}, {m}x{n}): its kernel {_UNPORTED[r]} is "
-            "not ported yet (ROADMAP queue 2)"
-        )
+    if r.startswith("kron_sparse_big:"):
+        return _BIG[kind](a, b, dX, dG, step)
     return kron_multi.PLAIN[kind](a, b, dX, dG, step)
 
 
@@ -266,14 +258,14 @@ def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.devi
       'kron_dd'                 (dense, dense): K2 (K1 when listed)
       'kron_sparse:<kind>'      single-launch sparse kernel K5
       'kron_sparse_big:<kind>'  streaming kernel, K6 (ns), K10 (ds), K9 (nd)
-      'kron_sparse_big:ns_wide' the wide (norm, scale) path, K7/K8
+      'kron_sparse_big:ns_wide' the wide (norm, scale) path, K7 (up to 2^21
+                                lanes) or K8
       'xla'                     no kernel; the plain update on the device
 
     Mirrors report their canonical sibling's route. One difference from the
     JAX package: the port's (dense, dense) chain has no side cap, so
     (dense, dense) reports 'kron_dd' at every side where JAX reports 'xla'
-    above 1024. 'kron_sparse_big:nd' and ':ns_wide' raise
-    NotImplementedError for a CUDA tensor: their kernels are not ported.
+    above 1024.
     """
     kind, mirrored = _canon(fmt)
     if not hopper.use_kernel(device):

@@ -2,7 +2,9 @@
 
 The tests hand both packages the same numbers: they take what the JAX
 package computed, as numpy arrays, and turn it into the port's tensors on a
-given device, so that both compute the same thing from there.
+given device, so that both compute the same thing from there. Every function
+places on the card unless the caller asks for another device (the CPU tests
+pass `device="cpu"`).
 """
 from __future__ import annotations
 
@@ -20,14 +22,15 @@ from psgd_tf_tpu_torch.groups.splu import SpLUState
 from psgd_tf_tpu_torch.groups.xmat import XMatState
 
 
-def tensors(arrays: Sequence[np.ndarray], device: torch.device | str = "cpu") -> list[torch.Tensor]:
+def tensors(arrays: Sequence[np.ndarray],
+            device: torch.device | str = "cuda") -> list[torch.Tensor]:
     """numpy arrays (e.g. `np.asarray` of JAX parameters) -> tensors."""
     return [torch.from_numpy(np.array(a, copy=True)).to(device) for a in arrays]
 
 
 def kron_states(
     states: Sequence[tuple[np.ndarray, np.ndarray, tuple[str, str]]],
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> list[KronState]:
     """(ql, qr, fmt) triples, e.g. from a JAX KronState list as
     `[(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in states]`."""
@@ -38,36 +41,36 @@ def kron_states(
     return out
 
 
-def dense_state(Q: np.ndarray, device: torch.device | str = "cpu") -> DenseState:
+def dense_state(Q: np.ndarray, device: torch.device | str = "cuda") -> DenseState:
     """From a JAX DenseState's `np.asarray(s.Q)`."""
     return DenseState(Q=tensors([Q], device)[0])
 
 
-def diag_state(q: np.ndarray, device: torch.device | str = "cpu") -> DiagState:
+def diag_state(q: np.ndarray, device: torch.device | str = "cuda") -> DiagState:
     """From a JAX DiagState's `np.asarray(s.q)`."""
     return DiagState(q=tensors([q], device)[0])
 
 
-def lra_state(UV: np.ndarray, d: np.ndarray, device: torch.device | str = "cpu") -> LRAState:
+def lra_state(UV: np.ndarray, d: np.ndarray, device: torch.device | str = "cuda") -> LRAState:
     """From a JAX LRAState's packed `np.asarray(s.UV)` and `np.asarray(s.d)`."""
     uv, dd = tensors([UV, d], device)
     return LRAState(UV=uv, d=dd)
 
 
 def splu_state(Lt: np.ndarray, l3: np.ndarray, U12: np.ndarray, u3: np.ndarray,
-               device: torch.device | str = "cpu") -> SpLUState:
+               device: torch.device | str = "cuda") -> SpLUState:
     """From a JAX SpLUState's fields, or a SpLUStreamState's logical views
     (`np.asarray(s.Lt)`, `s.l3`, `s.U12`, `s.u3`: both are (r, n), (n - r,))."""
     return SpLUState(*tensors([Lt, l3, U12, u3], device))
 
 
 def xmat_state(af: np.ndarray, bf: np.ndarray, ac: np.ndarray, odd: bool,
-               device: torch.device | str = "cpu") -> XMatState:
+               device: torch.device | str = "cuda") -> XMatState:
     """From a JAX XMatState's folded `af`, `bf`, `ac` and its `odd`."""
     return XMatState(*tensors([af, bf, ac], device), odd=bool(odd))
 
 
 def shift_state(af: np.ndarray, bf: np.ndarray, ac: np.ndarray, odd: bool,
-                device: torch.device | str = "cpu") -> ShiftState:
+                device: torch.device | str = "cuda") -> ShiftState:
     """From a JAX ShiftState's folded `af`, `bf`, `ac` and its `odd`."""
     return ShiftState(*tensors([af, bf, ac], device), odd=bool(odd))

@@ -8,8 +8,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     `kron_sparse.fused_update_*` one sparse layer (K5), and
     `kron_multi.fused_update_multi` a whole layer list of any kinds in one
     fixed chain of grouped launches (K1).
-  - kron_sparse_big: the streaming (norm, scale) reductions (K6) and the
-    streaming (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`.
+  - kron_sparse_big: the streaming (norm, scale) reductions (K6), their
+    wide-lane kernel (K7/K8: one kernel counted under the JAX package's
+    two routes), the streaming (norm, dense) chain (K9) and the streaming
+    (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`.
   - dense_upd / dense_big: the dense family's rank-2 update, with the
     fused apply (K11 / K12: one streaming chain, `csrc/dense.cu`, counted
     under the JAX package's two routes).
@@ -36,7 +38,8 @@ import torch
 
 counts: dict[str, int] = {
     "tri": 0, "kron_dd": 0, "kron_multi": 0, "kron_sparse": 0,
-    "kron_sparse_big_ns": 0, "kron_sparse_big_ds": 0,
+    "kron_sparse_big_ns": 0, "kron_sparse_big_ns_wide2": 0, "kron_sparse_big_ns_wide_xla": 0,
+    "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
 }
 _disabled_depth = 0

@@ -43,6 +43,16 @@ _SIGNATURES = {
     ),
     "psgd_kron_ns_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_kron_ns_big": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 14),
+    "psgd_kron_ns_wide_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_kron_ns_wide": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 12,
+    ),
+    "psgd_kron_nd_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_kron_nd_big": (
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 10,
+    ),
     "psgd_kron_ds_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_kron_ds_big": (
         ctypes.c_int,

@@ -1,25 +1,39 @@
-"""K6 and K10: the streaming sparse-format Kronecker updates, for layers
-past `kron_sparse.fits` (embedding and vocabulary-sized probes).
+"""K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker updates, for
+layers past `kron_sparse.fits` (embedding and vocabulary-sized probes).
 
 Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
   - K6, `fused_update_ns` (:377 → `pallas_call` :412, `_kernel_ns_big`
     :172): (norm, scale), n padded to 128 up to MAX_LANES. The kernel part
     is one pass over (dX, dG) that emits the per-row diag0 and biasa and
     the per-column corr and colsum, row m-1 masked (`csrc/kron_sparse_big.cu`).
+  - K7, `_fused_update_ns_wide2` (:456 → :494, `_kernel_ns_wide2` :197), and
+    K8, `_fused_update_ns_wide_xla` (:524 → :558, `_kernel_ns_wide` :265):
+    the same four reductions for scale sides past MAX_LANES, up to
+    MAX_LANES_NS. One CUDA kernel serves both; its launches are counted
+    under the JAX function that the width would take (WIDE2_MAX_LANES).
+  - K9, `fused_update_nd` (:598 → `pallas_call` :634, `_kernel_nd_big`
+    :298): (norm, dense), n <= MAX_DENSE. The kernel part is A = Ql dG Qr^T
+    and Bt = Ql^{-T} dX Qr^{-1} with row m-1 masked (by K3's exact inverse,
+    the arrow's rows applied after each product), their row sums diag0 and
+    biasa, corr, and the upper triangle of the Gram difference
+    A^T A - Bt^T Bt.
   - K10, `fused_update_ds` (:711 → `pallas_call` :740, `_kernel_ds_big`
     :675): (dense, scale), m <= MAX_DENSE. The kernel part is A = Ql dG qr,
     Bt = Ql^{-T} dX / qr (by K3's exact inverse), the column gradient grad2
     and the Gram difference A A^T - Bt Bt^T summed over every column.
 
 What the JAX package leaves to XLA stays plain torch here: the balancing,
-the O(m + n) arrow tail (B_last, the second dX matvec, `_norm_post`) and
-the (dense, scale) tail (triu, the step scales, grad1 @ Ql). Both return
-what the JAX functions return: the balanced, updated factors. One
-difference, shared with K1/K2: the step scales saturate at the fp32 max
-(`linalg.step_scale`), so a zero gradient gives a zero update, not NaN.
+the O(m + n) arrow tail (B_last and, for (norm, dense), its two triangular
+solves, the second dX matvec, `_norm_post`) and the (dense, scale) tail
+(triu, the step scales, grad1 @ Ql). Each returns what the JAX function
+returns: the balanced, updated factors. One difference, shared with K1/K2:
+the step scales saturate at the fp32 max (`linalg.step_scale`), so a zero
+gradient gives a zero update, not NaN.
 
 Each kernel part has a plain torch version here, which the wrappers take
-for CPU tensors; on a CUDA tensor they launch the kernel or raise.
+for CPU tensors; on a CUDA tensor they launch the kernel or raise. Probes
+that arrive transposed (a mirrored layer's dX.T) are read in place by
+K7/K8, K9 and K10.
 """
 from __future__ import annotations
 
@@ -29,99 +43,26 @@ from psgd_tf_tpu_torch.ops import hopper, linalg
 from psgd_tf_tpu_torch.ops.hopper import _build
 
 # the JAX package's routing caps (kron_sparse_big.py:60-76)
-MAX_LANES = 131072      # 1-D-grid (norm, scale) kernel: lanes padded to 128
-MAX_LANES_NS = 1 << 23  # the wide (norm, scale) path's cap (K7/K8)
-MAX_DENSE = 1024        # dense-factor side of the streaming nd/ds kernels
+MAX_LANES = 131072        # 1-D-grid (norm, scale) kernel: lanes padded to 128
+WIDE2_MAX_LANES = 2 << 20  # the single-pass wide kernel (K7); wider takes K8
+MAX_LANES_NS = 1 << 23    # the wide (norm, scale) path's cap (K7/K8)
+MAX_DENSE = 1024          # dense-factor side of the streaming nd/ds kernels
+
+
+def _lanes(n: int) -> int:
+    """n padded to 128, as the JAX routes measure a scale side."""
+    return -(-n // 128) * 128
 
 
 def fits_grid(kind: str, m: int, n: int) -> bool:
     """Shapes the JAX package's streaming kernels accept."""
     if kind == "ns":
-        return -(-n // 128) * 128 <= MAX_LANES_NS
+        return _lanes(n) <= MAX_LANES_NS
     if kind == "nd":
         return n <= MAX_DENSE
     if kind == "ds":
         return m <= MAX_DENSE
     raise ValueError(kind)
-
-
-# ----------------------------------------------------------------- (norm, scale)
-
-def ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al):
-    """K6's kernel part, plain: (diag0, biasa, corr, colsum) with row m-1
-    masked out of diag0, biasa and colsum (`_kernel_ns_big`)."""
-    m = dX.shape[0]
-    keep = (torch.arange(m, device=dX.device) != m - 1)[:, None]
-    dxm = torch.where(keep, dX, 0.0)
-    dgm = torch.where(keep, dG, 0.0)
-    a = (ql0[:, None] * dgm + ql1[:, None] * dgl[None, :]) * qr[None, :]
-    bt = dxm / ql0[:, None] / qr[None, :]
-    d2 = a * a - bt * bt
-    return d2.sum(1), (a * al[None, :]).sum(1), (w[:, None] * dX).sum(0), d2.sum(0)
-
-
-def ns_reductions(dX, dG, ql0, ql1, w, qr, dgl, al):
-    """K6's kernel part: the plain version for CPU tensors, the CUDA kernel
-    (`csrc/kron_sparse_big.cu`) for CUDA tensors."""
-    if not hopper.use_kernel(dX):
-        return ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al)
-    m, n = dX.shape
-    if -(-n // 128) * 128 > MAX_LANES:
-        raise ValueError(f"kron_sparse_big_ns: {n} lanes exceed MAX_LANES={MAX_LANES}")
-    vecs = [ql0, ql1, w, qr, dgl, al]
-    if dG.shape != (m, n) or [v.shape for v in vecs] != [(m,)] * 3 + [(n,)] * 3:
-        raise ValueError("kron_sparse_big_ns: operand shapes do not agree")
-    hopper.check_operands("kron_sparse_big_ns", dX, dG, *vecs)
-    lib = _build.lib()
-    f = dict(dtype=torch.float32, device=dX.device)
-    outs = [torch.empty(m, **f), torch.empty(m, **f), torch.empty(n, **f), torch.empty(n, **f)]
-    scratch = torch.empty(lib.psgd_kron_ns_big_scratch_floats(m, n), **f)
-    rc = lib.psgd_kron_ns_big(
-        m, n, *[t.data_ptr() for t in (dX, dG, *vecs, *outs, scratch)],
-        torch.cuda.current_stream(dX.device).cuda_stream,
-    )
-    _build.check(rc, "kron_sparse_big_ns kernel")
-    hopper.counts["kron_sparse_big_ns"] += 1
-    return tuple(outs)
-
-
-def fused_update_ns(ql, qr, dX, dG, step):
-    """K6: (norm, scale) streaming update; ql (2, m), qr (n,). Returns the
-    balanced, updated (ql', qr'), as `kron_sparse_big.fused_update_ns`."""
-    m, n = dX.shape
-    dX, dG = dX.contiguous(), dG.contiguous()
-    rho = torch.sqrt(ql[0].amax() / qr.amax())
-    ql = ql / rho
-    qr_b = rho * qr
-    ql0, ql1 = ql[0], ql[1]
-    dX_last, dG_last = dX[-1], dG[-1]
-    A_last = ql0[-1] * dG_last * qr_b
-    w = ql1 / (ql0 * ql0[-1])  # w[-1] = 0
-    diag0, biasa, corr, colsum = ns_reductions(dX, dG, ql0, ql1, w, qr_b, dG_last, A_last)
-
-    # the O(m + n) tail and the second dX pass (XLA in the JAX package)
-    B_last = (dX_last / ql0[-1] - corr) / qr_b
-    diag = torch.cat([diag0[:-1], torch.sum(A_last**2 - B_last**2)[None]])
-    btdot = (dX @ (B_last / qr_b)) / ql0
-    bias = torch.cat([(biasa - btdot)[:-1], biasa.new_zeros(1)])
-    grad2 = colsum + A_last**2 - B_last**2
-    step1 = linalg.step_scale(
-        step, torch.maximum(linalg.max_abs(diag), linalg.max_abs(bias)), ql.dtype
-    )
-    new0 = ql0 - step1 * diag * ql0
-    new1 = ql1 - step1 * (diag * ql1 + ql0[-1] * bias)
-    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
-    return torch.stack([new0, new1]), qr_b - step2 * grad2 * qr_b
-
-
-# ---------------------------------------------------------------- (dense, scale)
-
-def ds_reductions_plain(Ql, qr, dX, dG):
-    """K10's kernel part, plain: (grad2, A A^T - Bt Bt^T) with A = Ql dG qr
-    and Bt = Ql^{-T} dX / qr (`_kernel_ds_big`)."""
-    A = (Ql @ dG) * qr[None, :]
-    Bt = linalg.solve_ut_t(Ql, dX) / qr[None, :]
-    return (A * A - Bt * Bt).sum(0), A @ A.T - Bt @ Bt.T
 
 
 def _as_row_major(x):
@@ -133,6 +74,186 @@ def _as_row_major(x):
     if x.T.is_contiguous():
         return x.T, 1
     return x.contiguous(), 0
+
+
+# ----------------------------------------------------------------- (norm, scale)
+
+def ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al):
+    """K6's (and K7/K8's) kernel part, plain: (diag0, biasa, corr, colsum) with row m-1
+    masked out of diag0, biasa and colsum (`_kernel_ns_big`)."""
+    m = dX.shape[0]
+    keep = (torch.arange(m, device=dX.device) != m - 1)[:, None]
+    dxm = torch.where(keep, dX, 0.0)
+    dgm = torch.where(keep, dG, 0.0)
+    a = (ql0[:, None] * dgm + ql1[:, None] * dgl[None, :]) * qr[None, :]
+    bt = dxm / ql0[:, None] / qr[None, :]
+    d2 = a * a - bt * bt
+    return d2.sum(1), (a * al[None, :]).sum(1), (w[:, None] * dX).sum(0), d2.sum(0)
+
+
+def ns_wide_counter(n: int) -> str:
+    """The launch counter of the wide kernel at n lanes: the JAX function
+    that width takes, K7 up to WIDE2_MAX_LANES and K8 past it."""
+    wide2 = _lanes(n) <= WIDE2_MAX_LANES
+    return "kron_sparse_big_ns_wide2" if wide2 else "kron_sparse_big_ns_wide_xla"
+
+
+def ns_reductions(dX, dG, ql0, ql1, w, qr, dgl, al):
+    """The (norm, scale) kernel part: the plain version for CPU tensors; for
+    CUDA tensors K6's kernel up to MAX_LANES and the wide kernel (K7/K8:
+    lane strips that walk every row, dX and dG read in place when they are
+    transposed views) past it, both in `csrc/kron_sparse_big.cu`."""
+    if not hopper.use_kernel(dX):
+        return ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al)
+    m, n = dX.shape
+    if _lanes(n) > MAX_LANES_NS:
+        raise ValueError(f"kron_sparse_big_ns: {n} lanes exceed MAX_LANES_NS={MAX_LANES_NS}")
+    vecs = [v.contiguous() for v in (ql0, ql1, w, qr, dgl, al)]  # dgl may be a strided row
+    if dG.shape != (m, n) or [v.shape for v in vecs] != [(m,)] * 3 + [(n,)] * 3:
+        raise ValueError("kron_sparse_big_ns: operand shapes do not agree")
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=dX.device)
+    outs = [torch.empty(m, **f), torch.empty(m, **f), torch.empty(n, **f), torch.empty(n, **f)]
+    stream = torch.cuda.current_stream(dX.device).cuda_stream
+    if _lanes(n) <= MAX_LANES:
+        dX, dG = dX.contiguous(), dG.contiguous()
+        hopper.check_operands("kron_sparse_big_ns", dX, dG, *vecs)
+        scratch = torch.empty(lib.psgd_kron_ns_big_scratch_floats(m, n), **f)
+        rc = lib.psgd_kron_ns_big(
+            m, n, *[t.data_ptr() for t in (dX, dG, *vecs, *outs, scratch)], stream)
+        counter = "kron_sparse_big_ns"
+    else:
+        (x, xt), (g, gt) = _as_row_major(dX), _as_row_major(dG)
+        hopper.check_operands("kron_sparse_big_ns_wide", x, g, *vecs)
+        scratch = torch.empty(lib.psgd_kron_ns_wide_scratch_floats(m, n), **f)
+        rc = lib.psgd_kron_ns_wide(
+            m, n, x.data_ptr(), xt, g.data_ptr(), gt,
+            *[t.data_ptr() for t in (*vecs, *outs, scratch)], stream)
+        counter = ns_wide_counter(n)
+    _build.check(rc, f"{counter} kernel")
+    hopper.counts[counter] += 1
+    return tuple(outs)
+
+
+def _norm_post(ql0, ql1, diag, bias, grad2, step, qr, dense):
+    """The arrow and right-factor rewrites (the JAX package's `_norm_post`,
+    with the saturating step scales)."""
+    step1 = linalg.step_scale(
+        step, torch.maximum(linalg.max_abs(diag), linalg.max_abs(bias)), ql0.dtype
+    )
+    new0 = ql0 - step1 * diag * ql0
+    new1 = ql1 - step1 * (diag * ql1 + ql0[-1] * bias)
+    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
+    newqr = qr - step2 * (grad2 @ qr) if dense else qr - step2 * grad2 * qr
+    return torch.stack([new0, new1]), newqr
+
+
+def _patch_last(v, last):
+    """v with its last entry replaced by `last` (row m-1's own terms)."""
+    return torch.cat([v[:-1], last.reshape(1).to(v.dtype)])
+
+
+def fused_update_ns(ql, qr, dX, dG, step):
+    """(norm, scale) streaming update; ql (2, m), qr (n,): K6 up to
+    MAX_LANES, K7/K8 past it, as `kron_sparse_big.fused_update_ns` routes.
+    Returns the balanced, updated (ql', qr')."""
+    rho = torch.sqrt(ql[0].amax() / qr.amax())
+    ql = ql / rho
+    qr_b = rho * qr
+    ql0, ql1 = ql[0], ql[1]
+    dX_last, dG_last = dX[-1], dG[-1]
+    A_last = ql0[-1] * dG_last * qr_b
+    w = ql1 / (ql0 * ql0[-1])  # w[-1] = 0
+    diag0, biasa, corr, colsum = ns_reductions(dX, dG, ql0, ql1, w, qr_b, dG_last, A_last)
+
+    # the O(m + n) tail and the second dX pass (XLA in the JAX package)
+    B_last = (dX_last / ql0[-1] - corr) / qr_b
+    diag = _patch_last(diag0, torch.sum(A_last**2 - B_last**2))
+    btdot = (dX @ (B_last / qr_b)) / ql0
+    bias = _patch_last(biasa - btdot, biasa.new_zeros(()))
+    grad2 = colsum + A_last**2 - B_last**2
+    return _norm_post(ql0, ql1, diag, bias, grad2, step, qr_b, dense=False)
+
+
+# ---------------------------------------------------------------- (norm, dense)
+
+def nd_reductions_plain(dX, dG, ql, w, Qr, u):
+    """K9's kernel part, plain: (diag0, biasa, corr, triu(A^T A - Bt^T Bt))
+    with A = (q0 dGm + q1 dG_last) Qr^T and Bt = (dXm / q0) Qr^{-1}, ql the
+    (2, m) arrow [q0; q1], row m-1 masked out of dXm and dGm, corr = w^T dX,
+    biasa = A A_last with A_last = q0[-1] u, u = dG_last Qr^T
+    (`_kernel_nd_big`)."""
+    m = dX.shape[0]
+    ql0, ql1 = ql[0], ql[1]
+    keep = (torch.arange(m, device=dX.device) != m - 1)[:, None]
+    A = (ql0[:, None] * torch.where(keep, dG, 0.0) + ql1[:, None] * dG[-1][None, :]) @ Qr.T
+    Bt = linalg.solve_ut_t(Qr, (torch.where(keep, dX, 0.0) / ql0[:, None]).T).T
+    return ((A * A - Bt * Bt).sum(1), A @ (ql0[-1] * u), w @ dX,
+            linalg.triu(A.T @ A - Bt.T @ Bt))
+
+
+def nd_reductions(dX, dG, ql, w, Qr, u):
+    """K9's kernel part: the plain version for CPU tensors, the CUDA chain
+    (`csrc/kron_sparse_big.cu`: K3, the two products with the arrow in
+    their operand load, row sums, corr partials, split-K Gram) for CUDA
+    tensors. dX and dG may be transposed views."""
+    if not hopper.use_kernel(dX):
+        return nd_reductions_plain(dX, dG, ql, w, Qr, u)
+    m, n = dX.shape
+    if n > MAX_DENSE:
+        raise ValueError(f"kron_sparse_big_nd: dense side {n} exceeds MAX_DENSE={MAX_DENSE}")
+    ql, w, u = ql.contiguous(), w.contiguous(), u.contiguous()
+    if (dG.shape != (m, n) or Qr.shape != (n, n) or ql.shape != (2, m) or w.shape != (m,)
+            or u.shape != (n,)):
+        raise ValueError("kron_sparse_big_nd: operand shapes do not agree")
+    (x, xt), (g, gt) = _as_row_major(dX), _as_row_major(dG)
+    hopper.check_operands("kron_sparse_big_nd", x, g, ql, w, Qr, u)
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=dX.device)
+    outs = [torch.empty(m, **f), torch.empty(m, **f), torch.empty(n, **f), torch.empty(n, n, **f)]
+    scratch = torch.empty(lib.psgd_kron_nd_big_scratch_floats(m, n), **f)
+    rc = lib.psgd_kron_nd_big(
+        m, n, x.data_ptr(), xt, g.data_ptr(), gt,
+        *[t.data_ptr() for t in (ql, w, Qr, u, *outs, scratch)],
+        torch.cuda.current_stream(dX.device).cuda_stream,
+    )
+    _build.check(rc, "kron_sparse_big_nd kernel chain")
+    hopper.counts["kron_sparse_big_nd"] += 1
+    hopper.counts["tri"] += 1  # the chain's first step is K3
+    return tuple(outs)
+
+
+def fused_update_nd(ql, Qr, dX, dG, step):
+    """K9: (norm, dense) streaming update; ql (2, m), Qr (n, n)
+    upper-triangular with n <= MAX_DENSE. Returns the balanced, updated
+    (ql', Qr'), as `kron_sparse_big.fused_update_nd`."""
+    rho = torch.sqrt(ql[0].amax() / torch.diagonal(Qr).amax())
+    ql = ql / rho
+    Qr_b = rho * Qr
+    ql0, ql1 = ql[0], ql[1]
+    dX_last, dG_last = dX[-1], dG[-1]
+    u = dG_last @ Qr_b.T
+    A_last = ql0[-1] * u
+    w = ql1 / (ql0 * ql0[-1])  # w[-1] = 0
+    diag0, biasa, corr, gram = nd_reductions(dX, dG, ql, w, Qr_b, u)
+
+    # the O(m + n^2) tail and the second dX pass (XLA in the JAX package)
+    B_last = linalg.solve_ut_t(Qr_b, dX_last / ql0[-1] - corr)  # z Qr^{-1}
+    diag = _patch_last(diag0, torch.sum(A_last**2 - B_last**2))
+    btdot = (dX @ linalg.solve_ut(Qr_b, B_last)) / ql0
+    bias = _patch_last(biasa - btdot, biasa.new_zeros(()))
+    grad2 = linalg.triu(gram + torch.outer(A_last, A_last) - torch.outer(B_last, B_last))
+    return _norm_post(ql0, ql1, diag, bias, grad2, step, Qr_b, dense=True)
+
+
+# ---------------------------------------------------------------- (dense, scale)
+
+def ds_reductions_plain(Ql, qr, dX, dG):
+    """K10's kernel part, plain: (grad2, A A^T - Bt Bt^T) with A = Ql dG qr
+    and Bt = Ql^{-T} dX / qr (`_kernel_ds_big`)."""
+    A = (Ql @ dG) * qr[None, :]
+    Bt = linalg.solve_ut_t(Ql, dX) / qr[None, :]
+    return (A * A - Bt * Bt).sum(0), A @ A.T - Bt @ Bt.T
 
 
 def ds_reductions(Ql, qr, dX, dG):

@@ -56,7 +56,7 @@ def test_diag_matches_jax(fn):
     n = 257
     q0 = np.abs(_vecs(n, 1, 1)[0]) + 0.5
     v, h, g = _vecs(n, 3, 2)
-    jst, st = jdiag.DiagState(q=jnp.asarray(q0)), interop.diag_state(q0)
+    jst, st = jdiag.DiagState(q=jnp.asarray(q0)), interop.diag_state(q0, device="cpu")
     if fn == "apply":
         got, want = diag.apply(st, _t(g)), jdiag.apply(jst, jnp.asarray(g))
     else:
@@ -78,7 +78,7 @@ def test_dense_matches_jax_xla_path(n):
     q = _dense_q(n, 3)
     v, h, g = _vecs(n, 3, 4)
     jst = jdense.DenseState(Q=jnp.asarray(q))
-    st = interop.dense_state(q)
+    st = interop.dense_state(q, device="cpu")
     want = jdense.update(jst, v, h, 0.1).Q
     want_st, want_pre = jdense.update_apply(jst, v, h, g, 0.1)
     np.testing.assert_allclose(dense.update(st, _t(v), _t(h), 0.1).Q.numpy(), np.asarray(want),
@@ -176,7 +176,7 @@ def test_lra_matches_jax(coin_keys, n, r, coins):
     k = coin_keys[coins]
     ref = jlra.update(st, v, h, 0.05, k)
     ref_apply = jlra.apply(ref, g)
-    kst = interop.lra_state(np.asarray(st.UV), np.asarray(st.d))
+    kst = interop.lra_state(np.asarray(st.UV), np.asarray(st.d), device="cpu")
     got = lra.update(kst, _t(v), _t(h), 0.05, coins)
     _close(got.UV, ref.UV)
     _close(got.d, ref.d)

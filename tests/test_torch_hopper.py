@@ -33,7 +33,8 @@ def test_import_leaves_jax_out():
         "import sys, psgd_tf_tpu_torch, psgd_tf_tpu_torch.workloads.mnist_lenet5, "
         "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
         "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra, "
-        "psgd_tf_tpu_torch.workloads.all_preconditioners\n"
+        "psgd_tf_tpu_torch.workloads.all_preconditioners, "
+        "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
         "assert not bad, bad\n"
@@ -64,6 +65,11 @@ def test_kernel_sources_are_present():
     for src in (PKG / "csrc").glob("*.cu"):
         text = src.read_text()
         assert "psgd_tf_tpu/ops/pallas/" in text  # names the kernel it replaces
+    # the streaming file names every Pallas kernel of kron_sparse_big.py it ports
+    text = (PKG / "csrc" / "kron_sparse_big.cu").read_text()
+    for kernel in ["_kernel_ns_big", "_kernel_ns_wide2", "_kernel_ns_wide", "_kernel_nd_big",
+                   "_kernel_ds_big"]:
+        assert f"`{kernel}`" in text, kernel
 
 
 # --------------------------------------------------------------- on the card
@@ -244,15 +250,87 @@ def test_k6_k10_match_plain_at_reference_shapes(cuda, fmt, shape):
         assert got.ql[1, -1].item() == 0.0
 
 
-def test_unported_routes_raise_on_card(cuda):
+@pytest.mark.parametrize("fmt,shape", [
+    (("norm", "dense"), (600, 64)), (("norm", "dense"), (1000, 10)),
+    (("norm", "dense"), (2, 700)), (("norm", "dense"), (1281, 1024)),
+    (("dense", "norm"), (70, 1500)),
+], ids=str)
+def test_k9_matches_plain(cuda, fmt, shape):
+    """K9 through `kron.update` at ragged dense sides (10: one partial
+    tile), two rows, the reference NMT's (1281, 1024) and a mirrored layer
+    (its probes as dX.T views), against the plain update."""
     from psgd_tf_tpu_torch import kron
 
-    for fmt, shape, name in [(("norm", "dense"), (4096, 512), "K9"),
-                             (("norm", "scale"), (128, 200_000), "K7/K8")]:
-        st = kron.init(shape, fmt=fmt, device=cuda)
-        z = torch.zeros(shape, device=cuda)
-        with pytest.raises(NotImplementedError, match=name):
-            kron.update(st, z, z, step=0.1)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    assert kron.route(fmt, shape, cuda) == "kron_sparse_big:nd"
+    (st,), (dx,), (dg,) = _walked_states(g, [fmt], [shape], cuda, steps=2)
+    before = dict(hopper.counts)
+    got = kron.update(st, dx, dg, step=0.1)
+    torch.cuda.synchronize()
+    assert hopper.counts["kron_sparse_big_nd"] == before["kron_sparse_big_nd"] + 1
+    assert hopper.counts["tri"] == before["tri"] + 1
+    with hopper.disabled():
+        ref = kron.update(st, dx, dg, step=0.1)
+    assert _states_rel([got], [ref]) < 1e-4
+    arrow, dense = (got.qr, got.ql) if fmt[0] == "dense" else (got.ql, got.qr)
+    assert arrow[1, -1].item() == 0.0 and torch.equal(dense, torch.triu(dense))
+    # the chain repeats itself bit for bit (no float atomics)
+    again = kron.update(st, dx, dg, step=0.1)
+    assert torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+
+
+@pytest.mark.parametrize("fmt,shape,counter", [
+    (("norm", "scale"), (33, 140_001), "kron_sparse_big_ns_wide2"),
+    (("norm", "scale"), (2, 131_073), "kron_sparse_big_ns_wide2"),
+    (("scale", "norm"), (140_001, 70), "kron_sparse_big_ns_wide2"),
+    (("norm", "scale"), (3, (2 << 20) + 129), "kron_sparse_big_ns_wide_xla"),
+], ids=str)
+def test_k7_k8_match_plain(cuda, fmt, shape, counter):
+    """The wide (norm, scale) kernel through `kron.update`: ragged strips,
+    two rows, a mirrored layer (dX.T views) and one width past K7's cap,
+    against the plain update; the launch counts under the JAX route."""
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    assert kron.route(fmt, shape, cuda) == "kron_sparse_big:ns_wide"
+    (st,), (dx,), (dg,) = _walked_states(g, [fmt], [shape], cuda, steps=2)
+    before = dict(hopper.counts)
+    got = kron.update(st, dx, dg, step=0.1)
+    torch.cuda.synchronize()
+    moved = {k for k in hopper.counts if hopper.counts[k] != before[k]}
+    assert moved == {counter} and hopper.counts[counter] == before[counter] + 1
+    with hopper.disabled():
+        ref = kron.update(st, dx, dg, step=0.1)
+    assert _states_rel([got], [ref]) < 1e-4
+    arrow = got.qr if fmt[0] == "scale" else got.ql
+    assert arrow[1, -1].item() == 0.0
+    again = kron.update(st, dx, dg, step=0.1)
+    assert torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+
+
+def test_auto_format_reference_nmt_step_launches_k9(cuda):
+    """PSGD's default formats on the NMT model at the reference widths: five
+    layers take K9 (each with its K3), the fc K6, the (1, 10) row K2."""
+    from psgd_tf_tpu_torch import PSGD, kron
+    from psgd_tf_tpu_torch.data import translation
+    from psgd_tf_tpu_torch.models import nmt
+
+    cfg = nmt.ref_config()
+    g = torch.Generator(device=cuda).manual_seed(15)
+    params = nmt.init(g, cfg)
+    opt = PSGD(preconditioner="kron", lr_params=0.02, lr_preconditioner=0.02,
+               grad_clip_max_norm=1.0, exact_hessian_vector_product=False)
+    state = opt.init(params)
+    nd, ns = "kron_sparse_big:nd", "kron_sparse_big:ns"
+    routes = [kron.route(st.fmt, (st.ql.shape[-1], st.qr.shape[-1]), cuda) for st in state.precond]
+    assert routes == [nd, nd, nd, "kron_dd", nd, nd, ns]
+    before = dict(hopper.counts)
+    params, state, aux = opt.step(nmt.loss, params, state, g,
+                                  *translation.random_tokens(g, cfg.vocab_src, cfg.vocab_tgt))
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1, "tri": 6}
+    assert np.isfinite(aux["loss"].item())
 
 
 # ------------------------------------------------ the flat families (K11-K13)

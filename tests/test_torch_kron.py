@@ -39,11 +39,12 @@ def _walked_states(rng, shapes, steps=2):
 
 
 def _to_port(jstates):
-    return interop.kron_states([(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in jstates])
+    return interop.kron_states([(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in jstates],
+                               device="cpu")
 
 
 def _t(arrays):
-    return interop.tensors(arrays)
+    return interop.tensors(arrays, device="cpu")
 
 
 def _assert_states_close(got, ref, rtol, atol):

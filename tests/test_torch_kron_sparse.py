@@ -1,6 +1,9 @@
 """Port parity: the sparse Kronecker pairs of psgd_tf_tpu_torch on the CPU
-(the plain versions of K1's sparse kinds, K5, K6 and K10) against the JAX
-package's XLA path and its Pallas kernels in interpret mode."""
+(the plain versions of K1's sparse kinds, K5, K6, K7/K8, K9 and K10)
+against the JAX package's XLA path and its Pallas kernels in interpret
+mode."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +45,8 @@ def _walked(rng, fmts, shapes, steps=3, init_scale=0.8):
 
 
 def _to_port(jstates):
-    return interop.kron_states([(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in jstates])
+    return interop.kron_states([(np.asarray(s.ql), np.asarray(s.qr), s.fmt) for s in jstates],
+                               device="cpu")
 
 
 def _close(got, ref, rtol, atol):
@@ -74,7 +78,7 @@ def test_k5_plain_matches_jax_pallas_interpret(kind):
     (dx,), (dg,) = _probes(rng, [shape])
     jfn = {"ns": jks.fused_update_ns, "ds": jks.fused_update_ds, "nd": jks.fused_update_nd}[kind]
     rl, rr = jfn(jst.ql, jst.qr, jnp.asarray(dx), jnp.asarray(dg), 0.05, TINY, interpret=True)
-    ql, qr = interop.tensors([np.asarray(jst.ql), np.asarray(jst.qr)])
+    ql, qr = interop.tensors([np.asarray(jst.ql), np.asarray(jst.qr)], device="cpu")
     gl, gr = kron_sparse.FUSED_UPDATE[kind](ql, qr, torch.from_numpy(dx), torch.from_numpy(dg), 0.05)
     np.testing.assert_allclose(gl.numpy(), np.asarray(rl), rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(gr.numpy(), np.asarray(rr), rtol=2e-5, atol=2e-6)
@@ -97,7 +101,7 @@ def test_streaming_k6_k10_match_jax(fmt, shape):
     ref = jkron.update(jst, jnp.asarray(dx), jnp.asarray(dg), step=0.05)
     jfn = jksb.fused_update_ns if kind == "ns" else jksb.fused_update_ds
     kl, kr = jfn(jst.ql, jst.qr, jnp.asarray(dx), jnp.asarray(dg), 0.05, TINY, interpret=True)
-    ql, qr = interop.tensors([np.asarray(jst.ql), np.asarray(jst.qr)])
+    ql, qr = interop.tensors([np.asarray(jst.ql), np.asarray(jst.qr)], device="cpu")
     fn = kron_sparse_big.fused_update_ns if kind == "ns" else kron_sparse_big.fused_update_ds
     gl, gr = fn(ql, qr, torch.from_numpy(dx), torch.from_numpy(dg), 0.05)
     # the JAX suite's own bound for kron_sparse_big against its XLA path
@@ -106,6 +110,82 @@ def test_streaming_k6_k10_match_jax(fmt, shape):
     (st,) = _to_port([jst])
     via_update = kron.update(st, torch.from_numpy(dx), torch.from_numpy(dg), step=0.05)
     assert torch.equal(via_update.ql, gl) and torch.equal(via_update.qr, gr)
+
+
+# the JAX suite's own bound for kron_sparse_big against its XLA path
+BIG_TOL = dict(rtol=5e-5, atol=5e-6)
+
+
+@pytest.mark.parametrize("fmt,shape", [
+    (("norm", "dense"), (600, 64)),
+    (("norm", "dense"), (1024, 384)),
+    (("norm", "dense"), (2048, 10)),
+    (("dense", "norm"), (48, 700)),
+], ids=str)
+def test_streaming_k9_matches_jax(fmt, shape):
+    """K9's plain kernel part plus its tail, against `fused_update_nd` in
+    interpret mode and the XLA path; the mirrored (dense, norm) layer
+    transposes in, its probes as dX.T views."""
+    mirrored = fmt[0] == "dense"
+    m, n = shape[::-1] if mirrored else shape
+    assert not kron_sparse.fits(m, n) and kron_sparse_big.fits_grid("nd", m, n)
+    assert kron.route(fmt, shape, "cuda") == jkron.route(fmt, shape) == "kron_sparse_big:nd"
+    rng = np.random.default_rng(33)
+    (jst,) = _walked(rng, [fmt], [shape])
+    (dx,), (dg,) = _probes(rng, [shape])
+    ref = jkron.update(jst, jnp.asarray(dx), jnp.asarray(dg), step=0.05)
+    arrow, dense = (jst.qr, jst.ql) if mirrored else (jst.ql, jst.qr)
+    jx, jg = (jnp.asarray(a.T if mirrored else a) for a in (dx, dg))
+    ka, kd = jksb.fused_update_nd(arrow, dense, jx, jg, 0.05, TINY, interpret=True)
+    ql, Qr = interop.tensors([np.asarray(arrow), np.asarray(dense)], device="cpu")
+    tx, tg = torch.from_numpy(dx), torch.from_numpy(dg)
+    ga, gd = kron_sparse_big.fused_update_nd(ql, Qr, *(t.T if mirrored else t for t in (tx, tg)),
+                                             0.05)
+    ra, rd = (ref.qr, ref.ql) if mirrored else (ref.ql, ref.qr)
+    for got, want in [(ga, ka), (gd, kd), (ga, ra), (gd, rd)]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BIG_TOL)
+    assert ga[1, -1].item() == 0.0
+    assert torch.equal(gd, torch.triu(gd))
+    (st,) = _to_port([jst])
+    via_update = kron.update(st, tx, tg, step=0.05)
+    assert torch.equal(via_update.ql, gd if mirrored else ga)
+    assert torch.equal(via_update.qr, ga if mirrored else gd)
+
+
+@pytest.mark.parametrize("fmt,shape,jname", [
+    (("norm", "scale"), (70, 140_000), "_fused_update_ns_wide2"),
+    (("scale", "norm"), (140_000, 70), "_fused_update_ns_wide2"),
+    (("norm", "scale"), (16, 140_000), "_fused_update_ns_wide_xla"),
+], ids=str)
+def test_wide_k7_k8_match_jax(fmt, shape, jname):
+    """The wide (norm, scale) update past MAX_LANES (K7/K8's plain kernel
+    part, shared with K6, plus the tail), against the two JAX wide
+    functions in interpret mode and the XLA path. Both JAX functions
+    compute one update; K8 is held at a width K7 also takes."""
+    mirrored = fmt[0] == "scale"
+    m, n = shape[::-1] if mirrored else shape
+    assert kron_sparse_big._lanes(n) > kron_sparse_big.MAX_LANES
+    assert kron.route(fmt, shape, "cuda") == jkron.route(fmt, shape) == "kron_sparse_big:ns_wide"
+    rng = np.random.default_rng(34)
+    (jst,) = _walked(rng, [fmt], [shape], steps=2)
+    (dx,), (dg,) = _probes(rng, [shape])
+    ref = jkron.update(jst, jnp.asarray(dx), jnp.asarray(dg), step=0.05)
+    arrow, scale = (jst.qr, jst.ql) if mirrored else (jst.ql, jst.qr)
+    jx, jg = (jnp.asarray(a.T if mirrored else a) for a in (dx, dg))
+    jfn = jax.jit(functools.partial(getattr(jksb, jname), tiny=TINY, interpret=True))
+    ka, ks = jfn(arrow, scale, jx, jg, jnp.float32(0.05))
+    ql, qr = interop.tensors([np.asarray(arrow), np.asarray(scale)], device="cpu")
+    tx, tg = torch.from_numpy(dx), torch.from_numpy(dg)
+    ga, gs = kron_sparse_big.fused_update_ns(ql, qr, *(t.T if mirrored else t for t in (tx, tg)),
+                                             0.05)
+    ra, rs = (ref.qr, ref.ql) if mirrored else (ref.ql, ref.qr)
+    for got, want in [(ga, ka), (gs, ks), (ga, ra), (gs, rs)]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BIG_TOL)
+    assert ga[1, -1].item() == 0.0
+    (st,) = _to_port([jst])
+    via_update = kron.update(st, tx, tg, step=0.05)
+    assert torch.equal(via_update.ql, gs if mirrored else ga)
+    assert torch.equal(via_update.qr, ga if mirrored else gs)
 
 
 def test_mirrored_k10_layer_matches_jax():
@@ -131,7 +211,8 @@ def test_update_multi_toy_nmt_matches_jax_k1():
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("shard",))
     with pallas_ops.sharding(mesh):  # kernels_active() on CPU: K1, interpreted
         ref_k1 = jkron.update_multi(jstates, jx, jg, step=0.05)
-    got = kron.update_multi(_to_port(jstates), interop.tensors(dxs), interop.tensors(dgs), step=0.05)
+    got = kron.update_multi(_to_port(jstates), interop.tensors(dxs, device="cpu"),
+                            interop.tensors(dgs, device="cpu"), step=0.05)
     _close(got, ref_xla, rtol=2e-5, atol=2e-6)
     _close(got, ref_k1, rtol=2e-5, atol=2e-6)
 
@@ -142,7 +223,7 @@ def test_k1_plain_kinds_match_per_layer_plain():
     fmts = [("dense", "scale"), ("norm", "scale"), ("norm", "dense"), ("dense", "dense")]
     shapes = [(20, 9), (9, 20), (17, 5), (6, 6)]
     states = _to_port(_walked(rng, fmts, shapes))
-    dxs, dgs = (interop.tensors(a) for a in _probes(rng, shapes))
+    dxs, dgs = (interop.tensors(a, device="cpu") for a in _probes(rng, shapes))
     res = kron_multi.fused_update_multi(
         kinds, [s.ql for s in states], [s.qr for s in states], dxs, dgs, 0.1)
     for (a, b), st, x, g in zip(res, states, dxs, dgs):
@@ -196,10 +277,13 @@ def test_route_matches_jax_at_nmt_widths(cfg):
 
 
 def test_route_unported_and_xla_regimes_match_jax():
+    """The K9, K7 and K8 regimes and the plain ('xla') one past the caps."""
     for fmt, shape in [
         (("norm", "scale"), (256, 256)),
         (("norm", "scale"), (128, 1_000_000)),
         (("scale", "norm"), (1_000_000, 128)),
+        (("norm", "scale"), (64, 3_000_017)),
+        (("norm", "scale"), (8, (1 << 23) + 1)),
         (("norm", "dense"), (4096, 512)),
         (("dense", "norm"), (512, 4096)),
         (("norm", "dense"), (4096, 2048)),
@@ -208,13 +292,21 @@ def test_route_unported_and_xla_regimes_match_jax():
         assert kron.route(fmt, shape, "cuda") == jkron.route(fmt, shape), (fmt, shape)
     assert kron.route(("norm", "dense"), (4096, 512), "cuda") == "kron_sparse_big:nd"
     assert kron.route(("scale", "norm"), (1_000_000, 128), "cuda") == "kron_sparse_big:ns_wide"
+    assert kron.route(("norm", "scale"), (64, 3_000_017), "cuda") == "kron_sparse_big:ns_wide"
+    assert kron.route(("norm", "scale"), (8, (1 << 23) + 1), "cuda") == "xla"
     assert kron.route(("norm", "dense"), (4096, 2048), "cuda") == "xla"
+    # the wide kernel's launches count under the JAX function the width takes
+    assert kron_sparse_big.WIDE2_MAX_LANES == jksb.WIDE2_MAX_LANES
+    assert kron_sparse_big.ns_wide_counter(1_000_000) == "kron_sparse_big_ns_wide2"
+    assert kron_sparse_big.ns_wide_counter(jksb.WIDE2_MAX_LANES) == "kron_sparse_big_ns_wide2"
+    assert kron_sparse_big.ns_wide_counter(3_000_017) == "kron_sparse_big_ns_wide_xla"
     # the port's (dense, dense) chain has no side cap; JAX reports 'xla' past 1024
     assert kron.route(("dense", "dense"), (2048, 64), "cuda") == "kron_dd"
 
 
 def test_unported_route_on_cpu_takes_plain():
-    """On the CPU a K9-routed layer runs its plain update (the card raises)."""
+    """On the CPU a K9-routed layer runs K9's plain kernel part and tail
+    (the card launches K9), equal to the XLA path."""
     rng = np.random.default_rng(8)
     shape = (600, 20)
     assert not kron_sparse.fits(*shape)

@@ -31,7 +31,7 @@ def _jx(arrays):
 
 def test_apply_loss_and_error_rate_match_jax():
     w, x, y, _ = _inputs(0)
-    tw = interop.tensors(w)
+    tw = interop.tensors(w, device="cpu")
     tx, ty = torch.from_numpy(x), torch.from_numpy(y).long()
     np.testing.assert_allclose(
         lenet5.apply(tw, tx).numpy(), np.asarray(jlenet5.apply(_jx(w), jnp.asarray(x))),
@@ -63,13 +63,14 @@ def test_grads_and_exact_hvp_match_jax():
     jargs = (jnp.asarray(x), jnp.asarray(y))
     jl, jg, jh = jhvp.exact(jlenet5.loss, _jx(w), _jx(v), *jargs)
     targs = (torch.from_numpy(x), torch.from_numpy(y).long())
-    tl, tg, th = hvp.exact(lenet5.loss, interop.tensors(w), interop.tensors(v), *targs)
+    tl, tg, th = hvp.exact(lenet5.loss, interop.tensors(w, device="cpu"),
+                           interop.tensors(v, device="cpu"), *targs)
     assert tl.item() == pytest.approx(float(jl), rel=1e-6)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
     for a, b in zip(th, jh):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
-    gl, gg = hvp.grad_only(lenet5.loss, interop.tensors(w), *targs)
+    gl, gg = hvp.grad_only(lenet5.loss, interop.tensors(w, device="cpu"), *targs)
     assert gl.item() == tl.item()
     for a, b in zip(gg, tg):
         torch.testing.assert_close(a, b)
@@ -79,7 +80,7 @@ def test_finite_diff_hvp_matches_jax_and_returns_unperturbed_grad():
     w, x, y, v = _inputs(2)
     jl, jg, jh = jhvp.finite_diff(jlenet5.loss, _jx(w), _jx(v), jnp.asarray(x), jnp.asarray(y))
     targs = (torch.from_numpy(x), torch.from_numpy(y).long())
-    tw, tv = interop.tensors(w), interop.tensors(v)
+    tw, tv = interop.tensors(w, device="cpu"), interop.tensors(v, device="cpu")
     l_fd, g_fd, h_fd = hvp.finite_diff(lenet5.loss, tw, tv, *targs)
     l_ex, g_ex, _ = hvp.exact(lenet5.loss, tw, tv, *targs)
     assert l_fd.item() == pytest.approx(float(jl), rel=1e-6)
@@ -94,7 +95,7 @@ def test_finite_diff_hvp_matches_jax_and_returns_unperturbed_grad():
 
 
 def test_random_like_draws_from_the_generator():
-    w = interop.tensors(_inputs(3)[0])
+    w = interop.tensors(_inputs(3)[0], device="cpu")
     a = hvp.random_like(torch.Generator().manual_seed(5), w)
     b = hvp.random_like(torch.Generator().manual_seed(5), w)
     assert [p.shape for p in a] == [p.shape for p in w]

@@ -11,8 +11,9 @@ import torch
 import psgd_tf_tpu.hvp as jhvp
 from psgd_tf_tpu import PSGD as JPSGD
 from psgd_tf_tpu.data import translation as jtranslation
+from psgd_tf_tpu.groups import kron as jkron
 from psgd_tf_tpu.models import nmt as jnmt
-from psgd_tf_tpu_torch import PSGD, hvp, interop
+from psgd_tf_tpu_torch import PSGD, hvp, interop, kron
 from psgd_tf_tpu_torch.data import translation
 from psgd_tf_tpu_torch.models import nmt
 from psgd_tf_tpu_torch.workloads import nmt_attention
@@ -51,7 +52,7 @@ def test_config_shapes_and_formats_match_jax():
 def test_loss_accuracy_and_logits_match_jax():
     w, _, src, tgt = _inputs(0)
     assert (src == translation.PAD).any()  # the batch is padded: the masks matter
-    tw, (ts, tt) = interop.tensors(w), _t(src, tgt)
+    tw, (ts, tt) = interop.tensors(w, device="cpu"), _t(src, tgt)
     jw = [jnp.asarray(a) for a in w]
     # 17 chained RNN steps whose fp32 sums run in another order: absolute
     # differences of ~1e-6 on logits of order 1
@@ -72,7 +73,8 @@ def test_grads_and_exact_hvp_match_jax():
     w, v, src, tgt = _inputs(1)
     jl, jg, jh = jhvp.exact(jnmt.loss, [jnp.asarray(a) for a in w], [jnp.asarray(a) for a in v],
                             jnp.asarray(src), jnp.asarray(tgt))
-    tl, tg, th = hvp.exact(nmt.loss, interop.tensors(w), interop.tensors(v), *_t(src, tgt))
+    tl, tg, th = hvp.exact(nmt.loss, interop.tensors(w, device="cpu"),
+                           interop.tensors(v, device="cpu"), *_t(src, tgt))
     assert tl.item() == pytest.approx(float(jl), rel=1e-6)
     for a, b in zip(tg, jg, strict=True):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
@@ -84,7 +86,8 @@ def test_finite_diff_hvp_matches_jax():
     w, v, src, tgt = _inputs(2)
     jl, jg, jh = jhvp.finite_diff(jnmt.loss, [jnp.asarray(a) for a in w],
                                   [jnp.asarray(a) for a in v], jnp.asarray(src), jnp.asarray(tgt))
-    tl, tg, th = hvp.finite_diff(nmt.loss, interop.tensors(w), interop.tensors(v), *_t(src, tgt))
+    tl, tg, th = hvp.finite_diff(nmt.loss, interop.tensors(w, device="cpu"),
+                                 interop.tensors(v, device="cpu"), *_t(src, tgt))
     assert tl.item() == pytest.approx(float(jl), rel=1e-6)
     for a, b in zip(tg, jg, strict=True):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
@@ -121,13 +124,13 @@ def test_five_psgd_steps_match_jax(monkeypatch):
 
     jstep = jax.jit(jstep)
     opt = PSGD(**hyper)
-    params = interop.tensors(w)
+    params = interop.tensors(w, device="cpu")
     state = opt.init(params)
     for src, tgt, v in steps:
         jparams, jstate, jaux = jstep(jparams, jstate, [jnp.asarray(a) for a in v],
                                       jnp.asarray(src), jnp.asarray(tgt))
         params, state, aux = opt.step(nmt.loss, params, state, None, *_t(src, tgt),
-                                      probes=interop.tensors(v))
+                                      probes=interop.tensors(v, device="cpu"))
         assert aux["loss"].item() == pytest.approx(float(jaux["loss"]), rel=5e-4)
 
     # ROADMAP's trajectory bound
@@ -135,6 +138,57 @@ def test_five_psgd_steps_match_jax(monkeypatch):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-5)
     for st, jst in zip(state.precond, jstate.precond, strict=True):
         assert st.fmt == tuple(jst.fmt)
+        np.testing.assert_allclose(st.ql.numpy(), np.asarray(jst.ql), rtol=5e-4, atol=5e-5)
+        np.testing.assert_allclose(st.qr.numpy(), np.asarray(jst.qr), rtol=5e-4, atol=5e-5)
+
+
+def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch):
+    """Twenty PSGD steps with PSGD's default Kronecker formats ('auto'):
+    both embeddings take (norm, dense), K9's route past `kron_sparse.fits`,
+    the fc (dense, scale), K10's. Exact Hvp, ids drawn per vocabulary,
+    the same probes injected into both packages. `kron_batch_min=8` keeps
+    the four (dense, dense) layers, which share one (128, 128) bucket, off
+    the batched path (K4 in JAX)."""
+    cfg = nmt.Config(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
+    jcfg = jnmt.Config(*cfg)
+    shapes = jnmt.layer_shapes(jcfg)
+    routes = [kron.route(kron.auto_format(s), s, "cuda") for s in shapes]
+    assert routes == [jkron.route(kron.auto_format(s), s) for s in shapes]
+    assert routes == ["kron_sparse_big:nd", "kron_dd", "kron_dd", "kron_dd",
+                      "kron_sparse_big:nd", "kron_dd", "kron_sparse_big:ds"]
+    rng = np.random.default_rng(4)
+    w = [0.3 * rng.standard_normal(s).astype(np.float32) for s in shapes]
+    steps = [(rng.integers(3, cfg.vocab_src, (8, 6)), rng.integers(3, cfg.vocab_tgt, (8, 5)),
+              [rng.standard_normal(s).astype(np.float32) for s in shapes]) for _ in range(20)]
+    hyper = dict(preconditioner="kron", kron_batch_min=8, lr_params=0.05,
+                 lr_preconditioner=0.05, grad_clip_max_norm=1.0)
+
+    jopt = JPSGD(**hyper)
+    jparams = [jnp.asarray(a) for a in w]
+    jstate = jopt.init(jparams, jax.random.PRNGKey(0))
+    probe = []
+    monkeypatch.setattr(jhvp, "random_like", lambda key, params: probe[0])
+
+    def jstep(params, state, v, src, tgt):
+        probe[:] = [v]
+        return jopt.step(jnmt.loss, params, state, jax.random.PRNGKey(1), src, tgt)
+
+    jstep = jax.jit(jstep)
+    opt = PSGD(**hyper)
+    params = interop.tensors(w, device="cpu")
+    state = opt.init(params)
+    assert [st.fmt for st in state.precond] == [tuple(st.fmt) for st in jstate.precond]
+    for src, tgt, v in steps:
+        jparams, jstate, jaux = jstep(jparams, jstate, [jnp.asarray(a) for a in v],
+                                      jnp.asarray(src, jnp.int32), jnp.asarray(tgt, jnp.int32))
+        params, state, aux = opt.step(nmt.loss, params, state, None, *_t(src, tgt),
+                                      probes=interop.tensors(v, device="cpu"))
+        assert aux["loss"].item() == pytest.approx(float(jaux["loss"]), rel=5e-4)
+
+    # ROADMAP's trajectory bound
+    for a, b in zip(params, jparams, strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-5)
+    for st, jst in zip(state.precond, jstate.precond, strict=True):
         np.testing.assert_allclose(st.ql.numpy(), np.asarray(jst.ql), rtol=5e-4, atol=5e-5)
         np.testing.assert_allclose(st.qr.numpy(), np.asarray(jst.qr), rtol=5e-4, atol=5e-5)
 

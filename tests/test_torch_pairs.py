@@ -56,7 +56,8 @@ def _walked(jfam, n, seed):
 
 def _port(fam, jst):
     make = interop.xmat_state if fam is xmat else interop.shift_state
-    return make(np.asarray(jst.af), np.asarray(jst.bf), np.asarray(jst.ac), jst.odd)
+    return make(np.asarray(jst.af), np.asarray(jst.bf), np.asarray(jst.ac), jst.odd,
+                device="cpu")
 
 
 @pytest.mark.parametrize("n", [64, 65])
@@ -132,3 +133,14 @@ def test_public_inits_default_to_the_card():
     # the models that draw from a generator place on the generator's device
     g = torch.Generator().manual_seed(0)
     assert all(p.device.type == "cpu" for p in tensor_decomp.init(g))
+
+
+def test_interop_defaults_to_the_card():
+    """Every function that carries the JAX package's arrays into the port
+    places on the card unless told otherwise: no silent CPU state."""
+    fns = [interop.tensors, interop.kron_states, interop.dense_state, interop.diag_state,
+           interop.lra_state, interop.splu_state, interop.xmat_state, interop.shift_state]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    (t,) = interop.tensors([np.ones(3, np.float32)], device="cpu")
+    assert t.device.type == "cpu"

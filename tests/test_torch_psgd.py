@@ -50,14 +50,14 @@ def test_five_steps_match_jax(monkeypatch):
 
     jstep = jax.jit(jstep)
     opt = PSGD(**HYPER)
-    params = interop.tensors(w)
+    params = interop.tensors(w, device="cpu")
     state = opt.init(params)
     for x, y, v in steps:
         jparams, jstate, jaux = jstep(jparams, jstate, [jnp.asarray(a) for a in v],
                                       jnp.asarray(x), jnp.asarray(y))
         params, state, aux = opt.step(
             lenet5.loss, params, state, None, torch.from_numpy(x),
-            torch.from_numpy(y).long(), probes=interop.tensors(v),
+            torch.from_numpy(y).long(), probes=interop.tensors(v, device="cpu"),
         )
         assert aux["loss"].item() == pytest.approx(float(jaux["loss"]), rel=5e-4)
 

@@ -41,8 +41,8 @@ def test_rnn_loss_grad_and_hvps_match_jax():
     jparams, x, y = _jax_case()
     rng = np.random.default_rng(0)
     v = [rng.standard_normal(p.shape).astype(np.float32) for p in jparams]
-    params, vt = interop.tensors(_np(jparams)), interop.tensors(v)
-    X, Y = interop.tensors([x, y])
+    params, vt = interop.tensors(_np(jparams), device="cpu"), interop.tensors(v, device="cpu")
+    X, Y = interop.tensors([x, y], device="cpu")
     assert rnn.loss(params, X, Y).item() == pytest.approx(float(jrnn.loss(jparams, x, y)), rel=1e-6)
 
     jl, jg, jh = jhvp.exact(jrnn.loss, jparams, v, x, y)
@@ -112,11 +112,11 @@ def test_five_steps_match_jax(fam):
     jstate = jopt.init(jparams, jax.random.PRNGKey(5))
     jstep = jax.jit(partial(jopt.step, jrnn.loss))
     opt = PSGD(**hyper)
-    params = interop.tensors(_np(jparams))
+    params = interop.tensors(_np(jparams), device="cpu")
     state = opt.init(params)
     if fam == "lra":
         state = state.replace(precond=interop.lra_state(np.asarray(jstate.precond.UV),
-                                                        np.asarray(jstate.precond.d)))
+                                                        np.asarray(jstate.precond.d), device="cpu"))
     shapes = [p.shape for p in params]
     n = sum(p.numel() for p in params)
     for k in range(5):
@@ -129,7 +129,8 @@ def test_five_steps_match_jax(fam):
         parts = torch.split(torch.from_numpy(v.copy()), [s.numel() for s in shapes])
         probes = [t.reshape(s) for t, s in zip(parts, shapes)]
         jparams, jstate, jaux = jstep(jparams, jstate, key, x, y)
-        params, state, aux = opt.step(rnn.loss, params, state, None, *interop.tensors([x, y]),
+        params, state, aux = opt.step(rnn.loss, params, state, None,
+                                      *interop.tensors([x, y], device="cpu"),
                                       probes=probes, coins=coins)
         assert aux["loss"].item() == pytest.approx(float(jaux["loss"]), rel=5e-4)
     tol = dict(rtol=2e-3, atol=2e-3) if fam == "lra" else dict(rtol=5e-4, atol=5e-5)

@@ -42,7 +42,8 @@ def _walked(n, r, seed, steps=3):
 
 
 def _port(jst):
-    return interop.splu_state(*(np.asarray(x) for x in (jst.Lt, jst.l3, jst.U12, jst.u3)))
+    return interop.splu_state(*(np.asarray(x) for x in (jst.Lt, jst.l3, jst.U12, jst.u3)),
+                              device="cpu")
 
 
 def _close_state(got, want, **tol):

@@ -33,7 +33,8 @@ def test_loss_matches_jax():
     target, factors = _case()
     jparams = dict(zip("xyz", (jnp.asarray(f) for f in factors)))
     want = float(jtd.loss(jparams, jnp.asarray(target)))
-    got = tensor_decomp.loss(interop.tensors(factors), torch.from_numpy(target)).item()
+    got = tensor_decomp.loss(interop.tensors(factors, device="cpu"),
+                             torch.from_numpy(target)).item()
     assert got == pytest.approx(want, rel=1e-6)
 
 
@@ -59,11 +60,11 @@ def test_twenty_steps_match_jax(fam):
     jstate = jopt.init(jparams, jax.random.PRNGKey(3))
     jstep = jax.jit(partial(jopt.step, jtd.loss))
     opt = PSGD(**hyper)
-    params = interop.tensors(factors)
+    params = interop.tensors(factors, device="cpu")
     state = opt.init(params)
     if fam == "lra":
         state = state.replace(precond=interop.lra_state(np.asarray(jstate.precond.UV),
-                                                        np.asarray(jstate.precond.d)))
+                                                        np.asarray(jstate.precond.d), device="cpu"))
     jt, t = jnp.asarray(target), torch.from_numpy(target)
     shapes = [p.shape for p in params]
     for k in range(20):
@@ -71,7 +72,8 @@ def test_twenty_steps_match_jax(fam):
         _, k_probe, k_prec = jax.random.split(key, 3)
         if fam == "kron":
             probes = interop.tensors([np.asarray(x) for x in
-                                      jax.tree_util.tree_leaves(jhvp.random_like(k_probe, jparams))])
+                                      jax.tree_util.tree_leaves(jhvp.random_like(k_probe, jparams))],
+                                     device="cpu")
         else:
             v = np.asarray(jax.random.normal(k_probe, (400,), jnp.float32))
             parts = torch.split(torch.from_numpy(v.copy()), [s.numel() for s in shapes])
