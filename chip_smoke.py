@@ -7,13 +7,15 @@ Run from the root of the repository on a machine with one CUDA card (an
 H100: the kernels are built for sm_90a). It builds the Hopper kernels from
 `psgd_tf_tpu_torch/csrc/` (into `psgd_tf_tpu_torch/_build/`), checks each
 against its plain PyTorch version at the shapes its path gives it (and the
-flat families' kernels at the JAX bench's sizes), then drives the port's
+flat families' kernels at the JAX bench's sizes, K4 also at the JAX
+package's batching crossover and at the side cap), then drives the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
   - LeNet5 with five (dense, dense) Kronecker preconditioners, exact Hvp,
     batch 64, the `mnist_lenet5` hyperparameters, on procedural digits
-    (K1 with kind dd, K3);
+    (K1 with kind dd, K3); then 20 steps of the same with a bf16 Kronecker
+    state, which takes the plain updates (no launch);
   - the NMT model at the reference widths (12,424,273 parameters) with
     its mixed formats, FD Hvp, random tokens as the JAX package's bench
     draws them (K10, K6, K2, K3);
@@ -24,6 +26,15 @@ after:
     drives its kron_nd and kron_ns_wide rows: (131072, 512) (norm, dense)
     (K9), (512, 1,000,000) (norm, scale) (K7) and (64, 3,000,017) past
     2^21 lanes (K8), five steps each;
+  - the NMT model at embed 16, units 32 (vocabularies 1100 and 1030) under
+    PSGD's defaults, exact Hvp, batch 64: its four (dense, dense) layers
+    share a (128, 128) bucket and are stacked (K4 with its K3), the
+    embeddings take K9, the fc K10; 30 steps with the kernels and under
+    `disabled()`;
+  - `lstm_xor` at its reference widths (hidden 30, 7,591 parameters,
+    batch 128, sequences of 100): its two (dense, dense) layers ride K1
+    with two layers (and K3); a 20-step loss trace with the kernels and
+    under `disabled()`, then 300 steps of `lstm_xor.run()` with the kernels;
   - the NMT workload at its toy widths, as `nmt_attention.run()` runs it:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
     kinds, K3);
@@ -97,6 +108,19 @@ WIDE_NS = [(("norm", "scale"), (512, 1_000_000), "kron_sparse_big_ns_wide2"),
            (("scale", "norm"), (140_001, 70), "kron_sparse_big_ns_wide2"),
            (("norm", "scale"), (64, 3_000_017), "kron_sparse_big_ns_wide_xla")]
 ENVELOPE_STEPS = 5
+# K4's stacks: the ragged bucket of tests/test_kron_batched.py, the JAX
+# package's crossover stacks (psgd_tf_tpu/optim/psgd.py:113-120; B = 24
+# spans two chains of at most 16 layers), four layers at the side cap
+K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
+              ("B=6 (200, 256)", [(200, 256)] * 6), ("B=24 (200, 256)", [(200, 256)] * 24),
+              ("B=4 (1000, 1000)", [(1000, 1000)] * 4)]
+# the NMT model at the widths where its four (dense, dense) layers share a
+# (128, 128) bucket under PSGD's defaults (tests/test_torch_nmt.py's config)
+K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
+K4_PATH_STEPS = 30
+LSTM_TRACE_STEPS = 20
+LSTM_STEPS = 300
+BF16_STEPS = 20
 
 
 def _rel(a, b) -> float:
@@ -173,12 +197,13 @@ def main() -> int:
         return 1
     from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra, splu
     from psgd_tf_tpu_torch.data import mnist, translation, xor
-    from psgd_tf_tpu_torch.models import lenet5, nmt, rnn, tensor_decomp
+    from psgd_tf_tpu_torch.models import lenet5, lstm, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_sparse,
                                               kron_sparse_big, lra_upd, splu_one, splu_upd, tri)
-    from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, nmt_attention,
-                                             rnn_xor_lra)
+    from psgd_tf_tpu_torch.optim.psgd import KronPrecond
+    from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, lstm_xor,
+                                             nmt_attention, rnn_xor_lra)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -346,6 +371,77 @@ def main() -> int:
     check(dec_rel < TOL_K1 and all(torch.isfinite(s.ql).all() and torch.isfinite(s.qr).all()
                                    for s in got), "k1 vs plain on the decomposition list")
     check(dec_traj < TOL_TRAJ, "k1 20-step trajectory on the decomposition list")
+
+    # 3c. K4 on stacked (dense, dense) buckets (K4_BUCKETS and the K4 path's
+    #     bucket): one update from a walked stack against the plain version,
+    #     a 20-step trajectory from 0.8 I, the padding exact identity; timed
+    #     through kron.update_batched with the kernel and plain, as K1 over
+    #     the same layers unbatched (kron.update_multi), and the wrapper alone
+    g.manual_seed(32)
+    DD = ("dense", "dense")
+    k4_cfg = nmt.Config(**K4_NMT)
+    k4_path_bucket = [s for s in nmt.layer_shapes(k4_cfg) if kron.auto_format(s) == DD]
+
+    def padding_exact(q, sides):
+        """True when every slot of the stack q is identity beyond its corner."""
+        for i, d in enumerate(sides):
+            want = torch.eye(q.shape[1], device=dev)
+            want[:d, :d] = q[i, :d, :d]
+            if not torch.equal(q[i], want):
+                return False
+        return True
+
+    k4_err = 0.0
+    for name, shapes in K4_BUCKETS + [("K4 path's bucket", k4_path_bucket)]:
+        ms, ns = [m for m, _ in shapes], [n for _, n in shapes]
+        bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
+        with hopper.disabled():
+            for _ in range(3):
+                bst = kron.update_batched(bst, *probes(shapes), step=0.1)
+        dxs, dgs = probes(shapes)
+        chains = math.ceil(len(shapes) / kron_dd.MAX_LAYERS)
+        before = dict(hopper.counts)
+        got = kron.update_batched(bst, dxs, dgs, step=0.1)
+        torch.cuda.synchronize()
+        moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+        check(moved == {"kron_dd_batched": chains, "tri": chains},
+              f"k4 {name}: {chains} chain(s), each with its K3: {moved}")
+        with hopper.disabled():
+            ref = kron.update_batched(bst, dxs, dgs, step=0.1)
+        rel = max(_rel(got.ql, ref.ql), _rel(got.qr, ref.qr))
+        err = max(_abs(got.ql, ref.ql), _abs(got.qr, ref.qr))
+        k4_err = max(k4_err, err)
+        exact = padding_exact(got.ql, ms) and padding_exact(got.qr, ns)
+        check(rel < TOL_K1 and exact, f"k4 vs plain at {name}")
+        kb = pb = kron.init_batched(shapes, init_scale=0.8, device=dev)
+        for _ in range(20):
+            dx_, dg_ = probes(shapes)
+            kb = kron.update_batched(kb, dx_, dg_, step=0.1)
+            with hopper.disabled():
+                pb = kron.update_batched(pb, dx_, dg_, step=0.1)
+        traj = max(_rel(kb.ql, pb.ql), _rel(kb.qr, pb.qr))
+        traj_exact = all(padding_exact(b.ql, ms) and padding_exact(b.qr, ns) for b in (kb, pb))
+        check(traj < TOL_TRAJ and traj_exact, f"k4 20-step trajectory at {name}")
+        reps = 20 if max(max(s) for s in shapes) > 512 else 100
+        ms_k, ms_p = _time_ab(torch, hopper, lambda: kron.update_batched(bst, dxs, dgs, step=0.1),
+                              reps)
+        singles = kron.unbatch(bst)
+        k1_ms = _time(torch, lambda: kron.update_multi(singles, dxs, dgs, step=0.1), reps)
+        dx, dg = (kron.stack_padded(x, bst.ql.shape[1], bst.qr.shape[1]) for x in (dxs, dgs))
+        alone = _time(torch, lambda: kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns,
+                                                                  0.1), reps)
+        work = [_kron_work(DD, s) for s in shapes]
+        bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        print(f"kron_dd_batched: {name}, stacks {tuple(bst.ql.shape)} {tuple(bst.qr.shape)}, max "
+              f"rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err {err:.3e}, padding exact "
+              f"{exact}; 20 steps max rel err {traj:.3e} (tol {TOL_TRAJ:.0e}), padding exact "
+              f"{traj_exact}; update_batched kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, K1 "
+              f"unbatched {k1_ms:.4f} ms, the wrapper alone {alone:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+        if shapes is k4_path_bucket:
+            k4_ms, k4_plain_ms, k4_bound = ms_k, ms_p, bound
+        del bst, got, ref, kb, pb, singles, dx, dg
+    torch.cuda.empty_cache()
 
     # 4. K1 with mixed kinds on the toy NMT list: [ds, ns, ds, dd, ds, ns, ns]
     g.manual_seed(4)
@@ -769,6 +865,33 @@ def main() -> int:
     print(f"lenet5: {plain_steps_per_s:.1f} steps/s under disabled() (plain versions)",
           flush=True)
 
+    # 9b. path: the same LeNet5 recipe with a bf16 Kronecker state: every
+    #     update takes the plain one on the card (the JAX package sends
+    #     non-fp32 states to XLA), no kernel launches
+    gen = torch.Generator(device=dev).manual_seed(19)
+    params = lenet5.init(gen)
+    opt = PSGD(preconditioner="kron", kron_formats=dd, lr_params=0.1, lr_preconditioner=0.1,
+               grad_clip_max_norm=0.1 * math.sqrt(n_params), dtype=torch.bfloat16)
+    state = opt.init(params)
+    routes = [kron.route(st.fmt, (st.ql.shape[0], st.qr.shape[0]), dev, torch.bfloat16)
+              for st in state.precond]
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    losses = []
+    for _ in range(BF16_STEPS):
+        params, state, aux = opt.step(lenet5.loss, params, state, gen,
+                                      *mnist.synthetic_hard(gen, 64))
+        losses.append(aux["loss"])
+    losses = torch.stack(losses).cpu()
+    counts = dict(hopper.counts)
+    bf16_ok = all(q.dtype == torch.bfloat16 for st in state.precond for q in (st.ql, st.qr))
+    print(f"lenet5 bf16 state: {BF16_STEPS} steps, routes {routes}, launches "
+          f"{({k: c for k, c in counts.items() if c})}, state bf16 {bf16_ok}, loss "
+          f"{losses[0].item():.4f} -> {losses[-1].item():.4f}", flush=True)
+    check(routes == ["plain"] * 5 and not any(counts.values()),
+          "LeNet5 bf16: every update plain, no kernel launched")
+    check(bf16_ok and bool(torch.isfinite(losses).all()), "LeNet5 bf16: bf16 state, finite losses")
+
     # 10. path: NMT at the reference widths, FD Hvp, lr 0.02, clip 1.0,
     #    random ids per vocabulary (batch 64, source 18, target 13)
     def nmt_ref_run(fmts):
@@ -868,6 +991,104 @@ def main() -> int:
             "kron_sparse_big_ns_wide_xla": ENVELOPE_STEPS}
     check(counts == {k: want.get(k, 0) for k in counts} and finite,
           "kron envelope: one K9 (+ K3), K7 and K8 launch per update, finite")
+
+    # 10d. path: K4 through PSGD.step, the NMT model at K4_NMT under PSGD's
+    #      defaults, exact Hvp, random ids per vocabulary (batch 64)
+    def k4_path_run():
+        """(KronPrecond layout, losses, counts, steps/s)"""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = nmt.init(gen, k4_cfg)
+        opt = PSGD(preconditioner="kron", lr_params=0.05, lr_preconditioner=0.05,
+                   grad_clip_max_norm=1.0)
+        state = opt.init(params)
+        pc = state.precond
+        layout = (pc.batched_idx, pc.single_idx) if isinstance(pc, KronPrecond) else None
+        batches = [translation.random_tokens(gen, k4_cfg.vocab_src, k4_cfg.vocab_tgt)
+                   for _ in range(K4_PATH_STEPS)]
+        losses = []
+        torch.cuda.synchronize()
+        hopper.reset_counts()
+        for i, (src, tgt) in enumerate(batches):
+            if i == NMT_REF_WARMUP:
+                ev0.record()
+            params, state, aux = opt.step(nmt.loss, params, state, gen, src, tgt)
+            losses.append(aux["loss"])
+        ev1.record()
+        ev1.synchronize()
+        rate = (K4_PATH_STEPS - NMT_REF_WARMUP) / (ev0.elapsed_time(ev1) / 1e3)
+        return layout, torch.stack(losses).cpu(), dict(hopper.counts), rate
+
+    layout, losses, counts, k4_rate = k4_path_run()
+    path_counts()
+    print(f"k4 path: NMT {K4_NMT}, {sum(m * n for m, n in nmt.layer_shapes(k4_cfg))} parameters, "
+          f"{K4_PATH_STEPS} steps, KronPrecond (batched, single) {layout}, launches "
+          f"{({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f}, {k4_rate:.2f} steps/s with kernels", flush=True)
+    check(layout == (((1, 2, 3, 5),), (0, 4, 6)), f"K4 path: one bucket of four: {layout}")
+    # per step: one K4 chain (with its K3), two K9 (each with its K3), one K10 (with its K3)
+    per_step = {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1, "tri": 4}
+    check(counts == {k: per_step.get(k, 0) * K4_PATH_STEPS for k in counts},
+          f"K4 path: launches per step {per_step} and no other")
+    check(bool(torch.isfinite(losses).all()), "K4 path: finite losses")
+    with hopper.disabled():
+        _, plain_losses, _, k4_plain_rate = k4_path_run()
+    loss_rel = _rel(losses, plain_losses)
+    print(f"k4 path: {k4_plain_rate:.2f} steps/s under disabled() (plain versions), loss "
+          f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}; the loss traces differ "
+          f"by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
+    check(loss_rel < TOL_TRAJ, "K4 path: kernel and plain losses agree")
+
+    # 10e. path: lstm_xor at its reference widths: a loss trace of its
+    #      recipe with the kernels and under disabled() from the same start,
+    #      then `lstm_xor.run()` for LSTM_STEPS steps with the kernels
+    def lstm_trace():
+        """(losses, state, steps/s on the host clock)"""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lstm.init(gen)
+        opt = lstm_xor.optimizer()
+        state = opt.init(params)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LSTM_TRACE_STEPS):
+            params, state, aux = opt.step(lstm.loss, params, state, gen, *xor.batch(gen, 128, 100))
+            losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        return torch.stack(losses).cpu(), state, LSTM_TRACE_STEPS / (time.perf_counter() - t0)
+
+    hopper.reset_counts()
+    losses, state, trace_rate = lstm_trace()
+    counts = dict(hopper.counts)
+    path_counts()
+    with hopper.disabled():
+        plain_losses, plain_state, trace_plain_rate = lstm_trace()
+    loss_rel = _rel(losses, plain_losses)
+    q_rel, _ = _state_errs(state.precond, plain_state.precond)
+    print(f"lstm_xor: {LSTM_TRACE_STEPS}-step trace, launches {({k: c for k, c in counts.items() if c})}"
+          f", loss {losses[0].item():.4f} -> {losses[-1].item():.4f}; kernel and plain loss traces "
+          f"differ by {loss_rel:.3e}, the Q states by {q_rel:.3e} relative (tol {TOL_TRAJ:.0e}); "
+          f"{trace_rate:.2f} steps/s with kernels, {trace_plain_rate:.2f} under disabled() (host "
+          f"clock)", flush=True)
+    check(counts == {k: {"kron_multi": 1, "tri": 1}.get(k, 0) * LSTM_TRACE_STEPS for k in counts},
+          "lstm_xor: one K1 chain (two layers, with its K3) per step and no other launch")
+    check(loss_rel < TOL_TRAJ and q_rel < TOL_TRAJ, "lstm_xor: kernel and plain traces agree")
+    check(bool(torch.isfinite(losses).all()), "lstm_xor: finite losses")
+
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    lstm_out = lstm_xor.run(device=dev, max_iters=LSTM_STEPS, check_every=LSTM_STEPS)
+    torch.cuda.synchronize()
+    lstm_rate = LSTM_STEPS / (time.perf_counter() - t0)
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"lstm_xor: run() {LSTM_STEPS} steps, launches {({k: c for k, c in counts.items() if c})}, "
+          f"train loss at step {LSTM_STEPS} {lstm_out['loss']:.4f} (bar 0.1), {lstm_rate:.2f} "
+          f"steps/s with kernels (host clock, init included)", flush=True)
+    # run() draws what the trace drew: its first step's loss is the trace's
+    check(counts["kron_multi"] == LSTM_STEPS and math.isfinite(lstm_out["loss"])
+          and lstm_out["loss"] < losses[0].item(),
+          "lstm_xor run(): one K1 chain per step, finite loss below the first step's")
 
     # 11. path: the NMT workload at its toy widths, as nmt_attention.run() runs it
     torch.cuda.synchronize()
@@ -1087,7 +1308,8 @@ def main() -> int:
           f"differ by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
     check(loss_rel < TOL_TRAJ, "NMT reference splu: kernel and direct-form losses agree")
 
-    for name in ("kron_multi", "kron_dd", "tri", "kron_sparse_big_ns", "kron_sparse_big_ds",
+    for name in ("kron_multi", "kron_dd", "kron_dd_batched", "tri", "kron_sparse_big_ns",
+                 "kron_sparse_big_ds",
                  "kron_sparse_big_nd", "kron_sparse_big_ns_wide2", "kron_sparse_big_ns_wide_xla",
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd"):
         check(launches[name] > 0, f"{name} launched on the paths")
@@ -1108,6 +1330,8 @@ def main() -> int:
         entry("kron_multi", "kron_dd.cu", "kron_multi.py:222", max(k1_abs, mix_abs, dec_abs),
               k1_ms, k1_plain_ms, k1_bound),
         entry("kron_dd", "kron_dd.cu", "kron_dd.py:181", k2_abs, k2_ms, k2_plain_ms, k2_bound),
+        entry("kron_dd_batched", "kron_dd.cu", "kron_dd.py:252", k4_err, k4_ms, k4_plain_ms,
+              k4_bound),
         entry("tri", "tri.cu", "tri.py:94", k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
         entry("kron_sparse", "kron_dd.cu", "kron_sparse.py:293", k5_abs, k5_ms, k5_plain_ms,
               k5_bound),

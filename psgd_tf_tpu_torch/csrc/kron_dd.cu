@@ -1,4 +1,6 @@
-// K1/K2/K5: the Kronecker factor update for a list of layers of mixed kinds.
+// K1/K2/K5: the Kronecker factor update for a list of layers of mixed kinds;
+// K4, the stacked (dense, dense) bucket, is the same chain over the stack
+// (its entry point at the end of this file).
 //
 // Replaces psgd_tf_tpu/ops/pallas/kron_multi.py `fused_update_multi` (:222,
 // its pallas_call at :202, kinds dd/ds/nd/ns), psgd_tf_tpu/ops/pallas/
@@ -84,12 +86,12 @@ static inline bool left_arrow(int k) { return k == KIND_ND || k == KIND_NS; }
 static inline bool right_scale(int k) { return k == KIND_DS || k == KIND_NS; }
 
 struct BalanceLayer {
-    const float* ql;
-    const float* qr;
-    float* qlb;
+    const float* ql;   // dense: (m, m) at row stride ldl; arrow: (2, m), ldl = m
+    const float* qr;   // dense: (n, n) at row stride ldr; scale: (n,), ldr = n
+    float* qlb;        // the balanced copies, tight
     float* qrb;
     unsigned int* mx;  // two max|grad| slots, zeroed here
-    int m, n, arrow, scale;
+    int m, n, arrow, scale, ldl, ldr;
 };
 
 struct BalanceBatch {
@@ -165,6 +167,11 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// Element e of a tight (rows, w) copy, read from rows of stride ld.
+__device__ __forceinline__ float strided(const float* q, size_t e, int w, int ld) {
+    return ld == w ? q[e] : q[(e / w) * ld + e % w];
+}
+
 // grid (blocks per layer, layers); every block recomputes its layer's
 // diagonal maxima (m + n loads) and scales its share of both factors.
 __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
@@ -172,9 +179,9 @@ __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
     __shared__ float red[8];
     float ml = -INFINITY, mr = -INFINITY;
     for (int i = threadIdx.x; i < L.m; i += blockDim.x)
-        ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.m + i]);
+        ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.ldl + i]);
     for (int i = threadIdx.x; i < L.n; i += blockDim.x)
-        mr = fmaxf(mr, L.scale ? L.qr[i] : L.qr[(size_t)i * L.n + i]);
+        mr = fmaxf(mr, L.scale ? L.qr[i] : L.qr[(size_t)i * L.ldr + i]);
     ml = block_reduce_max(ml, red);
     mr = block_reduce_max(mr, red);
     const float rho = sqrtf(ml / mr);
@@ -186,8 +193,8 @@ __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
     const size_t total = nl + (L.scale ? (size_t)L.n : (size_t)L.n * L.n);
     for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
          e += (size_t)gridDim.x * blockDim.x) {
-        if (e < nl) L.qlb[e] = L.ql[e] / rho;
-        else L.qrb[e - nl] = rho * L.qr[e - nl];
+        if (e < nl) L.qlb[e] = strided(L.ql, e, L.m, L.ldl) / rho;
+        else L.qrb[e - nl] = rho * strided(L.qr, e - nl, L.n, L.ldr);
     }
 }
 
@@ -468,16 +475,21 @@ extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const i
     return plan(L, kind, m, n, nullptr);
 }
 
-extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** qr, void** dx,
-                                      void** dg, void** out_ql, void** out_qr, const int* m,
-                                      const int* n, float step, void* scratch, void* stream_ptr) {
-    if (!valid(L, kind, m, n)) return (int)cudaErrorInvalidValue;
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// The chain on L layers. S = T = 0: every operand tight (K1, K2, K5).
+// S, T > 0 (K4, kind dd only): layer l's factors are read as the (m, m) and
+// (n, n) corners of (S, S) and (T, T) slots, its probes as the (m, n)
+// corner of an (S, T) slot, at those row strides. The outputs are tight.
+static int run_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
+                     void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
+                     float step, void* scratch, cudaStream_t stream) {
     float* base = static_cast<float*>(scratch);
     unsigned int* mx = reinterpret_cast<unsigned int*>(base);
     LayerScratch off[PSGD_MAX_LAYERS];
     plan(L, kind, m, n, off);
     auto F = [&](size_t o) { return base + o; };
+    // row strides: of the left factor, and of the right factor and the probes
+    auto ldl = [&](int l) { return S ? S : m[l]; };
+    auto ldr = [&](int l) { return T ? T : n[l]; };
 
     BalanceBatch bal;
     bal.count = L;
@@ -488,7 +500,7 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         const LayerScratch& s = off[l];
         const bool arrow = left_arrow(kind[l]), scale = right_scale(kind[l]);
         bal.l[l] = {static_cast<const float*>(ql[l]), static_cast<const float*>(qr[l]),
-                    F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale};
+                    F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale, ldl(l), ldr(l)};
         if (!arrow) { tri.u[tri.count] = F(s.qlb); tri.x[tri.count] = F(s.linv); tri.n[tri.count++] = m[l]; }
         if (!scale) { tri.u[tri.count] = F(s.qrb); tri.x[tri.count] = F(s.rinv); tri.n[tri.count++] = n[l]; }
         max_elems = std::max(max_elems, (arrow ? 2 * m[l] : m[l] * m[l]) + (scale ? n[l] : n[l] * n[l]));
@@ -525,14 +537,14 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         const float* DG = static_cast<const float*>(dg[l]);
         const float* DX = static_cast<const float*>(dx[l]);
         if (kind[l] == KIND_DD) {
-            g.p[g.count] = gemm_prob(DG, 0, N, F(s.qrb), 1, N, F(s.t1), M, N, N);
+            g.p[g.count] = gemm_prob(DG, 0, ldr(l), F(s.qrb), 1, N, F(s.t1), M, N, N);
             g.p[g.count++].cut = CUT_B_LOWER;
-            g.p[g.count] = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.w), M, N, M);
+            g.p[g.count] = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.w), M, N, M);
             g.p[g.count++].cut = CUT_A_LOWER;
         } else if (kind[l] == KIND_DS) {
-            GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, N, F(s.a), M, N, M);
+            GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, ldr(l), F(s.a), M, N, M);
             pa.epi = EPI_COLMUL; pa.v = F(s.qrb); pa.cut = CUT_A_UPPER;
-            GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.bt), M, N, M);
+            GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.bt), M, N, M);
             pb.epi = EPI_COLDIV; pb.v = F(s.qrb); pb.cut = CUT_A_LOWER;
             g.p[g.count++] = pa;
             g.p[g.count++] = pb;
@@ -625,5 +637,122 @@ extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** 
         }
     }
     launch_jobs(vec_kernel, vecs, blocks, stream, step);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** qr, void** dx,
+                                      void** dg, void** out_ql, void** out_qr, const int* m,
+                                      const int* n, float step, void* scratch, void* stream_ptr) {
+    if (!valid(L, kind, m, n)) return (int)cudaErrorInvalidValue;
+    return run_chain(L, kind, ql, qr, dx, dg, out_ql, out_qr, m, n, 0, 0, step, scratch,
+                     static_cast<cudaStream_t>(stream_ptr));
+}
+
+// ---------------------------------------------------------------------------
+// K4: B stacked (dense, dense) layers of one padded bucket.
+//
+// Replaces psgd_tf_tpu/ops/pallas/kron_dd.py `fused_update_batched` (:252,
+// its pallas_call at :294): ql (B, S, S), qr (B, T, T), dx and dg (B, S, T),
+// layer i's true (m_i, n_i) in the corners, identity (factors) and zeros
+// (probes) beyond. The Pallas grid runs K2's body on each padded layer,
+// with the balancing maxima masked to (m_i, n_i) and 128-block Newton
+// inverses over the whole padded side. Here the stack goes through the
+// same chain as K1, PSGD_MAX_LAYERS layers at a time, each layer's
+// pointers at its slot and its row strides S, T: the chain works on the
+// true corner alone, so the maxima are masked by construction and no solve
+// or product runs over the padding. The chain writes each updated corner
+// tight into the scratch; a last launch copies it into its slot of the
+// fresh output stacks, with exact identity beyond (1 on the diagonal, 0
+// elsewhere). Storing the corners straight into the slots needs a row
+// stride in the grouped GEMM's descriptor, which made every chain sharing
+// it (K1, K9, K10) up to 25% slower. The input stacks are not written (no
+// in-place alias: the port's states are functional). Bound on this card as
+// K1 is: latency, a fixed chain of small grouped launches per 16 layers.
+
+struct SlotJob {
+    const float* corner;  // (d, d), tight: what the chain wrote
+    float* q;             // its (side, side) slot in the output stack
+    int d, side;
+};
+
+struct SlotBatch {
+    SlotJob j[2 * PSGD_MAX_LAYERS];
+    int count;
+};
+
+// grid (blocks per slot, slots)
+__global__ void __launch_bounds__(256) slot_kernel(const SlotBatch b) {
+    const SlotJob J = b.j[blockIdx.y];
+    const size_t total = (size_t)J.side * J.side;
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+         e += (size_t)gridDim.x * blockDim.x) {
+        const int i = (int)(e / J.side), j = (int)(e % J.side);
+        J.q[e] = (i < J.d && j < J.d) ? J.corner[(size_t)i * J.d + j] : (i == j ? 1.f : 0.f);
+    }
+}
+
+static bool valid_batched(int B, int S, int T, const int* m, const int* n) {
+    if (B < 1 || S < 1 || T < 1) return false;
+    for (int i = 0; i < B; ++i)
+        if (m[i] < 1 || m[i] > S || n[i] < 1 || n[i] > T) return false;
+    return true;
+}
+
+// One chunk's scratch in floats: the chain's, then the tight corners from
+// offset *corners on.
+static size_t chunk_floats(int L, const int* m, const int* n, size_t* corners) {
+    const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
+    size_t cur = plan(L, kind, m, n, nullptr);
+    *corners = cur;
+    for (int l = 0; l < L; ++l)
+        cur += psgd_align4((size_t)m[l] * m[l]) + psgd_align4((size_t)n[l] * n[l]);
+    return cur;
+}
+
+extern "C" size_t psgd_kron_dd_batched_scratch_floats(int B, int S, int T, const int* m,
+                                                      const int* n) {
+    if (!valid_batched(B, S, T, m, n)) return 0;
+    size_t most = 0, corners;
+    for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS)
+        most = std::max(most, chunk_floats(std::min(PSGD_MAX_LAYERS, B - b0), m + b0, n + b0,
+                                           &corners));
+    return most;
+}
+
+extern "C" int psgd_kron_dd_batched_update(int B, int S, int T, void* ql, void* qr, void* dx,
+                                           void* dg, void* out_ql, void* out_qr, const int* m,
+                                           const int* n, float step, void* scratch,
+                                           void* stream_ptr) {
+    if (!valid_batched(B, S, T, m, n)) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
+    const size_t ss = (size_t)S * S, tt = (size_t)T * T, st = (size_t)S * T;
+    auto at = [](void* p, size_t floats) { return static_cast<float*>(p) + floats; };
+    // the chunks run one after another on the stream and share the scratch
+    for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS) {
+        const int L = std::min(PSGD_MAX_LAYERS, B - b0);
+        size_t corner0;
+        chunk_floats(L, m + b0, n + b0, &corner0);
+        float* corner = static_cast<float*>(scratch) + corner0;
+        void *pql[PSGD_MAX_LAYERS], *pqr[PSGD_MAX_LAYERS], *pdx[PSGD_MAX_LAYERS],
+             *pdg[PSGD_MAX_LAYERS], *oql[PSGD_MAX_LAYERS], *oqr[PSGD_MAX_LAYERS];
+        SlotBatch slots;
+        slots.count = 0;
+        for (int l = 0; l < L; ++l) {
+            const size_t i = (size_t)(b0 + l);
+            const int ml = m[b0 + l], nl = n[b0 + l];
+            pql[l] = at(ql, i * ss); pqr[l] = at(qr, i * tt);
+            pdx[l] = at(dx, i * st); pdg[l] = at(dg, i * st);
+            oql[l] = corner; corner += psgd_align4((size_t)ml * ml);
+            oqr[l] = corner; corner += psgd_align4((size_t)nl * nl);
+            slots.j[slots.count++] = {static_cast<const float*>(oql[l]), at(out_ql, i * ss), ml, S};
+            slots.j[slots.count++] = {static_cast<const float*>(oqr[l]), at(out_qr, i * tt), nl, T};
+        }
+        const int rc = run_chain(L, kind, pql, pqr, pdx, pdg, oql, oqr, m + b0, n + b0, S, T, step,
+                                 scratch, stream);
+        if (rc) return rc;
+        const int blocks = std::min(64, std::max(1, (int)((std::max(ss, tt) + 4095) / 4096)));
+        slot_kernel<<<dim3(blocks, slots.count), 256, 0, stream>>>(slots);
+    }
     return (int)cudaGetLastError();
 }

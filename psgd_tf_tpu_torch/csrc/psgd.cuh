@@ -8,7 +8,8 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
-// Most layers one kron_dd chain takes; the Python wrapper splits longer lists.
+// Most layers one kron_dd chain takes; K1's Python wrapper splits longer
+// lists, K4's C entry point longer stacks.
 #define PSGD_MAX_LAYERS 16
 // Most triangular factors one tri launch inverts (two per layer).
 #define PSGD_MAX_TRI (2 * PSGD_MAX_LAYERS)

@@ -14,7 +14,9 @@ The seven supported pairs are (dense, dense), (norm, dense), (dense, norm),
 transpose into their canonical sibling (dd, nd, ds, ns), as in the JAX
 package. The plain per-pair updates and applies below are the CPU path and
 the oracle of every kernel; on a CUDA device `update` and `update_multi`
-route to the Hopper kernels as `route` reports.
+route fp32 states to the Hopper kernels as `route` reports. A bucket of
+(dense, dense) layers of one padded size can be held stacked
+(`BatchedDDState`) and updated at once (`update_batched`, K4 on the card).
 """
 from __future__ import annotations
 
@@ -186,9 +188,9 @@ def _sparse_dispatch(kind, a, b, dX, dG, step):
     for probes `kron_sparse.fits`, the streaming kernels K6/K7/K8 (ns), K9
     (nd) and K10 (ds) up to the JAX package's capacity envelope, else the
     plain update (the JAX package's XLA path). Every wrapper takes its
-    plain version for CPU tensors."""
+    plain version for CPU tensors. Only fp32 states go to a kernel."""
     m, n = dX.shape
-    r = _kernel_route(kind, m, n)
+    r = _kernel_route(kind, m, n) if a.dtype == torch.float32 else "xla"
     if r.startswith("kron_sparse:"):
         return kron_sparse.FUSED_UPDATE[kind](a, b, dX, dG, step)
     if r.startswith("kron_sparse_big:"):
@@ -199,10 +201,14 @@ def _sparse_dispatch(kind, a, b, dX, dG, step):
 def update(state: KronState, dX: torch.Tensor, dG: torch.Tensor, step: float = 0.01) -> KronState:
     """One Lie-group step on one layer. (dense, dense) goes through
     `kron_dd.fused_update` (K2); the sparse pairs through `_sparse_dispatch`.
-    `step` is a Python number."""
+    A state of another dtype than fp32 takes the plain update of its kind
+    on its device, as the JAX package sends it to XLA. `step` is a Python
+    number."""
     kind, mirrored, a, b, dx, dg = _oriented(state, dX, dG)
-    if kind == "dd":
+    if kind == "dd" and a.dtype == torch.float32:
         na, nb = kron_dd.fused_update(a, b, dx, dg, step)
+    elif kind == "dd":
+        na, nb = kron_dd.update_plain(a, b, dx, dg, step)
     else:
         na, nb = _sparse_dispatch(kind, a, b, dx, dg, step)
     if mirrored:
@@ -250,10 +256,12 @@ def update_multi(
     return out
 
 
-def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.device | str) -> str:
+def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.device | str,
+          dtype: torch.dtype = torch.float32) -> str:
     """Which path serves the single-layer update of a layer with this
-    format pair and probe shape on `device`: 'plain' on the CPU or inside
-    `hopper.disabled()`; on a CUDA device the JAX package's route names:
+    format pair and probe shape on `device`: 'plain' on the CPU, inside
+    `hopper.disabled()` or for a state dtype other than fp32; on a CUDA
+    device the JAX package's route names:
 
       'kron_dd'                 (dense, dense): K2 (K1 when listed)
       'kron_sparse:<kind>'      single-launch sparse kernel K5
@@ -268,7 +276,7 @@ def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.devi
     above 1024.
     """
     kind, mirrored = _canon(fmt)
-    if not hopper.use_kernel(device):
+    if dtype != torch.float32 or not hopper.use_kernel(device):
         return "plain"
     m, n = (shape[1], shape[0]) if mirrored else shape
     return _kernel_route(kind, m, n)
@@ -281,6 +289,107 @@ def apply(state: KronState, G: torch.Tensor) -> torch.Tensor:
     if mirrored:
         return _APPLY[kind](state.qr, state.ql, G.T).T
     return _APPLY[kind](state.ql, state.qr, G)
+
+
+# ---------------------------------------------------------------------------
+# the batched (dense, dense) path (psgd_tf_tpu/groups/kron.py:472-627)
+# ---------------------------------------------------------------------------
+# A bucket of (dense, dense) layers whose 128-padded sides agree is stored
+# stacked: Ql (B, S, S), Qr (B, T, T), each layer's true factor in the
+# top-left corner and exact identity beyond. Padded probe rows and columns
+# are zero, so A and Bt vanish outside each (m, n) corner, the group
+# gradients outside (m, m) and (n, n), and the update leaves the identity
+# extension exactly as it was. The balancing maxima are masked to the
+# corners. On a CUDA fp32 stack the update is K4.
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedDDState:
+    """Stacked padded (dense, dense) factors of B layers; `shapes` records
+    each layer's true (m_i, n_i)."""
+
+    ql: torch.Tensor  # (B, S, S)
+    qr: torch.Tensor  # (B, T, T)
+    shapes: tuple[tuple[int, int], ...] = ()
+
+    def replace(self, **kwargs) -> "BatchedDDState":
+        return dataclasses.replace(self, **kwargs)
+
+
+def _pad_factor(q: torch.Tensor, side: int) -> torch.Tensor:
+    """An (d, d) factor in the corner of a (side, side) identity."""
+    d = q.shape[0]
+    if d == side:
+        return q
+    out = torch.eye(side, dtype=q.dtype, device=q.device)
+    out[:d, :d] = q
+    return out
+
+
+def init_batched(
+    shapes: Sequence[tuple[int, int]],
+    init_scale: float = 1.0,
+    dtype: torch.dtype = torch.float32,
+    pad_multiple: int = 128,
+    device: torch.device | str = "cuda",
+) -> BatchedDDState:
+    """Stacked identity init of B (dense, dense) layers: `init_scale` on
+    each true diagonal, 1 on the padding."""
+    shapes = tuple((int(m), int(n)) for m, n in shapes)
+    S = max(-(-m // pad_multiple) * pad_multiple for m, _ in shapes)
+    T = max(-(-n // pad_multiple) * pad_multiple for _, n in shapes)
+
+    def one(d, side):
+        return _pad_factor(_factor_init("dense", d, init_scale, dtype, device), side)
+
+    return BatchedDDState(ql=torch.stack([one(m, S) for m, _ in shapes]),
+                          qr=torch.stack([one(n, T) for _, n in shapes]), shapes=shapes)
+
+
+def stack_padded(mats: Sequence[torch.Tensor], S: int, T: int) -> torch.Tensor:
+    """Zero-pad each (m_i, n_i) matrix into an (S, T) slot and stack."""
+    out = mats[0].new_zeros((len(mats), S, T))
+    for i, x in enumerate(mats):
+        out[i, :x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def update_batched(
+    state: BatchedDDState,
+    dXs: Sequence[torch.Tensor],
+    dGs: Sequence[torch.Tensor],
+    step: float = 0.01,
+) -> BatchedDDState:
+    """One Lie-group step on every stacked layer: K4 for a CUDA fp32 stack
+    (its wrapper takes the plain version for CPU tensors); the plain update
+    (`kron_dd.update_batched_plain`, the JAX package's vmapped
+    `_update_dd_padded`) for any other dtype, as the JAX package sends it
+    to XLA. `step` is a Python number."""
+    S, T = state.ql.shape[1], state.qr.shape[1]
+    dx, dg = stack_padded(dXs, S, T), stack_padded(dGs, S, T)
+    ms = [m for m, _ in state.shapes]
+    ns = [n for _, n in state.shapes]
+    fn = (kron_dd.fused_update_batched if state.ql.dtype == torch.float32
+          else kron_dd.update_batched_plain)
+    ql, qr = fn(state.ql, state.qr, dx, dg, ms, ns, step)
+    return state.replace(ql=ql, qr=qr)
+
+
+def apply_batched(state: BatchedDDState, Gs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """P_i G_i = Ql_i^T Ql_i G_i Qr_i^T Qr_i for every stacked layer, by
+    batched products (the JAX package computes it outside any kernel too).
+    Zero padding in G confines every product to the true corner."""
+    S, T = state.ql.shape[1], state.qr.shape[1]
+    g = stack_padded(Gs, S, T)
+    pre = state.ql.mT @ (state.ql @ (g @ (state.qr.mT @ state.qr)))
+    return [pre[i, :m, :n] for i, (m, n) in enumerate(state.shapes)]
+
+
+def unbatch(state: BatchedDDState) -> list[KronState]:
+    """Per-layer (dense, dense) states of a batched state (tests, interop)."""
+    return [KronState(ql=state.ql[i, :m, :m].contiguous(), qr=state.qr[i, :n, :n].contiguous(),
+                      fmt=("dense", "dense"))
+            for i, (m, n) in enumerate(state.shapes)]
 
 
 def _factor_dense(fmt: Format, q: torch.Tensor) -> torch.Tensor:

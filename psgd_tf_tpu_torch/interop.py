@@ -15,11 +15,12 @@ import torch
 
 from psgd_tf_tpu_torch.groups.dense import DenseState
 from psgd_tf_tpu_torch.groups.diag import DiagState
-from psgd_tf_tpu_torch.groups.kron import KronState
+from psgd_tf_tpu_torch.groups.kron import BatchedDDState, KronState
 from psgd_tf_tpu_torch.groups.lra import LRAState
 from psgd_tf_tpu_torch.groups.shift import ShiftState
 from psgd_tf_tpu_torch.groups.splu import SpLUState
 from psgd_tf_tpu_torch.groups.xmat import XMatState
+from psgd_tf_tpu_torch.optim.psgd import KronPrecond
 
 
 def tensors(arrays: Sequence[np.ndarray],
@@ -39,6 +40,32 @@ def kron_states(
         a, b = tensors([ql, qr], device)
         out.append(KronState(ql=a, qr=b, fmt=(fmt[0], fmt[1])))
     return out
+
+
+def batched_dd_state(ql: np.ndarray, qr: np.ndarray, shapes: Sequence[tuple[int, int]],
+                     device: torch.device | str = "cuda") -> BatchedDDState:
+    """From a JAX BatchedDDState's `np.asarray(s.ql)`, `np.asarray(s.qr)`
+    and `s.shapes`."""
+    a, b = tensors([ql, qr], device)
+    return BatchedDDState(ql=a, qr=b, shapes=tuple((int(m), int(n)) for m, n in shapes))
+
+
+def kron_precond(
+    batches: Sequence[tuple[np.ndarray, np.ndarray, Sequence[tuple[int, int]]]],
+    singles: Sequence[tuple[np.ndarray, np.ndarray, tuple[str, str]]],
+    batched_idx: Sequence[Sequence[int]],
+    single_idx: Sequence[int],
+    device: torch.device | str = "cuda",
+) -> KronPrecond:
+    """From a JAX KronPrecond: `batches` as (ql, qr, shapes) triples of its
+    BatchedDDStates, `singles` as `kron_states` takes them, and its two
+    index tuples."""
+    return KronPrecond(
+        batches=[batched_dd_state(ql, qr, shapes, device) for ql, qr, shapes in batches],
+        singles=kron_states(singles, device),
+        batched_idx=tuple(tuple(int(i) for i in idx) for idx in batched_idx),
+        single_idx=tuple(int(i) for i in single_idx),
+    )
 
 
 def dense_state(Q: np.ndarray, device: torch.device | str = "cuda") -> DenseState:

@@ -5,9 +5,11 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
   - tri: exact upper-triangular inverse of a list of factors (K3).
   - kron_dd: the Kronecker factor update chain of `csrc/kron_dd.cu`;
     `fused_update` takes one (dense, dense) layer (K2),
-    `kron_sparse.fused_update_*` one sparse layer (K5), and
+    `kron_sparse.fused_update_*` one sparse layer (K5),
     `kron_multi.fused_update_multi` a whole layer list of any kinds in one
-    fixed chain of grouped launches (K1).
+    fixed chain of grouped launches (K1), and
+    `kron_dd.fused_update_batched` a stacked, identity-padded bucket of
+    (dense, dense) layers through the same chain (K4).
   - kron_sparse_big: the streaming (norm, scale) reductions (K6), their
     wide-lane kernel (K7/K8: one kernel counted under the JAX package's
     two routes), the streaming (norm, dense) chain (K9) and the streaming
@@ -37,7 +39,7 @@ import contextlib
 import torch
 
 counts: dict[str, int] = {
-    "tri": 0, "kron_dd": 0, "kron_multi": 0, "kron_sparse": 0,
+    "tri": 0, "kron_dd": 0, "kron_dd_batched": 0, "kron_multi": 0, "kron_sparse": 0,
     "kron_sparse_big_ns": 0, "kron_sparse_big_ns_wide2": 0, "kron_sparse_big_ns_wide_xla": 0,
     "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,

@@ -1,16 +1,18 @@
-"""K1/K2/K5 device chain: the Kronecker factor update of a layer list.
+"""K1/K2/K4/K5 device chain: the Kronecker factor update of a layer list.
 
-Replaces `psgd_tf_tpu/ops/pallas/kron_dd.py` `fused_update` (:181). The
-CUDA chain in `csrc/kron_dd.cu` updates a whole list of layers of kinds
-dd/ds/nd/ns in a fixed chain of grouped launches (balance, K3, arrow
-pre-pass, grouped GEMMs, reductions, factor rewrites); `fused_update` here
-is its single (dense, dense) layer entry point (K2),
-`kron_sparse.fused_update_*` its single sparse layer entry points (K5), and
-`kron_multi.fused_update_multi` its list entry point (K1).
+Replaces `psgd_tf_tpu/ops/pallas/kron_dd.py` `fused_update` (:181) and
+`fused_update_batched` (:252). The CUDA chain in `csrc/kron_dd.cu` updates
+a whole list of layers of kinds dd/ds/nd/ns in a fixed chain of grouped
+launches (balance, K3, arrow pre-pass, grouped GEMMs, reductions, factor
+rewrites); `fused_update` here is its single (dense, dense) layer entry
+point (K2), `fused_update_batched` its stacked (dense, dense) bucket entry
+point (K4), `kron_sparse.fused_update_*` its single sparse layer entry
+points (K5), and `kron_multi.fused_update_multi` its list entry point (K1).
 
-The plain version follows `psgd_tf_tpu/groups/kron.py` `_update_dd`
-(:107-119): triangular solves and plain matmuls. It is the CPU path and
-the oracle the kernel is checked against on the card.
+The plain versions follow `psgd_tf_tpu/groups/kron.py` `_update_dd`
+(:107-119) and `_update_dd_padded` (:541-561): triangular solves and plain
+matmuls. They are the CPU path and the oracles the kernels are checked
+against on the card.
 """
 from __future__ import annotations
 
@@ -91,4 +93,83 @@ def fused_update(ql, qr, dx, dg, step):
     if not hopper.use_kernel(ql):
         return update_plain(ql, qr, dx, dg, step)
     (new_ql,), (new_qr,) = launch(["dd"], [ql], [qr], [dx], [dg], step, "kron_dd")
+    return new_ql, new_qr
+
+
+def update_batched_plain(ql, qr, dx, dg, ms, ns, step):
+    """`update_plain` on every layer of a stack at once, with the JAX
+    package's padded semantics (`psgd_tf_tpu/groups/kron.py`
+    `_update_dd_padded`, vmapped): ql (B, S, S) and qr (B, T, T) hold layer
+    i's factors in their (m_i, m_i) and (n_i, n_i) corners and identity
+    beyond, dx and dg (B, S, T) its probes in the (m_i, n_i) corner and zeros
+    beyond. The diagonal maxima are masked to the corners, the padding rows
+    are held at identity, and the padding stays exact identity: its group
+    gradients are exactly zero."""
+    B, S, _ = ql.shape
+    T = qr.shape[1]
+    dev, dtype = ql.device, ql.dtype
+    rows_l = torch.arange(S, device=dev)[None, :] < torch.as_tensor(ms, device=dev)[:, None]
+    rows_r = torch.arange(T, device=dev)[None, :] < torch.as_tensor(ns, device=dev)[:, None]
+    neg = torch.tensor(-torch.inf, dtype=dtype, device=dev)
+    max_l = torch.where(rows_l, torch.diagonal(ql, dim1=1, dim2=2), neg).amax(1)
+    max_r = torch.where(rows_r, torch.diagonal(qr, dim1=1, dim2=2), neg).amax(1)
+    rho = torch.sqrt(max_l / max_r)[:, None, None]
+    ql = torch.where(rows_l[:, :, None], ql / rho, torch.eye(S, dtype=dtype, device=dev))
+    qr = torch.where(rows_r[:, :, None], qr * rho, torch.eye(T, dtype=dtype, device=dev))
+    a = ql @ (dg @ qr.mT)
+    bt = linalg.solve_ut_t(ql, linalg.solve_ut_t(qr, dx.mT).mT)
+    grad1 = torch.triu(a @ a.mT - bt @ bt.mT)
+    grad2 = torch.triu(a.mT @ a - bt.mT @ bt)
+    step1 = linalg.step_scale(step, grad1.abs().amax((1, 2), keepdim=True), dtype)
+    step2 = linalg.step_scale(step, grad2.abs().amax((1, 2), keepdim=True), dtype)
+    return ql - step1 * (grad1 @ ql), qr - step2 * (grad2 @ qr)
+
+
+def _host_sizes(xs, what: str) -> list[int]:
+    """Per-layer sizes as host ints; a device tensor would make the host
+    wait for the card."""
+    if isinstance(xs, torch.Tensor):
+        if xs.device.type != "cpu":
+            raise ValueError(f"kron_dd_batched: {what} must be host ints or a CPU tensor, "
+                             f"got a tensor on {xs.device}")
+        xs = xs.tolist()
+    return [int(x) for x in xs]
+
+
+def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
+    """K4: the update of B stacked (dense, dense) layers of one padded
+    bucket, ql (B, S, S), qr (B, T, T), dx and dg (B, S, T), layer i's true
+    sides (ms[i], ns[i]) given as host ints or a CPU int tensor. Returns the
+    new (B, S, S) and (B, T, T) stacks, padding exact identity; the inputs
+    are not written. The plain version for CPU tensors; for CUDA tensors
+    the CUDA chain of K1 over the stack, `MAX_LAYERS` layers a chain, each
+    counted under 'kron_dd_batched' with its K3 step under 'tri'. `step` is
+    a Python number."""
+    if not hopper.use_kernel(ql):
+        return update_batched_plain(ql, qr, dx, dg, ms, ns, step)
+    ms, ns = _host_sizes(ms, "ms"), _host_sizes(ns, "ns")
+    B, S, T = ql.shape[0], ql.shape[1], qr.shape[1]
+    if (tuple(ql.shape) != (B, S, S) or tuple(qr.shape) != (B, T, T)
+            or tuple(dx.shape) != (B, S, T) or tuple(dg.shape) != (B, S, T)
+            or len(ms) != B or len(ns) != B
+            or not all(1 <= m <= S for m in ms) or not all(1 <= n <= T for n in ns)):
+        raise ValueError(
+            f"kron_dd_batched: shapes Ql {tuple(ql.shape)}, Qr {tuple(qr.shape)}, "
+            f"dX {tuple(dx.shape)}, dG {tuple(dg.shape)}, sides {ms} x {ns} do not agree"
+        )
+    hopper.check_operands("kron_dd_batched", ql, qr, dx, dg)
+    lib = _build.lib()
+    mi, ni = _build.int_array(ms), _build.int_array(ns)
+    scratch = torch.empty(lib.psgd_kron_dd_batched_scratch_floats(B, S, T, mi, ni),
+                          dtype=torch.float32, device=ql.device)
+    new_ql, new_qr = torch.empty_like(ql), torch.empty_like(qr)
+    rc = lib.psgd_kron_dd_batched_update(
+        B, S, T, ql.data_ptr(), qr.data_ptr(), dx.data_ptr(), dg.data_ptr(), new_ql.data_ptr(),
+        new_qr.data_ptr(), mi, ni, float(step), scratch.data_ptr(),
+        torch.cuda.current_stream(ql.device).cuda_stream,
+    )
+    _build.check(rc, "kron_dd_batched kernel chain")
+    chains = -(-B // MAX_LAYERS)
+    hopper.counts["kron_dd_batched"] += chains
+    hopper.counts["tri"] += chains  # each chain's step (b) is K3
     return new_ql, new_qr

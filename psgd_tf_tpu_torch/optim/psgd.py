@@ -8,9 +8,12 @@ Counterpart of `psgd_tf_tpu/optim/psgd.py`. API shape:
 
 'kron' keeps one (Ql, Qr) pair per parameter tensor. `kron_formats` takes
 any of the seven format pairs (per leaf, one pair for all, a callable of
-the shape, or 'auto'); every step updates all the Kronecker factors
-through `kron.update_multi`, which routes each layer to its kernel as
-`kron.route` reports.
+the shape, or 'auto'); every step updates the Kronecker factors through
+`kron.update_multi`, which routes each layer to its kernel as `kron.route`
+reports. With `kron_batched` (the default), an fp32 state stacks each
+bucket of at least `kron_batch_min` (dense, dense) layers whose 128-padded
+shapes agree into a `kron.BatchedDDState` (the state is then a
+`KronPrecond`), and updates it with `kron.update_batched` (K4 on the card).
 
 'dense', 'diag', 'xmat', 'shift', 'splu' and 'lra' precondition the
 flattened parameter vector: the tensors raveled in list order and
@@ -61,7 +64,7 @@ class Hyper:
 class PSGDState:
     count: int
     hyper: Hyper
-    precond: Any  # list[kron.KronState], one per tensor; or a flat family's state
+    precond: Any  # list[kron.KronState], one per tensor, or a KronPrecond; or a flat family's
     always_update: bool = False
     # True when the constructor's update probability is >= 1: no coin is
     # drawn. Otherwise the coin comes from `coin`, a CPU generator, so the
@@ -71,6 +74,23 @@ class PSGDState:
     branch: torch.Generator | None = None
 
     def replace(self, **kwargs) -> "PSGDState":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class KronPrecond:
+    """Kron state with the (dense, dense) layers of each large enough
+    bucket (128-padded sides that agree) stacked into one
+    `kron.BatchedDDState`, updated at once (K4 on the card). `singles` holds
+    the other layers' states, including buckets below `kron_batch_min`.
+    The index tuples map each group back to the parameter list's order."""
+
+    batches: list
+    singles: list
+    batched_idx: tuple[tuple[int, ...], ...] = ()
+    single_idx: tuple[int, ...] = ()
+
+    def replace(self, **kwargs) -> "KronPrecond":
         return dataclasses.replace(self, **kwargs)
 
 
@@ -85,7 +105,8 @@ class PSGD:
     preconditioner_update_probability: float = 1.0
     exact_hessian_vector_product: bool = True
     kron_formats: Any = "auto"  # 'auto' | (fmt_l, fmt_r) | callable(shape) | per-leaf list
-    kron_batch_min: int = 4     # buckets this large take K4 in the JAX package
+    kron_batched: bool = True   # stack each bucket of same-padded (dense, dense) layers
+    kron_batch_min: int = 4     # the fewest layers a stacked bucket takes (JAX's crossover)
     dtype: torch.dtype = torch.float32
 
     # ------------------------------------------------------------------ init
@@ -142,7 +163,11 @@ class PSGD:
             return fmts[index]
         return tuple(fmts)
 
-    def _init_kron(self, params: Sequence[torch.Tensor]) -> list:
+    def _init_kron(self, params: Sequence[torch.Tensor]):
+        """A list of per-layer states, or a `KronPrecond` when an fp32
+        state has a bucket of at least max(2, kron_batch_min) (dense, dense)
+        layers of side <= 1024 whose 128-padded shapes agree (the JAX
+        package's bucketing)."""
         leaves = list(params)
         shapes = [_matrix_shape(p.shape) for p in leaves]
         fmts = [tuple(self._leaf_format(s, i, len(leaves))) for i, s in enumerate(shapes)]
@@ -151,18 +176,25 @@ class PSGD:
         for i, (s, f) in enumerate(zip(shapes, fmts)):
             if f == ("dense", "dense") and max(s) <= _BUCKET_MAX_SIDE:
                 buckets.setdefault((pad(s[0]), pad(s[1])), []).append(i)
-        big = [idx for idx in buckets.values() if len(idx) >= max(2, self.kron_batch_min)]
-        if big and self.dtype == torch.float32:
-            raise NotImplementedError(
-                f"(dense, dense) layers {big} share a padded bucket of "
-                f">= {self.kron_batch_min}: the batched path (K4, "
-                "kron_dd.fused_update_batched) is not ported yet (ROADMAP queue 2)"
-            )
-        return [
-            kron.init(s, fmt=f, init_scale=self.init_scale, dtype=self.dtype,
-                      device=p.device)
-            for p, s, f in zip(leaves, shapes, fmts)
-        ]
+        batched_idx = tuple(tuple(idx) for idx in buckets.values()
+                            if len(idx) >= max(2, self.kron_batch_min))
+
+        def single(i):
+            return kron.init(shapes[i], fmt=fmts[i], init_scale=self.init_scale,
+                             dtype=self.dtype, device=leaves[i].device)
+
+        if not self.kron_batched or not batched_idx or self.dtype != torch.float32:
+            return [single(i) for i in range(len(leaves))]
+        in_batch = {i for idx in batched_idx for i in idx}
+        single_idx = tuple(i for i in range(len(leaves)) if i not in in_batch)
+        return KronPrecond(
+            batches=[kron.init_batched([shapes[i] for i in idx], init_scale=self.init_scale,
+                                       dtype=self.dtype, device=leaves[idx[0]].device)
+                     for idx in batched_idx],
+            singles=[single(i) for i in single_idx],
+            batched_idx=batched_idx,
+            single_idx=single_idx,
+        )
 
     # ------------------------------------------------------------------ step
 
@@ -209,20 +241,38 @@ class PSGD:
                 loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
             else:
                 loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
-            precond = kron.update_multi(
-                state.precond,
-                [_as_matrix(x).to(self.dtype) for x in v],
-                [_as_matrix(x).to(self.dtype) for x in hvs],
-                step=state.hyper.lr_preconditioner,
-            )
+            vs = [_as_matrix(x).to(self.dtype) for x in v]
+            hs = [_as_matrix(x).to(self.dtype) for x in hvs]
+            step = state.hyper.lr_preconditioner
+            pc = state.precond
+            if isinstance(pc, KronPrecond):
+                precond = pc.replace(
+                    batches=[kron.update_batched(b, [vs[i] for i in idx], [hs[i] for i in idx],
+                                                 step=step)
+                             for b, idx in zip(pc.batches, pc.batched_idx)],
+                    singles=kron.update_multi(pc.singles, [vs[i] for i in pc.single_idx],
+                                              [hs[i] for i in pc.single_idx], step=step),
+                )
+            else:
+                precond = kron.update_multi(pc, vs, hs, step=step)
         else:
             loss, grads = hvp.grad_only(loss_fn, params, *args)
             precond = state.precond
-        pre_grads = [
-            kron.apply(ks, _as_matrix(g.to(self.dtype))).reshape(g.shape)
-            for ks, g in zip(precond, grads)
-        ]
-        return loss, grads, precond, pre_grads
+        return loss, grads, precond, self._kron_apply(precond, grads)
+
+    def _kron_apply(self, precond, grads):
+        """P g for every parameter tensor, in the preconditioner's dtype."""
+        gs = [_as_matrix(g.to(self.dtype)) for g in grads]
+        if not isinstance(precond, KronPrecond):
+            pre = [kron.apply(ks, g) for ks, g in zip(precond, gs)]
+        else:
+            pre = [None] * len(gs)
+            for b, idx in zip(precond.batches, precond.batched_idx):
+                for i, p in zip(idx, kron.apply_batched(b, [gs[i] for i in idx])):
+                    pre[i] = p
+            for ks, i in zip(precond.singles, precond.single_idx):
+                pre[i] = kron.apply(ks, gs[i])
+        return [p.reshape(g.shape) for p, g in zip(pre, grads)]
 
     def _flat_step(self, loss_fn, params, state, generator, args, do_update, probes, coins):
         """(loss, grads, precond, pre_grads) of a flat family: one Q over the

@@ -33,7 +33,7 @@ def test_import_leaves_jax_out():
         "import sys, psgd_tf_tpu_torch, psgd_tf_tpu_torch.workloads.mnist_lenet5, "
         "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
         "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra, "
-        "psgd_tf_tpu_torch.workloads.all_preconditioners, "
+        "psgd_tf_tpu_torch.workloads.all_preconditioners, psgd_tf_tpu_torch.workloads.lstm_xor, "
         "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
@@ -331,6 +331,112 @@ def test_auto_format_reference_nmt_step_launches_k9(cuda):
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
     assert moved == {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1, "tri": 6}
     assert np.isfinite(aux["loss"].item())
+
+
+# ------------------------------------------------ the batched (dense, dense) path (K4)
+
+# the ragged bucket of tests/test_kron_batched.py, and the JAX package's
+# crossover stack at B = 24 (two chains of at most 16 layers)
+K4_BUCKETS = {"ragged": [(26, 6), (121, 84), (85, 10), (100, 128)], "b24": [(200, 256)] * 24}
+
+
+def _walked_batched(g, shapes, dev, steps=3):
+    """A stacked state walked `steps` plain updates off 0.8 I, and fresh
+    stacked probes."""
+    from psgd_tf_tpu_torch import kron
+
+    bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
+    S, T = bst.ql.shape[1], bst.qr.shape[1]
+
+    def stacked():
+        return kron.stack_padded([torch.randn(s, generator=g, device=dev) for s in shapes], S, T)
+
+    with hopper.disabled():
+        for _ in range(steps):
+            bst = kron.update_batched(bst, *(
+                [torch.randn(s, generator=g, device=dev) for s in shapes] for _ in range(2)), step=0.1)
+    return bst, stacked(), stacked()
+
+
+def _identity_padded(q, sides):
+    """True when every slot of the stack q is identity beyond its corner."""
+    for i, d in enumerate(sides):
+        want = torch.eye(q.shape[1], device=q.device)
+        want[:d, :d] = q[i, :d, :d]
+        if not torch.equal(q[i], want):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("bucket", list(K4_BUCKETS))
+def test_k4_matches_plain(cuda, bucket):
+    shapes = K4_BUCKETS[bucket]
+    g = torch.Generator(device=cuda).manual_seed(16)
+    bst, dx, dg = _walked_batched(g, shapes, cuda)
+    ms, ns = [m for m, _ in shapes], [n for _, n in shapes]
+    ql0, qr0 = bst.ql.clone(), bst.qr.clone()
+    before = dict(hopper.counts)
+    a, b = kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns, 0.1)
+    torch.cuda.synchronize()
+    chains = -(-len(shapes) // kron_dd.MAX_LAYERS)
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == {"kron_dd_batched": chains, "tri": chains}
+    ra, rb = kron_dd.update_batched_plain(bst.ql, bst.qr, dx, dg, ms, ns, 0.1)
+    assert _rel(a, ra) < 1e-4 and _rel(b, rb) < 1e-4
+    assert _identity_padded(a, ms) and _identity_padded(b, ns)
+    assert torch.equal(bst.ql, ql0) and torch.equal(bst.qr, qr0)  # the inputs are not written
+    again = kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns, 0.1)
+    assert torch.equal(again[0], a) and torch.equal(again[1], b)  # no float atomics
+    with pytest.raises(ValueError, match="host ints"):
+        kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, torch.tensor(ms, device=cuda), ns, 0.1)
+
+
+def test_nmt_default_formats_step_launches_k4(cuda):
+    """PSGD's defaults on the NMT model at embed 16 / units 32: its four
+    (dense, dense) layers share a (128, 128) bucket and take K4 (one chain,
+    its K3), the embeddings K9, the fc K10."""
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.optim.psgd import KronPrecond
+
+    cfg = nmt.Config(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    params = nmt.init(g, cfg)
+    opt = PSGD(preconditioner="kron", lr_params=0.05, lr_preconditioner=0.05, grad_clip_max_norm=1.0)
+    state = opt.init(params)
+    assert isinstance(state.precond, KronPrecond)
+    assert state.precond.batched_idx == ((1, 2, 3, 5),) and state.precond.single_idx == (0, 4, 6)
+    src = torch.randint(3, cfg.vocab_src, (64, 18), generator=g, device=cuda)
+    tgt = torch.randint(3, cfg.vocab_tgt, (64, 13), generator=g, device=cuda)
+    before = dict(hopper.counts)
+    params, state, aux = opt.step(nmt.loss, params, state, g, src, tgt)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1,
+                     "tri": 4}
+    assert np.isfinite(aux["loss"].item())
+
+
+def test_bf16_kron_states_take_the_plain_path(cuda):
+    """A bf16 Kronecker state never reaches a kernel: `update` and
+    `update_multi` on the card take the plain updates and launch nothing."""
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    shapes = NMT_TOY
+    states = [kron.init(s, fmt=f, init_scale=0.8, dtype=torch.bfloat16, device=cuda)
+              for f, s in zip(NMT_FMTS, shapes)]
+    assert all(kron.route(f, s, cuda, torch.bfloat16) == "plain" for f, s in zip(NMT_FMTS, shapes))
+    dxs = [torch.randn(s, generator=g, device=cuda).bfloat16() for s in shapes]
+    dgs = [torch.randn(s, generator=g, device=cuda).bfloat16() for s in shapes]
+    before = dict(hopper.counts)
+    multi = kron.update_multi(states, dxs, dgs, step=0.1)
+    single = [kron.update(st, x, h, step=0.1) for st, x, h in zip(states, dxs, dgs)]
+    torch.cuda.synchronize()
+    assert hopper.counts == before
+    for st in multi + single:
+        assert st.ql.dtype == st.qr.dtype == torch.bfloat16
+        assert torch.isfinite(st.ql.float()).all() and torch.isfinite(st.qr.float()).all()
 
 
 # ------------------------------------------------ the flat families (K11-K13)

@@ -13,7 +13,9 @@ from psgd_tf_tpu import PSGD as JPSGD
 from psgd_tf_tpu.data import translation as jtranslation
 from psgd_tf_tpu.groups import kron as jkron
 from psgd_tf_tpu.models import nmt as jnmt
+from psgd_tf_tpu.optim.psgd import KronPrecond as JKronPrecond
 from psgd_tf_tpu_torch import PSGD, hvp, interop, kron
+from psgd_tf_tpu_torch.optim.psgd import KronPrecond
 from psgd_tf_tpu_torch.data import translation
 from psgd_tf_tpu_torch.models import nmt
 from psgd_tf_tpu_torch.workloads import nmt_attention
@@ -142,13 +144,15 @@ def test_five_psgd_steps_match_jax(monkeypatch):
         np.testing.assert_allclose(st.qr.numpy(), np.asarray(jst.qr), rtol=5e-4, atol=5e-5)
 
 
-def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch):
+@pytest.mark.parametrize("batch_min", [4, 8])
+def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch, batch_min):
     """Twenty PSGD steps with PSGD's default Kronecker formats ('auto'):
     both embeddings take (norm, dense), K9's route past `kron_sparse.fits`,
     the fc (dense, scale), K10's. Exact Hvp, ids drawn per vocabulary,
-    the same probes injected into both packages. `kron_batch_min=8` keeps
-    the four (dense, dense) layers, which share one (128, 128) bucket, off
-    the batched path (K4 in JAX)."""
+    the same probes injected into both packages. The four (dense, dense)
+    layers share one (128, 128) bucket: at the default `kron_batch_min=4`
+    both packages stack them (the batched path, K4 on the card); at 8 they
+    stay single layers (K2 on the card)."""
     cfg = nmt.Config(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
     jcfg = jnmt.Config(*cfg)
     shapes = jnmt.layer_shapes(jcfg)
@@ -160,7 +164,7 @@ def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch):
     w = [0.3 * rng.standard_normal(s).astype(np.float32) for s in shapes]
     steps = [(rng.integers(3, cfg.vocab_src, (8, 6)), rng.integers(3, cfg.vocab_tgt, (8, 5)),
               [rng.standard_normal(s).astype(np.float32) for s in shapes]) for _ in range(20)]
-    hyper = dict(preconditioner="kron", kron_batch_min=8, lr_params=0.05,
+    hyper = dict(preconditioner="kron", kron_batch_min=batch_min, lr_params=0.05,
                  lr_preconditioner=0.05, grad_clip_max_norm=1.0)
 
     jopt = JPSGD(**hyper)
@@ -177,7 +181,13 @@ def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch):
     opt = PSGD(**hyper)
     params = interop.tensors(w, device="cpu")
     state = opt.init(params)
-    assert [st.fmt for st in state.precond] == [tuple(st.fmt) for st in jstate.precond]
+    if batch_min == 4:
+        pc, jpc = state.precond, jstate.precond
+        assert isinstance(pc, KronPrecond) and isinstance(jpc, JKronPrecond)
+        assert pc.batched_idx == jpc.batched_idx == ((1, 2, 3, 5),)
+        assert pc.single_idx == jpc.single_idx == (0, 4, 6)
+    else:
+        assert [st.fmt for st in state.precond] == [tuple(st.fmt) for st in jstate.precond]
     for src, tgt, v in steps:
         jparams, jstate, jaux = jstep(jparams, jstate, [jnp.asarray(a) for a in v],
                                       jnp.asarray(src, jnp.int32), jnp.asarray(tgt, jnp.int32))
@@ -188,7 +198,12 @@ def test_twenty_psgd_steps_default_formats_match_jax(monkeypatch):
     # ROADMAP's trajectory bound
     for a, b in zip(params, jparams, strict=True):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-5)
-    for st, jst in zip(state.precond, jstate.precond, strict=True):
+    if batch_min == 4:
+        states = state.precond.batches + state.precond.singles
+        jstates = jstate.precond.batches + jstate.precond.singles
+    else:
+        states, jstates = state.precond, jstate.precond
+    for st, jst in zip(states, jstates, strict=True):
         np.testing.assert_allclose(st.ql.numpy(), np.asarray(jst.ql), rtol=5e-4, atol=5e-5)
         np.testing.assert_allclose(st.qr.numpy(), np.asarray(jst.qr), rtol=5e-4, atol=5e-5)
 

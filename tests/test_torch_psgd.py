@@ -14,6 +14,7 @@ from psgd_tf_tpu import PSGD as JPSGD
 from psgd_tf_tpu.models import lenet5 as jlenet5
 from psgd_tf_tpu_torch import PSGD, interop, kron
 from psgd_tf_tpu_torch.models import lenet5
+from psgd_tf_tpu_torch.optim.psgd import KronPrecond
 
 torch.set_num_threads(1)
 
@@ -73,6 +74,48 @@ def test_five_steps_match_jax(monkeypatch):
         np.testing.assert_allclose(st.qr.numpy(), np.asarray(jst.qr), rtol=5e-4, atol=5e-5)
 
 
+FORMAT_PAIRS = [("dense", "dense"), ("norm", "dense"), ("dense", "norm"), ("dense", "scale"),
+                ("scale", "dense"), ("norm", "scale"), ("scale", "norm")]
+
+
+@pytest.mark.parametrize("fmt", FORMAT_PAIRS, ids="-".join)
+def test_non_fp32_kron_states_route_plain(fmt):
+    """Only fp32 Kronecker states go to a kernel, as in the JAX package:
+    every pair reports 'plain' for bf16 on the card, a kernel for fp32."""
+    for shape in [(26, 6), (2305, 1024), (64, 3_000_017)]:
+        assert kron.route(fmt, shape, "cuda", torch.bfloat16) == "plain"
+        assert kron.route(fmt, shape, "cuda", torch.float16) == "plain"
+        assert kron.route(fmt, shape, "cuda") != "plain"
+        assert kron.route(fmt, shape, "cpu", torch.float32) == "plain"
+
+
+def test_bf16_kron_state_reduces_quadratic():
+    """The counterpart of the JAX package's bf16 test for kron
+    (`tests/test_optim.py`): the whole Q state stays bf16 (fp32 params and
+    Hvp) and PSGD still cuts an ill-conditioned quadratic below 0.2x its
+    first loss in 150 steps."""
+    rng = np.random.default_rng(0)
+    a_diag = torch.logspace(-1, 1, 12)
+    params = interop.tensors([rng.standard_normal(6).astype(np.float32) for _ in range(2)],
+                             device="cpu")
+
+    def quad(p):
+        x = torch.cat(p)
+        return 0.5 * x @ (a_diag * x)
+
+    loss0 = quad(params).item()
+    opt = PSGD(preconditioner="kron", init_scale=0.1, lr_params=0.2, lr_preconditioner=0.1,
+               dtype=torch.bfloat16)
+    state = opt.init(params)
+    g = torch.Generator().manual_seed(4)
+    for _ in range(150):
+        params, state, aux = opt.step(quad, params, state, g)
+    for st in state.precond:
+        assert st.fmt == DD and st.ql.dtype == st.qr.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in params)
+    assert aux["loss"].item() < 0.2 * loss0
+
+
 def test_coin_branch_and_set_hyper():
     g = torch.Generator().manual_seed(0)
     params = lenet5.init(g)
@@ -106,9 +149,14 @@ def test_init_layout_and_unported_paths():
     # splu is ported: a rank-10 corner over LeNet5's 44,426 parameters
     st = PSGD(preconditioner="splu").init(params).precond
     assert st.Lt.shape == (10, N_PARAMS) and st.l3.shape == (N_PARAMS - 10,)
-    # four (dense, dense) layers in one padded bucket take K4 in JAX
+    # four (dense, dense) layers in one padded bucket are stacked (K4 on the
+    # card), as in JAX; below kron_batch_min they stay a list
     same = [torch.zeros(100, 50) for _ in range(4)]
-    with pytest.raises(NotImplementedError, match="K4"):
-        PSGD(preconditioner="kron", kron_formats=DD).init(same)
+    pc = PSGD(preconditioner="kron", kron_formats=DD).init(same).precond
+    assert isinstance(pc, KronPrecond)
+    assert pc.batched_idx == ((0, 1, 2, 3),) and pc.single_idx == () and pc.singles == []
+    (bst,) = pc.batches
+    assert bst.ql.shape == (4, 128, 128) and bst.qr.shape == (4, 128, 128)
+    assert bst.shapes == ((100, 50),) * 4
     assert len(PSGD(preconditioner="kron", kron_formats=DD, kron_batch_min=5)
                .init(same).precond) == 4
