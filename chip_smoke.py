@@ -52,7 +52,19 @@ after:
     a tenth of its first (K15 for splu, K11 for dense, K13 for lra, K1 for
     kron, no kernel for diag, xmat and shift);
   - the sparse-LU family on the NMT model at the reference widths (rank
-    10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16).
+    10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16);
+  - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
+    group at n = 2^20, r = 10, pipelined off and on, against K13;
+  - S2, two gloo ranks sharing the card (spawned; NCCL refuses two ranks
+    on one device): K14 at n = 2^20 and 1,000,003 and the sharded K16 at
+    2^20 and 100,003, r = 10, gathered and held against the single-process
+    kernels; under gloo, all_reduce takes the CUDA tensors, and only the
+    ring's send/recv hops stage their payload through host memory;
+  - S3, the sharded step (`parallel.build_sharded_step`) on those ranks:
+    the NMT model at the reference widths on mesh (data=1, shard=2) under
+    lra (10 steps: K14) and splu (5 steps: the sharded K16), each against
+    the same run in one process; then the toy NMT workload on
+    (data=2, shard=1), 20 steps against `run()` (K1, the batch over data).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. TF32 is off for matmuls and convolutions, so every comparison
@@ -119,8 +131,21 @@ K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
 K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
 K4_PATH_STEPS = 30
 LSTM_TRACE_STEPS = 20
-LSTM_STEPS = 300
+LSTM_STEPS = 100
 BF16_STEPS = 20
+# the sharded phases: K14 at bench.py:610's n and a ragged one, the sharded
+# K16 at bench.py:616's n and a ragged one, r = 10; the sharded step at the
+# reference widths on mesh (data=1, shard=2); the toy NMT workload on
+# (data=2, shard=1)
+SHARD_LRA = [1 << 20, 1_000_003]
+SHARD_SPLU = [1 << 20, 100_003]
+SHARD_LRA_STEPS = 10
+SHARD_SPLU_STEPS = 5
+SHARD_NMT_STEPS = 20
+# the sharded step's last state against one process's, per family
+SHARD_FIELDS = {"lra": ("UV", "d"), "splu": ("Lt", "l3", "U12", "u3")}
+TOL_SHARD_NMT = 5e-4
+WORKER_TIMEOUT = 600
 
 
 def _rel(a, b) -> float:
@@ -187,6 +212,243 @@ def _state_errs(got, ref):
     pairs = [(a.ql, b.ql) for a, b in zip(got, ref, strict=True)]
     pairs += [(a.qr, b.qr) for a, b in zip(got, ref, strict=True)]
     return max(_rel(a, b) for a, b in pairs), max(_abs(a, b) for a, b in pairs)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _worker_entry(job, rank, world, port, args, results):
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world)
+        try:
+            results.put((rank, "ok", job(rank, world, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def _spawn(job, world, *args):
+    """[job(rank, world, *args) for each rank] from `world` spawned gloo
+    ranks sharing card 0. A rank that raises, dies or outlives
+    WORKER_TIMEOUT raises here; every process is stopped before return."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_worker_entry, args=(job, r, world, port, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    try:
+        while len(out) + len(errors) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{job.__name__}: ranks did not finish in {WORKER_TIMEOUT} s")
+            try:
+                rank, status, value = results.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) and results.empty():
+                    time.sleep(1.0)
+                    if results.empty():
+                        raise RuntimeError(f"{job.__name__}: a rank died "
+                                           f"{[p.exitcode for p in procs]}")
+                continue
+            (out.__setitem__(rank, value) if status == "ok"
+             else errors.append(f"rank {rank}:\n{value}"))
+        if errors:
+            raise RuntimeError(f"{job.__name__} failed:\n" + "\n".join(errors))
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[r] for r in range(world)]
+
+
+def _nmt_ref_run(fam, steps, mesh=None):
+    """`steps` steps of the NMT model at the reference widths under `fam`
+    (rank 10), FD Hvp, random ids, batch 64, lr 0.02, clip 1.0, from seed 0:
+    with a mesh through `build_sharded_step`, else `PSGD.step` on card 0.
+    Returns (losses, the launch counts of the run, steps/s after two, the
+    parameters' change over the run as one flat vector, the largest
+    |parameter| at the start, the last state: this rank's slice of it with
+    a mesh)."""
+    import torch
+
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.data import translation
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.parallel import build_sharded_step, shard_state
+
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    cfg = nmt.ref_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = nmt.init(gen, cfg)
+    first = torch.cat([p.flatten() for p in params])
+    opt = PSGD(preconditioner=fam, rank=10, lr_params=0.02, lr_preconditioner=0.02,
+               grad_clip_max_norm=1.0, exact_hessian_vector_product=False)
+    state = opt.init(params)
+    if mesh is not None:
+        step = build_sharded_step(opt, nmt.loss, mesh, state, params)
+        state = shard_state(mesh, state)
+    else:
+        step = lambda *a: opt.step(nmt.loss, *a)
+    batches = [translation.random_tokens(gen, cfg.vocab_src, cfg.vocab_tgt) for _ in range(steps)]
+    losses = []
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    for i, (src, tgt) in enumerate(batches):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, state, aux = step(params, state, gen, src, tgt)
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    rate = (steps - 2) / (time.perf_counter() - t0)
+    counts = dict(hopper.counts)
+    delta = torch.cat([p.flatten() for p in params]) - first
+    return [float(x) for x in losses], counts, rate, delta, first.abs().max().item(), state
+
+
+def _sharded_job(rank, world):
+    """The two-rank phases, on gloo ranks sharing the card: K14 and the
+    sharded K16 against their plain chains with the same reductions and
+    against the single-process kernels (S2), the sharded step at the
+    reference widths under lra and splu against the same run in one
+    process, which rank 0 makes after the sharded one (S3), and the toy
+    NMT workload with its batch over `data`."""
+    import torch
+
+    from psgd_tf_tpu_torch.groups import lra, splu
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import lra_upd, splu_upd
+    from psgd_tf_tpu_torch.parallel import make_mesh, policies
+    from psgd_tf_tpu_torch.workloads import nmt_attention
+
+    mesh = make_mesh(data=1, shard=world, device="cuda:0")
+    dev = mesh.device
+    out = {"backend": mesh.backend, "lra": {}, "splu": {}}
+    fields = lambda st: (st.Lt, st.l3, st.U12, st.u3)
+    sl = lambda loc, x: policies.slice_vec(mesh, loc, x)
+
+    # S2: K14, update + apply, the four coin pairs, pipelined off and on,
+    # gathered, against the plain chain (the same call under disabled())
+    # and K13
+    for n in SHARD_LRA:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        st = lra.init(gen, n, rank=10, init_scale=0.8, device=dev)
+        st = lra.pack(3.0 * st.U, st.V, st.d)  # imbalanced: a rebalance moves it
+        v, h, gr = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+        loc = policies.shard_state(mesh, st)
+        vl, hl, gl = sl(loc, v), sl(loc, h), sl(loc, gr)
+
+        def call(coins, **kw):
+            return lra_upd.fused_update_apply_sharded(loc.UV, loc.d, vl, hl, gl, 0.05, coins,
+                                                      mesh, **kw)
+
+        def gathered(res):
+            full = policies.gather_state(mesh, lra.LRAState(res[0], res[1]), n)
+            return full.UV, full.d, policies.gather_vec(mesh, loc, res[2], n)
+
+        rel = rel_plain = err = 0.0
+        for coins in COINS:
+            ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            for pipelined in (False, True):
+                got = gathered(call(coins, pipelined=pipelined))
+                with hopper.disabled():
+                    plain = gathered(call(coins, pipelined=pipelined))
+                rel = max([rel] + [_rel(a, b) for a, b in zip(got, ref)])
+                rel_plain = max([rel_plain] + [_rel(a, b) for a, b in zip(got, plain)])
+                err = max([err] + [_abs(a, b) for a, b in zip(got, plain)])
+        ms = _time(torch, lambda: call((False, True)), 20)
+        ms_pipe = _time(torch, lambda: call((False, True), pipelined=True), 20)
+        with hopper.disabled():
+            plain_ms = _time(torch, lambda: call((False, True)), 10)
+        out["lra"][n] = dict(rel=rel, rel_plain=rel_plain, err=err, ms=ms, ms_pipe=ms_pipe,
+                             plain_ms=plain_ms)
+        del st, loc, v, h, gr, vl, hl, gl
+    # S2: the sharded K16 with the apply, gathered, against the plain
+    # chain with the same reductions and the unsharded K16 chain
+    for n in SHARD_SPLU:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        st = splu.walked_state(n, 10, gen, dev)
+        v, h, gr = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+        ref = splu_upd.launch("splu_upd", *fields(st), v, h, 0.05, gr)
+        loc = policies.shard_state(mesh, st)
+        vl, hl, gl = sl(loc, v), sl(loc, h), sl(loc, gr)
+
+        def call():
+            return splu_upd.fused_update_sharded(*fields(loc), vl, hl, 0.05, mesh,
+                                                 loc.tail_valid, gl)
+
+        def gathered(res):
+            full = policies.gather_state(mesh, splu.SpLUState(*res[:4]), n)
+            return fields(full) + (policies.gather_vec(mesh, loc, res[4], n),)
+
+        got = gathered(call())
+        with hopper.disabled():
+            plain = gathered(call())
+        L1, U1 = got[0][:, :10].T, got[2][:, :10]
+        tri_ok = bool(torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1)))
+        ms = _time(torch, call, 20)
+        with hopper.disabled():
+            plain_ms = _time(torch, call, 5)
+        out["splu"][n] = dict(rel=max(_rel(a, b) for a, b in zip(got, ref)),
+                              rel_plain=max(_rel(a, b) for a, b in zip(got, plain)),
+                              err=max(_abs(a, b) for a, b in zip(got, plain)), tri_ok=tri_ok,
+                              ms=ms, plain_ms=plain_ms)
+        del st, loc, v, h, gr, vl, hl, gl, got, plain, ref
+    out["s2_counts"] = dict(hopper.counts)
+    torch.cuda.empty_cache()
+
+    # S3: the sharded step at the reference widths; rank 0 then runs the
+    # same steps in one process and holds the parameters' change and the
+    # gathered last state against it (the other rank waits in its next
+    # collective meanwhile). Each step rounds p + u to fp32, so the two
+    # parameter changes may differ by up to a spacing of fp32 at the
+    # largest |p| a step (two roundings of half a spacing), and little else.
+    for fam, steps in (("lra", SHARD_LRA_STEPS), ("splu", SHARD_SPLU_STEPS)):
+        losses, counts, rate, delta, p_max, local = _nmt_ref_run(fam, steps, mesh)
+        full = policies.gather_state(mesh, local, delta.numel()).precond
+        del local
+        res = dict(losses=losses, counts=counts, rate=rate)
+        if rank == 0:
+            torch.cuda.empty_cache()
+            ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state = _nmt_ref_run(fam, steps)
+            spacing = 2.0 ** math.ceil(math.log2(p_max)) * torch.finfo(torch.float32).eps
+            res.update(ref=(ref_losses, ref_counts, ref_rate), delta_err=_abs(delta, ref_delta),
+                       delta_tol=steps * spacing, delta_max=ref_delta.abs().max().item(),
+                       state_rel=max(_rel(getattr(full, f), getattr(ref_state.precond, f))
+                                     for f in SHARD_FIELDS[fam]))
+            del ref_delta, ref_state
+        out[f"nmt_{fam}"] = res
+        del delta, full
+        torch.cuda.empty_cache()
+    dp = make_mesh(data=world, shard=1, device="cuda:0")
+    hopper.reset_counts()
+    out["toy_dp"] = nmt_attention.run(steps=SHARD_NMT_STEPS, mesh=dp)
+    out["toy_dp_counts"] = dict(hopper.counts)
+    return out
 
 
 def main() -> int:
@@ -1308,10 +1570,128 @@ def main() -> int:
           f"differ by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
     check(loss_rel < TOL_TRAJ, "NMT reference splu: kernel and direct-form losses agree")
 
+    # 18. S1: K14 on a one-rank NCCL group (the shard wrapper with no
+    #     exchange) at n = 2^20, r = 10, update + apply, pipelined off and on,
+    #     against its plain chain (the same call under disabled()) and K13
+    #     on the same inputs and coins
+    import torch.distributed as dist
+
+    from psgd_tf_tpu_torch.parallel import make_mesh, policies
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh1 = make_mesh(data=1, shard=1, device=dev)
+        print(f"s1: mesh {mesh1.shape}, backend {mesh1.backend}", flush=True)
+        n = SHARD_LRA[0]
+        st, (v, h, gr) = lra_case(n)
+        s1_rel = s1_plain = s1_err = 0.0
+        s1_ms = {}
+        for coins in COINS:
+            ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            for pipelined in (False, True):
+                args = (st.UV, st.d, v, h, gr, 0.05, coins, mesh1)
+                before = hopper.counts["lra_upd_sharded"]
+                got = lra_upd.fused_update_apply_sharded(*args, pipelined=pipelined)
+                check(hopper.counts["lra_upd_sharded"] == before + 1, "s1: K14 launched")
+                with hopper.disabled():
+                    plain = lra_upd.fused_update_apply_sharded(*args, pipelined=pipelined)
+                s1_rel = max([s1_rel] + [_rel(a, b) for a, b in zip(got, ref)])
+                s1_plain = max([s1_plain] + [_rel(a, b) for a, b in zip(got, plain)])
+                s1_err = max([s1_err] + [_abs(a, b) for a, b in zip(got, plain)])
+        for name, fn in [
+            ("k13", lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, (False, True))),
+            ("k14", lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, gr, 0.05,
+                                                               (False, True), mesh1)),
+            ("k14 pipelined", lambda: lra_upd.fused_update_apply_sharded(
+                st.UV, st.d, v, h, gr, 0.05, (False, True), mesh1, pipelined=True))]:
+            s1_ms[name] = _time(torch, fn, 50)
+        print(f"s1: K14 on one NCCL rank, n={n} r=10, four coin pairs, pipelined off and on "
+              f"({lra_upd.CHUNKS} chunks): max rel err against the plain chain {s1_plain:.3e} "
+              f"(max abs {s1_err:.3e}), against K13 {s1_rel:.3e} (tol {TOL_K1:.0e} each); "
+              f"update+apply K13 {s1_ms['k13']:.4f} ms, K14 {s1_ms['k14']:.4f} ms, K14 "
+              f"pipelined {s1_ms['k14 pipelined']:.4f} ms", flush=True)
+        check(max(s1_rel, s1_plain) <= TOL_K1, "s1: K14 on one rank vs plain and K13")
+        del st, v, h, gr
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 19. S2 and S3 on two gloo ranks sharing the card: K14 and the sharded
+    #     K16 against the single-process kernels; the sharded step at the
+    #     reference widths (lra, then splu) against the single-process runs
+    #     below; the toy NMT workload with its batch over `data`
+    ref_toy = nmt_attention.run(steps=SHARD_NMT_STEPS, device=dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn(_sharded_job, 2)
+    print(f"s2/s3: two gloo ranks sharing the card ({ranks[0]['backend']}: all_reduce takes "
+          f"the CUDA tensors; the ring's send/recv hops stage their payload through host "
+          f"memory), {time.perf_counter() - t0:.1f} s", flush=True)
+    r0 = ranks[0]
+    shard_err = {"lra_upd_sharded": s1_err, "splu_upd_sharded": 0.0}
+    for n, res in r0["lra"].items():
+        shard_err["lra_upd_sharded"] = max(shard_err["lra_upd_sharded"], res["err"])
+        print(f"s2: K14 on 2 ranks, n={n} r=10, four coin pairs, pipelined off and on: gathered "
+              f"(state', P' g) max rel err against the plain chain {res['rel_plain']:.3e} (max "
+              f"abs {res['err']:.3e}), against K13 {res['rel']:.3e} (tol {TOL_K1:.0e} each); "
+              f"update+apply {res['ms']:.4f} ms, pipelined {res['ms_pipe']:.4f} ms, plain "
+              f"chain {res['plain_ms']:.4f} ms", flush=True)
+        check(max(res["rel"], res["rel_plain"]) <= TOL_K1, f"s2: K14 vs plain and K13 at n={n}")
+    for n, res in r0["splu"].items():
+        shard_err["splu_upd_sharded"] = max(shard_err["splu_upd_sharded"], res["err"])
+        print(f"s2: sharded K16 on 2 ranks, n={n} r=10: gathered (state', P' g) max rel err "
+              f"against the plain chain {res['rel_plain']:.3e} (max abs {res['err']:.3e}), "
+              f"against K16 {res['rel']:.3e} (tol {TOL_K1:.0e} each), corner triangles exact: "
+              f"{res['tri_ok']}; update+apply {res['ms']:.4f} ms, plain chain "
+              f"{res['plain_ms']:.4f} ms", flush=True)
+        check(max(res["rel"], res["rel_plain"]) <= TOL_K1 and res["tri_ok"],
+              f"s2: sharded K16 vs plain and K16 at n={n}")
+    check(all(r["s2_counts"]["lra_upd_sharded"] > 0 and r["s2_counts"]["splu_upd_sharded"] > 0
+              for r in ranks), "s2: every rank launched K14 and the sharded K16")
+    for fam, steps, name in [("lra", SHARD_LRA_STEPS, "lra_upd_sharded"),
+                             ("splu", SHARD_SPLU_STEPS, "splu_upd_sharded")]:
+        res = r0[f"nmt_{fam}"]
+        losses, rate, ref = res["losses"], res["rate"], res["ref"]
+        counts = [r[f"nmt_{fam}"]["counts"] for r in ranks]
+        launches[name] += sum(c[name] for c in counts)
+        trace = _rel(torch.tensor(losses), torch.tensor(ref[0]))
+        print(f"s3: NMT reference widths, {fam} rank 10, mesh (data=1, shard=2), {steps} steps: "
+              f"launches per rank {[({k: v for k, v in c.items() if v}) for c in counts]}, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; against one process: loss trace max "
+              f"rel diff {trace:.3e}, gathered last state max rel diff {res['state_rel']:.3e} "
+              f"(tol {TOL_TRAJ:.0e} each), parameter change max abs diff "
+              f"{res['delta_err']:.3e} (tol {res['delta_tol']:.3e}: one fp32 spacing at the "
+              f"largest |p| a step; the largest change {res['delta_max']:.3e}); {rate:.2f} "
+              f"steps/s sharded, {ref[2]:.2f} in one process (route "
+              f"{list(k for k, v in ref[1].items() if v)})", flush=True)
+        check(max(trace, res["state_rel"]) <= TOL_TRAJ and res["delta_err"] <= res["delta_tol"]
+              and all(c[name] == steps for c in counts)
+              and all(r[f"nmt_{fam}"]["losses"] == losses for r in ranks),
+              f"s3: the sharded {fam} step: one {name} launch a step on each rank, the trace, "
+              f"the parameters and the state as in one process")
+    toy = r0["toy_dp"]
+    toy_err = max(abs(toy[k] - ref_toy[k]) for k in ("loss", "first_loss", "token_accuracy"))
+    path_launch = {k: v for k, v in r0["toy_dp_counts"].items() if v}
+    for name, c in r0["toy_dp_counts"].items():
+        launches[name] += sum(r["toy_dp_counts"][name] for r in ranks)
+    print(f"s3: nmt_attention.run(mesh=(data=2, shard=1)), {SHARD_NMT_STEPS} steps: loss "
+          f"{toy['loss']:.5f}, token accuracy {toy['token_accuracy']:.4f}; run() without a "
+          f"mesh {ref_toy['loss']:.5f}, {ref_toy['token_accuracy']:.4f}; max diff {toy_err:.3e} "
+          f"(tol {TOL_SHARD_NMT:.0e}); launches per rank {path_launch}", flush=True)
+    check(toy_err <= TOL_SHARD_NMT and path_launch.get("kron_multi") == SHARD_NMT_STEPS,
+          "s3: the toy NMT workload over data")
+    shard_n = SHARD_LRA[0]
+    shard_bound = {
+        "lra_upd_sharded": _bound(4 * (4 * 10 * shard_n + 6 * shard_n),
+                                  2 * 2 * 22**2 * shard_n + 30 * 10 * shard_n),
+        "splu_upd_sharded": _bound(*splu_work(SHARD_SPLU[0], apply=True))}
+
     for name in ("kron_multi", "kron_dd", "kron_dd_batched", "tri", "kron_sparse_big_ns",
                  "kron_sparse_big_ds",
                  "kron_sparse_big_nd", "kron_sparse_big_ns_wide2", "kron_sparse_big_ns_wide_xla",
-                 "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd"):
+                 "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd",
+                 "lra_upd_sharded", "splu_upd_sharded"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -1357,6 +1737,12 @@ def main() -> int:
               *splu_times[SPLU_K15[-1]], splu_bounds[SPLU_K15[-1]]),
         entry("splu_upd", "splu.cu", "splu_upd.py:636", splu_err["splu_upd"],
               *splu_times[SPLU_K16[-1]], splu_bounds[SPLU_K16[-1]]),
+        entry("lra_upd_sharded", "lra.cu", "lra_upd.py:487", shard_err["lra_upd_sharded"],
+              r0["lra"][shard_n]["ms"], r0["lra"][shard_n]["plain_ms"],
+              shard_bound["lra_upd_sharded"]),
+        entry("splu_upd_sharded", "splu.cu", "splu_upd.py:914", shard_err["splu_upd_sharded"],
+              r0["splu"][SHARD_SPLU[0]]["ms"], r0["splu"][SHARD_SPLU[0]]["plain_ms"],
+              shard_bound["splu_upd_sharded"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -110,7 +110,7 @@ __device__ __forceinline__ void lra_store_pairs(const Pairs& P, const float* acc
 
 // stage 1: grid = lra_blocks(n); dynamic shared memory (2r + 2) x (TILE + 1)
 __global__ void __launch_bounds__(LRA_TILE) lra_stage1_kernel(
-    int n, int r, const float* __restrict__ uv, const float* __restrict__ d,
+    int n, int ld, int r, const float* __restrict__ uv, const float* __restrict__ d,
     const float* __restrict__ h, const float* __restrict__ vv, float* __restrict__ part,
     float* __restrict__ maxpart) {
     extern __shared__ float zs[];
@@ -127,7 +127,7 @@ __global__ void __launch_bounds__(LRA_TILE) lra_stage1_kernel(
         const int j = base + t;
         const bool ok = j < n;
         for (int k = 0; k < 2 * r; ++k) {
-            const float x = ok ? uv[(size_t)k * n + j] : 0.f;
+            const float x = ok ? uv[(size_t)k * ld + j] : 0.f;
             zs[k * (LRA_TILE + 1) + t] = x;
             if (k < r) mu = fmaxf(mu, fabsf(x));
             else mv = fmaxf(mv, fabsf(x));
@@ -149,13 +149,13 @@ __global__ void __launch_bounds__(LRA_TILE) lra_stage1_kernel(
 }
 
 // Per lane: the probe images, nablaD and U', V' (stage 3). c = coef (r, 10).
-__device__ __forceinline__ float lra_lane_update(int n, int r, int j, const float* __restrict__ uv,
+__device__ __forceinline__ float lra_lane_update(int ld, int r, int j, const float* __restrict__ uv,
                                                  float dj, float hj, float vj, const float* c,
                                                  float cu, float cv, float* __restrict__ newuv,
                                                  float* zcol) {
     float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f, p4 = 0.f, p5 = 0.f;
     for (int k = 0; k < r; ++k) {
-        const float u = uv[(size_t)k * n + j], v = uv[(size_t)(r + k) * n + j];
+        const float u = uv[(size_t)k * ld + j], v = uv[(size_t)(r + k) * ld + j];
         const float* ck = c + k * LRA_NCOEF;
         p0 += ck[0] * u;
         p1 += ck[1] * v;
@@ -173,11 +173,11 @@ __device__ __forceinline__ float lra_lane_update(int n, int r, int j, const floa
     const float av = qh + p4, bv = b + p5;
     for (int k = 0; k < r; ++k) {
         const float* ck = c + k * LRA_NCOEF;
-        const float u = uv[(size_t)k * n + j], v = uv[(size_t)(r + k) * n + j];
+        const float u = uv[(size_t)k * ld + j], v = uv[(size_t)(r + k) * ld + j];
         const float nu = cu * u - (ck[4] * qh - ck[5] * b);
         const float nv = cv * v - (ck[6] * av - ck[7] * bv);
-        newuv[(size_t)k * n + j] = nu;
-        newuv[(size_t)(r + k) * n + j] = nv;
+        newuv[(size_t)k * ld + j] = nu;
+        newuv[(size_t)(r + k) * ld + j] = nv;
         if (zcol) {
             zcol[k * (LRA_TILE + 1)] = nu;
             zcol[(r + k) * (LRA_TILE + 1)] = nv;
@@ -188,7 +188,7 @@ __device__ __forceinline__ float lra_lane_update(int n, int r, int j, const floa
 
 // stage 3 without the apply: one thread a lane
 __global__ void __launch_bounds__(LRA_TILE) lra_stage3_kernel(
-    int n, int r, const float* __restrict__ uv, const float* __restrict__ d,
+    int n, int ld, int r, const float* __restrict__ uv, const float* __restrict__ d,
     const float* __restrict__ h, const float* __restrict__ vv, const float* __restrict__ coef,
     const float* __restrict__ scal, float* __restrict__ newuv, float* __restrict__ nd) {
     __shared__ float c[LRA_MAX_RANK * LRA_NCOEF];
@@ -196,12 +196,12 @@ __global__ void __launch_bounds__(LRA_TILE) lra_stage3_kernel(
     __syncthreads();
     const int j = blockIdx.x * LRA_TILE + threadIdx.x;
     if (j >= n) return;
-    nd[j] = lra_lane_update(n, r, j, uv, d[j], h[j], vv[j], c, scal[0], scal[1], newuv, nullptr);
+    nd[j] = lra_lane_update(ld, r, j, uv, d[j], h[j], vv[j], c, scal[0], scal[1], newuv, nullptr);
 }
 
 // stage 3 with the apply Gram of Z2 = [U'; V'; d g; d g nablaD]
 __global__ void __launch_bounds__(LRA_TILE) lra_stage3_apply_kernel(
-    int n, int r, const float* __restrict__ uv, const float* __restrict__ d,
+    int n, int ld, int r, const float* __restrict__ uv, const float* __restrict__ d,
     const float* __restrict__ h, const float* __restrict__ vv, const float* __restrict__ g,
     const float* __restrict__ coef, const float* __restrict__ scal, float* __restrict__ newuv,
     float* __restrict__ nd, float* __restrict__ part) {
@@ -222,7 +222,7 @@ __global__ void __launch_bounds__(LRA_TILE) lra_stage3_apply_kernel(
         float y0 = 0.f, y1 = 0.f;
         if (j < n) {
             const float dj = d[j];
-            const float ndj = lra_lane_update(n, r, j, uv, dj, h[j], vv[j], c, cu, cv, newuv, zs + t);
+            const float ndj = lra_lane_update(ld, r, j, uv, dj, h[j], vv[j], c, cu, cv, newuv, zs + t);
             nd[j] = ndj;
             y0 = dj * g[j];
             y1 = y0 * ndj;
@@ -262,7 +262,7 @@ __global__ void __launch_bounds__(256) lra_reduce_kernel(int zdim, int blocks, c
 }
 
 // stage 4: out = d' (d' g + t1 U' + t2 V'), coef4 (r, 2) = (t1, t2)
-__global__ void __launch_bounds__(LRA_TILE) lra_stage4_kernel(int n, int r, const float* __restrict__ uv,
+__global__ void __launch_bounds__(LRA_TILE) lra_stage4_kernel(int n, int ld, int r, const float* __restrict__ uv,
                                                               const float* __restrict__ d,
                                                               const float* __restrict__ g,
                                                               const float* __restrict__ coef4,
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(LRA_TILE) lra_stage4_kernel(int n, int r, cons
     if (j >= n) return;
     float s = 0.f;
     for (int k = 0; k < r; ++k)
-        s += c[2 * k] * uv[(size_t)k * n + j] + c[2 * k + 1] * uv[(size_t)(r + k) * n + j];
+        s += c[2 * k] * uv[(size_t)k * ld + j] + c[2 * k + 1] * uv[(size_t)(r + k) * ld + j];
     const float dj = d[j];
     out[j] = dj * (dj * g[j] + s);
 }
@@ -297,11 +297,12 @@ extern "C" size_t psgd_lra_scratch_floats(int n, int r) {
     return psgd_align4(blocks * lra_pairs(2 * r + 2)) + psgd_align4(2 * blocks);
 }
 
-// stage 1: gram (2r+2, 2r+2) = Z Z^T, maxs (2,) = (max|U|, max|V|)
-extern "C" int psgd_lra_stage1(int n, int r, const void* uv, const void* d, const void* h,
+// stage 1: gram (2r+2, 2r+2) = Z Z^T, maxs (2,) = (max|U|, max|V|) over
+// lanes [0, n) of rows ld apart: uv, d, h and v point at the first lane
+extern "C" int psgd_lra_stage1(int n, int ld, int r, const void* uv, const void* d, const void* h,
                                const void* v, void* gram, void* maxs, void* scratch,
                                void* stream_ptr) {
-    if (n < 1 || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
+    if (n < 1 || ld < n || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
     cudaError_t e = lra_smem_attrs();
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -309,18 +310,19 @@ extern "C" int psgd_lra_stage1(int n, int r, const void* uv, const void* d, cons
     float* part = static_cast<float*>(scratch);
     float* maxpart = part + psgd_align4((size_t)blocks * npairs);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
-    lra_stage1_kernel<<<blocks, LRA_TILE, lra_smem(r), stream>>>(n, r, f(uv), f(d), f(h), f(v), part,
+    lra_stage1_kernel<<<blocks, LRA_TILE, lra_smem(r), stream>>>(n, ld, r, f(uv), f(d), f(h), f(v), part,
                                                                   maxpart);
     lra_reduce_kernel<<<(npairs + 2 + 255) / 256, 256, 0, stream>>>(
         zdim, blocks, part, maxpart, static_cast<float*>(gram), static_cast<float*>(maxs));
     return (int)cudaGetLastError();
 }
 
-// stage 3: newuv (2r, n), nd (n,); with g (non-null) also gram2 (2r+2, 2r+2)
-extern "C" int psgd_lra_stage3(int n, int r, const void* uv, const void* d, const void* h,
+// stage 3: newuv (2r, n), nd (n,); with g (non-null) also gram2 (2r+2, 2r+2);
+// uv and newuv rows ld apart
+extern "C" int psgd_lra_stage3(int n, int ld, int r, const void* uv, const void* d, const void* h,
                                const void* v, const void* g, const void* coef, const void* scal,
                                void* newuv, void* nd, void* gram2, void* scratch, void* stream_ptr) {
-    if (n < 1 || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
+    if (n < 1 || ld < n || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
     cudaError_t e = lra_smem_attrs();
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -329,24 +331,24 @@ extern "C" int psgd_lra_stage3(int n, int r, const void* uv, const void* d, cons
     float* ndp = static_cast<float*>(nd);
     if (!g) {
         lra_stage3_kernel<<<(n + LRA_TILE - 1) / LRA_TILE, LRA_TILE, 0, stream>>>(
-            n, r, f(uv), f(d), f(h), f(v), f(coef), f(scal), out, ndp);
+            n, ld, r, f(uv), f(d), f(h), f(v), f(coef), f(scal), out, ndp);
         return (int)cudaGetLastError();
     }
     const int blocks = lra_blocks(n), zdim = 2 * r + 2, npairs = lra_pairs(zdim);
     float* part = static_cast<float*>(scratch);
     lra_stage3_apply_kernel<<<blocks, LRA_TILE, lra_smem(r), stream>>>(
-        n, r, f(uv), f(d), f(h), f(v), f(g), f(coef), f(scal), out, ndp, part);
+        n, ld, r, f(uv), f(d), f(h), f(v), f(g), f(coef), f(scal), out, ndp, part);
     lra_reduce_kernel<<<(npairs + 255) / 256, 256, 0, stream>>>(zdim, blocks, part, nullptr,
                                                                static_cast<float*>(gram2), nullptr);
     return (int)cudaGetLastError();
 }
 
-// stage 4: pre (n,) = d' (d' g + t1 U' + t2 V')
-extern "C" int psgd_lra_stage4(int n, int r, const void* newuv, const void* newd, const void* g,
+// stage 4: pre (n,) = d' (d' g + t1 U' + t2 V'); newuv rows ld apart
+extern "C" int psgd_lra_stage4(int n, int ld, int r, const void* newuv, const void* newd, const void* g,
                                const void* coef4, void* pre, void* stream_ptr) {
-    if (n < 1 || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
+    if (n < 1 || ld < n || r < 1 || r > LRA_MAX_RANK) return (int)cudaErrorInvalidValue;
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     lra_stage4_kernel<<<(n + LRA_TILE - 1) / LRA_TILE, LRA_TILE, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-        n, r, f(newuv), f(newd), f(g), f(coef4), static_cast<float*>(pre));
+        n, ld, r, f(newuv), f(newd), f(g), f(coef4), static_cast<float*>(pre));
     return (int)cudaGetLastError();
 }

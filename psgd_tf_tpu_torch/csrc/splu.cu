@@ -34,7 +34,11 @@
 // The balance rescales L by 1/rho and U by rho; Q, the probe images and the
 // step scales do not change, so it folds into the outputs (JAX :765-784).
 // K16 is stages 1-3, K15 the whole chain (ops/hopper/splu_upd.py,
-// splu_one.py). No float atomics: a run repeats itself bit for bit.
+// splu_one.py). No float atomics: a run repeats itself bit for bit. The
+// sharded K16 (JAX splu_upd.py `fused_update(mesh=...)` :914) is the same
+// kernels behind four entry points, split at the three reductions that the
+// host all-reduces over the ranks holding the tail's other lanes (the end
+// of this file).
 //
 // What bounds it on this card: memory. The update + apply reads Lt, U12
 // (their tails), l3, u3, v, h, g and writes the new state and P' g: about
@@ -46,6 +50,7 @@
 #include "psgd.cuh"
 
 #include <cfloat>
+#include <cmath>
 
 #define SPLU_TILE 256            // lanes of a tile = threads of a streaming block
 #define SPLU_MAX_RANK 32
@@ -187,8 +192,10 @@ __device__ __forceinline__ float splu_block_max(float v, float* red) {
 
 // ------------------------------------------------------------------ stage 1
 
+// max l3, max u3 over the tail lanes below nvalid alone: the lanes past it
+// are the 1-padding of a sharded tail (JAX splu_upd.py:928-944)
 __global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    int n, int r, int nvalid, const float* __restrict__ lt, const float* __restrict__ l3,
     const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
     const float* __restrict__ h, float* __restrict__ part, float* __restrict__ maxpart) {
     extern __shared__ float zs[];
@@ -206,8 +213,10 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
         float w = 0.f, x = 0.f, d = 0.f, lud = 0.f;
         if (ok) {
             const float l = l3[j], u = u3[j], lu = l * u;
-            ml = fmaxf(ml, l);
-            mu = fmaxf(mu, u);
+            if (j < nvalid) {
+                ml = fmaxf(ml, l);
+                mu = fmaxf(mu, u);
+            }
             w = 1.f / lu;
             x = v[r + j] * w;
             d = h[r + j];
@@ -251,6 +260,25 @@ __global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int 
         splu_pair(which, r, e, a, b);
         gram[a * zdim + b] = s;
         gram[b * zdim + a] = s;
+    }
+}
+
+// out[w] = the max over blocks of maxpart[2 b + w], w = 0, 1; one warp
+__global__ void __launch_bounds__(32) splu_maxfold_kernel(int blocks, float init,
+                                                          const float* __restrict__ maxpart,
+                                                          float* __restrict__ out) {
+    float a = init, b = init;
+    for (int k = threadIdx.x; k < blocks; k += 32) {
+        a = fmaxf(a, maxpart[2 * k]);
+        b = fmaxf(b, maxpart[2 * k + 1]);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+        b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+    }
+    if (threadIdx.x == 0) {
+        out[0] = a;
+        out[1] = b;
     }
 }
 
@@ -684,7 +712,7 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
     const int nt = n - r, blocks = splu_blocks(nt);
     const int np1 = splu_npairs1(r), np2 = splu_npairs2(r);
 
-    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(n, r, lt, l3, u12, u3, v, h,
+    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(n, r, nt, lt, l3, u12, u3, v, h,
                                                                     s.part1, s.max1);
     splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(1, r, 3 * r + 3, np1, blocks,
                                                                    s.part1, s.gram1);
@@ -701,5 +729,109 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
         splu_stage4_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
             n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk, o(prep));
     }
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- K16 sharded: four entries
+// The same kernels, split at the chain's three reductions so that the host
+// can all-reduce between them over the ranks that hold the other lanes of
+// the tail (ops/hopper/splu_upd.py `fused_update_sharded`). Each rank holds
+// the corner (replicated) and its slice of the tail, laid out as an
+// unsharded state of n = r + its tail lanes; tail lanes at and past nvalid
+// are the 1-padding (l3 = u3 = 1, zero columns, zero probes). One scratch
+// (psgd_splu_scratch_floats(n, r)) carries the rank-space state from each
+// entry to the next. Between entries the host sums gram1 and gram2 and
+// takes the max of max1 and max2 over the ranks.
+
+// stage 1: gram1 (3r+3, 3r+3) (the entries the algebra reads; the rest are
+// left as the caller filled them) and max1 = (max l3, max u3) of the valid
+// lanes, -inf where there is none
+extern "C" int psgd_splu_sharded_stage1(int n, int r, int nvalid, const void* ltp, const void* l3p,
+                                        const void* u12p, const void* u3p, const void* vp,
+                                        const void* hp, void* gram1, void* max1, void* scratch,
+                                        void* stream_ptr) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1 || nvalid < 0 || nvalid > n - r)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = splu_smem_attrs();
+    if (e != cudaSuccess) return (int)e;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    SpluScratch s;
+    splu_carve(n, r, static_cast<float*>(scratch), &s);
+    const int blocks = splu_blocks(n - r), np1 = splu_npairs1(r);
+    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(
+        n, r, nvalid, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.part1, s.max1);
+    splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(1, r, 3 * r + 3, np1, blocks,
+                                                                   s.part1, static_cast<float*>(gram1));
+    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, -INFINITY, s.max1,
+                                              static_cast<float*>(max1));
+    return (int)cudaGetLastError();
+}
+
+// corner A and stage 2: max2 = (max(|gl2|, |gl3|), max(|gu2|, |gu3|)) over this
+// rank's tail; gram1 and max1 are the sums and maxima over all ranks
+extern "C" int psgd_splu_sharded_stage2(int n, int r, const void* ltp, const void* l3p,
+                                        const void* u12p, const void* u3p, const void* vp,
+                                        const void* hp, const void* gram1, const void* max1,
+                                        void* max2, void* scratch, void* stream_ptr) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    SpluScratch s;
+    splu_carve(n, r, static_cast<float*>(scratch), &s);
+    const int blocks = splu_blocks(n - r);
+    splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1),
+                                               f(max1), s.rk);
+    splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp),
+                                                         f(hp), s.rk, s.max2);
+    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, 0.f, s.max2, static_cast<float*>(max2));
+    return (int)cudaGetLastError();
+}
+
+// corner B and stage 3: the new corner and this rank's new tail; with g
+// (non-null) also gram2 (2r+2, 2r+2), the apply Gram over this rank's tail;
+// max2 is the maxima over all ranks
+extern "C" int psgd_splu_sharded_stage3(int n, int r, const void* ltp, const void* l3p,
+                                        const void* u12p, const void* u3p, const void* vp,
+                                        const void* hp, const void* gp, float step, const void* max2,
+                                        void* lt_outp, void* l3_outp, void* u12_outp, void* u3_outp,
+                                        void* gram2, void* scratch, void* stream_ptr) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = splu_smem_attrs();
+    if (e != cudaSuccess) return (int)e;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto o = [](void* p) { return static_cast<float*>(p); };
+    SpluScratch s;
+    splu_carve(n, r, static_cast<float*>(scratch), &s);
+    const int blocks = splu_blocks(n - r), np2 = splu_npairs2(r);
+    const float* g = f(gp);
+    splu_corner_b_kernel<<<1, 32, 0, stream>>>(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s.rk,
+                                               o(lt_outp), o(u12_outp));
+    splu_stage3_kernel<<<blocks, SPLU_TILE, g ? splu_smem3(r) : 0, stream>>>(
+        n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), g, s.rk, o(lt_outp), o(l3_outp),
+        o(u12_outp), o(u3_outp), s.part2);
+    if (g)
+        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 2 * r + 2, np2, blocks,
+                                                                       s.part2, o(gram2));
+    return (int)cudaGetLastError();
+}
+
+// corner C and stage 4: pre = P' g on the corner and on this rank's tail;
+// gram2 is the sum over all ranks
+extern "C" int psgd_splu_sharded_stage4(int n, int r, const void* lt_outp, const void* l3_outp,
+                                        const void* u12_outp, const void* u3_outp, const void* gp,
+                                        const void* gram2, void* prep, void* scratch,
+                                        void* stream_ptr) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    SpluScratch s;
+    splu_carve(n, r, static_cast<float*>(scratch), &s);
+    const int nt = n - r;
+    float* pre = static_cast<float*>(prep);
+    splu_corner_c_kernel<<<1, 32, 0, stream>>>(n, r, f(lt_outp), f(u12_outp), f(gp), f(gram2), s.rk, pre);
+    splu_stage4_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+        n, r, f(lt_outp), f(l3_outp), f(u12_outp), f(u3_outp), f(gp), s.rk, pre);
     return (int)cudaGetLastError();
 }

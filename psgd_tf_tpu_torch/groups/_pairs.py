@@ -16,7 +16,9 @@ On a folded pair, with (a0, a1) = (a_i, a_σ(i)):
                u = Q h, w = Q^{-T} v
   Q ← Q − step/(max|G| + tiny) · G·Q
 Every op is elementwise: the JAX package has no kernel for these families,
-and neither has the port.
+and neither has the port. Under the sharding context (`hopper.sharding`)
+a rank holds a slice of the folded columns; the one exchange is the max
+of the step normalizer.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ def matvec(af, bf, ac, xf, xc, odd: bool):
     return yf, (ac * xc if odd else None)
 
 
-def update(af, bf, ac, vf, hf, vc, hc, step, odd: bool):
-    """One Lie-group step; returns (af', bf', ac')."""
+def update(af, bf, ac, vf, hf, vc, hc, step, odd: bool, pmax=None):
+    """One Lie-group step; returns (af', bf', ac'). `pmax` takes the step
+    normalizer's max over the ranks that hold the other columns."""
     a0, a1 = af
     b0, b1 = bf
     h0, h1 = hf
@@ -57,7 +60,10 @@ def update(af, bf, ac, vf, hf, vc, hc, step, odd: bool):
         wc = vc / ac
         pc = uc * uc - wc * wc
         max_p = torch.maximum(max_p, pc.abs())
-    step0 = linalg.step_scale(step, torch.maximum(max_p, linalg.max_abs(qv)), af.dtype)
+    max_g = torch.maximum(max_p, linalg.max_abs(qv))
+    if pmax is not None:
+        max_g = pmax(max_g)
+    step0 = linalg.step_scale(step, max_g, af.dtype)
 
     new_af = torch.stack([a0 - step0 * (p0 * a0 + qv * b1), a1 - step0 * (p1 * a1 + qv * b0)])
     new_bf = torch.stack([b0 - step0 * (p0 * b0 + qv * a1), b1 - step0 * (p1 * b1 + qv * a0)])
@@ -74,3 +80,16 @@ def apply(af, bf, ac, gf, gc, odd: bool):
     t1 = a1 * g1 + b1 * g0
     of = torch.stack([a0 * t0 + b1 * t1, a1 * t1 + b0 * t0])  # Q^T (Q g)
     return of, (ac * ac * gc if odd else None)
+
+
+def join_local(xf: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    """A rank's slice of a folded vector under the sharding context: its
+    (2, c) columns and the centre (0 for even n), as one (2c + 1,) vector
+    (`parallel/policies.slice_vec`)."""
+    return torch.cat([xf.reshape(-1), xc.reshape(1).to(xf.dtype)])
+
+
+def split_local(x: torch.Tensor):
+    """(xf (2, c), xc) of a slice laid out by `join_local`."""
+    c = (x.shape[0] - 1) // 2
+    return x[:2 * c].reshape(2, c), x[2 * c]

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from psgd_tf_tpu_torch.ops import linalg
+from psgd_tf_tpu_torch.ops import hopper, linalg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,11 +30,17 @@ def init(n: int, init_scale: float = 1.0, dtype=torch.float32,
 
 
 def update(state: DiagState, v: torch.Tensor, h: torch.Tensor, step=0.01) -> DiagState:
+    """One step. Under the sharding context, q, v and h are this rank's
+    lanes and the step normalizer's max is taken over the shard ranks."""
     q = state.q
     a = q * h
     b = v / q
     grad = a * a - b * b
-    step0 = linalg.step_scale(step, linalg.max_abs(grad), q.dtype)
+    max_g = linalg.max_abs(grad)
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        max_g = mesh.pmax(max_g)
+    step0 = linalg.step_scale(step, max_g, q.dtype)
     return DiagState(q=q - step0 * grad * q)
 
 

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import lra_upd
 
 
@@ -59,13 +60,24 @@ def update(state: LRAState, v: torch.Tensor, h: torch.Tensor, step=0.01,
     """One step with `coins = (balance, update_u)`."""
     if coins is None:
         raise ValueError("lra.update requires coins = (balance, update_u)")
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        if _fused(state):
+            return LRAState(*lra_upd.fused_update_sharded(state.UV, state.d, v, h, step, coins,
+                                                          mesh))
+        return LRAState(*lra_upd.update_plain(state.UV, state.d, v, h, step, coins,
+                                              psum=mesh.psum, pmax=mesh.pmax))
     if _fused(state):
         return LRAState(*lra_upd.fused_update(state.UV, state.d, v, h, step, coins))
     return LRAState(*lra_upd.update_plain(state.UV, state.d, v, h, step, coins))
 
 
 def apply(state: LRAState, g: torch.Tensor) -> torch.Tensor:
-    """P g = d (I + V U^T) (I + U V^T) (d g)."""
+    """P g = d (I + V U^T) (I + U V^T) (d g); this rank's lanes of it under
+    the sharding context."""
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        return lra_upd.apply_plain(state.UV, state.d, g, psum=mesh.psum)
     return lra_upd.apply_plain(state.UV, state.d, g)
 
 
@@ -75,7 +87,12 @@ def update_apply(state: LRAState, v: torch.Tensor, h: torch.Tensor, g: torch.Ten
     its stage-3 sweep."""
     if coins is None:
         raise ValueError("lra.update_apply requires coins = (balance, update_u)")
-    if _fused(state):
+    mesh = hopper.shard_ctx()
+    if mesh is not None and _fused(state):
+        uv, d, pre = lra_upd.fused_update_apply_sharded(state.UV, state.d, v, h, g, step, coins,
+                                                        mesh)
+        return LRAState(uv, d), pre
+    if mesh is None and _fused(state):
         uv, d, pre = lra_upd.fused_update_apply(state.UV, state.d, v, h, g, step, coins)
         return LRAState(uv, d), pre
     st = update(state, v, h, step, coins)

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from psgd_tf_tpu_torch.groups import _pairs
+from psgd_tf_tpu_torch.ops import hopper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,15 @@ def matvec(state: ShiftState, x: torch.Tensor) -> torch.Tensor:
 
 
 def update(state: ShiftState, v: torch.Tensor, h: torch.Tensor, step=0.01) -> ShiftState:
+    """One step. Under the sharding context, state, v and h are this rank's
+    slices (`parallel/policies.slice_vec`)."""
     m, odd = state.af.shape[1], state.odd
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        (vf, vc), (hf, hc) = _pairs.split_local(v), _pairs.split_local(h)
+        af, bf, ac = _pairs.update(state.af, state.bf, state.ac, vf, hf, vc, hc, step, odd,
+                                   pmax=mesh.pmax)
+        return ShiftState(af=af, bf=bf, ac=ac, odd=odd)
     hf, hc = _fold(h, m, odd)
     vf, vc = _fold(v, m, odd)
     af, bf, ac = _pairs.update(state.af, state.bf, state.ac, vf, hf, vc, hc, step, odd)
@@ -79,8 +88,12 @@ def update(state: ShiftState, v: torch.Tensor, h: torch.Tensor, step=0.01) -> Sh
 
 
 def apply(state: ShiftState, g: torch.Tensor) -> torch.Tensor:
-    """P g = Q^T (Q g)."""
+    """P g = Q^T (Q g); this rank's slice of it under the sharding context."""
     m, odd = state.af.shape[1], state.odd
+    if hopper.shard_ctx() is not None:
+        gf, gc = _pairs.split_local(g)
+        of, oc = _pairs.apply(state.af, state.bf, state.ac, gf, gc, odd)
+        return _pairs.join_local(of, oc if odd else gc.new_zeros(()))
     of, oc = _pairs.apply(state.af, state.bf, state.ac, *_fold(g, m, odd), odd)
     return _unfold(of, oc[None] if odd else None)
 

@@ -24,9 +24,15 @@ dtypes take the direct form (`update_plain`, the JAX XLA path with the
 balancing up front). `update_apply` takes K15's fused apply in the
 resident regime; in the streaming regime it runs K16's update and then
 the apply in torch, as JAX does.
+
+Under the sharding context (`hopper.sharding`) a state is this rank's
+slice: the corners replicate and the tail is split over the shard ranks
+(`parallel/policies`). Both `update` and `update_apply` then take the
+sharded K16 (its plain chain on the CPU), whatever n is.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -41,6 +47,9 @@ class SpLUState:
     l3: torch.Tensor   # (n - r,)
     U12: torch.Tensor  # (r, n): [U1 (upper triangular), U2]
     u3: torch.Tensor   # (n - r,)
+    # under the sharding context: the tail lanes of this rank's slice that
+    # are not padding (`parallel/policies.shard_state`); None: all of them
+    tail_valid: int | None = None
 
     @property
     def rank(self) -> int:
@@ -93,8 +102,23 @@ def _route(state: SpLUState) -> str:
     return route(r, n, state.Lt.device, state.Lt.dtype)
 
 
+def _sharded(state: SpLUState, v, h, step, mesh, g=None):
+    """The update (and P' g) on this rank's slice: the sharded K16 for fp32,
+    never K15, as `psgd_tf_tpu/groups/splu.py:274-296` routes under its
+    sharding context; its plain chain on the CPU and for other dtypes."""
+    plain = hopper.disabled() if state.Lt.dtype != torch.float32 else contextlib.nullcontext()
+    with plain:
+        out = splu_upd.fused_update_sharded(state.Lt, state.l3, state.U12, state.u3, v, h, step,
+                                            mesh, state.tail_valid, g)
+    return SpLUState(*out[:4], tail_valid=state.tail_valid), out[4]
+
+
 def update(state: SpLUState, v: torch.Tensor, h: torch.Tensor, step=0.01) -> SpLUState:
-    """One Lie-group step fitting Q to the curvature pair (v, h)."""
+    """One Lie-group step fitting Q to the curvature pair (v, h). Under the
+    sharding context, state, v and h are this rank's slices."""
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        return _sharded(state, v, h, step, mesh)[0]
     rt = _route(state)
     if rt == "plain":
         return update_plain(state, v, h, step)
@@ -104,7 +128,11 @@ def update(state: SpLUState, v: torch.Tensor, h: torch.Tensor, step=0.01) -> SpL
 
 def update_apply(state: SpLUState, v: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
                  step=0.01) -> tuple[SpLUState, torch.Tensor]:
-    """update() followed by apply() of the UPDATED state; K15 fuses the two."""
+    """update() followed by apply() of the UPDATED state; K15 fuses the two,
+    and so does the sharded K16 under the sharding context."""
+    mesh = hopper.shard_ctx()
+    if mesh is not None:
+        return _sharded(state, v, h, step, mesh, g)
     if _route(state) == "splu_one":
         *new, pre = splu_one.fused_update_apply(state.Lt, state.l3, state.U12, state.u3,
                                                 v, h, g, step)
@@ -120,14 +148,18 @@ def _blocks(state: SpLUState):
 
 
 def apply(state: SpLUState, g: torch.Tensor) -> torch.Tensor:
-    """P g by the block matvec chain U -> L -> L^T -> U^T."""
+    """P g by the block matvec chain U -> L -> L^T -> U^T; under the
+    sharding context this rank's slice of it, the tail's two rank vectors
+    summed over the shard ranks."""
+    mesh = hopper.shard_ctx()
+    psum = mesh.psum if mesh is not None else (lambda x: x)
     r = state.rank
     L1, L2t, U1, U2 = _blocks(state)
     l3, u3 = state.l3, state.u3
     g1, g2 = g[:r], g[r:]
-    Ug1 = U1 @ g1 + U2 @ g2
+    Ug1 = U1 @ g1 + psum(U2 @ g2)
     Qg2 = Ug1 @ L2t + l3 * (u3 * g2)
-    LtQg1 = L1.T @ (L1 @ Ug1) + L2t @ Qg2
+    LtQg1 = L1.T @ (L1 @ Ug1) + psum(L2t @ Qg2)
     return torch.cat([U1.T @ LtQg1, LtQg1 @ U2 + u3 * (l3 * Qg2)])
 
 

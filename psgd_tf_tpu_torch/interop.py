@@ -8,6 +8,7 @@ pass `device="cpu"`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -101,3 +102,23 @@ def shift_state(af: np.ndarray, bf: np.ndarray, ac: np.ndarray, odd: bool,
                 device: torch.device | str = "cuda") -> ShiftState:
     """From a JAX ShiftState's folded `af`, `bf`, `ac` and its `odd`."""
     return ShiftState(*tensors([af, bf, ac], device), odd=bool(odd))
+
+
+def local_state(mesh, state):
+    """A full family state (or PSGDState) built by the functions above, from
+    a JAX global state's arrays, -> this rank's slice on `mesh`
+    (`parallel.shard_state`)."""
+    from psgd_tf_tpu_torch.parallel import policies
+
+    return policies.shard_state(mesh, state)
+
+
+def global_arrays(mesh, local, n: int) -> dict[str, np.ndarray]:
+    """This rank's slice of a family state -> the full state's tensor
+    fields as numpy arrays (as `np.asarray` of the JAX global arrays gives
+    them), gathered over the shard ranks and trimmed to n parameters."""
+    from psgd_tf_tpu_torch.parallel import policies
+
+    full = policies.gather_state(mesh, local, n)
+    return {f.name: getattr(full, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(full) if isinstance(getattr(full, f.name), torch.Tensor)}

@@ -22,6 +22,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     apply (K15) and its streaming update (K16): one chain with the corner
     algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX
     package's two routes.
+  - lra_upd.fused_update(_apply)_sharded (K14) and
+    splu_upd.fused_update_sharded (the sharded K16): the same stage
+    kernels on each rank's slice of the lanes, with the rank-space
+    reductions all-reduced by the host between them (`parallel/`).
 
 Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
 CPU (the CPU path, and the oracle the kernels are checked against), and
@@ -31,6 +35,13 @@ tests and the A/B timing of `chip_smoke.py` use it.
 
 `counts` holds one launch counter per kernel; a wrapper adds one where it
 launches its kernel, so a run can show that it went through the kernels.
+
+`sharding(mesh)` is the counterpart of the JAX package's trace-time mesh
+context (`psgd_tf_tpu/ops/pallas/__init__.py:59-121`): inside it the
+flat families hold their rank-local slice of the state and call the
+sharded wrappers, which all-reduce over `mesh`'s `shard` group. Dense and
+Kronecker states replicate: every rank runs the same kernel on its full
+copy, with no wrapper (JAX's `replicated_call` has nothing to do here).
 """
 from __future__ import annotations
 
@@ -43,8 +54,10 @@ counts: dict[str, int] = {
     "kron_sparse_big_ns": 0, "kron_sparse_big_ns_wide2": 0, "kron_sparse_big_ns_wide_xla": 0,
     "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
+    "lra_upd_sharded": 0, "splu_upd_sharded": 0,
 }
 _disabled_depth = 0
+_shard_mesh = None
 
 
 def reset_counts() -> None:
@@ -61,6 +74,25 @@ def disabled():
         yield
     finally:
         _disabled_depth -= 1
+
+
+@contextlib.contextmanager
+def sharding(mesh):
+    """Run the flat families sharded over `mesh` (a `parallel.Mesh`) inside
+    this context: their states are rank-local slices (`parallel.shard_state`)
+    and their rank-space reductions all-reduce over `mesh`'s shard group."""
+    global _shard_mesh
+    prev = _shard_mesh
+    _shard_mesh = mesh
+    try:
+        yield
+    finally:
+        _shard_mesh = prev
+
+
+def shard_ctx():
+    """The active mesh of `sharding()`, or None."""
+    return _shard_mesh
 
 
 def use_kernel(x: torch.Tensor | torch.device | str) -> bool:

@@ -71,13 +71,19 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P],
     ),
     "psgd_lra_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
-    "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 8),
-    "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 12),
-    "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
+    "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 8),
+    "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 12),
+    "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 6),
     "psgd_splu_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_splu_update": (
         ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 7,
     ),
+    "psgd_splu_sharded_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 10),
+    "psgd_splu_sharded_stage2": (ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 11),
+    "psgd_splu_sharded_stage3": (
+        ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 7 + [ctypes.c_float] + [_P] * 8,
+    ),
+    "psgd_splu_sharded_stage4": (ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 9),
 }
 
 _lib: ctypes.CDLL | None = None

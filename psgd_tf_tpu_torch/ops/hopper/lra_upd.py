@@ -28,6 +28,14 @@ plain stages exist so that the rank-space algebra runs, and is held to
 the JAX package's interpret mode, without a card. `update_plain` is the
 direct form (the JAX XLA path): what `groups/lra` runs for dtypes other
 than fp32, and the independent oracle the chain is held to.
+
+K14 (`fused_update_sharded`, `fused_update_apply_sharded`; JAX :487, :554,
+:467) is the same chain on each rank's slice of the lanes: the stage-1
+Gram and maxima, max|nablaD| and the apply Gram are all-reduced over the
+mesh's shard ranks where JAX psums and pmaxes them, and the rank-space
+algebra runs alike on every rank. Its pipelined mode runs stage 1 on lane
+chunks (the kernels take a row stride) and reduces each chunk as soon as
+it is launched.
 """
 from __future__ import annotations
 
@@ -37,15 +45,17 @@ from psgd_tf_tpu_torch.ops import hopper, linalg
 from psgd_tf_tpu_torch.ops.hopper import _build
 
 MAX_RANK = 32  # LRA_MAX_RANK in csrc/lra.cu: the Grams' pairs per thread
+CHUNKS = 4     # lane chunks of K14's pipelined stage 1
 
 
 # ------------------------------------------------------------ the stages, plain
 
-def stage1_plain(UV, d, h, v):
-    """(Z Z^T, max|U|, max|V|) with Z = [U; V; d h; v / d]."""
+def stage1_plain(UV, d, h, v, lo=0, hi=None):
+    """(Z Z^T, [max|U|, max|V|]) with Z = [U; V; d h; v / d] over lanes [lo, hi)."""
     r = UV.shape[0] // 2
+    UV, d, h, v = UV[:, lo:hi], d[lo:hi], h[lo:hi], v[lo:hi]
     z = torch.cat([UV, (d * h)[None], (v / d)[None]])
-    return z @ z.T, UV[:r].abs().amax(), UV[r:].abs().amax()
+    return z @ z.T, torch.stack([UV[:r].abs().amax(), UV[r:].abs().amax()])
 
 
 def _probe_images(UV, d, h, v, coef):
@@ -99,21 +109,28 @@ class _Kernels:
         self.scratch = torch.empty(self.lib.psgd_lra_scratch_floats(n, self.r), **self.f)
         self.stream = torch.cuda.current_stream(UV.device).cuda_stream
 
-    def stage1(self, UV, d, h, v):
+    def stage1(self, UV, d, h, v, lo=0, hi=None):
+        """Over lanes [lo, hi); a chunk gets its own scratch, so that its
+        block partials survive the next chunk's launch."""
+        hi = self.n if hi is None else hi
         zdim = 2 * self.r + 2
         gram, maxs = torch.empty(zdim, zdim, **self.f), torch.empty(2, **self.f)
-        rc = self.lib.psgd_lra_stage1(self.n, self.r, UV.data_ptr(), d.data_ptr(), h.data_ptr(),
-                                      v.data_ptr(), gram.data_ptr(), maxs.data_ptr(),
-                                      self.scratch.data_ptr(), self.stream)
+        whole = (lo, hi) == (0, self.n)
+        scratch = self.scratch if whole else torch.empty(
+            self.lib.psgd_lra_scratch_floats(hi - lo, self.r), **self.f)
+        at = lambda x: x.data_ptr() + 4 * lo
+        rc = self.lib.psgd_lra_stage1(hi - lo, self.n, self.r, at(UV), at(d), at(h), at(v),
+                                      gram.data_ptr(), maxs.data_ptr(), scratch.data_ptr(),
+                                      self.stream)
         _build.check(rc, "lra_upd stage 1")
-        return gram, maxs[0], maxs[1]
+        return gram, maxs
 
     def stage3(self, UV, d, h, v, coef, scal, g=None):
         zdim = 2 * self.r + 2
         new_uv, nd = torch.empty_like(UV), torch.empty_like(d)
         gram2 = torch.empty(zdim, zdim, **self.f) if g is not None else None
         rc = self.lib.psgd_lra_stage3(
-            self.n, self.r, UV.data_ptr(), d.data_ptr(), h.data_ptr(), v.data_ptr(),
+            self.n, self.n, self.r, UV.data_ptr(), d.data_ptr(), h.data_ptr(), v.data_ptr(),
             g.data_ptr() if g is not None else None, coef.data_ptr(), scal.data_ptr(),
             new_uv.data_ptr(), nd.data_ptr(), gram2.data_ptr() if g is not None else None,
             self.scratch.data_ptr(), self.stream)
@@ -122,8 +139,8 @@ class _Kernels:
 
     def stage4(self, UV, d, g, coef4):
         out = torch.empty_like(d)
-        rc = self.lib.psgd_lra_stage4(self.n, self.r, UV.data_ptr(), d.data_ptr(), g.data_ptr(),
-                                      coef4.data_ptr(), out.data_ptr(), self.stream)
+        rc = self.lib.psgd_lra_stage4(self.n, self.n, self.r, UV.data_ptr(), d.data_ptr(),
+                                      g.data_ptr(), coef4.data_ptr(), out.data_ptr(), self.stream)
         _build.check(rc, "lra_upd stage 4")
         return out
 
@@ -136,14 +153,66 @@ class _Plain:
 
 # ------------------------------------------------------------ the chain
 
-def _update(UV, d, v, h, step, coins, g=None):
+def _identity(x):
+    return x
+
+
+def _ring(mesh, x) -> bool:
+    """The pipelined reduction's transport: the ring of `parallel/overlap`,
+    as JAX's `_ring_combine`, where its hops need no host memory; async
+    all-reduces where they would (gloo with CUDA tensors: every hop would
+    cross the host twice, while gloo all-reduces CUDA tensors directly)."""
+    from psgd_tf_tpu_torch.parallel import _collectives
+
+    return not _collectives.stages_on_host(mesh.shard_group, x)
+
+
+def _stage1_chunked(st, UV, d, h, v, mesh):
+    """Stage 1 in CHUNKS lane chunks, each chunk's Gram and maxima
+    reduced over the shard ranks as soon as it is launched (`_ring`
+    picks how), before the next chunk's launch; the reduced partials
+    summed in chunk order."""
+    from psgd_tf_tpu_torch.parallel import _collectives, overlap
+
+    n = UV.shape[1]
+    grp, size, rank = mesh.shard_group, mesh.shard, mesh.shard_rank
+    ring = _ring(mesh, UV)
+    bounds = [n * k // CHUNKS for k in range(CHUNKS + 1)]
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        gram, maxs = st.stage1(UV, d, h, v, lo, hi)
+        if ring:
+            parts.append((overlap.ring_reduce(gram, grp, size, rank), None,
+                          overlap.ring_max(maxs, grp, size, rank), None))
+        else:
+            parts.append(_collectives.psum_async(gram, grp, size)
+                         + _collectives.psum_async(maxs, grp, size, op=_collectives.MAX))
+    for _, w1, _, w2 in parts:
+        for w in (w1, w2):
+            if w is not None:
+                w.wait()
+    gram, maxs = parts[0][0], parts[0][2]
+    for g_k, _, m_k, _ in parts[1:]:
+        gram, maxs = gram + g_k, torch.maximum(maxs, m_k)
+    return gram, maxs
+
+
+def _update(UV, d, v, h, step, coins, g=None, mesh=None, pipelined=False):
+    """The chain; with `mesh`, on this rank's lanes with the rank-space
+    reductions taken over its shard ranks (K14)."""
     balance, update_u = coins
     kernel = hopper.use_kernel(UV)
     st = _Kernels(UV, d, v, h, g) if kernel else _Plain
+    psum, pmax = (mesh.psum, mesh.pmax) if mesh is not None else (_identity, _identity)
     r = UV.shape[0] // 2
     f32 = torch.float32
     tiny = linalg.tiny(f32)
-    gram, max_u, max_v = st.stage1(UV, d, h, v)
+    if mesh is not None and pipelined and UV.shape[1] >= CHUNKS:
+        gram, maxs = _stage1_chunked(st, UV, d, h, v, mesh)
+    else:
+        gram, maxs = st.stage1(UV, d, h, v)
+        gram, maxs = psum(gram), pmax(maxs)
+    max_u, max_v = maxs[0], maxs[1]
 
     # unpack Z Z^T, Z = [U; V; x; w]
     iu, iv, ix, iw = slice(0, r), slice(r, 2 * r), 2 * r, 2 * r + 1
@@ -189,18 +258,20 @@ def _update(UV, d, v, h, step, coins, g=None):
     coef = torch.stack([t0, cv * a1, cv * s2, cu * a2, e1, e2, f1, f2, cv * atU, cv * btU], 1)
 
     new_uv, nd, gram2 = st.stage3(UV, d, h, v, coef.contiguous(), scal, g)
-    mu_d = linalg.step_scale(step, linalg.max_abs(nd), f32)
+    # max|nablaD| over every lane before the d' AXPY
+    mu_d = linalg.step_scale(step, pmax(linalg.max_abs(nd)), f32)
     new_d = d - mu_d * d * nd
     if g is None:
         pre = None
     else:
         # y = d' g = y0 - mu_d y1: recombine the Gram's y0/y1 columns
+        gram2 = psum(gram2)
         iy0, iy1 = 2 * r, 2 * r + 1
         t1 = gram2[iv, iy0] - mu_d * gram2[iv, iy1]                    # V' y
         t2 = gram2[iu, iy0] - mu_d * gram2[iu, iy1] + gram2[iu, iu] @ t1  # U'(y + U'^T t1)
         pre = st.stage4(new_uv, new_d, g, torch.stack([t1, t2], 1).contiguous())
     if kernel:
-        hopper.counts["lra_upd"] += 1
+        hopper.counts["lra_upd" if mesh is None else "lra_upd_sharded"] += 1
     return new_uv, new_d, pre
 
 
@@ -215,54 +286,79 @@ def fused_update_apply(UV, d, v, h, g, step, coins):
     return _update(UV, d, v, h, step, coins, g=g)
 
 
+# ------------------------------------------------------------ K14: sharded
+
+def fused_update_sharded(UV, d, v, h, step, coins, mesh, pipelined=False):
+    """K14: one lra update on this rank's lanes, (UV', d') of them.
+
+    UV (2r, c), d, v, h (c,) are this rank's slice of the lanes over
+    `mesh`'s shard ranks, padded as `parallel/policies` pads them (d = 1,
+    zeros elsewhere: the pad lanes stay inert). The stage-1 Gram and
+    maxima, max|nablaD| and the apply Gram are all-reduced over the shard
+    ranks where JAX psums/pmaxes them (`lra_upd.py:293-305, 407, 430`); the
+    rank-space algebra then runs the same on every rank, whose coins agree.
+    `pipelined` runs stage 1 in CHUNKS lane chunks and reduces each chunk
+    as soon as it is launched: over the ring of `parallel/overlap` (JAX
+    `_ring_combine`), or by async all-reduces where the ring's hops would
+    go through host memory (`_ring`)."""
+    new_uv, new_d, _ = _update(UV, d, v, h, step, coins, mesh=mesh, pipelined=pipelined)
+    return new_uv, new_d
+
+
+def fused_update_apply_sharded(UV, d, v, h, g, step, coins, mesh, pipelined=False):
+    """K14 with the fused apply: (UV', d', this rank's lanes of P' g)."""
+    return _update(UV, d, v, h, step, coins, g=g, mesh=mesh, pipelined=pipelined)
+
+
 # ------------------------------------------------------------ the direct form
 
-def update_plain(UV, d, v, h, step, coins):
+def update_plain(UV, d, v, h, step, coins, psum=_identity, pmax=_identity):
     """The direct form of the update (the JAX package's XLA path,
-    `groups/lra.py:114-198`), with the coins given: (UV', d')."""
+    `groups/lra.py:114-198`), with the coins given: (UV', d'). With
+    `psum`/`pmax`, on this rank's lanes, every reduction over the lanes
+    taken over the shard ranks."""
     balance, update_u = coins
     r = UV.shape[0] // 2
     dtype = d.dtype
     if balance:
-        rho = torch.sqrt(linalg.max_abs(UV[:r]) / linalg.max_abs(UV[r:]))
+        rho = torch.sqrt(pmax(linalg.max_abs(UV[:r])) / pmax(linalg.max_abs(UV[r:])))
         UV = torch.cat([UV[:r] / rho, UV[r:] * rho])
     U, V = UV[:r], UV[r:]
+    mv = lambda m, x: psum(m @ x)  # a rank vector: (r, lanes) @ (lanes,)
 
-    Qh = _ip_uvt_matvec(U, V, d * h)
-    Ph = d * _ip_uvt_matvec(V, U, Qh)
-    IpVtU = torch.eye(r, dtype=dtype, device=d.device) + V @ U.T
+    Qh = d * h + mv(V, d * h) @ U
+    Ph = d * (Qh + mv(U, Qh) @ V)
+    IpVtU = torch.eye(r, dtype=dtype, device=d.device) + psum(V @ U.T)
     invQtv = v / d
-    invQtv = invQtv - linalg.solve_small(IpVtU.T, U @ invQtv) @ V
-    invPv = (invQtv - linalg.solve_small(IpVtU, V @ invQtv) @ U) / d
+    invQtv = invQtv - linalg.solve_small(IpVtU.T, mv(U, invQtv)) @ V
+    invPv = (invQtv - linalg.solve_small(IpVtU, mv(V, invQtv)) @ U) / d
     nablaD = Ph * h - v * invPv
-    new_d = d - linalg.step_scale(step, linalg.max_abs(nablaD), dtype) * d * nablaD
+    new_d = d - linalg.step_scale(step, pmax(linalg.max_abs(nablaD)), dtype) * d * nablaD
 
     a, b = Qh, invQtv
     a32, b32 = a.float(), b.float()
+    dot = lambda x, y: psum(x @ y)
     if update_u:
-        atV, btV = V @ a, V @ b
+        atV, btV = mv(V, a), mv(V, b)
         x32, y32 = (atV @ V).float(), (btV @ V).float()
-        norm = torch.sqrt(torch.abs((a32 @ a32) * (x32 @ x32) + (b32 @ b32) * (y32 @ y32)
-                                    - 2.0 * (a32 @ b32) * (x32 @ y32)))
+        norm = torch.sqrt(torch.abs(dot(a32, a32) * dot(x32, x32) + dot(b32, b32) * dot(y32, y32)
+                                    - 2.0 * dot(a32, b32) * dot(x32, y32)))
         mu = linalg.step_scale(step, norm, dtype)
         U = U - mu * (torch.outer(IpVtU.T @ atV, a) - torch.outer(IpVtU.T @ btV, b))
     else:
-        atU, btU = U @ a, U @ b
+        atU, btU = mv(U, a), mv(U, b)
         x32, y32 = (atU @ U).float(), (btU @ U).float()
-        norm = torch.sqrt(torch.abs((x32 @ x32) * (a32 @ a32) + (y32 @ y32) * (b32 @ b32)
-                                    - 2.0 * (x32 @ y32) * (a32 @ b32)))
+        norm = torch.sqrt(torch.abs(dot(x32, x32) * dot(a32, a32) + dot(y32, y32) * dot(b32, b32)
+                                    - 2.0 * dot(x32, y32) * dot(a32, b32)))
         mu = linalg.step_scale(step, norm, dtype)
         V = V - mu * (torch.outer(atU, a + atU @ V) - torch.outer(btU, b + btU @ V))
     return torch.cat([U, V]), new_d
 
 
-def apply_plain(UV, d, g):
-    """P g = d (I + V U^T)(I + U V^T)(d g)."""
+def apply_plain(UV, d, g, psum=_identity):
+    """P g = d (I + V U^T)(I + U V^T)(d g); with `psum`, on this rank's lanes."""
     r = UV.shape[0] // 2
     U, V = UV[:r], UV[r:]
-    return d * _ip_uvt_matvec(V, U, _ip_uvt_matvec(U, V, d * g))
-
-
-def _ip_uvt_matvec(u, v, x):
-    """(I + U V^T) x with rank-major factors: x + (v x) @ u."""
-    return x + (v @ x) @ u
+    x = d * g
+    x = x + psum(V @ x) @ U
+    return d * (x + psum(U @ x) @ V)

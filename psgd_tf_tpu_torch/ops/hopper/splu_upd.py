@@ -38,6 +38,14 @@ Each stage has a plain torch version below: the chain of them is what a
 wrapper runs for CPU tensors and inside `hopper.disabled()`, so that the
 algebra runs, and is held to the JAX package, without a card. The direct
 form (`groups/splu.update_plain`) is the independent oracle.
+
+The sharded K16 (`fused_update_sharded`, JAX `fused_update(mesh=...)`
+:914) runs the same kernels on each rank's slice of the tail through four
+C entry points, split where the chain reduces over the tail: stage 1 ->
+sum the Gram, max the tail maxima over the shard ranks -> corner A and
+stage 2 -> max the stage-2 maxima -> corner B and stage 3 (with g the
+apply Gram) -> sum the apply Gram -> corner C and stage 4. The corners
+replicate: every rank computes the same corner algebra from the same sums.
 """
 from __future__ import annotations
 
@@ -63,14 +71,19 @@ def _tail_images(L2t, U2, l3, u3, dx2, dg2, coef):
     return qg2, iqtx2, pg2, ipx2
 
 
-def stage1_plain(Lt, l3, U12, u3, v, h):
-    """(Z Z^T, [max l3, max u3]) with Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2]."""
+def _max0(x: torch.Tensor) -> torch.Tensor:
+    return x.max() if x.numel() else x.new_full((), -torch.inf)
+
+
+def stage1_plain(Lt, l3, U12, u3, v, h, nvalid=None):
+    """(Z Z^T, [max l3, max u3]) with Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2];
+    the maxima over the first `nvalid` tail lanes (all by default)."""
     r = U12.shape[0]
     U2 = U12[:, r:]
     lu = l3 * u3
     w = 1.0 / lu
     z = torch.cat([Lt[:, r:], U2 * w, U2, (v[r:] * w)[None], h[r:][None], (lu * h[r:])[None]])
-    return z @ z.T, torch.stack([l3.max(), u3.max()])
+    return z @ z.T, torch.stack([_max0(l3[:nvalid]), _max0(u3[:nvalid])])
 
 
 def corner_a_plain(Lt, U12, v, h, gram, maxs3):
@@ -171,26 +184,33 @@ def stage4_plain(new_l2t, new_u2, new_l3, new_u3, g2, coef4):
     return coef4[:, 1] @ new_u2 + lu * (coef4[:, 0] @ new_l2t + lu * g2)
 
 
-def chain_plain(Lt, l3, U12, u3, v, h, step, g=None):
-    """The stages in torch: (Lt', l3', U12', u3', P' g or None)."""
+def _identity(x):
+    return x
+
+
+def chain_plain(Lt, l3, U12, u3, v, h, step, g=None, nvalid=None, psum=_identity,
+                pmax=_identity):
+    """The stages in torch: (Lt', l3', U12', u3', P' g or None). With
+    `psum`/`pmax`, on this rank's slice of the tail (its first `nvalid`
+    lanes real, the rest padding), the three reductions taken over the
+    shard ranks."""
     r = U12.shape[0]
-    gram, maxs3 = stage1_plain(Lt, l3, U12, u3, v, h)
+    gram, maxs3 = stage1_plain(Lt, l3, U12, u3, v, h, nvalid)
+    gram, maxs3 = psum(gram), pmax(maxs3)
     rs, cs = corner_a_plain(Lt, U12, v, h, gram, maxs3)
-    maxs2 = stage2_plain(Lt, l3, U12, u3, v, h, rs[:, :8])
+    maxs2 = pmax(stage2_plain(Lt, l3, U12, u3, v, h, rs[:, :8]))
     coef3, scal, new_l1, new_u1 = corner_b_plain(Lt, U12, rs, cs, maxs2, step)
     new_l2t, new_u2, new_l3, new_u3, gram2 = stage3_plain(Lt, l3, U12, u3, v, h, coef3, scal, g)
     out = (torch.cat([new_l1.T, new_l2t], 1), new_l3, torch.cat([new_u1, new_u2], 1), new_u3)
     if g is None:
         return out + (None,)
-    pre1, coef4 = corner_c_plain(new_l1, new_u1, g[:r], gram2)
+    pre1, coef4 = corner_c_plain(new_l1, new_u1, g[:r], psum(gram2))
     return out + (torch.cat([pre1, stage4_plain(new_l2t, new_u2, new_l3, new_u3, g[r:], coef4)]),)
 
 
 # ------------------------------------------------------------ the chain, kernels
 
-def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
-    """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
-    P' g or None). Counts one launch of `name`."""
+def _check(name, Lt, l3, U12, u3, v, h, g):
     r, n = U12.shape
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"{name}: rank {r} must be in [1, {MAX_RANK}]")
@@ -201,6 +221,13 @@ def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
             or any(x.shape != (n,) for x in vecs)):
         raise ValueError(f"{name}: operand shapes do not agree")
     hopper.check_operands(name, Lt, l3, U12, u3, *vecs)
+
+
+def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
+    """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
+    P' g or None). Counts one launch of `name`."""
+    _check(name, Lt, l3, U12, u3, v, h, g)
+    r, n = U12.shape
     lib = _build.lib()
     new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
     pre = torch.empty_like(v) if g is not None else None
@@ -229,3 +256,61 @@ def run(name: str, Lt, l3, U12, u3, v, h, step, g=None):
 def fused_update(Lt, l3, U12, u3, v, h, step):
     """One streaming update: (Lt', l3', U12', u3')."""
     return run("splu_upd", Lt, l3, U12, u3, v, h, step)[:4]
+
+
+# ------------------------------------------------------------ the sharded K16
+
+def launch_sharded(Lt, l3, U12, u3, v, h, step, nvalid, mesh, g=None):
+    """The sharded K16 on CUDA tensors: the chain's four C entry points
+    (`csrc/splu.cu`, `psgd_splu_sharded_stage1..4`) with the Gram summed
+    and the maxima maxed over the shard ranks between them, as JAX psums
+    and pmaxes them (`splu_upd.py:694, 757, 830`). Counts one launch of
+    `splu_upd_sharded`."""
+    name = "splu_upd_sharded"
+    _check(name, Lt, l3, U12, u3, v, h, g)
+    r, n = U12.shape
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=Lt.device)
+    stream = torch.cuda.current_stream(Lt.device).cuda_stream
+    scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), **f)
+    z1, z2 = 3 * r + 3, 2 * r + 2
+    gram1, max1, max2 = torch.zeros(z1, z1, **f), torch.empty(2, **f), torch.empty(2, **f)
+    p = lambda x: x.data_ptr() if x is not None else None
+    state = [p(x) for x in (Lt, l3, U12, u3, v, h)]
+    _build.check(lib.psgd_splu_sharded_stage1(n, r, nvalid, *state, p(gram1), p(max1), p(scratch),
+                                              stream), f"{name} stage 1")
+    gram1, max1 = mesh.psum(gram1), mesh.pmax(max1)
+    _build.check(lib.psgd_splu_sharded_stage2(n, r, *state, p(gram1), p(max1), p(max2), p(scratch),
+                                              stream), f"{name} stage 2")
+    max2 = mesh.pmax(max2)
+    new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
+    gram2 = torch.zeros(z2, z2, **f) if g is not None else None
+    _build.check(lib.psgd_splu_sharded_stage3(
+        n, r, *state, p(g), float(step), p(max2), p(new_lt), p(new_l3), p(new_u12), p(new_u3),
+        p(gram2), p(scratch), stream), f"{name} stage 3")
+    pre = None
+    if g is not None:
+        gram2 = mesh.psum(gram2)
+        pre = torch.empty_like(v)
+        _build.check(lib.psgd_splu_sharded_stage4(
+            n, r, p(new_lt), p(new_l3), p(new_u12), p(new_u3), p(g), p(gram2), p(pre), p(scratch),
+            stream), f"{name} stage 4")
+    hopper.counts[name] += 1
+    return new_lt, new_l3, new_u12, new_u3, pre
+
+
+def fused_update_sharded(Lt, l3, U12, u3, v, h, step, mesh, nvalid=None, g=None):
+    """The sharded K16 (JAX `splu_upd.fused_update(mesh=...)` :914): one
+    update on this rank's slice of the state, laid out as a state of
+    r + (its tail lanes) parameters: the corner [:, :r] of Lt and U12
+    replicated, then this rank's tail columns, padded with zero columns
+    and l3 = u3 = 1 (`parallel/policies.shard_state`); v, h and g alike
+    (`policies.slice_vec`). `nvalid` counts the tail lanes that are not
+    padding (all by default): the balance's maxima leave the rest out.
+    Returns (Lt', l3', U12', u3', this rank's P' g or None); the corner
+    results are the same on every rank. The plain chain with the same
+    reductions for CPU tensors and inside `hopper.disabled()`."""
+    nvalid = l3.shape[0] if nvalid is None else nvalid
+    if not hopper.use_kernel(Lt):
+        return chain_plain(Lt, l3, U12, u3, v, h, step, g, nvalid, mesh.psum, mesh.pmax)
+    return launch_sharded(Lt, l3, U12, u3, v, h, step, nvalid, mesh, g)

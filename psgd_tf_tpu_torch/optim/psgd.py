@@ -29,6 +29,15 @@ parameter tensor) and lra's coins from the caller instead (the tests feed
 the JAX package and the port the same ones). PyTorch runs eagerly, so the
 hyperparameters are plain Python numbers that `PSGD.set_hyper` replaces
 between steps.
+
+Inside `hopper.sharding(mesh)` (as `parallel.build_sharded_step` runs it)
+the loss, gradients and Hvps are averaged over the mesh's `data` ranks in
+one all-reduce, and a flat family's state is this rank's slice: every rank
+draws the full probe from its identically seeded generator and takes its
+slice, the family updates and applies on the slice, and P g is gathered to
+full length over `shard`. The parameters replicate. The coins come from
+CPU generators seeded alike on every rank, so every rank branches alike.
+The Kronecker states replicate and their step does not change.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ import torch
 
 from psgd_tf_tpu_torch import hvp
 from psgd_tf_tpu_torch.groups import dense, diag, kron, lra, shift, splu, xmat
-from psgd_tf_tpu_torch.ops import linalg
+from psgd_tf_tpu_torch.ops import hopper, linalg
 
 _FLAT_FAMILIES = {"dense": dense, "diag": diag, "xmat": xmat, "shift": shift, "splu": splu,
                   "lra": lra}
@@ -241,6 +250,7 @@ class PSGD:
                 loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
             else:
                 loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
+            loss, grads, hvs = _data_mean(loss, grads, hvs)
             vs = [_as_matrix(x).to(self.dtype) for x in v]
             hs = [_as_matrix(x).to(self.dtype) for x in hvs]
             step = state.hyper.lr_preconditioner
@@ -256,7 +266,7 @@ class PSGD:
             else:
                 precond = kron.update_multi(pc, vs, hs, step=step)
         else:
-            loss, grads = hvp.grad_only(loss_fn, params, *args)
+            loss, grads, _ = _data_mean(*hvp.grad_only(loss_fn, params, *args))
             precond = state.precond
         return loss, grads, precond, self._kron_apply(precond, grads)
 
@@ -281,13 +291,23 @@ class PSGD:
         hyper = state.hyper
         shapes = [p.shape for p in params]
 
+        n = sum(s.numel() for s in shapes)
+        mesh = hopper.shard_ctx()
+        if mesh is None:
+            local = full = lambda x: x
+        else:
+            from psgd_tf_tpu_torch.parallel import policies  # late: policies imports this module
+
+            local = lambda x: policies.slice_vec(mesh, state.precond, x)
+            full = lambda y: policies.gather_vec(mesh, state.precond, y, n)
+
         def unravel(flat):
             return [x.reshape(s) for x, s in zip(torch.split(flat, [s.numel() for s in shapes]), shapes)]
 
         if not do_update:
-            loss, grads = hvp.grad_only(loss_fn, params, *args)
+            loss, grads, _ = _data_mean(*hvp.grad_only(loss_fn, params, *args))
             g_flat = _ravel(grads)
-            pre = fam.apply(state.precond, g_flat.to(self.dtype))
+            pre = full(fam.apply(state.precond, local(g_flat.to(self.dtype))))
             return loss, grads, state.precond, unravel(pre.to(g_flat.dtype))
 
         if probes is not None:
@@ -296,13 +316,14 @@ class PSGD:
         else:
             # the probe in the parameters' dtype (the Hvp runs through the
             # model); cast to the preconditioner's dtype at the family
-            v_flat = torch.randn(sum(s.numel() for s in shapes), generator=generator,
-                                 dtype=params[0].dtype, device=params[0].device)
+            v_flat = torch.randn(n, generator=generator, dtype=params[0].dtype,
+                                 device=params[0].device)
             v = unravel(v_flat)
         if self.exact_hessian_vector_product:
             loss, grads, hvs = hvp.exact(loss_fn, params, v, *args)
         else:
             loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
+        loss, grads, hvs = _data_mean(loss, grads, hvs)
         g_flat = _ravel(grads)
         extra = {}
         if self.preconditioner == "lra":
@@ -310,15 +331,16 @@ class PSGD:
                 coins = (torch.rand((), generator=state.branch).item() < 0.01,
                          torch.rand((), generator=state.branch).item() < 0.5)
             extra["coins"] = coins
-        v_flat, h_flat = v_flat.to(self.dtype), _ravel(hvs).to(self.dtype)
+        v_flat, h_flat = local(v_flat.to(self.dtype)), local(_ravel(hvs).to(self.dtype))
+        g_loc = local(g_flat.to(self.dtype))
         if hasattr(fam, "update_apply"):
-            # Q update and preconditioning in one sweep (K11-K13, K15)
-            precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_flat.to(self.dtype),
+            # Q update and preconditioning in one sweep (K11-K16)
+            precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_loc,
                                             step=hyper.lr_preconditioner, **extra)
         else:
             precond = fam.update(state.precond, v_flat, h_flat, step=hyper.lr_preconditioner)
-            pre = fam.apply(precond, g_flat.to(self.dtype))
-        return loss, grads, precond, unravel(pre.to(g_flat.dtype))
+            pre = fam.apply(precond, g_loc)
+        return loss, grads, precond, unravel(full(pre).to(g_flat.dtype))
 
     # ----------------------------------------------------------------- hyper
 
@@ -337,6 +359,21 @@ class PSGD:
             state.hyper, **{k: float(v) for k, v in kwargs.items()}
         )
         return state.replace(hyper=hyper)
+
+
+def _data_mean(loss, grads, hvs=None):
+    """(loss, grads, hvs) averaged over the data ranks of the sharding
+    context's mesh, in one all-reduce; as they are outside it."""
+    mesh = hopper.shard_ctx()
+    if mesh is None or mesh.data == 1:
+        return loss, grads, hvs
+    from psgd_tf_tpu_torch.parallel import _collectives
+
+    grads = list(grads)
+    extra = list(hvs) if hvs is not None else []
+    out = _collectives.data_mean(mesh, [loss] + grads + extra)
+    k = len(grads)
+    return out[0], out[1:1 + k], (out[1 + k:] if hvs is not None else None)
 
 
 def _matrix_shape(shape: Sequence[int]) -> tuple[int, int]:

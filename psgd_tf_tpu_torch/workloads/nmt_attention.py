@@ -8,6 +8,10 @@ reversal-translation pair (`data.translation`). The bar is a teacher-forced
 token accuracy above 0.75 on a held-out 256-row batch after the default
 1000 steps. It runs on the card unless `device` says otherwise.
 
+With `mesh` (a `parallel.Mesh`, as in JAX `:37, 85-91`) the step runs
+sharded: the batch splits over `data` and the Kronecker state replicates;
+every rank draws the same batches and probes from the same seed.
+
 Not ported: the real spa-eng corpus run (`data_path`), whose corpus is not
 in the repository.
 """
@@ -30,7 +34,9 @@ def run(
     lr: float = 0.05,
     data_path: str | None = None,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> dict:
+    """`device` is ignored with a `mesh`, whose device it runs on."""
     if data_path is not None:
         raise NotImplementedError(
             "the real spa-eng corpus run is not ported: the corpus is not in "
@@ -43,6 +49,8 @@ def run(
             f"(the source vocabulary), out of range for vocab_tgt="
             f"{cfg.vocab_tgt}; use vocab_src == vocab_tgt"
         )
+    if mesh is not None:
+        device = mesh.device
     g = torch.Generator(device=device).manual_seed(seed)
     params = nmt.init(g, cfg)
     opt = PSGD(
@@ -54,12 +62,19 @@ def run(
         exact_hessian_vector_product=exact_hvp,
     )
     state = opt.init(params, seed=seed)
+    if mesh is not None:
+        from psgd_tf_tpu_torch.parallel import build_sharded_step, shard_state
+
+        step = build_sharded_step(opt, nmt.loss, mesh, state, params)
+        state = shard_state(mesh, state)
+    else:
+        step = lambda *a: opt.step(nmt.loss, *a)
     content = cfg.vocab_src - translation.SPECIALS
 
     first = loss = None
     for _ in range(steps):
         src, tgt = translation.batch(g, batch_size, max_len, content)
-        params, state, aux = opt.step(nmt.loss, params, state, g, src, tgt)
+        params, state, aux = step(params, state, g, src, tgt)
         if first is None:
             first = float(aux["loss"])
         loss = aux["loss"]

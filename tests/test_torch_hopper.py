@@ -34,7 +34,7 @@ def test_import_leaves_jax_out():
         "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
         "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra, "
         "psgd_tf_tpu_torch.workloads.all_preconditioners, psgd_tf_tpu_torch.workloads.lstm_xor, "
-        "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big\n"
+        "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big, psgd_tf_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
         "assert not bad, bad\n"
@@ -645,3 +645,76 @@ def test_all_preconditioners_routes_through_the_kernels(cuda):
             assert not launched
         else:
             assert hopper.counts[name] == before[name] + 5
+
+
+# --------------------------------------------------------------- K14, the sharded K16
+
+@pytest.fixture
+def one_rank(cuda, tmp_path):
+    """A one-rank gloo job on the card: the sharded wrappers' entry points
+    with every reduction over one rank."""
+    import torch.distributed as dist
+
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(data=1, shard=1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n", [1021, 1 << 20])
+@pytest.mark.parametrize("coins", COINS, ids=str)
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_k14_one_rank_matches_k13(one_rank, n, coins, pipelined):
+    """K14's update + apply (stage 1 in four lane chunks when pipelined,
+    the kernels reading rows at their stride) against its own plain chain
+    with the same reductions and against K13."""
+    g = torch.Generator(device=one_rank.device).manual_seed(6)
+    st, v, h, grad = _lra_case(g, n, 10, one_rank.device)
+    call = lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, grad, 0.05, coins,
+                                                      one_rank, pipelined=pipelined)
+    before = hopper.counts["lra_upd_sharded"]
+    got = call()
+    torch.cuda.synchronize()
+    assert hopper.counts["lra_upd_sharded"] == before + 1
+    with hopper.disabled():
+        plain = call()
+    ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+    for a, b, c in zip(got, plain, ref):
+        assert _rel(a, b) < 1e-4
+        assert _rel(a, c) < 1e-4
+
+
+@pytest.mark.parametrize("n,r", [(11, 10), (400, 10), (100_003, 10), (3_000, 32)])
+def test_sharded_k16_one_rank_matches_k16(one_rank, n, r):
+    """The sharded K16's four entry points against its own plain chain
+    with the same reductions and against K16's one entry, update + apply;
+    then the same state with three tail lanes of 1-padding (l3 = u3 = 1,
+    zero columns and probes) and `tail_valid` = the real lanes: the
+    padding leaves the real lanes' result and the balance alone."""
+    g = torch.Generator(device=one_rank.device).manual_seed(13)
+    st, (v, h, grad) = _splu_case(g, n, r, one_rank.device)
+    st = type(st)(st.Lt, 0.5 * st.l3, st.U12, st.u3)  # tail maxima below the padding's 1
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    before = hopper.counts["splu_upd_sharded"]
+    got = splu_upd.fused_update_sharded(*fields, v, h, 0.05, one_rank, None, grad)
+    torch.cuda.synchronize()
+    assert hopper.counts["splu_upd_sharded"] == before + 1
+    with hopper.disabled():
+        plain = splu_upd.fused_update_sharded(*fields, v, h, 0.05, one_rank, None, grad)
+    ref = splu_upd.launch("splu_upd", *fields, v, h, 0.05, grad)
+    for a, b, c in zip(got, plain, ref):
+        assert _rel(a, b) < 1e-4
+        assert _rel(a, c) < 1e-4
+    pad = lambda x, fill: torch.cat([x, x.new_full(x.shape[:-1] + (3,), fill)], -1)
+    padded = (pad(st.Lt, 0.0), pad(st.l3, 1.0), pad(st.U12, 0.0), pad(st.u3, 1.0), pad(v, 0.0),
+              pad(h, 0.0), 0.05, one_rank, n - r, pad(grad, 0.0))
+    got_p = splu_upd.fused_update_sharded(*padded)
+    with hopper.disabled():
+        plain_p = splu_upd.fused_update_sharded(*padded)
+    for a, b, c in zip(got_p, plain_p, ref):
+        assert _rel(a, b) < 1e-4
+        assert _rel(a[..., :c.shape[-1]], c) < 1e-4
