@@ -34,7 +34,17 @@ after:
   - `lstm_xor` at its reference widths (hidden 30, 7,591 parameters,
     batch 128, sequences of 100): its two (dense, dense) layers ride K1
     with two layers (and K3); a 20-step loss trace with the kernels and
-    under `disabled()`, then 300 steps of `lstm_xor.run()` with the kernels;
+    under `disabled()`, then 100 steps of `lstm_xor.run()` with the kernels;
+  - the Kronecker family's unrouted kernels through their own entry
+    points, as the JAX package's tests reach them: the streamed arrow
+    applies (K17) on the reference NMT's three (norm, scale) layers and its
+    five (norm, dense) layers under 'auto', at (131072, 512) and
+    (65536, 8192), the wide apply (K18) at (512, 1,000,000),
+    (64, 3,000,017) and (70, 140,000); the triangular solve (K19) on
+    LeNet5's walked factors with probes as right-hand sides in all four
+    orientations, at the JAX test cases and at n = 2048, nrhs = 512; the
+    (dense, dense) list update (K20) on LeNet5's five layers and on 18
+    layers;
   - the NMT workload at its toy widths, as `nmt_attention.run()` runs it:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
     kinds, K3);
@@ -146,6 +156,17 @@ SHARD_NMT_STEPS = 20
 SHARD_FIELDS = {"lra": ("UV", "d"), "splu": ("Lt", "l3", "U12", "u3")}
 TOL_SHARD_NMT = 5e-4
 WORKER_TIMEOUT = 600
+# the unrouted Kronecker kernels (K17-K20) beyond the paths' shapes: the
+# (norm, scale) apply at bench.py's (65536, 8192) kron_ns row, the wide
+# apply at (512, 10^6), past 2^21 lanes and at a ragged shape; the solve at
+# the JAX package's test cases (tests/test_pallas.py:19-30; nrhs 0 is a
+# 1-D b) and at a size past its cap; K20 on 18 layers (two chains)
+APPLY_NS_BENCH = (65536, 8192)
+APPLY_WIDE = [(512, 1_000_000), (64, 3_000_017), (70, 140_000)]
+SOLVE_JAX = [(128, 128, False, True), (300, 64, False, True), (512, 256, False, False),
+             (257, 0, True, False), (640, 200, True, True)]
+SOLVE_BENCH = (2048, 512, False, False)
+MULTI_18 = LENET5 * 3 + [(1, 10), (300, 7), (64, 64)]
 
 
 def _rel(a, b) -> float:
@@ -461,8 +482,9 @@ def main() -> int:
     from psgd_tf_tpu_torch.data import mnist, translation, xor
     from psgd_tf_tpu_torch.models import lenet5, lstm, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
-    from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_sparse,
-                                              kron_sparse_big, lra_upd, splu_one, splu_upd, tri)
+    from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_multi,
+                                              kron_sparse, kron_sparse_big, lra_upd, splu_one,
+                                              splu_upd, tri)
     from psgd_tf_tpu_torch.optim.psgd import KronPrecond
     from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, lstm_xor,
                                              nmt_attention, rnn_xor_lra)
@@ -1352,6 +1374,145 @@ def main() -> int:
           and lstm_out["loss"] < losses[0].item(),
           "lstm_xor run(): one K1 chain per step, finite loss below the first step's")
 
+    # 10f. path: the Kronecker family's unrouted kernels through their own
+    #      entry points (no optimizer routes them, as in the JAX package):
+    #      K17 on the reference NMT's (norm, scale) layers of the mixed
+    #      formats and its five (norm, dense) layers under auto, each with a
+    #      fresh G, and at the envelope shapes; K18 at the wide shapes; K19 on
+    #      LeNet5's walked factors with probes as right-hand sides in all four
+    #      orientations, at the JAX package's test cases and at SOLVE_BENCH;
+    #      K20 on LeNet5's five layers and on 18 layers (two chains). Then
+    #      each result against its plain version (and the applies against
+    #      kron.apply, K20 against K1 with kinds dd), and the timings.
+    g.manual_seed(102)
+    NS, ND = ("norm", "scale"), ("norm", "dense")
+    apply_cases = ([("fused_apply_ns", NS, s) for f, s in zip(nmt_fmts, ref_shapes) if f == NS]
+                   + [("fused_apply_nd", ND, s) for s in nd_shapes]
+                   + [("fused_apply_nd", ND, K9_BENCH), ("fused_apply_ns", NS, APPLY_NS_BENCH)]
+                   + [("fused_apply_ns_wide", NS, s) for s in APPLY_WIDE])
+    apply_states = [walked_states([f], [s], steps=2)[0] for _, f, s in apply_cases]
+    apply_gs = [torch.randn(s, generator=g, device=dev) for _, _, s in apply_cases]
+    lenet_states = walked_states(dd, LENET5)
+    lenet_dxs, lenet_dgs = probes(LENET5)
+    orients = [(lower, trans) for lower in (False, True) for trans in (False, True)]
+    solve_cases = []  # (q, b, lower, trans): a lower system's Q is the factor's transpose
+    for st, dx in zip(lenet_states, lenet_dxs):
+        for q, b in ((st.ql, dx), (st.qr, dx.T.contiguous())):
+            solve_cases += [(q.T.contiguous() if lo else q, b, lo, tr) for lo, tr in orients]
+    for n, nrhs, lo, tr in SOLVE_JAX + [SOLVE_BENCH]:
+        q = triu_factor(n)
+        solve_cases.append((q.T.contiguous() if lo else q,
+                            torch.randn((n, nrhs) if nrhs else (n,), generator=g, device=dev),
+                            lo, tr))
+    multi_shapes = [LENET5, MULTI_18]
+    multi_layers = [(lenet_states, lenet_dxs, lenet_dgs)]
+    multi_layers.append((walked_states([DD] * len(MULTI_18), MULTI_18, steps=2),
+                         *probes(MULTI_18)))
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    apply_outs = [getattr(kron_sparse_big, fn)(st.ql, st.qr, G)
+                  for (fn, _, _), st, G in zip(apply_cases, apply_states, apply_gs)]
+    solve_outs = [tri.solve_triangular(q, b, lower=lo, trans=tr) for q, b, lo, tr in solve_cases]
+    multi_outs = [kron_dd.fused_update_multi([s.ql for s in sts], [s.qr for s in sts], dxs_, dgs_,
+                                             0.1) for sts, dxs_, dgs_ in multi_layers]
+    torch.cuda.synchronize()
+    counts = dict(hopper.counts)
+    path_counts()
+    want = {"kron_sparse_big_apply_ns": 4, "kron_sparse_big_apply_nd": 6,
+            "kron_sparse_big_apply_ns_wide": len(APPLY_WIDE), "tri_solve": len(solve_cases),
+            "kron_dd_multi": 3, "tri": 3}
+    print(f"unrouted kron: {len(apply_cases)} applies, {len(solve_cases)} solves, K20 on "
+          f"{[len(s) for s in multi_shapes]} layers, launches "
+          f"{({k: c for k, c in counts.items() if c})}", flush=True)
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"unrouted kron: launches {want} (K20: one chain for LeNet5, two for 18 layers, each "
+          f"with its K3) and no other")
+    unrouted = {}
+    for (fn, fmt, shape), st, G, got in zip(apply_cases, apply_states, apply_gs, apply_outs):
+        name = "kron_sparse_big_" + fn.removeprefix("fused_")
+        with hopper.disabled():
+            ref = getattr(kron_sparse_big, fn)(st.ql, st.qr, G)
+        rel, err = _rel(got, ref), _abs(got, ref)
+        rel_apply = _rel(got, kron.apply(st, G))
+        again = torch.equal(getattr(kron_sparse_big, fn)(st.ql, st.qr, G), got)
+        acc = unrouted.setdefault(name, {"err": 0.0, "nmt_ms": 0.0, "nmt_plain_ms": 0.0})
+        acc["err"] = max(acc["err"], err)
+        check(rel < TOL_K1 and rel_apply < TOL_K1 and again and bool(torch.isfinite(got).all()),
+              f"{name} vs plain and kron.apply at {shape}")
+        m, n = shape
+        reps = 10 if m * n > 10**7 else 100
+        ms, plain_ms = _time_ab(torch, hopper, lambda: getattr(kron_sparse_big, fn)(
+            st.ql, st.qr, G), reps)
+        nq = n * (n + 1) / 2 if fmt == ND else n
+        bound = _bound(4 * (2 * m * n + 2 * m + nq),
+                       2 * m * n * n + n**3 / 3 + 6 * m * n if fmt == ND else 6 * m * n)
+        if shape in (APPLY_NS_BENCH, K9_BENCH, APPLY_WIDE[0]):
+            acc.update(ms=ms, plain_ms=plain_ms, bound=bound)
+        elif shape in ref_shapes:
+            acc["nmt_ms"] += ms
+            acc["nmt_plain_ms"] += plain_ms
+        print(f"{name}: {shape} max rel err {rel:.3e} against the plain chain, {rel_apply:.3e} "
+              f"against kron.apply (tol {TOL_K1:.0e}), max abs err {err:.3e}, repeats bit for "
+              f"bit {again}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+    for name in ("kron_sparse_big_apply_ns", "kron_sparse_big_apply_nd"):
+        print(f"{name}: the NMT layers summed, kernel {unrouted[name]['nmt_ms']:.4f} ms, plain "
+              f"{unrouted[name]['nmt_plain_ms']:.4f} ms", flush=True)
+    del apply_states, apply_gs, apply_outs
+    torch.cuda.empty_cache()
+
+    solve_err = solve_rel = 0.0
+    for (q, b, lo, tr), got in zip(solve_cases, solve_outs):
+        ref = tri.solve_triangular_plain(q, b, lower=lo, trans=tr)
+        solve_rel = max(solve_rel, _rel(got, ref))
+        solve_err = max(solve_err, _abs(got, ref))
+        check(got.shape == b.shape, f"tri_solve keeps b's rank at {tuple(b.shape)}")
+    q, b, lo, tr = solve_cases[-1]
+    n, nrhs = b.shape
+    solve_ms, solve_plain_ms = _time_ab(
+        torch, hopper, lambda: tri.solve_triangular(q, b, lower=lo, trans=tr), 20)
+    solve_lib_ms = _time(torch, lambda: torch.linalg.solve_triangular(q, b, upper=True), 20)
+    solve_bound = _bound(4 * (n * (n + 1) / 2 + 2 * n * nrhs), n * n * nrhs)
+    lenet_solves = solve_cases[:8 * len(LENET5)]
+    lenet_ms, lenet_plain_ms = _time_ab(torch, hopper, lambda: [
+        tri.solve_triangular(q, b, lower=lo, trans=tr) for q, b, lo, tr in lenet_solves], 50)
+    print(f"tri_solve: {len(solve_cases)} systems (LeNet5's ten factors in four orientations "
+          f"with the probes as right-hand sides, the JAX cases, {SOLVE_BENCH}) max rel err "
+          f"{solve_rel:.3e} (tol {TOL_K3:.0e}, norm-relative) max abs err {solve_err:.3e}; at "
+          f"n={n} nrhs={nrhs}: kernel {solve_ms:.4f} ms, plain {solve_plain_ms:.4f} ms, one "
+          f"torch.linalg.solve_triangular {solve_lib_ms:.4f} ms, bound {solve_bound[0]:.4f} ms "
+          f"({solve_bound[1]}); LeNet5's {len(lenet_solves)} solves, kernel "
+          f"{lenet_ms / len(lenet_solves):.4f} ms a call, plain "
+          f"{lenet_plain_ms / len(lenet_solves):.4f} ms", flush=True)
+    check(solve_rel < TOL_K3, "tri_solve vs plain")
+    del solve_cases, solve_outs
+
+    multi_err = 0.0
+    for shapes, (sts, dxs_, dgs_), (got_qls, got_qrs) in zip(multi_shapes, multi_layers,
+                                                             multi_outs):
+        qls_, qrs_ = [s.ql for s in sts], [s.qr for s in sts]
+        k1 = kron_multi.fused_update_multi(["dd"] * len(shapes), qls_, qrs_, dxs_, dgs_, 0.1)
+        with hopper.disabled():
+            ref_qls, ref_qrs = kron_dd.fused_update_multi(qls_, qrs_, dxs_, dgs_, 0.1)
+        pairs = list(zip(got_qls + got_qrs, ref_qls + ref_qrs))
+        rel = max(_rel(a, b) for a, b in pairs)
+        multi_err = max(multi_err, max(_abs(a, b) for a, b in pairs))
+        bit = all(torch.equal(a, c) and torch.equal(b, d)
+                  for a, b, (c, d) in zip(got_qls, got_qrs, k1))
+        ms, plain_ms = _time_ab(torch, hopper, lambda: kron_dd.fused_update_multi(
+            qls_, qrs_, dxs_, dgs_, 0.1), 100)
+        k1_dd_ms = _time(torch, lambda: kron_multi.fused_update_multi(
+            ["dd"] * len(shapes), qls_, qrs_, dxs_, dgs_, 0.1), 100)
+        work = [_kron_work(DD, s) for s in shapes]
+        bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        if shapes is LENET5:
+            multi = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+        print(f"kron_dd_multi: {len(shapes)} layers max rel err {rel:.3e} (tol {TOL_K1:.0e}), "
+              f"bit-equal to K1 with kinds dd {bit}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"K1 {k1_dd_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        check(rel < TOL_K1 and bit, f"kron_dd_multi vs plain and K1 at {len(shapes)} layers")
+    del multi_layers, multi_outs
+
     # 11. path: the NMT workload at its toy widths, as nmt_attention.run() runs it
     torch.cuda.synchronize()
     hopper.reset_counts()
@@ -1691,7 +1852,9 @@ def main() -> int:
                  "kron_sparse_big_ds",
                  "kron_sparse_big_nd", "kron_sparse_big_ns_wide2", "kron_sparse_big_ns_wide_xla",
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd",
-                 "lra_upd_sharded", "splu_upd_sharded"):
+                 "lra_upd_sharded", "splu_upd_sharded", "kron_sparse_big_apply_ns",
+                 "kron_sparse_big_apply_nd", "kron_sparse_big_apply_ns_wide", "tri_solve",
+                 "kron_dd_multi"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -1743,6 +1906,17 @@ def main() -> int:
         entry("splu_upd_sharded", "splu.cu", "splu_upd.py:914", shard_err["splu_upd_sharded"],
               r0["splu"][SHARD_SPLU[0]]["ms"], r0["splu"][SHARD_SPLU[0]]["plain_ms"],
               shard_bound["splu_upd_sharded"]),
+    ]
+    for name, line in [("kron_sparse_big_apply_ns", 848), ("kron_sparse_big_apply_nd", 928),
+                       ("kron_sparse_big_apply_ns_wide", 893)]:
+        acc = unrouted[name]
+        kernels.append(entry(name, "kron_sparse_big.cu", f"kron_sparse_big.py:{line}", acc["err"],
+                             acc["ms"], acc["plain_ms"], acc["bound"]))
+    kernels += [
+        entry("tri_solve", "tri.cu", "tri.py:161", solve_err, solve_ms, solve_plain_ms,
+              solve_bound, solve_lib_ms),
+        entry("kron_dd_multi", "kron_dd.cu", "kron_dd.py:424", multi_err, multi["ms"],
+              multi["plain_ms"], multi["bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

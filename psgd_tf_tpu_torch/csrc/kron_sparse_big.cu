@@ -1,4 +1,5 @@
-// K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker reductions.
+// K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker reductions;
+// K17/K18: the streamed arrow applies (at the end of this file).
 //
 // K6 replaces psgd_tf_tpu/ops/pallas/kron_sparse_big.py `fused_update_ns`
 // (:377, its pallas_call at :412, `_kernel_ns_big` :172): the one pass over
@@ -88,6 +89,7 @@
 #include "psgd.cuh"
 
 #include <algorithm>
+#include <climits>
 
 #define NS_ROWS 16
 #define NS_THREADS 256
@@ -611,4 +613,163 @@ extern "C" int psgd_kron_ns_wide(int m, int n, const void* dx, int dx_t, const v
     ns_wide_reduce_kernel<<<(m + 31) / 32, 1024, 0, stream>>>(
         m, strips, pdiag, pbias, static_cast<float*>(diag0), static_cast<float*>(biasa));
     return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- K17 / K18
+//
+// K17 replaces the same file's `_apply_norm_call` (:807, its pallas_call at
+// :830, `_kernel_apply_norm` :768), reached by `fused_apply_ns` (:848) and
+// `fused_apply_nd` (:928); K18 replaces `fused_apply_ns_wide` (:893, its
+// pallas_call at :912, `_kernel_apply_ns_wide` :853). All compute P G for a
+// layer with an arrow left factor, P G = Ql^T ((Ql G) R), R = diag(qr^2)
+// for (norm, scale) and the dense Qr^T Qr (formed by the caller) for
+// (norm, dense):
+//   z_i = (q0_i G_i + q1_i G_{m-1}) R,   out_i = q0_i z_i,
+//   and row m-1 also gets sum_i q1_i z_i (the arrow's last column).
+// The TPU kernel streams row panels in grid order and carries sum q1 z in
+// VMEM: row m-1 lies in the last panel, so the sum is complete when that
+// panel is written. Blocks here run in no order, so each block (a strip of
+// AP_STRIP lanes by a chunk of rows) writes its strip's partial sum to a
+// (chunks, n) scratch, and a last small launch adds the partials to row
+// m-1 in chunk order: no atomics, a run repeats itself bit for bit.
+// Nothing is padded: lanes past n and rows past m are masked, so K18 is
+// K17's (norm, scale) kernel on a wider grid (the JAX package's 128-lane
+// and row-block padding exists for the TPU's tiling alone).
+// What bounds it: (norm, scale) memory, G read once and the output written
+// once (8 m n bytes: 4.1 GB at (512, 10^6), 1.22 ms at 3.35 TB/s); each
+// thread keeps AP_ROWS x AP_LANES loads in flight. (norm, dense)
+// operations, the product by R (2 m n^2 FLOPs: 68.7 GFLOP at
+// (131072, 512), 1.03 ms at the fp32 peak): a prologue launch of the same
+// kernel writes preG = Ql G, kron_dd.cu's grouped GEMM (64x64 SIMT tiles,
+// unchanged) writes Z = preG R into the output, and the kernel rewrites Z
+// in place (each element read and written by one thread).
+
+#define AP_THREADS 256
+#define AP_LANES 4                         // lanes a thread owns, AP_THREADS apart
+#define AP_STRIP (AP_LANES * AP_THREADS)   // lanes a block owns
+#define AP_ROWS 4                          // rows a step of the walk loads at once
+#define AP_MIN_ROWS 16                     // fewest rows a chunk takes
+#define AP_TARGET_BLOCKS (132 * 8)         // one wave of 256-thread blocks on 132 SMs
+
+enum ApplyMode { AP_NS = 0, AP_PRE = 1, AP_ND = 2 };
+
+// grid (strips, chunks). AP_NS: src = G, out = q0 z with
+// z = (q0 g + q1 G_{m-1}) qr^2; AP_PRE: src = G, out = preG = q0 g + q1 G_{m-1};
+// AP_ND: src = Z (may be out itself), out = q0 z. AP_NS and AP_ND write the
+// block's partial sum_i q1_i z_i of each lane to pcol[chunk n + j].
+template <int MODE>
+__global__ void __launch_bounds__(AP_THREADS) apply_norm_kernel(
+    int m, int n, int rows, const float* src, const float* __restrict__ ql,
+    const float* __restrict__ qr, float* out, float* __restrict__ pcol) {
+    const float* q0 = ql;
+    const float* q1 = ql + m;
+    const int r0 = blockIdx.y * rows, r1 = min(m, r0 + rows);
+    size_t j[AP_LANES];
+    bool ok[AP_LANES];
+    float rr[AP_LANES], gl[AP_LANES], acc[AP_LANES];
+#pragma unroll
+    for (int c = 0; c < AP_LANES; ++c) {
+        j[c] = (size_t)blockIdx.x * AP_STRIP + c * AP_THREADS + threadIdx.x;
+        ok[c] = j[c] < (size_t)n;
+        const float q = (MODE == AP_NS && ok[c]) ? qr[j[c]] : 1.f;
+        rr[c] = q * q;
+        gl[c] = (MODE != AP_ND && ok[c]) ? src[(size_t)(m - 1) * n + j[c]] : 0.f;
+        acc[c] = 0.f;
+    }
+    for (int i0 = r0; i0 < r1; i0 += AP_ROWS) {
+        float v[AP_ROWS][AP_LANES];
+#pragma unroll
+        for (int r = 0; r < AP_ROWS; ++r)
+#pragma unroll
+            for (int c = 0; c < AP_LANES; ++c)
+                v[r][c] = (ok[c] && i0 + r < r1) ? src[(size_t)(i0 + r) * n + j[c]] : 0.f;
+#pragma unroll
+        for (int r = 0; r < AP_ROWS; ++r) {
+            const int i = i0 + r;
+            if (i >= r1) continue;
+            const float a = q0[i], b = q1[i];
+#pragma unroll
+            for (int c = 0; c < AP_LANES; ++c) {
+                const float pre = MODE == AP_ND ? v[r][c] : a * v[r][c] + b * gl[c];
+                const float z = MODE == AP_NS ? pre * rr[c] : pre;
+                if (ok[c]) out[(size_t)i * n + j[c]] = MODE == AP_PRE ? pre : a * z;
+                acc[c] += b * z;
+            }
+        }
+    }
+    if (MODE == AP_PRE) return;
+#pragma unroll
+    for (int c = 0; c < AP_LANES; ++c)
+        if (ok[c]) pcol[(size_t)blockIdx.y * n + j[c]] = acc[c];
+}
+
+// out[m-1, j] += sum over chunks of pcol[chunk, j], in chunk order
+__global__ void __launch_bounds__(256) apply_last_row_kernel(int m, int n, int chunks,
+                                                             const float* __restrict__ pcol,
+                                                             float* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    float s = 0.f;
+    for (int c = 0; c < chunks; ++c) s += pcol[(size_t)c * n + j];
+    out[(size_t)(m - 1) * n + j] += s;
+}
+
+// lane strips, and row chunks enough for a wave (each >= AP_MIN_ROWS rows,
+// a multiple of AP_ROWS)
+static void apply_grid(int m, int n, int& strips, int& chunks, int& rows) {
+    strips = (n + AP_STRIP - 1) / AP_STRIP;
+    chunks = std::max(1, std::min((AP_TARGET_BLOCKS + strips - 1) / strips,
+                                  (m + AP_MIN_ROWS - 1) / AP_MIN_ROWS));
+    rows = (m + chunks - 1) / chunks;
+    rows = (rows + AP_ROWS - 1) / AP_ROWS * AP_ROWS;
+    chunks = (m + rows - 1) / rows;
+}
+
+extern "C" size_t psgd_kron_apply_scratch_floats(int m, int n, int dense) {
+    int strips, chunks, rows;
+    apply_grid(m, n, strips, chunks, rows);
+    return psgd_align4((size_t)chunks * n) + (dense ? (size_t)m * n : 0);
+}
+
+static int apply_tail(int m, int n, int chunks, const float* pcol, float* out,
+                      cudaStream_t stream) {
+    apply_last_row_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, chunks, pcol, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int psgd_kron_apply_ns(int m, int n, const void* g, const void* ql, const void* qr,
+                                  void* out, void* scratch, void* stream_ptr) {
+    if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int strips, chunks, rows;
+    apply_grid(m, n, strips, chunks, rows);
+    float* pcol = static_cast<float*>(scratch);
+    float* o = static_cast<float*>(out);
+    apply_norm_kernel<AP_NS><<<dim3(strips, chunks), AP_THREADS, 0, stream>>>(
+        m, n, rows, static_cast<const float*>(g), static_cast<const float*>(ql),
+        static_cast<const float*>(qr), o, pcol);
+    return apply_tail(m, n, chunks, pcol, o, stream);
+}
+
+extern "C" int psgd_kron_apply_nd(int m, int n, const void* g, const void* ql, const void* r,
+                                  void* out, void* scratch, void* stream_ptr) {
+    // the GEMM's 1-D grid counts its 64x64 tiles in an int
+    if (m < 1 || n < 1 || (size_t)((m + 63) / 64) * ((n + 63) / 64) > (size_t)INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int strips, chunks, rows;
+    apply_grid(m, n, strips, chunks, rows);
+    float* pcol = static_cast<float*>(scratch);
+    float* pre = pcol + psgd_align4((size_t)chunks * n);
+    float* o = static_cast<float*>(out);
+    const float* q = static_cast<const float*>(ql);
+    const dim3 grid(strips, chunks);
+    apply_norm_kernel<AP_PRE><<<grid, AP_THREADS, 0, stream>>>(
+        m, n, rows, static_cast<const float*>(g), q, nullptr, pre, nullptr);
+    GemmBatch gb;
+    gb.count = 1;
+    gb.p[0] = gemm_prob(pre, 0, n, static_cast<const float*>(r), 0, n, o, m, n, n);
+    launch_gemms(gb, stream);
+    apply_norm_kernel<AP_ND><<<grid, AP_THREADS, 0, stream>>>(m, n, rows, o, q, nullptr, o, pcol);
+    return apply_tail(m, n, chunks, pcol, o, stream);
 }

@@ -112,30 +112,11 @@ def init(
 # (kron_dd.update_plain, kron_sparse.update_plain_*; kron_multi.PLAIN maps
 # each kind to its own), which take them for CPU tensors.
 
-_norm_matmul = kron_sparse.norm_matmul
-
-
-def _norm_t_matmul(ql, X):
-    """Ql^T @ X: diag mult + correction added to the last row."""
-    out = ql[0][:, None] * X
-    out[-1] += ql[1] @ X
-    return out
-
-
 def _apply_dd(Ql, Qr, G):
     # multiplication order chosen by shape to minimise FLOPs
     if G.shape[0] < G.shape[1]:
         return ((Ql.T @ Ql) @ G) @ (Qr.T @ Qr)
     return Ql.T @ (Ql @ (G @ (Qr.T @ Qr)))
-
-
-def _apply_nd(ql, Qr, G):
-    preG = _norm_matmul(ql, G)
-    if preG.shape[0] < preG.shape[1]:
-        preG = (preG @ Qr.T) @ Qr
-    else:
-        preG = preG @ (Qr.T @ Qr)
-    return _norm_t_matmul(ql, preG)
 
 
 def _apply_ds(Ql, qr, G):
@@ -146,11 +127,9 @@ def _apply_ds(Ql, qr, G):
     return preG * (qr * qr)[None, :]
 
 
-def _apply_ns(ql, qr, G):
-    return _norm_t_matmul(ql, _norm_matmul(ql, G) * (qr * qr)[None, :])
-
-
-_APPLY = {"dd": _apply_dd, "nd": _apply_nd, "ds": _apply_ds, "ns": _apply_ns}
+# the arrow-left applies' plain chains live beside K17's wrappers
+_APPLY = {"dd": _apply_dd, "nd": kron_sparse_big.apply_nd_plain, "ds": _apply_ds,
+          "ns": kron_sparse_big.apply_ns_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +263,8 @@ def route(fmt: tuple[Format, Format], shape: tuple[int, int], device: torch.devi
 
 def apply(state: KronState, G: torch.Tensor) -> torch.Tensor:
     """P G by plain torch for every pair (the JAX package leaves every
-    apply to XLA too)."""
+    apply to XLA too; its streamed arrow applies, K17/K18 here, are entry
+    points of their own, `kron_sparse_big.fused_apply_*`)."""
     kind, mirrored = _canon(state.fmt)
     if mirrored:
         return _APPLY[kind](state.qr, state.ql, G.T).T

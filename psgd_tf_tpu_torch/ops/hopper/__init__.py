@@ -2,9 +2,11 @@
 
 Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
 
-  - tri: exact upper-triangular inverse of a list of factors (K3).
+  - tri: exact upper-triangular inverse of a list of factors (K3), and
+    the blocked triangular solve (K19, `solve_triangular`).
   - kron_dd: the Kronecker factor update chain of `csrc/kron_dd.cu`;
     `fused_update` takes one (dense, dense) layer (K2),
+    `fused_update_multi` a (dense, dense) layer list (K20),
     `kron_sparse.fused_update_*` one sparse layer (K5),
     `kron_multi.fused_update_multi` a whole layer list of any kinds in one
     fixed chain of grouped launches (K1), and
@@ -13,7 +15,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
   - kron_sparse_big: the streaming (norm, scale) reductions (K6), their
     wide-lane kernel (K7/K8: one kernel counted under the JAX package's
     two routes), the streaming (norm, dense) chain (K9) and the streaming
-    (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`.
+    (dense, scale) chain (K10), `csrc/kron_sparse_big.cu`; and the
+    streamed applies of an arrow left factor, `fused_apply_ns`/`_nd`
+    (K17) and `fused_apply_ns_wide` (K18), which no path routes (as in the
+    JAX package).
   - dense_upd / dense_big: the dense family's rank-2 update, with the
     fused apply (K11 / K12: one streaming chain, `csrc/dense.cu`, counted
     under the JAX package's two routes).
@@ -52,7 +57,9 @@ import torch
 counts: dict[str, int] = {
     "tri": 0, "kron_dd": 0, "kron_dd_batched": 0, "kron_multi": 0, "kron_sparse": 0,
     "kron_sparse_big_ns": 0, "kron_sparse_big_ns_wide2": 0, "kron_sparse_big_ns_wide_xla": 0,
-    "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0,
+    "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0, "kron_sparse_big_apply_ns": 0,
+    "kron_sparse_big_apply_nd": 0, "kron_sparse_big_apply_ns_wide": 0, "tri_solve": 0,
+    "kron_dd_multi": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
     "lra_upd_sharded": 0, "splu_upd_sharded": 0,
 }

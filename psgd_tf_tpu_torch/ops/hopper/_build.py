@@ -66,6 +66,11 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
          _P, _P, _P, _P],
     ),
+    "psgd_kron_apply_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 3),
+    "psgd_kron_apply_ns": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
+    "psgd_kron_apply_nd": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
+    "psgd_tri_solve_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
+    "psgd_tri_solve": (ctypes.c_int, [ctypes.c_int] * 4 + [_P] * 5),
     "psgd_dense_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
     "psgd_dense_update": (
         ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P],

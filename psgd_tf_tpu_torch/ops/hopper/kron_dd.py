@@ -1,13 +1,15 @@
 """K1/K2/K4/K5 device chain: the Kronecker factor update of a layer list.
 
-Replaces `psgd_tf_tpu/ops/pallas/kron_dd.py` `fused_update` (:181) and
-`fused_update_batched` (:252). The CUDA chain in `csrc/kron_dd.cu` updates
-a whole list of layers of kinds dd/ds/nd/ns in a fixed chain of grouped
-launches (balance, K3, arrow pre-pass, grouped GEMMs, reductions, factor
-rewrites); `fused_update` here is its single (dense, dense) layer entry
-point (K2), `fused_update_batched` its stacked (dense, dense) bucket entry
-point (K4), `kron_sparse.fused_update_*` its single sparse layer entry
-points (K5), and `kron_multi.fused_update_multi` its list entry point (K1).
+Replaces `psgd_tf_tpu/ops/pallas/kron_dd.py` `fused_update` (:181),
+`fused_update_batched` (:252) and `fused_update_multi` (:424). The CUDA
+chain in `csrc/kron_dd.cu` updates a whole list of layers of kinds
+dd/ds/nd/ns in a fixed chain of grouped launches (balance, K3, arrow
+pre-pass, grouped GEMMs, reductions, factor rewrites); `fused_update` here
+is its single (dense, dense) layer entry point (K2), `fused_update_batched`
+its stacked (dense, dense) bucket entry point (K4), `fused_update_multi` its
+(dense, dense) list entry point (K20), `kron_sparse.fused_update_*` its
+single sparse layer entry points (K5), and `kron_multi.fused_update_multi`
+its list entry point of any kinds (K1).
 
 The plain versions follow `psgd_tf_tpu/groups/kron.py` `_update_dd`
 (:107-119) and `_update_dd_padded` (:541-561): triangular solves and plain
@@ -87,6 +89,18 @@ def launch(kinds, qls, qrs, dxs, dgs, step: float, counter: str):
     return new_qls, new_qrs
 
 
+def launch_chains(kinds, qls, qrs, dxs, dgs, step: float, counter: str):
+    """`launch` over a list of any length, `MAX_LAYERS` layers a chain, each
+    chain counted under `counter`; returns the lists of new factors."""
+    new_qls, new_qrs = [], []
+    for i in range(0, len(qls), MAX_LAYERS):
+        sl = slice(i, i + MAX_LAYERS)
+        nql, nqr = launch(list(kinds[sl]), qls[sl], qrs[sl], dxs[sl], dgs[sl], step, counter)
+        new_qls += nql
+        new_qrs += nqr
+    return new_qls, new_qrs
+
+
 def fused_update(ql, qr, dx, dg, step):
     """K2: one (dense, dense) layer update. The plain version for CPU
     tensors, the CUDA chain for CUDA tensors. `step` is a Python number."""
@@ -94,6 +108,20 @@ def fused_update(ql, qr, dx, dg, step):
         return update_plain(ql, qr, dx, dg, step)
     (new_ql,), (new_qr,) = launch(["dd"], [ql], [qr], [dx], [dg], step, "kron_dd")
     return new_ql, new_qr
+
+
+def fused_update_multi(qls, qrs, dxs, dgs, step):
+    """K20: (dense, dense) updates of a list of layers, as the JAX
+    package's dd-only `kron_dd.fused_update_multi` (:424, superseded there
+    by K1); returns the lists (new_qls, new_qrs). The per-layer plain
+    version for CPU tensors; for CUDA tensors K1's chain with every kind dd,
+    `MAX_LAYERS` layers a chain (JAX chunks its one launch by a VMEM budget,
+    `chunk_layers` :360), each chain counted under 'kron_dd_multi' with its
+    K3 step under 'tri'. `step` is a Python number."""
+    if not hopper.use_kernel(qls[0]):
+        pairs = [update_plain(*a, step) for a in zip(qls, qrs, dxs, dgs, strict=True)]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    return launch_chains(["dd"] * len(qls), qls, qrs, dxs, dgs, step, "kron_dd_multi")
 
 
 def update_batched_plain(ql, qr, dx, dg, ms, ns, step):

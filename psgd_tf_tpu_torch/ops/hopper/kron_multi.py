@@ -31,13 +31,6 @@ def fused_update_multi(kinds, qls, qrs, dxs, dgs, step):
             raise ValueError(f"kron_multi: unknown kind {k!r}")
     if not hopper.use_kernel(qls[0]):
         return [PLAIN[k](*a, step) for k, *a in zip(kinds, qls, qrs, dxs, dgs, strict=True)]
-    out = []
-    for i in range(0, len(qls), kron_dd.MAX_LAYERS):
-        sl = slice(i, i + kron_dd.MAX_LAYERS)
-        nql, nqr = kron_dd.launch(
-            list(kinds[sl]), qls[sl], qrs[sl],
-            [x.contiguous() for x in dxs[sl]], [g.contiguous() for g in dgs[sl]],
-            step, "kron_multi",
-        )
-        out += list(zip(nql, nqr))
-    return out
+    nql, nqr = kron_dd.launch_chains(kinds, qls, qrs, [x.contiguous() for x in dxs],
+                                     [g.contiguous() for g in dgs], step, "kron_multi")
+    return list(zip(nql, nqr))

@@ -41,6 +41,14 @@ def norm_matmul(ql, X):
     return ql[0][:, None] * X + torch.outer(ql[1], X[-1])
 
 
+def norm_t_matmul(ql, X):
+    """Ql^T @ X for the arrow factor: diag mult + correction added to the
+    last row."""
+    out = ql[0][:, None] * X
+    out[-1] += ql[1] @ X
+    return out
+
+
 def norm_inv_t_matmul(ql, X):
     """Ql^{-T} @ X by the closed-form arrow inverse: rows / diag, and the
     last row corrected by corr = sum_i w_i X_i, w_i = ql1_i / (ql0_i ql0_last)."""

@@ -1,5 +1,6 @@
 """K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker updates, for
-layers past `kron_sparse.fits` (embedding and vocabulary-sized probes).
+layers past `kron_sparse.fits` (embedding and vocabulary-sized probes); K17
+and K18: the streamed applies of an arrow left factor.
 
 Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
   - K6, `fused_update_ns` (:377 → `pallas_call` :412, `_kernel_ns_big`
@@ -21,12 +22,21 @@ Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
     :675): (dense, scale), m <= MAX_DENSE. The kernel part is A = Ql dG qr,
     Bt = Ql^{-T} dX / qr (by K3's exact inverse), the column gradient grad2
     and the Gram difference A A^T - Bt Bt^T summed over every column.
+  - K17, `fused_apply_ns` (:848) and `fused_apply_nd` (:928) →
+    `_apply_norm_call` (:807 → `pallas_call` :830, `_kernel_apply_norm`
+    :768), and K18, `fused_apply_ns_wide` (:893 → :912,
+    `_kernel_apply_ns_wide` :853): P G = Ql^T ((Ql G) R) in one pass over
+    G, R = diag(qr^2) or Qr^T Qr (a torch product here, as JAX forms it
+    outside its kernel). Unrouted, as in the JAX package: `groups/kron.apply`
+    keeps the plain chain for every pair, and these are entry points of
+    their own. One CUDA kernel serves K17's (norm, scale) case and K18,
+    unpadded; the (norm, dense) product runs in kron_dd.cu's grouped GEMM.
 
 What the JAX package leaves to XLA stays plain torch here: the balancing,
 the O(m + n) arrow tail (B_last and, for (norm, dense), its two triangular
 solves, the second dX matvec, `_norm_post`) and the (dense, scale) tail
-(triu, the step scales, grad1 @ Ql). Each returns what the JAX function
-returns: the balanced, updated factors. One difference, shared with K1/K2:
+(triu, the step scales, grad1 @ Ql). Each update returns what the JAX
+function returns: the balanced, updated factors. One difference, shared with K1/K2:
 the step scales saturate at the fp32 max (`linalg.step_scale`), so a zero
 gradient gives a zero update, not NaN.
 
@@ -40,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from psgd_tf_tpu_torch.ops import hopper, linalg
-from psgd_tf_tpu_torch.ops.hopper import _build
+from psgd_tf_tpu_torch.ops.hopper import _build, kron_sparse
 
 # the JAX package's routing caps (kron_sparse_big.py:60-76)
 MAX_LANES = 131072        # 1-D-grid (norm, scale) kernel: lanes padded to 128
@@ -296,3 +306,70 @@ def fused_update_ds(Ql, qr, dX, dG, step):
     step1 = linalg.step_scale(step, linalg.max_abs(grad1), Ql.dtype)
     step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
     return Ql_b - step1 * (grad1 @ Ql_b), qr_b - step2 * grad2 * qr_b
+
+
+# ------------------------------------------------------- the arrow applies
+
+def apply_ns_plain(ql, qr, G):
+    """(norm, scale) P G = Ql^T ((Ql G) diag(qr^2)), the XLA chain of the
+    JAX package (`groups/kron.py` `_apply_ns`): K17/K18's plain version."""
+    return kron_sparse.norm_t_matmul(ql, kron_sparse.norm_matmul(ql, G) * (qr * qr)[None, :])
+
+
+def apply_nd_plain(ql, Qr, G):
+    """(norm, dense) P G = Ql^T ((Ql G) Qr^T Qr), the XLA chain of the JAX
+    package (`groups/kron.py` `_apply_nd`, its product order by shape):
+    K17's plain version."""
+    preG = kron_sparse.norm_matmul(ql, G)
+    if preG.shape[0] < preG.shape[1]:
+        preG = (preG @ Qr.T) @ Qr
+    else:
+        preG = preG @ (Qr.T @ Qr)
+    return kron_sparse.norm_t_matmul(ql, preG)
+
+
+def _apply(kind, ql, q, G, counter):
+    """Launch the streamed apply (`csrc/kron_sparse_big.cu`) of kind 'ns'
+    (q = qr, (n,)) or 'nd' (q = R = Qr^T Qr, (n, n)) on CUDA tensors."""
+    m, n = G.shape
+    if ql.shape != (2, m) or q.shape != ((n,) if kind == "ns" else (n, n)):
+        raise ValueError(f"{counter}: shapes ql {tuple(ql.shape)}, "
+                         f"{'qr' if kind == 'ns' else 'R'} {tuple(q.shape)}, G {(m, n)} "
+                         "do not agree")
+    hopper.check_operands(counter, G, ql, q)
+    lib = _build.lib()
+    out = torch.empty_like(G)
+    scratch = torch.empty(lib.psgd_kron_apply_scratch_floats(m, n, int(kind == "nd")),
+                          dtype=torch.float32, device=G.device)
+    fn = lib.psgd_kron_apply_ns if kind == "ns" else lib.psgd_kron_apply_nd
+    rc = fn(m, n, G.data_ptr(), ql.data_ptr(), q.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(G.device).cuda_stream)
+    _build.check(rc, f"{counter} kernel")
+    hopper.counts[counter] += 1
+    return out
+
+
+def fused_apply_ns(ql, qr, G):
+    """K17: (norm, scale) P G in one streamed pass; ql (2, m), qr (n,),
+    G (m, n). The plain version for CPU tensors, the kernel for CUDA ones."""
+    if not hopper.use_kernel(G):
+        return apply_ns_plain(ql, qr, G)
+    return _apply("ns", ql, qr, G, "kron_sparse_big_apply_ns")
+
+
+def fused_apply_ns_wide(ql, qr, G):
+    """K18: the (norm, scale) P G for scale sides past MAX_LANES (any width
+    here): K17's kernel on a wider grid, G and the output unpadded."""
+    if not hopper.use_kernel(G):
+        return apply_ns_plain(ql, qr, G)
+    return _apply("ns", ql, qr, G, "kron_sparse_big_apply_ns_wide")
+
+
+def fused_apply_nd(ql, Qr, G):
+    """K17: (norm, dense) P G; ql (2, m), Qr (n, n) upper-triangular,
+    G (m, n). R = Qr^T Qr is one torch product (O(n^3), off the streaming
+    path, as JAX forms it outside its kernel); the kernel chain forms
+    preG = Ql G, Z = preG R in kron_dd.cu's grouped GEMM, and Ql^T Z."""
+    if not hopper.use_kernel(G):
+        return apply_nd_plain(ql, Qr, G)
+    return _apply("nd", ql, Qr.T @ Qr, G, "kron_sparse_big_apply_nd")

@@ -1,10 +1,18 @@
-"""K3: exact inverse of upper-triangular factors (`csrc/tri.cu`).
+"""K3: exact inverse of upper-triangular factors, and K19: the blocked
+triangular solve (`csrc/tri.cu`).
 
-Replaces `psgd_tf_tpu/ops/pallas/tri.py` `_newton_inv_batched` (:94). The
+K3 replaces `psgd_tf_tpu/ops/pallas/tri.py` `_newton_inv_batched` (:94). The
 Pallas routine inverts 128x128 diagonal blocks by a Newton chain because
 the TPU has no trsm; the CUDA kernel inverts each whole factor by blocked
 fp32 back-substitution, exact to fp32 rounding. One call inverts a whole
 list of factors in two launches.
+
+K19 replaces the same file's `solve_triangular` (:161 → `pallas_call` :185,
+`_solve_kernel` :123), which only the JAX package's tests call: K3's tile
+routine inverts the 32x32 diagonal tiles (read through an index map for
+the lower and transposed systems), then one block per 16-column panel of B
+substitutes block row by block row, in fp32. The JAX kernel's cap
+(n <= 768) is a VMEM limit and is not carried over: any n is taken.
 """
 from __future__ import annotations
 
@@ -49,3 +57,35 @@ def inverse_upper(us: list[torch.Tensor]) -> list[torch.Tensor]:
         hopper.counts["tri"] += 1
         out += xs
     return out
+
+
+def solve_triangular_plain(q: torch.Tensor, b: torch.Tensor, *, lower: bool = False,
+                           trans: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K19: X with (Q^T if trans else Q) X = B."""
+    m = q.T if trans else q
+    x = torch.linalg.solve_triangular(m, b[:, None] if b.ndim == 1 else b, upper=lower == trans)
+    return x[:, 0] if b.ndim == 1 else x
+
+
+def solve_triangular(q: torch.Tensor, b: torch.Tensor, *, lower: bool = False,
+                     trans: bool = False) -> torch.Tensor:
+    """K19: solves (Q^T if trans else Q) X = B for a triangular Q (n, n),
+    upper or lower, and B (n, nrhs) or (n,); returns X of B's rank. The
+    plain version for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if not hopper.use_kernel(q):
+        return solve_triangular_plain(q, b, lower=lower, trans=trans)
+    if q.ndim != 2 or q.shape[0] != q.shape[1] or b.ndim not in (1, 2) or len(b) != len(q):
+        raise ValueError(f"tri_solve: shapes Q {tuple(q.shape)}, B {tuple(b.shape)} do not agree")
+    n = q.shape[0]
+    b2 = (b[:, None] if b.ndim == 1 else b).contiguous()
+    hopper.check_operands("tri_solve", q, b2)
+    lib = _build.lib()
+    x = torch.empty_like(b2)
+    scratch = torch.empty(lib.psgd_tri_solve_scratch_floats(n), dtype=torch.float32,
+                          device=q.device)
+    rc = lib.psgd_tri_solve(n, b2.shape[1], int(lower), int(trans), q.data_ptr(), b2.data_ptr(),
+                            x.data_ptr(), scratch.data_ptr(),
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "tri_solve kernels")
+    hopper.counts["tri_solve"] += 1
+    return x[:, 0] if b.ndim == 1 else x

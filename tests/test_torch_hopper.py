@@ -12,7 +12,7 @@ import torch
 
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import (dense_big, dense_upd, kron_dd, kron_multi, kron_sparse,
-                                          lra_upd, splu_one, splu_upd, tri)
+                                          kron_sparse_big, lra_upd, splu_one, splu_upd, tri)
 
 torch.set_num_threads(1)
 
@@ -68,8 +68,9 @@ def test_kernel_sources_are_present():
     # the streaming file names every Pallas kernel of kron_sparse_big.py it ports
     text = (PKG / "csrc" / "kron_sparse_big.cu").read_text()
     for kernel in ["_kernel_ns_big", "_kernel_ns_wide2", "_kernel_ns_wide", "_kernel_nd_big",
-                   "_kernel_ds_big"]:
+                   "_kernel_ds_big", "_kernel_apply_norm", "_kernel_apply_ns_wide"]:
         assert f"`{kernel}`" in text, kernel
+    assert "`_solve_kernel`" in (PKG / "csrc" / "tri.cu").read_text()
 
 
 # --------------------------------------------------------------- on the card
@@ -306,6 +307,103 @@ def test_k7_k8_match_plain(cuda, fmt, shape, counter):
     assert arrow[1, -1].item() == 0.0
     again = kron.update(st, dx, dg, step=0.1)
     assert torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+
+
+@pytest.mark.parametrize("entry,fmt,shape", [
+    ("fused_apply_ns", ("norm", "scale"), (1030, 257)),
+    ("fused_apply_ns", ("norm", "scale"), (1, 70)),
+    ("fused_apply_ns", ("norm", "scale"), (4000, 5)),
+    ("fused_apply_ns_wide", ("norm", "scale"), (70, 140_000)),
+    ("fused_apply_nd", ("norm", "dense"), (900, 70)),
+    ("fused_apply_nd", ("norm", "dense"), (1500, 200)),
+    ("fused_apply_nd", ("norm", "dense"), (3, 65)),
+], ids=str)
+def test_k17_k18_match_plain(cuda, entry, fmt, shape):
+    """The streamed arrow applies at ragged shapes (partial strips and row
+    chunks, one row, many chunks) against their plain chains and
+    `kron.apply`; a second call repeats the first bit for bit."""
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    (st,), _, _ = _walked_states(g, [fmt], [shape], cuda)
+    G = torch.randn(shape, generator=g, device=cuda)
+    fn = getattr(kron_sparse_big, entry)
+    counter = {"fused_apply_ns": "kron_sparse_big_apply_ns",
+               "fused_apply_ns_wide": "kron_sparse_big_apply_ns_wide",
+               "fused_apply_nd": "kron_sparse_big_apply_nd"}[entry]
+    before = dict(hopper.counts)
+    got = fn(st.ql, st.qr, G)
+    torch.cuda.synchronize()
+    moved = {k for k in hopper.counts if hopper.counts[k] != before[k]}
+    assert moved == {counter} and hopper.counts[counter] == before[counter] + 1
+    with hopper.disabled():
+        ref = fn(st.ql, st.qr, G)
+    assert _rel(got, ref) < 1e-4
+    assert _rel(got, kron.apply(st, G)) < 1e-4
+    assert torch.equal(fn(st.ql, st.qr, G), got)
+
+
+@pytest.mark.parametrize("n,nrhs", [(1, 1), (257, 0), (300, 64), (1000, 33), (2048, 17)])
+@pytest.mark.parametrize("lower", [False, True])
+@pytest.mark.parametrize("trans", [False, True])
+def test_k19_matches_plain(cuda, n, nrhs, lower, trans):
+    """The blocked triangular solve in all four orientations, at ragged n
+    (a partial last tile) and nrhs (a partial panel), a 1-D b (nrhs 0) and
+    past the JAX kernel's cap, against `torch.linalg.solve_triangular`."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q = _triu_factor(g, n, cuda)
+    if lower:
+        q = q.T.contiguous()
+    b = torch.randn((n, nrhs) if nrhs else (n,), generator=g, device=cuda)
+    before = dict(hopper.counts)
+    got = tri.solve_triangular(q, b, lower=lower, trans=trans)
+    torch.cuda.synchronize()
+    moved = {k for k in hopper.counts if hopper.counts[k] != before[k]}
+    assert moved == {"tri_solve"} and hopper.counts["tri_solve"] == before["tri_solve"] + 1
+    ref = tri.solve_triangular_plain(q, b, lower=lower, trans=trans)
+    assert got.shape == b.shape and _rel(got, ref) < 1e-5
+
+
+def test_k20_is_k1_with_kind_dd(cuda):
+    """18 layers (two chains) through `kron_dd.fused_update_multi`: bit for
+    bit K1's result with every kind dd, and within 1e-4 of the per-layer
+    plain update."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    shapes = (LENET5 + [(1, 10), (300, 7), (33, 1)]) * 2 + [(64, 64)] * 2
+    qls, qrs, dxs, dgs = _walked(g, shapes, cuda, steps=2)
+    before = dict(hopper.counts)
+    got_qls, got_qrs = kron_dd.fused_update_multi(qls, qrs, dxs, dgs, 0.1)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == {"kron_dd_multi": 2, "tri": 2}
+    k1 = kron_multi.fused_update_multi(["dd"] * len(shapes), qls, qrs, dxs, dgs, 0.1)
+    with hopper.disabled():
+        ref_qls, ref_qrs = kron_dd.fused_update_multi(qls, qrs, dxs, dgs, 0.1)
+    for a, b, (c, d), ra, rb in zip(got_qls, got_qrs, k1, ref_qls, ref_qrs, strict=True):
+        assert torch.equal(a, c) and torch.equal(b, d)
+        assert _rel(a, ra) < 1e-4 and _rel(b, rb) < 1e-4
+
+
+def test_unrouted_entries_reject_and_count(cuda):
+    """A CUDA operand of another dtype raises (no quiet fallback); CPU
+    tensors take the plain versions and count no launch."""
+    ql = torch.stack([torch.ones(40), torch.zeros(40)])
+    qr, Qr, G = torch.ones(30), torch.eye(30), torch.randn(40, 30)
+    q, b = torch.eye(30), torch.randn(30, 4)
+    calls = [lambda d, t: kron_sparse_big.fused_apply_ns(ql.to(d, t), qr.to(d, t), G.to(d, t)),
+             lambda d, t: kron_sparse_big.fused_apply_ns_wide(ql.to(d, t), qr.to(d, t),
+                                                              G.to(d, t)),
+             lambda d, t: kron_sparse_big.fused_apply_nd(ql.to(d, t), Qr.to(d, t), G.to(d, t)),
+             lambda d, t: tri.solve_triangular(q.to(d, t), b.to(d, t)),
+             lambda d, t: kron_dd.fused_update_multi([q.to(d, t)], [Qr.to(d, t)],
+                                                     [G[:30].to(d, t)], [G[:30].to(d, t)], 0.1)]
+    for call in calls:
+        with pytest.raises(ValueError, match="float32"):
+            call(cuda, torch.float64)
+    before = dict(hopper.counts)
+    for call in calls:
+        call("cpu", torch.float32)
+    assert hopper.counts == before
 
 
 def test_auto_format_reference_nmt_step_launches_k9(cuda):
