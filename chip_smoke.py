@@ -12,6 +12,13 @@ package's batching crossover and at the side cap), then drives the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
+  - the sparse-LU family's fused apply entry (`splu_upd.fused_update(g=...)`,
+    the chain with g) and its one-launch kernel (`fused_update_apply_mono`,
+    one cooperative launch), which no optimizer routes, through their own
+    entry points at n = 400, 65,536, 100,003 and 2^20 (r = 10) and 100,003
+    at r = 1 and 32: each against the plain chain and the direct form
+    followed by `splu.apply`, mono against the chain bit for bit, timed
+    beside the routed pair (`splu.update_apply`) and the plain chain;
   - LeNet5 with five (dense, dense) Kronecker preconditioners, exact Hvp,
     batch 64, the `mnist_lenet5` hyperparameters, on procedural digits
     (K1 with kind dd, K3); then 20 steps of the same with a bf16 Kronecker
@@ -62,7 +69,9 @@ after:
     a tenth of its first (K15 for splu, K11 for dense, K13 for lra, K1 for
     kron, no kernel for diag, xmat and shift);
   - the sparse-LU family on the NMT model at the reference widths (rank
-    10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16);
+    10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16); then K16, the
+    fused apply entry and the one-launch kernel on that run's last state
+    and probes;
   - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
     group at n = 2^20, r = 10, pipelined off and on, against K13;
   - S2, two gloo ranks sharing the card (spawned; NCCL refuses two ranks
@@ -122,6 +131,10 @@ DENSE_RNN_STEPS = 50
 SPLU_K15 = [400, 1 << 16]        # the tensor decomposition's n, and bench.py:615
 SPLU_K16 = [100_003, 1 << 20]    # a ragged n past K15's cap, and bench.py:616
 SPLU_NMT_STEPS = 10
+# the fused apply entry and the one-launch kernel (phase 8c): K15's n,
+# bench.py's 65,536 and 2^20 and a ragged n at r = 10, then r = 1 and 32
+SPLU_APPLY = [(400, 10), (1 << 16, 10), (100_003, 10), (1 << 20, 10), (100_003, 1),
+              (100_003, 32)]
 K9_BENCH = (131072, 512)        # bench.py:678-683, the kron_nd row
 K9_MIRROR = (700, 1500)         # a (dense, norm) layer: K9 gets dX^T
 # (format, shape, counter): bench.py's kron_ns_wide row, a ragged mirrored
@@ -1105,6 +1118,88 @@ def main() -> int:
               f"max rel err {traj:.3e} (tol {TOL_TRAJ:.0e})", flush=True)
         check(traj < TOL_TRAJ, f"splu 20-step trajectory at n={n}")
 
+    # 8c. path: the sparse-LU fused apply entry (`splu_upd.fused_update(g=...)`,
+    #     the chain with g) and the one-launch kernel (`fused_update_apply_mono`,
+    #     one cooperative launch), which no optimizer routes (as in the JAX
+    #     package), through their own entry points at SPLU_APPLY; then each
+    #     against the plain chain and the direct form followed by `splu.apply`,
+    #     mono against the chain bit for bit, and the timings beside the routed
+    #     pair (`splu.update_apply`) and the plain chain
+    def hold_fused(st, v, h, gr, step, fused, mono):
+        """(max rel err, {name: max abs err}, mono equal to the chain bit for
+        bit, both repeat bit for bit, corner triangles exact) of the two
+        entries' outputs against the plain chain and the direct form + apply."""
+        with hopper.disabled():
+            plain = splu_upd.fused_update(*fields(st), v, h, step, g=gr)
+        direct = splu.update_plain(st, v, h, step)
+        direct = fields(direct) + (splu.apply(direct, gr),)
+        rel, errs, tri_ok = 0.0, {}, True
+        for name, got in (("splu_upd_apply", fused), ("splu_upd_mono", mono)):
+            rel = max([rel] + [_rel(a, b) for a, b in zip(got, plain)]
+                      + [_rel(a, b) for a, b in zip(got, direct)])
+            errs[name] = max(_abs(a, b) for a, b in zip(got, plain))
+            L1, U1 = got[0][:, :st.rank].T, got[2][:, :st.rank]
+            tri_ok &= torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+        bit = all(torch.equal(a, b) for a, b in zip(mono, fused, strict=True))
+        again = (splu_upd.fused_update(*fields(st), v, h, step, g=gr),
+                 splu_upd.fused_update_apply_mono(*fields(st), v, h, gr, step))
+        repeat = all(torch.equal(a, b) for got, rep in zip((fused, mono), again)
+                     for a, b in zip(got, rep))
+        return rel, errs, bit, repeat, tri_ok
+
+    def time_fused(st, v, h, gr, step, reps):
+        """ms per call of the fused entry, mono, the routed pair and the plain
+        chain, in turns plain, apply, mono, pair, pair, mono, apply, plain."""
+        fns = {"apply": lambda: splu_upd.fused_update(*fields(st), v, h, step, g=gr),
+               "mono": lambda: splu_upd.fused_update_apply_mono(*fields(st), v, h, gr, step),
+               "pair": lambda: splu.update_apply(st, v, h, gr, step)}
+        ms = {k: 0.0 for k in ("plain", *fns)}
+        for k in ("plain", "apply", "mono", "pair", "pair", "mono", "apply", "plain"):
+            if k == "plain":
+                with hopper.disabled():
+                    ms[k] += _time(torch, fns["apply"], reps) / 2
+            else:
+                ms[k] += _time(torch, fns[k], reps) / 2
+        return ms
+
+    g.manual_seed(83)
+    apply_in = [splu_case(n, r) for n, r in SPLU_APPLY]
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    apply_outs = [(splu_upd.fused_update(*fields(st), v, h, 0.05, g=gr),
+                   splu_upd.fused_update_apply_mono(*fields(st), v, h, gr, 0.05))
+                  for st, (v, h, gr) in apply_in]
+    torch.cuda.synchronize()
+    counts = dict(hopper.counts)
+    path_counts()
+    want = {"splu_upd_apply": len(SPLU_APPLY), "splu_upd_mono": len(SPLU_APPLY)}
+    print(f"splu fused apply and mono: {len(SPLU_APPLY)} cases {SPLU_APPLY}, launches "
+          f"{({k: c for k, c in counts.items() if c})}", flush=True)
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"splu fused apply and mono: launches {want} and no other")
+    apply_err = {"splu_upd_apply": 0.0, "splu_upd_mono": 0.0}
+    apply_times, apply_bounds = {}, {}
+    for (n, r), (st, (v, h, gr)), (fused, mono) in zip(SPLU_APPLY, apply_in, apply_outs):
+        rel, errs, bit, repeat, tri_ok = hold_fused(st, v, h, gr, 0.05, fused, mono)
+        for name in apply_err:
+            apply_err[name] = max(apply_err[name], errs[name])
+        check(rel < TOL_K1 and bit and repeat and tri_ok,
+              f"splu fused apply and mono vs plain at n={n} r={r}")
+        grid = splu_upd.mono_grid(n, r)
+        ms = time_fused(st, v, h, gr, 0.05, 20 if n > 10**5 else 100)
+        bound = _bound(*splu_work(n, r, apply=True))
+        if r == 10:
+            apply_times[n], apply_bounds[n] = ms, bound
+        print(f"splu fused apply and mono: n={n} r={r} max rel err {rel:.3e} (tol {TOL_K1:.0e}) "
+              f"against the plain chain and the direct form + apply, max abs err "
+              f"{max(errs.values()):.3e}; mono bit-equal to the chain {bit}, both repeat bit for "
+              f"bit {repeat}, corner triangles exact {tri_ok}; mono grid {grid['grid']} CTAs "
+              f"({grid['per_sm']} a SM x {grid['sms']} SMs, {grid['regs']} registers a thread); "
+              f"fused apply {ms['apply']:.4f} ms, mono {ms['mono']:.4f} ms, routed pair "
+              f"({splu.route(r, n, dev)} + apply) {ms['pair']:.4f} ms, plain chain "
+              f"{ms['plain']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    del apply_in, apply_outs
+
     # 9. path: LeNet5, exact Hvp, batch 64
     g.manual_seed(9)
     params = lenet5.init(g)
@@ -1669,7 +1764,7 @@ def main() -> int:
     splu_update_apply = splu.update_apply
 
     def keep_last(state, v, h, g, step=0.01):
-        seen.update(state=state, v=v, h=h, step=step)
+        seen.update(state=state, v=v, h=h, g=g, step=step)
         return splu_update_apply(state, v, h, g, step)
 
     def nmt_splu_run():
@@ -1703,10 +1798,12 @@ def main() -> int:
     print(f"nmt ref splu: n={n_nmt}, route {splu.route(10, n_nmt, dev)}, {SPLU_NMT_STEPS} steps, "
           f"launches {({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
           f"{losses[-1].item():.4f}, {splu_rate:.2f} steps/s with kernels", flush=True)
-    check(splu.route(10, n_nmt, dev) == "splu_upd" and counts["splu_upd"] == SPLU_NMT_STEPS,
-          "NMT reference splu: one K16 launch per step")
+    check(splu.route(10, n_nmt, dev) == "splu_upd" and counts["splu_upd"] == SPLU_NMT_STEPS
+          and counts["splu_upd_apply"] == counts["splu_upd_mono"] == 0,
+          "NMT reference splu: one K16 launch per step, no fused apply, no mono")
     check(bool(torch.isfinite(losses).all()), "NMT reference splu: finite losses")
     st, v, h, step = seen.pop("state"), seen.pop("v"), seen.pop("h"), seen.pop("step")
+    gk = seen.pop("g")
     got = splu_upd.fused_update(*fields(st), v, h, step)
     torch.cuda.synchronize()
     with hopper.disabled():
@@ -1722,7 +1819,27 @@ def main() -> int:
           f"(tol {TOL_K1:.0e}) against the plain chain and the direct form, corner triangles "
           f"exact: {tri_ok}", flush=True)
     check(rel < TOL_K1 and tri_ok, f"splu_upd vs plain at n={n_nmt}")
-    del st, v, h, got, pairs
+    del got, pairs
+    fused = splu_upd.fused_update(*fields(st), v, h, step, g=gk)
+    mono = splu_upd.fused_update_apply_mono(*fields(st), v, h, gk, step)
+    torch.cuda.synchronize()
+    rel, errs, bit, repeat, tri_ok = hold_fused(st, v, h, gk, step, fused, mono)
+    del fused, mono
+    for name in apply_err:
+        apply_err[name] = max(apply_err[name], errs[name])
+    check(rel < TOL_K1 and bit and repeat and tri_ok,
+          f"splu fused apply and mono vs plain at n={n_nmt}")
+    grid = splu_upd.mono_grid(n_nmt, 10)
+    ms = time_fused(st, v, h, gk, step, 5)
+    bound = _bound(*splu_work(n_nmt, apply=True))
+    print(f"splu fused apply and mono: n={n_nmt} r=10, the path's last state and probes, max rel "
+          f"err {rel:.3e} (tol {TOL_K1:.0e}), max abs err {max(errs.values()):.3e}; mono "
+          f"bit-equal to the chain {bit}, both repeat bit for bit {repeat}, corner triangles "
+          f"exact {tri_ok}; mono grid {grid['grid']} CTAs ({grid['per_sm']} a SM); fused apply "
+          f"{ms['apply']:.4f} ms, mono {ms['mono']:.4f} ms, routed pair (K16 + apply) "
+          f"{ms['pair']:.4f} ms, plain chain {ms['plain']:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]})", flush=True)
+    del st, v, h, gk
     with hopper.disabled():
         _, plain_losses, _, splu_plain_rate = nmt_splu_run()
     loss_rel = _rel(losses, plain_losses)
@@ -1854,7 +1971,7 @@ def main() -> int:
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd",
                  "lra_upd_sharded", "splu_upd_sharded", "kron_sparse_big_apply_ns",
                  "kron_sparse_big_apply_nd", "kron_sparse_big_apply_ns_wide", "tri_solve",
-                 "kron_dd_multi"):
+                 "kron_dd_multi", "splu_upd_apply", "splu_upd_mono"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -1918,6 +2035,12 @@ def main() -> int:
         entry("kron_dd_multi", "kron_dd.cu", "kron_dd.py:424", multi_err, multi["ms"],
               multi["plain_ms"], multi["bound"]),
     ]
+    n_apply = SPLU_K16[-1]  # bench.py's 2^20, as the splu_upd row
+    kernels += [entry(name, "splu.cu", f"splu_upd.py:{line}", apply_err[name],
+                      apply_times[n_apply][key], apply_times[n_apply]["plain"],
+                      apply_bounds[n_apply])
+                for name, line, key in [("splu_upd_apply", 814, "apply"),
+                                        ("splu_upd_mono", 582, "mono")]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@
 // does the update and P' g in one launch, and psgd_tf_tpu/ops/pallas/
 // splu_upd.py `_update_impl` (:636), its routed pallas_calls at :686
 // (`_stage1_kernel`), :749 (`_stage2_kernel`) and :787 (`_stage3_kernel`),
-// with the corner algebra between them in jnp. Q = L U with
+// with the corner algebra between them in jnp, and with g its fused apply's
+// pallas_calls at :814 (`_stage3_apply_kernel` :258) and :843
+// (`_stage4_apply_kernel` :287), reached through `fused_update(g=...)`
+// (:913) and `fused_update_stream(g=...)` (:861). Q = L U with
 //   L = [L1 0; L2 diag(l3)], U = [U1 U2; 0 diag(u3)],
 // stored rank-major at its logical shapes: Lt (r, n) = [L1^T | L2^T],
 // U12 (r, n) = [U1 | U2], l3 and u3 (nt,), nt = n - r. Tail lane j is
@@ -33,8 +36,10 @@
 //   reduce, corner C, stage 4 (with g): P' g of the updated state.
 // The balance rescales L by 1/rho and U by rho; Q, the probe images and the
 // step scales do not change, so it folds into the outputs (JAX :765-784).
-// K16 is stages 1-3, K15 the whole chain (ops/hopper/splu_upd.py,
-// splu_one.py). No float atomics: a run repeats itself bit for bit. The
+// K16 is stages 1-3, K15 and the fused apply entry the whole chain
+// (ops/hopper/splu_upd.py, splu_one.py); the one-launch kernel runs the same
+// stage and corner bodies in one cooperative launch (its note is below the
+// host side's helpers). No float atomics: a run repeats itself bit for bit. The
 // sharded K16 (JAX splu_upd.py `fused_update(mesh=...)` :914) is the same
 // kernels behind four entry points, split at the three reductions that the
 // host all-reduces over the ranks holding the tail's other lanes (the end
@@ -45,10 +50,12 @@
 // (4rn + 10n) floats, 13 MB (3.9 us at 3.35 TB/s) at n = 65,536, r = 10;
 // the update alone (4rn + 6n), 193 MB (58 us) at 2^20. This version reads
 // the tail factors in stages 1, 2 and 3 (and the new ones in stage 4): ~2x
-// that, and the Gram sums read shared memory twice per FMA. At small n the ten short launches bound it. Ranks up to
-// SPLU_MAX_RANK: a warp holds a rank-space vector.
+// that, and the Gram sums read shared memory twice per FMA. At small n the
+// chain's short launches (six for the update, nine with g) bound it. Ranks
+// up to SPLU_MAX_RANK: a warp holds a rank-space vector.
 #include "psgd.cuh"
 
+#include <cooperative_groups.h>
 #include <cfloat>
 #include <cmath>
 
@@ -172,10 +179,9 @@ __device__ __forceinline__ void splu_add_pairs(const float* zs, const SpluPairs<
     }
 }
 
+// this thread's sums into the block's row `out` of the partials
 template <int PPT>
-__device__ __forceinline__ void splu_store_pairs(const SpluPairs<PPT>& P, const float* acc, int npairs,
-                                                 float* part) {
-    float* out = part + (size_t)blockIdx.x * npairs;
+__device__ __forceinline__ void splu_store_pairs(const SpluPairs<PPT>& P, const float* acc, float* out) {
     for (int k = 0; k < P.count; ++k) out[(int)threadIdx.x + k * SPLU_TILE] = acc[k];
 }
 
@@ -191,15 +197,20 @@ __device__ __forceinline__ float splu_block_max(float v, float* red) {
 }
 
 // ------------------------------------------------------------------ stage 1
+// Each streaming stage is a body for one block b of a grid of nblk: the
+// tiles b, b + nblk, ... of the tail, its partials in row b of the
+// scratch. A chain kernel runs block blockIdx.x of gridDim.x; the one-launch
+// kernel (the end of this file) walks the same blocks with fewer CTAs, so
+// both compute the same partials in the same order.
 
-// max l3, max u3 over the tail lanes below nvalid alone: the lanes past it
-// are the 1-padding of a sharded tail (JAX splu_upd.py:928-944)
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
-    int n, int r, int nvalid, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, float* __restrict__ part, float* __restrict__ maxpart) {
-    extern __shared__ float zs[];
-    __shared__ float red[SPLU_TILE / 32];
+// Block b of stage 1: its partial Gram (row b of part) and max l3, max u3
+// (maxpart[2b], [2b + 1]) over the tail lanes below nvalid alone: the lanes
+// past it are the 1-padding of a sharded tail (JAX splu_upd.py:928-944).
+// zs holds (3r + 3) rows of SPLU_TILE + 1 floats, red SPLU_TILE / 32.
+__device__ void splu_stage1_block(int b, int nblk, int n, int r, int nvalid, const float* lt,
+                                  const float* l3, const float* u12, const float* u3,
+                                  const float* v, const float* h, float* part, float* maxpart,
+                                  float* zs, float* red) {
     const int nt = n - r, npairs = splu_npairs1(r), t = threadIdx.x, ld = SPLU_TILE + 1;
     SpluPairs<SPLU_PPT1> P;
     splu_my_pairs(1, r, npairs, P);
@@ -207,7 +218,7 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
 #pragma unroll
     for (int k = 0; k < SPLU_PPT1; ++k) acc[k] = 0.f;
     float ml = splu_neg_inf(), mu = splu_neg_inf();
-    for (int base = blockIdx.x * SPLU_TILE; base < nt; base += gridDim.x * SPLU_TILE) {
+    for (int base = b * SPLU_TILE; base < nt; base += nblk * SPLU_TILE) {
         const int j = base + t;
         const bool ok = j < nt;
         float w = 0.f, x = 0.f, d = 0.f, lud = 0.f;
@@ -236,22 +247,30 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
         splu_add_pairs(zs, P, acc);
         __syncthreads();
     }
-    splu_store_pairs(P, acc, npairs, part);
+    splu_store_pairs(P, acc, part + (size_t)b * npairs);
     ml = splu_block_max(ml, red);
     mu = splu_block_max(mu, red);
     if (t == 0) {
-        maxpart[2 * blockIdx.x] = ml;
-        maxpart[2 * blockIdx.x + 1] = mu;
+        maxpart[2 * b] = ml;
+        maxpart[2 * b + 1] = mu;
     }
 }
 
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
+    int n, int r, int nvalid, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, float* __restrict__ part, float* __restrict__ maxpart) {
+    extern __shared__ float zs[];
+    __shared__ float red[SPLU_TILE / 32];
+    splu_stage1_block(blockIdx.x, gridDim.x, n, r, nvalid, lt, l3, u12, u3, v, h, part, maxpart,
+                      zs, red);
+}
+
 // gram[a, b] = gram[b, a] = the sum over blocks, in block order, of pair
-// e = (a, b); one warp a pair
-__global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int zdim, int npairs,
-                                                          int blocks, const float* __restrict__ part,
-                                                          float* __restrict__ gram) {
-    const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-    if (e >= npairs) return;  // uniform across the warp
+// e = (a, b); called by one whole warp
+__device__ void splu_reduce_pair(int which, int r, int zdim, int npairs, int blocks, int e,
+                                 const float* part, float* gram) {
+    const int lane = threadIdx.x & 31;
     float s = 0.f;
     for (int k = lane; k < blocks; k += 32) s += part[(size_t)k * npairs + e];
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
@@ -261,6 +280,15 @@ __global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int 
         gram[a * zdim + b] = s;
         gram[b * zdim + a] = s;
     }
+}
+
+// one warp a pair
+__global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int zdim, int npairs,
+                                                          int blocks, const float* __restrict__ part,
+                                                          float* __restrict__ gram) {
+    const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    if (e >= npairs) return;  // uniform across the warp
+    splu_reduce_pair(which, r, zdim, npairs, blocks, e, part, gram);
 }
 
 // out[w] = the max over blocks of maxpart[2 b + w], w = 0, 1; one warp
@@ -283,7 +311,16 @@ __global__ void __launch_bounds__(32) splu_maxfold_kernel(int blocks, float init
 }
 
 // ------------------------------------------------------------ corner kernels
-// One warp; lane k holds entry k of every rank-space vector (0 past r).
+// One warp; lane k holds entry k of every rank-space vector (0 past r). Each
+// corner body takes its shared arrays from a workspace `ws` (a static array
+// in its chain kernel, the dynamic buffer in the one-launch kernel) and
+// synchronises with __syncwarp alone.
+
+typedef float SpluSq[SPLU_LD];  // a row of an r x r corner block in shared memory
+#define SPLU_SQ (SPLU_MAX_RANK * SPLU_LD)
+#define SPLU_CORNER_A (5 * SPLU_SQ + 7 * 32)
+#define SPLU_CORNER_B (2 * SPLU_SQ + 7 * 32)
+#define SPLU_CORNER_C (3 * SPLU_SQ + 32)
 
 // y_k = sum_j M(k, j) x_j, M = A or A^T (trans); x shared through buf
 __device__ float splu_mv(const float (*A)[SPLU_LD], bool trans, float x, int r, float* buf) {
@@ -329,14 +366,15 @@ __device__ void splu_load_corner(int n, int r, const float* lt, const float* u12
     __syncwarp();
 }
 
-__global__ void __launch_bounds__(32) splu_corner_a_kernel(
-    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
-    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
-    const float* __restrict__ maxpart, SpluRank* __restrict__ rk) {
-    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD];
-    __shared__ float GLW[SPLU_MAX_RANK][SPLU_LD], GLL[SPLU_MAX_RANK][SPLU_LD],
-        GWW[SPLU_MAX_RANK][SPLU_LD];
-    __shared__ float buf[32], vq[32], viq[32], vpg[32], vdg[32], vdx[32], vipx[32];
+// ws: SPLU_CORNER_A floats
+__device__ void splu_corner_a(int n, int r, int blocks, const float* lt, const float* u12,
+                              const float* v, const float* h, const float* gram,
+                              const float* maxpart, SpluRank* rk, float* ws) {
+    SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK;
+    SpluSq *GLW = U1 + SPLU_MAX_RANK, *GLL = GLW + SPLU_MAX_RANK, *GWW = GLL + SPLU_MAX_RANK;
+    float* buf = ws + 5 * SPLU_SQ;
+    float *vq = buf + 32, *viq = vq + 32, *vpg = viq + 32, *vdg = vpg + 32, *vdx = vdg + 32,
+          *vipx = vdx + 32;
     const int k = threadIdx.x, zdim = 3 * r + 3;
     const bool on = k < r;
     splu_load_corner(n, r, lt, u12, L1, U1);
@@ -411,7 +449,21 @@ __global__ void __launch_bounds__(32) splu_corner_a_kernel(
     }
 }
 
+__global__ void __launch_bounds__(32) splu_corner_a_kernel(
+    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
+    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
+    const float* __restrict__ maxpart, SpluRank* __restrict__ rk) {
+    __shared__ float ws[SPLU_CORNER_A];
+    splu_corner_a(n, r, blocks, lt, u12, v, h, gram, maxpart, rk, ws);
+}
+
 // ------------------------------------------------------------------ stage 2
+
+// c[k][q] = src[k][q] for the r rows, by the block's SPLU_TILE threads (no barrier)
+template <int W>
+__device__ void splu_load_coef(float (*c)[W], const float (*src)[W], int r) {
+    for (int e = threadIdx.x; e < r * W; e += SPLU_TILE) c[e / W][e % W] = src[e / W][e % W];
+}
 
 __device__ __forceinline__ void splu_images(int n, int r, int j, const float* __restrict__ lt,
                                             const float* __restrict__ u12, float lu, float w,
@@ -432,18 +484,15 @@ __device__ __forceinline__ void splu_images(int n, int r, int j, const float* __
     ipx2 = w * (iqtx2 - p3);
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const SpluRank* __restrict__ rk, float* __restrict__ maxpart) {
-    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
-    __shared__ float red[SPLU_TILE / 32];
-    for (int e = threadIdx.x; e < r * SPLU_NCOEF; e += SPLU_TILE) c[e / SPLU_NCOEF][e % SPLU_NCOEF] =
-        rk->coef2[e / SPLU_NCOEF][e % SPLU_NCOEF];
-    __syncthreads();
+// Block b of stage 2: max(|gl2|, |gl3|), max(|gu2|, |gu3|) over its lanes
+// into maxpart[2b], [2b + 1]; c = coef2 in shared memory
+__device__ void splu_stage2_block(int b, int nblk, int n, int r, const float* lt, const float* l3,
+                                  const float* u12, const float* u3, const float* v,
+                                  const float* h, const float (*c)[SPLU_NCOEF], float* maxpart,
+                                  float* red) {
     const int nt = n - r;
     float ml = 0.f, mu = 0.f;
-    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt; j += gridDim.x * SPLU_TILE) {
+    for (int j = b * SPLU_TILE + threadIdx.x; j < nt; j += nblk * SPLU_TILE) {
         const float lu = l3[j] * u3[j], w = 1.f / lu, dx = v[r + j], dg = h[r + j];
         float qg2, iqtx2, pg2, ipx2;
         splu_images(n, r, j, lt, u12, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
@@ -457,19 +506,32 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(
     ml = splu_block_max(ml, red);
     mu = splu_block_max(mu, red);
     if (threadIdx.x == 0) {
-        maxpart[2 * blockIdx.x] = ml;
-        maxpart[2 * blockIdx.x + 1] = mu;
+        maxpart[2 * b] = ml;
+        maxpart[2 * b + 1] = mu;
     }
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const SpluRank* __restrict__ rk, float* __restrict__ maxpart) {
+    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
+    __shared__ float red[SPLU_TILE / 32];
+    splu_load_coef(c, rk->coef2, r);
+    __syncthreads();
+    splu_stage2_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, c, maxpart, red);
 }
 
 // ----------------------------------------------------------------- corner B
 
-__global__ void __launch_bounds__(32) splu_corner_b_kernel(
-    int n, int r, int blocks, float step, const float* __restrict__ lt,
-    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
-    SpluRank* __restrict__ rk, float* __restrict__ lt_out, float* __restrict__ u12_out) {
-    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD];
-    __shared__ float buf[32], vq[32], viq[32], vpg[32], vdg[32], vdx[32], vipx[32];
+// ws: SPLU_CORNER_B floats
+__device__ void splu_corner_b(int n, int r, int blocks, float step, const float* lt,
+                              const float* u12, const float* h, const float* maxpart, SpluRank* rk,
+                              float* lt_out, float* u12_out, float* ws) {
+    SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK;
+    float* buf = ws + 2 * SPLU_SQ;
+    float *vq = buf + 32, *viq = vq + 32, *vpg = viq + 32, *vdg = vpg + 32, *vdx = vdg + 32,
+          *vipx = vdx + 32;
     const int k = threadIdx.x;
     const bool on = k < r;
     splu_load_corner(n, r, lt, u12, L1, U1);
@@ -537,28 +599,33 @@ __global__ void __launch_bounds__(32) splu_corner_b_kernel(
     }
 }
 
+__global__ void __launch_bounds__(32) splu_corner_b_kernel(
+    int n, int r, int blocks, float step, const float* __restrict__ lt,
+    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
+    SpluRank* __restrict__ rk, float* __restrict__ lt_out, float* __restrict__ u12_out) {
+    __shared__ float ws[SPLU_CORNER_B];
+    splu_corner_b(n, r, blocks, step, lt, u12, h, maxpart, rk, lt_out, u12_out, ws);
+}
+
 // ------------------------------------------------------------------ stage 3
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const float* __restrict__ g, const SpluRank* __restrict__ rk,
-    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
-    float* __restrict__ u3_out, float* __restrict__ part) {
-    extern __shared__ float zs[];
-    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
+// Block b of stage 3: the new tail of its lanes; with g also its partial
+// apply Gram (row b of part). c = coef3 in shared memory, zs (2r + 2) rows
+// of SPLU_TILE + 1 floats.
+__device__ void splu_stage3_block(int b, int nblk, int n, int r, const float* lt, const float* l3,
+                                  const float* u12, const float* u3, const float* v,
+                                  const float* h, const float* g, const float (*c)[SPLU_NCOEF],
+                                  float sl, float su, float inv_rho, float rho, float* lt_out,
+                                  float* l3_out, float* u12_out, float* u3_out, float* part,
+                                  float* zs) {
     const int t = threadIdx.x, nt = n - r, ld = SPLU_TILE + 1, npairs = splu_npairs2(r);
-    for (int e = t; e < r * SPLU_NCOEF; e += SPLU_TILE) c[e / SPLU_NCOEF][e % SPLU_NCOEF] =
-        rk->coef3[e / SPLU_NCOEF][e % SPLU_NCOEF];
-    const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
     SpluPairs<SPLU_PPT2> P;
     P.count = 0;
     if (g) splu_my_pairs(2, r, npairs, P);
     float acc[SPLU_PPT2];
 #pragma unroll
     for (int k = 0; k < SPLU_PPT2; ++k) acc[k] = 0.f;
-    __syncthreads();
-    for (int base = blockIdx.x * SPLU_TILE; base < nt; base += gridDim.x * SPLU_TILE) {
+    for (int base = b * SPLU_TILE; base < nt; base += nblk * SPLU_TILE) {
         const int j = base + t;
         if (j < nt) {
             const float l = l3[j], u = u3[j], lu = l * u, w = 1.f / lu, dx = v[r + j], dg = h[r + j];
@@ -594,18 +661,32 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage3_kernel(
             __syncthreads();
         }
     }
-    if (g) splu_store_pairs(P, acc, npairs, part);
+    if (g) splu_store_pairs(P, acc, part + (size_t)b * npairs);
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const float* __restrict__ g, const SpluRank* __restrict__ rk,
+    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
+    float* __restrict__ u3_out, float* __restrict__ part) {
+    extern __shared__ float zs[];
+    __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
+    splu_load_coef(c, rk->coef3, r);
+    __syncthreads();
+    splu_stage3_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, g, c, rk->scal[0],
+                      rk->scal[1], rk->scal[2], rk->scal[3], lt_out, l3_out, u12_out, u3_out, part,
+                      zs);
 }
 
 // ------------------------------------------------------- corner C, stage 4
 
-__global__ void __launch_bounds__(32) splu_corner_c_kernel(
-    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
-    const float* __restrict__ g, const float* __restrict__ gram2, SpluRank* __restrict__ rk,
-    float* __restrict__ pre) {
-    __shared__ float L1[SPLU_MAX_RANK][SPLU_LD], U1[SPLU_MAX_RANK][SPLU_LD],
-        GLL[SPLU_MAX_RANK][SPLU_LD];
-    __shared__ float buf[32];
+// ws: SPLU_CORNER_C floats
+__device__ void splu_corner_c(int n, int r, const float* lt_out, const float* u12_out,
+                              const float* g, const float* gram2, SpluRank* rk, float* pre,
+                              float* ws) {
+    SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK, *GLL = U1 + SPLU_MAX_RANK;
+    float* buf = ws + 3 * SPLU_SQ;
     const int k = threadIdx.x, zdim = 2 * r + 2;
     const bool on = k < r;
     splu_load_corner(n, r, lt_out, u12_out, L1, U1);
@@ -625,15 +706,19 @@ __global__ void __launch_bounds__(32) splu_corner_c_kernel(
     }
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
-    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ l3_out,
-    const float* __restrict__ u12_out, const float* __restrict__ u3_out,
-    const float* __restrict__ g, const SpluRank* __restrict__ rk, float* __restrict__ pre) {
-    __shared__ float c[SPLU_MAX_RANK][2];
-    for (int e = threadIdx.x; e < 2 * r; e += SPLU_TILE) c[e / 2][e % 2] = rk->coef4[e / 2][e % 2];
-    __syncthreads();
-    const int j = blockIdx.x * SPLU_TILE + threadIdx.x;
-    if (j >= n - r) return;
+__global__ void __launch_bounds__(32) splu_corner_c_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
+    const float* __restrict__ g, const float* __restrict__ gram2, SpluRank* __restrict__ rk,
+    float* __restrict__ pre) {
+    __shared__ float ws[SPLU_CORNER_C];
+    splu_corner_c(n, r, lt_out, u12_out, g, gram2, rk, pre, ws);
+}
+
+// tail lane j of P' g: U2'^T LtQg1' + l3' u3' (L2' Ug1' + l3' u3' g2); c = coef4
+__device__ __forceinline__ void splu_stage4_lane(int j, int n, int r, const float (*c)[2],
+                                                 const float* lt_out, const float* l3_out,
+                                                 const float* u12_out, const float* u3_out,
+                                                 const float* g, float* pre) {
     float a = 0.f, b = 0.f;
     for (int k = 0; k < r; ++k) {
         const size_t off = (size_t)k * n + r + j;
@@ -644,22 +729,22 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
     pre[r + j] = b + lu * (a + lu * g[r + j]);
 }
 
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ l3_out,
+    const float* __restrict__ u12_out, const float* __restrict__ u3_out,
+    const float* __restrict__ g, const SpluRank* __restrict__ rk, float* __restrict__ pre) {
+    __shared__ float c[SPLU_MAX_RANK][2];
+    splu_load_coef(c, rk->coef4, r);
+    __syncthreads();
+    const int j = blockIdx.x * SPLU_TILE + threadIdx.x;
+    if (j >= n - r) return;
+    splu_stage4_lane(j, n, r, c, lt_out, l3_out, u12_out, u3_out, g, pre);
+}
+
 // ------------------------------------------------------------------ host side
 
 static size_t splu_smem1(int r) { return sizeof(float) * (size_t)(3 * r + 3) * (SPLU_TILE + 1); }
 static size_t splu_smem3(int r) { return sizeof(float) * (size_t)(2 * r + 2) * (SPLU_TILE + 1); }
-
-static cudaError_t splu_smem_attrs() {
-    static bool done = false;
-    if (done) return cudaSuccess;
-    cudaError_t e = cudaFuncSetAttribute(splu_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)splu_smem1(SPLU_MAX_RANK));
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(splu_stage3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)splu_smem3(SPLU_MAX_RANK));
-    done = e == cudaSuccess;
-    return e;
-}
 
 static int splu_blocks(int nt) {
     const int tiles = (nt + SPLU_TILE - 1) / SPLU_TILE;
@@ -685,6 +770,115 @@ static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
         off += psgd_align4(sizes[k]);
     }
     return off;
+}
+
+// ------------------------------------------------- the one-launch schedule
+// Replaces psgd_tf_tpu/ops/pallas/splu_upd.py `fused_update_apply_mono`
+// (:533) → its pallas_call (:582, `_mono_kernel` :301): the whole update and
+// P' g in one launch. The TPU kernel is a sequential grid of 4 nb steps that
+// sweeps the tail four times, with the corner algebra at the steps nb, 2 nb
+// and 3 nb; its stage 4 recomputes the new tail because its output blocks
+// are not yet written back. Here it is one cooperative launch of a resident
+// grid (cudaLaunchCooperativeKernel): each CTA walks the chain's blocks
+// b = blockIdx.x, blockIdx.x + gridDim.x, ... < splu_blocks(nt) and runs the
+// chain's own block bodies, so every partial Gram row and every maximum is
+// the chain's; a grid-wide barrier (cg::this_grid().sync()) stands at each
+// of the chain's launch boundaries, where warp 0 of CTA 0 runs the corner
+// bodies (with __syncwarp alone) and the other threads wait at the next
+// barrier. Stage 4 reads the new tail that stage 3 wrote, visible after the
+// barrier. The result equals the chain's (`psgd_splu_update` with g) bit for
+// bit at every n and r.
+//
+// What bounds it: the same bytes as the chain's update + apply
+// (chip_smoke.splu_work(n, apply=True)): memory at large n, latency at
+// small n. The design trades the chain's nine launches for one and eight
+// grid barriers; one kernel holds every stage, so its registers and dynamic
+// shared memory are those of the largest (stage 1's (3r + 3) x 257 floats,
+// 102 KB at r = 32), which sets how many CTAs a SM holds. The grid is
+// min(splu_blocks(nt), SMs x that occupancy): grid.sync() needs every CTA
+// resident, and a launch the card refuses is returned, never replaced.
+
+#define SPLU_MONO_HEAD (SPLU_MAX_RANK * SPLU_NCOEF + 32)  // the coefficients, the block max
+
+struct SpluMono {
+    int n, r, blocks;
+    float step;
+    const float *lt, *l3, *u12, *u3, *v, *h, *g;
+    float *lt_out, *l3_out, *u12_out, *u3_out, *pre;
+    SpluScratch s;
+};
+
+static size_t splu_smem_mono(int r) {
+    const size_t zs = (size_t)(3 * r + 3) * (SPLU_TILE + 1);
+    return sizeof(float) * (SPLU_MONO_HEAD + (zs > SPLU_CORNER_A ? zs : SPLU_CORNER_A));
+}
+
+// Every thread of the grid runs every line here: the barriers are reached by
+// all, and only the corner bodies sit behind a branch (warp 0 of CTA 0).
+// Buffers written inside the launch are read through plain pointers (no
+// __restrict__, no read-only cache).
+__global__ void __launch_bounds__(SPLU_TILE) splu_mono_kernel(SpluMono a) {
+    namespace cg = cooperative_groups;
+    extern __shared__ float sm[];
+    float(*c)[SPLU_NCOEF] = reinterpret_cast<float(*)[SPLU_NCOEF]>(sm);
+    float* red = sm + SPLU_MAX_RANK * SPLU_NCOEF;
+    float* work = sm + SPLU_MONO_HEAD;  // a stage's tile, or a corner's workspace
+    cg::grid_group grid = cg::this_grid();
+    const int n = a.n, r = a.r, nb = a.blocks, nt = n - r;
+    const bool corner = blockIdx.x == 0 && threadIdx.x < 32;
+    const SpluScratch s = a.s;
+    SpluRank* rk = s.rk;
+
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+        splu_stage1_block(b, nb, n, r, nt, a.lt, a.l3, a.u12, a.u3, a.v, a.h, s.part1, s.max1,
+                          work, red);
+    grid.sync();
+    const int warps = (gridDim.x * SPLU_TILE) >> 5, np1 = splu_npairs1(r), np2 = splu_npairs2(r);
+    for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np1; e += warps)
+        splu_reduce_pair(1, r, 3 * r + 3, np1, nb, e, s.part1, s.gram1);
+    grid.sync();
+    if (corner) splu_corner_a(n, r, nb, a.lt, a.u12, a.v, a.h, s.gram1, s.max1, rk, work);
+    grid.sync();
+    splu_load_coef(c, rk->coef2, r);
+    __syncthreads();
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+        splu_stage2_block(b, nb, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, c, s.max2, red);
+    grid.sync();
+    if (corner)
+        splu_corner_b(n, r, nb, a.step, a.lt, a.u12, a.h, s.max2, rk, a.lt_out, a.u12_out, work);
+    grid.sync();
+    splu_load_coef(c, rk->coef3, r);
+    __syncthreads();
+    const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+        splu_stage3_block(b, nb, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, a.g, c, sl, su, inv_rho,
+                          rho, a.lt_out, a.l3_out, a.u12_out, a.u3_out, s.part2, work);
+    grid.sync();
+    for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np2; e += warps)
+        splu_reduce_pair(2, r, 2 * r + 2, np2, nb, e, s.part2, s.gram2);
+    grid.sync();
+    if (corner) splu_corner_c(n, r, a.lt_out, a.u12_out, a.g, s.gram2, rk, a.pre, work);
+    grid.sync();
+    float(*c4)[2] = reinterpret_cast<float(*)[2]>(sm);
+    splu_load_coef(c4, rk->coef4, r);
+    __syncthreads();
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt; j += gridDim.x * SPLU_TILE)
+        splu_stage4_lane(j, n, r, c4, a.lt_out, a.l3_out, a.u12_out, a.u3_out, a.g, a.pre);
+}
+
+static cudaError_t splu_smem_attrs() {
+    static bool done = false;
+    if (done) return cudaSuccess;
+    cudaError_t e = cudaFuncSetAttribute(splu_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)splu_smem1(SPLU_MAX_RANK));
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(splu_stage3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)splu_smem3(SPLU_MAX_RANK));
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(splu_mono_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)splu_smem_mono(SPLU_MAX_RANK));
+    done = e == cudaSuccess;
+    return e;
 }
 
 extern "C" size_t psgd_splu_scratch_floats(int n, int r) {
@@ -730,6 +924,69 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
             n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk, o(prep));
     }
     return (int)cudaGetLastError();
+}
+
+// The one-launch kernel's grid for a rank-r state over n parameters:
+// out = {grid, CTAs a SM holds, SMs, registers a thread}. Fails where the
+// card takes no cooperative launch or holds no CTA of the kernel. The card's
+// answers are kept per device and rank after the first query.
+extern "C" int psgd_splu_mono_grid(int n, int r, int* out) {
+    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    static int known_dev = -1, known[SPLU_MAX_RANK + 1][3];  // per_sm, SMs, registers; 0: not asked
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev != known_dev) {
+        for (int k = 0; k <= SPLU_MAX_RANK; ++k) known[k][0] = known[k][1] = known[k][2] = 0;
+        known_dev = dev;
+    }
+    int* q = known[r];
+    if (!q[1]) {
+        int coop = 0, per_sm = 0, sms = 0;
+        cudaFuncAttributes attr;
+        e = splu_smem_attrs();
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, splu_mono_kernel, SPLU_TILE,
+                                                              splu_smem_mono(r));
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, splu_mono_kernel);
+        if (e != cudaSuccess) return (int)e;
+        if (!coop) return (int)cudaErrorNotSupported;
+        if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+        q[0] = per_sm;
+        q[1] = sms;
+        q[2] = attr.numRegs;
+    }
+    const int blocks = splu_blocks(n - r), most = q[0] * q[1];
+    out[0] = blocks < most ? blocks : most;
+    out[1] = q[0];
+    out[2] = q[1];
+    out[3] = q[2];
+    return (int)cudaSuccess;
+}
+
+// The update and pre = P' g in one cooperative launch; the arguments as
+// psgd_splu_update's, g required. Returns the launch's error: a grid the
+// card does not hold resident is refused, and nothing else runs.
+extern "C" int psgd_splu_mono(int n, int r, const void* ltp, const void* l3p, const void* u12p,
+                              const void* u3p, const void* vp, const void* hp, const void* gp,
+                              float step, void* lt_outp, void* l3_outp, void* u12_outp,
+                              void* u3_outp, void* prep, void* scratch, void* stream_ptr) {
+    if (!gp) return (int)cudaErrorInvalidValue;
+    int grid[4];
+    cudaError_t e = (cudaError_t)psgd_splu_mono_grid(n, r, grid);
+    if (e != cudaSuccess) return (int)e;
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto o = [](void* p) { return static_cast<float*>(p); };
+    SpluMono a = {n, r, splu_blocks(n - r), step, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp),
+                  f(gp), o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), o(prep), {}};
+    splu_carve(n, r, static_cast<float*>(scratch), &a.s);
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel((const void*)splu_mono_kernel, dim3(grid[0]), dim3(SPLU_TILE),
+                                    args, splu_smem_mono(r), static_cast<cudaStream_t>(stream_ptr));
+    const cudaError_t last = cudaGetLastError();  // clears the launch's error either way
+    return (int)(e != cudaSuccess ? e : last);
 }
 
 // ------------------------------------------------- K16 sharded: four entries

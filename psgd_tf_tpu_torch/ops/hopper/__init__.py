@@ -26,7 +26,11 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
   - splu_one / splu_upd: the sparse-LU family's update with the fused
     apply (K15) and its streaming update (K16): one chain with the corner
     algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX
-    package's two routes.
+    package's two routes; `splu_upd.fused_update(g=...)`, the same chain
+    with the apply as an entry of its own (`splu_upd_apply`), and
+    `splu_upd.fused_update_apply_mono`, the whole chain in one cooperative
+    launch (`splu_upd_mono`), which no path routes (as in the JAX
+    package).
   - lra_upd.fused_update(_apply)_sharded (K14) and
     splu_upd.fused_update_sharded (the sharded K16): the same stage
     kernels on each rank's slice of the lanes, with the rank-space
@@ -61,7 +65,7 @@ counts: dict[str, int] = {
     "kron_sparse_big_apply_nd": 0, "kron_sparse_big_apply_ns_wide": 0, "tri_solve": 0,
     "kron_dd_multi": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
-    "lra_upd_sharded": 0, "splu_upd_sharded": 0,
+    "lra_upd_sharded": 0, "splu_upd_sharded": 0, "splu_upd_apply": 0, "splu_upd_mono": 0,
 }
 _disabled_depth = 0
 _shard_mesh = None

@@ -8,6 +8,18 @@ Gram), :749 (`_stage2_kernel`, the tail images and exact maxima) and :787
 is `jnp` in JAX; here it runs in single-warp kernels on the device, so
 the chain waits for the host nowhere.
 
+With `g`, `fused_update` is JAX's fused apply entry (`fused_update(...,
+g=g)` :913): its `pallas_call`s at :814 (`_stage3_apply_kernel` :258,
+stage 3 with the apply Gram of the new factors) and :843
+(`_stage4_apply_kernel` :287, the tail of P' g) are the chain's stage 3
+with g, its corner C and stage 4, counted as `splu_upd_apply`.
+`fused_update_apply_mono` replaces JAX's one-launch schedule
+(`fused_update_apply_mono` :533 → :582, `_mono_kernel` :301): the same
+stage and corner bodies in one cooperative launch (`splu_upd_mono`),
+equal to the chain's result bit for bit. Neither is routed: JAX's
+`groups/splu.update_apply` runs the streaming update and then the apply
+(`psgd_tf_tpu/groups/splu.py:384-409`), and so does the port's.
+
 The state stays at its logical shapes, which the kernels read in place:
 Lt (r, n) = [L1^T | L2^T], U12 (r, n) = [U1 | U2], l3 and u3 (n - r,);
 the tail is lanes r.. of every row, and the ragged last tile is masked.
@@ -223,23 +235,25 @@ def _check(name, Lt, l3, U12, u3, v, h, g):
     hopper.check_operands(name, Lt, l3, U12, u3, *vecs)
 
 
-def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
+def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None, entry: str = "psgd_splu_update"):
     """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
-    P' g or None). Counts one launch of `name`."""
+    P' g or None), or with `entry="psgd_splu_mono"` (g required) the same
+    in one cooperative launch. Counts one launch of `name`; a launch the
+    card refuses raises."""
     _check(name, Lt, l3, U12, u3, v, h, g)
     r, n = U12.shape
     lib = _build.lib()
     new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
     pre = torch.empty_like(v) if g is not None else None
     scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), dtype=torch.float32, device=Lt.device)
-    rc = lib.psgd_splu_update(
+    rc = getattr(lib, entry)(
         n, r, Lt.data_ptr(), l3.data_ptr(), U12.data_ptr(), u3.data_ptr(), v.data_ptr(),
         h.data_ptr(), g.data_ptr() if g is not None else None, float(step), new_lt.data_ptr(),
         new_l3.data_ptr(), new_u12.data_ptr(), new_u3.data_ptr(),
         pre.data_ptr() if pre is not None else None, scratch.data_ptr(),
         torch.cuda.current_stream(Lt.device).cuda_stream,
     )
-    _build.check(rc, f"{name} kernel chain")
+    _build.check(rc, f"{name} kernel launch")
     hopper.counts[name] += 1
     return new_lt, new_l3, new_u12, new_u3, pre
 
@@ -253,9 +267,44 @@ def run(name: str, Lt, l3, U12, u3, v, h, step, g=None):
     return launch(name, Lt, l3, U12, u3, v, h, step, g)
 
 
-def fused_update(Lt, l3, U12, u3, v, h, step):
-    """One streaming update: (Lt', l3', U12', u3')."""
-    return run("splu_upd", Lt, l3, U12, u3, v, h, step)[:4]
+def fused_update(Lt, l3, U12, u3, v, h, step, g=None):
+    """One streaming update: (Lt', l3', U12', u3'), counted as `splu_upd`;
+    with `g` also P' g of the updated state as a fifth output, counted as
+    `splu_upd_apply` (JAX's keyword, `splu_upd.py:913`). No route takes
+    the fused apply: `groups/splu.update_apply` runs this update without
+    g and then `splu.apply`, as JAX's streaming `update_apply` does."""
+    if g is None:
+        return run("splu_upd", Lt, l3, U12, u3, v, h, step)[:4]
+    return run("splu_upd_apply", Lt, l3, U12, u3, v, h, step, g)
+
+
+# ------------------------------------------------------- the one-launch kernel
+
+def fused_update_apply_mono_plain(Lt, l3, U12, u3, v, h, g, step):
+    """The plain version of the one-launch kernel: the chain's plain stages
+    with g, (Lt', l3', U12', u3', P' g)."""
+    return chain_plain(Lt, l3, U12, u3, v, h, step, g)
+
+
+def mono_grid(n: int, r: int) -> dict[str, int]:
+    """The cooperative launch `fused_update_apply_mono` makes for a rank-r
+    state over n parameters on the current card: its grid, the CTAs a SM
+    holds at its shared memory, the SMs and the registers a thread."""
+    out = _build.int_array([0] * 4)
+    _build.check(_build.lib().psgd_splu_mono_grid(n, r, out), "splu_upd_mono grid")
+    return dict(zip(("grid", "per_sm", "sms", "regs"), out))
+
+
+def fused_update_apply_mono(Lt, l3, U12, u3, v, h, g, step):
+    """One update and P' g of the updated state in one launch: (Lt', l3',
+    U12', u3', P' g), JAX's contract (`splu_upd.py:533-537`). The plain
+    version for CPU tensors and inside `hopper.disabled()`; for CUDA
+    tensors one cooperative launch (`psgd_splu_mono`), counted as
+    `splu_upd_mono`, which raises if the card refuses it. No path routes
+    it, as in the JAX package."""
+    if not hopper.use_kernel(Lt):
+        return fused_update_apply_mono_plain(Lt, l3, U12, u3, v, h, g, step)
+    return launch("splu_upd_mono", Lt, l3, U12, u3, v, h, step, g, entry="psgd_splu_mono")
 
 
 # ------------------------------------------------------------ the sharded K16

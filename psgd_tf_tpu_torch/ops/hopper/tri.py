@@ -13,6 +13,13 @@ routine inverts the 32x32 diagonal tiles (read through an index map for
 the lower and transposed systems), then one block per 16-column panel of B
 substitutes block row by block row, in fp32. The JAX kernel's cap
 (n <= 768) is a VMEM limit and is not carried over: any n is taken.
+
+The same JAX file's `dot_bf16x3` (:45) has no counterpart here. It is a
+three-pass bf16 product standing in for Precision.HIGH, which Mosaic
+lacks, inside K9/K10's substitutions (`kron_sparse_big.py:120-140`). The
+port computes those products in fp32 FMA in `csrc/kron_dd.cu`'s grouped
+GEMM (K9 and K10 in `csrc/kron_sparse_big.cu` launch it), which is at
+least as accurate (`tests/test_torch_splu_apply.py`).
 """
 from __future__ import annotations
 

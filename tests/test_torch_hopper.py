@@ -71,6 +71,11 @@ def test_kernel_sources_are_present():
                    "_kernel_ds_big", "_kernel_apply_norm", "_kernel_apply_ns_wide"]:
         assert f"`{kernel}`" in text, kernel
     assert "`_solve_kernel`" in (PKG / "csrc" / "tri.cu").read_text()
+    # and splu.cu every Pallas kernel of splu_upd.py, the one-launch schedule's too
+    text = (PKG / "csrc" / "splu.cu").read_text()
+    for kernel in ["_stage1_kernel", "_stage2_kernel", "_stage3_kernel", "_stage3_apply_kernel",
+                   "_stage4_apply_kernel", "_mono_kernel"]:
+        assert f"`{kernel}`" in text, kernel
 
 
 # --------------------------------------------------------------- on the card
@@ -728,6 +733,90 @@ def test_splu_kernels_reject_what_they_do_not_take(cuda):
     st = splu.init(100, rank=10, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         splu_one.fused_update(st.Lt.double(), st.l3, st.U12, st.u3, z, z, 0.1)
+
+
+@pytest.mark.parametrize("n,r", [(400, 10), (100_003, 1), (100_003, 32), (1 << 20, 10)])
+def test_fused_apply_and_mono_match_plain(cuda, n, r):
+    """The fused apply entry (the chain with g) and the one-launch kernel:
+    mono equal to the chain bit for bit, both within 1e-4 of the plain
+    chain and of the direct form followed by `splu.apply`, each repeating
+    itself bit for bit, one count each a call."""
+    from psgd_tf_tpu_torch.groups import splu
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    before = dict(hopper.counts)
+    fused = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    mono = splu_upd.fused_update_apply_mono(*fields, v, h, grad, 0.05)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]} == {
+        "splu_upd_apply": 1, "splu_upd_mono": 1}
+    assert all(torch.equal(a, b) for a, b in zip(mono, fused, strict=True))
+    with hopper.disabled():
+        plain = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    direct = splu.update_plain(st, v, h, 0.05)
+    direct = (direct.Lt, direct.l3, direct.U12, direct.u3, splu.apply(direct, grad))
+    for got in (fused, mono):
+        for a, b, c in zip(got, plain, direct, strict=True):
+            assert _rel(a, b) < 1e-4 and _rel(a, c) < 1e-4
+        L1, U1 = got[0][:, :r].T, got[2][:, :r]
+        assert torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+    again = (splu_upd.fused_update(*fields, v, h, 0.05, g=grad),
+             splu_upd.fused_update_apply_mono(*fields, v, h, grad, 0.05))
+    for got, rep in zip((fused, mono), again):
+        assert all(torch.equal(a, b) for a, b in zip(got, rep))
+    grid = splu_upd.mono_grid(n, r)
+    assert 1 <= grid["grid"] <= min(1024, -(-(n - r) // 256), grid["per_sm"] * grid["sms"])
+
+
+@pytest.mark.parametrize("n,r", [(65_536, 10), (200_000, 32)])
+def test_chain_update_unchanged_by_the_shared_bodies(cuda, n, r):
+    """The chain's update (`splu_upd`, no g), whose stage and corner bodies
+    the one-launch kernel shares: within 1e-4 of the plain chain, equal to
+    the fused apply's first four outputs bit for bit, and repeating itself
+    bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    before = hopper.counts["splu_upd"]
+    got = splu_upd.fused_update(*fields, v, h, 0.05)
+    torch.cuda.synchronize()
+    assert hopper.counts["splu_upd"] == before + 1
+    with hopper.disabled():
+        plain = splu_upd.fused_update(*fields, v, h, 0.05)
+    for a, b in zip(got, plain, strict=True):
+        assert _rel(a, b) < 1e-4
+    fused = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    assert all(torch.equal(a, b) for a, b in zip(got, fused[:4]))
+    assert all(torch.equal(a, b) for a, b in zip(got, splu_upd.fused_update(*fields, v, h, 0.05)))
+
+
+def test_fused_apply_and_mono_reject_what_they_do_not_take(cuda):
+    from psgd_tf_tpu_torch.groups import splu
+
+    entries = [lambda *f: splu_upd.fused_update(*f[:6], 0.1, g=f[6]),
+               lambda *f: splu_upd.fused_update_apply_mono(*f, 0.1)]
+    st = splu.init(100, rank=splu_upd.MAX_RANK + 1, device=cuda)
+    z = torch.zeros(100, device=cuda)
+    for entry in entries:
+        with pytest.raises(ValueError, match="rank"):
+            entry(st.Lt, st.l3, st.U12, st.u3, z, z, z)
+    st = splu.init(10, rank=10, device=cuda)  # n - r = 0: no tail
+    z10 = torch.zeros(10, device=cuda)
+    for entry in entries:
+        with pytest.raises(ValueError, match="n - r"):
+            entry(st.Lt, st.l3, st.U12, st.u3, z10, z10, z10)
+    st = splu.init(100, rank=10, device=cuda)
+    bad = [(st.Lt.double(), st.l3, st.U12, st.u3, z, z, z),
+           (st.Lt, st.l3, st.U12, st.u3, z, z.cpu(), z),
+           (st.Lt, st.l3, st.U12, st.u3, z, z, torch.zeros(200, device=cuda)[::2])]
+    for entry in entries:
+        for args in bad:
+            before = dict(hopper.counts)
+            with pytest.raises(ValueError, match="float32"):
+                entry(*args)
+            assert dict(hopper.counts) == before
 
 
 def test_all_preconditioners_routes_through_the_kernels(cuda):
