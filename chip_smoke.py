@@ -7,8 +7,9 @@ Run from the root of the repository on a machine with one CUDA card (an
 H100: the kernels are built for sm_90a). It builds the Hopper kernels from
 `psgd_tf_tpu_torch/csrc/` (into `psgd_tf_tpu_torch/_build/`), checks each
 against its plain PyTorch version at the shapes its path gives it (and the
-flat families' kernels at the JAX bench's sizes, K4 also at the JAX
-package's batching crossover and at the side cap), then drives the port's
+flat families' kernels at the JAX bench's sizes, with K13's host time a
+call; K4 also at the JAX package's batching crossover and at the side
+cap), then drives the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
@@ -51,7 +52,9 @@ after:
     LeNet5's walked factors with probes as right-hand sides in all four
     orientations, at the JAX test cases and at n = 2048, nrhs = 512; the
     (dense, dense) list update (K20) on LeNet5's five layers and on 18
-    layers;
+    layers; then K19 at n = 2048, nrhs = 512 in all four orientations,
+    each timed beside one `torch.linalg.solve_triangular` of the same
+    system;
   - the NMT workload at its toy widths, as `nmt_attention.run()` runs it:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
     kinds, K3);
@@ -202,6 +205,20 @@ def _time(torch, fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _host_ms(torch, fn, reps):
+    """ms of host time per call of fn(): the host clock around `reps`
+    calls with no synchronise between them (what the caller waits for
+    before its next enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _time_ab(torch, hopper, fn, reps):
@@ -957,13 +974,15 @@ def main() -> int:
             rel = max(_rel(a, b) for a, b in pairs)
             lra_rel, lra_err = max(lra_rel, rel), max(lra_err, max(_abs(a, b) for a, b in pairs))
             check(rel < TOL_K1, f"k13 vs plain at n={n}, coins {coins}")
-        lra_times[n] = _time_ab(torch, hopper, lambda: lra.update_apply(
-            st, v, h, gr, 0.05, (False, True)), 50 if n > 10**5 else 200)
+        call = lambda: lra.update_apply(st, v, h, gr, 0.05, (False, True))
+        lra_times[n] = _time_ab(torch, hopper, call, 50 if n > 10**5 else 200)
+        lra_host_ms = _host_ms(torch, call, 20)
         # reads UV, d, v, h, g, writes UV', d', P' g; two Grams of 22 rows
         lra_bounds[n] = _bound(4 * (4 * 10 * n + 6 * n), 2 * 2 * 22**2 * n + 30 * 10 * n)
         print(f"k13: n={n} r=10, four coin pairs, max rel err {lra_rel:.3e} (tol {TOL_K1:.0e}); "
               f"update+apply kernel {lra_times[n][0]:.4f} ms, plain {lra_times[n][1]:.4f} ms, "
-              f"bound {lra_bounds[n][0]:.4f} ms ({lra_bounds[n][1]})", flush=True)
+              f"bound {lra_bounds[n][0]:.4f} ms ({lra_bounds[n][1]}); host time "
+              f"{lra_host_ms:.4f} ms a call (host clock, no synchronise)", flush=True)
     for n in LRA_SIZES[:2]:
         kst, _ = lra_case(n)
         pst = kst
@@ -1562,24 +1581,40 @@ def main() -> int:
         solve_rel = max(solve_rel, _rel(got, ref))
         solve_err = max(solve_err, _abs(got, ref))
         check(got.shape == b.shape, f"tri_solve keeps b's rank at {tuple(b.shape)}")
-    q, b, lo, tr = solve_cases[-1]
-    n, nrhs = b.shape
-    solve_ms, solve_plain_ms = _time_ab(
-        torch, hopper, lambda: tri.solve_triangular(q, b, lower=lo, trans=tr), 20)
-    solve_lib_ms = _time(torch, lambda: torch.linalg.solve_triangular(q, b, upper=True), 20)
-    solve_bound = _bound(4 * (n * (n + 1) / 2 + 2 * n * nrhs), n * n * nrhs)
     lenet_solves = solve_cases[:8 * len(LENET5)]
     lenet_ms, lenet_plain_ms = _time_ab(torch, hopper, lambda: [
         tri.solve_triangular(q, b, lower=lo, trans=tr) for q, b, lo, tr in lenet_solves], 50)
     print(f"tri_solve: {len(solve_cases)} systems (LeNet5's ten factors in four orientations "
           f"with the probes as right-hand sides, the JAX cases, {SOLVE_BENCH}) max rel err "
-          f"{solve_rel:.3e} (tol {TOL_K3:.0e}, norm-relative) max abs err {solve_err:.3e}; at "
-          f"n={n} nrhs={nrhs}: kernel {solve_ms:.4f} ms, plain {solve_plain_ms:.4f} ms, one "
-          f"torch.linalg.solve_triangular {solve_lib_ms:.4f} ms, bound {solve_bound[0]:.4f} ms "
-          f"({solve_bound[1]}); LeNet5's {len(lenet_solves)} solves, kernel "
-          f"{lenet_ms / len(lenet_solves):.4f} ms a call, plain "
-          f"{lenet_plain_ms / len(lenet_solves):.4f} ms", flush=True)
+          f"{solve_rel:.3e} (tol {TOL_K3:.0e}, norm-relative) max abs err {solve_err:.3e}; "
+          f"LeNet5's {len(lenet_solves)} solves, kernel {lenet_ms / len(lenet_solves):.4f} ms a "
+          f"call, plain {lenet_plain_ms / len(lenet_solves):.4f} ms", flush=True)
     check(solve_rel < TOL_K3, "tri_solve vs plain")
+    # SOLVE_BENCH in all four orientations, each beside one
+    # torch.linalg.solve_triangular of the same system (the plain version
+    # is that call behind the wrapper); the kernels line takes the first
+    n, nrhs = SOLVE_BENCH[:2]
+    solve_bound = _bound(4 * (n * (n + 1) / 2 + 2 * n * nrhs), n * n * nrhs)
+    solve_bench = {}
+    for lo, tr in orients:
+        q = triu_factor(n)
+        q = q.T.contiguous() if lo else q
+        b = torch.randn(n, nrhs, generator=g, device=dev)
+        got = tri.solve_triangular(q, b, lower=lo, trans=tr)
+        ref = tri.solve_triangular_plain(q, b, lower=lo, trans=tr)
+        rel, err = _rel(got, ref), _abs(got, ref)
+        solve_err = max(solve_err, err)
+        ms, plain_ms = _time_ab(torch, hopper, lambda: tri.solve_triangular(q, b, lower=lo,
+                                                                            trans=tr), 20)
+        m = q.T if tr else q
+        lib_ms = _time(torch, lambda: torch.linalg.solve_triangular(m, b, upper=lo == tr), 20)
+        solve_bench[(lo, tr)] = (ms, plain_ms, lib_ms)
+        print(f"tri_solve: n={n} nrhs={nrhs} lower={lo} trans={tr}: max rel err {rel:.3e} (tol "
+              f"{TOL_K3:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one "
+              f"torch.linalg.solve_triangular {lib_ms:.4f} ms, bound {solve_bound[0]:.4f} ms "
+              f"({solve_bound[1]})", flush=True)
+        check(rel < TOL_K3, f"tri_solve vs plain at {SOLVE_BENCH[:2]}, lower={lo}, trans={tr}")
+    solve_ms, solve_plain_ms, solve_lib_ms = solve_bench[(False, False)]
     del solve_cases, solve_outs
 
     multi_err = 0.0

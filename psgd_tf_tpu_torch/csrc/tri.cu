@@ -162,23 +162,60 @@ extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, v
 // lower (forward substitution) when lower != trans. The TPU kernel keeps Q
 // and B in VMEM (hence its cap, n <= 768), Newton-inverts the 128x128
 // diagonal blocks and substitutes block by block at HIGHEST precision.
-// Here, in fp32 with no iteration and no padding:
-//   1. solve_diag_kernel: M_ii^{-1} of every 32x32 diagonal tile, one warp
-//      a tile, by K3's tile routine (tri_diag_tile). A lower tile is the
-//      transpose of an upper one, so the routine reads it through the index
-//      map (lower Q) and stores its inverse transposed (lower M), into an
-//      (nb, 32, 32) scratch;
-//   2. solve_subst_kernel: each block owns a panel of SV_W columns of B and
-//      walks the block rows in substitution order,
-//      X_i = M_ii^{-1} (B_i - sum_j M_ij X_j) over the rows already solved,
-//      reading M_ij = Q_ji^T through the index map (no transposed copy) and
-//      its own X_j back through L1/L2; the next tile is loaded into
-//      registers while the current one is summed.
-// Rows past n are masked (the identity-extended system), so any n is taken;
-// only the triangle of Q named by `lower` is read.
-// What bounds it: latency. The n^2 nrhs FLOPs (2.1 GFLOP at n = 2048,
-// nrhs = 512: 32 us at the fp32 peak) run as a dependent chain of
-// ceil(n/32) block rows per panel, and ceil(nrhs/SV_W) panels run at once.
+// Here, in fp32 with no iteration and no padding, a blocked solve whose
+// off-diagonal work runs as GEMMs that spread over the card.
+// ops/hopper/tri.py builds the schedule (TRI_OP_* records of six ints) and
+// one call of psgd_tri_solve launches it, with no host synchronisation:
+//   INV     M_ii^{-1} of every NB x NB diagonal block at once, in two
+//           launches: tri_diag_tile (K3's routine, its arithmetic and
+//           signature unchanged) inverts each 32x32 diagonal tile, then
+//           solve_walk_kernel, K3's off-diagonal walk, fills each block's
+//           columns. Both work on U = M or M^T, whichever is upper: U reads
+//           Q through the transposed index when lower, and a forward
+//           system takes the block's inverse transposed (the leaf's A
+//           operand flag). The inverses go to an (n/NB, NB, NB) scratch.
+//   LEAF    X_i = M_ii^{-1} C_i, block i in substitution order:
+//           tri_gemm_kernel, its K loop cut to the inverse's triangle;
+//   UPDATE  C_r = S_r - M_ri X_i for every row r not yet solved (below
+//           block i forward, above it backward): tri_gemm_kernel, reading
+//           M_ri = Q_ir^T through the transposed index (no transposed
+//           copy). S is B until this first update has written C, and C
+//           (in place) after;
+//   SUBST   the whole system by the substitution kernel below, for small n:
+//           the 32x32 diagonal tiles' inverses, then one block per SV_W
+//           columns walking the block rows in order.
+// Only the triangle of Q named by `lower` is read; rows past n are masked
+// (the identity-extended system), so any n is taken.
+//
+// tri_gemm_kernel: 32x64 output tiles of 128 threads, a 4x4 register
+// micro-tile a thread, K in steps of 16 through four shared-memory stages
+// filled by 4-byte cp.async, three steps in flight (zero-filled past the
+// edges, so any shape and stride is taken), fp32 FMA. It is K19's own: the
+// grouped GEMM of kron_dd.cu (K1, K4, K9, K10, K17) is left as it is.
+//
+// What bounds it: at n = 2048, nrhs = 512 the n^2 nrhs = 2.1 GFLOP take 32 us
+// at the 67 TFLOP/s fp32 peak, and the bytes 5 us. The substitution kernel
+// alone ran it as 32 column panels (32 of 132 SMs), each a chain of 2,016
+// dependent tile steps: 1.43 ms. Blocked, the critical path is 2 + 2 n/NB
+// launches, each K = NB deep at most: the first updates cover ~n rows
+// (448 output tiles at 2048), so the card fills, and only the leaves and
+// the last updates leave SMs idle. The choices, measured on an H100 80GB
+// HBM3 at its 700 W limit (tools/tri_lra_ab.py --sweep), at n = 2048,
+// nrhs = 512:
+//   - right-looking (0.309 ms at NB = 256) rather than a recursive split
+//     into halves (0.332): the split's deep updates (K up to n/2) have the
+//     fewest output tiles, so their long K loops run on a fraction of the
+//     SMs;
+//   - NB = 256 (0.309) over 128 (0.355) and 64 (0.486): half the launches
+//     of 128 outweigh the longer leaves and the longer walk of INV;
+//   - 32x64 tiles of 128 threads: two blocks an SM where a 64x64 grid would
+//     put one;
+//   - SUBST up to n = 384: the substitution kernel's two launches beat the
+//     blocked schedule's there (0.071 against 0.088 ms at n = 384,
+//     nrhs = 256) and lose above (0.111 against 0.098 at n = 512).
+// The solve as a whole runs at ~7 TFLOP/s (2.1 GFLOP in 0.309 ms), ~10x
+// its bound; tensor cores (3xTF32, a separate precision setting) or a
+// warp-specialised GEMM are later work.
 
 #define SV_W 16     // columns of B a block owns
 #define SV_ROWS 16  // thread rows of a block: each thread owns two rows of a tile
@@ -278,19 +315,238 @@ __global__ void __launch_bounds__(SV_W * SV_ROWS) solve_subst_kernel(
     }
 }
 
-extern "C" size_t psgd_tri_solve_scratch_floats(int n) {
-    return (size_t)((n + TT - 1) / TT) * TT * TT;
+// INV, first launch: the 32x32 diagonal tile t of U (U = M or M^T, read
+// through the transposed index when lower), inverted into its place in the
+// (n/nb, nb, nb) scratch w, untransposed
+__global__ void __launch_bounds__(TT) solve_inv_diag_kernel(int n, int nb, int lower,
+                                                            const float* __restrict__ q,
+                                                            float* __restrict__ w) {
+    const int r0 = blockIdx.x * TT, blk = r0 / nb, o = r0 - blk * nb;
+    tri_diag_tile(q, n, r0, lower, w + (size_t)blk * nb * nb + (size_t)o * nb + o, nb, 0, TT);
 }
 
-extern "C" int psgd_tri_solve(int n, int nrhs, int lower, int trans, const void* q, const void* b,
-                              void* x, void* scratch, void* stream_ptr) {
-    if (n < 1 || nrhs < 1) return (int)cudaErrorInvalidValue;
+// INV, second launch: column j (of 32) of the inverse of U's nb x nb
+// diagonal block `blk`, by K3's walk: X[i,j] = -X[i,i] sum_{k=i+1..j} U[i,k]
+// X[k,j] for block rows i = j-1 .. 0, the strictly lower tiles zero. One
+// block of (32, 8) threads per (diagonal block, tile column).
+__global__ void __launch_bounds__(TT * 8) solve_walk_kernel(int n, int nb, int lower,
+                                                            const float* __restrict__ q,
+                                                            float* w) {
+    const int per = nb / TT, blk = blockIdx.x / per, j = blockIdx.x % per;
+    const int base = blk * nb, size = min(nb, n - base), tl = (size + TT - 1) / TT;
+    if (j >= tl) return;  // uniform across the block
+    float* x = w + (size_t)blk * nb * nb;  // read back after this block writes it
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int xc = j * TT + tx;
+    __shared__ float sa[TT][TT + 1];
+    __shared__ float sb[TT][TT + 1];
+
+    for (int i = j + 1; i < tl; ++i)
+        for (int rr = ty; rr < TT; rr += 8) x[(size_t)(i * TT + rr) * nb + xc] = 0.f;
+    for (int i = j - 1; i >= 0; --i) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = i + 1; k <= j; ++k) {
+            for (int qq = 0; qq < 4; ++qq) {
+                const int rr = ty + 8 * qq;
+                // U[i,k]'s element (row, col); a lower Q is read along its
+                // rows (U = Q^T), so consecutive threads read consecutive floats
+                const int row = lower ? tx : rr, col = lower ? rr : tx;
+                const int ur = base + i * TT + row, uc = base + k * TT + col;
+                sa[row][col] = (ur < n && uc < n)
+                                   ? q[lower ? (size_t)uc * n + ur : (size_t)ur * n + uc] : 0.f;
+                const int xr = k * TT + rr;
+                sb[rr][tx] = (xr < size && xc < size) ? x[(size_t)xr * nb + xc] : 0.f;
+            }
+            __syncthreads();
+            for (int kk = 0; kk < TT; ++kk) {
+                const float bv = sb[kk][tx];
+                for (int qq = 0; qq < 4; ++qq) acc[qq] += sa[ty + 8 * qq][kk] * bv;
+            }
+            __syncthreads();
+        }
+        for (int qq = 0; qq < 4; ++qq) {
+            const int rr = ty + 8 * qq, dr = i * TT + rr, dc = i * TT + tx;
+            sb[rr][tx] = acc[qq];
+            sa[rr][tx] = (dr < size && dc < size) ? x[(size_t)dr * nb + dc] : 0.f;
+        }
+        __syncthreads();
+        for (int qq = 0; qq < 4; ++qq) {
+            const int rr = ty + 8 * qq;
+            float s = 0.f;
+            for (int kk = 0; kk < TT; ++kk) s += sa[rr][kk] * sb[kk][tx];
+            if (i * TT + rr < size && xc < size) x[(size_t)(i * TT + rr) * nb + xc] = -s;
+        }
+        __syncthreads();
+    }
+}
+
+// C (M x N) = S - A X, or A X when s is null. A(m, k) = a[k * lda + m] when
+// ta, else a[m * lda + k]; X(k, j) = b[k * ldb + j]; C and S share ldc and
+// may alias (each element is read and written by one thread). cut: A is
+// lower (1) or upper (2) triangular, and a tile's K loop skips its zeros.
+struct TriGemm {
+    const float* a;
+    const float* b;
+    const float* s;
+    float* c;
+    int lda, ldb, ldc, ta, M, N, K, cut;
+};
+
+#define TG_BM 32
+#define TG_BN 64
+#define TG_BK 16
+#define TG_STAGES 4
+#define TG_THREADS (TG_BM * TG_BN / 16)
+
+__device__ __forceinline__ void tg_cp4(float* dst, const float* src, bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 4 : 0));
+}
+
+// One TG_BM x TG_BN tile of C a block, a 4x4 micro-tile a thread
+__global__ void __launch_bounds__(TG_THREADS) tri_gemm_kernel(const TriGemm p) {
+    __shared__ __align__(16) float As[TG_STAGES][TG_BK][TG_BM + 4];
+    __shared__ __align__(16) float Bs[TG_STAGES][TG_BK][TG_BN + 4];
+    const int tid = threadIdx.x, tx = tid % (TG_BN / 4), ty = tid / (TG_BN / 4);
+    const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
+    const int k_lo = p.cut == 2 ? m0 : 0;
+    const int k_hi = p.cut == 1 ? min(p.K, m0 + TG_BM) : p.K;
+    const int steps = k_hi > k_lo ? (k_hi - k_lo + TG_BK - 1) / TG_BK : 0;
+
+    // stage st <- the K step at k0: A as As[k][m] (coalesced along m when
+    // ta, along k otherwise), X as Bs[k][j]; out-of-range elements zero
+    auto load = [&](int st, int k0) {
+#pragma unroll
+        for (int qq = 0; qq < TG_BM * TG_BK / TG_THREADS; ++qq) {
+            const int e = tid + qq * TG_THREADS;
+            const int mm = p.ta ? e % TG_BM : e / TG_BK, kk = p.ta ? e / TG_BM : e % TG_BK;
+            const int gm = m0 + mm, gk = k0 + kk;
+            const bool ok = gm < p.M && gk < k_hi;
+            tg_cp4(&As[st][kk][mm],
+                   ok ? p.a + (p.ta ? (size_t)gk * p.lda + gm : (size_t)gm * p.lda + gk) : p.a, ok);
+        }
+#pragma unroll
+        for (int qq = 0; qq < TG_BN * TG_BK / TG_THREADS; ++qq) {
+            const int e = tid + qq * TG_THREADS;
+            const int bk = e / TG_BN, bj = e % TG_BN, gb = k0 + bk, gj = n0 + bj;
+            const bool ok = gb < k_hi && gj < p.N;
+            tg_cp4(&Bs[st][bk][bj], ok ? p.b + (size_t)gb * p.ldb + gj : p.b, ok);
+        }
+    };
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    // TG_STAGES - 1 K steps in flight: the copy of step t + 3 overlaps the
+    // products of step t (one commit group a step, empty past the end)
+#pragma unroll
+    for (int s = 0; s < TG_STAGES - 1; ++s) {
+        if (s < steps) load(s, k_lo + s * TG_BK);
+        asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int t = 0; t < steps; ++t) {
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(TG_STAGES - 2));
+        // step t's tile has landed, and every thread is done with step t - 1's stage
+        __syncthreads();
+        const int nt = t + TG_STAGES - 1;
+        if (nt < steps) load(nt % TG_STAGES, k_lo + nt * TG_BK);
+        asm volatile("cp.async.commit_group;\n" ::);
+        const int st = t % TG_STAGES;
+#pragma unroll
+        for (int kk = 0; kk < TG_BK; ++kk) {
+            const float4 av = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+            const float4 bv = *reinterpret_cast<const float4*>(&Bs[st][kk][tx * 4]);
+            const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] += a4[i] * b4[j];
+        }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int gm = m0 + ty * 4 + i;
+        if (gm >= p.M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int gj = n0 + tx * 4 + j;
+            if (gj >= p.N) continue;
+            const size_t o = (size_t)gm * p.ldc + gj;
+            p.c[o] = p.s ? p.s[o] - acc[i][j] : acc[i][j];
+        }
+    }
+}
+
+static void launch_tri_gemm(const TriGemm& p, cudaStream_t stream) {
+    const dim3 grid((p.N + TG_BN - 1) / TG_BN, (p.M + TG_BM - 1) / TG_BM);
+    tri_gemm_kernel<<<grid, TG_THREADS, 0, stream>>>(p);
+}
+
+// schedule records: {kind, r0, rows, k0, k, src}; src 1 reads C, 0 reads B
+enum { TRI_OP_SUBST = 0, TRI_OP_INV = 1, TRI_OP_LEAF = 2, TRI_OP_UPDATE = 3 };
+#define TRI_OP_INTS 6
+
+// The scratch of a solve: the diagonal blocks' inverses (SUBST: the 32x32
+// tiles'), then C (n, nrhs), the updated right-hand sides, unless subst
+extern "C" size_t psgd_tri_solve_scratch_floats(int n, int nrhs, int nb, int subst) {
+    if (subst) return psgd_align4((size_t)((n + TT - 1) / TT) * TT * TT);
+    const size_t blocks = (size_t)(n + nb - 1) / nb;
+    return psgd_align4(blocks * nb * nb) + psgd_align4((size_t)n * nrhs);
+}
+
+// X (n, nrhs) solving M X = B by the schedule `ops` (nops records, built by
+// ops/hopper/tri.py); scratch: psgd_tri_solve_scratch_floats(n, nrhs, nb,
+// ops is one SUBST record)
+extern "C" int psgd_tri_solve(int n, int nrhs, int lower, int trans, int nb, const int* ops,
+                              int nops, const void* q_ptr, const void* b_ptr, void* x_ptr,
+                              void* scratch, void* stream_ptr) {
+    if (n < 1 || nrhs < 1 || nb < TT || nb % TT || nops < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int nb = (n + TT - 1) / TT, forward = lower != trans;
-    float* dinv = static_cast<float*>(scratch);
-    solve_diag_kernel<<<nb, TT, 0, stream>>>(n, lower, forward, static_cast<const float*>(q), dinv);
-    solve_subst_kernel<<<(nrhs + SV_W - 1) / SV_W, dim3(SV_W, SV_ROWS), 0, stream>>>(
-        n, nrhs, trans, forward, static_cast<const float*>(q), static_cast<const float*>(b),
-        static_cast<float*>(x), dinv);
-    return (int)cudaGetLastError();
+    const int forward = lower != trans;
+    const float* q = static_cast<const float*>(q_ptr);
+    const float* b = static_cast<const float*>(b_ptr);
+    float* x = static_cast<float*>(x_ptr);
+    float* w = static_cast<float*>(scratch);
+    float* c = w + psgd_align4((size_t)((n + nb - 1) / nb) * nb * nb);
+    for (int o = 0; o < nops; ++o) {
+        const int* op = ops + TRI_OP_INTS * o;
+        const int kind = op[0], r0 = op[1], rows = op[2], k0 = op[3], k = op[4];
+        const float* src = op[5] ? c : b;
+        if (r0 < 0 || rows < 1 || r0 + rows > n || k0 < 0 || k < 0 || k0 + k > n)
+            return (int)cudaErrorInvalidValue;
+        if (kind == TRI_OP_SUBST) {
+            if (r0 != 0 || rows != n) return (int)cudaErrorInvalidValue;
+            const int tiles = (n + TT - 1) / TT;
+            solve_diag_kernel<<<tiles, TT, 0, stream>>>(n, lower, forward, q, w);
+            solve_subst_kernel<<<(nrhs + SV_W - 1) / SV_W, dim3(SV_W, SV_ROWS), 0, stream>>>(
+                n, nrhs, trans, forward, q, b, x, w);
+        } else if (kind == TRI_OP_INV) {
+            const int blocks = (n + nb - 1) / nb;
+            solve_inv_diag_kernel<<<(n + TT - 1) / TT, TT, 0, stream>>>(n, nb, lower, q, w);
+            solve_walk_kernel<<<blocks * (nb / TT), dim3(TT, 8), 0, stream>>>(n, nb, lower, q, w);
+        } else if (kind == TRI_OP_LEAF) {
+            if (r0 % nb || rows > nb) return (int)cudaErrorInvalidValue;
+            // X_i = M_ii^{-1} S_i: the forward inverse is the walk's transposed
+            TriGemm p{w + (size_t)(r0 / nb) * nb * nb, src + (size_t)r0 * nrhs, nullptr,
+                      x + (size_t)r0 * nrhs, nb, nrhs, nrhs, forward, rows, nrhs, rows,
+                      forward ? 1 : 2};
+            launch_tri_gemm(p, stream);
+        } else if (kind == TRI_OP_UPDATE) {
+            if (k < 1 || (forward ? k0 + k > r0 : r0 + rows > k0)) return (int)cudaErrorInvalidValue;
+            // C_t = S_t - M_ts X_s, M_ts = Q[t, s] or Q[s, t]^T
+            const float* a = trans ? q + (size_t)k0 * n + r0 : q + (size_t)r0 * n + k0;
+            TriGemm p{a, x + (size_t)k0 * nrhs, src + (size_t)r0 * nrhs, c + (size_t)r0 * nrhs,
+                      n, nrhs, nrhs, trans, rows, nrhs, k, 0};
+            launch_tri_gemm(p, stream);
+        } else {
+            return (int)cudaErrorInvalidValue;
+        }
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaSuccess;
 }

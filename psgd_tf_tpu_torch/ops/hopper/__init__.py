@@ -22,7 +22,9 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
   - dense_upd / dense_big: the dense family's rank-2 update, with the
     fused apply (K11 / K12: one streaming chain, `csrc/dense.cu`, counted
     under the JAX package's two routes).
-  - lra_upd: the low-rank family's streaming stages (K13, `csrc/lra.cu`).
+  - lra_upd: the low-rank family's update and fused apply (K13,
+    `csrc/lra.cu`): one C call, the rank-space algebra in two
+    single-block corner kernels.
   - splu_one / splu_upd: the sparse-LU family's update with the fused
     apply (K15) and its streaming update (K16): one chain with the corner
     algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX

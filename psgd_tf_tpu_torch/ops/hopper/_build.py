@@ -69,8 +69,8 @@ _SIGNATURES = {
     "psgd_kron_apply_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 3),
     "psgd_kron_apply_ns": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
     "psgd_kron_apply_nd": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),
-    "psgd_tri_solve_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
-    "psgd_tri_solve": (ctypes.c_int, [ctypes.c_int] * 4 + [_P] * 5),
+    "psgd_tri_solve_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 4),
+    "psgd_tri_solve": (ctypes.c_int, [ctypes.c_int] * 5 + [_IP, ctypes.c_int] + [_P] * 5),
     "psgd_dense_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
     "psgd_dense_update": (
         ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P],
@@ -78,7 +78,15 @@ _SIGNATURES = {
     "psgd_lra_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 8),
     "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 12),
-    "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 6),
+    "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 9),
+    "psgd_lra_corner_a": (
+        ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 3,
+    ),
+    "psgd_lra_corner_b": (ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float] + [_P] * 3),
+    "psgd_lra_update": (
+        ctypes.c_int,
+        [ctypes.c_int] * 2 + [_P] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 5,
+    ),
     "psgd_splu_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_splu_update": (
         ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 7,

@@ -3,41 +3,45 @@
 Replaces `psgd_tf_tpu/ops/pallas/lra_upd.py` `fused_update` (:458) and
 `fused_update_apply` (:543) → `_update_impl` (:217) → its `pallas_call`s at
 :281 (stage 1), :389 (stage 3), :416 (stage 3 with the apply Gram) and
-:443 (stage 4). The factors stay packed: UV (2r, n) = [U; V], d (n,).
+:443 (stage 4), with the rank-space algebra between them (:307-385,
+:430-440). The factors stay packed: UV (2r, n) = [U; V], d (n,).
 
   stage 1   one Gram Z Z^T of Z = [U; V; d h; v / d], with max|U|, max|V|
-  algebra   the Woodbury solves on the r x r system, the balance scales
-            cu, cv, the stage-3 coefficients: plain torch on the device
-            (~40 tiny ops), as they are jnp in the JAX package
+  corner A  the rebalance (cu, cv), the two r x r Woodbury solves, the norm
+            of the branch `update_u` names and its step scale: the stage-3
+            coefficients coef (r, 10) and scal = (cu, cv)
   stage 3   U', V' and nablaD per lane; with g also the Gram of
             [U'; V'; d g; d g nablaD]
-  d'        d - mu_d d nablaD, mu_d from max|nablaD|: torch
-  stage 4   P' g = d' (d' g + t1 U' + t2 V')
+  corner B  mu_d from max|nablaD|; with g the apply's (t1, t2) = coef4
+  stage 4   d' = d - mu_d d nablaD; with g P' g = d' (d' g + t1 U' + t2 V')
 
-The JAX function draws the rebalance and U-vs-V coins from a key; here
-they arrive as host booleans `coins = (balance, update_u)`, so the
-rank-space algebra branches on the host and never waits for the device.
-The U-vs-V choice arrives in stage 3 as zeroed coefficients, as in JAX.
-One difference from the Pallas kernels: the step scales saturate at the
-fp32 max (`linalg.step_scale`), as the XLA path does.
+On a CUDA tensor the whole chain is one C call (`psgd_lra_update`): five
+launches, the corners as single-block kernels, nothing between them on the
+host. The JAX function draws the rebalance and U-vs-V coins from a key;
+here they arrive as host booleans `coins = (balance, update_u)` and go to
+the corner as ints; the U-vs-V choice reaches stage 3 as zeroed
+coefficients, as in JAX. One difference from the Pallas kernels: the step
+scales saturate at the fp32 max (`linalg.step_scale`), as the XLA path does.
 
-Each stage has a plain torch version here. `fused_update(_apply)` runs the
-stages' kernels for CUDA tensors and their plain versions for CPU tensors
-(and inside `hopper.disabled()`), with the same algebra between them: the
-plain stages exist so that the rank-space algebra runs, and is held to
-the JAX package's interpret mode, without a card. `update_plain` is the
+Each stage and corner has a plain torch version here (`_Plain`), and the
+kernels' entries are on `_Kernels`. On CPU tensors (and inside
+`hopper.disabled()`) `fused_update(_apply)` runs the plain chain, so the
+chain's algebra is held to the JAX package's interpret mode without a card;
+on the card the plain chain is the kernels' oracle. `update_plain` is the
 direct form (the JAX XLA path): what `groups/lra` runs for dtypes other
 than fp32, and the independent oracle the chain is held to.
 
 K14 (`fused_update_sharded`, `fused_update_apply_sharded`; JAX :487, :554,
-:467) is the same chain on each rank's slice of the lanes: the stage-1
-Gram and maxima, max|nablaD| and the apply Gram are all-reduced over the
-mesh's shard ranks where JAX psums and pmaxes them, and the rank-space
-algebra runs alike on every rank. Its pipelined mode runs stage 1 on lane
-chunks (the kernels take a row stride) and reduces each chunk as soon as
-it is launched.
+:467) runs the same kernels one entry at a time on each rank's slice of
+the lanes: the stage-1 Gram and maxima, max|nablaD| and the apply Gram are
+all-reduced over the mesh's shard ranks between them, where JAX psums and
+pmaxes them, and the corners run alike on every rank. Its pipelined mode
+runs stage 1 on lane chunks (the kernels take a row stride) and reduces
+each chunk as soon as it is launched.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -84,16 +88,97 @@ def stage3_plain(UV, d, h, v, coef, scal, g=None):
     return new_uv, nd, z2 @ z2.T
 
 
-def stage4_plain(UV, d, g, coef4):
-    """d (d g + t1 U + t2 V) with (t1, t2) the columns of coef4 (r, 2)."""
+def stage4_plain(UV, d, nd, mu_d, g=None, coef4=None):
+    """(d', P' g or None): d' = d - mu_d d nablaD, P' g = d' (d' g + t1 U +
+    t2 V) with (t1, t2) the columns of coef4 (r, 2)."""
     r = UV.shape[0] // 2
-    return d * (d * g + coef4[:, 0] @ UV[:r] + coef4[:, 1] @ UV[r:])
+    new_d = d - mu_d * d * nd
+    if g is None:
+        return new_d, None
+    return new_d, new_d * (new_d * g + coef4[:, 0] @ UV[:r] + coef4[:, 1] @ UV[r:])
+
+
+# ------------------------------------------------------------ the corners, plain
+
+def corner_a_plain(gram, maxs, step, coins):
+    """(coef (r, 10), scal = [cu, cv]) from the stage-1 Gram of
+    Z = [U; V; x; w] and maxs = [max|U|, max|V|]: the rebalance, the
+    Woodbury algebra on the r x r system and the step scale of the branch
+    `coins[1]` (update_u) names."""
+    balance, update_u = coins
+    r = (gram.shape[0] - 2) // 2
+    f32, dev = torch.float32, gram.device
+    max_u, max_v = maxs[0], maxs[1]
+
+    # unpack Z Z^T, Z = [U; V; x; w]
+    iu, iv, ix, iw = slice(0, r), slice(r, 2 * r), 2 * r, 2 * r + 1
+    Gu, Gv, G = gram[iu, iu], gram[iv, iv], gram[iv, iu]  # G = V U^T
+    s0, p0, t0, q0 = gram[iu, ix], gram[iu, iw], gram[iv, ix], gram[iv, iw]
+    xx, ww, xw = gram[ix, ix], gram[iw, iw], gram[ix, iw]
+
+    # the rebalance (cu * cv = 1 leaves G unchanged)
+    if balance:
+        rho = torch.sqrt(max_u / max_v)
+        cu, cv = 1.0 / rho, rho
+        t, s, p, q = cv * t0, cu * s0, cu * p0, cv * q0
+        Gup, Gvp = cu * cu * Gu, cv * cv * Gv
+        scal = torch.stack([cu, cv])
+    else:
+        cu = cv = 1.0
+        t, s, p, q, Gup, Gvp = t0, s0, p0, q0, Gu, Gv
+        scal = torch.ones(2, dtype=f32, device=dev)
+
+    # the Woodbury algebra on the r x r system
+    IpVtU = torch.eye(r, dtype=f32, device=dev) + G
+    a1 = linalg.solve_small(IpVtU.T, p)
+    a2 = linalg.solve_small(IpVtU, q - Gvp @ a1)
+    atU = s + Gup @ t  # U' a, a = Qh
+    aa = xx + 2.0 * (s @ t) + t @ (Gup @ t)
+    bb = ww - 2.0 * (a1 @ q) + a1 @ (Gvp @ a1)
+    ab = xw - a1 @ t + t @ p - t @ (G.T @ a1)
+    btU = p - G.T @ a1
+    zero = torch.zeros(r, dtype=f32, device=dev)
+    if update_u:
+        atV = t + G @ t
+        btV = q - Gvp @ a1
+        norm = torch.sqrt(torch.abs(aa * (atV @ (Gvp @ atV)) + bb * (btV @ (Gvp @ btV))
+                                    - 2.0 * ab * (atV @ (Gvp @ btV))))
+        mu = linalg.step_scale(step, norm, f32)
+        e1, e2, f1, f2 = mu * (IpVtU.T @ atV), mu * (IpVtU.T @ btV), zero, zero
+    else:
+        norm = torch.sqrt(torch.abs((atU @ (Gup @ atU)) * aa + (btU @ (Gup @ btU)) * bb
+                                    - 2.0 * (atU @ (Gup @ btU)) * ab))
+        mu = linalg.step_scale(step, norm, f32)
+        e1, e2, f1, f2 = zero, zero, mu * atU, mu * btU
+    coef = torch.stack([t0, cv * a1, cv * atU, cu * a2, e1, e2, f1, f2, cv * atU, cv * btU], 1)
+    return coef.contiguous(), scal
+
+
+def corner_b_plain(ndmax, step, gram2=None):
+    """(mu_d, coef4 (r, 2) or None): mu_d = step / (max|nablaD| + tiny),
+    saturated; with the apply Gram of [U'; V'; y0; y1] the apply's
+    t1 = V' y and t2 = U'(y + U'^T t1), y = d' g = y0 - mu_d y1."""
+    mu_d = linalg.step_scale(step, ndmax, torch.float32)
+    if gram2 is None:
+        return mu_d, None
+    r = (gram2.shape[0] - 2) // 2
+    iu, iv, iy0, iy1 = slice(0, r), slice(r, 2 * r), 2 * r, 2 * r + 1
+    t1 = gram2[iv, iy0] - mu_d * gram2[iv, iy1]                    # V' y
+    t2 = gram2[iu, iy0] - mu_d * gram2[iu, iy1] + gram2[iu, iu] @ t1  # U'(y + U'^T t1)
+    return mu_d, torch.stack([t1, t2], 1).contiguous()
 
 
 # ------------------------------------------------------------ the stages, kernels
 
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(n, r):
+    return _build.lib().psgd_lra_scratch_floats(n, r)
+
+
 class _Kernels:
-    """The three C entry points of `csrc/lra.cu` on one (2r, n) problem."""
+    """The C entry points of `csrc/lra.cu` on one (2r, n) problem: the
+    whole chain in one call (`update`), or one stage or corner a call (K14,
+    with the host all-reducing between them)."""
 
     def __init__(self, UV, d, v, h, g):
         r2, n = UV.shape
@@ -106,8 +191,21 @@ class _Kernels:
         self.lib = _build.lib()
         self.n, self.r = n, r2 // 2
         self.f = dict(dtype=torch.float32, device=UV.device)
-        self.scratch = torch.empty(self.lib.psgd_lra_scratch_floats(n, self.r), **self.f)
+        self.scratch = torch.empty(_scratch_floats(n, self.r), **self.f)
         self.stream = torch.cuda.current_stream(UV.device).cuda_stream
+
+    def update(self, UV, d, v, h, step, coins, g=None):
+        """(UV', d', P' g or None): stage 1, corner A, stage 3, corner B and
+        stage 4 in one call, nothing between the launches."""
+        new_uv, new_d = torch.empty_like(UV), torch.empty_like(d)
+        pre = torch.empty_like(d) if g is not None else None
+        rc = self.lib.psgd_lra_update(
+            self.n, self.r, UV.data_ptr(), d.data_ptr(), v.data_ptr(), h.data_ptr(),
+            g.data_ptr() if g is not None else None, float(step), int(coins[0]), int(coins[1]),
+            new_uv.data_ptr(), new_d.data_ptr(), pre.data_ptr() if g is not None else None,
+            self.scratch.data_ptr(), self.stream)
+        _build.check(rc, "lra_upd")
+        return new_uv, new_d, pre
 
     def stage1(self, UV, d, h, v, lo=0, hi=None):
         """Over lanes [lo, hi); a chunk gets its own scratch, so that its
@@ -116,14 +214,23 @@ class _Kernels:
         zdim = 2 * self.r + 2
         gram, maxs = torch.empty(zdim, zdim, **self.f), torch.empty(2, **self.f)
         whole = (lo, hi) == (0, self.n)
-        scratch = self.scratch if whole else torch.empty(
-            self.lib.psgd_lra_scratch_floats(hi - lo, self.r), **self.f)
+        scratch = self.scratch if whole else torch.empty(_scratch_floats(hi - lo, self.r),
+                                                         **self.f)
         at = lambda x: x.data_ptr() + 4 * lo
         rc = self.lib.psgd_lra_stage1(hi - lo, self.n, self.r, at(UV), at(d), at(h), at(v),
                                       gram.data_ptr(), maxs.data_ptr(), scratch.data_ptr(),
                                       self.stream)
         _build.check(rc, "lra_upd stage 1")
         return gram, maxs
+
+    def corner_a(self, gram, maxs, step, coins):
+        coef, scal = torch.empty(self.r, 10, **self.f), torch.empty(2, **self.f)
+        rc = self.lib.psgd_lra_corner_a(self.r, gram.contiguous().data_ptr(),
+                                        maxs.contiguous().data_ptr(), float(step),
+                                        int(coins[0]), int(coins[1]), coef.data_ptr(),
+                                        scal.data_ptr(), self.stream)
+        _build.check(rc, "lra_upd corner A")
+        return coef, scal
 
     def stage3(self, UV, d, h, v, coef, scal, g=None):
         zdim = 2 * self.r + 2
@@ -137,17 +244,33 @@ class _Kernels:
         _build.check(rc, "lra_upd stage 3")
         return new_uv, nd, gram2
 
-    def stage4(self, UV, d, g, coef4):
-        out = torch.empty_like(d)
-        rc = self.lib.psgd_lra_stage4(self.n, self.n, self.r, UV.data_ptr(), d.data_ptr(),
-                                      g.data_ptr(), coef4.data_ptr(), out.data_ptr(), self.stream)
+    def corner_b(self, ndmax, step, gram2=None):
+        mu_d = torch.empty((), **self.f)
+        coef4 = torch.empty(self.r, 2, **self.f) if gram2 is not None else None
+        rc = self.lib.psgd_lra_corner_b(
+            self.r, ndmax.contiguous().data_ptr(),
+            gram2.contiguous().data_ptr() if gram2 is not None else None, float(step),
+            mu_d.data_ptr(), coef4.data_ptr() if gram2 is not None else None, self.stream)
+        _build.check(rc, "lra_upd corner B")
+        return mu_d, coef4
+
+    def stage4(self, UV, d, nd, mu_d, g=None, coef4=None):
+        new_d = torch.empty_like(d)
+        pre = torch.empty_like(d) if g is not None else None
+        rc = self.lib.psgd_lra_stage4(
+            self.n, self.n, self.r, UV.data_ptr(), d.data_ptr(), nd.data_ptr(),
+            g.data_ptr() if g is not None else None, mu_d.data_ptr(),
+            coef4.data_ptr() if g is not None else None, new_d.data_ptr(),
+            pre.data_ptr() if g is not None else None, self.stream)
         _build.check(rc, "lra_upd stage 4")
-        return out
+        return new_d, pre
 
 
 class _Plain:
     stage1 = staticmethod(stage1_plain)
+    corner_a = staticmethod(corner_a_plain)
     stage3 = staticmethod(stage3_plain)
+    corner_b = staticmethod(corner_b_plain)
     stage4 = staticmethod(stage4_plain)
 
 
@@ -200,78 +323,26 @@ def _stage1_chunked(st, UV, d, h, v, mesh):
 def _update(UV, d, v, h, step, coins, g=None, mesh=None, pipelined=False):
     """The chain; with `mesh`, on this rank's lanes with the rank-space
     reductions taken over its shard ranks (K14)."""
-    balance, update_u = coins
     kernel = hopper.use_kernel(UV)
+    if kernel and mesh is None:
+        out = _Kernels(UV, d, v, h, g).update(UV, d, v, h, step, coins, g)
+        hopper.counts["lra_upd"] += 1
+        return out
     st = _Kernels(UV, d, v, h, g) if kernel else _Plain
     psum, pmax = (mesh.psum, mesh.pmax) if mesh is not None else (_identity, _identity)
-    r = UV.shape[0] // 2
-    f32 = torch.float32
-    tiny = linalg.tiny(f32)
     if mesh is not None and pipelined and UV.shape[1] >= CHUNKS:
         gram, maxs = _stage1_chunked(st, UV, d, h, v, mesh)
     else:
         gram, maxs = st.stage1(UV, d, h, v)
         gram, maxs = psum(gram), pmax(maxs)
-    max_u, max_v = maxs[0], maxs[1]
-
-    # unpack Z Z^T, Z = [U; V; x; w]
-    iu, iv, ix, iw = slice(0, r), slice(r, 2 * r), 2 * r, 2 * r + 1
-    Gu, Gv, G = gram[iu, iu], gram[iv, iv], gram[iv, iu]  # G = V U^T
-    s0, p0, t0, q0 = gram[iu, ix], gram[iu, iw], gram[iv, ix], gram[iv, iw]
-    xx, ww, xw = gram[ix, ix], gram[iw, iw], gram[ix, iw]
-
-    # the rebalance (cu * cv = 1 leaves G unchanged)
-    if balance:
-        rho = torch.sqrt(max_u / max_v)
-        cu, cv = 1.0 / rho, rho
-        t, s, p, q = cv * t0, cu * s0, cu * p0, cv * q0
-        Gup, Gvp = cu * cu * Gu, cv * cv * Gv
-        scal = torch.stack([cu, cv])
-    else:
-        cu = cv = 1.0
-        t, s, p, q, Gup, Gvp = t0, s0, p0, q0, Gu, Gv
-        scal = torch.ones(2, dtype=f32, device=UV.device)
-
-    # the Woodbury algebra on the r x r system
-    IpVtU = torch.eye(r, dtype=f32, device=UV.device) + G
-    a1 = linalg.solve_small(IpVtU.T, p)
-    a2 = linalg.solve_small(IpVtU, q - Gvp @ a1)
-    s2 = s + Gup @ t
-    aa = xx + 2.0 * (s @ t) + t @ (Gup @ t)
-    bb = ww - 2.0 * (a1 @ q) + a1 @ (Gvp @ a1)
-    ab = xw - a1 @ t + t @ p - t @ (G.T @ a1)
-    atU = s + Gup @ t
-    btU = p - G.T @ a1
-    zero = torch.zeros(r, dtype=f32, device=UV.device)
-    if update_u:
-        atV = t + G @ t
-        btV = q - Gvp @ a1
-        norm = torch.sqrt(torch.abs(aa * (atV @ (Gvp @ atV)) + bb * (btV @ (Gvp @ btV))
-                                    - 2.0 * ab * (atV @ (Gvp @ btV))))
-        mu = linalg.step_scale(step, norm, f32)
-        e1, e2, f1, f2 = mu * (IpVtU.T @ atV), mu * (IpVtU.T @ btV), zero, zero
-    else:
-        norm = torch.sqrt(torch.abs((atU @ (Gup @ atU)) * aa + (btU @ (Gup @ btU)) * bb
-                                    - 2.0 * (atU @ (Gup @ btU)) * ab))
-        mu = linalg.step_scale(step, norm, f32)
-        e1, e2, f1, f2 = zero, zero, mu * atU, mu * btU
-    coef = torch.stack([t0, cv * a1, cv * s2, cu * a2, e1, e2, f1, f2, cv * atU, cv * btU], 1)
-
-    new_uv, nd, gram2 = st.stage3(UV, d, h, v, coef.contiguous(), scal, g)
+    coef, scal = st.corner_a(gram, maxs, step, coins)
+    new_uv, nd, gram2 = st.stage3(UV, d, h, v, coef, scal, g)
     # max|nablaD| over every lane before the d' AXPY
-    mu_d = linalg.step_scale(step, pmax(linalg.max_abs(nd)), f32)
-    new_d = d - mu_d * d * nd
-    if g is None:
-        pre = None
-    else:
-        # y = d' g = y0 - mu_d y1: recombine the Gram's y0/y1 columns
-        gram2 = psum(gram2)
-        iy0, iy1 = 2 * r, 2 * r + 1
-        t1 = gram2[iv, iy0] - mu_d * gram2[iv, iy1]                    # V' y
-        t2 = gram2[iu, iy0] - mu_d * gram2[iu, iy1] + gram2[iu, iu] @ t1  # U'(y + U'^T t1)
-        pre = st.stage4(new_uv, new_d, g, torch.stack([t1, t2], 1).contiguous())
+    mu_d, coef4 = st.corner_b(pmax(linalg.max_abs(nd)), step,
+                              psum(gram2) if g is not None else None)
+    new_d, pre = st.stage4(new_uv, d, nd, mu_d, g, coef4)
     if kernel:
-        hopper.counts["lra_upd" if mesh is None else "lra_upd_sharded"] += 1
+        hopper.counts["lra_upd_sharded"] += 1
     return new_uv, new_d, pre
 
 

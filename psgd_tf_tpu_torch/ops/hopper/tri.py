@@ -8,11 +8,22 @@ fp32 back-substitution, exact to fp32 rounding. One call inverts a whole
 list of factors in two launches.
 
 K19 replaces the same file's `solve_triangular` (:161 → `pallas_call` :185,
-`_solve_kernel` :123), which only the JAX package's tests call: K3's tile
-routine inverts the 32x32 diagonal tiles (read through an index map for
-the lower and transposed systems), then one block per 16-column panel of B
-substitutes block row by block row, in fp32. The JAX kernel's cap
-(n <= 768) is a VMEM limit and is not carried over: any n is taken.
+`_solve_kernel` :123), which only the JAX package's tests call. `schedule`
+lists its work as records of six ints: the inverses of every NB x NB
+diagonal block (K3's tile routine and walk, reading Q through an index map
+for the lower and transposed systems), then block by block in
+substitution order one leaf GEMM (X_i = M_ii^{-1} C_i) and one update GEMM
+of every row still unsolved (C_rest -= M_rest,i X_i, M read through the
+transposed index, no copy). One C call launches the whole schedule, with
+no host sync. Up to SUBST_MAX_N rows the schedule is one record: the
+substitution kernel over the whole system (two launches).
+`solve_triangular_blocked_plain` executes the same schedule in torch, so
+the CPU tests reach its index maps. NB and SUBST_MAX_N, and the
+right-looking order (each update K = NB deep over all the rows left,
+rather than a recursive split whose deep updates leave most of the card
+idle), were chosen on the card (`tools/tri_lra_ab.py --sweep`). The JAX
+kernel's cap (n <= 768) is a VMEM limit and is not carried over: any n is
+taken.
 
 The same JAX file's `dot_bf16x3` (:45) has no counterpart here. It is a
 three-pass bf16 product standing in for Precision.HIGH, which Mosaic
@@ -23,12 +34,18 @@ least as accurate (`tests/test_torch_splu_apply.py`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import _build
 
 MAX_FACTORS = 32  # PSGD_MAX_TRI in csrc/psgd.cuh
+NB = 256           # K19's leaf rows (a multiple of 32)
+SUBST_MAX_N = 384  # K19 systems up to this n: the substitution kernel alone
+# K19's schedule records (TRI_OP_* in csrc/tri.cu)
+OP_SUBST, OP_INV, OP_LEAF, OP_UPDATE = range(4)
 
 
 def inverse_upper_plain(us: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -74,11 +91,81 @@ def solve_triangular_plain(q: torch.Tensor, b: torch.Tensor, *, lower: bool = Fa
     return x[:, 0] if b.ndim == 1 else x
 
 
+def schedule(n: int, lower: bool, trans: bool, nb: int | None = None,
+             subst_max: int | None = None) -> list[tuple[int, ...]]:
+    """K19's work for an (n, n) system as records (kind, r0, rows, k0, k,
+    src): INV the diagonal blocks' inverses; then, block by block in
+    substitution order, LEAF X[r0:r0+rows] = M_ii^{-1} S[r0:r0+rows] and
+    UPDATE C[r0:r0+rows] = S[r0:r0+rows] - M[r0:r0+rows, k0:k0+k] X[k0:k0+k]
+    for every row still unsolved; or SUBST, the whole system by
+    substitution. S is B (src 0) until the first update has written C
+    (src 1). nb and subst_max default to NB and SUBST_MAX_N."""
+    nb = NB if nb is None else nb
+    if n <= (SUBST_MAX_N if subst_max is None else subst_max):
+        return [(OP_SUBST, 0, n, 0, 0, 0)]
+    forward = lower != trans
+    blocks = range(0, n, nb)
+    ops = [(OP_INV, 0, n, 0, 0, 0)]
+    for i, r0 in enumerate(blocks if forward else reversed(blocks)):
+        m = min(nb, n - r0)
+        ops.append((OP_LEAF, r0, m, 0, 0, int(i > 0)))
+        rest = (r0 + m, n - r0 - m) if forward else (0, r0)
+        if rest[1]:
+            ops.append((OP_UPDATE, *rest, r0, m, int(i > 0)))
+    return ops
+
+
+def solve_triangular_blocked_plain(q: torch.Tensor, b: torch.Tensor, *, lower: bool = False,
+                                   trans: bool = False, nb: int | None = None,
+                                   subst_max: int | None = None) -> torch.Tensor:
+    """K19's schedule executed in torch, through the kernels' index maps:
+    each diagonal block's U (M or M^T, whichever is upper; Q read
+    transposed when lower) inverted by a triangular solve against I, the
+    forward systems' leaves multiplying by its transpose, the updates
+    reading M's blocks as Q's (transposed when trans)."""
+    n = q.shape[0]
+    nb = NB if nb is None else nb
+    b2 = b[:, None] if b.ndim == 1 else b
+    forward = lower != trans
+    x, c = torch.empty_like(b2), torch.empty_like(b2)
+    inv = {}
+
+    def leaf_inverse(r0, m):
+        blk = q[r0:r0 + m, r0:r0 + m]
+        u = blk.T if lower else blk
+        w = torch.linalg.solve_triangular(u, torch.eye(m, dtype=q.dtype, device=q.device),
+                                          upper=True)
+        return w.T if forward else w
+
+    for kind, r0, m, k0, k, src in schedule(n, lower, trans, nb, subst_max):
+        s = c if src else b2
+        if kind == OP_SUBST:
+            x = leaf_inverse(0, n) @ b2
+        elif kind == OP_INV:
+            inv = {a: leaf_inverse(a, min(nb, n - a)) for a in range(0, n, nb)}
+        elif kind == OP_LEAF:
+            x[r0:r0 + m] = inv[r0] @ s[r0:r0 + m]
+        else:
+            a = q[k0:k0 + k, r0:r0 + m].T if trans else q[r0:r0 + m, k0:k0 + k]
+            c[r0:r0 + m] = s[r0:r0 + m] - a @ x[k0:k0 + k]
+    return x[:, 0] if b.ndim == 1 else x
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule_args(n, nrhs, lower, trans, nb, subst_max):
+    """The schedule as psgd_tri_solve takes it, and its scratch in floats,
+    built once a shape: (int array, records, scratch floats)."""
+    ops = schedule(n, lower, trans, nb, subst_max)
+    subst = int(ops[0][0] == OP_SUBST)
+    return (_build.int_array([v for op in ops for v in op]), len(ops),
+            _build.lib().psgd_tri_solve_scratch_floats(n, nrhs, nb, subst))
+
+
 def solve_triangular(q: torch.Tensor, b: torch.Tensor, *, lower: bool = False,
                      trans: bool = False) -> torch.Tensor:
     """K19: solves (Q^T if trans else Q) X = B for a triangular Q (n, n),
     upper or lower, and B (n, nrhs) or (n,); returns X of B's rank. The
-    plain version for CPU tensors, the CUDA kernels for CUDA tensors."""
+    plain version for CPU tensors, the schedule's kernels for CUDA tensors."""
     if not hopper.use_kernel(q):
         return solve_triangular_plain(q, b, lower=lower, trans=trans)
     if q.ndim != 2 or q.shape[0] != q.shape[1] or b.ndim not in (1, 2) or len(b) != len(q):
@@ -86,13 +173,15 @@ def solve_triangular(q: torch.Tensor, b: torch.Tensor, *, lower: bool = False,
     n = q.shape[0]
     b2 = (b[:, None] if b.ndim == 1 else b).contiguous()
     hopper.check_operands("tri_solve", q, b2)
-    lib = _build.lib()
+    nrhs = b2.shape[1]
+    nb = NB
+    ops, count, floats = _schedule_args(n, nrhs, bool(lower), bool(trans), nb, SUBST_MAX_N)
     x = torch.empty_like(b2)
-    scratch = torch.empty(lib.psgd_tri_solve_scratch_floats(n), dtype=torch.float32,
-                          device=q.device)
-    rc = lib.psgd_tri_solve(n, b2.shape[1], int(lower), int(trans), q.data_ptr(), b2.data_ptr(),
-                            x.data_ptr(), scratch.data_ptr(),
-                            torch.cuda.current_stream(q.device).cuda_stream)
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    rc = _build.lib().psgd_tri_solve(n, nrhs, int(lower), int(trans), nb, ops, count,
+                                     q.data_ptr(), b2.data_ptr(), x.data_ptr(),
+                                     scratch.data_ptr(),
+                                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "tri_solve kernels")
     hopper.counts["tri_solve"] += 1
     return x[:, 0] if b.ndim == 1 else x

@@ -369,6 +369,45 @@ def test_k19_matches_plain(cuda, n, nrhs, lower, trans):
     assert got.shape == b.shape and _rel(got, ref) < 1e-5
 
 
+@pytest.mark.parametrize("n", [1024, 2048])
+@pytest.mark.parametrize("lower", [False, True])
+@pytest.mark.parametrize("trans", [False, True])
+def test_k19_blocked_at_the_bench_width(cuda, n, lower, trans):
+    """The blocked schedule at nrhs = 512 (at n = 2048: the diagonal
+    blocks' inverses, 8 leaf and 7 update GEMMs) in all four orientations,
+    against the plain solve and the schedule's torch executor, repeating
+    bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q = _triu_factor(g, n, cuda)
+    if lower:
+        q = q.T.contiguous()
+    b = torch.randn(n, 512, generator=g, device=cuda)
+    got = tri.solve_triangular(q, b, lower=lower, trans=trans)
+    ref = tri.solve_triangular_plain(q, b, lower=lower, trans=trans)
+    blocked = tri.solve_triangular_blocked_plain(q, b, lower=lower, trans=trans)
+    assert _rel(got, ref) < 1e-5 and _rel(got, blocked) < 1e-5
+    assert torch.equal(tri.solve_triangular(q, b, lower=lower, trans=trans), got)
+
+
+@pytest.mark.parametrize("nb", [32, 128, 256])
+@pytest.mark.parametrize("n,nrhs", [(33, 1), (129, 0), (257, 120), (700, 65)])
+@pytest.mark.parametrize("lower,trans", [(False, False), (False, True), (True, False),
+                                         (True, True)], ids=str)
+def test_k19_blocked_small_and_ragged(cuda, monkeypatch, nb, n, nrhs, lower, trans):
+    """The blocked schedule forced below its size threshold: ragged last
+    leaves and tiles, a 1-D b, leaves of 32 to 256 rows."""
+    monkeypatch.setattr(tri, "NB", nb)
+    monkeypatch.setattr(tri, "SUBST_MAX_N", 0)
+    g = torch.Generator(device=cuda).manual_seed(n + nb)
+    q = _triu_factor(g, n, cuda)
+    if lower:
+        q = q.T.contiguous()
+    b = torch.randn((n, nrhs) if nrhs else (n,), generator=g, device=cuda)
+    got = tri.solve_triangular(q, b, lower=lower, trans=trans)
+    ref = tri.solve_triangular_plain(q, b, lower=lower, trans=trans)
+    assert got.shape == b.shape and _rel(got, ref) < 1e-5
+
+
 def test_k20_is_k1_with_kind_dd(cuda):
     """18 layers (two chains) through `kron_dd.fused_update_multi`: bit for
     bit K1's result with every kind dd, and within 1e-4 of the per-layer
@@ -577,6 +616,65 @@ def test_k13_matches_plain(cuda, n, coins):
     duv, dd = lra_upd.update_plain(st.UV, st.d, v, h, 0.05, coins)
     for a, b in [(uv, ruv), (d, rd), (uv2, ruv), (d2, rd), (pre, rpre), (uv, duv), (d, dd)]:
         assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.parametrize("n", [400, 1021, 1 << 20])
+@pytest.mark.parametrize("apply", [False, True])
+def test_k13_is_one_call_and_repeats(cuda, n, apply):
+    """K13 is one C entry a call: the `lra_upd` count moves by one and no
+    other, and two calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    st, v, h, grad = _lra_case(g, n, 10, cuda)
+    if apply:
+        call = lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, (True, False))
+    else:
+        call = lambda: lra_upd.fused_update(st.UV, st.d, v, h, 0.05, (True, False))
+    before = dict(hopper.counts)
+    first = call()
+    torch.cuda.synchronize()
+    moved = {k: hopper.counts[k] - before[k] for k in before if hopper.counts[k] != before[k]}
+    assert moved == {"lra_upd": 1}
+    for a, b in zip(call(), first, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("coins", COINS, ids=str)
+def test_lra_corners_match_plain(cuda, coins):
+    """Corner A and corner B's kernels (through K14's entries) against
+    `corner_a_plain` and `corner_b_plain` on the same reduced Grams."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    st, v, h, grad = _lra_case(g, 1021, 10, cuda)
+    gram, maxs = lra_upd.stage1_plain(st.UV, st.d, h, v)
+    k = lra_upd._Kernels(st.UV, st.d, v, h, grad)
+    coef, scal = k.corner_a(gram, maxs, 0.05, coins)
+    rcoef, rscal = lra_upd.corner_a_plain(gram, maxs, 0.05, coins)
+    assert _rel(coef, rcoef) < 1e-4 and _rel(scal, rscal) < 1e-6
+    _, nd, gram2 = lra_upd.stage3_plain(st.UV, st.d, h, v, rcoef, rscal, grad)
+    ndmax = nd.abs().amax()
+    mu, coef4 = k.corner_b(ndmax, 0.05, gram2)
+    rmu, rcoef4 = lra_upd.corner_b_plain(ndmax, 0.05, gram2)
+    assert mu.item() == rmu.item() and _rel(coef4, rcoef4) < 1e-4
+    mu, none = k.corner_b(ndmax, 0.05)
+    assert none is None and mu.item() == rmu.item()
+
+
+@pytest.mark.parametrize("coins", COINS, ids=str)
+def test_lra_corner_a_pivots_on_card(cuda, coins):
+    """A state whose I + V U^T has a vanishing leading pivot (V U^T =
+    IPG - I, U with orthonormal rows): the kernel's LU with partial
+    pivoting against `corner_a_plain` (torch.linalg.solve_ex)."""
+    rng = np.random.default_rng(4)
+    n = 64
+    ipg = np.array([[0.0, 1.0, 0.2], [1.0, 0.5, 0.0], [0.3, 0.0, 2.0]])
+    u = np.linalg.qr(rng.standard_normal((n, 3)))[0].T
+    uv = torch.tensor(np.concatenate([u, (ipg - np.eye(3)) @ u]), dtype=torch.float32, device=cuda)
+    d, v, h = (torch.tensor(x, dtype=torch.float32, device=cuda)
+               for x in (0.5 + rng.random(n), rng.standard_normal(n), rng.standard_normal(n)))
+    gram, maxs = lra_upd.stage1_plain(uv, d, h, v)
+    assert (1.0 + gram[3, 0]).abs() < 1e-5
+    coef, scal = lra_upd._Kernels(uv, d, v, h, None).corner_a(gram, maxs, 0.05, coins)
+    rcoef, rscal = lra_upd.corner_a_plain(gram, maxs, 0.05, coins)
+    assert torch.isfinite(coef).all() and _rel(coef, rcoef) < 1e-4 and _rel(scal, rscal) < 1e-6
 
 
 @pytest.mark.parametrize("n", [2, 1021, 1536, 4096])
