@@ -183,6 +183,17 @@ SOLVE_JAX = [(128, 128, False, True), (300, 64, False, True), (512, 256, False, 
              (257, 0, True, False), (640, 200, True, True)]
 SOLVE_BENCH = (2048, 512, False, False)
 MULTI_18 = LENET5 * 3 + [(1, 10), (300, 7), (64, 64)]
+# past the rank-32 kernels (phase 8d): lra (K13) at a ragged n of several
+# Gram chunks, splu at the tensor decomposition's n (K15) and the same
+# ragged n past K15's cap (K16), and PSGD on the tensor decomposition (lra,
+# and splu through K15) and on LeNet5 (splu through K16), at each rank; K13 and K16 timed at bench.py:610/616's n; the reference-width
+# NMT under lra and splu at one rank (phase 17b)
+RANKS_PAST_32 = [33, 64, 128, 256]
+RANK_N = 100_003
+RANK_BENCH = (1 << 20, 64)
+RANK_DECOMP_STEPS = 20
+NMT_RANK = 64
+NMT_RANK_STEPS = 5
 
 
 def _rel(a, b) -> float:
@@ -335,9 +346,10 @@ def _spawn(job, world, *args):
     return [out[r] for r in range(world)]
 
 
-def _nmt_ref_run(fam, steps, mesh=None):
+def _nmt_ref_run(fam, steps, mesh=None, rank=10):
     """`steps` steps of the NMT model at the reference widths under `fam`
-    (rank 10), FD Hvp, random ids, batch 64, lr 0.02, clip 1.0, from seed 0:
+    (rank 10 unless given), FD Hvp, random ids, batch 64, lr 0.02, clip 1.0,
+    from seed 0:
     with a mesh through `build_sharded_step`, else `PSGD.step` on card 0.
     Returns (losses, the launch counts of the run, steps/s after two, the
     parameters' change over the run as one flat vector, the largest
@@ -356,7 +368,7 @@ def _nmt_ref_run(fam, steps, mesh=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = nmt.init(gen, cfg)
     first = torch.cat([p.flatten() for p in params])
-    opt = PSGD(preconditioner=fam, rank=10, lr_params=0.02, lr_preconditioner=0.02,
+    opt = PSGD(preconditioner=fam, rank=rank, lr_params=0.02, lr_preconditioner=0.02,
                grad_clip_max_norm=1.0, exact_hessian_vector_product=False)
     state = opt.init(params)
     if mesh is not None:
@@ -1219,6 +1231,161 @@ def main() -> int:
               f"{ms['plain']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     del apply_in, apply_outs
 
+    # 8d. path: lra and splu past the rank-32 kernels (ROADMAP F2, repaired):
+    #     K13 under the four coin pairs and K15/K16 at each of
+    #     RANKS_PAST_32 against their plain chains and the direct forms,
+    #     update and update + apply; K13 and K16 timed at RANK_BENCH; then
+    #     PSGD under splu on LeNet5 (K16) and under lra and splu on the
+    #     tensor decomposition (K13, K15) at each rank, 20 steps with the
+    #     kernels against the same steps under disabled()
+    g.manual_seed(84)
+    rank_err = {"lra_upd": 0.0, "splu_one": 0.0, "splu_upd": 0.0}
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    for r in RANKS_PAST_32:
+        st, (v, h, gr) = lra_case(RANK_N, r)
+        for coins in COINS:
+            uv, d = lra_upd.fused_update(st.UV, st.d, v, h, 0.05, coins)
+            got = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            with hopper.disabled():
+                ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, coins)
+            duv, dd_ = lra_upd.update_plain(st.UV, st.d, v, h, 0.05, coins)
+            pairs = [(uv, ref[0]), (d, ref[1]), *zip(got, ref), (uv, duv), (d, dd_)]
+            rel = max(_rel(a, b) for a, b in pairs)
+            rank_err["lra_upd"] = max(rank_err["lra_upd"], max(_abs(a, b) for a, b in pairs))
+            check(rel < TOL_K1, f"k13 r={r} vs plain at n={RANK_N}, coins {coins}")
+        print(f"k13 past rank 32: n={RANK_N} r={r}, four coin pairs, max rel err {rel:.3e} "
+              f"(last pair; tol {TOL_K1:.0e})", flush=True)
+        del st, uv, d, got, ref, duv, dd_, pairs
+        for n in (SPLU_K15[0], RANK_N):
+            name = "splu_one" if splu_one.fits(r, n) else "splu_upd"
+            check(splu.route(r, n, dev) == name, f"splu route at n={n} r={r}")
+            st, (v, h, gr) = splu_case(n, r)
+            got = splu_upd.fused_update(*fields(st), v, h, 0.05)
+            got_st, got_pre = splu.update_apply(st, v, h, gr, 0.05)
+            with hopper.disabled():
+                ref = splu_one.fused_update_apply(*fields(st), v, h, gr, 0.05)
+            direct = splu.update_plain(st, v, h, 0.05)
+            pairs = list(zip(got, ref[:4])) + list(zip(fields(got_st), ref[:4]))
+            pairs += [(got_pre, ref[4])] + list(zip(got, fields(direct)))
+            rel = max(_rel(a, b) for a, b in pairs)
+            rank_err[name] = max(rank_err[name], max(_abs(a, b) for a, b in pairs))
+            L1, U1 = got_st.Lt[:, :r].T, got_st.U12[:, :r]
+            tri_ok = torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+            print(f"{name} past rank 32: n={n} r={r} max rel err {rel:.3e} (tol {TOL_K1:.0e}), "
+                  f"corner triangles exact: {tri_ok}", flush=True)
+            check(rel < TOL_K1 and tri_ok, f"{name} r={r} vs plain at n={n}")
+            del st, got, got_st, got_pre, ref, direct, pairs
+    torch.cuda.synchronize()
+    counts = dict(hopper.counts)
+    want = {"lra_upd": 8 * len(RANKS_PAST_32), "splu_upd": 2 * len(RANKS_PAST_32),
+            "splu_one": sum(splu_one.fits(r, SPLU_K15[0]) for r in RANKS_PAST_32)}
+    want["splu_upd"] += 2 * len(RANKS_PAST_32) - want["splu_one"]
+    check({k: c for k, c in counts.items() if c} == want,
+          f"past rank 32: launches {want}, got {({k: c for k, c in counts.items() if c})}")
+    path_counts()
+    n, r = RANK_BENCH
+    st, (v, h, gr) = lra_case(n, r)
+    rank_ms = {"k13": _time_ab(torch, hopper, lambda: lra_upd.fused_update_apply(
+        st.UV, st.d, v, h, gr, 0.05, (False, True)), 20)}
+    del st
+    st, (v, h, gr) = splu_case(n, r)
+    rank_ms["k16"] = _time_ab(torch, hopper, lambda: splu_upd.fused_update(*fields(st), v, h,
+                                                                           0.05), 20)
+    del st
+    n15 = SPLU_K15[0]
+    st, (v, h, gr) = splu_case(n15, r)
+    rank_ms["k15"] = _time_ab(torch, hopper, lambda: splu_one.fused_update_apply(
+        *fields(st), v, h, gr, 0.05), 100)
+    del st
+    z = 2 * r + 2
+    lra_b = _bound(4 * (4 * r * n + 6 * n), 2 * 2 * z * z * n + 30 * r * n)  # as phase 7's
+    splu_b = _bound(*splu_work(n, r, apply=False))
+    k15_b = _bound(*splu_work(n15, r, apply=True))
+    print(f"past rank 32, n={n} r={r}: K13 update+apply kernel {rank_ms['k13'][0]:.4f} ms, plain "
+          f"{rank_ms['k13'][1]:.4f} ms, bound {lra_b[0]:.4f} ms ({lra_b[1]}); K16 update kernel "
+          f"{rank_ms['k16'][0]:.4f} ms, plain {rank_ms['k16'][1]:.4f} ms, bound {splu_b[0]:.4f} "
+          f"ms ({splu_b[1]}); K15 update+apply at n={n15} kernel {rank_ms['k15'][0]:.4f} ms, "
+          f"plain {rank_ms['k15'][1]:.4f} ms, bound {k15_b[0]:.4f} ms ({k15_b[1]})", flush=True)
+
+    def decomp_run(fam, r):
+        """RANK_DECOMP_STEPS PSGD steps on the tensor decomposition (the
+        workload's recipe at rank r): the parameters, losses and launches."""
+        gen = torch.Generator(device=dev).manual_seed(r)
+        target, params = tensor_decomp.make_target(gen), tensor_decomp.init(gen)
+        opt = PSGD(preconditioner=fam, rank=r, init_scale=0.1, lr_params=0.1,
+                   lr_preconditioner=0.1)
+        state = opt.init(params, seed=r)
+        losses = []
+        torch.cuda.synchronize()
+        hopper.reset_counts()
+        for _ in range(RANK_DECOMP_STEPS):
+            params, state, aux = opt.step(tensor_decomp.loss, params, state, gen, target)
+            losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        return torch.cat([p.flatten() for p in params]), torch.stack(losses), dict(hopper.counts)
+
+    def lenet_run(r):
+        """RANK_DECOMP_STEPS PSGD splu steps on LeNet5 (n = 44,426: past
+        K15's cap at every rank past 32, so K16), each step's K16 call held
+        against the plain chain on that step's own state and probes: the
+        largest of those errors, the losses, the launches."""
+        gen = torch.Generator(device=dev).manual_seed(90 + r)
+        params = lenet5.init(gen)
+        opt = PSGD(preconditioner="splu", rank=r, lr_params=0.1, lr_preconditioner=0.1,
+                   grad_clip_max_norm=0.1 * math.sqrt(sum(p.numel() for p in params)))
+        state = opt.init(params, seed=r)
+        batches = [mnist.synthetic_hard(gen, 64) for _ in range(RANK_DECOMP_STEPS)]
+        errs, losses = [0.0], []
+
+        def held(st, v, h, gr, step=0.01):
+            out = splu_update_apply(st, v, h, gr, step)
+            with hopper.disabled():
+                ref = splu_upd.fused_update(*fields(st), v, h, step)
+            errs.append(max(_rel(a, b) for a, b in zip(fields(out[0]), ref)))
+            return out
+
+        splu.update_apply = held
+        try:
+            torch.cuda.synchronize()
+            hopper.reset_counts()
+            for x, y in batches:
+                params, state, aux = opt.step(lenet5.loss, params, state, gen, x, y)
+                losses.append(aux["loss"])
+            torch.cuda.synchronize()
+        finally:
+            splu.update_apply = splu_update_apply
+        return max(errs), torch.stack(losses), dict(hopper.counts), state.precond.Lt.shape[1]
+
+    splu_update_apply = splu.update_apply
+    for r in RANKS_PAST_32:
+        err, kl, counts, n = lenet_run(r)
+        path_counts()
+        key = splu.route(r, n, dev)
+        print(f"psgd splu past rank 32: LeNet5 n={n} r={r}, route {key}, {RANK_DECOMP_STEPS} steps, "
+              f"launches {({k: c for k, c in counts.items() if c})}, loss {kl[0].item():.4f} -> "
+              f"{kl[-1].item():.4f}; each step's K16 against the plain chain on its state and "
+              f"probes, max rel err {err:.3e} (tol {TOL_K1:.0e})", flush=True)
+        check(key == "splu_upd" and counts.get(key) == RANK_DECOMP_STEPS and err < TOL_K1
+              and bool(torch.isfinite(kl).all()),
+              f"psgd splu r={r} on LeNet5: one K16 launch a step, each within {TOL_K1:.0e}")
+
+    for fam, name, tol in [("lra", "lra_upd", 2e-3), ("splu", None, TOL_TRAJ)]:
+        for r in RANKS_PAST_32:
+            kp, kl, counts = decomp_run(fam, r)
+            path_counts()
+            with hopper.disabled():
+                pp, pl, _ = decomp_run(fam, r)
+            key = name or splu.route(r, kp.numel(), dev)
+            traj = max(_rel(kp, pp), _rel(kl, pl))
+            print(f"psgd {fam} past rank 32: tensor decomposition r={r}, {RANK_DECOMP_STEPS} "
+                  f"steps, launches {({k: c for k, c in counts.items() if c})}, loss "
+                  f"{kl[0].item():.4f} -> {kl[-1].item():.4f}; parameters and losses against "
+                  f"the plain steps max rel err {traj:.3e} (tol {tol:.0e})", flush=True)
+            check(counts.get(key) == RANK_DECOMP_STEPS and traj < tol
+                  and bool(torch.isfinite(kl).all()),
+                  f"psgd {fam} r={r}: one {key} launch a step, trajectory within {tol:.0e}")
+
     # 9. path: LeNet5, exact Hvp, batch 64
     g.manual_seed(9)
     params = lenet5.init(g)
@@ -1883,6 +2050,29 @@ def main() -> int:
           f"differ by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
     check(loss_rel < TOL_TRAJ, "NMT reference splu: kernel and direct-form losses agree")
 
+    # 17b. path: the NMT model at the reference widths under lra and splu
+    #      at rank NMT_RANK (past the rank-32 kernels: the rank-generic
+    #      chains, K13 and K16), NMT_RANK_STEPS steps each, against the same
+    #      steps under disabled()
+    for fam, name in [("lra", "lra_upd"), ("splu", "splu_upd")]:
+        torch.cuda.empty_cache()
+        losses, counts, rate, _, _, last = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
+        path_counts()
+        n_state = (last.precond.UV if fam == "lra" else last.precond.Lt).shape[1]
+        del last
+        torch.cuda.empty_cache()
+        with hopper.disabled():
+            plain_losses, _, plain_rate, _, _, _ = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
+        loss_rel = _rel(torch.tensor(losses), torch.tensor(plain_losses))
+        print(f"nmt ref {fam} rank {NMT_RANK}: n={n_state}, {NMT_RANK_STEPS} steps, launches "
+              f"{({k: c for k, c in counts.items() if c})}, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, {rate:.2f} steps/s with kernels, {plain_rate:.2f} plain; the "
+              f"loss traces differ by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
+        check(counts[name] == NMT_RANK_STEPS and loss_rel < TOL_TRAJ
+              and all(math.isfinite(x) for x in losses),
+              f"NMT reference {fam} rank {NMT_RANK}: one {name} launch a step, losses agree")
+    torch.cuda.empty_cache()
+
     # 18. S1: K14 on a one-rank NCCL group (the shard wrapper with no
     #     exchange) at n = 2^20, r = 10, update + apply, pipelined off and on,
     #     against its plain chain (the same call under disabled()) and K13
@@ -1926,6 +2116,34 @@ def main() -> int:
               f"pipelined {s1_ms['k14 pipelined']:.4f} ms", flush=True)
         check(max(s1_rel, s1_plain) <= TOL_K1, "s1: K14 on one rank vs plain and K13")
         del st, v, h, gr
+        # K14 and the sharded K16 past rank 32 (their rank-generic entries) at
+        # RANK_BENCH, against their plain chains and the one-process kernels
+        n, r = RANK_BENCH
+        st, (v, h, gr) = lra_case(n, r)
+        args = (st.UV, st.d, v, h, gr, 0.05, (True, False), mesh1)
+        got = lra_upd.fused_update_apply_sharded(*args)
+        with hopper.disabled():
+            plain = lra_upd.fused_update_apply_sharded(*args)
+        ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, (True, False))
+        rel = max(max(_rel(a, b), _rel(a, c)) for a, b, c in zip(got, plain, ref))
+        s1_rank = {"k14": _time_ab(torch, hopper, lambda: lra_upd.fused_update_apply_sharded(*args),
+                                   10)}
+        del st, got, plain, ref, args
+        st, (v, h, gr) = splu_case(n, r)
+        fs = fields(st)
+        got = splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh1, None, gr)
+        with hopper.disabled():
+            plain = splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh1, None, gr)
+        ref = splu_upd.launch("splu_upd", *fs, v, h, 0.05, gr)
+        rel = max([rel] + [max(_rel(a, b), _rel(a, c)) for a, b, c in zip(got, plain, ref)])
+        s1_rank["k16"] = _time_ab(torch, hopper, lambda: splu_upd.fused_update_sharded(
+            *fs, v, h, 0.05, mesh1, None, gr), 10)
+        del st, fs, got, plain, ref
+        print(f"s1: past rank 32, n={n} r={r} on one NCCL rank: K14 and the sharded K16 max rel "
+              f"err {rel:.3e} against their plain chains and K13/K16 (tol {TOL_K1:.0e}); update"
+              f"+apply K14 {s1_rank['k14'][0]:.4f} ms (plain {s1_rank['k14'][1]:.4f}), sharded "
+              f"K16 {s1_rank['k16'][0]:.4f} ms (plain {s1_rank['k16'][1]:.4f})", flush=True)
+        check(rel < TOL_K1, f"s1: K14 and the sharded K16 at r={r} vs plain and one process")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

@@ -57,14 +57,31 @@
 //
 // What bounds it on this card: latency, not FLOPs or bytes. LeNet5's five
 // layers need 164 MFLOP per step in all and a few MB of traffic, the toy
-// NMT list less, yet each stage is only a few dozen 64x64 tiles or rows,
-// and each tile's block walks its whole K loop alone. Measured on an H100
-// 80GB HBM3 at its 700 W limit (dd-only LeNet5 list): 0.30 ms of device
-// time per step for the chain, 57 us per GEMM launch on average; the toy
-// NMT list (kinds ds, ns, ds, dd, ds, ns, ns) 145 us, 78 us of it GEMMs and
-// 20 us the arrow pre-pass. Grouping every layer into each launch keeps the
-// launch count fixed as layers are added; split-K or wgmma tiles are the
-// next step once it matters end to end.
+// NMT list less, yet each stage is only a few dozen 64x64 tiles or rows.
+// Grouping every layer into each launch keeps the launch count fixed as
+// layers are added.
+//
+// The grouped GEMM (gemm_kernel, below) also carries K9's, K10's and K17
+// nd's products in kron_sparse_big.cu, and the lra and splu Grams past
+// rank 32 (rank_space.cuh), where FLOPs bound it: fp32 FMA on
+// the SIMT units (TF32 stays off), 128 x 128 tiles of 8 x 8 outputs a
+// thread for the launches that fill the card (one kernel per operand
+// orientation: 128 registers, two blocks an SM), 64 x 64 for the small
+// ones, a 3-stage cp.async ring, and K split over the grid's y for a long
+// K. Measured on an H100 80GB HBM3 at its 700 W limit (tools/kron_gemm_ab.py
+// --gemm): 36.1 TFLOP/s on a dense (131072 x 512) x (512 x 512)
+// product, 54% of the 67 TFLOP/s fp32 peak, where cuBLAS's fp32 product of
+// the same shape ran 48.4-48.5; 33.0-33.1 TFLOP/s on K9's split triu Gram
+// difference. In probes made while tuning it (not kept), removing the
+// copies or the FMAs cut the time by about the removed part's own share:
+// the cp.async copies and the float4 shared-memory reads contend in the
+// SM's memory pipeline instead of overlapping. One kernel holding all four
+// orientations took 235 registers (one block an SM, 29.7 TFLOP/s); deeper
+// rings, other K depths, copies spread over the FMAs and 192- or 256-row
+// tiles (255 registers: spills) did no better. Copies by the Tensor Memory
+// Accelerator, off that pipeline, are the next step. The LeNet5 list's
+// chain ran 0.16-0.17 ms against 0.30 with the old 64 x 64 GEMM
+// (tools/kron_gemm_ab.py against the parent tree).
 //
 // One difference from the Pallas kernels: they divide step / (max + tiny)
 // WITHOUT the saturation of linalg.step_scale, so a zero probe gives
@@ -76,9 +93,7 @@
 #include <cfloat>
 #include <cstdint>
 
-#define GEMM_BM 64
-#define GEMM_BN 64
-#define GEMM_BK 16
+#define GEMM_BK 16       // K depth of a pipeline stage
 #define GEMM_THREADS 256
 
 enum Kind { KIND_DD = 0, KIND_DS = 1, KIND_ND = 2, KIND_NS = 3 };
@@ -296,88 +311,203 @@ __global__ void __launch_bounds__(256) vec_kernel(const JobBatch<VecJob> b, floa
     }
 }
 
-__device__ __forceinline__ float load_a(const GemmProb& P, const float* a, int i, int k) {
-    if (i >= P.M || k >= P.K) return 0.f;
-    return P.ta ? a[(size_t)k * P.lda + i] : a[(size_t)i * P.lda + k];
+// ------------------------------------------------------- the grouped GEMM
+// One (64 QM) x (64 QN) output tile a block: 128 x 128 (QM = QN = 2) for
+// the launches with tiles enough to fill the card, else 64 x 64. 256
+// threads on a 16 x 16 grid, thread (tx, ty) summing QM x QN quadrants of
+// 4 x 4 outputs, rows q 64 + 4 ty + (0..3) and columns q 64 + 4 tx + (0..3),
+// so that its reads are float4 and a warp's fall on distinct banks. Both
+// operands are stored k-major in shared memory (As[k][i], Bs[k][j]) and
+// reach it by cp.async, GEMM_BK deep, in a ring of GEMM_STAGES stages: an
+// operand whose memory runs along the tile's rows or columns (op(a) with
+// ta, op(b) without tb) by 16-byte copies where its stride and base allow,
+// the other transposed on its way in by 4-byte copies (consecutive threads
+// on its contiguous k); elements past the ragged edges are zero-filled
+// (src-size 0), so the FMA loop tests no bound. Each output is one FMA
+// chain over k, rising, the second product after the first with b negated
+// in the FMA: the old 64 x 64 kernel's chain, so the outputs are its own.
+
+#define GEMM_STAGES 3
+
+template <int QM, int QN>
+struct GemmTile {
+    static constexpr int BM = 64 * QM, BN = 64 * QN;
+    static constexpr int SIDE_A = GEMM_BK * (BM + 4), SIDE_B = GEMM_BK * (BN + 4);
+    static constexpr int STAGE = SIDE_A + SIDE_B;   // floats of one stage
+    static constexpr size_t SMEM = sizeof(float) * GEMM_STAGES * STAGE;
+};
+
+__device__ __forceinline__ void gemm_cp4(float* dst, const float* src, bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 4 : 0));
 }
 
-__device__ __forceinline__ float load_b(const GemmProb& P, const float* b, int k, int j) {
-    if (k >= P.K || j >= P.N) return 0.f;
-    return P.tb ? b[(size_t)j * P.ldb + k] : b[(size_t)k * P.ldb + j];
+// 16 bytes, of which the first `bytes` are read and the rest zero-filled
+__device__ __forceinline__ void gemm_cp16(float* dst, const float* src, int bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
 
-// One 64x64 output tile per block, 256 threads, 4x4 outputs per thread.
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
+// One operand's (GEMM_BK x R) slab of a stage into s[k][i], rows R + 4
+// apart: MAJ, x[k ld + i] (16-byte copies when vec, else 4-byte); else
+// x[i ld + k], transposed. Rows past `rows` and k past k_hi are zeros.
+template <int R, bool MAJ>
+__device__ __forceinline__ void gemm_load(float* s, const float* x, int ld, bool vec, int i0,
+                                          int rows, int k0, int k_hi) {
+    constexpr int LD = R + 4;
+    if (MAJ && vec) {
+#pragma unroll
+        for (int q = 0; q < R * GEMM_BK / 4 / GEMM_THREADS; ++q) {
+            const int c = threadIdx.x + q * GEMM_THREADS;
+            const int k = c / (R / 4), i = (c % (R / 4)) * 4, gk = k0 + k, gi = i0 + i;
+            const int valid = gk < k_hi ? max(0, min(4, rows - gi)) : 0;
+            gemm_cp16(s + k * LD + i, valid ? x + (size_t)gk * ld + gi : x, 4 * valid);
+        }
+        return;
+    }
+#pragma unroll
+    for (int q = 0; q < R * GEMM_BK / GEMM_THREADS; ++q) {
+        const int e = threadIdx.x + q * GEMM_THREADS;
+        // consecutive threads on the contiguous dimension of memory
+        const int k = MAJ ? e / R : e % GEMM_BK, i = MAJ ? e % R : e / GEMM_BK;
+        const int gk = k0 + k, gi = i0 + i;
+        const bool ok = gk < k_hi && gi < rows;
+        gemm_cp4(s + k * LD + i, ok ? x + (MAJ ? (size_t)gk * ld + gi : (size_t)gi * ld + gk) : x,
+                 ok);
+    }
+}
+
+// 16-byte copies: the stride and the base keep every chunk 16-byte aligned
+__device__ __forceinline__ bool gemm_vec(const float* x, int ld) {
+    return ld % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+}
+
+// the FMAs of one stage: acc (+/-)= As^T Bs over its GEMM_BK k
+template <int QM, int QN, bool NEG>
+__device__ __forceinline__ void gemm_stage(const float* As, const float* Bs, int tx, int ty,
+                                           float (&acc)[4 * QM][4 * QN]) {
+    constexpr int LDA = 64 * QM + 4, LDB = 64 * QN + 4;
+#pragma unroll
+    for (int kk = 0; kk < GEMM_BK; ++kk) {
+        float a[4 * QM], b[4 * QN];
+#pragma unroll
+        for (int q = 0; q < QM; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(As + kk * LDA + q * 64 + ty * 4);
+            a[4 * q] = v.x;
+            a[4 * q + 1] = v.y;
+            a[4 * q + 2] = v.z;
+            a[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int q = 0; q < QN; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(Bs + kk * LDB + q * 64 + tx * 4);
+            b[4 * q] = v.x;
+            b[4 * q + 1] = v.y;
+            b[4 * q + 2] = v.z;
+            b[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4 * QM; ++i)
+#pragma unroll
+            for (int j = 0; j < 4 * QN; ++j)
+                acc[i][j] = __fmaf_rn(a[i], NEG ? -b[j] : b[j], acc[i][j]);
+    }
+}
+
+// The K loop of one tile: acc += op(a) op(b) over [k_lo, k_hi), then
+// acc -= op(a2) op(b2) over the same band when a2 is set.
+template <int QM, int QN, int TA, int TB>
+__device__ __forceinline__ void gemm_tile(const GemmProb& P, int row0, int col0, int k_lo,
+                                          int k_hi, float* sm, float (&acc)[4 * QM][4 * QN]) {
+    using T = GemmTile<QM, QN>;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int steps = k_hi > k_lo ? (k_hi - k_lo + GEMM_BK - 1) / GEMM_BK : 0;
+    const int total = P.a2 ? 2 * steps : steps;
+    const bool va = gemm_vec(P.a, P.lda) && (!P.a2 || gemm_vec(P.a2, P.lda));
+    const bool vb = gemm_vec(P.b, P.ldb) && (!P.b2 || gemm_vec(P.b2, P.ldb));
+    auto load = [&](int t) {
+        const int pass = t >= steps, k0 = k_lo + (t - pass * steps) * GEMM_BK;
+        float* st = sm + (t % GEMM_STAGES) * T::STAGE;
+        gemm_load<T::BM, TA == 1>(st, pass ? P.a2 : P.a, P.lda, va, row0, P.M, k0, k_hi);
+        gemm_load<T::BN, TB == 0>(st + T::SIDE_A, pass ? P.b2 : P.b, P.ldb, vb, col0, P.N, k0, k_hi);
+    };
+#pragma unroll
+    for (int s = 0; s < GEMM_STAGES - 1; ++s) {
+        if (s < total) load(s);
+        asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int t = 0; t < total; ++t) {
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(GEMM_STAGES - 2));
+        // step t has landed, and every thread is done with step t - 1's stage
+        __syncthreads();
+        if (t + GEMM_STAGES - 1 < total) load(t + GEMM_STAGES - 1);
+        asm volatile("cp.async.commit_group;\n" ::);
+        const float* As = sm + (t % GEMM_STAGES) * T::STAGE;
+        if (t < steps) gemm_stage<QM, QN, false>(As, As + T::SIDE_A, tx, ty, acc);
+        else gemm_stage<QM, QN, true>(As, As + T::SIDE_A, tx, ty, acc);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// grid (tiles of every problem, splits). With splits > 1, block y sums
+// k in [y kc, (y + 1) kc), kc = K / splits rounded up to GEMM_BK, into
+// c + y M N (EPI_STORE and EPI_TRIU alone; a caller sums the partials).
+// MINB: the blocks an SM holds; VAR >= 0: the kernel holds the one operand
+// orientation (ta, tb) = (VAR >> 1, VAR & 1) of every problem it is given.
+template <int QM, int QN, int MINB, int VAR = -1>
+__global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatch g) {
+    using T = GemmTile<QM, QN>;
+    extern __shared__ __align__(16) float gsm[];
+    __shared__ float red[GEMM_THREADS / 32];
     const int p = find_job(g.tiles, g.count, blockIdx.x);
     // a copy: the fields the loops read stay in registers, not re-read from
     // the dynamically indexed parameter array
     const GemmProb P = g.p[p];
     const int t = blockIdx.x - g.tiles[p];
-    const int tiles_n = (P.N + GEMM_BN - 1) / GEMM_BN;
-    const int row0 = (t / tiles_n) * GEMM_BM, col0 = (t % tiles_n) * GEMM_BN;
+    const int tiles_n = (P.N + T::BN - 1) / T::BN;
+    const int row0 = (t / tiles_n) * T::BM, col0 = (t % tiles_n) * T::BN;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    __shared__ float As[GEMM_BK][GEMM_BM + 4];
-    __shared__ float Bs[GEMM_BK][GEMM_BN + 4];
-    __shared__ float red[GEMM_THREADS / 32];
 
-    float acc[4][4] = {};
+    float acc[4 * QM][4 * QN];
+#pragma unroll
+    for (int i = 0; i < 4 * QM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * QN; ++j) acc[i][j] = 0.f;
     // a tile wholly below the diagonal of a triu output is zero: skip the K loop
     const bool triu = P.epi == EPI_TRIU_MAX || P.epi == EPI_TRIU;
-    const bool skip = triu && row0 > col0 + GEMM_BN - 1;
+    const bool skip = triu && row0 > col0 + T::BN - 1;
     // the band of k where a triangular operand may be nonzero for this tile
     int k_lo = 0, k_hi = P.K;
+    if (gridDim.y > 1) {
+        const int kc = ((P.K + gridDim.y - 1) / gridDim.y + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
+        k_lo = blockIdx.y * kc;
+        k_hi = min(P.K, k_lo + kc);
+    }
     if (P.cut & CUT_A_UPPER) k_lo = max(k_lo, row0);             // a_ik = 0 for k < i
-    if (P.cut & CUT_A_LOWER) k_hi = min(k_hi, row0 + GEMM_BM);   // a_ik = 0 for k > i
-    if (P.cut & CUT_B_UPPER) k_hi = min(k_hi, col0 + GEMM_BN);   // b_kj = 0 for k > j
+    if (P.cut & CUT_A_LOWER) k_hi = min(k_hi, row0 + T::BM);     // a_ik = 0 for k > i
+    if (P.cut & CUT_B_UPPER) k_hi = min(k_hi, col0 + T::BN);     // b_kj = 0 for k > j
     if (P.cut & CUT_B_LOWER) k_lo = max(k_lo, col0);             // b_kj = 0 for k < j
-    for (int pass = 0; pass < 2 && !skip; ++pass) {
-        const float* a = pass ? P.a2 : P.a;
-        const float* b = pass ? P.b2 : P.b;
-        if (a == nullptr) break;
-        const float sign = pass ? -1.f : 1.f;
-        for (int k0 = k_lo; k0 < k_hi; k0 += GEMM_BK) {
-            for (int e = threadIdx.x; e < GEMM_BK * GEMM_BM; e += GEMM_THREADS) {
-                // for a transposed operand, consecutive threads walk the
-                // contiguous dimension of memory
-                int kk, ii;
-                if (P.ta) { kk = e / GEMM_BM; ii = e % GEMM_BM; }
-                else { ii = e / GEMM_BK; kk = e % GEMM_BK; }
-                As[kk][ii] = load_a(P, a, row0 + ii, k0 + kk);
-            }
-            for (int e = threadIdx.x; e < GEMM_BK * GEMM_BN; e += GEMM_THREADS) {
-                int kk, jj;
-                if (P.tb) { jj = e / GEMM_BK; kk = e % GEMM_BK; }
-                else { kk = e / GEMM_BN; jj = e % GEMM_BN; }
-                Bs[kk][jj] = sign * load_b(P, b, k0 + kk, col0 + jj);
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < GEMM_BK; ++kk) {
-                float av[4], bv[4];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) av[r] = As[kk][ty + 16 * r];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) bv[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) acc[r][c] += av[r] * bv[c];
-            }
-            __syncthreads();
-        }
+    if (!skip) {
+        if (VAR >= 0) gemm_tile<QM, QN, (VAR >> 1) & 1, VAR & 1>(P, row0, col0, k_lo, k_hi, gsm, acc);
+        else if (P.ta && P.tb) gemm_tile<QM, QN, 1, 1>(P, row0, col0, k_lo, k_hi, gsm, acc);
+        else if (P.ta) gemm_tile<QM, QN, 1, 0>(P, row0, col0, k_lo, k_hi, gsm, acc);
+        else if (P.tb) gemm_tile<QM, QN, 0, 1>(P, row0, col0, k_lo, k_hi, gsm, acc);
+        else gemm_tile<QM, QN, 0, 0>(P, row0, col0, k_lo, k_hi, gsm, acc);
     }
 
+    float* c = P.c + (size_t)blockIdx.y * P.M * P.N;
     const float s = P.epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
     float local_max = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = row0 + ty + 16 * r;
+    for (int ii = 0; ii < 4 * QM; ++ii) {
+        const int i = row0 + (ii / 4) * 64 + ty * 4 + ii % 4;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int j = col0 + tx + 16 * c;
+        for (int jj = 0; jj < 4 * QN; ++jj) {
+            const int j = col0 + (jj / 4) * 64 + tx * 4 + jj % 4;
             if (i >= P.M || j >= P.N) continue;
             const size_t o = (size_t)i * P.N + j;
-            float v = acc[r][c];
+            float v = acc[ii][jj];
             if (triu) {
                 v = (i <= j) ? v : 0.f;
                 local_max = fmaxf(local_max, fabsf(v));
@@ -392,7 +522,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
             } else if (P.epi == EPI_ROWDIV) {
                 v = i == P.M - 1 ? 0.f : v / P.r[i];
             }
-            P.c[o] = v;
+            c[o] = v;
         }
     }
     if (P.epi == EPI_TRIU_MAX) {
@@ -402,14 +532,101 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmBatch g) {
     }
 }
 
-void launch_gemms(GemmBatch& g, cudaStream_t stream) {
-    if (g.count == 0) return;
+// the SMs of the current card, asked once
+static int gemm_sms() {
+    static int sms = 0;
+    if (!sms) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms < 1) sms = 132;
+    }
+    return sms;
+}
+
+// The 128 x 128 tiles' ring needs more than the 48 KB of dynamic shared
+// memory a kernel may take by default: raised once on each device. A refused
+// raise launches nothing; the caller's cudaGetLastError() returns it.
+template <int QM, int QN, int MINB, int VAR = -1>
+static void gemm_launch_q(GemmBatch& g, int splits, cudaStream_t stream) {
+    using T = GemmTile<QM, QN>;
+    static unsigned long long raised = 0;  // a bit per device
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return;
+    if (dev >= 64 || !(raised >> dev & 1)) {
+        if (cudaFuncSetAttribute(gemm_kernel<QM, QN, MINB, VAR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)T::SMEM) != cudaSuccess)
+            return;
+        if (dev < 64) raised |= 1ULL << dev;
+    }
     g.tiles[0] = 0;
     for (int p = 0; p < g.count; ++p) {
         const GemmProb& P = g.p[p];
-        g.tiles[p + 1] = g.tiles[p] + ((P.M + GEMM_BM - 1) / GEMM_BM) * ((P.N + GEMM_BN - 1) / GEMM_BN);
+        g.tiles[p + 1] = g.tiles[p] + ((P.M + T::BM - 1) / T::BM) * ((P.N + T::BN - 1) / T::BN);
     }
-    gemm_kernel<<<g.tiles[g.count], GEMM_THREADS, 0, stream>>>(g);
+    gemm_kernel<QM, QN, MINB, VAR><<<dim3(g.tiles[g.count], splits), GEMM_THREADS, T::SMEM,
+                                     stream>>>(g);
+}
+
+// q: 0 picks the tile (128 x 128 where the launch's tiles of that size,
+// times the splits, give every SM at least four, two resident at a time;
+// else 64 x 64, two an SM); 1 (64) or 2 (128) forces it
+static void launch_gemms_q(GemmBatch& g, cudaStream_t stream, int splits, int q) {
+    if (g.count == 0) return;
+    if (q == 0) {
+        long long big = 0;
+        for (int p = 0; p < g.count; ++p)
+            big += (long long)((g.p[p].M + 127) / 128) * ((g.p[p].N + 127) / 128);
+        q = big * splits >= 4LL * gemm_sms() ? 2 : 1;
+    }
+    if (q == 2) {
+        // one launch per operand orientation present: a kernel holding one
+        // (ta, tb) takes 128 registers a thread and two blocks an SM, where
+        // one holding all four takes 235 and one
+        for (int var = 0; var < 4; ++var) {
+            GemmBatch sub;
+            sub.count = 0;
+            for (int p = 0; p < g.count; ++p)
+                if ((g.p[p].ta != 0) * 2 + (g.p[p].tb != 0) == var) sub.p[sub.count++] = g.p[p];
+            if (sub.count == 0) continue;
+            if (var == 0) gemm_launch_q<2, 2, 2, 0>(sub, splits, stream);
+            else if (var == 1) gemm_launch_q<2, 2, 2, 1>(sub, splits, stream);
+            else if (var == 2) gemm_launch_q<2, 2, 2, 2>(sub, splits, stream);
+            else gemm_launch_q<2, 2, 2, 3>(sub, splits, stream);
+        }
+    }
+    else gemm_launch_q<1, 1, 2>(g, splits, stream);
+}
+
+void launch_gemms(GemmBatch& g, cudaStream_t stream, int splits, int tile) {
+    launch_gemms_q(g, stream, splits, tile);
+}
+
+// One problem through the grouped GEMM, for the card tests: its tile forced
+// (q = 1: 64 x 64, 2: 128 x 128, 0: the launch's own choice) and K split
+// over `splits` partial outputs
+extern "C" int psgd_gemm_test(int M, int N, int K, const void* a, int ta, int lda, const void* b,
+                              int tb, int ldb, const void* a2, const void* b2, void* c,
+                              const void* q, const void* v, const void* r, void* mx, float step,
+                              int epi, int cut, int qtile, int splits, void* stream_ptr) {
+    if (M < 1 || N < 1 || K < 1 || splits < 1 || qtile < 0 || qtile > 2) return (int)cudaErrorInvalidValue;
+    GemmBatch g;
+    g.count = 1;
+    auto f = [](const void* x) { return static_cast<const float*>(x); };
+    GemmProb P = gemm_prob(f(a), ta, lda, f(b), tb, ldb, static_cast<float*>(c), M, N, K);
+    P.a2 = f(a2);
+    P.b2 = f(b2);
+    P.q = f(q);
+    P.v = f(v);
+    P.r = f(r);
+    P.mx = static_cast<unsigned int*>(mx);
+    P.step = step;
+    P.epi = epi;
+    P.cut = cut;
+    g.p[0] = P;
+    launch_gemms_q(g, static_cast<cudaStream_t>(stream_ptr), splits, qtile);
+    return (int)cudaGetLastError();
 }
 
 GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,

@@ -35,12 +35,14 @@
 //      accumulation) and summed in a fixed order by a last small pass.
 // What bounds it: the two triangular m x n products (m^2 n FLOPs each)
 // and the Gram difference (4 m^2 n, of which the caller keeps the upper
-// triangle), all in fp32 SIMT tiles, against 2mn floats of probes
-// (19.3 MB at (256, 9414)). The split-K keeps the Gram's grid at
-// 16 x (m/64)^2 blocks instead of (m/64)^2 blocks that walk K = n alone.
-// The SIMT tiles run far below the fp32 peak, and the plain torch version
-// (cuBLAS and a trsm) is close at the reference NMT layers (PERF.md).
-// Larger tiles and skipping the Gram's lower tiles are the next steps.
+// triangle), all in kron_dd.cu's fp32 SIMT GEMM, against 2mn floats of
+// probes (19.3 MB at (256, 9414)). The Gram's K = n is split over the
+// GEMM's grid (up to 16 column panels), so its grid is not (m/64)^2 blocks
+// that walk K = n alone. At the reference NMT layers every launch is too
+// small for the GEMM's 128 x 128 tiles and takes its 64 x 64 ones; its
+// kernel part ran 0.53 ms for the three against 0.82 with the old 64 x 64
+// GEMM (H100 80GB HBM3, 700 W, tools/kron_gemm_ab.py). Skipping the Gram's
+// lower tiles is the next step.
 //
 // K9 replaces the same file's `fused_update_nd` (:598, its pallas_call at
 // :634, `_kernel_nd_big` :298): a (norm, dense) layer, n <= 1024, any m. With
@@ -65,7 +67,14 @@
 // against 2mn floats of probes: 18.8 GFLOP for the NMT model's five
 // (norm, dense) layers at the reference widths, 0.28 ms at the 67 TFLOP/s
 // fp32 peak. A and Bt are stored once (2mn floats) and read back by the
-// row sums and the Gram.
+// row sums and the Gram. The products and the Gram run in the GEMM's
+// 128 x 128 tiles (25-36 TFLOP/s, kron_dd.cu's note); the Gram's K = m is
+// split over up to ND_MAX_SPLITS = 64 row panels of >= 256 rows (at
+// (131072, 512) the kernel part ran 5.27 ms at 64 panels, 5.31 at 128,
+// 5.67 at 32, 6.64 at 8; H100 80GB HBM3, 700 W, tools/kron_gemm_ab.py
+// --sweep), 26.2 TFLOP/s of its 4 m n^2 against 13.0 with the old 64 x 64
+// GEMM (10.57-10.62 ms); the NMT model's five layers' kernel parts 2.48 ms
+// against 3.37 (tools/kron_gemm_ab.py against that tree).
 //
 // K7 and K8 replace the same file's `_fused_update_ns_wide2` (:456, its
 // pallas_call at :494, `_kernel_ns_wide2` :197) and
@@ -267,7 +276,7 @@ extern "C" size_t psgd_kron_ds_big_scratch_floats(int m, int n) {
     int splits, chunk;
     ds_split(n, splits, chunk);
     const size_t mm = psgd_align4((size_t)m * m), mn = psgd_align4((size_t)m * n);
-    return mm + 2 * mn + (size_t)splits * mm;
+    return mm + 2 * mn + (size_t)splits * m * m;
 }
 
 extern "C" int psgd_kron_ds_big(int m, int n, const void* qlb, const void* qrb, const void* dx,
@@ -307,25 +316,22 @@ extern "C" int psgd_kron_ds_big(int m, int n, const void* qlb, const void* qrb, 
     launch_gemms(g, stream);
     // 3. grad2 = colsum(A*A - Bt*Bt)
     colsum_diff_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, A, Bt, static_cast<float*>(grad2));
-    // 4. A A^T - Bt Bt^T, split over column panels, then summed
-    g.count = splits;
-    for (int s = 0; s < splits; ++s) {
-        const int k0 = s * chunk, kc = std::min(chunk, n - k0);
-        GemmProb P = gemm_prob(A + k0, 0, n, A + k0, 1, n, part + (size_t)s * mm, m, m, kc);
-        P.a2 = Bt + k0;
-        P.b2 = Bt + k0;
-        g.p[s] = P;
-    }
-    launch_gemms(g, stream);
+    // 4. A A^T - Bt Bt^T, K = n split over column panels (the GEMM's grid),
+    //    then summed in panel order
+    g.count = 1;
+    g.p[0] = gemm_prob(A, 0, n, A, 1, n, part, m, m, n);
+    g.p[0].a2 = Bt;
+    g.p[0].b2 = Bt;
+    launch_gemms(g, stream, splits);
     sum_splits_kernel<<<(m * m + 255) / 256, 256, 0, stream>>>(
-        m * m, mm, splits, part, static_cast<float*>(gram));
+        m * m, (size_t)m * m, splits, part, static_cast<float*>(gram));
     return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- K9
 
-#define ND_MAX_SPLITS PSGD_MAX_GEMMS  // the Gram's row panels: one grouped launch
-#define ND_MAX_PANELS 64              // corr's row panels
+#define ND_MAX_SPLITS 64   // the Gram's row panels (the GEMM's grid.y)
+#define ND_MAX_PANELS 64   // corr's row panels
 
 // one warp a row: diag0_i = sum_j A_ij^2 - Bt_ij^2, biasa_i = sum_j A_ij al_j
 // with A_last = al = q0_{m-1} u
@@ -404,7 +410,7 @@ extern "C" size_t psgd_kron_nd_big_scratch_floats(int m, int n) {
     int panels, rows, splits, chunk;
     nd_grid(m, panels, rows, splits, chunk);
     const size_t nn = psgd_align4((size_t)n * n), mn = psgd_align4((size_t)m * n);
-    return nn + 2 * mn + psgd_align4((size_t)panels * n) + (size_t)splits * nn;
+    return nn + 2 * mn + psgd_align4((size_t)panels * n) + (size_t)splits * n * n;
 }
 
 extern "C" int psgd_kron_nd_big(int m, int n, const void* dx, int dx_t, const void* dg, int dg_t,
@@ -454,19 +460,15 @@ extern "C" int psgd_kron_nd_big(int m, int n, const void* dx, int dx_t, const vo
         m, n, rows, f(dx), dx_t, f(w), pcorr);
     sum_splits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, n, panels, pcorr,
                                                             static_cast<float*>(corr));
-    // 5. triu(A^T A - Bt^T Bt), split over row panels, summed in split order
-    g.count = splits;
-    for (int s = 0; s < splits; ++s) {
-        const size_t k0 = (size_t)s * chunk;
-        const int kc = std::min(chunk, m - (int)k0);
-        GemmProb Q = gemm_prob(A + k0 * n, 1, n, A + k0 * n, 0, n, part + (size_t)s * nn, n, n, kc);
-        Q.a2 = Bt + k0 * n;
-        Q.b2 = Bt + k0 * n;
-        Q.epi = EPI_TRIU;
-        g.p[s] = Q;
-    }
-    launch_gemms(g, stream);
-    sum_splits_kernel<<<(n * n + 255) / 256, 256, 0, stream>>>(n * n, nn, splits, part,
+    // 5. triu(A^T A - Bt^T Bt), K = m split over row panels (the GEMM's
+    //    grid), summed in split order
+    g.count = 1;
+    g.p[0] = gemm_prob(A, 1, n, A, 0, n, part, n, n, m);
+    g.p[0].a2 = Bt;
+    g.p[0].b2 = Bt;
+    g.p[0].epi = EPI_TRIU;
+    launch_gemms(g, stream, splits);
+    sum_splits_kernel<<<(n * n + 255) / 256, 256, 0, stream>>>(n * n, (size_t)n * n, splits, part,
                                                                 static_cast<float*>(gram));
     return (int)cudaGetLastError();
 }
@@ -640,9 +642,12 @@ extern "C" int psgd_kron_ns_wide(int m, int n, const void* dx, int dx_t, const v
 // thread keeps AP_ROWS x AP_LANES loads in flight. (norm, dense)
 // operations, the product by R (2 m n^2 FLOPs: 68.7 GFLOP at
 // (131072, 512), 1.03 ms at the fp32 peak): a prologue launch of the same
-// kernel writes preG = Ql G, kron_dd.cu's grouped GEMM (64x64 SIMT tiles,
-// unchanged) writes Z = preG R into the output, and the kernel rewrites Z
-// in place (each element read and written by one thread).
+// kernel writes preG = Ql G, kron_dd.cu's grouped GEMM (128 x 128 fp32
+// SIMT tiles at this size) writes Z = preG R into the output, and the
+// kernel rewrites Z in place (each element read and written by one thread):
+// 2.36 ms at (131072, 512), from 4.46-4.49 with the old 64 x 64 GEMM,
+// against 1.41 for cuBLAS's fp32 product alone (H100 80GB HBM3, 700 W,
+// tools/kron_gemm_ab.py).
 
 #define AP_THREADS 256
 #define AP_LANES 4                         // lanes a thread owns, AP_THREADS apart
@@ -753,7 +758,7 @@ extern "C" int psgd_kron_apply_ns(int m, int n, const void* g, const void* ql, c
 
 extern "C" int psgd_kron_apply_nd(int m, int n, const void* g, const void* ql, const void* r,
                                   void* out, void* scratch, void* stream_ptr) {
-    // the GEMM's 1-D grid counts its 64x64 tiles in an int
+    // the GEMM's grid counts its tiles (64 x 64 at most) in an int
     if (m < 1 || n < 1 || (size_t)((m + 63) / 64) * ((n + 63) / 64) > (size_t)INT_MAX)
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

@@ -72,11 +72,15 @@ static_assert(sizeof(GemmBatch) <= 4096, "a GemmBatch is passed by value as a ke
 GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int ldb,
                    float* c, int M, int N, int K);
 // Launch every problem of `g` in one grid on `stream` (kron_dd.cu); fills
-// g.tiles. Nothing is launched when g.count == 0.
-void launch_gemms(GemmBatch& g, cudaStream_t stream);
+// g.tiles. Nothing is launched when g.count == 0. With splits > 1 each
+// problem's K is cut into `splits` bands of whole GEMM_BK steps, and band y
+// is written to c + y M N (EPI_STORE and EPI_TRIU only): the caller sums
+// the partials in band order. tile: 0 the launch's own choice, 1 the
+// 64 x 64 tiles, 2 the 128 x 128.
+void launch_gemms(GemmBatch& g, cudaStream_t stream, int splits = 1, int tile = 0);
 
 // The fp32 smallest subnormal, 2^-149: needs denormals kept (no fast-math).
 __device__ __forceinline__ float psgd_tiny() { return __int_as_float(1); }
 
 // Scratch carving: floats rounded up to a multiple of 4 (16-byte alignment).
-static inline size_t psgd_align4(size_t x) { return (x + 3) & ~(size_t)3; }
+__host__ __device__ static inline size_t psgd_align4(size_t x) { return (x + 3) & ~(size_t)3; }

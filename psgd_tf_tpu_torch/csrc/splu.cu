@@ -51,9 +51,25 @@
 // the update alone (4rn + 6n), 193 MB (58 us) at 2^20. This version reads
 // the tail factors in stages 1, 2 and 3 (and the new ones in stage 4): ~2x
 // that, and the Gram sums read shared memory twice per FMA. At small n the
-// chain's short launches (six for the update, nine with g) bound it. Ranks
-// up to SPLU_MAX_RANK: a warp holds a rank-space vector.
+// chain's short launches (six for the update, nine with g) bound it.
+//
+// Ranks: up to SPLU_MAX_RANK (32) the kernels above, a warp holding a
+// rank-space vector and each thread its share of the Gram's pairs; past it
+// the host runs the rank-generic chain (splu_update_g, the same C entry
+// points, the sharded ones too), with no cap below what device memory sets.
+// Its Grams run in kron_dd.cu's grouped GEMM (rank_space.cuh). Its
+// scratch: the GEMM's bands, the larger of gram_part_floats for
+// z = 3r + 3 and 2r + 2 (at most 256 z^2 floats, a band per >= 256 lanes:
+// under 1/256 of the state's 2 r n), the staged rows (r + 3)(n - r)
+// (U2 w and three more: about half the state's), the two reduced Grams
+// (3r + 3)^2 + (2r + 2)^2, the rank space 19 r + 8 and, past RG_SMEM of
+// shared memory (r > ~3200), the corners' workspace 16 r. At n = 2^20
+// (H100 80GB HBM3, 700 W, tools/kron_gemm_ab.py --gram and --generic):
+// the update 3.35 ms at r = 64, 8.25 at r = 128; the generic chain forced
+// at r = 10 runs 2.23 ms against the rank-32 chain's 0.29, which is why
+// both stay. The one-launch kernel keeps r <= 32.
 #include "psgd.cuh"
+#include "rank_space.cuh"
 
 #include <cooperative_groups.h>
 #include <cfloat>
@@ -741,6 +757,311 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
     splu_stage4_lane(j, n, r, c, lt_out, l3_out, u12_out, u3_out, g, pre);
 }
 
+// ------------------------------------------------ any rank: the generic chain
+// Past SPLU_MAX_RANK the host runs the same chain with the rank-generic
+// pieces of rank_space.cuh: stage 1's Gram through the grouped GEMM
+// (gram_launch) over the tail lanes of Z = [L2^T; U2 w; U2; dx2 w; dg2;
+// l3 u3 dg2], the upper triangle over [L2^T; U2 w] and the first 3r rows
+// against the last three, L2^T and U2 read in place and U2 w and the last
+// three rows staged by splu_rows_kernel; max l3, max u3 in a pass of
+// their own; the corners on one block with the rank-space vectors strided
+// over its threads; stages 2-4 reading their coefficients in place (the
+// same block bodies as the chain's); and the apply's Gram over the new
+// tail, Z = [L2^T'; U2'; l3' u3' g2; g2], after stage 3.
+
+// The rows of a Gram the state does not hold, over the tail lanes j < nt:
+// stage 1's (g null) w (r, nt) = U2 w and e (3, nt) = [dx2 w; dg2;
+// l3 u3 dg2], w = 1 / (l3 u3); the apply's e (2, nt) = [l3 u3 g2; g2]
+__global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
+                                                              const float* __restrict__ l3,
+                                                              const float* __restrict__ u12,
+                                                              const float* __restrict__ u3,
+                                                              const float* __restrict__ v,
+                                                              const float* __restrict__ h,
+                                                              const float* __restrict__ g,
+                                                              float* __restrict__ w,
+                                                              float* __restrict__ e) {
+    const int nt = n - r, j = blockIdx.x * SPLU_TILE + threadIdx.x;
+    if (j >= nt) return;
+    const size_t off = (size_t)r + j;
+    if (g) {
+        e[j] = l3[j] * u3[j] * g[off];
+        e[(size_t)nt + j] = g[off];
+        return;
+    }
+    const float lu = l3[j] * u3[j], wj = 1.f / lu;
+    for (int k = 0; k < r; ++k) w[(size_t)k * nt + j] = u12[(size_t)k * n + off] * wj;
+    e[j] = v[off] * wj;
+    e[(size_t)nt + j] = h[off];
+    e[2 * (size_t)nt + j] = lu * h[off];
+}
+
+// stage 1's Gram (3r + 3, 3r + 3): L2^T and U2 (rows n apart from column
+// r) read in place, U2 w (w) and the last three rows (e) staged
+static GramPlan splu_gram1_plan(int n, int r, const float* lt, const float* u12, const float* w,
+                                const float* e) {
+    const int nt = n - r;
+    const float *ltt = lt ? lt + r : nullptr, *ut = u12 ? u12 + r : nullptr;
+    GramPlan p = gram_plan(3 * r + 3, nt);
+    gram_add(p, ltt, n, 0, r, ltt, n, 0, r);
+    gram_add(p, ltt, n, 0, r, w, nt, r, r);
+    gram_add(p, w, nt, r, r, w, nt, r, r);
+    gram_add(p, ltt, n, 0, r, e, nt, 3 * r, 3);
+    gram_add(p, w, nt, r, r, e, nt, 3 * r, 3);
+    gram_add(p, ut, n, 2 * r, r, e, nt, 3 * r, 3);
+    return p;
+}
+
+// the apply's Gram (2r + 2, 2r + 2) over the new tail: the upper triangle
+// of L2^T' and the first 2r rows against the two staged ones (e)
+static GramPlan splu_gram2_plan(int n, int r, const float* lt, const float* u12, const float* e) {
+    const int nt = n - r;
+    const float *ltt = lt ? lt + r : nullptr, *ut = u12 ? u12 + r : nullptr;
+    GramPlan p = gram_plan(2 * r + 2, nt);
+    gram_add(p, ltt, n, 0, r, ltt, n, 0, r);
+    gram_add(p, ltt, n, 0, r, e, nt, 2 * r, 2);
+    gram_add(p, ut, n, r, r, e, nt, 2 * r, 2);
+    return p;
+}
+
+// Block b of a grid of nblk: max l3, max u3 over its tail lanes below
+// nvalid (maxpart[2b], [2b + 1]; -inf where it has none)
+__global__ void __launch_bounds__(SPLU_TILE) splu_lumax_kernel(int nt, int nvalid,
+                                                               const float* __restrict__ l3,
+                                                               const float* __restrict__ u3,
+                                                               float* __restrict__ maxpart) {
+    __shared__ float red[SPLU_TILE / 32];
+    float ml = splu_neg_inf(), mu = splu_neg_inf();
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt && j < nvalid;
+         j += gridDim.x * SPLU_TILE) {
+        ml = fmaxf(ml, l3[j]);
+        mu = fmaxf(mu, u3[j]);
+    }
+    ml = splu_block_max(ml, red);
+    mu = splu_block_max(mu, red);
+    if (threadIdx.x == 0) {
+        maxpart[2 * blockIdx.x] = ml;
+        maxpart[2 * blockIdx.x + 1] = mu;
+    }
+}
+
+// the generic chain's rank space (in the scratch): coef2, coef3 (r, 8),
+// ipx1 (r,), coef4 (r, 2), scal (8,) as in SpluRank
+struct SpluRankG {
+    float *coef2, *coef3, *ipx1, *coef4, *scal;
+};
+
+#define SPLU_GVECS 16
+static size_t splu_corner_floats(int r) { return (size_t)SPLU_GVECS * r; }
+
+// Corner A on any rank: corner A's algebra (splu_corner_a), its vectors in
+// dynamic shared memory or in ws (in_smem = 0)
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
+    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
+    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
+    const float* __restrict__ maxpart, SpluRankG rk, float* ws, int in_smem) {
+    extern __shared__ float sm[];
+    __shared__ float red[RG_THREADS / 32];
+    float* b = in_smem ? sm : ws;
+    const int z = 3 * r + 3;
+    float *dx1 = b, *dg1 = b + r, *Ug1 = b + 2 * r, *Qg1 = b + 3 * r, *iUtx1 = b + 4 * r,
+          *iQtx1 = b + 5 * r, *LtQg1 = b + 6 * r, *Pg1 = b + 7 * r, *iLiQtx1 = b + 8 * r,
+          *iPx1 = b + 9 * r, *w1 = b + 10 * r, *w2 = b + 11 * r;
+    const RMat L1{lt, 1, n}, U1{u12, n, 1};  // L1[i][j] = lt[j, i], U1[i][j] = u12[i, j]
+    const RMat GLW{gram + r, z, 1}, GLL{gram, z, 1}, GWW{gram + (size_t)r * z + r, z, 1};
+    RG_FOR(k, r) {
+        dx1[k] = v[k];
+        dg1[k] = h[k];
+    }
+    rg_mv(Ug1, U1, dg1, r);
+    RG_FOR(k, r) Ug1[k] += gram[(size_t)(2 * r + k) * z + 3 * r + 1];
+    rg_mv(Qg1, L1, Ug1, r);
+    RG_FOR(k, r) iUtx1[k] = dx1[k];
+    rg_solve(iUtx1, U1.t(), true, r);
+    rg_mv(w1, GLW, iUtx1, r);
+    RG_FOR(k, r) iQtx1[k] = iUtx1[k] - (gram[(size_t)k * z + 3 * r] - w1[k]);
+    rg_solve(iQtx1, L1.t(), false, r);
+    rg_mv(w1, GLL, Ug1, r);
+    rg_mv(LtQg1, L1.t(), Qg1, r);
+    RG_FOR(k, r) LtQg1[k] += w1[k] + gram[(size_t)k * z + 3 * r + 2];
+    rg_mv(Pg1, U1.t(), LtQg1, r);
+    RG_FOR(k, r) iLiQtx1[k] = iQtx1[k];
+    rg_solve(iLiQtx1, L1, true, r);
+    rg_mv(w1, GWW, iUtx1, r);
+    rg_mv(w2, GLW.t(), iLiQtx1, r);
+    RG_FOR(k, r) iPx1[k] = iLiQtx1[k] - ((gram[(size_t)(r + k) * z + 3 * r] - w1[k]) - w2[k]);
+    rg_solve(iPx1, U1, false, r);
+
+    // max|gl1| over the lower triangle, max|gu1| over the upper; the balance
+    // from the signed maxima of diag(L1) and l3, diag(U1) and u3
+    float gl = 0.f, gu = 0.f, ml = splu_neg_inf(), mu = splu_neg_inf();
+    RG_FOR(k, r) {
+        for (int j = 0; j <= k; ++j) gl = fmaxf(gl, fabsf(Qg1[k] * Qg1[j] - iQtx1[k] * iQtx1[j]));
+        for (int j = k; j < r; ++j) gu = fmaxf(gu, fabsf(Pg1[k] * dg1[j] - dx1[k] * iPx1[j]));
+        ml = fmaxf(ml, L1(k, k));
+        mu = fmaxf(mu, U1(k, k));
+    }
+    for (int q = threadIdx.x; q < blocks; q += RG_THREADS) {
+        ml = fmaxf(ml, maxpart[2 * q]);
+        mu = fmaxf(mu, maxpart[2 * q + 1]);
+    }
+    gl = rg_reduce(gl, 1, red);
+    gu = rg_reduce(gu, 1, red);
+    ml = rg_reduce(ml, 1, red);
+    mu = rg_reduce(mu, 1, red);
+    RG_FOR(k, r) {
+        float* c = rk.coef2 + (size_t)k * SPLU_NCOEF;
+        c[0] = Ug1[k];
+        c[1] = iUtx1[k];
+        c[2] = LtQg1[k];
+        c[3] = iLiQtx1[k];
+        c[4] = Qg1[k];
+        c[5] = iQtx1[k];
+        c[6] = Pg1[k];
+        c[7] = dx1[k];
+        rk.ipx1[k] = iPx1[k];
+    }
+    if (threadIdx.x == 0) {
+        const float rho = sqrtf(ml / mu);
+        rk.scal[2] = 1.f / rho;
+        rk.scal[3] = rho;
+        rk.scal[4] = gl;
+        rk.scal[5] = gu;
+    }
+}
+
+// Corner B on any rank (splu_corner_b): the step scales, coef3 and the
+// balanced corner rewrite L1', U1', one output entry a thread
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_b_g_kernel(
+    int n, int r, int blocks, float step, const float* __restrict__ lt,
+    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
+    SpluRankG rk, float* __restrict__ lt_out, float* __restrict__ u12_out, float* ws,
+    int in_smem) {
+    extern __shared__ float sm[];
+    __shared__ float red[RG_THREADS / 32];
+    float* b = in_smem ? sm : ws;
+    float *vq = b, *viq = b + r, *vpg = b + 2 * r, *vdx = b + 3 * r, *vipx = b + 4 * r,
+          *vdg = b + 5 * r, *c4 = b + 6 * r, *c5 = b + 7 * r, *c6 = b + 8 * r, *c7 = b + 9 * r;
+    const RMat L1{lt, 1, n}, U1{u12, n, 1};
+    float ml = 0.f, mu = 0.f;
+    for (int q = threadIdx.x; q < blocks; q += RG_THREADS) {
+        ml = fmaxf(ml, maxpart[2 * q]);
+        mu = fmaxf(mu, maxpart[2 * q + 1]);
+    }
+    ml = fmaxf(rg_reduce(ml, 1, red), rk.scal[4]);
+    mu = fmaxf(rg_reduce(mu, 1, red), rk.scal[5]);
+    const float sl = fminf(step / (ml + psgd_tiny()), FLT_MAX);
+    const float su = fminf(step / (mu + psgd_tiny()), FLT_MAX);
+    const float inv_rho = rk.scal[2], rho = rk.scal[3];
+    RG_FOR(k, r) {
+        const float* c = rk.coef2 + (size_t)k * SPLU_NCOEF;
+        vq[k] = c[4];
+        viq[k] = c[5];
+        vpg[k] = c[6];
+        vdx[k] = c[7];
+        vipx[k] = rk.ipx1[k];
+        vdg[k] = h[k];
+    }
+    rg_mv(c4, L1.t(), vq, r);
+    rg_mv(c5, L1.t(), viq, r);
+    rg_mv(c6, U1, vpg, r);
+    rg_mv(c7, U1, vdx, r);
+    RG_FOR(k, r) {
+        const float* c = rk.coef2 + (size_t)k * SPLU_NCOEF;
+        float* o = rk.coef3 + (size_t)k * SPLU_NCOEF;
+        o[0] = c[0];
+        o[1] = c[1];
+        o[2] = c[2];
+        o[3] = c[3];
+        o[4] = sl * c4[k];
+        o[5] = sl * c5[k];
+        o[6] = su * c6[k];
+        o[7] = su * c7[k];
+    }
+    // L1' = (L1 - sl gl1 L1) / rho, gl1 = tril(Qg1 Qg1^T - iQtx1 iQtx1^T), as
+    // columns of Lt's corner; U1' = rho (U1 - su U1 gu1), gu1 = triu(Pg1 dg1^T
+    // - dx1 iPx1^T); exact zeros off their triangles
+    for (long long e = threadIdx.x; e < (long long)r * r; e += RG_THREADS) {
+        const int k = (int)(e / r), j = (int)(e % r);
+        float y = 0.f;
+        if (j <= k) {
+            float s = 0.f;
+            for (int q = 0; q <= k; ++q) s += (vq[k] * vq[q] - viq[k] * viq[q]) * L1(q, j);
+            y = inv_rho * (L1(k, j) - sl * s);
+        }
+        lt_out[(size_t)j * n + k] = y;
+        y = 0.f;
+        if (j >= k) {
+            float s = 0.f;
+            for (int q = 0; q <= j; ++q) s += U1(k, q) * (vpg[q] * vdg[j] - vdx[q] * vipx[j]);
+            y = rho * (U1(k, j) - su * s);
+        }
+        u12_out[(size_t)k * n + j] = y;
+    }
+    if (threadIdx.x == 0) {
+        rk.scal[0] = sl;
+        rk.scal[1] = su;
+    }
+}
+
+// Corner C on any rank (splu_corner_c): P' g on the corner and coef4
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_c_g_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
+    const float* __restrict__ g, const float* __restrict__ gram2, SpluRankG rk,
+    float* __restrict__ pre, float* ws, int in_smem) {
+    extern __shared__ float sm[];
+    float* b = in_smem ? sm : ws;
+    float *g1 = b, *Ug1 = b + r, *Qg1 = b + 2 * r, *LtQg1 = b + 3 * r, *w1 = b + 4 * r,
+          *w2 = b + 5 * r;
+    const int z = 2 * r + 2;
+    const RMat L1{lt_out, 1, n}, U1{u12_out, n, 1}, GLL{gram2, z, 1};
+    RG_FOR(k, r) g1[k] = g[k];
+    rg_mv(Ug1, U1, g1, r);
+    RG_FOR(k, r) Ug1[k] += gram2[(size_t)(r + k) * z + 2 * r + 1];
+    rg_mv(Qg1, L1, Ug1, r);
+    rg_mv(w1, L1.t(), Qg1, r);
+    rg_mv(w2, GLL, Ug1, r);
+    RG_FOR(k, r) LtQg1[k] = w1[k] + w2[k] + gram2[(size_t)k * z + 2 * r];
+    rg_mv(w1, U1.t(), LtQg1, r);
+    RG_FOR(k, r) {
+        pre[k] = w1[k];
+        rk.coef4[2 * k] = Ug1[k];
+        rk.coef4[2 * k + 1] = LtQg1[k];
+    }
+}
+
+// stages 2-4 on any rank: the chain's block bodies, the coefficients read
+// in place
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_g_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const float* __restrict__ coef2, float* __restrict__ maxpart) {
+    __shared__ float red[SPLU_TILE / 32];
+    splu_stage2_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h,
+                      reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef2), maxpart, red);
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const float* __restrict__ coef3, const float* __restrict__ scal,
+    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
+    float* __restrict__ u3_out) {
+    splu_stage3_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, nullptr,
+                      reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef3), scal[0], scal[1],
+                      scal[2], scal[3], lt_out, l3_out, u12_out, u3_out, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage4_g_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ l3_out,
+    const float* __restrict__ u12_out, const float* __restrict__ u3_out,
+    const float* __restrict__ g, const float* __restrict__ coef4, float* __restrict__ pre) {
+    const int j = blockIdx.x * SPLU_TILE + threadIdx.x;
+    if (j >= n - r) return;
+    splu_stage4_lane(j, n, r, reinterpret_cast<const float(*)[2]>(coef4), lt_out, l3_out, u12_out,
+                     u3_out, g, pre);
+}
+
 // ------------------------------------------------------------------ host side
 
 static size_t splu_smem1(int r) { return sizeof(float) * (size_t)(3 * r + 3) * (SPLU_TILE + 1); }
@@ -877,13 +1198,119 @@ static cudaError_t splu_smem_attrs() {
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(splu_mono_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)splu_smem_mono(SPLU_MAX_RANK));
+    const void* corners[] = {(const void*)splu_corner_a_g_kernel, (const void*)splu_corner_b_g_kernel,
+                             (const void*)splu_corner_c_g_kernel};
+    for (const void* k : corners)
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, RG_SMEM);
     done = e == cudaSuccess;
     return e;
 }
 
+static bool splu_generic(int r) { return r > SPLU_MAX_RANK; }
+
+// The generic chain's scratch: the corners' workspace where it outgrows
+// shared memory (first: the sharded entries find it at offset 0), the
+// GEMM's bands (stage 1's, then the apply's: gram_part_floats, at most
+// 256 z^2 floats, under 1/256 of the state's), the two reduced Grams, the
+// maxima, the rank space and the staged rows, U2 w and three more
+// ((r + 3)(n - r) floats, about half the state's)
+struct SpluScratchG {
+    float *ws, *part, *max1, *gram1, *max2, *gram2, *w, *e;
+    SpluRankG rk;
+};
+
+static size_t splu_carve_g(int n, int r, float* base, SpluScratchG* s) {
+    const size_t nt = n - r, blocks = splu_blocks((int)nt), z1 = 3 * r + 3, z2 = 2 * r + 2;
+    const size_t p1 = gram_part_floats(splu_gram1_plan(n, r, nullptr, nullptr, nullptr, nullptr));
+    const size_t p2 = gram_part_floats(splu_gram2_plan(n, r, nullptr, nullptr, nullptr));
+    const size_t ws = rg_in_smem(splu_corner_floats(r)) ? 0 : splu_corner_floats(r);
+    const size_t sizes[] = {ws, p1 > p2 ? p1 : p2, 2 * blocks, z1 * z1, 2 * blocks, z2 * z2,
+                            8 * (size_t)r, 8 * (size_t)r, (size_t)r, 2 * (size_t)r, 8, r * nt,
+                            3 * nt};
+    float** slots[] = {&s->ws, &s->part, &s->max1, &s->gram1, &s->max2, &s->gram2,
+                       &s->rk.coef2, &s->rk.coef3, &s->rk.ipx1, &s->rk.coef4, &s->rk.scal, &s->w,
+                       &s->e};
+    size_t off = 0;
+    for (int k = 0; k < 13; ++k) {
+        if (base) *slots[k] = base + off;
+        off += psgd_align4(sizes[k]);
+    }
+    return off;
+}
+
 extern "C" size_t psgd_splu_scratch_floats(int n, int r) {
+    if (splu_generic(r)) {
+        SpluScratchG s;
+        return splu_carve_g(n, r, nullptr, &s);
+    }
     SpluScratch s;
     return splu_carve(n, r, nullptr, &s);
+}
+
+static void splu_corner_a_g(int n, int r, int blocks, const float* lt, const float* u12,
+                            const float* v, const float* h, const float* gram, const float* maxs,
+                            const SpluScratchG& s, cudaStream_t stream) {
+    const size_t fl = splu_corner_floats(r);
+    splu_corner_a_g_kernel<<<1, RG_THREADS, rg_smem_bytes(fl), stream>>>(
+        n, r, blocks, lt, u12, v, h, gram, maxs, s.rk, s.ws, rg_in_smem(fl));
+}
+
+static void splu_corner_b_g(int n, int r, int blocks, float step, const float* lt,
+                            const float* u12, const float* h, const float* maxs,
+                            const SpluScratchG& s, float* lt_out, float* u12_out,
+                            cudaStream_t stream) {
+    const size_t fl = splu_corner_floats(r);
+    splu_corner_b_g_kernel<<<1, RG_THREADS, rg_smem_bytes(fl), stream>>>(
+        n, r, blocks, step, lt, u12, h, maxs, s.rk, lt_out, u12_out, s.ws, rg_in_smem(fl));
+}
+
+static void splu_corner_c_g(int n, int r, const float* lt_out, const float* u12_out,
+                            const float* g, const float* gram2, const SpluScratchG& s, float* pre,
+                            cudaStream_t stream) {
+    const size_t fl = splu_corner_floats(r);
+    splu_corner_c_g_kernel<<<1, RG_THREADS, rg_smem_bytes(fl), stream>>>(
+        n, r, lt_out, u12_out, g, gram2, s.rk, pre, s.ws, rg_in_smem(fl));
+}
+
+// Stage 1's Gram (g null) or the apply's over the new tail: the staged
+// rows, then the GEMM's bands and their sums into gram
+static void splu_gram_g(int n, int r, const float* lt, const float* l3, const float* u12,
+                        const float* u3, const float* v, const float* h, const float* g,
+                        const SpluScratchG& s, float* gram, cudaStream_t stream) {
+    const int nt = n - r;
+    splu_rows_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+        n, r, l3, u12, u3, v, h, g, s.w, s.e);
+    gram_launch(g ? splu_gram2_plan(n, r, lt, u12, s.e) : splu_gram1_plan(n, r, lt, u12, s.w, s.e),
+                s.part, gram, stream);
+}
+
+// The chain past SPLU_MAX_RANK: stage 1's staged rows, Gram bands and their
+// sum, max l3 and u3, corner A, stage 2, corner B, stage 3 and, with g, the
+// apply's rows, bands and sum, corner C and stage 4
+static int splu_update_g(int n, int r, const float* lt, const float* l3, const float* u12,
+                         const float* u3, const float* v, const float* h, const float* g,
+                         float step, float* lt_out, float* l3_out, float* u12_out, float* u3_out,
+                         float* pre, float* scratch, cudaStream_t stream) {
+    SpluScratchG s;
+    splu_carve_g(n, r, scratch, &s);
+    const int nt = n - r, blocks = splu_blocks(nt);
+    splu_gram_g(n, r, lt, l3, u12, u3, v, h, nullptr, s, s.gram1, stream);
+    splu_lumax_kernel<<<blocks, SPLU_TILE, 0, stream>>>(nt, nt, l3, u3, s.max1);
+    splu_corner_a_g(n, r, blocks, lt, u12, v, h, s.gram1, s.max1, s, stream);
+    splu_stage2_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk.coef2,
+                                                           s.max2);
+    splu_corner_b_g(n, r, blocks, step, lt, u12, h, s.max2, s, lt_out, u12_out, stream);
+    splu_stage3_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk.coef3,
+                                                           s.rk.scal, lt_out, l3_out, u12_out,
+                                                           u3_out);
+    if (g) {
+        splu_gram_g(n, r, lt_out, l3_out, u12_out, u3_out, nullptr, nullptr, g, s, s.gram2, stream);
+        splu_corner_c_g(n, r, lt_out, u12_out, g, s.gram2, s, pre, stream);
+        splu_stage4_g_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+            n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk.coef4, pre);
+    }
+    return (int)cudaGetLastError();
 }
 
 // The update of (lt, l3, u12, u3) into the *_out arrays (which must not
@@ -892,7 +1319,7 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
                                 const void* u3p, const void* vp, const void* hp, const void* gp,
                                 float step, void* lt_outp, void* l3_outp, void* u12_outp,
                                 void* u3_outp, void* prep, void* scratch, void* stream_ptr) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    if (r < 1 || n - r < 1) return (int)cudaErrorInvalidValue;
     cudaError_t e = splu_smem_attrs();
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -901,6 +1328,9 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
     const float *lt = f(ltp), *l3 = f(l3p), *u12 = f(u12p), *u3 = f(u3p), *v = f(vp), *h = f(hp),
                 *g = f(gp);
     float *lt_out = o(lt_outp), *l3_out = o(l3_outp), *u12_out = o(u12_outp), *u3_out = o(u3_outp);
+    if (splu_generic(r))
+        return splu_update_g(n, r, lt, l3, u12, u3, v, h, g, step, lt_out, l3_out, u12_out, u3_out,
+                             o(prep), o(scratch), stream);
     SpluScratch s;
     splu_carve(n, r, static_cast<float*>(scratch), &s);
     const int nt = n - r, blocks = splu_blocks(nt);
@@ -1007,21 +1437,30 @@ extern "C" int psgd_splu_sharded_stage1(int n, int r, int nvalid, const void* lt
                                         const void* u12p, const void* u3p, const void* vp,
                                         const void* hp, void* gram1, void* max1, void* scratch,
                                         void* stream_ptr) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1 || nvalid < 0 || nvalid > n - r)
-        return (int)cudaErrorInvalidValue;
+    if (r < 1 || n - r < 1 || nvalid < 0 || nvalid > n - r) return (int)cudaErrorInvalidValue;
     cudaError_t e = splu_smem_attrs();
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
-    SpluScratch s;
-    splu_carve(n, r, static_cast<float*>(scratch), &s);
-    const int blocks = splu_blocks(n - r), np1 = splu_npairs1(r);
-    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(
-        n, r, nvalid, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.part1, s.max1);
-    splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(1, r, 3 * r + 3, np1, blocks,
-                                                                   s.part1, static_cast<float*>(gram1));
-    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, -INFINITY, s.max1,
-                                              static_cast<float*>(max1));
+    const int nt = n - r, blocks = splu_blocks(nt), np1 = splu_npairs1(r);
+    float* maxp;
+    if (splu_generic(r)) {
+        SpluScratchG s;
+        splu_carve_g(n, r, static_cast<float*>(scratch), &s);
+        splu_gram_g(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), nullptr, s,
+                    static_cast<float*>(gram1), stream);
+        splu_lumax_kernel<<<blocks, SPLU_TILE, 0, stream>>>(nt, nvalid, f(l3p), f(u3p), s.max1);
+        maxp = s.max1;
+    } else {
+        SpluScratch s;
+        splu_carve(n, r, static_cast<float*>(scratch), &s);
+        splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(
+            n, r, nvalid, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.part1, s.max1);
+        splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(
+            1, r, 3 * r + 3, np1, blocks, s.part1, static_cast<float*>(gram1));
+        maxp = s.max1;
+    }
+    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, -INFINITY, maxp, static_cast<float*>(max1));
     return (int)cudaGetLastError();
 }
 
@@ -1031,17 +1470,30 @@ extern "C" int psgd_splu_sharded_stage2(int n, int r, const void* ltp, const voi
                                         const void* u12p, const void* u3p, const void* vp,
                                         const void* hp, const void* gram1, const void* max1,
                                         void* max2, void* scratch, void* stream_ptr) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    if (r < 1 || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = splu_smem_attrs();
+    if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
-    SpluScratch s;
-    splu_carve(n, r, static_cast<float*>(scratch), &s);
     const int blocks = splu_blocks(n - r);
-    splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1),
-                                               f(max1), s.rk);
-    splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp),
-                                                         f(hp), s.rk, s.max2);
-    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, 0.f, s.max2, static_cast<float*>(max2));
+    float* maxp;
+    if (splu_generic(r)) {
+        SpluScratchG s;
+        splu_carve_g(n, r, static_cast<float*>(scratch), &s);
+        splu_corner_a_g(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1), f(max1), s, stream);
+        splu_stage2_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p),
+                                                               f(vp), f(hp), s.rk.coef2, s.max2);
+        maxp = s.max2;
+    } else {
+        SpluScratch s;
+        splu_carve(n, r, static_cast<float*>(scratch), &s);
+        splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1),
+                                                   f(max1), s.rk);
+        splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p),
+                                                             f(vp), f(hp), s.rk, s.max2);
+        maxp = s.max2;
+    }
+    splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, 0.f, maxp, static_cast<float*>(max2));
     return (int)cudaGetLastError();
 }
 
@@ -1053,16 +1505,29 @@ extern "C" int psgd_splu_sharded_stage3(int n, int r, const void* ltp, const voi
                                         const void* hp, const void* gp, float step, const void* max2,
                                         void* lt_outp, void* l3_outp, void* u12_outp, void* u3_outp,
                                         void* gram2, void* scratch, void* stream_ptr) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    if (r < 1 || n - r < 1) return (int)cudaErrorInvalidValue;
     cudaError_t e = splu_smem_attrs();
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto o = [](void* p) { return static_cast<float*>(p); };
+    const int nt = n - r, blocks = splu_blocks(nt), np2 = splu_npairs2(r);
+    const float* g = f(gp);
+    if (splu_generic(r)) {
+        SpluScratchG s;
+        splu_carve_g(n, r, static_cast<float*>(scratch), &s);
+        splu_corner_b_g(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s, o(lt_outp), o(u12_outp),
+                        stream);
+        splu_stage3_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(
+            n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.rk.coef3, s.rk.scal, o(lt_outp),
+            o(l3_outp), o(u12_outp), o(u3_outp));
+        if (g)
+            splu_gram_g(n, r, o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), nullptr, nullptr, g,
+                        s, o(gram2), stream);
+        return (int)cudaGetLastError();
+    }
     SpluScratch s;
     splu_carve(n, r, static_cast<float*>(scratch), &s);
-    const int blocks = splu_blocks(n - r), np2 = splu_npairs2(r);
-    const float* g = f(gp);
     splu_corner_b_kernel<<<1, 32, 0, stream>>>(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s.rk,
                                                o(lt_outp), o(u12_outp));
     splu_stage3_kernel<<<blocks, SPLU_TILE, g ? splu_smem3(r) : 0, stream>>>(
@@ -1080,15 +1545,25 @@ extern "C" int psgd_splu_sharded_stage4(int n, int r, const void* lt_outp, const
                                         const void* u12_outp, const void* u3_outp, const void* gp,
                                         const void* gram2, void* prep, void* scratch,
                                         void* stream_ptr) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
+    if (r < 1 || n - r < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = splu_smem_attrs();
+    if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
+    const int nt = n - r, tiles = (nt + SPLU_TILE - 1) / SPLU_TILE;
+    float* pre = static_cast<float*>(prep);
+    if (splu_generic(r)) {
+        SpluScratchG s;
+        splu_carve_g(n, r, static_cast<float*>(scratch), &s);
+        splu_corner_c_g(n, r, f(lt_outp), f(u12_outp), f(gp), f(gram2), s, pre, stream);
+        splu_stage4_g_kernel<<<tiles, SPLU_TILE, 0, stream>>>(
+            n, r, f(lt_outp), f(l3_outp), f(u12_outp), f(u3_outp), f(gp), s.rk.coef4, pre);
+        return (int)cudaGetLastError();
+    }
     SpluScratch s;
     splu_carve(n, r, static_cast<float*>(scratch), &s);
-    const int nt = n - r;
-    float* pre = static_cast<float*>(prep);
     splu_corner_c_kernel<<<1, 32, 0, stream>>>(n, r, f(lt_outp), f(u12_outp), f(gp), f(gram2), s.rk, pre);
-    splu_stage4_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+    splu_stage4_kernel<<<tiles, SPLU_TILE, 0, stream>>>(
         n, r, f(lt_outp), f(l3_outp), f(u12_outp), f(u3_outp), f(gp), s.rk, pre);
     return (int)cudaGetLastError();
 }

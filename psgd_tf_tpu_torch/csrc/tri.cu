@@ -190,8 +190,8 @@ extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, v
 // tri_gemm_kernel: 32x64 output tiles of 128 threads, a 4x4 register
 // micro-tile a thread, K in steps of 16 through four shared-memory stages
 // filled by 4-byte cp.async, three steps in flight (zero-filled past the
-// edges, so any shape and stride is taken), fp32 FMA. It is K19's own: the
-// grouped GEMM of kron_dd.cu (K1, K4, K9, K10, K17) is left as it is.
+// edges, so any shape and stride is taken), fp32 FMA. It is K19's own; the
+// grouped GEMM of kron_dd.cu serves K1, K4, K9, K10 and K17.
 //
 // What bounds it: at n = 2048, nrhs = 512 the n^2 nrhs = 2.1 GFLOP take 32 us
 // at the 67 TFLOP/s fp32 peak, and the bytes 5 us. The substitution kernel

@@ -24,7 +24,8 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     under the JAX package's two routes).
   - lra_upd: the low-rank family's update and fused apply (K13,
     `csrc/lra.cu`): one C call, the rank-space algebra in two
-    single-block corner kernels.
+    single-block corner kernels; any rank (a rank-generic chain past 32,
+    as splu's, `csrc/rank_space.cuh`).
   - splu_one / splu_upd: the sparse-LU family's update with the fused
     apply (K15) and its streaming update (K16): one chain with the corner
     algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX

@@ -56,6 +56,11 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 12,
     ),
     "psgd_kron_nd_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_gemm_test": (
+        ctypes.c_int,
+        [ctypes.c_int] * 3 + [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int]
+        + [_P] * 7 + [ctypes.c_float] + [ctypes.c_int] * 4 + [_P],
+    ),
     "psgd_kron_nd_big": (
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 10,
@@ -80,9 +85,9 @@ _SIGNATURES = {
     "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 12),
     "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 9),
     "psgd_lra_corner_a": (
-        ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 3,
+        ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 4,
     ),
-    "psgd_lra_corner_b": (ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float] + [_P] * 3),
+    "psgd_lra_corner_b": (ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float] + [_P] * 4),
     "psgd_lra_update": (
         ctypes.c_int,
         [ctypes.c_int] * 2 + [_P] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 5,

@@ -201,3 +201,75 @@ def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
     hopper.counts["kron_dd_batched"] += chains
     hopper.counts["tri"] += chains  # each chain's step (b) is K3
     return new_ql, new_qr
+
+
+# ------------------------------------------------ the grouped GEMM, one problem
+
+# psgd.cuh's Epilogue and Cut codes
+EPI = {"store": 0, "triu_max": 1, "update": 2, "colmul": 3, "coldiv": 4, "triu": 5,
+       "arrow": 6, "rowdiv": 7}
+CUT = {"a_upper": 1, "a_lower": 2, "b_upper": 4, "b_lower": 8}
+TILES = {"auto": 0, "64": 1, "128": 2}
+
+
+def _op(x, t, rows, cols):
+    """The (rows, cols) operand read from x's rows: x[:cols, :rows]^T when
+    t, else x[:rows, :cols] (x's row stride is the GEMM's ld)."""
+    return x[:cols, :rows].T if t else x[:rows, :cols]
+
+
+def gemm_plain(M, N, K, a, ta, b, tb, a2=None, b2=None, epi="store", q=None, v=None, r=None,
+               mx=None, step=0.0):
+    """The grouped GEMM's problem in torch, in the operands' dtype:
+    (C after its epilogue, max|C| of the triu_max epilogue or None).
+    op(a) (M, K), op(b) (K, N) as `_op` reads them; with a2/b2 the
+    difference op(a) op(b) - op(a2) op(b2); `mx` the max|grad| the update
+    epilogue divides the step by."""
+    c = _op(a, ta, M, K) @ _op(b, tb, K, N)
+    if a2 is not None:
+        c = c - _op(a2, ta, M, K) @ _op(b2, tb, K, N)
+    if epi in ("triu", "triu_max"):
+        c = torch.triu(c)
+        return c, (c.abs().max() if epi == "triu_max" else None)
+    if epi == "update":
+        s = min(step / (mx + linalg.tiny(torch.float32)), torch.finfo(torch.float32).max)
+        return q[:M, :N] - s * c, None
+    if epi == "colmul":
+        return c * v[:N], None
+    if epi == "coldiv":
+        return c / v[:N], None
+    if epi in ("arrow", "rowdiv"):
+        keep = torch.ones(M, 1, dtype=c.dtype, device=c.device)
+        keep[M - 1] = 0
+        if epi == "rowdiv":
+            return keep * c / r[:M, None], None
+        return keep * r[:M, None] * c + r[M:2 * M, None] * v[None, :N], None
+    return c, None
+
+
+def gemm(M, N, K, a, ta, b, tb, a2=None, b2=None, epi="store", cut=(), q=None, v=None, r=None,
+         mx=None, step=0.0, tile="auto", splits=1):
+    """One problem through `csrc/kron_dd.cu`'s grouped GEMM (the card's
+    kernel test entry, `psgd_gemm_test`; no path calls it): (C, max|C| of
+    the triu_max epilogue or None). The operands' row strides are their
+    `ld`s; `tile` forces the 64 x 64 or the 128 x 128 instantiation; with
+    `splits` > 1 the (splits, M, N) partial products of K's bands (store
+    and triu epilogues). On CPU tensors, `gemm_plain`."""
+    if not hopper.use_kernel(a):
+        if splits > 1:
+            raise ValueError("gemm: splits are the kernel's own")
+        return gemm_plain(M, N, K, a, ta, b, tb, a2, b2, epi, q, v, r, mx, step)
+    ops = [x for x in (a, b, a2, b2, q, v, r) if x is not None]
+    hopper.check_operands("gemm", *ops)
+    f = dict(dtype=torch.float32, device=a.device)
+    c = torch.empty((splits, M, N) if splits > 1 else (M, N), **f)
+    mxb = torch.zeros(1, dtype=torch.int32, device=a.device)
+    if mx is not None:
+        mxb = torch.tensor([float(mx)], **f).view(torch.int32)
+    p = lambda x: x.data_ptr() if x is not None else None
+    rc = _build.lib().psgd_gemm_test(
+        M, N, K, p(a), int(ta), a.stride(0), p(b), int(tb), b.stride(0), p(a2), p(b2), p(c), p(q),
+        p(v), p(r), p(mxb), float(step), EPI[epi], sum(CUT[x] for x in cut), TILES[tile], splits,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "gemm")
+    return c, (mxb.view(torch.float32)[0] if epi == "triu_max" else None)

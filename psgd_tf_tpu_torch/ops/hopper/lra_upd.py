@@ -17,7 +17,9 @@ Replaces `psgd_tf_tpu/ops/pallas/lra_upd.py` `fused_update` (:458) and
 
 On a CUDA tensor the whole chain is one C call (`psgd_lra_update`): five
 launches, the corners as single-block kernels, nothing between them on the
-host. The JAX function draws the rebalance and U-vs-V coins from a key;
+host; past rank 32 the same entry runs the rank-generic chain of
+`csrc/lra.cu` (the Grams as Gram tiles over lanes), so any rank takes a
+kernel, as in the JAX package. The JAX function draws the rebalance and U-vs-V coins from a key;
 here they arrive as host booleans `coins = (balance, update_u)` and go to
 the corner as ints; the U-vs-V choice reaches stage 3 as zeroed
 coefficients, as in JAX. One difference from the Pallas kernels: the step
@@ -48,8 +50,7 @@ import torch
 from psgd_tf_tpu_torch.ops import hopper, linalg
 from psgd_tf_tpu_torch.ops.hopper import _build
 
-MAX_RANK = 32  # LRA_MAX_RANK in csrc/lra.cu: the Grams' pairs per thread
-CHUNKS = 4     # lane chunks of K14's pipelined stage 1
+CHUNKS = 4  # lane chunks of K14's pipelined stage 1
 
 
 # ------------------------------------------------------------ the stages, plain
@@ -182,8 +183,8 @@ class _Kernels:
 
     def __init__(self, UV, d, v, h, g):
         r2, n = UV.shape
-        if r2 % 2 or r2 // 2 > MAX_RANK:
-            raise ValueError(f"lra_upd: rank {r2 // 2} must be in [1, {MAX_RANK}]")
+        if r2 % 2 or r2 < 2:
+            raise ValueError(f"lra_upd: UV must be (2r, n) with r >= 1, got {tuple(UV.shape)}")
         vecs = [d, v, h] + ([g] if g is not None else [])
         if any(x.shape != (n,) for x in vecs):
             raise ValueError("lra_upd: operand shapes do not agree")
@@ -228,7 +229,7 @@ class _Kernels:
         rc = self.lib.psgd_lra_corner_a(self.r, gram.contiguous().data_ptr(),
                                         maxs.contiguous().data_ptr(), float(step),
                                         int(coins[0]), int(coins[1]), coef.data_ptr(),
-                                        scal.data_ptr(), self.stream)
+                                        scal.data_ptr(), self.scratch.data_ptr(), self.stream)
         _build.check(rc, "lra_upd corner A")
         return coef, scal
 
@@ -250,7 +251,8 @@ class _Kernels:
         rc = self.lib.psgd_lra_corner_b(
             self.r, ndmax.contiguous().data_ptr(),
             gram2.contiguous().data_ptr() if gram2 is not None else None, float(step),
-            mu_d.data_ptr(), coef4.data_ptr() if gram2 is not None else None, self.stream)
+            mu_d.data_ptr(), coef4.data_ptr() if gram2 is not None else None,
+            self.scratch.data_ptr(), self.stream)
         _build.check(rc, "lra_upd corner B")
         return mu_d, coef4
 

@@ -5,8 +5,10 @@ reached through `fused_update_stream` (:861) and `fused_update` (:913),
 with its routed `pallas_call`s at :686 (`_stage1_kernel`, the packed
 Gram), :749 (`_stage2_kernel`, the tail images and exact maxima) and :787
 (`_stage3_kernel`, the rewrite). The corner algebra between those stages
-is `jnp` in JAX; here it runs in single-warp kernels on the device, so
-the chain waits for the host nowhere.
+is `jnp` in JAX; here it runs in single-warp kernels on the device (one
+block, its vectors strided over the threads, past rank 32: the
+rank-generic chain of `csrc/splu.cu`, any rank), so the chain waits for
+the host nowhere.
 
 With `g`, `fused_update` is JAX's fused apply entry (`fused_update(...,
 g=g)` :913): its `pallas_call`s at :814 (`_stage3_apply_kernel` :258,
@@ -66,7 +68,7 @@ import torch
 from psgd_tf_tpu_torch.ops import hopper, linalg
 from psgd_tf_tpu_torch.ops.hopper import _build
 
-MAX_RANK = 32  # SPLU_MAX_RANK in csrc/splu.cu: one warp holds a rank-space vector
+MONO_MAX_RANK = 32  # the one-launch kernel's cap (SPLU_MAX_RANK in csrc/splu.cu)
 
 
 # ------------------------------------------------------------ the stages, plain
@@ -222,10 +224,10 @@ def chain_plain(Lt, l3, U12, u3, v, h, step, g=None, nvalid=None, psum=_identity
 
 # ------------------------------------------------------------ the chain, kernels
 
-def _check(name, Lt, l3, U12, u3, v, h, g):
+def _check(name, Lt, l3, U12, u3, v, h, g, max_rank=None):
     r, n = U12.shape
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"{name}: rank {r} must be in [1, {MAX_RANK}]")
+    if r < 1 or (max_rank is not None and r > max_rank):
+        raise ValueError(f"{name}: rank {r} must be in [1, {max_rank or 'n - 1'}]")
     if n - r < 1:
         raise ValueError(f"{name}: needs n - r >= 1, got n = {n}, r = {r}")
     vecs = [v, h] + ([g] if g is not None else [])
@@ -239,8 +241,10 @@ def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None, entry: str = "psgd_sp
     """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
     P' g or None), or with `entry="psgd_splu_mono"` (g required) the same
     in one cooperative launch. Counts one launch of `name`; a launch the
-    card refuses raises."""
-    _check(name, Lt, l3, U12, u3, v, h, g)
+    card refuses raises; the one-launch kernel takes ranks up to
+    MONO_MAX_RANK, the chain any."""
+    _check(name, Lt, l3, U12, u3, v, h, g,
+           MONO_MAX_RANK if entry == "psgd_splu_mono" else None)
     r, n = U12.shape
     lib = _build.lib()
     new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))

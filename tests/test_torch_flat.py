@@ -166,12 +166,14 @@ def _close(got, want):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=3e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("r", [3, 10])
+@pytest.mark.parametrize("r", [3, 10, 40, 64])
 @pytest.mark.parametrize("n", [300, 1021])
 @pytest.mark.parametrize("coins", COINS, ids=str)
 def test_lra_matches_jax(coin_keys, n, r, coins):
     """The port's direct form against `lra.update` (XLA), and its K13 chain
-    (plain stages) against `lra_upd.fused_update(_apply)` in interpret mode."""
+    (plain stages) against `lra_upd.fused_update(_apply)` in interpret mode;
+    r = 40 and 64 past the rank-32 kernels, where the card takes K13's
+    rank-generic chain."""
     st, v, h, g = _lra_case(n, r, n + r)
     k = coin_keys[coins]
     ref = jlra.update(st, v, h, 0.05, k)

@@ -749,9 +749,35 @@ def test_k13_edge_shapes(cuda, n, r):
             ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
         for a, b in zip(got, ref, strict=True):
             assert _rel(a, b) < 1e-4
-    wide = torch.zeros(2 * (lra_upd.MAX_RANK + 1), n, device=cuda)
-    with pytest.raises(ValueError, match="rank"):
-        lra_upd.fused_update(wide, st.d, v, h, 0.05, (False, True))
+    with pytest.raises(ValueError, match="2r"):  # an odd row count is no packed (2r, n) UV
+        lra_upd.fused_update(torch.zeros(2 * r + 1, n, device=cuda), st.d, v, h, 0.05, (False, True))
+
+
+RANKS_PAST_32 = [33, 64, 128, 256]
+
+
+@pytest.mark.parametrize("n", [1021, 100_003])
+@pytest.mark.parametrize("r", RANKS_PAST_32)
+def test_k13_past_rank_32_matches_plain(cuda, n, r):
+    """K13's rank-generic chain (Gram tiles, the block-wide corners): update
+    and update + apply under the four coin pairs against the plain chain
+    and the direct form, one `lra_upd` count a call, bit-repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    st, v, h, grad = _lra_case(g, n, r, cuda)
+    for coins in COINS:
+        before = dict(hopper.counts)
+        uv, d = lra_upd.fused_update(st.UV, st.d, v, h, 0.05, coins)
+        got = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        torch.cuda.synchronize()
+        assert {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]} == {
+            "lra_upd": 2}
+        with hopper.disabled():
+            ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        duv, dd = lra_upd.update_plain(st.UV, st.d, v, h, 0.05, coins)
+        for a, b in [(uv, ref[0]), (d, ref[1]), *zip(got, ref, strict=True), (uv, duv), (d, dd)]:
+            assert _rel(a, b) < 1e-4
+        again = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 200, 1537, 2000, 3841, 4097])
@@ -824,13 +850,52 @@ def test_k15_k16_match_plain(cuda, n, r):
 def test_splu_kernels_reject_what_they_do_not_take(cuda):
     from psgd_tf_tpu_torch.groups import splu
 
-    st = splu.init(100, rank=splu_upd.MAX_RANK + 1, device=cuda)
     z = torch.zeros(100, device=cuda)
-    with pytest.raises(ValueError, match="rank"):
-        splu_upd.fused_update(st.Lt, st.l3, st.U12, st.u3, z, z, 0.1)
     st = splu.init(100, rank=10, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         splu_one.fused_update(st.Lt.double(), st.l3, st.U12, st.u3, z, z, 0.1)
+    st = splu.init(100, rank=100, device=cuda)  # n - r = 0: no tail
+    with pytest.raises(ValueError, match="n - r"):
+        splu_upd.fused_update(st.Lt, st.l3, st.U12, st.u3, z, z, 0.1)
+
+
+@pytest.mark.parametrize("n", [400, 100_003])
+@pytest.mark.parametrize("r", RANKS_PAST_32)
+def test_k15_k16_past_rank_32_match_plain(cuda, n, r):
+    """The splu chain's rank-generic kernels, K15's regime (n = 400, the
+    route's `splu_one` while it fits) and K16's (100,003): update, update +
+    apply and the fused apply entry against the plain chain and the direct
+    form, the corner triangles exact, bit-repeatable."""
+    from psgd_tf_tpu_torch.groups import splu
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    name = splu.route(r, n, cuda)
+    assert name == ("splu_one" if splu_one.fits(r, n) else "splu_upd")
+    before = dict(hopper.counts)
+    got = splu_upd.fused_update(*fields, v, h, 0.05)
+    new, pre = splu.update_apply(st, v, h, grad, 0.05)
+    fused = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == ({"splu_upd": 2, "splu_upd_apply": 1} if name == "splu_upd" else
+                     {"splu_upd": 1, "splu_one": 1, "splu_upd_apply": 1})
+    with hopper.disabled():
+        ref = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    direct = splu.update_plain(st, v, h, 0.05)
+    for a, b in zip(got, ref[:4]):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip(fused, ref, strict=True):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip((new.Lt, new.l3, new.U12, new.u3, pre), ref):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip(got, (direct.Lt, direct.l3, direct.U12, direct.u3)):
+        assert _rel(a, b) < 1e-4
+    L1, U1 = fused[0][:, :r].T, fused[2][:, :r]
+    assert torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+    again = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    assert all(torch.equal(a, b) for a, b in zip(again, fused))
 
 
 @pytest.mark.parametrize("n,r", [(400, 10), (100_003, 1), (100_003, 32), (1 << 20, 10)])
@@ -895,11 +960,10 @@ def test_fused_apply_and_mono_reject_what_they_do_not_take(cuda):
 
     entries = [lambda *f: splu_upd.fused_update(*f[:6], 0.1, g=f[6]),
                lambda *f: splu_upd.fused_update_apply_mono(*f, 0.1)]
-    st = splu.init(100, rank=splu_upd.MAX_RANK + 1, device=cuda)
+    st = splu.init(100, rank=splu_upd.MONO_MAX_RANK + 1, device=cuda)
     z = torch.zeros(100, device=cuda)
-    for entry in entries:
-        with pytest.raises(ValueError, match="rank"):
-            entry(st.Lt, st.l3, st.U12, st.u3, z, z, z)
+    with pytest.raises(ValueError, match="rank"):  # the one-launch kernel alone keeps a cap
+        entries[1](st.Lt, st.l3, st.U12, st.u3, z, z, z)
     st = splu.init(10, rank=10, device=cuda)  # n - r = 0: no tail
     z10 = torch.zeros(10, device=cuda)
     for entry in entries:
@@ -1003,3 +1067,155 @@ def test_sharded_k16_one_rank_matches_k16(one_rank, n, r):
     for a, b, c in zip(got_p, plain_p, ref):
         assert _rel(a, b) < 1e-4
         assert _rel(a[..., :c.shape[-1]], c) < 1e-4
+
+
+@pytest.fixture
+def one_nccl_rank(cuda):
+    """A one-rank NCCL job on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield make_mesh(data=1, shard=1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("coins", COINS, ids=str)
+def test_k14_and_sharded_k16_past_rank_32_on_one_nccl_rank(one_nccl_rank, coins):
+    """K14 and the sharded K16 at r = 64 (the rank-generic entries) on one
+    NCCL rank: against their plain chains with the same reductions and the
+    one-process kernels."""
+    dev = one_nccl_rank.device
+    g = torch.Generator(device=dev).manual_seed(18)
+    st, v, h, grad = _lra_case(g, 100_003, 64, dev)
+    call = lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, grad, 0.05, coins,
+                                                      one_nccl_rank)
+    before = hopper.counts["lra_upd_sharded"]
+    got = call()
+    torch.cuda.synchronize()
+    assert hopper.counts["lra_upd_sharded"] == before + 1
+    with hopper.disabled():
+        plain = call()
+    ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+    for a, b, c in zip(got, plain, ref, strict=True):
+        assert _rel(a, b) < 1e-4 and _rel(a, c) < 1e-4
+    if coins != COINS[0]:
+        return
+    sst, (v, h, grad) = _splu_case(g, 100_003, 64, dev)
+    fields = (sst.Lt, sst.l3, sst.U12, sst.u3)
+    before = hopper.counts["splu_upd_sharded"]
+    got = splu_upd.fused_update_sharded(*fields, v, h, 0.05, one_nccl_rank, None, grad)
+    torch.cuda.synchronize()
+    assert hopper.counts["splu_upd_sharded"] == before + 1
+    with hopper.disabled():
+        plain = splu_upd.fused_update_sharded(*fields, v, h, 0.05, one_nccl_rank, None, grad)
+    ref = splu_upd.launch("splu_upd", *fields, v, h, 0.05, grad)
+    for a, b, c in zip(got, plain, ref, strict=True):
+        assert _rel(a, b) < 1e-4 and _rel(a, c) < 1e-4
+
+
+# --------------------------------------------------------------- the grouped GEMM
+
+def _operand(g, rows, cols, t, pad, dev, tri=None):
+    """A (rows, cols) operand stored as kron_dd.gemm reads it: transposed
+    when t, each stored row `pad` floats longer than it needs (the ld);
+    tri = 'upper' / 'lower' zeroes the other triangle of op(x) exactly."""
+    x = torch.randn(rows, cols, generator=g, device=dev)
+    if tri == "upper":
+        x = torch.triu(x)
+    elif tri == "lower":
+        x = torch.tril(x)
+    stored = x.T if t else x
+    full = torch.zeros(stored.shape[0], stored.shape[1] + pad, device=dev)
+    full[:, :stored.shape[1]] = stored
+    return full
+
+
+@pytest.mark.parametrize("tile", ["64", "128"])
+@pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (67, 130, 45), (200, 129, 257), (300, 260, 700)])
+@pytest.mark.parametrize("pad", [0, 3, 4])
+def test_gemm_matches_float64(cuda, tile, ta, tb, M, N, K, pad):
+    """The grouped GEMM's two instantiations against a float64 product:
+    ragged M, N, K, both orientations of each operand, row strides that
+    keep (0, 4) and break (3) its 16-byte copies; with the two-pass
+    difference."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K + pad)
+    a, b = _operand(g, M, K, ta, pad, cuda), _operand(g, K, N, tb, pad, cuda)
+    a2, b2 = _operand(g, M, K, ta, pad, cuda), _operand(g, K, N, tb, pad, cuda)
+    d = lambda x: x.double()
+    for args in [(a, b), (a, b, a2, b2)]:
+        got, _ = kron_dd.gemm(M, N, K, args[0], ta, args[1], tb, *args[2:], tile=tile)
+        want, _ = kron_dd.gemm_plain(M, N, K, d(args[0]), ta, d(args[1]), tb,
+                                     *[d(x) for x in args[2:]])
+        assert _rel(got.double(), want) < 1e-5
+
+
+@pytest.mark.parametrize("tile", ["64", "128"])
+@pytest.mark.parametrize("cut", ["a_upper", "a_lower", "b_upper", "b_lower"])
+@pytest.mark.parametrize("ta,tb", [(0, 0), (1, 1)])
+def test_gemm_cuts_match_float64(cuda, tile, cut, ta, tb):
+    """Each K-band cut on a triangular operand with exact zeros (the cut
+    skips them) against the float64 product, ragged sides."""
+    M, N = 190, 133
+    g = torch.Generator(device=cuda).manual_seed(7)
+    K = M if cut.startswith("a") else N
+    tri = "upper" if cut.endswith("upper") else "lower"
+    a = _operand(g, M, K, ta, 1, cuda, tri if cut.startswith("a") else None)
+    b = _operand(g, K, N, tb, 1, cuda, tri if cut.startswith("b") else None)
+    got, _ = kron_dd.gemm(M, N, K, a, ta, b, tb, cut=(cut,), tile=tile)
+    want, _ = kron_dd.gemm_plain(M, N, K, a.double(), ta, b.double(), tb)
+    assert _rel(got.double(), want) < 1e-5
+
+
+@pytest.mark.parametrize("tile", ["64", "128"])
+@pytest.mark.parametrize("epi", ["triu_max", "triu", "update", "colmul", "coldiv", "arrow",
+                                 "rowdiv"])
+def test_gemm_epilogues_match_float64(cuda, tile, epi):
+    """Every epilogue of the grouped GEMM: the triu ones (tiles below the
+    diagonal skipped, max|C| by atomicMax), the factor update with max|grad|
+    read on the card, the column and row scales, the arrow rows."""
+    M, N, K = 257, 257, 300
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a, b = _operand(g, M, K, 1, 0, cuda), _operand(g, K, N, 0, 0, cuda)
+    a2, b2 = _operand(g, M, K, 1, 0, cuda), _operand(g, K, N, 0, 0, cuda)
+    q = torch.randn(M, N, generator=g, device=cuda)
+    v = 0.5 + torch.rand(N, generator=g, device=cuda)
+    r = 0.5 + torch.rand(2 * M, generator=g, device=cuda)
+    extra = dict(q=q, v=v, r=r, mx=3.0, step=0.1)
+    got, gmx = kron_dd.gemm(M, N, K, a, 1, b, 0, a2, b2, epi=epi, tile=tile, **extra)
+    d = {k: (x.double() if torch.is_tensor(x) else x) for k, x in extra.items()}
+    want, wmx = kron_dd.gemm_plain(M, N, K, a.double(), 1, b.double(), 0, a2.double(),
+                                   b2.double(), epi=epi, **d)
+    assert _rel(got.double(), want) < 1e-5
+    if epi.startswith("triu"):
+        assert torch.count_nonzero(torch.tril(got, -1)).item() == 0
+    if epi == "triu_max":
+        assert abs(gmx.item() - wmx.item()) <= 1e-5 * wmx.item()
+
+
+@pytest.mark.parametrize("splits", [2, 5])
+def test_gemm_k_splits_sum_to_the_product(cuda, splits):
+    """K cut into bands over the GEMM's grid (K9's and K10's Grams): the
+    partials, summed in band order, against the float64 product; each
+    band bit-equal to the same band run alone."""
+    M, N, K = 129, 129, 1000
+    g = torch.Generator(device=cuda).manual_seed(10)
+    a, b = _operand(g, M, K, 1, 0, cuda), _operand(g, K, N, 0, 0, cuda)
+    part, _ = kron_dd.gemm(M, N, K, a, 1, b, 0, epi="triu", splits=splits)
+    assert part.shape == (splits, M, N)
+    want, _ = kron_dd.gemm_plain(M, N, K, a.double(), 1, b.double(), 0, epi="triu")
+    assert _rel(part.sum(0).double(), want) < 1e-5
+    kc = -(-(-(-K // splits)) // 16) * 16  # a band: K / splits rounded up to the K step
+    kb = min(kc, K - kc)
+    band, _ = kron_dd.gemm(M, N, kb, a[kc:kc + kb].contiguous(), 1, b[kc:kc + kb].contiguous(), 0,
+                           epi="triu")
+    assert torch.equal(part[1], band)

@@ -22,9 +22,10 @@ from psgd_tf_tpu_torch.ops.hopper import splu_one, splu_upd
 torch.set_num_threads(1)
 TINY = jlinalg.tiny(jnp.float32)
 TOL = dict(rtol=2e-5, atol=2e-6)
-# the JAX tests' shapes (tests/test_groups.py, tests/test_pallas.py) and
-# the all-preconditioners workload's n = 400, r = 10
-SHAPES = [(64, 6), (100, 10), (300, 4), (48, 1), (400, 10)]
+# the JAX tests' shapes (tests/test_groups.py, tests/test_pallas.py), the
+# all-preconditioners workload's n = 400, r = 10, and ranks past 32, where
+# the card takes the chain's rank-generic kernels
+SHAPES = [(64, 6), (100, 10), (300, 4), (48, 1), (400, 10), (300, 40), (400, 64)]
 
 
 def _t(a):
@@ -96,7 +97,15 @@ def test_k16_chain_matches_stream_interpret():
     cap patched, as tests/test_groups.py forces it) through its logical
     views, K16's chain against `fused_update_stream` in interpret mode, and
     the port's apply of the new state against JAX's fused P' g."""
-    n, r = 3000, 5
+    _k16_stream_case(3000, 5)
+
+
+def test_k16_chain_matches_stream_interpret_past_rank_32():
+    """The same at r = 40, where the card takes the rank-generic chain."""
+    _k16_stream_case(3000, 40)
+
+
+def _k16_stream_case(n, r):
     with mock.patch.object(jsplu_one, "fits", lambda r_, n_: False):
         jst = jsplu.init(n, rank=r, init_scale=0.7)
     assert isinstance(jst, jsplu.SpLUStreamState)
@@ -121,7 +130,16 @@ def test_k16_chain_matches_stream_interpret():
 def test_twenty_step_trajectory_matches_jax(path):
     """ROADMAP's trajectory bound, 5e-4, over 20 chained updates at the
     workload's n = 400, r = 10."""
-    n, r = 400, 10
+    _twenty_steps(path, 400, 10)
+
+
+@pytest.mark.parametrize("path", ["direct", "chain"])
+def test_twenty_step_trajectory_past_rank_32(path):
+    """The same bound at r = 40 (the rank-generic chain's plain stages)."""
+    _twenty_steps(path, 400, 40)
+
+
+def _twenty_steps(path, n, r):
     rng = np.random.default_rng(11)
     jst = jsplu.init(n, rank=r, init_scale=0.5)
     st = splu.init(n, rank=r, init_scale=0.5, device="cpu")

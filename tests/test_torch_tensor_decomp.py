@@ -52,8 +52,19 @@ def test_twenty_steps_match_jax(fam):
     """20 PSGD steps of the workload's recipe (init scale 0.1, both lrs 0.1,
     rank 10), the probes recovered from each JAX step's key (and lra's
     coins) and injected into the port. ROADMAP's bounds: 5e-4, 2e-3 for lra."""
+    _twenty_steps(fam, 10)
+
+
+@pytest.mark.parametrize("fam", ["lra", "splu"])
+def test_twenty_steps_match_jax_past_rank_32(fam):
+    """The same recipe at rank 40, past the rank-32 kernels: on the card
+    these states take the lra and splu chains' rank-generic kernels."""
+    _twenty_steps(fam, 40)
+
+
+def _twenty_steps(fam, rank):
     target, factors = _case(1)
-    hyper = dict(preconditioner=fam, rank=10, init_scale=0.1, lr_params=0.1,
+    hyper = dict(preconditioner=fam, rank=rank, init_scale=0.1, lr_params=0.1,
                  lr_preconditioner=0.1)
     jopt = JPSGD(**hyper)
     jparams = dict(zip("xyz", (jnp.asarray(f) for f in factors)))
