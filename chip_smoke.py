@@ -9,7 +9,11 @@ H100: the kernels are built for sm_90a). It builds the Hopper kernels from
 against its plain PyTorch version at the shapes its path gives it (and the
 flat families' kernels at the JAX bench's sizes, with K13's host time a
 call; K4 also at the JAX package's batching crossover and at the side
-cap), then drives the port's
+cap; K3 also at the ragged sides 1, 31, 33, 255, 257, 513 and 1025; K1's
+chain forced onto each of its two routes, the chain of launches and the
+one cooperative launch, bit for bit, through K1, K2, K4, K5 and K20, each
+timed both ways and plain, and a forced one launch that must be refused),
+then drives the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
@@ -115,6 +119,7 @@ NMT_REF_STEPS = 30
 NMT_REF_WARMUP = 5
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
 TOL_K3 = 1e-5    # max |X - X_plain| / max |X_plain|: both exact fp32 inverses
+K3_RAGGED = [1, 31, 33, 255, 257, 513, 1025]  # sides past, at and short of K3's 32-row leaves
 TOL_K1 = 1e-4    # one update: GEMM sums in other orders, explicit inverse vs trsm
 TOL_TRAJ = 5e-4  # 20 chained updates: ROADMAP's trajectory bound
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -218,6 +223,12 @@ def _time(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _time_median(torch, fn, reps, windows=3):
+    """The median of `windows` `_time` windows: the small chains' chained
+    time is set by the host, which drifts between windows."""
+    return sorted(_time(torch, fn, reps) for _ in range(windows))[windows // 2]
+
+
 def _host_ms(torch, fn, reps):
     """ms of host time per call of fn(): the host clock around `reps`
     calls with no synchronise between them (what the caller waits for
@@ -267,6 +278,28 @@ def _kron_work(fmt, shape):
     for f, k, o in ((fmt[0], m, n), (fmt[1], n, m)):
         flops += 4 * k * k * o + 2 * k**3 / 3 if f == "dense" else 6 * k * o
     return nbytes, flops
+
+
+def _flat_tensors(out):
+    """The tensors of an update's result (KronStates, a stacked state,
+    tuples and lists of factors), flattened in order."""
+    if hasattr(out, "ql"):
+        return [out.ql, out.qr]
+    if isinstance(out, (list, tuple)):
+        return [t for x in out for t in _flat_tensors(x)]
+    return [out]
+
+
+def _chain_list(kron, fmts, shapes):
+    """(kinds, m, n) of a layer list as K1's chain takes it: mirrors
+    transposed into their sibling."""
+    kinds, ms, ns = [], [], []
+    for fmt, (m, n) in zip(fmts, shapes):
+        kind, mirrored = kron._canon(fmt)
+        kinds.append(kind)
+        ms.append(n if mirrored else m)
+        ns.append(m if mirrored else n)
+    return kinds, ms, ns
 
 
 def _state_errs(got, ref):
@@ -593,23 +626,27 @@ def main() -> int:
     decomp_fmts = [st.fmt for st in decomp_pre]
     decomp_shapes = [(st.ql.shape[-1], st.qr.shape[-1]) for st in decomp_pre]
 
-    # 2. K3 at LeNet5's ten factor sides, the tensor decomposition's six and
-    #    at 1024
+    # 2. K3 at LeNet5's ten factor sides, the tensor decomposition's six, at
+    #    1024 and at the ragged sides K3_RAGGED
     def triu_factor(n):
         u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
         return u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev))
 
     g.manual_seed(2)
     lenet_us = [triu_factor(n) for s in LENET5 for n in s]
-    us = lenet_us + [triu_factor(n) for s in decomp_shapes for n in s] + [triu_factor(1024)]
+    us = (lenet_us + [triu_factor(n) for s in decomp_shapes for n in s] + [triu_factor(1024)]
+          + [triu_factor(n) for n in K3_RAGGED])
+    before = hopper.counts["tri"]
     got = tri.inverse_upper(us)
     torch.cuda.synchronize()
+    check(hopper.counts["tri"] == before + 1, "k3: one launch for the whole list")
     ref = tri.inverse_upper_plain(us)
     k3_rel = max(_rel(a, b) for a, b in zip(got, ref))
     k3_abs = max(_abs(a, b) for a, b in zip(got, ref))
     print(f"k3: sides {[u.shape[0] for u in us]} max rel err {k3_rel:.3e} "
           f"(tol {TOL_K3:.0e}) max abs err {k3_abs:.3e}", flush=True)
-    check(k3_rel < TOL_K3, "k3 vs plain")
+    k3_zero = all(torch.count_nonzero(torch.tril(x, -1)).item() == 0 for x in got)
+    check(k3_rel < TOL_K3 and k3_zero, "k3 vs plain, strictly lower part zero")
     k3_ms, k3_plain_ms = _time_ab(torch, hopper, lambda: tri.inverse_upper(lenet_us), 200)
     # one library call: the ten factors identity-padded to the largest side,
     # stacked, solved against the identity
@@ -726,12 +763,17 @@ def main() -> int:
                 bst = kron.update_batched(bst, *probes(shapes), step=0.1)
         dxs, dgs = probes(shapes)
         chains = math.ceil(len(shapes) / kron_dd.MAX_LAYERS)
+        monos = sum(kron_dd.route(["dd"] * len(c), [m for m, _ in c], [n for _, n in c]) == "mono"
+                    for c in (shapes[i:i + kron_dd.MAX_LAYERS]
+                              for i in range(0, len(shapes), kron_dd.MAX_LAYERS)))
         before = dict(hopper.counts)
         got = kron.update_batched(bst, dxs, dgs, step=0.1)
         torch.cuda.synchronize()
         moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-        check(moved == {"kron_dd_batched": chains, "tri": chains},
-              f"k4 {name}: {chains} chain(s), each with its K3: {moved}")
+        want = {"kron_dd_batched": chains, "tri": chains - monos, "kron_mono": monos}
+        check(moved == {k: v for k, v in want.items() if v},
+              f"k4 {name}: {chains} chain(s), {monos} of them one launch, the others with their "
+              f"K3: {moved}")
         with hopper.disabled():
             ref = kron.update_batched(bst, dxs, dgs, step=0.1)
         rel = max(_rel(got.ql, ref.ql), _rel(got.qr, ref.qr))
@@ -829,6 +871,97 @@ def main() -> int:
     k5_work = [_kron_work(f, (130, 65)) for f in [("norm", "scale"), ("dense", "scale"),
                                                    ("norm", "dense")]]
     k5_bound = _bound(sum(w[0] for w in k5_work) / 3, sum(w[1] for w in k5_work) / 3)
+
+    # 5b. K1's chain on its two routes, forced (kron_dd.forced_route): the
+    #     chain of grouped launches and the one cooperative launch, bit for
+    #     bit, through each entry point (K1, K2, K4 at its strides, K5, K20),
+    #     each against plain and timed three ways; a forced one launch on a
+    #     list whose products take the 128 x 128 tiles raises
+    g.manual_seed(52)
+    route_lists = [("K1 LeNet5", "multi", [DD] * 5, LENET5),
+                   ("K1 toy NMT", "multi", nmt_fmts, toy_shapes),
+                   ("K1 decomposition", "multi", decomp_fmts, decomp_shapes),
+                   ("K4 path bucket", "batched", [DD] * len(k4_path_bucket), k4_path_bucket),
+                   ("K20 16 layers", "k20", [DD] * 16, MULTI_18[:16]),
+                   ("K2 (1, 10)", "k2", [DD], [(1, 10)])]
+    route_lists += [(f"K5 {kind} (130, 65)", kind, [fmt], [(130, 65)]) for kind, fmt in
+                    [("ns", ("norm", "scale")), ("ds", ("dense", "scale")), ("nd", ("norm", "dense"))]]
+    route_err = 0.0
+    route_times = {}
+    for name, entry_kind, fmts, shapes in route_lists:
+        if entry_kind == "batched":
+            bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
+            with hopper.disabled():
+                for _ in range(3):
+                    bst = kron.update_batched(bst, *probes(shapes), step=0.1)
+            dxs, dgs = probes(shapes)
+            fn = lambda bst=bst, dxs=dxs, dgs=dgs: kron.update_batched(bst, dxs, dgs, step=0.1)
+            counter = "kron_dd_batched"
+        else:
+            sts = walked_states(fmts, shapes)
+            dxs, dgs = probes(shapes)
+            if entry_kind == "multi":
+                fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(sts, dxs, dgs, step=0.1)
+                counter = "kron_multi"
+            elif entry_kind == "k20":
+                fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron_dd.fused_update_multi(
+                    [s.ql for s in sts], [s.qr for s in sts], dxs, dgs, 0.1)
+                counter = "kron_dd_multi"
+            elif entry_kind == "k2":
+                fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0]: kron_dd.fused_update(
+                    st.ql, st.qr, dx, dg, 0.1)
+                counter = "kron_dd"
+            else:
+                fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0], f=kron_sparse.FUSED_UPDATE[entry_kind]: f(
+                    st.ql, st.qr, dx, dg, 0.1)
+                counter = "kron_sparse"
+        outs, moved = {}, {}
+        for route in ("chain", "mono"):
+            with kron_dd.forced_route(route):
+                before = dict(hopper.counts)
+                outs[route] = _flat_tensors(fn())
+                torch.cuda.synchronize()
+                moved[route] = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+        with hopper.disabled():
+            ref = _flat_tensors(fn())
+        bit = all(torch.equal(a, b) for a, b in zip(outs["chain"], outs["mono"]))
+        rel = max(_rel(a, b) for a, b in zip(outs["mono"], ref))
+        err = max(_abs(a, b) for a, b in zip(outs["mono"], ref))
+        route_err = max(route_err, err)
+        has_dense = any(f == "dense" for fmt in fmts for f in fmt)
+        counts_ok = (moved["mono"].get("kron_mono", 0) >= 1 and "tri" not in moved["mono"]
+                     and "kron_mono" not in moved["chain"]
+                     and moved["chain"].get("tri", 0) == (moved["chain"][counter] if has_dense else 0))
+        check(bit and rel < TOL_K1 and counts_ok,
+              f"one launch vs chain at {name}: bit-equal {bit}, rel err {rel:.3e}, launches {moved}")
+        reps = 20 if entry_kind == "batched" else 100
+        with kron_dd.forced_route("chain"):
+            chain_ms = _time_median(torch, fn, reps)
+        with kron_dd.forced_route("mono"):
+            mono_ms = _time_median(torch, fn, reps)
+        with hopper.disabled():
+            plain_ms = _time(torch, fn, reps)
+        route_times[name] = (mono_ms, chain_ms, plain_ms)
+        print(f"k1 routes: {name} one launch bit-equal to the chain {bit}, max rel err {rel:.3e} "
+              f"(tol {TOL_K1:.0e}) max abs err {err:.3e}; chain {chain_ms:.4f} ms, one launch "
+              f"{mono_ms:.4f} ms, plain {plain_ms:.4f} ms; the route picks "
+              f"{kron_dd.route(*_chain_list(kron, fmts, shapes))}", flush=True)
+    big_dd = walked_states([DD], [(2176, 2176)], steps=0)[0]
+    (bdx,), (bdg,) = probes([(2176, 2176)])
+    before = dict(hopper.counts)
+    try:
+        with kron_dd.forced_route("mono"):
+            kron_dd.fused_update(big_dd.ql, big_dd.qr, bdx, bdg, 0.1)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused and hopper.counts == before,
+          "a forced one launch on a list of 128 x 128 tiles (2176, 2176) raises, launching nothing")
+    print(f"k1 routes: forced one launch at (2176, 2176) raises {refused}", flush=True)
+    del big_dd, bdx, bdg
+    torch.cuda.empty_cache()
+    toy_work = [_kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
+    mono_bound = _bound(sum(w[0] for w in toy_work), sum(w[1] for w in toy_work))
 
     # 6. K6 and K10 at the reference NMT layers, through kron.update (the
     #    (scale, dense) embeddings and attention are mirrored: K10 gets dX^T)
@@ -1414,8 +1547,11 @@ def main() -> int:
     first, last20 = losses[0].item(), losses[-20:].mean().item()
     print(f"lenet5: {LENET_STEPS} steps, routes {routes}, launches {counts}, loss {first:.4f} "
           f"-> mean of last 20 {last20:.4f}, {steps_per_s:.1f} steps/s with kernels", flush=True)
+    lenet_mono = int(kron_dd.route(*_chain_list(kron, dd, LENET5)) == "mono")
     check(counts["kron_multi"] == LENET_STEPS, "LeNet5: K1 launched once per step")
-    check(counts["tri"] == LENET_STEPS, "LeNet5: K3 launched once per step")
+    check(counts["tri"] == LENET_STEPS * (1 - lenet_mono)
+          and counts["kron_mono"] == LENET_STEPS * lenet_mono,
+          "LeNet5: K1's chain with its K3, or its one launch, once per step")
     check(bool(torch.isfinite(losses).all()), "LeNet5: finite losses")
     check(last20 < 0.5 * first, "LeNet5: loss falls below half its first value")
 
@@ -1495,8 +1631,11 @@ def main() -> int:
           f"routes {routes}, launches {counts}, loss {losses[0].item():.4f} -> "
           f"{losses[-1].item():.4f}, {ref_rate:.2f} steps/s with kernels", flush=True)
     check(routes == want, f"NMT reference routes {routes}")
+    # the (dense, dense) row's K2: one launch, or the chain with its K3
+    (row,) = [sh for f, sh in zip(nmt_fmts, ref_shapes) if f == DD]
+    row_mono = int(kron_dd.route(["dd"], [row[0]], [row[1]]) == "mono")
     per_step = {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
-                "kron_multi": 0, "tri": 4}
+                "kron_multi": 0, "tri": 4 - row_mono, "kron_mono": row_mono}
     for name, n in per_step.items():
         check(counts[name] == n * NMT_REF_STEPS, f"NMT reference: {n} {name} launches per step")
     check(bool(torch.isfinite(losses).all()), "NMT reference: finite losses")
@@ -1513,8 +1652,9 @@ def main() -> int:
           f"{({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
           f"{losses[-1].item():.4f}, {auto_rate:.2f} steps/s with kernels", flush=True)
     check(routes == [nd, nd, nd, "kron_dd", nd, nd, ns], f"NMT reference auto routes {routes}")
-    # per step: five K9 chains (each with its K3), the fc's K6, the row's K2 (with its K3)
-    per_step = {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1, "tri": 6}
+    # per step: five K9 chains (each with its K3), the fc's K6, the row's K2
+    per_step = {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1,
+                "tri": 6 - row_mono, "kron_mono": row_mono}
     check(counts == {k: per_step.get(k, 0) * NMT_REF_STEPS for k in counts},
           f"NMT reference auto: launches per step {per_step} and no other")
     check(bool(torch.isfinite(losses).all()), "NMT reference auto: finite losses")
@@ -1590,8 +1730,12 @@ def main() -> int:
           f"{({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
           f"{losses[-1].item():.4f}, {k4_rate:.2f} steps/s with kernels", flush=True)
     check(layout == (((1, 2, 3, 5),), (0, 4, 6)), f"K4 path: one bucket of four: {layout}")
-    # per step: one K4 chain (with its K3), two K9 (each with its K3), one K10 (with its K3)
-    per_step = {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1, "tri": 4}
+    # per step: one K4 chain (one launch, or with its K3), two K9 (each with
+    # its K3), one K10 (with its K3)
+    k4_mono = int(kron_dd.route(["dd"] * len(k4_path_bucket), [m for m, _ in k4_path_bucket],
+                                [n for _, n in k4_path_bucket]) == "mono")
+    per_step = {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1,
+                "tri": 4 - k4_mono, "kron_mono": k4_mono}
     check(counts == {k: per_step.get(k, 0) * K4_PATH_STEPS for k in counts},
           f"K4 path: launches per step {per_step} and no other")
     check(bool(torch.isfinite(losses).all()), "K4 path: finite losses")
@@ -1634,8 +1778,12 @@ def main() -> int:
           f"differ by {loss_rel:.3e}, the Q states by {q_rel:.3e} relative (tol {TOL_TRAJ:.0e}); "
           f"{trace_rate:.2f} steps/s with kernels, {trace_plain_rate:.2f} under disabled() (host "
           f"clock)", flush=True)
-    check(counts == {k: {"kron_multi": 1, "tri": 1}.get(k, 0) * LSTM_TRACE_STEPS for k in counts},
-          "lstm_xor: one K1 chain (two layers, with its K3) per step and no other launch")
+    lstm_mono = int(kron_dd.route(*_chain_list(
+        kron, [st.fmt for st in state.precond],
+        [(st.ql.shape[0], st.qr.shape[0]) for st in state.precond])) == "mono")
+    per_step = {"kron_multi": 1, "tri": 1 - lstm_mono, "kron_mono": lstm_mono}
+    check(counts == {k: per_step.get(k, 0) * LSTM_TRACE_STEPS for k in counts},
+          f"lstm_xor: one K1 call (two layers) per step, {per_step}, and no other launch")
     check(loss_rel < TOL_TRAJ and q_rel < TOL_TRAJ, "lstm_xor: kernel and plain traces agree")
     check(bool(torch.isfinite(losses).all()), "lstm_xor: finite losses")
 
@@ -1699,15 +1847,18 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = dict(hopper.counts)
     path_counts()
+    # K20: one chain for LeNet5, two for 18 layers, each one launch or with its K3
+    k20_monos = sum(kron_dd.route(["dd"] * len(c), [m for m, _ in c], [n for _, n in c]) == "mono"
+                    for c in [LENET5, MULTI_18[:16], MULTI_18[16:]])
     want = {"kron_sparse_big_apply_ns": 4, "kron_sparse_big_apply_nd": 6,
             "kron_sparse_big_apply_ns_wide": len(APPLY_WIDE), "tri_solve": len(solve_cases),
-            "kron_dd_multi": 3, "tri": 3}
+            "kron_dd_multi": 3, "tri": 3 - k20_monos, "kron_mono": k20_monos}
+    want = {k: v for k, v in want.items() if v}
     print(f"unrouted kron: {len(apply_cases)} applies, {len(solve_cases)} solves, K20 on "
           f"{[len(s) for s in multi_shapes]} layers, launches "
           f"{({k: c for k, c in counts.items() if c})}", flush=True)
     check(counts == {k: want.get(k, 0) for k in counts},
-          f"unrouted kron: launches {want} (K20: one chain for LeNet5, two for 18 layers, each "
-          f"with its K3) and no other")
+          f"unrouted kron: launches {want} and no other")
     unrouted = {}
     for (fn, fmt, shape), st, G, got in zip(apply_cases, apply_states, apply_gs, apply_outs):
         name = "kron_sparse_big_" + fn.removeprefix("fused_")
@@ -1823,7 +1974,11 @@ def main() -> int:
           f"{out['loss']:.4f}, held-out token accuracy {out['token_accuracy']:.4f} (bar 0.75), "
           f"{out['steps'] / seconds:.1f} steps/s with kernels (host clock, init and eval "
           f"included)", flush=True)
-    check(counts["kron_multi"] == out["steps"], "NMT toy: K1 launched once per step")
+    toy_mono = int(kron_dd.route(*_chain_list(kron, nmt_fmts, toy_shapes)) == "mono")
+    check(counts["kron_multi"] == out["steps"]
+          and counts["kron_mono"] == out["steps"] * toy_mono
+          and counts["tri"] == out["steps"] * (1 - toy_mono),
+          "NMT toy: K1 launched once per step (one launch, or the chain with its K3)")
     check(math.isfinite(out["loss"]), "NMT toy: finite loss")
     check(out["token_accuracy"] > 0.75, "NMT toy: token accuracy above 0.75")
 
@@ -2224,7 +2379,7 @@ def main() -> int:
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd",
                  "lra_upd_sharded", "splu_upd_sharded", "kron_sparse_big_apply_ns",
                  "kron_sparse_big_apply_nd", "kron_sparse_big_apply_ns_wide", "tri_solve",
-                 "kron_dd_multi", "splu_upd_apply", "splu_upd_mono"):
+                 "kron_dd_multi", "splu_upd_apply", "splu_upd_mono", "kron_mono"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -2248,6 +2403,9 @@ def main() -> int:
         entry("tri", "tri.cu", "tri.py:94", k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
         entry("kron_sparse", "kron_dd.cu", "kron_sparse.py:293", k5_abs, k5_ms, k5_plain_ms,
               k5_bound),
+        # the one-launch route of K1's chain, timed on the toy NMT list
+        entry("kron_mono", "kron_dd.cu", "kron_multi.py:202", route_err,
+              route_times["K1 toy NMT"][0], route_times["K1 toy NMT"][2], mono_bound),
     ]
     for name, line in [("kron_sparse_big_ns", 377), ("kron_sparse_big_ds", 711)]:
         acc = big[name]

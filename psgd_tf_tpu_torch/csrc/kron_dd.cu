@@ -31,35 +31,45 @@
 // The TPU kernel keeps every layer resident in VMEM and does all of this in
 // one launch. Hopper cannot: one 257x257 fp32 factor (LeNet5's largest) is
 // 264 KB, more than a block's 227 KB of shared memory. So the update is a
-// short FIXED chain of grouped launches, each covering every layer of the
-// list, with no host synchronisation between them (a stage with nothing
-// to do for the list is not launched):
-//   (a) balance_kernel   rho on the device, balanced copies to scratch,
+// short FIXED list of stages, each covering every layer of the list:
+//   (a) balance          rho on the device, balanced copies to scratch,
 //                        the two max|grad| slots of each layer zeroed;
 //   (b) tri.cu           exact inverses of EVERY dense factor of every
-//                        layer in one K3 launch pair;
-//   (c0) arrow_kernel    nd/ns: the arrow products Ql dG and Ql^{-T} dX
+//                        layer (K3, one cooperative launch);
+//   (c0) arrow           nd/ns: the arrow products Ql dG and Ql^{-T} dX
 //                        (ns: scaled by the right factor, i.e. A and Bt);
-//   (c1, c2) gemm_kernel a hand-written grouped fp32 tiled GEMM over
+//   (c1, c2) GEMM        a hand-written grouped fp32 tiled GEMM over
 //                        per-problem descriptors: A and Bt of dd (two
 //                        stages), ds (column-scale epilogue) and nd; each
 //                        K loop cut to its triangular operand's band;
-//   (c3) gemm_kernel     the dense sides' triu Grams, each as ONE product
+//   (c3) GEMM            the dense sides' triu Grams, each as ONE product
 //                        over the concatenated [A | Bt] (the Bt half
 //                        subtracted), with max|grad| by block reduction plus
 //                        atomicMax on the float bits (a max does not depend
 //                        on order, so the result is deterministic);
-//   (s) stats_kernel     the scale sides' column sums and the arrow sides'
+//   (s) stats            the scale sides' column sums and the arrow sides'
 //                        row sums (diag, bias), with their max|grad|;
-//   (d) gemm_kernel      the dense sides' Q' = Q - s grad Q, s on the device;
-//   (v) vec_kernel       the arrow and scale sides' rewrites.
-// No product goes to cuBLAS.
+//   (d) GEMM             the dense sides' Q' = Q - s grad Q, s on the device;
+//   (v) vec              the arrow and scale sides' rewrites.
+// No product goes to cuBLAS. The stage bodies are device functions run by
+// two routes with the same bits: a chain of grouped launches, one a stage
+// (a stage with nothing to do is not launched), and one cooperative launch
+// of all of them with grid barriers between phases (kron_mono_kernel,
+// below). run_chain picks the route from the list's kinds and sides.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. LeNet5's five
-// layers need 164 MFLOP per step in all and a few MB of traffic, the toy
-// NMT list less, yet each stage is only a few dozen 64x64 tiles or rows.
-// Grouping every layer into each launch keeps the launch count fixed as
-// layers are added.
+// layers need 164 MFLOP per step and a few MB of traffic, yet each GEMM
+// stage is a few dozen 64 x 64 tiles, each tile's K loop up to 2 x 257
+// deep. So a small list's products are split along K (list_splits, below:
+// bands of ~64 while the stage's tiles times bands fit the SMs), the bands'
+// raw products summed in band order by a launch that applies the
+// epilogue. Measured on an H100 80GB HBM3 at its 700 W limit
+// (tools/profile_kron_chain.py): LeNet5's list on the chain, 10 launches,
+// spans 112 us (balance 6, K3 40, the four split stages 10, 10, 15 and 10
+// with sums of 3 each), where the parent's 7 launches spanned 157 (K3 67,
+// the unsplit stages 17, 17, 26, 18); the toy NMT list's one launch 84 us
+// (the parent's chain 140). The host's enqueue of a call (the wrapper and
+// its launches, 0.09-0.22 ms) is as long as the device span or longer.
 //
 // The grouped GEMM (gemm_kernel, below) also carries K9's, K10's and K17
 // nd's products in kron_sparse_big.cu, and the lra and splu Grams past
@@ -89,12 +99,18 @@
 // the port's plain versions do, so a zero group gradient gives a zero update.
 #include "psgd.cuh"
 
+#include "tri_inv.cuh"
+
+#include <cooperative_groups.h>
 #include <algorithm>
 #include <cfloat>
 #include <cstdint>
+#include <initializer_list>
+#include <utility>
 
 #define GEMM_BK 16       // K depth of a pipeline stage
 #define GEMM_THREADS 256
+#define KRON_MAX_SPLITS 8  // K1's K split: the most bands a product (list_splits)
 
 enum Kind { KIND_DD = 0, KIND_DS = 1, KIND_ND = 2, KIND_NS = 3 };
 static inline bool left_arrow(int k) { return k == KIND_ND || k == KIND_NS; }
@@ -116,7 +132,7 @@ struct BalanceBatch {
 
 // (c0): the arrow pre-pass of one layer, 32 columns per block
 #define ARROW_WARPS 8
-static_assert(ARROW_WARPS * 32 == 256, "arrow_kernel runs in launch_jobs' 256-thread blocks");
+static_assert(ARROW_WARPS * 32 == 256, "arrow_body runs on 256-thread blocks");
 struct ArrowJob {
     const float* qlb;  // (2, m) balanced arrow
     const float* qrb;  // (n,) balanced scale, or nullptr (nd)
@@ -149,11 +165,18 @@ struct VecJob {
     int len, arrow;
 };
 
+// A stage's jobs and the prefix sums of their blocks
 template <class Job>
 struct JobBatch {
     Job j[2 * PSGD_MAX_LAYERS];
     int blocks[2 * PSGD_MAX_LAYERS + 1];
     int count;
+    void clear() { count = 0; blocks[0] = 0; }
+    void push(const Job& job, int nblocks) {
+        j[count] = job;
+        blocks[count + 1] = blocks[count] + nblocks;
+        ++count;
+    }
 };
 
 __device__ __forceinline__ int find_job(const int* prefix, int count, int t) {
@@ -187,11 +210,15 @@ __device__ __forceinline__ float strided(const float* q, size_t e, int w, int ld
     return ld == w ? q[e] : q[(e / w) * ld + e % w];
 }
 
-// grid (blocks per layer, layers); every block recomputes its layer's
+// The stage bodies: each runs one block of its stage (every thread of the
+// block calls it), `blk` that block's index in the stage's grid. The
+// chain's kernels run one a launch; kron_mono_kernel runs them all.
+
+// Block (bx, by) of a (gx, layers) grid: every block recomputes its layer's
 // diagonal maxima (m + n loads) and scales its share of both factors.
-__global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
-    const BalanceLayer L = b.l[blockIdx.y];
-    __shared__ float red[8];
+__device__ __forceinline__ void balance_body(const BalanceBatch& b, int bx, int by, int gx,
+                                             float* red) {
+    const BalanceLayer L = b.l[by];
     float ml = -INFINITY, mr = -INFINITY;
     for (int i = threadIdx.x; i < L.m; i += blockDim.x)
         ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.ldl + i]);
@@ -200,16 +227,28 @@ __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
     ml = block_reduce_max(ml, red);
     mr = block_reduce_max(mr, red);
     const float rho = sqrtf(ml / mr);
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (bx == 0 && threadIdx.x == 0) {
         L.mx[0] = 0u;
         L.mx[1] = 0u;
     }
     const size_t nl = L.arrow ? 2 * (size_t)L.m : (size_t)L.m * L.m;
     const size_t total = nl + (L.scale ? (size_t)L.n : (size_t)L.n * L.n);
-    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-         e += (size_t)gridDim.x * blockDim.x) {
-        if (e < nl) L.qlb[e] = strided(L.ql, e, L.m, L.ldl) / rho;
-        else L.qrb[e - nl] = rho * strided(L.qr, e - nl, L.n, L.ldr);
+    const size_t stride = (size_t)gx * blockDim.x;
+    // eight elements' loads in flight before their stores
+    for (size_t e0 = (size_t)bx * blockDim.x + threadIdx.x; e0 < total; e0 += 8 * stride) {
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const size_t e = e0 + k * stride;
+            v[k] = e >= total ? 0.f : e < nl ? strided(L.ql, e, L.m, L.ldl)
+                                             : strided(L.qr, e - nl, L.n, L.ldr);
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const size_t e = e0 + k * stride;
+            if (e < nl) L.qlb[e] = v[k] / rho;
+            else if (e < total) L.qrb[e - nl] = rho * v[k];
+        }
     }
 }
 
@@ -217,16 +256,16 @@ __global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
 // walks rows warp, warp + 8, ... (a warp's loads are one 128-byte row
 // segment), and the block sums its warps' corr partials for the last row,
 // so the serial chain per thread is m / 8 rows, not m.
-__global__ void __launch_bounds__(256) arrow_kernel(const JobBatch<ArrowJob> b) {
-    const int p = find_job(b.blocks, b.count, blockIdx.x);
+__device__ __forceinline__ void arrow_body(const JobBatch<ArrowJob>& b, int blk,
+                                           float (*red)[32]) {
+    const int p = find_job(b.blocks, b.count, blk);
     const ArrowJob J = b.j[p];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int j = (blockIdx.x - b.blocks[p]) * 32 + lane;
+    const int j = (blk - b.blocks[p]) * 32 + lane;
     const int m = J.m, n = J.n;
     const float* q0 = J.qlb;
     const float* q1 = J.qlb + m;
     const float q0_last = q0[m - 1];
-    __shared__ float red[ARROW_WARPS][32];
     float corr = 0.f, s = 1.f;
     if (j < n) {
         const float g_last = J.dg[(size_t)(m - 1) * n + j];
@@ -251,11 +290,10 @@ __global__ void __launch_bounds__(256) arrow_kernel(const JobBatch<ArrowJob> b) 
     }
 }
 
-__global__ void __launch_bounds__(256) stats_kernel(const JobBatch<StatJob> b) {
-    const int p = find_job(b.blocks, b.count, blockIdx.x);
+__device__ __forceinline__ void stats_body(const JobBatch<StatJob>& b, int blk, float* red) {
+    const int p = find_job(b.blocks, b.count, blk);
     const StatJob J = b.j[p];
-    const int t = blockIdx.x - b.blocks[p];
-    __shared__ float red[8];
+    const int t = blk - b.blocks[p];
     float local = 0.f;
     if (J.rows) {
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -296,10 +334,10 @@ __global__ void __launch_bounds__(256) stats_kernel(const JobBatch<StatJob> b) {
     if (threadIdx.x == 0) atomicMax(J.mx, __float_as_uint(local));
 }
 
-__global__ void __launch_bounds__(256) vec_kernel(const JobBatch<VecJob> b, float step) {
-    const int p = find_job(b.blocks, b.count, blockIdx.x);
+__device__ __forceinline__ void vec_body(const JobBatch<VecJob>& b, int blk, float step) {
+    const int p = find_job(b.blocks, b.count, blk);
     const VecJob J = b.j[p];
-    const int i = (blockIdx.x - b.blocks[p]) * blockDim.x + threadIdx.x;
+    const int i = (blk - b.blocks[p]) * blockDim.x + threadIdx.x;
     if (i >= J.len) return;
     const float s = step_scale(step, J.mx);
     if (J.arrow) {
@@ -309,6 +347,26 @@ __global__ void __launch_bounds__(256) vec_kernel(const JobBatch<VecJob> b, floa
     } else {
         J.out[i] = J.q[i] - s * J.g0[i] * J.q[i];
     }
+}
+
+// grid (blocks per layer, layers)
+__global__ void __launch_bounds__(256) balance_kernel(const BalanceBatch b) {
+    __shared__ float red[8];
+    balance_body(b, blockIdx.x, blockIdx.y, gridDim.x, red);
+}
+
+__global__ void __launch_bounds__(256) arrow_kernel(const JobBatch<ArrowJob> b) {
+    __shared__ float red[ARROW_WARPS][32];
+    arrow_body(b, blockIdx.x, red);
+}
+
+__global__ void __launch_bounds__(256) stats_kernel(const JobBatch<StatJob> b) {
+    __shared__ float red[8];
+    stats_body(b, blockIdx.x, red);
+}
+
+__global__ void __launch_bounds__(256) vec_kernel(const JobBatch<VecJob> b, float step) {
+    vec_body(b, blockIdx.x, step);
 }
 
 // ------------------------------------------------------- the grouped GEMM
@@ -450,21 +508,51 @@ __device__ __forceinline__ void gemm_tile(const GemmProb& P, int row0, int col0,
     asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// grid (tiles of every problem, splits). With splits > 1, block y sums
-// k in [y kc, (y + 1) kc), kc = K / splits rounded up to GEMM_BK, into
-// c + y M N (EPI_STORE and EPI_TRIU alone; a caller sums the partials).
-// MINB: the blocks an SM holds; VAR >= 0: the kernel holds the one operand
-// orientation (ta, tb) = (VAR >> 1, VAR & 1) of every problem it is given.
-template <int QM, int QN, int MINB, int VAR = -1>
-__global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatch g) {
+// K1's K split: where each problem of a batch stores its bands' raw
+// products, band y of problem p at part + off[p] + y M N
+struct SplitPlan {
+    float* part;
+    int off[PSGD_MAX_GEMMS];
+};
+
+// The epilogue of output (i, j) of problem P, o = i N + j, from its sum v
+// (gemm_body's own, for the sums of a K split); s: the update's step
+// scale; the triu epilogues fold |C| into local_max.
+__device__ __forceinline__ float gemm_epi(const GemmProb& P, int i, int j, size_t o, float v,
+                                          float s, float& local_max) {
+    if (P.epi == EPI_TRIU_MAX || P.epi == EPI_TRIU) {
+        v = (i <= j) ? v : 0.f;
+        local_max = fmaxf(local_max, fabsf(v));
+    } else if (P.epi == EPI_UPDATE) {
+        v = P.q[o] - s * v;
+    } else if (P.epi == EPI_COLMUL) {
+        v = v * P.v[j];
+    } else if (P.epi == EPI_COLDIV) {
+        v = v / P.v[j];
+    } else if (P.epi == EPI_ARROW) {
+        v = (i == P.M - 1 ? 0.f : P.r[i] * v) + P.r[P.M + i] * P.v[j];
+    } else if (P.epi == EPI_ROWDIV) {
+        v = i == P.M - 1 ? 0.f : v / P.r[i];
+    }
+    return v;
+}
+
+// One output tile of the batch: tile `tile` of the prefix g.tiles, band
+// `split` of `splits`. With splits > 1, band y sums k in [y kc, (y + 1) kc),
+// kc = K / splits rounded up to GEMM_BK, into c + y M N (EPI_STORE and
+// EPI_TRIU alone; a caller sums the partials); PART: its raw product into
+// sp's region instead (K1's K split: sum_body applies the epilogue). VAR >= 0: the body holds the one operand orientation
+// (ta, tb) = (VAR >> 1, VAR & 1) of every problem it is given. gsm: the
+// ring (GemmTile<QM, QN>::SMEM bytes); red: 8 floats.
+template <int QM, int QN, int VAR, bool PART, class Batch>
+__device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, int splits,
+                                          float* gsm, float* red, const SplitPlan* sp = nullptr) {
     using T = GemmTile<QM, QN>;
-    extern __shared__ __align__(16) float gsm[];
-    __shared__ float red[GEMM_THREADS / 32];
-    const int p = find_job(g.tiles, g.count, blockIdx.x);
+    const int p = find_job(g.tiles, g.count, tile);
     // a copy: the fields the loops read stay in registers, not re-read from
     // the dynamically indexed parameter array
     const GemmProb P = g.p[p];
-    const int t = blockIdx.x - g.tiles[p];
+    const int t = tile - g.tiles[p];
     const int tiles_n = (P.N + T::BN - 1) / T::BN;
     const int row0 = (t / tiles_n) * T::BM, col0 = (t % tiles_n) * T::BN;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -479,9 +567,9 @@ __global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatc
     const bool skip = triu && row0 > col0 + T::BN - 1;
     // the band of k where a triangular operand may be nonzero for this tile
     int k_lo = 0, k_hi = P.K;
-    if (gridDim.y > 1) {
-        const int kc = ((P.K + gridDim.y - 1) / gridDim.y + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
-        k_lo = blockIdx.y * kc;
+    if (splits > 1) {
+        const int kc = ((P.K + splits - 1) / splits + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
+        k_lo = split * kc;
         k_hi = min(P.K, k_lo + kc);
     }
     if (P.cut & CUT_A_UPPER) k_lo = max(k_lo, row0);             // a_ik = 0 for k < i
@@ -496,7 +584,20 @@ __global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatc
         else gemm_tile<QM, QN, 0, 0>(P, row0, col0, k_lo, k_hi, gsm, acc);
     }
 
-    float* c = P.c + (size_t)blockIdx.y * P.M * P.N;
+    if constexpr (PART) {
+        float* c = sp->part + sp->off[p] + (size_t)split * P.M * P.N;
+#pragma unroll
+        for (int ii = 0; ii < 4 * QM; ++ii) {
+            const int i = row0 + (ii / 4) * 64 + ty * 4 + ii % 4;
+#pragma unroll
+            for (int jj = 0; jj < 4 * QN; ++jj) {
+                const int j = col0 + (jj / 4) * 64 + tx * 4 + jj % 4;
+                if (i < P.M && j < P.N) c[(size_t)i * P.N + j] = acc[ii][jj];
+            }
+        }
+        return;
+    }
+    float* c = P.c + (size_t)split * P.M * P.N;
     const float s = P.epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
     float local_max = 0.f;
 #pragma unroll
@@ -530,6 +631,72 @@ __global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatc
         local_max = block_reduce_max(local_max, red);
         if (threadIdx.x == 0) atomicMax(P.mx, __float_as_uint(local_max));
     }
+}
+
+// grid (tiles of every problem, splits); MINB: the blocks an SM holds
+template <int QM, int QN, int MINB, int VAR = -1>
+__global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatch g) {
+    extern __shared__ __align__(16) float gsm[];
+    __shared__ float red[GEMM_THREADS / 32];
+    gemm_body<QM, QN, VAR, false>(g, blockIdx.x, blockIdx.y, gridDim.y, gsm, red);
+}
+
+// K1's split stages: the 64 x 64 tiles' bands of raw products, grid (tiles,
+// splits)
+__global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_split_kernel(
+    const GemmBatch g, const __grid_constant__ SplitPlan sp) {
+    extern __shared__ __align__(16) float gsm[];
+    __shared__ float red[GEMM_THREADS / 32];
+    gemm_body<1, 1, -1, true>(g, blockIdx.x, blockIdx.y, gridDim.y, gsm, red, &sp);
+}
+
+// 256-output blocks of the batch's problems: the sums' grid
+template <class Batch>
+static int sum_blocks(const Batch& g) {
+    int b = 0;
+    for (int p = 0; p < g.count; ++p) b += (g.p[p].M * g.p[p].N + GEMM_THREADS - 1) / GEMM_THREADS;
+    return b;
+}
+
+// The K split's second half, block t of sum_blocks(g): problem p's
+// `splits` partial products summed in band order, then its own epilogue
+// (the triu ones with max|grad| by block reduction and atomicMax).
+template <class Batch>
+__device__ __forceinline__ void sum_body(const Batch& g, const SplitPlan& sp, int splits, int t,
+                                         float* red) {
+    int p = 0;
+    for (; p + 1 < g.count; ++p) {
+        const int nb = (g.p[p].M * g.p[p].N + GEMM_THREADS - 1) / GEMM_THREADS;
+        if (t < nb) break;
+        t -= nb;
+    }
+    const GemmProb P = g.p[p];
+    const int mn = P.M * P.N, e = t * GEMM_THREADS + threadIdx.x;
+    const float s = P.epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
+    float local_max = 0.f;
+    if (e < mn) {
+        const float* part = sp.part + sp.off[p];
+        float b[KRON_MAX_SPLITS];  // every band's load in flight, then the sum in band order
+#pragma unroll
+        for (int y = 0; y < KRON_MAX_SPLITS; ++y) b[y] = y < splits ? part[(size_t)y * mn + e] : 0.f;
+        float v = b[0];
+#pragma unroll
+        for (int y = 1; y < KRON_MAX_SPLITS; ++y)
+            if (y < splits) v += b[y];
+        P.c[e] = gemm_epi(P, e / P.N, e % P.N, e, v, s, local_max);
+    }
+    if (P.epi == EPI_TRIU_MAX) {
+        // |grad| >= 0, so its float bits order like unsigned integers
+        local_max = block_reduce_max(local_max, red);
+        if (threadIdx.x == 0) atomicMax(P.mx, __float_as_uint(local_max));
+    }
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS) sum_kernel(const GemmBatch g,
+                                                           const __grid_constant__ SplitPlan sp,
+                                                           int splits) {
+    __shared__ float red[GEMM_THREADS / 32];
+    sum_body(g, sp, splits, blockIdx.x, red);
 }
 
 // the SMs of the current card, asked once
@@ -639,13 +806,10 @@ GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int 
     return P;
 }
 
-// Fill the prefix of block counts and launch, unless the batch is empty.
+// Launch a stage's blocks, unless the batch is empty.
 template <class Job, class Kernel, class... Args>
-static void launch_jobs(Kernel kernel, JobBatch<Job>& b, const int* blocks,
-                        cudaStream_t stream, Args... args) {
+static void launch_jobs(Kernel kernel, const JobBatch<Job>& b, cudaStream_t stream, Args... args) {
     if (b.count == 0) return;
-    b.blocks[0] = 0;
-    for (int p = 0; p < b.count; ++p) b.blocks[p + 1] = b.blocks[p] + blocks[p];
     kernel<<<b.blocks[b.count], 256, 0, stream>>>(b, args...);
 }
 
@@ -687,139 +851,179 @@ static bool valid(int L, const int* kind, const int* m, const int* n) {
     return true;
 }
 
-extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const int* m, const int* n) {
-    if (!valid(L, kind, m, n)) return 0;
-    return plan(L, kind, m, n, nullptr);
+extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const int* m, const int* n);
+
+// The phases of the one-launch kernel that run GEMM problems; the chain's
+// stages c1 and c2 split over the first three by what each problem reads.
+enum { MONO_EARLY = 0, MONO_C1 = 1, MONO_C2 = 2, MONO_GRAMS = 3, MONO_UPDATES = 4, MONO_GEMMS = 5 };
+
+// The chain's descriptors on one list.
+struct ChainPlan {
+    BalanceBatch bal;
+    int bal_blocks;
+    TriBatch tri;
+    JobBatch<ArrowJob> arrows;
+    GemmBatch c1, c2, c3, d;
+    JobBatch<StatJob> stats;
+    JobBatch<VecJob> vecs;
+    int phase1[PSGD_MAX_GEMMS], phase2[PSGD_MAX_GEMMS];  // c1's and c2's problems: MONO_*
+    int splits;     // K's bands a product (1: no split)
+    SplitPlan sp1, sp2, sp3, spd;  // c1's, c2's, c3's and d's partials when split
+    size_t floats;  // the scratch the plan takes, the partial products included
+};
+
+// The K split of a list's products. A latency-bound list's stages hold a
+// few dozen 64 x 64 tiles, each one K loop (up to 2 x 257 deep at LeNet5's
+// sides) on one SM; cutting K into bands of about KRON_SPLIT_K runs more
+// of them at once, the partials summed in band order by a sum launch
+// (phase) that applies the epilogue. At most KRON_MAX_SPLITS bands, and no
+// more of a stage's tiles times bands than the card's SMs: past one wave
+// the bands only share the SMs the tiles had (a list of large products
+// keeps one band). Measured on an H100 80GB HBM3 at its 700 W limit
+// (tools/kron_gemm_ab.py --route): LeNet5's list 0.112 ms on the device
+// against 0.129 unsplit, K2 at (256, 256) 0.087 against 0.119; with two
+// CTAs an SM allowed, 16 (128, 128) layers took 0.135 against 0.090.
+#define KRON_SPLIT_K 64
+
+static int list_splits(const ChainPlan& c) {
+    int kmax = 0;
+    long long most = 0;
+    for (const GemmBatch* g : {&c.c1, &c.c2, &c.c3, &c.d}) {
+        long long tiles = 0;
+        for (int p = 0; p < g->count; ++p) {
+            kmax = std::max(kmax, g->p[p].K);
+            tiles += (long long)((g->p[p].M + 63) / 64) * ((g->p[p].N + 63) / 64);
+        }
+        most = std::max(most, tiles);
+    }
+    int s = std::min(KRON_MAX_SPLITS, std::max(1, (kmax + KRON_SPLIT_K - 1) / KRON_SPLIT_K));
+    while (s > 1 && most * s > gemm_sms()) --s;
+    return s;
 }
 
 // The chain on L layers. S = T = 0: every operand tight (K1, K2, K5).
 // S, T > 0 (K4, kind dd only): layer l's factors are read as the (m, m) and
 // (n, n) corners of (S, S) and (T, T) slots, its probes as the (m, n)
 // corner of an (S, T) slot, at those row strides. The outputs are tight.
-static int run_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
-                     void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
-                     float step, void* scratch, cudaStream_t stream) {
-    float* base = static_cast<float*>(scratch);
+static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
+                        void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
+                        float step, float* base, ChainPlan& c) {
     unsigned int* mx = reinterpret_cast<unsigned int*>(base);
     LayerScratch off[PSGD_MAX_LAYERS];
-    plan(L, kind, m, n, off);
-    auto F = [&](size_t o) { return base + o; };
+    const size_t layers = plan(L, kind, m, n, off);
+    // the scratch's floats from `base` (null when only its size is asked)
+    auto F = [&](size_t o) {
+        return reinterpret_cast<float*>(reinterpret_cast<uintptr_t>(base) + o * sizeof(float));
+    };
     // row strides: of the left factor, and of the right factor and the probes
     auto ldl = [&](int l) { return S ? S : m[l]; };
     auto ldr = [&](int l) { return T ? T : n[l]; };
+    auto add = [](GemmBatch& g, int* phase, const GemmProb& P, int ph) {
+        if (phase) phase[g.count] = ph;
+        g.p[g.count++] = P;
+    };
 
-    BalanceBatch bal;
-    bal.count = L;
-    TriBatch tri;
-    tri.count = 0;
+    c.bal.count = L;
+    c.tri.count = 0;
     int max_elems = 1;
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
         const bool arrow = left_arrow(kind[l]), scale = right_scale(kind[l]);
-        bal.l[l] = {static_cast<const float*>(ql[l]), static_cast<const float*>(qr[l]),
-                    F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale, ldl(l), ldr(l)};
-        if (!arrow) { tri.u[tri.count] = F(s.qlb); tri.x[tri.count] = F(s.linv); tri.n[tri.count++] = m[l]; }
-        if (!scale) { tri.u[tri.count] = F(s.qrb); tri.x[tri.count] = F(s.rinv); tri.n[tri.count++] = n[l]; }
+        c.bal.l[l] = {static_cast<const float*>(ql[l]), static_cast<const float*>(qr[l]),
+                      F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale, ldl(l), ldr(l)};
+        TriBatch& t = c.tri;
+        if (!arrow) { t.u[t.count] = F(s.qlb); t.x[t.count] = F(s.linv); t.n[t.count++] = m[l]; }
+        if (!scale) { t.u[t.count] = F(s.qrb); t.x[t.count] = F(s.rinv); t.n[t.count++] = n[l]; }
         max_elems = std::max(max_elems, (arrow ? 2 * m[l] : m[l] * m[l]) + (scale ? n[l] : n[l] * n[l]));
     }
-
     // (a) balance: enough blocks per layer for the largest factor pair
-    const int bal_blocks = std::min(64, std::max(1, (max_elems + 4095) / 4096));
-    balance_kernel<<<dim3(bal_blocks, L), 256, 0, stream>>>(bal);
-    // (b) K3 on every dense factor of every layer
-    if (tri.count) launch_tri_inv(tri, stream);
+    c.bal_blocks = std::min(64, std::max(1, (max_elems + 4095) / 4096));
 
     // (c0) the arrow products of nd and ns layers
-    JobBatch<ArrowJob> arrows;
-    int blocks[2 * PSGD_MAX_LAYERS];
-    arrows.count = 0;
+    c.arrows.clear();
     for (int l = 0; l < L; ++l) {
         if (!left_arrow(kind[l])) continue;
         const LayerScratch& s = off[l];
         const bool ns = kind[l] == KIND_NS;
-        blocks[arrows.count] = (n[l] + 31) / 32;
-        arrows.j[arrows.count++] = {F(s.qlb), ns ? F(s.qrb) : nullptr,
-                                    static_cast<const float*>(dx[l]), static_cast<const float*>(dg[l]),
-                                    ns ? F(s.a) : F(s.pa), ns ? F(s.bt) : F(s.pb), m[l], n[l]};
+        c.arrows.push({F(s.qlb), ns ? F(s.qrb) : nullptr, static_cast<const float*>(dx[l]),
+                       static_cast<const float*>(dg[l]), ns ? F(s.a) : F(s.pa),
+                       ns ? F(s.bt) : F(s.pb), m[l], n[l]}, (n[l] + 31) / 32);
     }
-    launch_jobs(arrow_kernel, arrows, blocks, stream);
 
-    GemmBatch g;
     // (c1) dd: T1 = dG Qr^T, W = Linv^T dX;  ds: A = (Ql dG) qr, Bt = (Linv^T dX) / qr;
     //      nd: A = (arrow dG) Qr^T, Bt = (arrow^{-T} dX) Rinv
-    g.count = 0;
+    c.c1.count = 0;
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
         const float* DG = static_cast<const float*>(dg[l]);
         const float* DX = static_cast<const float*>(dx[l]);
         if (kind[l] == KIND_DD) {
-            g.p[g.count] = gemm_prob(DG, 0, ldr(l), F(s.qrb), 1, N, F(s.t1), M, N, N);
-            g.p[g.count++].cut = CUT_B_LOWER;
-            g.p[g.count] = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.w), M, N, M);
-            g.p[g.count++].cut = CUT_A_LOWER;
+            GemmProb t1 = gemm_prob(DG, 0, ldr(l), F(s.qrb), 1, N, F(s.t1), M, N, N);
+            t1.cut = CUT_B_LOWER;
+            GemmProb w = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.w), M, N, M);
+            w.cut = CUT_A_LOWER;
+            add(c.c1, c.phase1, t1, MONO_EARLY);
+            add(c.c1, c.phase1, w, MONO_C1);
         } else if (kind[l] == KIND_DS) {
             GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, ldr(l), F(s.a), M, N, M);
             pa.epi = EPI_COLMUL; pa.v = F(s.qrb); pa.cut = CUT_A_UPPER;
             GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.bt), M, N, M);
             pb.epi = EPI_COLDIV; pb.v = F(s.qrb); pb.cut = CUT_A_LOWER;
-            g.p[g.count++] = pa;
-            g.p[g.count++] = pb;
+            add(c.c1, c.phase1, pa, MONO_EARLY);
+            add(c.c1, c.phase1, pb, MONO_C1);
         } else if (kind[l] == KIND_ND) {
-            g.p[g.count] = gemm_prob(F(s.pa), 0, N, F(s.qrb), 1, N, F(s.a), M, N, N);
-            g.p[g.count++].cut = CUT_B_LOWER;
-            g.p[g.count] = gemm_prob(F(s.pb), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
-            g.p[g.count++].cut = CUT_B_UPPER;
+            GemmProb pa = gemm_prob(F(s.pa), 0, N, F(s.qrb), 1, N, F(s.a), M, N, N);
+            pa.cut = CUT_B_LOWER;
+            GemmProb pb = gemm_prob(F(s.pb), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+            pb.cut = CUT_B_UPPER;
+            add(c.c1, c.phase1, pa, MONO_C1);
+            add(c.c1, c.phase1, pb, MONO_C1);
         }
     }
-    launch_gemms(g, stream);
     // (c2) dd: A = Qlb T1,  Bt = W Rinv
-    g.count = 0;
+    c.c2.count = 0;
     for (int l = 0; l < L; ++l) {
         if (kind[l] != KIND_DD) continue;
         const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
-        g.p[g.count] = gemm_prob(F(s.qlb), 0, M, F(s.t1), 0, N, F(s.a), M, N, M);
-        g.p[g.count++].cut = CUT_A_UPPER;
-        g.p[g.count] = gemm_prob(F(s.w), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
-        g.p[g.count++].cut = CUT_B_UPPER;
+        GemmProb pa = gemm_prob(F(s.qlb), 0, M, F(s.t1), 0, N, F(s.a), M, N, M);
+        pa.cut = CUT_A_UPPER;
+        GemmProb pb = gemm_prob(F(s.w), 0, N, F(s.rinv), 0, N, F(s.bt), M, N, N);
+        pb.cut = CUT_B_UPPER;
+        add(c.c2, c.phase2, pa, MONO_C1);
+        add(c.c2, c.phase2, pb, MONO_C2);
     }
-    launch_gemms(g, stream);
     // (c3) dense left:  grad1 = triu([A|Bt] [A|-Bt]^T) (m x m, K = n);
     //      dense right: grad2 = triu([A|Bt]^T [A|-Bt]) (n x n, K = m); with max|grad|
-    g.count = 0;
+    c.c3.count = 0;
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
         if (!left_arrow(kind[l])) {
             GemmProb g1 = gemm_prob(F(s.a), 0, N, F(s.a), 1, N, F(s.g1), M, M, N);
             g1.a2 = F(s.bt); g1.b2 = F(s.bt); g1.epi = EPI_TRIU_MAX; g1.mx = mx + 2 * l;
-            g.p[g.count++] = g1;
+            add(c.c3, nullptr, g1, MONO_GRAMS);
         }
         if (!right_scale(kind[l])) {
             GemmProb g2 = gemm_prob(F(s.a), 1, N, F(s.a), 0, N, F(s.g2), N, N, M);
             g2.a2 = F(s.bt); g2.b2 = F(s.bt); g2.epi = EPI_TRIU_MAX; g2.mx = mx + 2 * l + 1;
-            g.p[g.count++] = g2;
+            add(c.c3, nullptr, g2, MONO_GRAMS);
         }
     }
-    launch_gemms(g, stream);
     // (s) arrow left: diag, bias by rows;  scale right: grad2 by columns
-    JobBatch<StatJob> stats;
-    stats.count = 0;
+    c.stats.clear();
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
-        if (left_arrow(kind[l])) {
-            blocks[stats.count] = (m[l] + 7) / 8;
-            stats.j[stats.count++] = {F(s.a), F(s.bt), F(s.diag), F(s.bias), mx + 2 * l, m[l], n[l], 1};
-        }
-        if (right_scale(kind[l])) {
-            blocks[stats.count] = (n[l] + 255) / 256;
-            stats.j[stats.count++] = {F(s.a), F(s.bt), F(s.g2), nullptr, mx + 2 * l + 1, m[l], n[l], 0};
-        }
+        if (left_arrow(kind[l]))
+            c.stats.push({F(s.a), F(s.bt), F(s.diag), F(s.bias), mx + 2 * l, m[l], n[l], 1},
+                         (m[l] + 7) / 8);
+        if (right_scale(kind[l]))
+            c.stats.push({F(s.a), F(s.bt), F(s.g2), nullptr, mx + 2 * l + 1, m[l], n[l], 0},
+                         (n[l] + 255) / 256);
     }
-    launch_jobs(stats_kernel, stats, blocks, stream);
     // (d) dense sides: Q' = Q - s grad Q, s = min(step / (max|grad| + tiny), FLT_MAX)
-    g.count = 0;
+    c.d.count = 0;
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
         const int M = m[l], N = n[l];
@@ -827,42 +1031,372 @@ static int run_chain(int L, const int* kind, void** ql, void** qr, void** dx, vo
             GemmProb u1 = gemm_prob(F(s.g1), 0, M, F(s.qlb), 0, M, static_cast<float*>(out_ql[l]), M, M, M);
             u1.epi = EPI_UPDATE; u1.q = F(s.qlb); u1.mx = mx + 2 * l; u1.step = step;
             u1.cut = CUT_A_UPPER | CUT_B_UPPER;
-            g.p[g.count++] = u1;
+            add(c.d, nullptr, u1, MONO_UPDATES);
         }
         if (!right_scale(kind[l])) {
             GemmProb u2 = gemm_prob(F(s.g2), 0, N, F(s.qrb), 0, N, static_cast<float*>(out_qr[l]), N, N, N);
             u2.epi = EPI_UPDATE; u2.q = F(s.qrb); u2.mx = mx + 2 * l + 1; u2.step = step;
             u2.cut = CUT_A_UPPER | CUT_B_UPPER;
-            g.p[g.count++] = u2;
+            add(c.d, nullptr, u2, MONO_UPDATES);
         }
     }
-    launch_gemms(g, stream);
     // (v) arrow and scale sides
-    JobBatch<VecJob> vecs;
-    vecs.count = 0;
+    c.vecs.clear();
     for (int l = 0; l < L; ++l) {
         const LayerScratch& s = off[l];
-        if (left_arrow(kind[l])) {
-            blocks[vecs.count] = (m[l] + 255) / 256;
-            vecs.j[vecs.count++] = {F(s.qlb), F(s.diag), F(s.bias), mx + 2 * l,
-                                    static_cast<float*>(out_ql[l]), m[l], 1};
-        }
-        if (right_scale(kind[l])) {
-            blocks[vecs.count] = (n[l] + 255) / 256;
-            vecs.j[vecs.count++] = {F(s.qrb), F(s.g2), nullptr, mx + 2 * l + 1,
-                                    static_cast<float*>(out_qr[l]), n[l], 0};
+        if (left_arrow(kind[l]))
+            c.vecs.push({F(s.qlb), F(s.diag), F(s.bias), mx + 2 * l, static_cast<float*>(out_ql[l]),
+                         m[l], 1}, (m[l] + 255) / 256);
+        if (right_scale(kind[l]))
+            c.vecs.push({F(s.qrb), F(s.g2), nullptr, mx + 2 * l + 1, static_cast<float*>(out_qr[l]),
+                         n[l], 0}, (n[l] + 255) / 256);
+    }
+    // the K split: each product's partials in a region of their own after
+    // the layers' scratch (the one launch runs problems of two stages in a
+    // phase)
+    c.splits = list_splits(c);
+    size_t cur = layers;
+    const std::pair<GemmBatch*, SplitPlan*> stages[] = {
+        {&c.c1, &c.sp1}, {&c.c2, &c.sp2}, {&c.c3, &c.sp3}, {&c.d, &c.spd}};
+    for (const auto& st : stages) {
+        st.second->part = F(layers);
+        for (int p = 0; c.splits > 1 && p < st.first->count; ++p) {
+            st.second->off[p] = (int)(cur - layers);
+            cur += psgd_align4((size_t)c.splits * st.first->p[p].M * st.first->p[p].N);
         }
     }
-    launch_jobs(vec_kernel, vecs, blocks, stream, step);
+    c.floats = cur;
+}
+
+// The scratch floats of a list's chain, its partial products included.
+static size_t chain_floats(int L, const int* kind, const int* m, const int* n, int S, int T) {
+    void* none[PSGD_MAX_LAYERS] = {};
+    ChainPlan c;
+    build_chain(L, kind, none, none, none, none, none, none, m, n, S, T, 0.f, nullptr, c);
+    return c.floats;
+}
+
+extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const int* m, const int* n) {
+    if (!valid(L, kind, m, n)) return 0;
+    return chain_floats(L, kind, m, n, 0, 0);
+}
+
+// a GEMM stage: the grouped GEMM, or, when K is split, its bands' raw
+// products in the 64 x 64 tiles and the launch that sums them
+static void launch_stage(GemmBatch& g, const SplitPlan& sp, int splits, cudaStream_t stream) {
+    if (splits == 1) {
+        launch_gemms(g, stream);
+        return;
+    }
+    if (g.count == 0) return;
+    g.tiles[0] = 0;
+    for (int p = 0; p < g.count; ++p)
+        g.tiles[p + 1] = g.tiles[p] + ((g.p[p].M + 63) / 64) * ((g.p[p].N + 63) / 64);
+    gemm_split_kernel<<<dim3(g.tiles[g.count], splits), GEMM_THREADS, GemmTile<1, 1>::SMEM,
+                        stream>>>(g, sp);
+    sum_kernel<<<sum_blocks(g), GEMM_THREADS, 0, stream>>>(g, sp, splits);
+}
+
+static void launch_chain(ChainPlan& c, float step, cudaStream_t stream) {
+    balance_kernel<<<dim3(c.bal_blocks, c.bal.count), 256, 0, stream>>>(c.bal);
+    if (c.tri.count) launch_tri_inv(c.tri, stream);  // (b) K3 on every dense factor
+    launch_jobs(arrow_kernel, c.arrows, stream);
+    launch_stage(c.c1, c.sp1, c.splits, stream);
+    launch_stage(c.c2, c.sp2, c.splits, stream);
+    launch_stage(c.c3, c.sp3, c.splits, stream);
+    launch_jobs(stats_kernel, c.stats, stream);
+    launch_stage(c.d, c.spd, c.splits, stream);
+    launch_jobs(vec_kernel, c.vecs, stream, step);
+}
+
+// ------------------------------------------------- the one-launch chain
+// The same list in one cooperative launch of a resident grid
+// (cudaLaunchCooperativeKernel), as splu.cu's splu_mono_kernel: each CTA
+// walks a phase's tasks t = blockIdx.x, blockIdx.x + gridDim.x, ... and
+// runs the chain's own stage bodies on them, a grid barrier
+// (cg::this_grid().sync()) between phases where the chain has a launch
+// boundary. The phases, each the chain's work whose inputs are ready:
+//   balance | K3's leaves, the arrow pre-pass, dd's T1 and ds's A |
+//   K3's levels (two a level; the first beside the sums of the phase
+//   before) | the last zeroing of K3's temporaries (its own phase when K3
+//   has one level), dd's W and A, ds's Bt, nd's A and Bt | their sums |
+//   dd's Bt | its sums | the Grams and the stats | their sums | the
+//   updates and the vectors | their sums
+// (a phase with no task, such as every sum of an unsplit list, is none).
+// Every GEMM problem is the chain's, in the chain's 64 x 64 tiles with the
+// chain's K bands and sums, and the max|grad| slots are filled by
+// atomicMax on the float bits, so every output equals the chain's bit for
+// bit. The plan (~30 KB) is passed by value (kernel parameters take
+// 32,764 bytes since CUDA 12.1) and read in place (__grid_constant__).
+//
+// The phases are a table built on the host, one call site a body in the
+// kernel: a kernel with a copy of the bodies per phase took 255 registers
+// and spilled, this one takes 231 and does not (one CTA an SM).
+//
+// What bounds it: the dependent path, not the bytes or the FLOPs. Against
+// the chain it lets independent work share a phase: the arrow pre-pass
+// beside K3's leaves, the stats beside the Grams, the vector rewrites
+// beside the updates, the launches a list with sparse sides adds to the
+// chain; it pays a grid barrier a phase (1.1 us measured at 132 CTAs,
+// about a launch gap) and the registers of its largest body on every CTA.
+// Its host enqueue (the 30 KB plan, the cooperative launch) is about the
+// chain's. Measured on an H100 80GB HBM3 at its 700 W limit
+// (tools/kron_gemm_ab.py --route, the device ms of calls queued behind a
+// spinning kernel): faster on every list with a sparse side (a tie at nd
+// (512, 256)), the toy NMT list 0.085 against 0.107, K5 ds at (130, 65)
+// 0.067 against 0.072, nd 0.060 against 0.068 and at (512, 512) 0.188
+// against 0.195, ns 3-8% faster at each size to (512, 512); slower or a
+// tie on lists of dense sides alone: LeNet5's list 0.119 against 0.112,
+// the K4 path's bucket 0.098 against 0.098, K2 at (1, 10) 0.034 against
+// 0.031, at (1024, 1024) 0.890 against 0.718. The chained times of those
+// lists, host included, moved 2x between runs.
+
+// One launch for a list with a sparse side (ds, nd or ns) whose every GEMM
+// stage takes the chain's 64 x 64 tiles and whose products come to at
+// most this many MFLOP: the largest such list that sweep measured (K5 nd
+// at (512, 512), K5's cap, 1,342 MFLOP) ran faster on the one launch.
+#define KRON_MONO_MAX_MFLOP 1400
+
+// A phase's work: up to three segments of tasks, each one body's.
+enum {
+    SEG_BALANCE = 0, SEG_TRI = 1, SEG_ARROW = 2, SEG_GEMM = 3, SEG_SUM = 4, SEG_STATS = 5, SEG_VEC = 6
+};
+struct MonoSegment {
+    int kind, arg, tasks;  // arg: K3's phase (SEG_TRI) or the GEMM batch (SEG_GEMM, SEG_SUM)
+};
+struct MonoPhase {
+    MonoSegment seg[3];
+    int count;
+};
+#define MONO_MAX_PHASES (10 + 2 * PSGD_TRI_LEVELS)
+
+struct MonoPlan {
+    BalanceBatch bal;
+    TriBatch tri;
+    JobBatch<ArrowJob> arrows;
+    JobBatch<StatJob> stats;
+    JobBatch<VecJob> vecs;
+    GemmBatch g[MONO_GEMMS];  // 64 x 64 tile prefixes
+    SplitPlan sp[MONO_GEMMS];
+    MonoPhase phases[MONO_MAX_PHASES];
+    int nphases;
+    float step;
+    int bal_blocks, splits;
+};
+static_assert(sizeof(MonoPlan) <= 32764, "the one-launch plan is passed by value as a kernel parameter");
+
+#define MONO_SMEM std::max(sizeof(float) * TRI_SMEM_FLOATS, GemmTile<1, 1>::SMEM)
+
+// Every thread runs every phase, one body call site a kind of task.
+__global__ void __launch_bounds__(256, 1) kron_mono_kernel(const __grid_constant__ MonoPlan P) {
+    extern __shared__ __align__(16) float msm[];
+    __shared__ float red[8];
+    __shared__ float ared[ARROW_WARPS][32];
+    for (int ph = 0; ph < P.nphases; ++ph) {
+        if (ph) cooperative_groups::this_grid().sync();
+        const MonoPhase& F = P.phases[ph];
+        int total = 0;
+        for (int k = 0; k < F.count; ++k) total += F.seg[k].tasks;
+        for (int t = blockIdx.x; t < total; t += gridDim.x) {
+            int k = 0, u = t;
+            while (u >= F.seg[k].tasks) u -= F.seg[k++].tasks;
+            const int kind = F.seg[k].kind, arg = F.seg[k].arg;
+            if (kind == SEG_BALANCE)
+                balance_body(P.bal, u % P.bal_blocks, u / P.bal_blocks, P.bal_blocks, red);
+            else if (kind == SEG_TRI) tri_task(P.tri, arg, u, msm);
+            else if (kind == SEG_ARROW) arrow_body(P.arrows, u, ared);
+            else if (kind == SEG_GEMM) {
+                const GemmBatch& g = P.g[arg];
+                const int tiles = g.tiles[g.count];
+                if (P.splits > 1)
+                    gemm_body<1, 1, -1, true>(g, u % tiles, u / tiles, P.splits, msm, red, &P.sp[arg]);
+                else gemm_body<1, 1, -1, false>(g, u, 0, 1, msm, red);
+            } else if (kind == SEG_SUM) sum_body(P.g[arg], P.sp[arg], P.splits, u, red);
+            else if (kind == SEG_STATS) stats_body(P.stats, u, red);
+            else vec_body(P.vecs, u, P.step);
+            __syncthreads();  // the next task reuses the shared memory
+        }
+    }
+}
+
+// the chain's products in FLOPs (2 M N K a product, the cut bands counted
+// whole): a function of the kinds and sides alone (K4's strides change no
+// work); ops/hopper/kron_dd.py `route` mirrors it
+static double chain_flops(int L, const int* kind, const int* m, const int* n) {
+    double f = 0;
+    for (int l = 0; l < L; ++l) {
+        const double M = m[l], N = n[l];
+        if (kind[l] == KIND_DD) f += 8 * M * N * (M + N) + 2 * (M * M * M + N * N * N);
+        else if (kind[l] == KIND_DS) f += 8 * M * M * N + 2 * M * M * M;
+        else if (kind[l] == KIND_ND) f += 8 * M * N * N + 2 * N * N * N;
+    }
+    return f;
+}
+
+// whether every GEMM stage of the chain takes the 64 x 64 tiles (launch_gemms_q's rule)
+static bool chain_tiles64(const ChainPlan& c) {
+    for (const GemmBatch* g : {&c.c1, &c.c2, &c.c3, &c.d}) {
+        long long big = 0;
+        for (int p = 0; p < g->count; ++p)
+            big += (long long)((g->p[p].M + 127) / 128) * ((g->p[p].N + 127) / 128);
+        if (c.splits == 1 && big >= 4LL * gemm_sms()) return false;
+    }
+    return true;
+}
+
+enum { ROUTE_AUTO = 0, ROUTE_CHAIN = 1, ROUTE_MONO = 2 };
+
+// The card's cooperative grid for kron_mono_kernel: {CTAs a SM, SMs}, asked
+// once a device; 0 CTAs where the card takes no cooperative launch.
+static cudaError_t mono_resident(int* per_sm, int* sms) {
+    static int known_dev = -1, known[2];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev != known_dev) {
+        int coop = 0;
+        known[0] = known[1] = 0;
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&known[1], cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(kron_mono_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)MONO_SMEM);
+        if (e == cudaSuccess && coop)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&known[0], kron_mono_kernel, 256, MONO_SMEM);
+        if (e != cudaSuccess) return e;
+        known_dev = dev;
+    }
+    *per_sm = known[0];
+    *sms = known[1];
+    return cudaSuccess;
+}
+
+static cudaError_t launch_mono(ChainPlan& c, float step, cudaStream_t stream) {
+    MonoPlan P;
+    P.bal = c.bal;
+    P.bal_blocks = c.bal_blocks;
+    P.tri = c.tri;
+    plan_tri_inv(P.tri);
+    P.arrows = c.arrows;
+    P.stats = c.stats;
+    P.vecs = c.vecs;
+    P.step = step;
+    P.splits = c.splits;
+    for (int k = 0; k < MONO_GEMMS; ++k) {
+        P.g[k].count = 0;
+        P.sp[k].part = c.sp1.part;  // every stage's partials in one region
+    }
+    auto move = [&](const GemmBatch& from, const SplitPlan& sp, int p, int k) {
+        GemmBatch& g = P.g[k];
+        P.sp[k].off[g.count] = sp.off[p];
+        g.p[g.count++] = from.p[p];
+    };
+    for (int p = 0; p < c.c1.count; ++p) move(c.c1, c.sp1, p, c.phase1[p]);
+    for (int p = 0; p < c.c2.count; ++p) move(c.c2, c.sp2, p, c.phase2[p]);
+    P.g[MONO_GRAMS] = c.c3;
+    P.sp[MONO_GRAMS] = c.sp3;
+    P.g[MONO_UPDATES] = c.d;
+    P.sp[MONO_UPDATES] = c.spd;
+    // a phase's GEMM tasks: its tiles times the bands; its sums, when split
+    int gt[MONO_GEMMS], gs[MONO_GEMMS];
+    for (int k = 0; k < MONO_GEMMS; ++k) {
+        GemmBatch& g = P.g[k];
+        g.tiles[0] = 0;
+        for (int p = 0; p < g.count; ++p)
+            g.tiles[p + 1] = g.tiles[p] + ((g.p[p].M + 63) / 64) * ((g.p[p].N + 63) / 64);
+        gt[k] = g.tiles[g.count] * P.splits;
+        gs[k] = P.splits > 1 ? sum_blocks(g) : 0;
+    }
+    // the phases; a segment or a phase with no task is dropped
+    const TriBatch& t = P.tri;
+    const int tri_ph = t.count ? tri_phases(t) : 0;
+    // past one level, K3's last temporaries lie outside the 64-aligned
+    // diagonal blocks of the inverses, the only part that the cut K bands
+    // of the next products' 64 x 64 tiles read: they are zeroed beside them
+    const bool merge = t.levels >= 2;
+    auto tri_tasks = [&](int ph) { return ph < tri_ph ? tri_phase_tasks(t, ph) : 0; };
+    P.nphases = 0;
+    int most = 1;
+    auto phase = [&](std::initializer_list<MonoSegment> segs) {
+        MonoPhase& F = P.phases[P.nphases];
+        F.count = 0;
+        int total = 0;
+        for (const MonoSegment& sg : segs)
+            if (sg.tasks > 0) { F.seg[F.count++] = sg; total += sg.tasks; }
+        if (total) { ++P.nphases; most = std::max(most, total); }
+    };
+    const int tri_last = merge ? tri_ph - 1 : tri_ph;  // K3's phases run alone below it
+    phase({{SEG_BALANCE, 0, P.bal_blocks * P.bal.count}});
+    phase({{SEG_TRI, 0, tri_tasks(0)}, {SEG_ARROW, 0, P.arrows.blocks[P.arrows.count]},
+           {SEG_GEMM, MONO_EARLY, gt[MONO_EARLY]}});
+    // the early products' sums beside K3's first level, or alone
+    phase({{SEG_TRI, 1, tri_last > 1 ? tri_tasks(1) : 0}, {SEG_SUM, MONO_EARLY, gs[MONO_EARLY]}});
+    for (int ph = 2; ph < tri_last; ++ph) phase({{SEG_TRI, ph, tri_tasks(ph)}});
+    phase({{SEG_TRI, tri_ph - 1, merge ? tri_tasks(tri_ph - 1) : 0}, {SEG_GEMM, MONO_C1, gt[MONO_C1]}});
+    phase({{SEG_SUM, MONO_C1, gs[MONO_C1]}});
+    phase({{SEG_GEMM, MONO_C2, gt[MONO_C2]}});
+    phase({{SEG_SUM, MONO_C2, gs[MONO_C2]}});
+    phase({{SEG_GEMM, MONO_GRAMS, gt[MONO_GRAMS]}, {SEG_STATS, 0, P.stats.blocks[P.stats.count]}});
+    phase({{SEG_SUM, MONO_GRAMS, gs[MONO_GRAMS]}});
+    phase({{SEG_GEMM, MONO_UPDATES, gt[MONO_UPDATES]}, {SEG_VEC, 0, P.vecs.blocks[P.vecs.count]}});
+    phase({{SEG_SUM, MONO_UPDATES, gs[MONO_UPDATES]}});
+    int per_sm = 0, sms = 0;
+    cudaError_t e = mono_resident(&per_sm, &sms);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&P};
+    e = cudaLaunchCooperativeKernel((const void*)kron_mono_kernel, dim3(std::min(most, per_sm * sms)),
+                                    dim3(256), args, MONO_SMEM, stream);
+    const cudaError_t last = cudaGetLastError();  // clears the launch's error either way
+    return e != cudaSuccess ? e : last;
+}
+
+// The list's route: the one launch where the sweep measured it faster (a
+// list with a sparse side, its products in the 64 x 64 tiles and
+// KRON_MONO_MAX_MFLOP at most), else the chain; `route` forces either. A forced one launch on a list
+// whose products take the 128 x 128 tiles is refused. *took: the route run.
+static int run_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
+                     void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
+                     float step, void* scratch, cudaStream_t stream, int route, int* took) {
+    ChainPlan c;
+    build_chain(L, kind, ql, qr, dx, dg, out_ql, out_qr, m, n, S, T, step,
+                static_cast<float*>(scratch), c);
+    const bool tiles64 = chain_tiles64(c);
+    if (route == ROUTE_AUTO) {
+        bool sparse = false;
+        for (int l = 0; l < L; ++l) sparse |= kind[l] != KIND_DD;
+        route = sparse && tiles64 && chain_flops(L, kind, m, n) <= KRON_MONO_MAX_MFLOP * 1e6
+                    ? ROUTE_MONO : ROUTE_CHAIN;
+    }
+    if (route == ROUTE_MONO && !tiles64) return (int)cudaErrorInvalidValue;
+    *took = route;
+    if (route == ROUTE_MONO) return (int)launch_mono(c, step, stream);
+    launch_chain(c, step, stream);
     return (int)cudaGetLastError();
 }
 
-extern "C" int psgd_kron_multi_update(int L, const int* kind, void** ql, void** qr, void** dx,
-                                      void** dg, void** out_ql, void** out_qr, const int* m,
-                                      const int* n, float step, void* scratch, void* stream_ptr) {
+// K1, K2, K5 and K20: desc holds 9 int64 a layer, {kind, m, n, ql, qr, dx,
+// dg, out_ql, out_qr}, then one slot where the route run is written
+// (ROUTE_CHAIN or ROUTE_MONO); route: ROUTE_AUTO, or one forced.
+extern "C" int psgd_kron_multi_update(int L, long long* desc, float step, void* scratch,
+                                      void* stream_ptr, int route) {
+    if (L < 1 || L > PSGD_MAX_LAYERS || route < ROUTE_AUTO || route > ROUTE_MONO)
+        return (int)cudaErrorInvalidValue;
+    int kind[PSGD_MAX_LAYERS], m[PSGD_MAX_LAYERS], n[PSGD_MAX_LAYERS];
+    void *ptr[6][PSGD_MAX_LAYERS];
+    for (int l = 0; l < L; ++l) {
+        const long long* d = desc + 9 * l;
+        kind[l] = (int)d[0];
+        m[l] = (int)d[1];
+        n[l] = (int)d[2];
+        for (int k = 0; k < 6; ++k) ptr[k][l] = reinterpret_cast<void*>(d[3 + k]);
+    }
     if (!valid(L, kind, m, n)) return (int)cudaErrorInvalidValue;
-    return run_chain(L, kind, ql, qr, dx, dg, out_ql, out_qr, m, n, 0, 0, step, scratch,
-                     static_cast<cudaStream_t>(stream_ptr));
+    int took = 0;
+    const int rc = run_chain(L, kind, ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], m, n, 0, 0,
+                             step, scratch, static_cast<cudaStream_t>(stream_ptr), route, &took);
+    desc[9 * L] = took;
+    return rc;
 }
 
 // ---------------------------------------------------------------------------
@@ -917,9 +1451,9 @@ static bool valid_batched(int B, int S, int T, const int* m, const int* n) {
 
 // One chunk's scratch in floats: the chain's, then the tight corners from
 // offset *corners on.
-static size_t chunk_floats(int L, const int* m, const int* n, size_t* corners) {
+static size_t chunk_floats(int L, int S, int T, const int* m, const int* n, size_t* corners) {
     const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
-    size_t cur = plan(L, kind, m, n, nullptr);
+    size_t cur = chain_floats(L, kind, m, n, S, T);
     *corners = cur;
     for (int l = 0; l < L; ++l)
         cur += psgd_align4((size_t)m[l] * m[l]) + psgd_align4((size_t)n[l] * n[l]);
@@ -931,16 +1465,20 @@ extern "C" size_t psgd_kron_dd_batched_scratch_floats(int B, int S, int T, const
     if (!valid_batched(B, S, T, m, n)) return 0;
     size_t most = 0, corners;
     for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS)
-        most = std::max(most, chunk_floats(std::min(PSGD_MAX_LAYERS, B - b0), m + b0, n + b0,
+        most = std::max(most, chunk_floats(std::min(PSGD_MAX_LAYERS, B - b0), S, T, m + b0, n + b0,
                                            &corners));
     return most;
 }
 
+// route as psgd_kron_multi_update's, a chunk at a time; *monos: the chunks
+// that took the one launch
 extern "C" int psgd_kron_dd_batched_update(int B, int S, int T, void* ql, void* qr, void* dx,
                                            void* dg, void* out_ql, void* out_qr, const int* m,
                                            const int* n, float step, void* scratch,
-                                           void* stream_ptr) {
-    if (!valid_batched(B, S, T, m, n)) return (int)cudaErrorInvalidValue;
+                                           void* stream_ptr, int route, int* monos) {
+    if (!valid_batched(B, S, T, m, n) || route < ROUTE_AUTO || route > ROUTE_MONO)
+        return (int)cudaErrorInvalidValue;
+    monos[0] = 0;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
     const size_t ss = (size_t)S * S, tt = (size_t)T * T, st = (size_t)S * T;
@@ -949,7 +1487,7 @@ extern "C" int psgd_kron_dd_batched_update(int B, int S, int T, void* ql, void* 
     for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS) {
         const int L = std::min(PSGD_MAX_LAYERS, B - b0);
         size_t corner0;
-        chunk_floats(L, m + b0, n + b0, &corner0);
+        chunk_floats(L, S, T, m + b0, n + b0, &corner0);
         float* corner = static_cast<float*>(scratch) + corner0;
         void *pql[PSGD_MAX_LAYERS], *pqr[PSGD_MAX_LAYERS], *pdx[PSGD_MAX_LAYERS],
              *pdg[PSGD_MAX_LAYERS], *oql[PSGD_MAX_LAYERS], *oqr[PSGD_MAX_LAYERS];
@@ -965,9 +1503,11 @@ extern "C" int psgd_kron_dd_batched_update(int B, int S, int T, void* ql, void* 
             slots.j[slots.count++] = {static_cast<const float*>(oql[l]), at(out_ql, i * ss), ml, S};
             slots.j[slots.count++] = {static_cast<const float*>(oqr[l]), at(out_qr, i * tt), nl, T};
         }
+        int took = 0;
         const int rc = run_chain(L, kind, pql, pqr, pdx, pdg, oql, oqr, m + b0, n + b0, S, T, step,
-                                 scratch, stream);
+                                 scratch, stream, route, &took);
         if (rc) return rc;
+        monos[0] += took == ROUTE_MONO;
         const int blocks = std::min(64, std::max(1, (int)((std::max(ss, tt) + 4095) / 4096)));
         slot_kernel<<<dim3(blocks, slots.count), 256, 0, stream>>>(slots);
     }

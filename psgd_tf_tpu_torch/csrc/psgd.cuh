@@ -1,7 +1,8 @@
 // Shared declarations of the Hopper kernels (built by ops/hopper/_build.py).
 //
 // Every kernel takes its per-problem descriptors BY VALUE as a kernel
-// parameter (a few KB, under the 4 KB parameter limit), so a grouped launch
+// parameter (a few KB, under the classic 4 KB limit; K1's one-launch plan
+// ~30 KB, under the 32,764 bytes CUDA 12.1 allows), so a grouped launch
 // needs no host-to-device copy of pointers and no synchronisation.
 #pragma once
 
@@ -16,16 +17,25 @@
 // Most problems of one grouped GEMM launch (two per layer).
 #define PSGD_MAX_GEMMS (2 * PSGD_MAX_LAYERS)
 
+// Most levels of K3's recursive inverse: factors of up to 32 << 16 rows.
+#define PSGD_TRI_LEVELS 16
+
 struct TriBatch {
     const float* u[PSGD_MAX_TRI];  // (n, n) upper triangular, row-major
     float* x[PSGD_MAX_TRI];        // (n, n) out: u^{-1}, lower part zero
     int n[PSGD_MAX_TRI];
-    int tiles[PSGD_MAX_TRI + 1];   // prefix sums of ceil(n / TRI_TILE)
+    int tiles[PSGD_MAX_TRI + 1];   // prefix sums of the 32-row leaves, ceil(n / 32)
+    // prefix sums over the factors of each level's 32 x 32 product tiles
+    int level_tiles[PSGD_TRI_LEVELS][PSGD_MAX_TRI + 1];
+    int levels;                    // the most levels of any factor
     int count;
 };
 
+// Fill the plan of `b` (tiles, level_tiles, levels) from u, x, n and count
+// (tri.cu); nothing is launched.
+void plan_tri_inv(TriBatch& b);
 // Launch the exact inverse of every factor of `b` on `stream` (tri.cu).
-// The caller fills u, x, n and count; this fills tiles.
+// The caller fills u, x, n and count; this fills the plan.
 void launch_tri_inv(TriBatch& b, cudaStream_t stream);
 
 // The grouped fp32 GEMM of kron_dd.cu:

@@ -5,139 +5,106 @@
 // device routine that K1/K2 run on every factor's diagonal blocks. The TPU
 // has no trsm, so the Pallas code inverts 128x128 blocks by a Newton chain
 // whose residual is nilpotent. Hopper has no such limit: this file inverts
-// each WHOLE factor by blocked back-substitution in fp32, exact to fp32
-// rounding (no iteration, no truncation).
+// each WHOLE factor in fp32, exact to fp32 rounding (no iteration, no
+// truncation), by the recursive block form that LAPACK's trtri uses
+// (tri_inv.cuh): every 32-row leaf inverted by one warp, then
+// ceil(log2(leaves)) levels, each joining pairs of diagonal blocks by two
+// dependent products, X12 = -X11 (U12 X22), with every pair of every
+// factor of the batch in the same launch. A side that is not a multiple of
+// 32 is the identity-extended factor, its padding never stored; the
+// strictly lower part is written as exact zeros (the products' temporaries
+// live there and are zeroed one phase later).
 //
-// Two launches cover every factor of the batch:
-//   1. tri_diag_kernel: one warp per 32x32 diagonal tile; each thread
-//      back-substitutes one column of the tile's inverse in shared memory.
-//   2. tri_offdiag_kernel: one block per (factor, block column j); it walks
-//      block rows i = j-1 .. 0, X[i,j] = -X[i,i] * sum_{k=i+1..j} U[i,k] X[k,j],
-//      reading the tiles it wrote earlier back through L2.
-//
-// What bounds it on this card: latency, not FLOPs or bytes. At LeNet5's
-// sides (6..257) the ten factors have 32 diagonal tiles in all; each one is
-// a 32-step dependent substitution, and each block column a chain of up to
-// ceil(n/32) - 1 dependent tile products. Measured on an H100 80GB HBM3 at
-// its 700 W limit: 18.5 us for the diagonal launch and 49 us for the
-// off-diagonal one per LeNet5 step. The design keeps the chain to two
-// launches for all factors at once and gives every block column its own
-// block, so the columns run in parallel.
+// What bounds it on this card: latency, not FLOPs or bytes (LeNet5's ten
+// factors, sides 6..257, are 4 MFLOP). The dependent path is the leaves (a
+// 32-step register-resident substitution a warp, each step's FMAs
+// independent of one another) and two products a level, each at most
+// K = n / 2 deep, 32 x 32 output tiles spread over the card (a tile's K
+// brought in 128-deep panels by cp.async, summed in quarters by the
+// block's four warp pairs): 2 + 2 L phases for L levels (L = 4 at the 257
+// side), all in one cooperative launch with a grid barrier between two.
+// Measured on an H100 80GB HBM3 at its 700 W limit on LeNet5's ten
+// factors (tools/profile_kron_chain.py, tools/kron_gemm_ab.py --tri):
+// 39 us on the device (leaves 5 us, each level's phases 3-6 us), where the
+// design before this one (each 32-column block column walked serially
+// through L2 by one block, 32 blocks for the card, in two launches) took
+// 67 us; the same phases a launch each, 0.052 ms against the one launch's
+// 0.040. The other candidate, one block a block column with the column
+// and U's row panels in shared memory, ran 0.038 ms against this
+// schedule's 0.042 in one A/B (tools/kron_gemm_ab.py --tri, on a tree that
+// had both), but takes 119 KB of shared memory a block and sides of at
+// most 288: not kept.
 //
 // One difference from the Pallas routine: that one inverts only the
 // diagonal blocks and leaves the off-diagonal work to the substitutions of
 // its caller; here the caller gets the full inverse and multiplies by it.
-// A side that is not a multiple of 32 is handled as the identity-extended
-// factor, with the padding masked and never stored.
 #include "psgd.cuh"
+#include "tri_inv.cuh"
+
+#include <cooperative_groups.h>
+#include <algorithm>
 
 #define TT 32
 
-__device__ __forceinline__ int find_problem(const int* prefix, int count, int t) {
-    int p = 0;
-    while (p + 1 < count && t >= prefix[p + 1]) ++p;
-    return p;
-}
-
-// The inverse of the 32x32 diagonal tile at (r0, r0) of an upper-triangular
-// (n, n) factor u, identity-extended past n, by one warp: each thread
-// back-substitutes one column in shared memory. read_t reads u[c][r] as the
-// tile's [r][c] (the upper transpose of a lower factor: the index map of
-// K19's lower systems); write_t stores the inverse transposed. Stores
-// out[r * ldo + c] for r, c < lim; only the upper triangle of the tile is read.
-__device__ __forceinline__ void tri_diag_tile(const float* __restrict__ u, int n, int r0,
-                                              int read_t, float* __restrict__ out, int ldo,
-                                              int write_t, int lim) {
-    __shared__ float su[TT][TT + 1];
-    __shared__ float sx[TT][TT + 1];
-    const int c = threadIdx.x;
-    for (int r = 0; r < TT; ++r) {
-        const int gr = r0 + r, gc = r0 + c;
-        const size_t o = read_t ? (size_t)gc * n + gr : (size_t)gr * n + gc;
-        su[r][c] = (gr < n && gc < n) ? u[o] : (r == c ? 1.f : 0.f);
-    }
-    __syncthreads();
-    // column c of the tile's inverse; each thread touches only its column
-    for (int r = TT - 1; r >= 0; --r) {
-        float v = 0.f;
-        if (r <= c) {
-            float s = (r == c) ? 1.f : 0.f;
-            for (int k = r + 1; k <= c; ++k) s -= su[r][k] * sx[k][c];
-            v = s / su[r][r];
-        }
-        sx[r][c] = v;
-    }
-    for (int r = 0; r < TT; ++r)
-        if (r < lim && c < lim) out[write_t ? (size_t)c * ldo + r : (size_t)r * ldo + c] = sx[r][c];
-}
-
-__global__ void __launch_bounds__(TT) tri_diag_kernel(const TriBatch b) {
-    const int p = find_problem(b.tiles, b.count, blockIdx.x);
-    const int n = b.n[p];
-    const int r0 = (blockIdx.x - b.tiles[p]) * TT;
-    tri_diag_tile(b.u[p], n, r0, 0, b.x[p] + (size_t)r0 * n + r0, n, 0, n - r0);
-}
-
-__global__ void __launch_bounds__(TT * 8) tri_offdiag_kernel(const TriBatch b) {
-    const int p = find_problem(b.tiles, b.count, blockIdx.x);
-    const int n = b.n[p];
-    const float* __restrict__ u = b.u[p];
-    float* x = b.x[p];  // read back after this block writes it: no __restrict__
-    const int nb = (n + TT - 1) / TT;
-    const int j = blockIdx.x - b.tiles[p];
-    const int tx = threadIdx.x, ty = threadIdx.y;  // (32, 8): rows ty + 8q
-    const int gc = j * TT + tx;
-    __shared__ float sa[TT][TT + 1];
-    __shared__ float sb[TT][TT + 1];
-
-    for (int i = j + 1; i < nb; ++i) {  // strictly lower tiles are zero
-        for (int rr = ty; rr < TT; rr += 8) {
-            const int gr = i * TT + rr;
-            if (gr < n && gc < n) x[(size_t)gr * n + gc] = 0.f;
-        }
-    }
-    for (int i = j - 1; i >= 0; --i) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = i + 1; k <= j; ++k) {
-            for (int q = 0; q < 4; ++q) {
-                const int rr = ty + 8 * q;
-                const int ur = i * TT + rr, uc = k * TT + tx, xr = k * TT + rr;
-                sa[rr][tx] = (ur < n && uc < n) ? u[(size_t)ur * n + uc] : 0.f;
-                sb[rr][tx] = (xr < n && gc < n) ? x[(size_t)xr * n + gc] : 0.f;
-            }
-            __syncthreads();
-            for (int kk = 0; kk < TT; ++kk) {
-                const float bv = sb[kk][tx];
-                for (int q = 0; q < 4; ++q) acc[q] += sa[ty + 8 * q][kk] * bv;
-            }
-            __syncthreads();
-        }
-        // X[i,j] = -X[i,i] * acc, with X[i,i] from tri_diag_kernel
-        for (int q = 0; q < 4; ++q) {
-            const int rr = ty + 8 * q;
-            const int dr = i * TT + rr, dc = i * TT + tx;
-            sb[rr][tx] = acc[q];
-            sa[rr][tx] = (dr < n && dc < n) ? x[(size_t)dr * n + dc] : 0.f;
-        }
-        __syncthreads();
-        for (int q = 0; q < 4; ++q) {
-            const int rr = ty + 8 * q;
-            float s = 0.f;
-            for (int kk = 0; kk < TT; ++kk) s += sa[rr][kk] * sb[kk][tx];
-            const int gr = i * TT + rr;
-            if (gr < n && gc < n) x[(size_t)gr * n + gc] = -s;
-        }
-        // the next block row reads this tile back from global memory
-        __syncthreads();
+// Phases [ph0, ph1) of the plan, a grid barrier between two: one
+// cooperative launch for them all (launch_tri_inv), or a plain launch of a
+// phase alone, which reaches no barrier.
+__global__ void __launch_bounds__(TRI_THREADS, 1) tri_kernel(const TriBatch b, int ph0, int ph1) {
+    extern __shared__ __align__(16) float tsm[];
+    for (int ph = ph0; ph < ph1; ++ph) {
+        if (ph > ph0) cooperative_groups::this_grid().sync();
+        tri_phase(b, ph, tsm);
     }
 }
 
-void launch_tri_inv(TriBatch& b, cudaStream_t stream) {
+void plan_tri_inv(TriBatch& b) {
     b.tiles[0] = 0;
-    for (int p = 0; p < b.count; ++p) b.tiles[p + 1] = b.tiles[p] + (b.n[p] + TT - 1) / TT;
-    const int total = b.tiles[b.count];
-    tri_diag_kernel<<<total, TT, 0, stream>>>(b);
-    tri_offdiag_kernel<<<total, dim3(TT, 8), 0, stream>>>(b);
+    b.levels = 0;
+    for (int p = 0; p < b.count; ++p) b.tiles[p + 1] = b.tiles[p] + (b.n[p] + TRI_LEAF - 1) / TRI_LEAF;
+    for (int l = 0; l < PSGD_TRI_LEVELS; ++l) {
+        b.level_tiles[l][0] = 0;
+        for (int p = 0; p < b.count; ++p)
+            b.level_tiles[l][p + 1] = b.level_tiles[l][p] + tri_level_tiles(b.n[p], l);
+        if (b.level_tiles[l][b.count]) b.levels = l + 1;
+    }
+}
+
+#define TRI_SMEM (sizeof(float) * TRI_SMEM_FLOATS)
+
+// tri_kernel's resident CTAs on the current card (CTAs a SM x SMs), asked
+// once a device; 0 where the card takes no cooperative launch
+static cudaError_t tri_resident(int* ctas) {
+    static int known_dev = -1, known = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev != known_dev) {
+        int coop = 0, per_sm = 0, sms = 0;
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(tri_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TRI_SMEM);
+        if (e == cudaSuccess && coop)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_kernel, TRI_THREADS, TRI_SMEM);
+        if (e != cudaSuccess) return e;
+        known = per_sm * sms;
+        known_dev = dev;
+    }
+    *ctas = known;
+    return cudaSuccess;
+}
+
+// Every phase in one cooperative launch of a resident grid, as large as
+// the largest phase's tasks. A launch the card refuses is left as the last
+// error, which the callers return.
+void launch_tri_inv(TriBatch& b, cudaStream_t stream) {
+    plan_tri_inv(b);
+    int ctas = 0, ph0 = 0, ph1 = tri_phases(b), most = 1;
+    if (tri_resident(&ctas) != cudaSuccess) return;
+    for (int ph = 0; ph < ph1; ++ph) most = std::max(most, tri_phase_tasks(b, ph));
+    void* args[] = {&b, &ph0, &ph1};
+    cudaLaunchCooperativeKernel((const void*)tri_kernel, dim3(std::min(most, std::max(ctas, 1))),
+                                dim3(TRI_THREADS), args, TRI_SMEM, stream);
 }
 
 extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, void* stream) {
@@ -145,7 +112,7 @@ extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, v
     TriBatch b;
     b.count = count;
     for (int p = 0; p < count; ++p) {
-        if (n[p] < 1) return (int)cudaErrorInvalidValue;
+        if (n[p] < 1 || n[p] > (TRI_LEAF << PSGD_TRI_LEVELS)) return (int)cudaErrorInvalidValue;
         b.u[p] = static_cast<const float*>(u[p]);
         b.x[p] = static_cast<float*>(x[p]);
         b.n[p] = n[p];
@@ -167,9 +134,9 @@ extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, v
 // ops/hopper/tri.py builds the schedule (TRI_OP_* records of six ints) and
 // one call of psgd_tri_solve launches it, with no host synchronisation:
 //   INV     M_ii^{-1} of every NB x NB diagonal block at once, in two
-//           launches: tri_diag_tile (K3's routine, its arithmetic and
-//           signature unchanged) inverts each 32x32 diagonal tile, then
-//           solve_walk_kernel, K3's off-diagonal walk, fills each block's
+//           launches: tri_diag_tile (below, K3's routine as it was before
+//           K3's redesign) inverts each 32x32 diagonal tile, then
+//           solve_walk_kernel, K3's old off-diagonal walk, fills each block's
 //           columns. Both work on U = M or M^T, whichever is upper: U reads
 //           Q through the transposed index when lower, and a forward
 //           system takes the block's inverse transposed (the leaf's A
@@ -216,6 +183,39 @@ extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, v
 // The solve as a whole runs at ~7 TFLOP/s (2.1 GFLOP in 0.309 ms), ~10x
 // its bound; tensor cores (3xTF32, a separate precision setting) or a
 // warp-specialised GEMM are later work.
+
+// K19's 32x32 diagonal-tile inverse (K3's leaf routine before K3's
+// redesign, kept as K19 measured it): the tile at (r0, r0) of an
+// upper-triangular (n, n) factor u, identity-extended past n, by one warp;
+// each thread back-substitutes one column in shared memory. read_t reads u[c][r] as the
+// tile's [r][c] (the upper transpose of a lower factor: the index map of
+// K19's lower systems); write_t stores the inverse transposed. Stores
+// out[r * ldo + c] for r, c < lim; only the upper triangle of the tile is read.
+__device__ __forceinline__ void tri_diag_tile(const float* __restrict__ u, int n, int r0,
+                                              int read_t, float* __restrict__ out, int ldo,
+                                              int write_t, int lim) {
+    __shared__ float su[TT][TT + 1];
+    __shared__ float sx[TT][TT + 1];
+    const int c = threadIdx.x;
+    for (int r = 0; r < TT; ++r) {
+        const int gr = r0 + r, gc = r0 + c;
+        const size_t o = read_t ? (size_t)gc * n + gr : (size_t)gr * n + gc;
+        su[r][c] = (gr < n && gc < n) ? u[o] : (r == c ? 1.f : 0.f);
+    }
+    __syncthreads();
+    // column c of the tile's inverse; each thread touches only its column
+    for (int r = TT - 1; r >= 0; --r) {
+        float v = 0.f;
+        if (r <= c) {
+            float s = (r == c) ? 1.f : 0.f;
+            for (int k = r + 1; k <= c; ++k) s -= su[r][k] * sx[k][c];
+            v = s / su[r][r];
+        }
+        sx[r][c] = v;
+    }
+    for (int r = 0; r < TT; ++r)
+        if (r < lim && c < lim) out[write_t ? (size_t)c * ldo + r : (size_t)r * ldo + c] = sx[r][c];
+}
 
 #define SV_W 16     // columns of B a block owns
 #define SV_ROWS 16  // thread rows of a block: each thread owns two rows of a tile

@@ -2,8 +2,9 @@
 
 Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
 
-  - tri: exact upper-triangular inverse of a list of factors (K3), and
-    the blocked triangular solve (K19, `solve_triangular`).
+  - tri: exact upper-triangular inverse of a list of factors (K3, the
+    recursive block form), and the blocked triangular solve (K19,
+    `solve_triangular`).
   - kron_dd: the Kronecker factor update chain of `csrc/kron_dd.cu`;
     `fused_update` takes one (dense, dense) layer (K2),
     `fused_update_multi` a (dense, dense) layer list (K20),
@@ -11,7 +12,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     `kron_multi.fused_update_multi` a whole layer list of any kinds in one
     fixed chain of grouped launches (K1), and
     `kron_dd.fused_update_batched` a stacked, identity-padded bucket of
-    (dense, dense) layers through the same chain (K4).
+    (dense, dense) layers through the same chain (K4). A list with a
+    sparse side (`kron_dd.route`) runs its stage bodies in one cooperative
+    launch instead, counted under 'kron_mono' (the chain's own K3 launch
+    under 'tri').
   - kron_sparse_big: the streaming (norm, scale) reductions (K6), their
     wide-lane kernel (K7/K8: one kernel counted under the JAX package's
     two routes), the streaming (norm, dense) chain (K9) and the streaming
@@ -66,7 +70,7 @@ counts: dict[str, int] = {
     "kron_sparse_big_ns": 0, "kron_sparse_big_ns_wide2": 0, "kron_sparse_big_ns_wide_xla": 0,
     "kron_sparse_big_nd": 0, "kron_sparse_big_ds": 0, "kron_sparse_big_apply_ns": 0,
     "kron_sparse_big_apply_nd": 0, "kron_sparse_big_apply_ns_wide": 0, "tri_solve": 0,
-    "kron_dd_multi": 0,
+    "kron_dd_multi": 0, "kron_mono": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
     "lra_upd_sharded": 0, "splu_upd_sharded": 0, "splu_upd_apply": 0, "splu_upd_mono": 0,
 }

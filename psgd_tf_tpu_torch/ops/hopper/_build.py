@@ -38,15 +38,15 @@ _SIGNATURES = {
     "psgd_kron_multi_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, _IP, _IP, _IP]),
     "psgd_kron_multi_update": (
         ctypes.c_int,
-        [ctypes.c_int, _IP, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP,
-         ctypes.c_float, _P, _P],
+        [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P, _P, ctypes.c_int],
     ),
     "psgd_kron_dd_batched_scratch_floats": (
         ctypes.c_size_t, [ctypes.c_int, ctypes.c_int, ctypes.c_int, _IP, _IP],
     ),
     "psgd_kron_dd_batched_update": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_P] * 6 + [_IP, _IP, ctypes.c_float, _P, _P],
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_P] * 6
+        + [_IP, _IP, ctypes.c_float, _P, _P, ctypes.c_int, _IP],
     ),
     "psgd_kron_ns_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_kron_ns_big": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 14),

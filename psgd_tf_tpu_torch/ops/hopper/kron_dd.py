@@ -3,8 +3,11 @@
 Replaces `psgd_tf_tpu/ops/pallas/kron_dd.py` `fused_update` (:181),
 `fused_update_batched` (:252) and `fused_update_multi` (:424). The CUDA
 chain in `csrc/kron_dd.cu` updates a whole list of layers of kinds
-dd/ds/nd/ns in a fixed chain of grouped launches (balance, K3, arrow
-pre-pass, grouped GEMMs, reductions, factor rewrites); `fused_update` here
+dd/ds/nd/ns in its stages (balance, K3, arrow pre-pass, grouped GEMMs,
+reductions, factor rewrites): a fixed chain of grouped launches, or, for a
+list with a sparse side (`route`), the same stage bodies in one
+cooperative launch with the same bits (`forced_route` picks either for the
+tests and timing tools). `fused_update` here
 is its single (dense, dense) layer entry point (K2), `fused_update_batched`
 its stacked (dense, dense) bucket entry point (K4), `fused_update_multi` its
 (dense, dense) list entry point (K20), `kron_sparse.fused_update_*` its
@@ -17,6 +20,10 @@ matmuls. They are the CPU path and the oracles the kernels are checked
 against on the card.
 """
 from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
 
 import torch
 
@@ -43,6 +50,27 @@ def update_plain(ql, qr, dx, dg, step):
 # kind codes of csrc/kron_dd.cu; the left factor is an arrow for nd/ns, the
 # right factor a scale vector for ds/ns
 KIND_CODE = {"dd": 0, "ds": 1, "nd": 2, "ns": 3}
+# the chain's routes (ROUTE_* in csrc/kron_dd.cu): the fixed chain of
+# grouped launches, or the same stage bodies in one cooperative launch
+ROUTE_CODE = {None: 0, "chain": 1, "mono": 2}
+MONO_MAX_MFLOP = 1400  # KRON_MONO_MAX_MFLOP in csrc/kron_dd.cu (its note has the sweep)
+_forced: str | None = None
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """Run every list of the chain (K1, K2, K4, K5, K20) on `route`,
+    'chain' or 'mono', inside this context, instead of `route()`'s pick:
+    for the card tests and the timing tools; no path uses it. A list whose
+    products take the chain's 128 x 128 tiles raises under 'mono'."""
+    global _forced
+    if route not in ("chain", "mono"):
+        raise ValueError(f"forced_route: 'chain' or 'mono', got {route!r}")
+    prev, _forced = _forced, route
+    try:
+        yield
+    finally:
+        _forced = prev
 
 
 def _factor_shapes(kind: str, m: int, n: int):
@@ -51,41 +79,101 @@ def _factor_shapes(kind: str, m: int, n: int):
     return left, right
 
 
+def chain_flops(kinds, ms, ns) -> float:
+    """The chain's products in FLOPs (2 M N K a product, the triangular
+    bands counted whole), as `csrc/kron_dd.cu` `chain_flops` counts them."""
+    f = 0.0
+    for k, m, n in zip(kinds, ms, ns, strict=True):
+        m, n = float(m), float(n)
+        if k == "dd":
+            f += 8 * m * n * (m + n) + 2 * (m**3 + n**3)
+        elif k == "ds":
+            f += 8 * m * m * n + 2 * m**3
+        elif k == "nd":
+            f += 8 * m * n * n + 2 * n**3
+    return f
+
+
+def route(kinds, ms, ns, sms: int = 132) -> str:
+    """The route `csrc/kron_dd.cu` `run_chain` picks for one list of at
+    most MAX_LAYERS layers (K4's strides change no work and take no part):
+    'mono', the one cooperative launch, where the sweep of
+    `tools/kron_gemm_ab.py --route` measured it faster on the card: a list
+    with a sparse side (a layer of kind ds, nd or ns), every GEMM stage of
+    the chain in the 64 x 64 tiles on a card of `sms` SMs (fewer than
+    4 sms tiles of 128 x 128 a stage) and its products at most
+    MONO_MAX_MFLOP MFLOP (the largest such list measured, K5 nd at
+    (512, 512), 1,342); else 'chain' (lists of dense sides alone measured
+    slower on one launch, LeNet5's by 6%)."""
+    def tiles128(shapes):
+        return sum(-(-a // 128) * -(-b // 128) for a, b in shapes)
+
+    mn = [(m, n) for k, m, n in zip(kinds, ms, ns, strict=True) if k != "ns"]
+    stages = [[s for s in mn for _ in range(2)],                             # c1
+              [(m, n) for k, m, n in zip(kinds, ms, ns) if k == "dd" for _ in range(2)],
+              [(m, m) for k, m in zip(kinds, ms) if k in ("dd", "ds")]
+              + [(n, n) for k, n in zip(kinds, ns) if k in ("dd", "nd")]]   # c3 (d: the same)
+    tiles64 = all(tiles128(s) < 4 * sms for s in stages)
+    sparse = any(k != "dd" for k in kinds)
+    return ("mono" if sparse and tiles64 and chain_flops(kinds, ms, ns) <= MONO_MAX_MFLOP * 1e6
+            else "chain")
+
+
+def _count(counter: str, kinds, chains: int, monos: int) -> None:
+    """`chains` chains of `counter`, `monos` of them one launch each
+    ('kron_mono'); the others launch K3 on their own ('tri'), unless the
+    list has no dense factor (ns layers alone)."""
+    hopper.counts[counter] += chains
+    hopper.counts["kron_mono"] += monos
+    if any(k != "ns" for k in kinds):
+        hopper.counts["tri"] += chains - monos
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(kinds: tuple, lefts: tuple, rights: tuple, probes: tuple, dgs: tuple):
+    """Per list of kinds and shapes, checked once: (kind codes and sides as
+    the C entry's descriptor takes them, scratch floats)."""
+    for kind, left, right, p, g in zip(kinds, lefts, rights, probes, dgs, strict=True):
+        m, n = p
+        if (left, right) != _factor_shapes(kind, m, n) or g != p:
+            raise ValueError(f"kron_dd: {kind} shapes Ql {left}, Qr {right}, dX {p}, dG {g} "
+                             "do not agree")
+    lib = _build.lib()
+    codes = [KIND_CODE[k] for k in kinds]
+    ms, ns = [p[0] for p in probes], [p[1] for p in probes]
+    floats = lib.psgd_kron_multi_scratch_floats(len(kinds), _build.int_array(codes),
+                                                _build.int_array(ms), _build.int_array(ns))
+    return [(c, m, n) for c, m, n in zip(codes, ms, ns)], floats
+
+
 def launch(kinds, qls, qrs, dxs, dgs, step: float, counter: str):
-    """Run the CUDA chain on up to MAX_LAYERS layers of the given kinds;
-    returns the lists of new factors. `counter` names the entry point whose
-    launch this is (K1, K2 or K5)."""
+    """Run the CUDA chain on up to MAX_LAYERS layers of the given kinds, on
+    the route `route()` picks (or `forced_route`'s); returns the lists of
+    new factors. `counter` names the entry point whose call this is (K1, K2,
+    K5 or K20)."""
     L = len(qls)
     if not 1 <= L <= MAX_LAYERS:
         raise ValueError(f"kron_dd chain takes 1..{MAX_LAYERS} layers, got {L}")
-    for kind, ql, qr, dx, dg in zip(kinds, qls, qrs, dxs, dgs, strict=True):
-        m, n = dx.shape
-        left, right = _factor_shapes(kind, m, n)
-        if tuple(ql.shape) != left or tuple(qr.shape) != right or dg.shape != (m, n):
-            raise ValueError(
-                f"{counter}: {kind} shapes Ql {tuple(ql.shape)}, Qr {tuple(qr.shape)}, "
-                f"dX {tuple(dx.shape)}, dG {tuple(dg.shape)} do not agree"
-            )
-    hopper.check_operands(counter, *qls, *qrs, *dxs, *dgs)
-    lib = _build.lib()
-    codes = _build.int_array([KIND_CODE[k] for k in kinds])
-    ms = _build.int_array([x.shape[0] for x in dxs])
-    ns = _build.int_array([x.shape[1] for x in dxs])
+    sides, floats = _plan(tuple(kinds), tuple(q.shape for q in qls), tuple(q.shape for q in qrs),
+                          tuple(x.shape for x in dxs), tuple(g.shape for g in dgs))
     dev = qls[0].device
-    scratch = torch.empty(
-        lib.psgd_kron_multi_scratch_floats(L, codes, ms, ns), dtype=torch.float32, device=dev
-    )
+    operands = (*qls, *qrs, *dxs, *dgs)
+    if not all(t.dtype is torch.float32 and t.is_contiguous() and t.device == dev
+               for t in operands):
+        hopper.check_operands(counter, *operands)  # raises, naming the operand
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     new_qls = [torch.empty_like(q) for q in qls]
     new_qrs = [torch.empty_like(q) for q in qrs]
-    p = _build.ptr_array
-    rc = lib.psgd_kron_multi_update(
-        L, codes, p(qls), p(qrs), p(dxs), p(dgs), p(new_qls), p(new_qrs), ms, ns,
-        float(step), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    desc = []
+    for side, *ts in zip(sides, qls, qrs, dxs, dgs, new_qls, new_qrs):
+        desc += side
+        desc += [t.data_ptr() for t in ts]
+    desc = (ctypes.c_longlong * (len(desc) + 1))(*desc)
+    rc = _build.lib().psgd_kron_multi_update(
+        L, desc, float(step), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ROUTE_CODE[_forced])
     _build.check(rc, f"{counter} kernel chain")
-    hopper.counts[counter] += 1
-    if any(k != "ns" for k in kinds):
-        hopper.counts["tri"] += 1  # the chain's step (b) is K3
+    _count(counter, kinds, 1, int(desc[9 * L] == ROUTE_CODE["mono"]))
     return new_qls, new_qrs
 
 
@@ -116,8 +204,9 @@ def fused_update_multi(qls, qrs, dxs, dgs, step):
     by K1); returns the lists (new_qls, new_qrs). The per-layer plain
     version for CPU tensors; for CUDA tensors K1's chain with every kind dd,
     `MAX_LAYERS` layers a chain (JAX chunks its one launch by a VMEM budget,
-    `chunk_layers` :360), each chain counted under 'kron_dd_multi' with its
-    K3 step under 'tri'. `step` is a Python number."""
+    `chunk_layers` :360), each chain counted under 'kron_dd_multi' (and
+    under 'kron_mono' or, for its own K3 launch, 'tri'). `step` is a Python
+    number."""
     if not hopper.use_kernel(qls[0]):
         pairs = [update_plain(*a, step) for a in zip(qls, qrs, dxs, dgs, strict=True)]
         return [p[0] for p in pairs], [p[1] for p in pairs]
@@ -171,8 +260,8 @@ def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
     new (B, S, S) and (B, T, T) stacks, padding exact identity; the inputs
     are not written. The plain version for CPU tensors; for CUDA tensors
     the CUDA chain of K1 over the stack, `MAX_LAYERS` layers a chain, each
-    counted under 'kron_dd_batched' with its K3 step under 'tri'. `step` is
-    a Python number."""
+    counted under 'kron_dd_batched' (and under 'kron_mono' or, for its own
+    K3 launch, 'tri'). `step` is a Python number."""
     if not hopper.use_kernel(ql):
         return update_batched_plain(ql, qr, dx, dg, ms, ns, step)
     ms, ns = _host_sizes(ms, "ms"), _host_sizes(ns, "ns")
@@ -191,15 +280,15 @@ def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
     scratch = torch.empty(lib.psgd_kron_dd_batched_scratch_floats(B, S, T, mi, ni),
                           dtype=torch.float32, device=ql.device)
     new_ql, new_qr = torch.empty_like(ql), torch.empty_like(qr)
+    monos = _build.int_array([0])
     rc = lib.psgd_kron_dd_batched_update(
         B, S, T, ql.data_ptr(), qr.data_ptr(), dx.data_ptr(), dg.data_ptr(), new_ql.data_ptr(),
         new_qr.data_ptr(), mi, ni, float(step), scratch.data_ptr(),
-        torch.cuda.current_stream(ql.device).cuda_stream,
+        torch.cuda.current_stream(ql.device).cuda_stream, ROUTE_CODE[_forced], monos,
     )
     _build.check(rc, "kron_dd_batched kernel chain")
     chains = -(-B // MAX_LAYERS)
-    hopper.counts["kron_dd_batched"] += chains
-    hopper.counts["tri"] += chains  # each chain's step (b) is K3
+    _count("kron_dd_batched", ["dd"], chains, monos[0])
     return new_ql, new_qr
 
 

@@ -4,11 +4,13 @@ chain of launches.
 Replaces `psgd_tf_tpu/ops/pallas/kron_multi.py` `fused_update_multi`
 (:222), kinds dd, ds, nd and ns. The Pallas kernel runs a whole layer list
 in one launch with one batched Newton chain; on Hopper the factors do not
-fit one block's shared memory, so the same list goes through the fixed
-chain of grouped launches of `csrc/kron_dd.cu`, each launch covering every
-layer of the list, and one K3 launch inverting every dense factor of every
-layer. Mirrors arrive transposed from `groups/kron.py`, as in the JAX
-package.
+fit one block's shared memory, so the same list goes through the chain of
+`csrc/kron_dd.cu`: each stage covers every layer of the list, and K3
+inverts every dense factor of every layer. For a list with a
+sparse side (`kron_dd.route`) the stages run in one cooperative launch
+with grid barriers between them, else as a fixed chain of grouped
+launches; the two give the same bits. Mirrors arrive transposed from
+`groups/kron.py`, as in the JAX package.
 """
 from __future__ import annotations
 

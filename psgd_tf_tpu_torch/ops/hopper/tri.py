@@ -3,9 +3,14 @@ triangular solve (`csrc/tri.cu`).
 
 K3 replaces `psgd_tf_tpu/ops/pallas/tri.py` `_newton_inv_batched` (:94). The
 Pallas routine inverts 128x128 diagonal blocks by a Newton chain because
-the TPU has no trsm; the CUDA kernel inverts each whole factor by blocked
-fp32 back-substitution, exact to fp32 rounding. One call inverts a whole
-list of factors in two launches.
+the TPU has no trsm; the CUDA kernel inverts each whole factor in fp32,
+exact to fp32 rounding, by the recursive block form (`inverse_schedule`):
+32-row leaves by substitution, then levels that join pairs of diagonal
+blocks, X12 = -X11 (U12 X22). One call inverts a whole list of factors in
+one cooperative launch, every pair of a level of every factor in one
+phase, a grid barrier between phases. `inverse_upper_blocked_plain`
+executes the same schedule in torch, so the CPU tests reach its index
+maps.
 
 K19 replaces the same file's `solve_triangular` (:161 → `pallas_call` :185,
 `_solve_kernel` :123), which only the JAX package's tests call. `schedule`
@@ -56,6 +61,48 @@ def inverse_upper_plain(us: list[torch.Tensor]) -> list[torch.Tensor]:
         )
         for u in us
     ]
+
+
+LEAF = 32  # TRI_LEAF in csrc/tri_inv.cuh
+
+
+def inverse_schedule(n: int) -> list[list[tuple[int, int, int]]]:
+    """K3's levels for a factor of side n: level l's pairs (r0, s, e) of
+    diagonal blocks, rows [r0, s) and [s, e) joined, b = LEAF << l rows in
+    the first block (s = r0 + b, e = min(r0 + 2 b, n)); a pair exists where
+    s < n (`tri_pairs` in csrc/tri_inv.cuh)."""
+    levels = []
+    while True:
+        b = LEAF << len(levels)
+        pairs = [(r0, r0 + b, min(r0 + 2 * b, n)) for r0 in range(0, n, 2 * b) if r0 + b < n]
+        if not pairs:
+            return levels
+        levels.append(pairs)
+
+
+def inverse_upper_blocked_plain(us: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K3's schedule executed in torch: each 32-row leaf of each factor
+    inverted by a triangular solve against I (the last one of the
+    identity-extended factor, cut back to n), then level by level
+    T = U12 X22 and X12 = -X11 T on every pair (`inverse_schedule`), the
+    strictly lower part zero."""
+    out = []
+    for u in us:
+        n = u.shape[0]
+        x = torch.zeros_like(u)
+        for r0 in range(0, n, LEAF):
+            leaf = torch.eye(LEAF, dtype=u.dtype, device=u.device)
+            k = min(LEAF, n - r0)
+            leaf[:k, :k] = torch.triu(u[r0:r0 + k, r0:r0 + k])
+            inv = torch.linalg.solve_triangular(leaf, torch.eye(LEAF, dtype=u.dtype,
+                                                                device=u.device), upper=True)
+            x[r0:r0 + k, r0:r0 + k] = inv[:k, :k]
+        for pairs in inverse_schedule(n):
+            for r0, s, e in pairs:
+                t = u[r0:s, s:e] @ x[s:e, s:e]
+                x[r0:s, s:e] = -(x[r0:s, r0:s] @ t)
+        out.append(x)
+    return out
 
 
 def inverse_upper(us: list[torch.Tensor]) -> list[torch.Tensor]:

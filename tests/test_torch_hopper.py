@@ -124,6 +124,28 @@ def test_k3_matches_plain(cuda):
         assert _rel(x, r) < 1e-5
 
 
+@pytest.mark.parametrize("sides", [[1], [31], [33], [255], [257], [513], [1025],
+                                   [1, 31, 33, 255, 257, 513, 1025]], ids=str)
+def test_k3_ragged_sides(cuda, sides):
+    """K3's levels at sides past, at and short of its 32-row leaves, alone
+    and in one batch: within 1e-5 of plain, the strictly lower part zero."""
+    g = torch.Generator(device=cuda).manual_seed(sum(sides))
+    us = [_triu_factor(g, n, cuda) for n in sides]
+    got = tri.inverse_upper(us)
+    torch.cuda.synchronize()
+    for x, r in zip(got, tri.inverse_upper_plain(us)):
+        assert _rel(x, r) < 1e-5
+        assert torch.count_nonzero(torch.tril(x, -1)).item() == 0
+
+
+def _route_moves(counter, chunks, dense=True):
+    """The counts one call of `counter` moves, its chains `chunks` of
+    (kinds, ms, ns) each on the route `kron_dd.route` picks."""
+    monos = sum(kron_dd.route(*c) == "mono" for c in chunks)
+    moved = {counter: len(chunks), "kron_mono": monos, "tri": (len(chunks) - monos) * dense}
+    return {k: v for k, v in moved.items() if v}
+
+
 def test_k1_and_k2_match_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     qls, qrs, dxs, dgs = _walked(g, LENET5, cuda)
@@ -191,6 +213,16 @@ def _walked_states(g, fmts, shapes, dev, steps=3):
     return states, dxs, dgs
 
 
+def _chain_list(fmts, shapes):
+    """(kinds, ms, ns) of a layer list as K1's chain takes it: mirrors
+    transposed into their sibling."""
+    from psgd_tf_tpu_torch import kron
+
+    canon = [kron._canon(f) for f in fmts]
+    return ([k for k, _ in canon], [n if mir else m for (_, mir), (m, n) in zip(canon, shapes)],
+            [m if mir else n for (_, mir), (m, n) in zip(canon, shapes)])
+
+
 def _states_rel(got, ref):
     return max(max(_rel(a.ql, b.ql), _rel(a.qr, b.qr)) for a, b in zip(got, ref, strict=True))
 
@@ -207,8 +239,8 @@ def test_k1_mixed_kinds_match_plain(cuda):
     before = dict(hopper.counts)
     got = kron.update_multi(states, dxs, dgs, step=0.1)
     torch.cuda.synchronize()
-    assert hopper.counts["kron_multi"] == before["kron_multi"] + 1
-    assert hopper.counts["tri"] == before["tri"] + 1
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == _route_moves("kron_multi", [_chain_list(NMT_FMTS, NMT_TOY)])
     with hopper.disabled():
         ref = kron.update_multi(states, dxs, dgs, step=0.1)
     assert _states_rel(got, ref) < 1e-4
@@ -419,13 +451,104 @@ def test_k20_is_k1_with_kind_dd(cuda):
     got_qls, got_qrs = kron_dd.fused_update_multi(qls, qrs, dxs, dgs, 0.1)
     torch.cuda.synchronize()
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-    assert moved == {"kron_dd_multi": 2, "tri": 2}
+    chunks = [(["dd"] * len(c), [m for m, _ in c], [n for _, n in c]) for c in
+              (shapes[:kron_dd.MAX_LAYERS], shapes[kron_dd.MAX_LAYERS:])]
+    assert moved == _route_moves("kron_dd_multi", chunks)
     k1 = kron_multi.fused_update_multi(["dd"] * len(shapes), qls, qrs, dxs, dgs, 0.1)
     with hopper.disabled():
         ref_qls, ref_qrs = kron_dd.fused_update_multi(qls, qrs, dxs, dgs, 0.1)
     for a, b, (c, d), ra, rb in zip(got_qls, got_qrs, k1, ref_qls, ref_qrs, strict=True):
         assert torch.equal(a, c) and torch.equal(b, d)
         assert _rel(a, ra) < 1e-4 and _rel(b, rb) < 1e-4
+
+
+def _route_case(case, g, dev):
+    """(call, counter, chunks, dense) of one entry point of K1's chain."""
+    from psgd_tf_tpu_torch import kron
+
+    DD = ("dense", "dense")
+    if case in ("k1 lenet5", "k1 toy nmt"):
+        fmts, shapes = ([DD] * 5, LENET5) if case == "k1 lenet5" else (NMT_FMTS, NMT_TOY)
+        states, dxs, dgs = _walked_states(g, fmts, shapes, dev, steps=2)
+        return (lambda: kron.update_multi(states, dxs, dgs, step=0.1), "kron_multi",
+                [_chain_list(fmts, shapes)], True)
+    if case.startswith("k2"):
+        side = (1, 10) if case == "k2 (1, 10)" else (256, 256)
+        (ql,), (qr,), (dx,), (dg,) = _walked(g, [side], dev, steps=2)
+        return (lambda: kron_dd.fused_update(ql, qr, dx, dg, 0.1), "kron_dd",
+                [(["dd"], [side[0]], [side[1]])], True)
+    if case == "k4 ragged":
+        shapes = K4_BUCKETS["ragged"]
+        bst, dx, dg = _walked_batched(g, shapes, dev)
+        ms, ns = [m for m, _ in shapes], [n for _, n in shapes]
+        return (lambda: kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns, 0.1),
+                "kron_dd_batched", [(["dd"] * 4, ms, ns)], True)
+    if case == "k20 16 layers":
+        shapes = (LENET5 * 4)[:16]
+        qls, qrs, dxs, dgs = _walked(g, shapes, dev, steps=2)
+        return (lambda: kron_dd.fused_update_multi(qls, qrs, dxs, dgs, 0.1), "kron_dd_multi",
+                [(["dd"] * 16, [m for m, _ in shapes], [n for _, n in shapes])], True)
+    kind = case.split()[1]
+    fmt = {"ns": ("norm", "scale"), "ds": ("dense", "scale"), "nd": ("norm", "dense")}[kind]
+    (st,), (dx,), (dg,) = _walked_states(g, [fmt], [(130, 65)], dev, steps=2)
+    return (lambda: kron_sparse.FUSED_UPDATE[kind](st.ql, st.qr, dx, dg, 0.1), "kron_sparse",
+            [([kind], [130], [65])], kind != "ns")
+
+
+def _tensors(out):
+    if hasattr(out, "ql"):
+        return [out.ql, out.qr]
+    if isinstance(out, (list, tuple)):
+        return [t for x in out for t in _tensors(x)]
+    return [out]
+
+
+ROUTE_CASES = ["k1 lenet5", "k1 toy nmt", "k2 (1, 10)", "k2 (256, 256)", "k4 ragged",
+               "k20 16 layers", "k5 ns", "k5 ds", "k5 nd"]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_one_launch_is_bit_equal_to_the_chain(cuda, case):
+    """Every entry point of K1's chain forced onto each route: the one
+    cooperative launch equals the chain of launches bit for bit, both
+    within 1e-4 of plain; each route counts as it launches ('kron_mono'
+    for the one launch, 'tri' for the chain's own K3); unforced, the call
+    takes the route `kron_dd.route` picks."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    call, counter, chunks, dense = _route_case(case, g, cuda)
+    outs, moves = {}, {}
+    for route in ("chain", "mono"):
+        with kron_dd.forced_route(route):
+            before = dict(hopper.counts)
+            outs[route] = _tensors(call())
+            torch.cuda.synchronize()
+            moves[route] = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moves["chain"] == {k: v for k, v in {counter: 1, "tri": int(dense)}.items() if v}
+    assert moves["mono"] == {counter: 1, "kron_mono": 1}
+    for a, b in zip(outs["chain"], outs["mono"], strict=True):
+        assert torch.equal(a, b)
+    with hopper.disabled():
+        ref = _tensors(call())
+    for a, b in zip(outs["mono"], ref, strict=True):
+        assert _rel(a, b) < 1e-4
+    before = dict(hopper.counts)
+    call()
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == _route_moves(counter, chunks, dense)
+
+
+def test_forced_one_launch_on_a_list_it_does_not_take_raises(cuda):
+    """A (2176, 2176) layer's products take the chain's 128 x 128 tiles,
+    whose bits the one launch cannot give: forced onto it, the call raises
+    and launches nothing."""
+    ql, qr = torch.eye(2176, device=cuda), torch.eye(2176, device=cuda)
+    x = torch.randn(2176, 2176, device=cuda)
+    assert kron_dd.route(["dd"], [2176], [2176]) == "chain"
+    before = dict(hopper.counts)
+    with kron_dd.forced_route("mono"), pytest.raises(RuntimeError, match="CUDA error"):
+        kron_dd.fused_update(ql, qr, x, x, 0.1)
+    assert hopper.counts == before
 
 
 def test_unrouted_entries_reject_and_count(cuda):
@@ -452,7 +575,8 @@ def test_unrouted_entries_reject_and_count(cuda):
 
 def test_auto_format_reference_nmt_step_launches_k9(cuda):
     """PSGD's default formats on the NMT model at the reference widths: five
-    layers take K9 (each with its K3), the fc K6, the (1, 10) row K2."""
+    layers take K9 (each with its K3), the fc K6, the (1, 10) row K2 (on
+    the route `kron_dd.route` picks)."""
     from psgd_tf_tpu_torch import PSGD, kron
     from psgd_tf_tpu_torch.data import translation
     from psgd_tf_tpu_torch.models import nmt
@@ -471,7 +595,9 @@ def test_auto_format_reference_nmt_step_launches_k9(cuda):
                                   *translation.random_tokens(g, cfg.vocab_src, cfg.vocab_tgt))
     torch.cuda.synchronize()
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-    assert moved == {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1, "tri": 6}
+    k2 = _route_moves("kron_dd", [(["dd"], [1], [10])])  # the row: one launch, or with its K3
+    assert moved == {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, **k2,
+                     "tri": k2.get("tri", 0) + 5}
     assert np.isfinite(aux["loss"].item())
 
 
@@ -520,9 +646,10 @@ def test_k4_matches_plain(cuda, bucket):
     before = dict(hopper.counts)
     a, b = kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns, 0.1)
     torch.cuda.synchronize()
-    chains = -(-len(shapes) // kron_dd.MAX_LAYERS)
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-    assert moved == {"kron_dd_batched": chains, "tri": chains}
+    chunks = [(["dd"] * len(c), [m for m, _ in c], [n for _, n in c]) for c in
+              (shapes[i:i + kron_dd.MAX_LAYERS] for i in range(0, len(shapes), kron_dd.MAX_LAYERS))]
+    assert moved == _route_moves("kron_dd_batched", chunks)
     ra, rb = kron_dd.update_batched_plain(bst.ql, bst.qr, dx, dg, ms, ns, 0.1)
     assert _rel(a, ra) < 1e-4 and _rel(b, rb) < 1e-4
     assert _identity_padded(a, ms) and _identity_padded(b, ns)
@@ -554,8 +681,11 @@ def test_nmt_default_formats_step_launches_k4(cuda):
     params, state, aux = opt.step(nmt.loss, params, state, g, src, tgt)
     torch.cuda.synchronize()
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-    assert moved == {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1,
-                     "tri": 4}
+    bucket = [nmt.layer_shapes(cfg)[i] for i in (1, 2, 3, 5)]
+    k4 = _route_moves("kron_dd_batched", [(["dd"] * 4, [m for m, _ in bucket],
+                                           [n for _, n in bucket])])
+    assert moved == {"kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1, **k4,
+                     "tri": k4.get("tri", 0) + 3}
     assert np.isfinite(aux["loss"].item())
 
 

@@ -7,6 +7,8 @@ in two checkouts of the port on one card, or probe this tree's tuning.
     python3 tools/kron_gemm_ab.py --generic
     python3 tools/kron_gemm_ab.py --gram
     python3 tools/kron_gemm_ab.py --gemm
+    python3 tools/kron_gemm_ab.py --route
+    python3 tools/kron_gemm_ab.py --tri
 
 Run from the root of the repository on a machine with one CUDA card.
 OTHER_TREE is another checkout of the repository (for example the parent
@@ -34,12 +36,18 @@ over chained calls, TF32 off), at the shapes of the paths:
     `kron_sparse` kinds at (130, 65);
   - K13, `lra_upd.fused_update_apply`, and K16, `splu_upd.fused_update`, at
     n = 2^20 and r = 10 and 64 (they share no GEMM: they guard the rank
-    repair; a tree with the rank-32 cap reports that it raises).
+    repair; a tree with the rank-32 cap reports that it raises);
+  - K3, `tri.inverse_upper` on LeNet5's ten factors, and the other chains
+    that run it: K11 (`dense_upd.fused_update_apply`, n = 1536), K12
+    (`dense_big.fused_update_apply`, n = 16384); and K19,
+    `tri.solve_triangular` at (2048, 512), which shares K3's old tile code.
 
-Each chain prints its ms (the median of five windows, and the least) and
-its max relative difference from the plain
-version on the same inputs, and, after the four runs, whether this tree's
-output equals the other tree's bit for bit (or up to the sign of zeros).
+Each chain prints its ms (the median of five windows, and the least), its
+device ms ("queued": calls enqueued behind a spinning kernel, so the
+host's enqueue never starves the card) and its max relative difference
+from the plain version on the same inputs, and, after the four runs,
+whether this tree's output equals the other tree's bit for bit (or up to
+the sign of zeros).
 This tree also times the GEMM alone through its test entry
 (`kron_dd.gemm`) at K9's shapes, as TFLOP/s.
 
@@ -53,7 +61,14 @@ and on a copy whose host takes the rank-generic chain at every rank.
 GEMM's test entry, one launch a block, with the tile and band count
 forced, on rows staged by torch.
 `--gemm` times the GEMM alone, beside cuBLAS's fp32 product of the same
-shape. Then the card's name and power limit.
+shape. `--route` times the lists of K1's chain on both of its routes
+(`kron_dd.forced_route`: the chain of launches and the one cooperative
+launch), queued and chained, with the route `kron_dd.route` picks and
+whether the two routes' outputs are bit-equal: the paths' lists and a
+sweep of single (dense, dense) layers and dd lists by size, the sweep
+that sets `KRON_MONO_MAX_MFLOP`. `--tri` times K3 and chains that run it
+on this tree and on a copy that launches K3 a phase at a time instead of
+in one cooperative launch. Then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -95,6 +110,27 @@ def _time(torch, fn, reps, windows=5):
     return out[len(out) // 2], out[0]
 
 
+def _time_queued(torch, fn, reps, windows=5):
+    """Device ms per call of fn(): the median of `windows` windows of
+    `reps` calls enqueued behind a spinning kernel (~20 ms), the events
+    recorded after it, so the card runs the calls back to back whatever
+    the host's enqueue costs."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    out.sort()
+    return out[len(out) // 2]
+
+
 def _flat(out):
     """The tensors of a chain's output, flattened in order."""
     import torch
@@ -127,7 +163,8 @@ def _chains(torch, dev, only=()):
     from psgd_tf_tpu_torch import kron, lra, splu
     from psgd_tf_tpu_torch.models import nmt
     from psgd_tf_tpu_torch.ops import hopper
-    from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_sparse, kron_sparse_big, lra_upd, splu_upd
+    from psgd_tf_tpu_torch.ops.hopper import (dense_big, dense_upd, kron_dd, kron_sparse,
+                                              kron_sparse_big, lra_upd, splu_upd, tri)
 
     g = torch.Generator(device=dev)
 
@@ -230,6 +267,20 @@ def _chains(torch, dev, only=()):
             fn = kron_sparse.FUSED_UPDATE[kind]
             out.append((f"K5 {kind} (130, 65)", lambda st=st, dx=dx, dg=dg, fn=fn: fn(
                 st.ql, st.qr, dx, dg, 0.1), 100))
+    if want(30, "K3"):
+        us = [_triu(torch, g, dev, n) for s in LENET5 for n in s]
+        out.append(("K3 LeNet5's ten factors", lambda: tri.inverse_upper(us), 200))
+    for k, (n, name, mod) in enumerate([(1536, "K11", dense_upd), (16384, "K12", dense_big)]):
+        if want(31 + k, name):
+            q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+            q += 0.8 * torch.eye(n, device=dev)
+            v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+            out.append((f"{name} n={n}", lambda q=q, v=v, h=h, gr=gr, mod=mod:
+                        mod.fused_update_apply(q, v, h, gr, 0.1), 5 if n > 8192 else 50))
+    if want(33, "K19"):
+        q19 = _triu(torch, g, dev, 2048)
+        b19 = torch.randn(2048, 512, generator=g, device=dev)
+        out.append(("K19 (2048, 512)", lambda: tri.solve_triangular(q19, b19), 50))
     for k, (n, r) in enumerate(FLAT):
         if not want(22 + k, f"K13 n={n} r={r}", f"K16 n={n} r={r}"):
             continue
@@ -241,6 +292,12 @@ def _chains(torch, dev, only=()):
         out.append((f"K16 n={n} r={r}", lambda sst=sst, v=v, h=h: splu_upd.fused_update(
             sst.Lt, sst.l3, sst.U12, sst.u3, v, h, 0.05), 20))
     return out
+
+
+def _triu(torch, g, dev, n):
+    """An upper-triangular factor as the walked Kronecker factors are."""
+    u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
+    return u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev))
 
 
 def _gemm_rates(torch, dev):
@@ -291,8 +348,10 @@ def run_tree(tree: str, label: str, dump: str, only=()) -> None:
         rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                   for a, b in zip(got, ref))
         ms, least = _time(torch, call, reps)
+        queued = _time_queued(torch, call, min(reps, 40))
         saved[name] = [t.cpu() for t in got]
-        lines.append(f"{name}: {ms:.4f} ms (least {least:.4f}), max rel diff from plain {rel:.2e}")
+        lines.append(f"{name}: {ms:.4f} ms (least {least:.4f}, queued {queued:.4f}), max rel "
+                     f"diff from plain {rel:.2e}")
         torch.cuda.empty_cache()
     torch.save(saved, dump)
     print(f"== {label} ({Path(tree).resolve()})", flush=True)
@@ -447,6 +506,106 @@ def gram() -> None:
         torch.cuda.empty_cache()
 
 
+ROUTE_SIDES = [16, 64, 128, 256, 384, 512, 768, 1024]  # --route's single (dense, dense) layers
+ROUTE_LISTS = [(4, 128), (4, 256), (4, 512), (16, 128), (16, 256)]  # its dd lists: (layers, side)
+ROUTE_ARROW = [(256, 128), (256, 256), (512, 256), (512, 512)]  # its arrow layers (K5's cap)
+
+
+def route_sweep() -> None:
+    """Every list of K1's chain on both routes, forced: queued (device) and
+    chained ms, bit-equality, the route picked and the chain's MFLOP."""
+    torch = _setup(str(HERE))
+    from psgd_tf_tpu_torch import PSGD, kron
+    from psgd_tf_tpu_torch.models import nmt, tensor_decomp
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import kron_dd, kron_sparse
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    DD = ("dense", "dense")
+
+    def probes(shapes):
+        return ([torch.randn(s, generator=g, device=dev) for s in shapes],
+                [torch.randn(s, generator=g, device=dev) for s in shapes])
+
+    def walked(fmts, shapes):
+        sts = [kron.init(s, fmt=f, init_scale=0.8, device=dev) for f, s in zip(fmts, shapes)]
+        with hopper.disabled():
+            for _ in range(2):
+                sts = kron.update_multi(sts, *probes(shapes), step=0.1)
+        return sts
+
+    def multi(fmts, shapes):
+        sts, (dxs, dgs) = walked(fmts, shapes), probes(shapes)
+        return lambda: kron.update_multi(sts, dxs, dgs, 0.1)
+
+    def batched(shapes):
+        bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
+        dxs, dgs = probes(shapes)
+        return lambda: kron.update_batched(bst, dxs, dgs, 0.1)
+
+    def single(fmt, shape):
+        (st,), ((dx,), (dg,)) = walked([fmt], [shape]), probes([shape])
+        if fmt == DD:
+            return lambda: kron_dd.fused_update(st.ql, st.qr, dx, dg, 0.1)
+        kind = kron._canon(fmt)[0]
+        return lambda: kron_sparse.FUSED_UPDATE[kind](st.ql, st.qr, dx, dg, 0.1)
+
+    pre = PSGD(preconditioner="kron").init(tensor_decomp.init(g)).precond
+    toy = nmt.Config()
+    k4 = [s for s in nmt.layer_shapes(nmt.Config(**K4_NMT)) if kron.auto_format(s) == DD]
+    cases = [("K1 LeNet5", multi([DD] * 5, LENET5)),
+             ("K1 toy NMT", multi(nmt.kron_formats(toy), nmt.layer_shapes(toy))),
+             ("K1 decomposition", multi([st.fmt for st in pre],
+                                        [(st.ql.shape[-1], st.qr.shape[-1]) for st in pre])),
+             ("K4 path bucket", batched(k4)),
+             ("K4 B = 24 of (200, 256)", batched([(200, 256)] * 24)),
+             ("K20 16 layers", multi([DD] * 16, MULTI_18[:16])),
+             ("K2 (1, 10)", single(DD, (1, 10)))]
+    cases += [(f"K5 {kind} (130, 65)", single(fmt, (130, 65))) for kind, fmt in
+              [("ns", ("norm", "scale")), ("ds", ("dense", "scale")), ("nd", ("norm", "dense"))]]
+    cases += [(f"K5 nd {s}", single(("norm", "dense"), s)) for s in ROUTE_ARROW]
+    cases += [(f"K5 ns {s}", single(("norm", "scale"), s)) for s in ROUTE_ARROW]
+    cases += [(f"K2 ({d}, {d})", single(DD, (d, d))) for d in ROUTE_SIDES]
+    cases += [(f"K1 {L} x ({d}, {d})", multi([DD] * L, [(d, d)] * L)) for L, d in ROUTE_LISTS]
+    for name, fn in cases:
+        row, outs = [], {}
+        for route in ("chain", "mono"):
+            with kron_dd.forced_route(route):
+                try:
+                    outs[route] = _flat(fn())
+                except RuntimeError as e:  # a list whose products take the 128 x 128 tiles
+                    row.append(f"{route} refused ({str(e)[:40]})")
+                    continue
+                reps = 20 if "1024" in name or "768" in name else 100
+                q = _time_queued(torch, fn, min(reps, 40))
+                c, _ = _time(torch, fn, reps)
+                row.append(f"{route} queued {q:.4f} chained {c:.4f}")
+        before = hopper.counts["kron_mono"]
+        fn()
+        picked = "mono" if hopper.counts["kron_mono"] > before else "chain"
+        same = _same(outs["chain"], outs["mono"]) if len(outs) == 2 else "-"
+        print(f"{name}: {'; '.join(row)}; picks {picked}; routes {same}", flush=True)
+        torch.cuda.empty_cache()
+
+
+TRI_LAUNCH = ("psgd_tf_tpu_torch/csrc/tri.cu",
+              """    void* args[] = {&b, &ph0, &ph1};
+    cudaLaunchCooperativeKernel((const void*)tri_kernel, dim3(std::min(most, std::max(ctas, 1))),
+                                dim3(TRI_THREADS), args, TRI_SMEM, stream);""",
+              """    for (int ph = 0; ph < ph1; ++ph)
+        tri_kernel<<<tri_phase_tasks(b, ph), TRI_THREADS, TRI_SMEM, stream>>>(b, ph, ph + 1);""")
+
+
+def tri_variants() -> None:
+    """K3 (and the chains that run it) on this tree, its phases in one
+    cooperative launch, and on a copy with a launch a phase."""
+    _run_copies([("this tree", None), ("a launch a phase", [TRI_LAUNCH]),
+                 ("a launch a phase", [TRI_LAUNCH]), ("this tree", None)],
+                ["K3 LeNet5's ten factors", "K1 LeNet5", "K1 toy NMT",
+                 "K9 kernel part (131072, 512)", "K11 n=1536"])
+
+
 def _same(a, b) -> str:
     import torch
 
@@ -467,6 +626,10 @@ def main() -> int:
         generic()
     elif sys.argv[1:] == ["--gram"]:
         gram()
+    elif sys.argv[1:] == ["--route"]:
+        route_sweep()
+    elif sys.argv[1:] == ["--tri"]:
+        tri_variants()
     elif sys.argv[1:] == ["--gemm"]:
         torch = _setup(str(HERE))
         print("GEMM alone at (131072, 512): " + _gemm_rates(torch, torch.device("cuda")), flush=True)

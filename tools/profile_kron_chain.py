@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""Where the time of K1's list update and of K3 goes on the card.
+
+    python3 tools/profile_kron_chain.py
+
+Run from the root of the repository on a machine with one CUDA card. It
+builds the port's kernels and traces three cases with `torch.profiler`:
+
+  - K1 on LeNet5's five (dense, dense) layers, through `kron.update_multi`;
+  - K1 on the toy NMT model's seven layers of mixed kinds;
+  - K3 alone (`tri.inverse_upper`) on LeNet5's ten factors.
+
+For each case it reports:
+
+  - the host time of one call (the host clock around 200 calls with no
+    synchronise; the device keeps up, so this is the enqueue), for K1 of
+    `kron.update_multi`, of `kron_multi.fused_update_multi` inside it and
+    of `kron_dd.launch` (the wrapper of the C entry) inside that;
+  - CUDA events over 200 chained calls (what `chip_smoke.py` reports);
+  - each launch of one call: its kernel, its device microseconds and the
+    gap before it, and the device span of the call (first start to last
+    end), twice: "queued", the call enqueued behind a sleeping kernel so
+    that the host never starves the device (the device's own launch
+    gaps), and "synced", a synchronise before and after the call (the
+    gaps a lone call sees, the host's enqueue included). The figures are
+    medians over 20 traced calls.
+
+With `--route chain` or `--route mono` every K1 call is forced onto that
+route (`kron_dd.forced_route`). Output: one block a case, then the card's
+name and power limit.
+
+    python3 tools/profile_kron_chain.py --phases
+
+times the phases inside the two cooperative kernels, K3's `tri_kernel`
+(LeNet5's ten factors) and K1's `kron_mono_kernel` (LeNet5's list and the
+toy NMT list, forced onto the one launch): a copy of the port is made with
+a probe added to each (block 0 stamps %globaltimer as each phase starts,
+every block the kernel's end), built in its own process, and each gap
+between stamps is printed in us (the median call of seven). The library
+itself has no probe.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+if "--phases-child" not in sys.argv:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
+
+LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
+CALLS = 200
+TRACED = 20
+
+
+def _kernels(trace_path):
+    """[(name, start us, end us)] of the device kernels of a chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+           for e in events if e.get("cat") == "kernel"]
+    return sorted(out, key=lambda k: k[1])
+
+
+def _calls(kernels, per_call):
+    """The kernels split into calls of `per_call` launches each."""
+    return [kernels[i:i + per_call] for i in range(0, len(kernels) - per_call + 1, per_call)]
+
+
+def _trace(torch, fn, queued):
+    """Per-launch medians over TRACED calls of fn: [(kernel, us, gap us)],
+    and the median device span of a call in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACED):
+            if queued:
+                torch.cuda._sleep(20_000_000)  # ~10 ms of a spinning kernel, not counted
+            else:
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        kernels = [k for k in _kernels(path) if not k[0].startswith("at::cuda::")]
+    per_call = len(kernels) // TRACED
+    calls = _calls(kernels, per_call)
+    rows = []
+    for i in range(per_call):
+        us = statistics.median(c[i][2] - c[i][1] for c in calls)
+        gap = statistics.median((c[i][1] - c[i - 1][2]) if i else 0.0 for c in calls)
+        rows.append((calls[0][i][0], us, gap))
+    span = statistics.median(c[-1][2] - c[0][1] for c in calls)
+    return rows, span
+
+
+def _host_us(torch, fn):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CALLS):
+        fn()
+    us = (time.perf_counter() - t) / CALLS * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _event_ms(torch, fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(CALLS):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / CALLS
+
+
+# --phases: the probe, edits made in a copy of the port (file, old, new)
+_PROBE = """
+__device__ unsigned long long g_stamps[64];
+__device__ __forceinline__ void stamp(int k) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+    if (threadIdx.x == 0 && (blockIdx.x == 0 || k < 0)) {
+        if (k >= 0) g_stamps[k] = t; else atomicMax(&g_stamps[-k], t);
+    }
+}
+#define PROBE_READ(name) \\
+    extern "C" int name(unsigned long long* out, int zero) { \\
+        unsigned long long z[64] = {}; \\
+        return (int)(zero ? cudaMemcpyToSymbol(g_stamps, z, sizeof(z)) \\
+                          : cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps))); }
+"""
+_EDITS = [
+    ("csrc/psgd.cuh", "#pragma once\n", "#pragma once\n#include <cuda_runtime.h>\n" + _PROBE),
+    ("csrc/tri.cu", """        if (ph > ph0) cooperative_groups::this_grid().sync();
+        tri_phase(b, ph, tsm);
+    }""", """        if (ph > ph0) cooperative_groups::this_grid().sync();
+        stamp(ph);
+        tri_phase(b, ph, tsm);
+    }
+    stamp(-ph1);"""),
+    ("csrc/tri.cu", "void plan_tri_inv(TriBatch& b) {", "PROBE_READ(probe_tri)\nvoid plan_tri_inv(TriBatch& b) {"),
+    ("csrc/kron_dd.cu", """        if (ph) cooperative_groups::this_grid().sync();""",
+     """        if (ph) cooperative_groups::this_grid().sync();
+        stamp(ph);"""),
+    ("csrc/kron_dd.cu", """            __syncthreads();  // the next task reuses the shared memory
+        }
+    }
+}""", """            __syncthreads();  // the next task reuses the shared memory
+        }
+    }
+    stamp(-P.nphases);
+}
+PROBE_READ(probe_mono)"""),
+]
+
+
+def _phases_child() -> int:
+    """In the probed copy: the phases of each cooperative kernel."""
+    import ctypes
+
+    import torch
+    from psgd_tf_tpu_torch import kron
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import _build, kron_dd, tri
+
+    lib = _build.lib()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def phases(fn, read):
+        runs = []
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(7):
+            buf = (ctypes.c_ulonglong * 64)()
+            read(buf, 1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            read(buf, 0)
+            t = list(buf)
+            last = max(i for i in range(64) if t[i])
+            runs.append([(t[i + 1] - t[i]) / 1e3 for i in range(last)])
+        runs.sort(key=sum)
+        r = runs[len(runs) // 2]
+        return " ".join(f"{x:.1f}" for x in r) + f" | total {sum(r):.1f} us"
+
+    def probes(shapes):
+        return ([torch.randn(s, generator=g, device=dev) for s in shapes],
+                [torch.randn(s, generator=g, device=dev) for s in shapes])
+
+    us = []
+    for s in LENET5:
+        for n in s:
+            u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
+            us.append(u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev)))
+    print("K3 LeNet5's ten factors, tri_kernel phases (leaves, P1/P2 a level, the last "
+          "zeroing):", phases(lambda: tri.inverse_upper(us), lib.probe_tri), flush=True)
+    for label, fmts, shapes in [("LeNet5", [("dense", "dense")] * 5, LENET5),
+                                ("toy NMT", nmt.kron_formats(nmt.Config()),
+                                 nmt.layer_shapes(nmt.Config()))]:
+        sts = [kron.init(s, fmt=f, init_scale=0.8, device=dev) for f, s in zip(fmts, shapes)]
+        with hopper.disabled():
+            for _ in range(2):
+                sts = kron.update_multi(sts, *probes(shapes), step=0.1)
+        dxs, dgs = probes(shapes)
+        with kron_dd.forced_route("mono"):
+            print(f"K1 {label}, kron_mono_kernel phases:", phases(
+                lambda: kron.update_multi(sts, dxs, dgs, 0.1), lib.probe_mono), flush=True)
+    return 0
+
+
+def _phases() -> int:
+    import shutil
+
+    here = Path(__file__).resolve().parents[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = Path(tmp) / "psgd_tf_tpu_torch"
+        shutil.copytree(here / "psgd_tf_tpu_torch", dst,
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        for rel, old, new in _EDITS:
+            f = dst / rel
+            text = f.read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"profile_kron_chain: {old[:40]!r} is not in {rel} once")
+            f.write_text(text.replace(old, new))
+        rc = subprocess.run([sys.executable, __file__, "--phases-child"], cwd=tmp,
+                            env={**os.environ, "PYTHONPATH": tmp}).returncode
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return rc
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_kron_chain: no CUDA device", file=sys.stderr)
+        return 1
+    if sys.argv[1:] == ["--phases"]:
+        return _phases()
+    if sys.argv[1:] == ["--phases-child"]:
+        return _phases_child()
+    route = None
+    if sys.argv[1:2] == ["--route"]:
+        route = sys.argv[2]
+    from psgd_tf_tpu_torch import kron
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import _build, kron_dd, kron_multi, tri
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,driver_version",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[-1]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc}; {smi}", flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def probes(shapes):
+        return ([torch.randn(s, generator=g, device=dev) for s in shapes],
+                [torch.randn(s, generator=g, device=dev) for s in shapes])
+
+    def walked(fmts, shapes):
+        sts = [kron.init(s, fmt=f, init_scale=0.8, device=dev) for f, s in zip(fmts, shapes)]
+        with hopper.disabled():
+            for _ in range(2):
+                sts = kron.update_multi(sts, *probes(shapes), step=0.1)
+        return sts
+
+    def triu_factor(n):
+        u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
+        return u + torch.diag(0.5 + torch.rand(n, generator=g, device=dev))
+
+    cases = []
+    for label, fmts, shapes in [("K1 LeNet5", [("dense", "dense")] * 5, LENET5),
+                                ("K1 toy NMT", nmt.kron_formats(nmt.Config()),
+                                 nmt.layer_shapes(nmt.Config()))]:
+        sts, (dxs, dgs) = walked(fmts, shapes), probes(shapes)
+        ents = [kron._oriented(st, dx, dg) for st, dx, dg in zip(sts, dxs, dgs)]
+        args = ([e[0] for e in ents], [e[2] for e in ents], [e[3] for e in ents],
+                [e[4].contiguous() for e in ents], [e[5].contiguous() for e in ents])
+        cases.append((label, lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(
+            sts, dxs, dgs, 0.1), lambda args=args: kron_multi.fused_update_multi(*args, 0.1),
+            lambda args=args: kron_dd.launch(*args, 0.1, "kron_multi")))
+    us = [triu_factor(n) for s in LENET5 for n in s]
+    cases.append(("K3 LeNet5's ten factors", lambda: tri.inverse_upper(us), None, None))
+
+    ctx = kron_dd.forced_route(route) if route else contextlib.nullcontext()
+    summary = {}
+    with ctx:
+        for label, fn, inner, bare in cases:
+            host = _host_us(torch, fn)
+            inner_host = _host_us(torch, inner) if inner else None
+            bare_host = _host_us(torch, bare) if bare else None
+            ev = _event_ms(torch, fn)
+            q_rows, q_span = _trace(torch, fn, True)
+            s_rows, s_span = _trace(torch, fn, False)
+            print(f"== {label}" + (f" (route forced: {route})" if route else ""), flush=True)
+            print(f"  host us a call: {host:.1f}" + (
+                f" (kron_multi.fused_update_multi alone {inner_host:.1f}, kron_dd.launch alone "
+                f"{bare_host:.1f})" if inner else ""), flush=True)
+            print(f"  CUDA events over {CALLS} chained calls: {ev * 1e3:.1f} us a call",
+                  flush=True)
+            for name, rows, span in [("queued", q_rows, q_span), ("synced", s_rows, s_span)]:
+                print(f"  {name}: {len(rows)} launches, device span {span:.1f} us; launches "
+                      f"(us, gap before us): " + "; ".join(
+                          f"{r[0].split('(')[0][:40]} {r[1]:.1f} ({r[2]:.1f})" for r in rows),
+                      flush=True)
+            summary[label] = dict(host_us=host, inner_host_us=inner_host, launch_host_us=bare_host,
+                                  event_us=ev * 1e3,
+                                  queued_span_us=q_span, synced_span_us=s_span,
+                                  launches=len(q_rows))
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
