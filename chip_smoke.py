@@ -12,8 +12,12 @@ call; K4 also at the JAX package's batching crossover and at the side
 cap; K3 also at the ragged sides 1, 31, 33, 255, 257, 513 and 1025; K1's
 chain forced onto each of its two routes, the chain of launches and the
 one cooperative launch, bit for bit, through K1, K2, K4, K5 and K20, each
-timed both ways and plain, and a forced one launch that must be refused),
-then drives the port's
+timed both ways and plain, and a forced one launch that must be refused;
+K6, K7/K8 and K10, each one C call with its tail on the device, through
+`kron.update` at the reference NMT's layers and the bench's wide shapes,
+a mirrored (scale, norm) layer, n % 4 = 1 and two-row layers, each
+repeated bit for bit, with zero probes, and timed chained, on the device
+(queued) and on the host), then drives the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
@@ -151,6 +155,12 @@ WIDE_NS = [(("norm", "scale"), (512, 1_000_000), "kron_sparse_big_ns_wide2"),
            (("scale", "norm"), (140_001, 70), "kron_sparse_big_ns_wide2"),
            (("norm", "scale"), (64, 3_000_017), "kron_sparse_big_ns_wide_xla")]
 ENVELOPE_STEPS = 5
+# K6 and K10 beside the NMT layers (phase 6): a mirrored (scale, norm) layer
+# (the decoder RNN's, transposed: K6 reads dX^T), n % 4 = 1, arrows and a
+# dense side of two rows, a ragged mirrored K10 layer
+STREAM_EDGE = [(("scale", "norm"), (1024, 2305)), (("norm", "scale"), (700, 1029)),
+               (("norm", "scale"), (2, 5000)), (("dense", "scale"), (2, 5000)),
+               (("scale", "dense"), (4097, 130))]
 # K4's stacks: the ragged bucket of tests/test_kron_batched.py, the JAX
 # package's crossover stacks (psgd_tf_tpu/optim/psgd.py:113-120; B = 24
 # spans two chains of at most 16 layers), four layers at the side cap
@@ -241,6 +251,22 @@ def _host_ms(torch, fn, reps):
     ms = (time.perf_counter() - t) / reps * 1e3
     torch.cuda.synchronize()
     return ms
+
+
+def _time_queued(torch, fn, reps):
+    """Device ms per call of fn(): `reps` calls enqueued behind a spinning
+    kernel (~20 ms), the events recorded after it, so the card runs them
+    back to back whatever the host's enqueue costs."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _time_ab(torch, hopper, fn, reps):
@@ -608,17 +634,33 @@ def main() -> int:
 
     def kernel_part(st, dx, dg, reps):
         """(ms with the kernel, ms plain) of the kernel part alone of a
-        (norm, dense) or (norm, scale) layer's update (`nd_reductions` or
-        `ns_reductions`, no torch tail), on its unbalanced state."""
+        (norm, dense) layer's update (`nd_reductions`, no torch tail), on
+        its unbalanced state."""
         ql0, ql1 = st.ql[0], st.ql[1]
         w = ql1 / (ql0 * ql0[-1])
-        if st.fmt[1] == "dense":
-            u = dg[-1] @ st.qr.T
-            fn = lambda: kron_sparse_big.nd_reductions(dx, dg, st.ql, w, st.qr, u)
-        else:
-            al = ql0[-1] * dg[-1] * st.qr
-            fn = lambda: kron_sparse_big.ns_reductions(dx, dg, ql0, ql1, w, st.qr, dg[-1], al)
-        return _time_ab(torch, hopper, fn, reps)
+        u = dg[-1] @ st.qr.T
+        return _time_ab(torch, hopper, lambda: kron_sparse_big.nd_reductions(
+            dx, dg, st.ql, w, st.qr, u), reps)
+
+    def one_call(fmt, shape, st, dx, dg, names):
+        """One `kron.update` of a layer that takes K6, K7/K8 or K10's one C
+        call: (result, plain result, max rel err, max abs err, whether its
+        launches moved `names` by one each and nothing else, whether a
+        second call gave the same bits)."""
+        before = dict(hopper.counts)
+        got = kron.update(st, dx, dg, step=0.1)
+        torch.cuda.synchronize()
+        moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+        with hopper.disabled():
+            ref = kron.update(st, dx, dg, step=0.1)
+        rel, err = _state_errs([got], [ref])
+        again = kron.update(st, dx, dg, step=0.1)
+        same = torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+        exact = all(q[1, -1].item() == 0.0 if f == "norm" else
+                    (torch.equal(q, torch.triu(q)) if f == "dense" else True)
+                    for q, f in zip((got.ql, got.qr), fmt))
+        finite = bool(torch.isfinite(got.ql).all() and torch.isfinite(got.qr).all())
+        return got, ref, rel, err, moved == {k: 1 for k in names} and exact and finite, same
 
     # the kron list all_preconditioners gives K1 and K3: one factor pair per
     # factor matrix of the tensor decomposition
@@ -964,7 +1006,12 @@ def main() -> int:
     mono_bound = _bound(sum(w[0] for w in toy_work), sum(w[1] for w in toy_work))
 
     # 6. K6 and K10 at the reference NMT layers, through kron.update (the
-    #    (scale, dense) embeddings and attention are mirrored: K10 gets dX^T)
+    #    (scale, dense) embeddings and attention are mirrored: K10 gets dX^T):
+    #    each one C call (one count, K3's for K10, nothing else), against
+    #    the plain update, two calls bit-equal, with the host's ms a call
+    #    and the device's (queued); then the same at a mirrored (scale, norm)
+    #    layer (K6 reads dX^T in place), at ragged shapes (n % 4 = 1, two
+    #    rows) and with zero probes (finite factors)
     g.manual_seed(6)
     ref_cfg = nmt.ref_config()
     ref_shapes = nmt.layer_shapes(ref_cfg)
@@ -972,31 +1019,42 @@ def main() -> int:
     # its three layers (one reference-width step's worth)
     big = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0.0}
            for name in ("kron_sparse_big_ns", "kron_sparse_big_ds")}
-    for fmt, shape in zip(nmt_fmts, ref_shapes):
-        if fmt == ("dense", "dense"):
-            continue
-        name = "kron_sparse_big_ns" if fmt == ("norm", "scale") else "kron_sparse_big_ds"
+    ref_cases = [(f, sh) for f, sh in zip(nmt_fmts, ref_shapes) if f != DD]
+    for fmt, shape in ref_cases + STREAM_EDGE:
+        name = "kron_sparse_big_ns" if "norm" in fmt else "kron_sparse_big_ds"
+        names = [name] + ([] if "norm" in fmt else ["tri"])
+        route = "kron_sparse_big:ns" if "norm" in fmt else "kron_sparse_big:ds"
+        check(kron.route(fmt, shape, dev) == route, f"{name} route at {fmt} {shape}")
         (st,) = walked_states([fmt], [shape], steps=2)
         (dx,), (dg,) = probes([shape])
-        before = hopper.counts[name]
-        got = kron.update(st, dx, dg, step=0.1)
-        torch.cuda.synchronize()
-        check(hopper.counts[name] == before + 1, f"{name} launched at {shape}")
-        with hopper.disabled():
-            ref = kron.update(st, dx, dg, step=0.1)
-        rel, err = _state_errs([got], [ref])
-        arrow_ok = fmt[0] != "norm" or got.ql[1, -1].item() == 0.0
-        check(rel < TOL_K1 and arrow_ok, f"{name} vs plain at {shape}")
-        ms, plain_ms = _time_ab(torch, hopper, lambda: kron.update(st, dx, dg, step=0.1), 50)
+        got, ref, rel, err, one, same = one_call(fmt, shape, st, dx, dg, names)
+        check(one and rel < TOL_K1, f"{name} one call vs plain at {fmt} {shape}")
+        check(same, f"{name} two calls bit-equal at {fmt} {shape}")
+        call = lambda: kron.update(st, dx, dg, step=0.1)
+        ms, plain_ms = _time_ab(torch, hopper, call, 50)
+        host = _host_ms(torch, call, 50)
+        queued = _time_queued(torch, call, 40)
+        z = torch.zeros(shape, device=dev)
+        zero = kron.update(st, z, z, step=0.1)
+        zero_ok = bool(torch.isfinite(zero.ql).all() and torch.isfinite(zero.qr).all())
+        check(zero_ok, f"{name} zero probes give finite factors at {fmt} {shape}")
         acc = big[name]
         acc["err"] = max(acc["err"], err)
-        acc["ms"] += ms
-        acc["plain_ms"] += plain_ms
-        nbytes, flops = _kron_work(fmt, shape)
-        acc["bytes"] += nbytes
-        acc["flops"] += flops
+        if (fmt, shape) in ref_cases:
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            nbytes, flops = _kron_work(fmt, shape)
+            acc["bytes"] += nbytes
+            acc["flops"] += flops
         print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
-              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"{err:.3e}, one call {one}, bit-equal again {same}, zero probes finite {zero_ok}; "
+              f"kernel {ms:.4f} ms chained, {queued:.4f} ms on the device (queued), host "
+              f"{host * 1e3:.1f} us a call; plain {plain_ms:.4f} ms", flush=True)
+        del st, dx, dg, got, ref, z, zero
+    torch.cuda.empty_cache()
+    for name, acc in big.items():
+        print(f"{name}: the three NMT layers summed, kernel {acc['ms']:.4f} ms, plain "
+              f"{acc['plain_ms']:.4f} ms", flush=True)
 
     # 6b. K9 at the five (norm, dense) layers PSGD's default formats give
     #     the reference NMT model, at bench.py's (131072, 512) and on a
@@ -1050,41 +1108,35 @@ def main() -> int:
               f"(tol {TOL_TRAJ:.0e})", flush=True)
         check(k9_traj < TOL_TRAJ, f"k9 20-step trajectory vs plain at {shape}")
 
-    # 6c. K7 and K8: the wide (norm, scale) kernel at bench.py's
-    #     (512, 1,000,000), a ragged mirrored layer (dX^T), and a ragged
-    #     width past 2^21 lanes, through kron.update; the counter of the JAX
-    #     route moves, and no other
+    # 6c. K7 and K8: the wide (norm, scale) pass and K6's device tail, one C
+    #     call, at bench.py's (512, 1,000,000), a ragged mirrored layer
+    #     (dX^T), and a ragged width past 2^21 lanes, through kron.update;
+    #     the counter of the JAX route moves, and no other; two calls
+    #     bit-equal; the device's ms (queued) and the host's
     g.manual_seed(62)
     wide = {}
     for fmt, shape, name in WIDE_NS:
         check(kron.route(fmt, shape, dev) == "kron_sparse_big:ns_wide", f"wide route at {shape}")
         (st,) = walked_states([fmt], [shape], steps=2)
         (dx,), (dg,) = probes([shape])
-        before = dict(hopper.counts)
-        got = kron.update(st, dx, dg, step=0.1)
-        torch.cuda.synchronize()
-        moved = {k for k in hopper.counts if hopper.counts[k] != before[k]}
-        check(moved == {name} and hopper.counts[name] == before[name] + 1,
-              f"{name} alone launched at {shape}: {moved}")
-        with hopper.disabled():
-            ref = kron.update(st, dx, dg, step=0.1)
-        rel, err = _state_errs([got], [ref])
-        arrow_ok = (got.qr if fmt[0] == "scale" else got.ql)[1, -1].item() == 0.0
-        check(rel < TOL_K1 and arrow_ok, f"{name} vs plain at {fmt} {shape}")
-        ms, plain_ms = _time_ab(torch, hopper, lambda: kron.update(st, dx, dg, step=0.1), 10)
+        got, ref, rel, err, one, same = one_call(fmt, shape, st, dx, dg, [name])
+        check(one and rel < TOL_K1, f"{name} alone launched, vs plain at {fmt} {shape}")
+        check(same, f"{name} two calls bit-equal at {fmt} {shape}")
+        call = lambda: kron.update(st, dx, dg, step=0.1)
+        ms, plain_ms = _time_ab(torch, hopper, call, 10)
+        queued = _time_queued(torch, call, 10)
+        host = _host_ms(torch, call, 10)
         bound = _bound(*_kron_work(fmt, shape))
         acc = wide.setdefault(name, {"err": 0.0})
         acc["err"] = max(acc["err"], err)
+        m, n = shape
         print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
-              f"{err:.3e}, arrow ok {arrow_ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+              f"{err:.3e}, one call {one}, bit-equal again {same}; kernel {ms:.4f} ms chained, "
+              f"{queued:.4f} ms on the device (queued: {12 * m * n / queued / 1e9:.3f} TB/s of "
+              f"the two passes' 3 m n floats), host {host * 1e3:.1f} us a call; plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
         if "ms" not in acc:  # the first row of each counter: bench.py's and the past-2^21 one
             acc.update(ms=ms, plain_ms=plain_ms, bound=bound)
-            part, part_plain = kernel_part(st, dx, dg, 10)
-            m, n = shape
-            print(f"{name}: {shape} the kernel part alone (the wide kernel and its row "
-                  f"reduction), kernel {part:.4f} ms ({8 * m * n / part / 1e9:.3f} TB/s of the "
-                  f"probes' 8 m n bytes), plain {part_plain:.4f} ms", flush=True)
         del st, dx, dg, got, ref
         torch.cuda.empty_cache()
 

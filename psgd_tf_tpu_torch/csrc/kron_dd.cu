@@ -543,8 +543,11 @@ __device__ __forceinline__ float gemm_epi(const GemmProb& P, int i, int j, size_
 // EPI_TRIU alone; a caller sums the partials); PART: its raw product into
 // sp's region instead (K1's K split: sum_body applies the epilogue). VAR >= 0: the body holds the one operand orientation
 // (ta, tb) = (VAR >> 1, VAR & 1) of every problem it is given. gsm: the
-// ring (GemmTile<QM, QN>::SMEM bytes); red: 8 floats.
-template <int QM, int QN, int VAR, bool PART, class Batch>
+// ring (GemmTile<QM, QN>::SMEM bytes); red: 8 floats. EPIX: the body also
+// reads the flags EPI_UPPER and EPI_COLSQ of `epi` (psgd.cuh); only the
+// kernel that K10's chain launches is built with it, so every other
+// kernel's code is the body without them.
+template <int QM, int QN, int VAR, bool PART, class Batch, bool EPIX = false>
 __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, int splits,
                                           float* gsm, float* red, const SplitPlan* sp = nullptr) {
     using T = GemmTile<QM, QN>;
@@ -552,9 +555,18 @@ __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, i
     // a copy: the fields the loops read stay in registers, not re-read from
     // the dynamically indexed parameter array
     const GemmProb P = g.p[p];
+    const int epi = EPIX ? P.epi & EPI_BASE : P.epi;
     const int t = tile - g.tiles[p];
     const int tiles_n = (P.N + T::BN - 1) / T::BN;
-    const int row0 = (t / tiles_n) * T::BM, col0 = (t % tiles_n) * T::BN;
+    int row0 = (t / tiles_n) * T::BM, col0 = (t % tiles_n) * T::BN;
+    if constexpr (EPIX) {
+        if (P.epi & EPI_UPPER) {  // tile t of the upper triangle's tiles, row by row
+            int tr = 0, rem = t;
+            for (; rem >= tiles_n - tr; ++tr) rem -= tiles_n - tr;
+            row0 = tr * T::BM;
+            col0 = (tr + rem) * T::BN;
+        }
+    }
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
     float acc[4 * QM][4 * QN];
@@ -563,7 +575,7 @@ __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, i
 #pragma unroll
         for (int j = 0; j < 4 * QN; ++j) acc[i][j] = 0.f;
     // a tile wholly below the diagonal of a triu output is zero: skip the K loop
-    const bool triu = P.epi == EPI_TRIU_MAX || P.epi == EPI_TRIU;
+    const bool triu = epi == EPI_TRIU_MAX || epi == EPI_TRIU;
     const bool skip = triu && row0 > col0 + T::BN - 1;
     // the band of k where a triangular operand may be nonzero for this tile
     int k_lo = 0, k_hi = P.K;
@@ -598,8 +610,11 @@ __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, i
         return;
     }
     float* c = P.c + (size_t)split * P.M * P.N;
-    const float s = P.epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
+    const float s = epi == EPI_UPDATE ? step_scale(P.step, P.mx) : 0.f;
     float local_max = 0.f;
+    float colsq[4 * QN];  // EPI_COLSQ: the thread's column sums of v^2
+#pragma unroll
+    for (int jj = 0; jj < 4 * QN; ++jj) colsq[jj] = 0.f;
 #pragma unroll
     for (int ii = 0; ii < 4 * QM; ++ii) {
         const int i = row0 + (ii / 4) * 64 + ty * 4 + ii % 4;
@@ -612,21 +627,40 @@ __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, i
             if (triu) {
                 v = (i <= j) ? v : 0.f;
                 local_max = fmaxf(local_max, fabsf(v));
-            } else if (P.epi == EPI_UPDATE) {
+            } else if (epi == EPI_UPDATE) {
                 v = P.q[o] - s * v;
-            } else if (P.epi == EPI_COLMUL) {
+            } else if (epi == EPI_COLMUL) {
                 v = v * P.v[j];
-            } else if (P.epi == EPI_COLDIV) {
+            } else if (epi == EPI_COLDIV) {
                 v = v / P.v[j];
-            } else if (P.epi == EPI_ARROW) {
+            } else if (epi == EPI_ARROW) {
                 v = (i == P.M - 1 ? 0.f : P.r[i] * v) + P.r[P.M + i] * P.v[j];
-            } else if (P.epi == EPI_ROWDIV) {
+            } else if (epi == EPI_ROWDIV) {
                 v = i == P.M - 1 ? 0.f : v / P.r[i];
             }
             c[o] = v;
+            if constexpr (EPIX) colsq[jj] += v * v;
         }
     }
-    if (P.epi == EPI_TRIU_MAX) {
+    if constexpr (EPIX) {
+        if (P.epi & EPI_COLSQ) {
+            // the tile's column sums of v^2, over its rows in order: each
+            // thread's rows, then the 16 row groups, into row tile
+            // row0 / BM of the (row tiles, N) partials stored after C
+            __syncthreads();  // every thread is done with the ring
+            constexpr int W = 64 * QN;
+#pragma unroll
+            for (int jj = 0; jj < 4 * QN; ++jj) gsm[ty * W + (jj / 4) * 64 + tx * 4 + jj % 4] = colsq[jj];
+            __syncthreads();
+            float* part = P.c + (size_t)P.M * P.N + (size_t)(row0 / T::BM) * P.N;
+            for (int k = threadIdx.x; k < W; k += GEMM_THREADS) {
+                float sum = 0.f;
+                for (int y = 0; y < 16; ++y) sum += gsm[y * W + k];
+                if (col0 + k < P.N) part[col0 + k] = sum;
+            }
+        }
+    }
+    if (epi == EPI_TRIU_MAX) {
         // |grad| >= 0, so its float bits order like unsigned integers
         local_max = block_reduce_max(local_max, red);
         if (threadIdx.x == 0) atomicMax(P.mx, __float_as_uint(local_max));
@@ -634,11 +668,11 @@ __device__ __forceinline__ void gemm_body(const Batch& g, int tile, int split, i
 }
 
 // grid (tiles of every problem, splits); MINB: the blocks an SM holds
-template <int QM, int QN, int MINB, int VAR = -1>
+template <int QM, int QN, int MINB, int VAR = -1, bool EPIX = false>
 __global__ void __launch_bounds__(GEMM_THREADS, MINB) gemm_kernel(const GemmBatch g) {
     extern __shared__ __align__(16) float gsm[];
     __shared__ float red[GEMM_THREADS / 32];
-    gemm_body<QM, QN, VAR, false>(g, blockIdx.x, blockIdx.y, gridDim.y, gsm, red);
+    gemm_body<QM, QN, VAR, false, GemmBatch, EPIX>(g, blockIdx.x, blockIdx.y, gridDim.y, gsm, red);
 }
 
 // K1's split stages: the 64 x 64 tiles' bands of raw products, grid (tiles,
@@ -699,8 +733,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) sum_kernel(const GemmBatch g,
     sum_body(g, sp, splits, blockIdx.x, red);
 }
 
-// the SMs of the current card, asked once
-static int gemm_sms() {
+int gemm_sms() {
     static int sms = 0;
     if (!sms) {
         int dev = 0;
@@ -714,14 +747,14 @@ static int gemm_sms() {
 // The 128 x 128 tiles' ring needs more than the 48 KB of dynamic shared
 // memory a kernel may take by default: raised once on each device. A refused
 // raise launches nothing; the caller's cudaGetLastError() returns it.
-template <int QM, int QN, int MINB, int VAR = -1>
+template <int QM, int QN, int MINB, int VAR = -1, bool EPIX = false>
 static void gemm_launch_q(GemmBatch& g, int splits, cudaStream_t stream) {
     using T = GemmTile<QM, QN>;
     static unsigned long long raised = 0;  // a bit per device
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess) return;
     if (dev >= 64 || !(raised >> dev & 1)) {
-        if (cudaFuncSetAttribute(gemm_kernel<QM, QN, MINB, VAR>,
+        if (cudaFuncSetAttribute(gemm_kernel<QM, QN, MINB, VAR, EPIX>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)T::SMEM) != cudaSuccess)
             return;
@@ -730,10 +763,12 @@ static void gemm_launch_q(GemmBatch& g, int splits, cudaStream_t stream) {
     g.tiles[0] = 0;
     for (int p = 0; p < g.count; ++p) {
         const GemmProb& P = g.p[p];
-        g.tiles[p + 1] = g.tiles[p] + ((P.M + T::BM - 1) / T::BM) * ((P.N + T::BN - 1) / T::BN);
+        const int tn = (P.N + T::BN - 1) / T::BN;
+        g.tiles[p + 1] = g.tiles[p] + ((P.epi & EPI_UPPER) ? tn * (tn + 1) / 2
+                                                           : ((P.M + T::BM - 1) / T::BM) * tn);
     }
-    gemm_kernel<QM, QN, MINB, VAR><<<dim3(g.tiles[g.count], splits), GEMM_THREADS, T::SMEM,
-                                     stream>>>(g);
+    gemm_kernel<QM, QN, MINB, VAR, EPIX><<<dim3(g.tiles[g.count], splits), GEMM_THREADS, T::SMEM,
+                                           stream>>>(g);
 }
 
 // q: 0 picks the tile (128 x 128 where the launch's tiles of that size,
@@ -741,6 +776,12 @@ static void gemm_launch_q(GemmBatch& g, int splits, cudaStream_t stream) {
 // else 64 x 64, two an SM); 1 (64) or 2 (128) forces it
 static void launch_gemms_q(GemmBatch& g, cudaStream_t stream, int splits, int q) {
     if (g.count == 0) return;
+    for (int p = 0; p < g.count; ++p) {
+        if (g.p[p].epi & ~EPI_BASE) {  // the flags: their own kernel, 64 x 64 tiles
+            gemm_launch_q<1, 1, 2, -1, true>(g, splits, stream);
+            return;
+        }
+    }
     if (q == 0) {
         long long big = 0;
         for (int p = 0; p < g.count; ++p)

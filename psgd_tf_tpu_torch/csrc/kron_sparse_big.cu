@@ -1,48 +1,126 @@
-// K6, K7/K8, K9 and K10: the streaming sparse-format Kronecker reductions;
-// K17/K18: the streamed arrow applies (at the end of this file).
+// K6, K7/K8 and K10: the streaming sparse-format Kronecker updates, each
+// one C call from the factors and probes to the balanced, updated factors;
+// K9: the streaming (norm, dense) reductions; K17/K18: the streamed arrow
+// applies (at the end of this file).
 //
 // K6 replaces psgd_tf_tpu/ops/pallas/kron_sparse_big.py `fused_update_ns`
-// (:377, its pallas_call at :412, `_kernel_ns_big` :172): the one pass over
-// the (m, n) probes dX and dG of a (norm, scale) layer, n <= 131072, that
-// emits, with row m-1 masked (its terms are patched in the caller's tail):
-//   a      = (q0_i dGm_ij + q1_i dG_last_j) qr_j,  bt = dXm_ij / q0_i / qr_j
-//   diag0_i  = sum_j a^2 - bt^2          biasa_i  = sum_j a A_last_j
-//   corr_j   = sum_i w_i dX_ij           colsum_j = sum_i a^2 - bt^2
-// On the TPU the grid walks row panels in order and carries corr and colsum
-// in VMEM across grid steps. Blocks on Hopper run in no order, so each
-// block takes a panel of NS_ROWS rows by NS_COLS columns, writes its column
-// partials to a (panels, n) scratch and its row partials to a
-// (column splits, m) scratch, and a second small pass sums both in a fixed
-// order: no float atomics, so a run repeats itself bit for bit.
-// What bounds it: memory. It reads 2mn floats once (18.9 MB at
-// (2305, 1024)) and writes 2n floats per 16-row panel plus 2m per
-// 1024-column split (1/8 of the probe bytes, read back by the second pass);
-// the arithmetic is a dozen flops per element pair. Each thread keeps its
-// 16 rows' partial sums in registers and walks 4 columns, so the loads of
-// a row are coalesced across a warp. Measured on an H100 80GB HBM3 at its
-// 700 W limit: 23 us for the pass at (2305, 1024) (0.82 TB/s) and 40 us at
-// (1025, 4935) (1.0 TB/s), plus 6-7 us for the reduction.
+// (:377, its pallas_call at :412, `_kernel_ns_big` :172): the (norm, scale)
+// update of an (m, n) layer, n <= 131072 lanes, with the tail the JAX
+// package leaves to XLA. The arrow's rows q0, q1 and the scale qr enter
+// unbalanced: rho = sqrt(max q0 / max qr) cancels in every gradient term,
+// so only the final rewrites carry it (their rounding differs from the
+// plain version's, which balances first, at the 1e-7 level). With row m-1
+// masked (A_last = q0_{m-1} dG_last qr, w = q1 / (q0 q0_{m-1})):
+//   a = (q0_i dGm_ij + q1_i dG_last_j) qr_j,  bt = dXm_ij / q0_i / qr_j
+//   diag0_i = sum_j a^2 - bt^2,  biasa_i = sum_j a A_last_j
+//   corr_j = sum_i w_i dX_ij,    colsum_j = sum_i a^2 - bt^2
+// then B_last = (dX_last / q0_{m-1} - corr) / qr, grad2 = colsum + A_last^2
+// - B_last^2, the second dX pass btdot = dX (B_last / qr) / q0, bias =
+// biasa - btdot, row m-1's diag = sum(A_last^2 - B_last^2) and bias = 0,
+// the saturating step scales (linalg.step_scale: a zero probe gives a zero
+// update) and the rewrites of q0, q1 and qr. On the TPU one grid walks the
+// row panels in order, carries corr and colsum in VMEM, and XLA fuses the
+// tail. Blocks on Hopper run in no order, and the tail ran here as 55
+// eager torch launches a call: 0.91-1.30 ms of host time a call against a
+// device span of 170-200 us, of which the pass and its reduction took
+// 29-43 (H100 80GB HBM3, 700 W, tools/profile_kron_chain.py --stream on
+// the tree before this design). So the call is five launches, with no
+// host sync and no float atomic: every sum in a fixed order, the maxima by
+// atomicMax on order-preserving float bits (a max does not depend on the
+// order), so a run repeats itself bit for bit:
+//   1. ns_pass_kernel: one pass over (dX, dG), each block a 128-column tile
+//      of a group of 16-row panels that it walks with the next panel's
+//      loads in flight, each thread 4 columns of 2 rows, 16-byte loads
+//      where the row pitch and the pointers allow (4 strided columns a
+//      thread otherwise); about 3 blocks an SM; row partials a tile,
+//      column partials a panel group, summed over the block's warps in
+//      order and stored side by side. A transposed pair (a mirrored layer's
+//      dX.T, dG.T) is read in place: the kernel walks the (n, m) memory
+//      with the two kinds of sum swapped.
+//   2. ns_cols_kernel: the column partials summed in group order, B_last,
+//      grad2, y = B_last / qr, max|grad2|, max qr.
+//   3. ns_btdot_kernel: the second dX pass, dX y, a warp a (row, 2048-column
+//      chunk). It cannot join the first: y needs corr, a sum over every
+//      row. It follows it at once, so dX (5.2-20.2 MB at the NMT layers)
+//      is still in the 50 MB L2.
+//   4. ns_rows_kernel: a warp a row, the row partials and the chunks summed
+//      in order, diag, bias, max(|diag|, |bias|), max q0.
+//   5. ns_finish_kernel: rho and both step scales from the maxima, then the
+//      rewrites.
+// What bounds it: memory. The pass reads 2mn floats once (18.9 MB at
+// (2305, 1024)) and writes partials of 1/16 of those bytes or less; the
+// second pass reads dX again, from L2 where it stayed. The old pass
+// (16-row panels of one 1,024-column split, 145 blocks at (2305, 1024),
+// scalar loads) ran 25 us there; this one 5.3 us at (1281, 1024) (2.0
+// TB/s of its 10.5 MB), 6.6 at (2305, 1024) (2.9 TB/s) and 14.1 at
+// (1025, 4935) (2.9 TB/s, strided loads), the probes warm in L2 from the
+// call before; the whole call 20.3, 21.7 and 33.6 us on the device, its
+// tail launches 2.2-6.2 us each and 1 us apart (H100 80GB HBM3, 700 W,
+// tools/profile_kron_chain.py --stream).
+//
+// K7 and K8 replace the same file's `_fused_update_ns_wide2` (:456, its
+// pallas_call at :494, `_kernel_ns_wide2` :197) and
+// `_fused_update_ns_wide_xla` (:524, :558, `_kernel_ns_wide` :265): the
+// (norm, scale) update for scale sides past 131,072 lanes, up to 2^23. JAX
+// splits them at 2^21 lanes only because its single-pass kernel keeps
+// full-width lane accumulators in VMEM; one kernel serves both here. Its
+// pass is K6's grid transposed: each block owns a strip of 2,048 lanes and
+// walks every row, so corr and colsum are summed in registers and written
+// once per lane (at (512, 10^6) K6's panel partials would be 256 MB); the
+// row partials go to an (m, strips) scratch. A small launch writes the
+// vectors it reads (w, dG_last, A_last), and the pass feeds K6's tail
+// (launches 2-5), whose rows kernel sums the strips in order. The second
+// dX pass is K6's kernel too at every width (the JAX package leaves that
+// matvec to XLA): at (512, 10^6) it streams 2 GB in 660 us (3.1 TB/s),
+// against 672 for torch's matvec in the tree before; at (64, 3,000,017),
+// with n odd and so 4-byte loads, 0.77 GB in 298 us, against 256 for
+// torch's: it loses there. The whole call 2.32 and 1.05 ms on the device,
+// from 2.53 and 1.22 (H100 80GB HBM3, 700 W, tools/profile_kron_chain.py
+// --stream). What bounds it: memory, 2mn floats read once by the pass
+// (4.1 GB at (512, 10^6), 1.22 ms at 3.35 TB/s) and mn by the second
+// pass. Offsets are size_t (m n passes 2^31), lanes past n are never
+// loaded and rows past m never visited.
 //
 // K10 replaces the same file's `fused_update_ds` (:711, its pallas_call at
-// :740, `_kernel_ds_big` :675): a (dense, scale) layer, m <= 1024, any n:
+// :740, `_kernel_ds_big` :675): the (dense, scale) update of an (m, n)
+// layer, m <= 1024, any n, in one C call. rho cancels in A = Ql dG qr and
+// Bt = Ql^{-T} dX / qr, so the chain runs on the unbalanced factors and
+// forms Ql / rho and rho qr in its finish:
 //   1. Linv = Ql^{-1} through K3 (tri.cu), exact in fp32;
-//   2. the grouped GEMM of kron_dd.cu: A = (Ql dG) qr and Bt = (Linv^T dX) / qr
-//      over the whole width (column-scale epilogues, K loops cut to the
-//      triangles of Ql and Linv^T);
-//   3. grad2_j = sum_i A_ij^2 - Bt_ij^2, one thread per column;
-//   4. the Gram difference A A^T - Bt Bt^T with K = n, split over column
-//      panels into a (splits, m, m) scratch (the TPU grid's own
-//      accumulation) and summed in a fixed order by a last small pass.
-// What bounds it: the two triangular m x n products (m^2 n FLOPs each)
-// and the Gram difference (4 m^2 n, of which the caller keeps the upper
-// triangle), all in kron_dd.cu's fp32 SIMT GEMM, against 2mn floats of
-// probes (19.3 MB at (256, 9414)). The Gram's K = n is split over the
-// GEMM's grid (up to 16 column panels), so its grid is not (m/64)^2 blocks
-// that walk K = n alone. At the reference NMT layers every launch is too
-// small for the GEMM's 128 x 128 tiles and takes its 64 x 64 ones; its
-// kernel part ran 0.53 ms for the three against 0.82 with the old 64 x 64
-// GEMM (H100 80GB HBM3, 700 W, tools/kron_gemm_ab.py). Skipping the Gram's
-// lower tiles is the next step.
+//   2. the grouped GEMM of kron_dd.cu: A = (Ql dG) qr and Bt = (Linv^T dX)
+//      / qr over the whole width (column-scale epilogues, K loops cut to the
+//      triangles of Ql and Linv^T), each writing its row tiles' column
+//      sums of A^2 and Bt^2 (EPI_COLSQ): grad2 without a second read of
+//      the 2mn floats of A and Bt;
+//   3. the Gram difference A A^T - Bt Bt^T, its upper tiles alone
+//      (EPI_UPPER: 10 of 16 at m = 256), K = n split over up to 32 column
+//      bands so that the tiles times the bands fill two blocks an SM;
+//   4. ds_sums_kernel: the bands summed in order into grad1 = triu(Gram),
+//      the row tiles' partials into grad2, max|grad1|, max|grad2|, and the
+//      maxima of diag(Ql) and qr;
+//   5. grad1 Ql through the same GEMM, its upper tiles alone, each K loop
+//      cut to the band between the two triangles and split in bands
+//      (m = 256: 10 tiles of K <= 256 in 4 bands, not 16 tiles of one);
+//   6. ds_finish_kernel: the bands summed in order, s1 and s2 from the
+//      maxima, rho, Ql' = (Ql - s1 grad1 Ql) / rho and qr' = rho qr -
+//      s2 grad2 rho qr.
+// What bounds it: the two triangular m x n products (m^2 n FLOPs each) and
+// the upper triangle of the Gram difference (2 m^2 n), in kron_dd.cu's
+// fp32 SIMT GEMM, against 2mn floats of probes (19.3 MB at (256, 9414)).
+// Its launches take the GEMM's 64 x 64 tiles (the only tiles built with
+// the two flags). The old chain (a full-square Gram, a column-sum kernel
+// that read A and Bt back, a sum kernel, then 26-28 torch launches) spanned
+// 338, 113 and 247 us on the device at the NMT model's three layers; this
+// one 209, 36 and 142 (at (256, 9414): K3 28, the products 91, the Gram
+// 69, the sums 4.5, grad1 Ql 7.6, the finish 2.7), with 44-82 us of host
+// time a call against 0.33-0.64 ms (H100 80GB HBM3, 700 W,
+// tools/profile_kron_chain.py --stream and chip_smoke.py; the host's time
+// moves between runs). The products run at 13.5 TFLOP/s
+// and the Gram's ten tiles at 22 TFLOP/s: every one of their operands is
+// contiguous along K (the mirrored layers' probes are dX.T views, the
+// Gram's A and Bt are m x n row-major), and the GEMM's k-major shared
+// memory takes such an operand by 4-byte copies; that load path, and
+// K3's 28 us at a 256 side, are what is left.
 //
 // K9 replaces the same file's `fused_update_nd` (:598, its pallas_call at
 // :634, `_kernel_nd_big` :298): a (norm, dense) layer, n <= 1024, any m. With
@@ -76,182 +154,71 @@
 // GEMM (10.57-10.62 ms); the NMT model's five layers' kernel parts 2.48 ms
 // against 3.37 (tools/kron_gemm_ab.py against that tree).
 //
-// K7 and K8 replace the same file's `_fused_update_ns_wide2` (:456, its
-// pallas_call at :494, `_kernel_ns_wide2` :197) and
-// `_fused_update_ns_wide_xla` (:524, :558, `_kernel_ns_wide` :265): the
-// (norm, scale) reductions of K6 for scale sides past 131,072 lanes, up to
-// 2^23. JAX splits them at 2^21 lanes only because its single-pass kernel
-// keeps full-width lane accumulators in VMEM; one kernel serves both here.
-// It is K6's grid transposed: each block owns a strip of 2,048 lanes and
-// walks every row, so corr and colsum are summed in registers and written
-// once per lane (at (512, 10^6) K6's (panels, n) scratch would be 256 MB);
-// the row partials go to a (strips, m) scratch that a second pass sums in
-// a fixed order. What bounds it: memory, 2mn floats read once (4.1 GB at
-// (512, 10^6), 1.22 ms at 3.35 TB/s). Offsets are size_t (m n passes 2^31),
-// lanes past n are never loaded and rows past m never visited.
-//
-// dX and dG may arrive transposed in K7/K8, K9 and K10 (a mirrored layer's
-// probes are views of (n, m) arrays): each kernel reads them through a
-// transpose flag, no copy.
+// dX and dG may arrive transposed in every kernel here (a mirrored layer's
+// probes are views of (n, m) arrays): each reads them through a transpose
+// flag, no copy.
 // The Pallas kernel's bf16x3 solve mode exists only because of Mosaic and
 // is not carried over: every product here is plain fp32.
 #include "psgd.cuh"
 
 #include <algorithm>
+#include <cfloat>
 #include <climits>
-
-#define NS_ROWS 16
-#define NS_THREADS 256
-#define NS_COLS (4 * NS_THREADS)
-#define DS_MAX_SPLITS 16
+#include <cstdint>
 
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
 }
 
-// grid (column splits, row panels)
-__global__ void __launch_bounds__(NS_THREADS) ns_big_partial_kernel(
-    int m, int n, const float* __restrict__ dx, const float* __restrict__ dg,
-    const float* __restrict__ ql0, const float* __restrict__ ql1, const float* __restrict__ w,
-    const float* __restrict__ qr, const float* __restrict__ dgl, const float* __restrict__ al,
-    float* __restrict__ pcorr, float* __restrict__ pcol, float* __restrict__ pdiag,
-    float* __restrict__ pbias) {
-    const int split = blockIdx.x, panel = blockIdx.y;
-    const int row0 = panel * NS_ROWS;
-    __shared__ float s0[NS_ROWS], s1[NS_ROWS], sw[NS_ROWS];
-    __shared__ float red[2][NS_ROWS][NS_THREADS / 32];
-    if (threadIdx.x < NS_ROWS) {
-        const int i = row0 + threadIdx.x;
-        const bool ok = i < m;
-        s0[threadIdx.x] = ok ? ql0[i] : 1.f;
-        s1[threadIdx.x] = ok ? ql1[i] : 0.f;
-        sw[threadIdx.x] = ok ? w[i] : 0.f;
-    }
+__device__ __forceinline__ unsigned warp_max_u(unsigned v) {
+    for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// Block-wide reductions of 256 threads (red: 8 slots), the same order on
+// every run; every thread of the block calls them.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+    v = warp_sum(v);
     __syncthreads();
-
-    float rd[NS_ROWS], rb[NS_ROWS];
-#pragma unroll
-    for (int r = 0; r < NS_ROWS; ++r) rd[r] = rb[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const int j = split * NS_COLS + c * NS_THREADS + threadIdx.x;
-        if (j >= n) continue;
-        const float q = qr[j], gl = dgl[j], la = al[j];
-        float cr = 0.f, cs = 0.f;
-#pragma unroll
-        for (int r = 0; r < NS_ROWS; ++r) {
-            const int i = row0 + r;
-            if (i >= m) continue;
-            const size_t o = (size_t)i * n + j;
-            const float x = dx[o], g = dg[o];
-            const bool keep = i != m - 1;
-            const float a = (s0[r] * (keep ? g : 0.f) + s1[r] * gl) * q;
-            const float bt = (keep ? x : 0.f) / s0[r] / q;
-            const float d2 = a * a - bt * bt;
-            rd[r] += d2;
-            rb[r] += a * la;
-            cr += sw[r] * x;
-            cs += d2;
-        }
-        pcorr[(size_t)panel * n + j] = cr;
-        pcol[(size_t)panel * n + j] = cs;
-    }
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-    for (int r = 0; r < NS_ROWS; ++r) {
-        const float d = warp_sum(rd[r]), b = warp_sum(rb[r]);
-        if (lane == 0) {
-            red[0][r][warp] = d;
-            red[1][r][warp] = b;
-        }
-    }
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
     __syncthreads();
-    if (threadIdx.x < 2 * NS_ROWS) {
-        const int which = threadIdx.x / NS_ROWS, r = threadIdx.x % NS_ROWS;
-        const int i = row0 + r;
-        if (i < m) {
-            float s = 0.f;
-            for (int k = 0; k < NS_THREADS / 32; ++k) s += red[which][r][k];
-            (which ? pbias : pdiag)[(size_t)split * m + i] = s;
-        }
-    }
-}
-
-__global__ void __launch_bounds__(256) ns_big_reduce_kernel(
-    int m, int n, int panels, int splits, const float* __restrict__ pcorr,
-    const float* __restrict__ pcol, const float* __restrict__ pdiag,
-    const float* __restrict__ pbias, float* __restrict__ corr, float* __restrict__ colsum,
-    float* __restrict__ diag0, float* __restrict__ biasa) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < n) {
-        float c = 0.f, s = 0.f;
-        for (int p = 0; p < panels; ++p) {
-            c += pcorr[(size_t)p * n + t];
-            s += pcol[(size_t)p * n + t];
-        }
-        corr[t] = c;
-        colsum[t] = s;
-    } else if (t < n + m) {
-        const int i = t - n;
-        float d = 0.f, b = 0.f;
-        for (int s = 0; s < splits; ++s) {
-            d += pdiag[(size_t)s * m + i];
-            b += pbias[(size_t)s * m + i];
-        }
-        diag0[i] = d;
-        biasa[i] = b;
-    }
-}
-
-static void ns_grid(int m, int n, int& panels, int& splits) {
-    panels = (m + NS_ROWS - 1) / NS_ROWS;
-    splits = (n + NS_COLS - 1) / NS_COLS;
-}
-
-extern "C" size_t psgd_kron_ns_big_scratch_floats(int m, int n) {
-    int panels, splits;
-    ns_grid(m, n, panels, splits);
-    return 2 * psgd_align4((size_t)panels * n) + 2 * psgd_align4((size_t)splits * m);
-}
-
-extern "C" int psgd_kron_ns_big(int m, int n, const void* dx, const void* dg, const void* ql0,
-                                const void* ql1, const void* w, const void* qr, const void* dgl,
-                                const void* al, void* diag0, void* biasa, void* corr,
-                                void* colsum, void* scratch, void* stream_ptr) {
-    int panels, splits;
-    ns_grid(m, n, panels, splits);
-    if (m < 1 || n < 1 || panels > 65535) return (int)cudaErrorInvalidValue;
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    float* base = static_cast<float*>(scratch);
-    float* pcorr = base;
-    float* pcol = pcorr + psgd_align4((size_t)panels * n);
-    float* pdiag = pcol + psgd_align4((size_t)panels * n);
-    float* pbias = pdiag + psgd_align4((size_t)splits * m);
-    auto f = [](const void* p) { return static_cast<const float*>(p); };
-    ns_big_partial_kernel<<<dim3(splits, panels), NS_THREADS, 0, stream>>>(
-        m, n, f(dx), f(dg), f(ql0), f(ql1), f(w), f(qr), f(dgl), f(al), pcorr, pcol, pdiag, pbias);
-    ns_big_reduce_kernel<<<(n + m + 255) / 256, 256, 0, stream>>>(
-        m, n, panels, splits, pcorr, pcol, pdiag, pbias, static_cast<float*>(corr),
-        static_cast<float*>(colsum), static_cast<float*>(diag0), static_cast<float*>(biasa));
-    return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------- K10
-
-__global__ void __launch_bounds__(256) colsum_diff_kernel(int m, int n, const float* __restrict__ a,
-                                                          const float* __restrict__ b,
-                                                          float* __restrict__ out) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
     float s = 0.f;
-    for (int i = 0; i < m; ++i) {
-        const float av = a[(size_t)i * n + j], bv = b[(size_t)i * n + j];
-        s += av * av - bv * bv;
-    }
-    out[j] = s;
+    for (int w = 0; w < 8; ++w) s += red[w];
+    return s;
 }
+
+__device__ __forceinline__ unsigned block_max_u(unsigned v, unsigned* red) {
+    v = warp_max_u(v);
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    for (int w = 0; w < 8; ++w) v = max(v, red[w]);
+    return v;
+}
+
+// A float's key for atomicMax: keys order as the floats do, sign included
+// (|x| needs none: its bits order like unsigned integers). Key 0, the
+// zeroed slot, is below every float's.
+__device__ __forceinline__ unsigned fkey(float f) {
+    const unsigned u = __float_as_uint(f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float fkey_inv(unsigned k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// linalg.step_scale: step / (max|grad| + tiny), saturated at the fp32 max
+__device__ __forceinline__ float slot_scale(float step, unsigned max_bits) {
+    return fminf(step / (__uint_as_float(max_bits) + psgd_tiny()), FLT_MAX);
+}
+
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+static int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+#define SLOT_FLOATS 8  // the maxima slots at the head of a chain's scratch
 
 __global__ void __launch_bounds__(256) sum_splits_kernel(int count, size_t stride, int splits,
                                                          const float* __restrict__ part,
@@ -263,68 +230,591 @@ __global__ void __launch_bounds__(256) sum_splits_kernel(int count, size_t strid
     out[e] = s;
 }
 
-// K split of the Gram: at most DS_MAX_SPLITS panels of >= 256 columns,
-// each a multiple of 16 (the GEMM's K tile)
-static void ds_split(int n, int& splits, int& chunk) {
-    splits = std::max(1, std::min(DS_MAX_SPLITS, n / 256));
-    chunk = (n + splits - 1) / splits;
-    chunk = (chunk + 15) / 16 * 16;
-    splits = (n + chunk - 1) / chunk;
+// ------------------------------------------------------------------- K6
+
+#define NS_RPW 2           // memory rows a warp takes of a panel
+#define NS_PROWS (8 * NS_RPW)  // memory rows of a panel: 8 warps
+#define NS_PCOLS 128       // memory columns of a tile: 32 lanes of 4
+#define NS_MAX_GROUPS 256  // most panel groups (column partial sets) of the pass
+#define NS_BLOCKS_PER_SM 3 // the pass's grid: about this many blocks an SM
+#define BT_CHUNK 2048      // columns of a row-major dX a warp of the second pass takes
+#define BTT_CHUNK 256      // memory rows of a transposed dX a warp takes
+
+// the (norm, scale) chain's maxima: |grad2|, max(|diag|, |bias|) (float
+// bits), q0 and qr (fkey)
+enum NsSlot { NS_MAX_G2 = 0, NS_MAX_DB = 1, NS_MAX_Q0 = 2, NS_MAX_QR = 3 };
+
+// One block: memory-column tile `blockIdx.x % tiles` of the group
+// `blockIdx.x / tiles` of `ppg` panels of NS_PROWS rows, walked in order
+// with the next panel's loads (and its per-row values) in flight while the
+// current one is summed. Memory is (R, C) row-major: (m, n) as given, or
+// (n, m) when TRANS (the probes are views dX.T of it). A sums run along a
+// memory row (the thread's 4 columns, then the warp's lanes): (diag0,
+// biasa) row-major, (corr, colsum) transposed; B sums along a memory
+// column (the thread's rows, then the 8 warps in order): the other pair.
+// The row partials (diag0, biasa) go to prow[(q parts + part) m + i], the
+// column partials (corr, colsum) to pcol[(q parts + part) n + j]; q is the
+// pair's member, part the tile (A sums) or the group (B sums): a warp's
+// or a block's stores land side by side. bt multiplies by the
+// reciprocals of q0 and qr (as K7/K8's pass does): a few ulp from the
+// plain version's two divisions.
+template <bool VEC, bool TRANS>
+__global__ void __launch_bounds__(256) ns_pass_kernel(
+    int m, int n, int tiles, int ppg, const float* __restrict__ dx, const float* __restrict__ dg,
+    const float* __restrict__ ql, const float* __restrict__ qr, float* __restrict__ prow,
+    float* __restrict__ pcol) {
+    const int R = TRANS ? n : m, C = TRANS ? m : n;
+    const int tile = blockIdx.x % tiles, group = blockIdx.x / tiles, groups = gridDim.x / tiles;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int c0 = tile * NS_PCOLS;
+    const float* q0 = ql;
+    const float* q1 = ql + m;
+    const float q0l = q0[m - 1];
+    // the panels' per-row values, two buffers: (q0, q1, w, 1 / q0) of rows
+    // i, or (qr, dG_last, A_last, 1 / qr) of rows j when TRANS; inert past R
+    __shared__ float sv[2][4][NS_PROWS];
+    __shared__ float red[2][8][NS_PCOLS];
+
+    // the thread's 4 memory columns and their values: (qr, dG_last, A_last,
+    // 1 / qr) of columns j, or (q0, q1, w, 1 / q0) of columns i when TRANS
+    int cc[4];
+    float cv[4][4], b0[4], b1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        cc[k] = VEC ? c0 + 4 * lane + k : c0 + lane + 32 * k;
+        const bool ok = cc[k] < C;
+        if (TRANS) {
+            cv[0][k] = ok ? q0[cc[k]] : 1.f;
+            cv[1][k] = ok ? q1[cc[k]] : 0.f;
+            cv[2][k] = ok ? cv[1][k] / (cv[0][k] * q0l) : 0.f;
+        } else {
+            const float q = ok ? qr[cc[k]] : 1.f, gl = ok ? dg[(size_t)(m - 1) * n + cc[k]] : 0.f;
+            cv[0][k] = q;
+            cv[1][k] = gl;
+            cv[2][k] = q0l * gl * q;
+        }
+        cv[3][k] = 1.f / cv[0][k];
+        b0[k] = b1[k] = 0.f;
+    }
+    auto load = [&](int r0, float (&x)[NS_RPW][4], float (&g)[NS_RPW][4]) {
+#pragma unroll
+        for (int rr = 0; rr < NS_RPW; ++rr) {
+            const int r = r0 + warp * NS_RPW + rr;
+            const size_t o = (size_t)r * C;
+            if (VEC) {
+                float4 xa = make_float4(0.f, 0.f, 0.f, 0.f), ga = xa;
+                if (r < R && cc[0] < C) {
+                    xa = *reinterpret_cast<const float4*>(dx + o + cc[0]);
+                    ga = *reinterpret_cast<const float4*>(dg + o + cc[0]);
+                }
+                x[rr][0] = xa.x; x[rr][1] = xa.y; x[rr][2] = xa.z; x[rr][3] = xa.w;
+                g[rr][0] = ga.x; g[rr][1] = ga.y; g[rr][2] = ga.z; g[rr][3] = ga.w;
+            } else {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const bool ok = r < R && cc[k] < C;
+                    x[rr][k] = ok ? dx[o + cc[k]] : 0.f;
+                    g[rr][k] = ok ? dg[o + cc[k]] : 0.f;
+                }
+            }
+        }
+    };
+    // row r0 + threadIdx.x's values (threads below NS_PROWS <= 256)
+    auto row_values = [&](int r0, float (&v)[4]) {
+        const int r = r0 + threadIdx.x;
+        const bool ok = r < R;
+        if (TRANS) {
+            const float q = ok ? qr[r] : 1.f, gl = ok ? dg[(size_t)r * m + m - 1] : 0.f;
+            v[0] = q;
+            v[1] = gl;
+            v[2] = q0l * gl * q;
+        } else {
+            const float a = ok ? q0[r] : 1.f, b = ok ? q1[r] : 0.f;
+            v[0] = a;
+            v[1] = b;
+            v[2] = ok ? b / (a * q0l) : 0.f;
+        }
+        v[3] = 1.f / v[0];
+    };
+    const bool fills = threadIdx.x < NS_PROWS;
+    float xv[NS_RPW][4], gv[NS_RPW][4], sr[4];
+    int r0 = group * ppg * NS_PROWS;
+    load(r0, xv, gv);
+    if (fills) {
+        row_values(r0, sr);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sv[0][k][threadIdx.x] = sr[k];
+    }
+    for (int pp = 0; pp < ppg && r0 < R; ++pp, r0 += NS_PROWS) {
+        __syncthreads();  // this panel's values are stored; the last ones' readers are done
+        const bool more = pp + 1 < ppg && r0 + NS_PROWS < R;
+        float xn[NS_RPW][4], gn[NS_RPW][4];
+        if (more) {
+            load(r0 + NS_PROWS, xn, gn);
+            if (fills) row_values(r0 + NS_PROWS, sr);
+        }
+        const float (*v)[NS_PROWS] = sv[pp & 1];
+#pragma unroll
+        for (int rr = 0; rr < NS_RPW; ++rr) {
+            const int ri = warp * NS_RPW + rr, r = r0 + ri;
+            float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const float q0i = TRANS ? cv[0][k] : v[0][ri], q1i = TRANS ? cv[1][k] : v[1][ri];
+                const float wi = TRANS ? cv[2][k] : v[2][ri], rq0 = TRANS ? cv[3][k] : v[3][ri];
+                const float qrj = TRANS ? v[0][ri] : cv[0][k], glj = TRANS ? v[1][ri] : cv[1][k];
+                const float alj = TRANS ? v[2][ri] : cv[2][k], rqr = TRANS ? v[3][ri] : cv[3][k];
+                const bool keep = (TRANS ? cc[k] : r) != m - 1;
+                const float x = xv[rr][k];
+                const float a = (q0i * (keep ? gv[rr][k] : 0.f) + q1i * glj) * qrj;
+                const float bt = (keep ? x : 0.f) * rq0 * rqr;
+                const float d2 = a * a - bt * bt;
+                if (TRANS) {  // A: corr, colsum of row j; B: diag0, biasa of column i
+                    a0 += wi * x;
+                    a1 += d2;
+                    b0[k] += d2;
+                    b1[k] += a * alj;
+                } else {      // A: diag0, biasa of row i; B: corr, colsum of column j
+                    a0 += d2;
+                    a1 += a * alj;
+                    b0[k] += wi * x;
+                    b1[k] += d2;
+                }
+            }
+            a0 = warp_sum(a0);
+            a1 = warp_sum(a1);
+            if (lane == 0 && r < R) {
+                if (TRANS) {  // column j = r's partials of tile `tile`
+                    pcol[(size_t)tile * n + r] = a0;
+                    pcol[(size_t)(tiles + tile) * n + r] = a1;
+                } else {      // row i = r's
+                    prow[(size_t)tile * m + r] = a0;
+                    prow[(size_t)(tiles + tile) * m + r] = a1;
+                }
+            }
+        }
+        if (more) {
+            if (fills) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) sv[(pp + 1) & 1][k][threadIdx.x] = sr[k];
+            }
+#pragma unroll
+            for (int rr = 0; rr < NS_RPW; ++rr)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    xv[rr][k] = xn[rr][k];
+                    gv[rr][k] = gn[rr][k];
+                }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int c = VEC ? 4 * lane + k : lane + 32 * k;
+        red[0][warp][c] = b0[k];
+        red[1][warp][c] = b1[k];
+    }
+    __syncthreads();
+    const int q = threadIdx.x / NS_PCOLS, c = threadIdx.x % NS_PCOLS;
+    float sum = 0.f;
+    for (int w = 0; w < 8; ++w) sum += red[q][w][c];
+    if (c0 + c < C) {
+        if (TRANS) prow[((size_t)q * groups + group) * m + c0 + c] = sum;
+        else pcol[((size_t)q * groups + group) * n + c0 + c] = sum;
+    }
 }
 
-extern "C" size_t psgd_kron_ds_big_scratch_floats(int m, int n) {
-    int splits, chunk;
-    ds_split(n, splits, chunk);
-    const size_t mm = psgd_align4((size_t)m * m), mn = psgd_align4((size_t)m * n);
-    return mm + 2 * mn + (size_t)splits * m * m;
+// The tail, 2: block = cb columns x (256 / cb) part groups. The column
+// partials (parts, n) summed in part order (group g the parts g, g + 256 /
+// cb, ..., then the groups in order), then per column j: B_last, grad2,
+// y = B_last / qr; pdl[block] = sum over the block's columns of
+// A_last^2 - B_last^2 (row m-1's diag, in block order later), and the
+// maxima of |grad2| and qr.
+__global__ void __launch_bounds__(256) ns_cols_kernel(
+    int m, int n, int parts, int cb, const float* __restrict__ pcorr,
+    const float* __restrict__ pcs, const float* __restrict__ dx, const float* __restrict__ dg,
+    int t, const float* __restrict__ ql, const float* __restrict__ qr, float* __restrict__ grad2,
+    float* __restrict__ y, float* __restrict__ pdl, unsigned* __restrict__ slots) {
+    __shared__ float red[2][256];
+    __shared__ float fred[8];
+    __shared__ unsigned ured[8];
+    const int c = threadIdx.x % cb, pg = threadIdx.x / cb, pgs = 256 / cb;
+    const int j = blockIdx.x * cb + c;
+    float sc = 0.f, ss = 0.f;
+    if (j < n) {
+        for (int p = pg; p < parts; p += pgs) {
+            sc += pcorr[(size_t)p * n + j];
+            ss += pcs[(size_t)p * n + j];
+        }
+    }
+    if (pgs > 1) {
+        red[0][threadIdx.x] = sc;
+        red[1][threadIdx.x] = ss;
+        __syncthreads();
+        if (pg == 0) {
+            for (int k = 1; k < pgs; ++k) {
+                sc += red[0][k * cb + c];
+                ss += red[1][k * cb + c];
+            }
+        }
+    }
+    float dl = 0.f;
+    unsigned g2 = 0u, qk = 0u;
+    if (pg == 0 && j < n) {
+        const float q0l = ql[m - 1];
+        const size_t o = t ? (size_t)j * m + m - 1 : (size_t)(m - 1) * n + j;
+        const float q = qr[j];
+        const float al = q0l * dg[o] * q;
+        const float bl = (dx[o] / q0l - sc) / q;
+        const float a2 = al * al, b2 = bl * bl;
+        const float g = ss + a2 - b2;
+        grad2[j] = g;
+        y[j] = bl / q;
+        dl = a2 - b2;
+        g2 = __float_as_uint(fabsf(g));
+        qk = fkey(q);
+    }
+    dl = block_sum(dl, fred);
+    g2 = block_max_u(g2, ured);
+    qk = block_max_u(qk, ured);
+    if (threadIdx.x == 0) {
+        pdl[blockIdx.x] = dl;
+        atomicMax(slots + NS_MAX_G2, g2);
+        atomicMax(slots + NS_MAX_QR, qk);
+    }
 }
 
-extern "C" int psgd_kron_ds_big(int m, int n, const void* qlb, const void* qrb, const void* dx,
-                                int dx_t, const void* dg, int dg_t, void* grad2, void* gram,
-                                void* scratch, void* stream_ptr) {
+// The tail, 3, row-major dX: warp u = (row i, chunk ch) of 2048 columns,
+// pbt[i chunks + ch] = sum_j dX_ij y_j; four 16-byte loads in flight a lane, or
+// eight 4-byte ones where the row pitch is not a multiple of 4.
+template <bool VEC>
+__global__ void __launch_bounds__(256) ns_btdot_kernel(int m, int n, int chunks,
+                                                       const float* __restrict__ dx,
+                                                       const float* __restrict__ y,
+                                                       float* __restrict__ pbt) {
+    const int lane = threadIdx.x & 31;
+    const long long u = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+    if (u >= (long long)m * chunks) return;
+    const int i = (int)(u / chunks), ch = (int)(u % chunks);
+    const int j0 = ch * BT_CHUNK, j1 = min(n, j0 + BT_CHUNK);
+    const float* xr = dx + (size_t)i * n;
+    float s = 0.f;
+    if (VEC) {
+        for (int j = j0 + 4 * lane; j < j1; j += 512) {
+            float4 xa[4], ya[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const bool ok = j + 128 * k < j1;
+                xa[k] = ok ? *reinterpret_cast<const float4*>(xr + j + 128 * k) : make_float4(0.f, 0.f, 0.f, 0.f);
+                ya[k] = ok ? *reinterpret_cast<const float4*>(y + j + 128 * k) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                s += xa[k].x * ya[k].x + xa[k].y * ya[k].y + xa[k].z * ya[k].z + xa[k].w * ya[k].w;
+        }
+    } else {
+        for (int j = j0 + lane; j < j1; j += 256) {
+            float xa[8], ya[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const bool ok = j + 32 * k < j1;
+                xa[k] = ok ? xr[j + 32 * k] : 0.f;
+                ya[k] = ok ? y[j + 32 * k] : 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) s += xa[k] * ya[k];
+        }
+    }
+    s = warp_sum(s);
+    if (lane == 0) pbt[(size_t)i * chunks + ch] = s;
+}
+
+// The tail, 3, transposed dX ((n, m) in memory): warp u = (32-row tile,
+// chunk ch of 256 memory rows), lane = row i, pbt[i chunks + ch].
+__global__ void __launch_bounds__(256) ns_btdot_t_kernel(int m, int n, int chunks,
+                                                         const float* __restrict__ dxt,
+                                                         const float* __restrict__ y,
+                                                         float* __restrict__ pbt) {
+    const int lane = threadIdx.x & 31, itiles = (m + 31) / 32;
+    const long long u = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+    if (u >= (long long)itiles * chunks) return;
+    const int i = (int)(u % itiles) * 32 + lane, ch = (int)(u / itiles);
+    if (i >= m) return;
+    const int j0 = ch * BTT_CHUNK, j1 = min(n, j0 + BTT_CHUNK);
+    float s = 0.f;
+    for (int j = j0; j < j1; j += 8) {
+        float xa[8], ya[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const bool ok = j + k < j1;
+            xa[k] = ok ? dxt[(size_t)(j + k) * m + i] : 0.f;
+            ya[k] = ok ? y[j + k] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s += xa[k] * ya[k];
+    }
+    pbt[(size_t)i * chunks + ch] = s;
+}
+
+// The tail, 4: a warp a row i, its lanes over the row's partials, part p
+// of row i at p ps + i is (K6's: ps = m, is = 1; K7/K8's strips side by
+// side, ps = 1, is = parts) and chunk ch at i chunks + ch, each set summed
+// in a fixed order (lane l the parts l, l + 32, ..., then the warp's tree). diag = diag0 (row m-1: the sum of
+// pdl in block order, by the whole block), bias = biasa - btdot / q0 (row
+// m-1: 0); the maxima of max(|diag|, |bias|) and q0.
+__global__ void __launch_bounds__(256) ns_rows_kernel(
+    int m, int parts, int ps, int is, int chunks, int ndl, const float* __restrict__ pdiag,
+    const float* __restrict__ pbias, const float* __restrict__ pbt, const float* __restrict__ pdl,
+    const float* __restrict__ ql, float* __restrict__ diag, float* __restrict__ bias,
+    unsigned* __restrict__ slots) {
+    __shared__ float fred[8];
+    __shared__ unsigned ured[8];
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * 8 + (threadIdx.x >> 5);
+    float last = 0.f;
+    if (blockIdx.x == (m - 1) / 8) {  // row m-1's diag: pdl in block order
+        float s = 0.f;
+        for (int k = threadIdx.x; k < ndl; k += 256) s += pdl[k];
+        last = block_sum(s, fred);
+    }
+    unsigned db = 0u, qk = 0u;
+    if (i < m) {
+        float sd = 0.f, sb = 0.f, st = 0.f;
+        for (int p = lane; p < parts; p += 32) {
+            sd += pdiag[(size_t)p * ps + (size_t)i * is];
+            sb += pbias[(size_t)p * ps + (size_t)i * is];
+        }
+        for (int ch = lane; ch < chunks; ch += 32) st += pbt[(size_t)i * chunks + ch];
+        sd = warp_sum(sd);
+        sb = warp_sum(sb);
+        st = warp_sum(st);
+        const float q0 = ql[i];
+        const float d = i == m - 1 ? last : sd, b = i == m - 1 ? 0.f : sb - st / q0;
+        if (lane == 0) {
+            diag[i] = d;
+            bias[i] = b;
+        }
+        db = __float_as_uint(fmaxf(fabsf(d), fabsf(b)));
+        qk = fkey(q0);
+    }
+    db = block_max_u(db, ured);
+    qk = block_max_u(qk, ured);
+    if (threadIdx.x == 0) {
+        atomicMax(slots + NS_MAX_DB, db);
+        atomicMax(slots + NS_MAX_Q0, qk);
+    }
+}
+
+// The tail, 5: rho = sqrt(max q0 / max qr) and the step scales, then the
+// balanced rewrites of the arrow (2, m) and qr (n), as the plain tail
+// writes them.
+__global__ void __launch_bounds__(256) ns_finish_kernel(int m, int n, const float* __restrict__ ql,
+                                                        const float* __restrict__ qr,
+                                                        const float* __restrict__ diag,
+                                                        const float* __restrict__ bias,
+                                                        const float* __restrict__ grad2,
+                                                        const unsigned* __restrict__ slots,
+                                                        float step, float* __restrict__ out_ql,
+                                                        float* __restrict__ out_qr) {
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const float rho = sqrtf(fkey_inv(slots[NS_MAX_Q0]) / fkey_inv(slots[NS_MAX_QR]));
+    if (e < (size_t)m) {
+        const float s1 = slot_scale(step, slots[NS_MAX_DB]);
+        const float q0 = ql[e] / rho, q1 = ql[m + e] / rho, q0l = ql[m - 1] / rho;
+        const float d = diag[e];
+        out_ql[e] = q0 - s1 * d * q0;
+        out_ql[m + e] = q1 - s1 * (d * q1 + q0l * bias[e]);
+    } else if (e < (size_t)m + n) {
+        const size_t j = e - m;
+        const float s2 = slot_scale(step, slots[NS_MAX_G2]);
+        const float q = rho * qr[j];
+        out_qr[j] = q - s2 * grad2[j] * q;
+    }
+}
+
+// ------------------------------------------------------------------- K10
+
+#define DS_MAX_SPLITS 32  // most K bands of the Gram
+
+// the (dense, scale) chain's maxima: |grad1|, |grad2| (float bits),
+// diag(Ql) and qr (fkey)
+enum DsSlot { DS_MAX_G1 = 0, DS_MAX_G2 = 1, DS_MAX_QL = 2, DS_MAX_QR = 3 };
+
+// The chain's 4: blocks [0, b1) take the m x m Gram elements e: the
+// bands' partials summed in band order into grad1 (its upper triangle;
+// zeros below), with max|grad1| and the max of diag(Ql); the rest take the
+// columns j: the row tiles' column sums of A^2 and of Bt^2, each in tile
+// order, into grad2 = sum A^2 - sum Bt^2, with max|grad2| and max qr.
+__global__ void __launch_bounds__(256) ds_sums_kernel(
+    int m, int n, int splits, int tm, int b1, const float* __restrict__ part,
+    const float* __restrict__ pa2, const float* __restrict__ pb2, const float* __restrict__ ql,
+    const float* __restrict__ qr, float* __restrict__ grad1, float* __restrict__ grad2,
+    unsigned* __restrict__ slots) {
+    __shared__ unsigned ured[8];
+    unsigned mx = 0u, key = 0u;
+    const bool gram = blockIdx.x < b1;
+    if (gram) {
+        const size_t mm = (size_t)m * m, e = (size_t)blockIdx.x * 256 + threadIdx.x;
+        if (e < mm) {
+            const size_t i = e / m, j = e % m;
+            float v = 0.f;
+            if (i <= j)
+                for (int k = 0; k < splits; ++k) v += part[(size_t)k * mm + e];
+            grad1[e] = v;
+            mx = __float_as_uint(fabsf(v));
+            if (i == j) key = fkey(ql[e]);
+        }
+    } else {
+        const int j = (blockIdx.x - b1) * 256 + threadIdx.x;
+        if (j < n) {
+            float sa = 0.f, sb = 0.f;
+            for (int k = 0; k < tm; ++k) {
+                sa += pa2[(size_t)k * n + j];
+                sb += pb2[(size_t)k * n + j];
+            }
+            const float g = sa - sb;
+            grad2[j] = g;
+            mx = __float_as_uint(fabsf(g));
+            key = fkey(qr[j]);
+        }
+    }
+    mx = block_max_u(mx, ured);
+    key = block_max_u(key, ured);
+    if (threadIdx.x == 0) {
+        atomicMax(slots + (gram ? DS_MAX_G1 : DS_MAX_G2), mx);
+        atomicMax(slots + (gram ? DS_MAX_QL : DS_MAX_QR), key);
+    }
+}
+
+// The chain's 6: rho = sqrt(max diag(Ql) / max qr) and the step scales;
+// out_ql = (Ql - s1 grad1 Ql) / rho, grad1 Ql's upper triangle summed over
+// its K bands in order (zero below: both factors are upper triangular);
+// out_qr = rho qr - s2 grad2 rho qr.
+__global__ void __launch_bounds__(256) ds_finish_kernel(int m, int n, int usplits,
+                                                        const float* __restrict__ ql,
+                                                        const float* __restrict__ qr,
+                                                        const float* __restrict__ gq,
+                                                        const float* __restrict__ grad2,
+                                                        const unsigned* __restrict__ slots,
+                                                        float step, float* __restrict__ out_ql,
+                                                        float* __restrict__ out_qr) {
+    const size_t mm = (size_t)m * m, e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const float rho = sqrtf(fkey_inv(slots[DS_MAX_QL]) / fkey_inv(slots[DS_MAX_QR]));
+    if (e < mm) {
+        float c = 0.f;
+        if (e / m <= e % m)
+            for (int k = 0; k < usplits; ++k) c += gq[(size_t)k * mm + e];
+        const float s1 = slot_scale(step, slots[DS_MAX_G1]);
+        out_ql[e] = (ql[e] - s1 * c) / rho;
+    } else if (e < mm + n) {
+        const size_t j = e - mm;
+        const float s2 = slot_scale(step, slots[DS_MAX_G2]);
+        const float q = rho * qr[j];
+        out_qr[j] = q - s2 * grad2[j] * q;
+    }
+}
+
+struct DsPlan {
+    int tm, splits, usplits;
+    size_t slots, linv, a, bt, part, grad1, grad2, gq, total;  // offsets in floats
+};
+
+// a K split: bands of whole GEMM K steps (16), each >= `band` columns, at
+// most `most`, as many as two blocks an SM of `tiles` tiles take
+static int ds_splits(int k, int tiles, int band, int most) {
+    const int want = std::max(1, std::min(std::min(most, k / band), 2 * gemm_sms() / tiles));
+    const int chunk = ((k + want - 1) / want + 15) / 16 * 16;
+    return (k + chunk - 1) / chunk;
+}
+
+// The Gram's K = n and grad1 Ql's K = m, each split in bands of >= 64
+// (a narrow layer's few tiles walk K = n in many short bands). A and Bt
+// are followed by their row tiles' column sums.
+static DsPlan ds_plan(int m, int n) {
+    DsPlan p = {};
+    p.tm = (m + 63) / 64;
+    const int upper = p.tm * (p.tm + 1) / 2;
+    p.splits = ds_splits(n, upper, 64, DS_MAX_SPLITS);
+    p.usplits = ds_splits(m, upper, 64, DS_MAX_SPLITS);
+    size_t cur = 0;
+    auto take = [&](size_t count) { size_t o = cur; cur += psgd_align4(count); return o; };
+    const size_t mm = (size_t)m * m, mn = (size_t)m * n + (size_t)p.tm * n;
+    p.slots = take(SLOT_FLOATS);
+    p.linv = take(mm);
+    p.a = take(mn);
+    p.bt = take(mn);
+    p.part = take((size_t)p.splits * mm);
+    p.grad1 = take(mm);
+    p.grad2 = take(n);
+    p.gq = take((size_t)p.usplits * mm);
+    p.total = cur;
+    return p;
+}
+
+extern "C" size_t psgd_kron_ds_update_scratch_floats(int m, int n) { return ds_plan(m, n).total; }
+
+// The (dense, scale) update: Ql (m, m) upper triangular, qr (n,), dX and
+// dG (m, n) row-major or, by flag, views of (n, m) row-major arrays.
+// Writes the balanced, updated out_ql (m, m) and out_qr (n,).
+extern "C" int psgd_kron_ds_update(int m, int n, const void* ql, const void* qr, const void* dx,
+                                   int dx_t, const void* dg, int dg_t, float step, void* out_ql,
+                                   void* out_qr, void* scratch, void* stream_ptr) {
     if (m < 1 || n < 1 || m > 1024) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    int splits, chunk;
-    ds_split(n, splits, chunk);
-    const size_t mm = psgd_align4((size_t)m * m), mn = psgd_align4((size_t)m * n);
-    float* linv = static_cast<float*>(scratch);
-    float* A = linv + mm;
-    float* Bt = A + mn;
-    float* part = Bt + mn;
-    const float* Ql = static_cast<const float*>(qlb);
-    const float* qr = static_cast<const float*>(qrb);
+    const DsPlan p = ds_plan(m, n);
+    float* s = static_cast<float*>(scratch);
+    unsigned* slots = reinterpret_cast<unsigned*>(s + p.slots);
+    const float* Ql = static_cast<const float*>(ql);
+    const float* q = static_cast<const float*>(qr);
+    float* A = s + p.a;
+    float* Bt = s + p.bt;
+    const size_t mn = (size_t)m * n;
+    cudaError_t e = cudaMemsetAsync(slots, 0, SLOT_FLOATS * sizeof(unsigned), stream);
+    if (e != cudaSuccess) return (int)e;
 
     // 1. Linv = Ql^{-1} (K3)
     TriBatch tri;
     tri.count = 1;
     tri.u[0] = Ql;
-    tri.x[0] = linv;
+    tri.x[0] = s + p.linv;
     tri.n[0] = m;
     launch_tri_inv(tri, stream);
-    // 2. A = (Ql dG) qr,  Bt = (Linv^T dX) / qr; a transposed probe is an
-    //    (n, m) array read through the GEMM's transpose flag
+    // 2. A = (Ql dG) qr,  Bt = (Linv^T dX) / qr, with their column sums of
+    //    squares; a transposed probe is an (n, m) array read through the
+    //    GEMM's transpose flag
     GemmBatch g;
     g.count = 2;
     g.p[0] = gemm_prob(Ql, 0, m, static_cast<const float*>(dg), dg_t, dg_t ? m : n, A, m, n, m);
-    g.p[0].epi = EPI_COLMUL;
-    g.p[0].v = qr;
+    g.p[0].epi = EPI_COLMUL | EPI_COLSQ;
+    g.p[0].v = q;
     g.p[0].cut = CUT_A_UPPER;
-    g.p[1] = gemm_prob(linv, 1, m, static_cast<const float*>(dx), dx_t, dx_t ? m : n, Bt, m, n, m);
-    g.p[1].epi = EPI_COLDIV;
-    g.p[1].v = qr;
+    g.p[1] = gemm_prob(s + p.linv, 1, m, static_cast<const float*>(dx), dx_t, dx_t ? m : n, Bt, m,
+                       n, m);
+    g.p[1].epi = EPI_COLDIV | EPI_COLSQ;
+    g.p[1].v = q;
     g.p[1].cut = CUT_A_LOWER;
     launch_gemms(g, stream);
-    // 3. grad2 = colsum(A*A - Bt*Bt)
-    colsum_diff_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, A, Bt, static_cast<float*>(grad2));
-    // 4. A A^T - Bt Bt^T, K = n split over column panels (the GEMM's grid),
-    //    then summed in panel order
+    // 3. the upper tiles of A A^T - Bt Bt^T, K = n in bands
     g.count = 1;
-    g.p[0] = gemm_prob(A, 0, n, A, 1, n, part, m, m, n);
+    g.p[0] = gemm_prob(A, 0, n, A, 1, n, s + p.part, m, m, n);
     g.p[0].a2 = Bt;
     g.p[0].b2 = Bt;
-    launch_gemms(g, stream, splits);
-    sum_splits_kernel<<<(m * m + 255) / 256, 256, 0, stream>>>(
-        m * m, (size_t)m * m, splits, part, static_cast<float*>(gram));
+    g.p[0].epi = EPI_TRIU | EPI_UPPER;
+    launch_gemms(g, stream, p.splits);
+    // 4. grad1, grad2 and the maxima
+    const int b1 = cdiv((long long)m * m, 256);
+    ds_sums_kernel<<<b1 + cdiv(n, 256), 256, 0, stream>>>(
+        m, n, p.splits, p.tm, b1, s + p.part, A + mn, Bt + mn, Ql, q, s + p.grad1, s + p.grad2,
+        slots);
+    // 5. the upper tiles of grad1 Ql (both factors upper: K loops cut to
+    //    the band between them), K = m in bands
+    g.p[0] = gemm_prob(s + p.grad1, 0, m, Ql, 0, m, s + p.gq, m, m, m);
+    g.p[0].epi = EPI_STORE | EPI_UPPER;
+    g.p[0].cut = CUT_A_UPPER | CUT_B_UPPER;
+    launch_gemms(g, stream, p.usplits);
+    // 6. the step scales, rho and the balanced factors
+    ds_finish_kernel<<<cdiv((long long)m * m + n, 256), 256, 0, stream>>>(
+        m, n, p.usplits, Ql, q, s + p.gq, s + p.grad2, slots, step, static_cast<float*>(out_ql),
+        static_cast<float*>(out_qr));
     return (int)cudaGetLastError();
 }
 
@@ -480,7 +970,8 @@ extern "C" int psgd_kron_nd_big(int m, int n, const void* dx, int dx_t, const vo
 #define NSW_STRIP (NSW_LANES * NSW_THREADS)  // lanes a block owns
 #define NSW_ROWS 4                           // rows a step of the walk loads at once
 
-// grid (strips): each block owns NSW_STRIP lanes and walks every row.
+// grid (strips): each block owns NSW_STRIP lanes and walks every row; its
+// row partials go to pdiag / pbias[i strips + strip].
 __global__ void __launch_bounds__(NSW_THREADS) ns_wide_kernel(
     int m, int n, const float* __restrict__ dx, int dx_t, const float* __restrict__ dg, int dg_t,
     const float* __restrict__ ql0, const float* __restrict__ ql1, const float* __restrict__ w,
@@ -553,7 +1044,7 @@ __global__ void __launch_bounds__(NSW_THREADS) ns_wide_kernel(
             if (i < m) {
                 float s = 0.f;
                 for (int k = 0; k < NSW_THREADS / 32; ++k) s += red[which][r][k];
-                (which ? pbias : pdiag)[(size_t)blockIdx.x * m + i] = s;
+                (which ? pbias : pdiag)[(size_t)i * gridDim.x + blockIdx.x] = s;
             }
         }
         __syncthreads();
@@ -567,53 +1058,137 @@ __global__ void __launch_bounds__(NSW_THREADS) ns_wide_kernel(
     }
 }
 
-// block: 32 rows (lane) x 32 warps over the strips, summed in a fixed order
-__global__ void __launch_bounds__(1024) ns_wide_reduce_kernel(int m, int strips,
-                                                              const float* __restrict__ pdiag,
-                                                              const float* __restrict__ pbias,
-                                                              float* __restrict__ diag0,
-                                                              float* __restrict__ biasa) {
-    __shared__ float red[2][32][33];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int i = blockIdx.x * 32 + lane;
-    float d = 0.f, b = 0.f;
-    if (i < m) {
-        for (int s = warp; s < strips; s += 32) {
-            d += pdiag[(size_t)s * m + i];
-            b += pbias[(size_t)s * m + i];
-        }
-    }
-    red[0][warp][lane] = d;
-    red[1][warp][lane] = b;
-    __syncthreads();
-    if (warp < 2 && i < m) {
-        float t = 0.f;
-        for (int k = 0; k < 32; ++k) t += red[warp][k][lane];
-        (warp ? biasa : diag0)[i] = t;
-    }
-}
-
 static int ns_wide_strips(int n) { return (n + NSW_STRIP - 1) / NSW_STRIP; }
 
-extern "C" size_t psgd_kron_ns_wide_scratch_floats(int m, int n) {
-    return 2 * psgd_align4((size_t)ns_wide_strips(n) * m);
+// The vectors K7/K8's pass reads: w (m), dG_last and A_last (n).
+__global__ void __launch_bounds__(256) ns_wide_vecs_kernel(int m, int n, const float* __restrict__ dg,
+                                                           int t, const float* __restrict__ ql,
+                                                           const float* __restrict__ qr,
+                                                           float* __restrict__ w,
+                                                           float* __restrict__ dgl,
+                                                           float* __restrict__ al) {
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const float q0l = ql[m - 1];
+    if (e < (size_t)m) {
+        w[e] = ql[m + e] / (ql[e] * q0l);
+    } else if (e < (size_t)m + n) {
+        const size_t j = e - m;
+        const float gl = dg[t ? j * m + m - 1 : (size_t)(m - 1) * n + j];
+        dgl[j] = gl;
+        al[j] = q0l * gl * qr[j];
+    }
 }
 
-extern "C" int psgd_kron_ns_wide(int m, int n, const void* dx, int dx_t, const void* dg, int dg_t,
-                                 const void* ql0, const void* ql1, const void* w, const void* qr,
-                                 const void* dgl, const void* al, void* diag0, void* biasa,
-                                 void* corr, void* colsum, void* scratch, void* stream_ptr) {
+// ---------------------------------------- K6 and K7/K8: the one C call
+
+// The scratch of one (norm, scale) call, as offsets in floats, and its grids.
+struct NsPlan {
+    int R, C, tiles, ppg, groups;  // K6's pass
+    int strips;                    // K7/K8's pass
+    int parts_r, parts_c, cb, col_blocks, chunks;
+    size_t slots, w, dgl, al, prow, pcol, grad2, y, pdl, pbt, diag, bias, total;
+};
+
+static NsPlan ns_plan(int m, int n, int t, int wide) {
+    NsPlan p = {};
+    size_t cur = 0;
+    auto take = [&](size_t count) { size_t o = cur; cur += psgd_align4(count); return o; };
+    p.slots = take(SLOT_FLOATS);
+    if (wide) {
+        p.strips = ns_wide_strips(n);
+        p.parts_r = p.strips;
+        p.parts_c = 1;
+        p.w = take(m);
+        p.dgl = take(n);
+        p.al = take(n);
+    } else {
+        p.R = t ? n : m;
+        p.C = t ? m : n;
+        p.tiles = cdiv(p.C, NS_PCOLS);
+        const int panels = cdiv(p.R, NS_PROWS);
+        const int target = std::max(1, NS_BLOCKS_PER_SM * gemm_sms() / p.tiles);
+        p.groups = std::min(std::min(panels, NS_MAX_GROUPS), target);
+        p.ppg = cdiv(panels, p.groups);
+        p.groups = cdiv(panels, p.ppg);
+        p.parts_r = t ? p.groups : p.tiles;  // (diag0, biasa): B sums transposed, A sums not
+        p.parts_c = t ? p.tiles : p.groups;
+    }
+    p.prow = take(2 * (size_t)p.parts_r * m);
+    p.pcol = take(2 * (size_t)p.parts_c * n);
+    p.cb = p.parts_c > 1 ? 32 : 256;
+    p.col_blocks = cdiv(n, p.cb);
+    p.chunks = cdiv(n, t ? BTT_CHUNK : BT_CHUNK);
+    p.grad2 = take(n);
+    p.y = take(n);
+    p.pdl = take(p.col_blocks);
+    p.pbt = take((size_t)p.chunks * m);
+    p.diag = take(m);
+    p.bias = take(m);
+    p.total = cur;
+    return p;
+}
+
+extern "C" size_t psgd_kron_ns_update_scratch_floats(int m, int n, int t, int wide) {
+    return ns_plan(m, n, t, wide).total;
+}
+
+// The (norm, scale) update: ql (2, m) [q0; q1], qr (n,), the probes (m, n)
+// row-major, or both (n, m) row-major when t (views dX.T). wide: K7/K8's
+// pass (scale sides past 131,072 lanes), else K6's. Writes the balanced,
+// updated out_ql (2, m) and out_qr (n,); the inputs are not written.
+extern "C" int psgd_kron_ns_update(int m, int n, const void* ql, const void* qr, const void* dx,
+                                   const void* dg, int t, int wide, float step, void* out_ql,
+                                   void* out_qr, void* scratch, void* stream_ptr) {
     if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+    const NsPlan p = ns_plan(m, n, t, wide);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int strips = ns_wide_strips(n);
-    float* pdiag = static_cast<float*>(scratch);
-    float* pbias = pdiag + psgd_align4((size_t)strips * m);
-    auto f = [](const void* p) { return static_cast<const float*>(p); };
-    ns_wide_kernel<<<strips, NSW_THREADS, 0, stream>>>(
-        m, n, f(dx), dx_t, f(dg), dg_t, f(ql0), f(ql1), f(w), f(qr), f(dgl), f(al),
-        static_cast<float*>(corr), static_cast<float*>(colsum), pdiag, pbias);
-    ns_wide_reduce_kernel<<<(m + 31) / 32, 1024, 0, stream>>>(
-        m, strips, pdiag, pbias, static_cast<float*>(diag0), static_cast<float*>(biasa));
+    float* s = static_cast<float*>(scratch);
+    unsigned* slots = reinterpret_cast<unsigned*>(s + p.slots);
+    const float* X = static_cast<const float*>(dx);
+    const float* G = static_cast<const float*>(dg);
+    const float* Q = static_cast<const float*>(ql);
+    const float* S = static_cast<const float*>(qr);
+    cudaError_t e = cudaMemsetAsync(slots, 0, SLOT_FLOATS * sizeof(unsigned), stream);
+    if (e != cudaSuccess) return (int)e;
+    float* prow = s + p.prow;
+    float* pcol = s + p.pcol;
+    if (wide) {
+        ns_wide_vecs_kernel<<<cdiv((long long)m + n, 256), 256, 0, stream>>>(
+            m, n, G, t, Q, S, s + p.w, s + p.dgl, s + p.al);
+        ns_wide_kernel<<<p.strips, NSW_THREADS, 0, stream>>>(
+            m, n, X, t, G, t, Q, Q + m, s + p.w, S, s + p.dgl, s + p.al, pcol, pcol + n, prow,
+            prow + (size_t)p.strips * m);
+    } else {
+        const bool vec = p.C % 4 == 0 && aligned16(X) && aligned16(G);
+        const int blocks = p.tiles * p.groups;
+        if (vec && t)
+            ns_pass_kernel<true, true><<<blocks, 256, 0, stream>>>(m, n, p.tiles, p.ppg, X, G, Q, S, prow, pcol);
+        else if (vec)
+            ns_pass_kernel<true, false><<<blocks, 256, 0, stream>>>(m, n, p.tiles, p.ppg, X, G, Q, S, prow, pcol);
+        else if (t)
+            ns_pass_kernel<false, true><<<blocks, 256, 0, stream>>>(m, n, p.tiles, p.ppg, X, G, Q, S, prow, pcol);
+        else
+            ns_pass_kernel<false, false><<<blocks, 256, 0, stream>>>(m, n, p.tiles, p.ppg, X, G, Q, S, prow, pcol);
+    }
+    ns_cols_kernel<<<p.col_blocks, 256, 0, stream>>>(
+        m, n, p.parts_c, p.cb, pcol, pcol + (size_t)p.parts_c * n, X, G, t, Q, S, s + p.grad2,
+        s + p.y, s + p.pdl, slots);
+    if (t) {
+        ns_btdot_t_kernel<<<cdiv((long long)cdiv(m, 32) * p.chunks, 8), 256, 0, stream>>>(
+            m, n, p.chunks, X, s + p.y, s + p.pbt);
+    } else if (n % 4 == 0 && aligned16(X)) {
+        ns_btdot_kernel<true><<<cdiv((long long)m * p.chunks, 8), 256, 0, stream>>>(
+            m, n, p.chunks, X, s + p.y, s + p.pbt);
+    } else {
+        ns_btdot_kernel<false><<<cdiv((long long)m * p.chunks, 8), 256, 0, stream>>>(
+            m, n, p.chunks, X, s + p.y, s + p.pbt);
+    }
+    ns_rows_kernel<<<cdiv(m, 8), 256, 0, stream>>>(
+        m, p.parts_r, wide ? 1 : m, wide ? p.parts_r : 1, p.chunks, p.col_blocks, prow,
+        prow + (size_t)p.parts_r * m, s + p.pbt, s + p.pdl, Q, s + p.diag, s + p.bias, slots);
+    ns_finish_kernel<<<cdiv((long long)m + n, 256), 256, 0, stream>>>(
+        m, n, Q, S, s + p.diag, s + p.bias, s + p.grad2, slots, step,
+        static_cast<float*>(out_ql), static_cast<float*>(out_qr));
     return (int)cudaGetLastError();
 }
 

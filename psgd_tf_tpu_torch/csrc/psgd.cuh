@@ -49,9 +49,14 @@ void launch_tri_inv(TriBatch& b, cudaStream_t stream);
 // taken as zero: q0_i C_i + q1_i v (EPI_ARROW, r = [q0; q1], (2, M)) or
 // C_i / q0_i (EPI_ROWDIV, r = q0). Both triu epilogues skip the K loop of
 // a tile wholly below the diagonal and store its zeros.
+// Two flags may be OR-ed into an epilogue (K10's chain): EPI_UPPER runs the
+// tiles of a square output's upper triangle alone (the rest is never
+// written), EPI_COLSQ also stores each row tile's column sums of the
+// stored C^2 after C, at c + M N + (row0 / BM) N (splits == 1). A batch
+// with either flag takes a kernel of its own, in 64 x 64 tiles.
 enum Epilogue {
     EPI_STORE = 0, EPI_TRIU_MAX = 1, EPI_UPDATE = 2, EPI_COLMUL = 3, EPI_COLDIV = 4, EPI_TRIU = 5,
-    EPI_ARROW = 6, EPI_ROWDIV = 7
+    EPI_ARROW = 6, EPI_ROWDIV = 7, EPI_BASE = 15, EPI_COLSQ = 16, EPI_UPPER = 32
 };
 // A triangular operand: its zeros are not summed, each tile's K loop is cut
 // to the band where both operands may be nonzero. The zeros must be exact.
@@ -88,6 +93,8 @@ GemmProb gemm_prob(const float* a, int ta, int lda, const float* b, int tb, int 
 // the partials in band order. tile: 0 the launch's own choice, 1 the
 // 64 x 64 tiles, 2 the 128 x 128.
 void launch_gemms(GemmBatch& g, cudaStream_t stream, int splits = 1, int tile = 0);
+// The SMs of the current card, asked once (kron_dd.cu).
+int gemm_sms();
 
 // The fp32 smallest subnormal, 2^-149: needs denormals kept (no fast-math).
 __device__ __forceinline__ float psgd_tiny() { return __int_as_float(1); }

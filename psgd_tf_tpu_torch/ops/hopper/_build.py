@@ -48,12 +48,11 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_P] * 6
         + [_IP, _IP, ctypes.c_float, _P, _P, ctypes.c_int, _IP],
     ),
-    "psgd_kron_ns_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
-    "psgd_kron_ns_big": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 14),
-    "psgd_kron_ns_wide_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
-    "psgd_kron_ns_wide": (
+    "psgd_kron_ns_update_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 4),
+    "psgd_kron_ns_update": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 12,
+        [ctypes.c_int, ctypes.c_int] + [_P] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        + [_P] * 4,
     ),
     "psgd_kron_nd_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_gemm_test": (
@@ -65,11 +64,11 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 10,
     ),
-    "psgd_kron_ds_big_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
-    "psgd_kron_ds_big": (
+    "psgd_kron_ds_update_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "psgd_kron_ds_update": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
-         _P, _P, _P, _P],
+        [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_float]
+        + [_P] * 4,
     ),
     "psgd_kron_apply_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 3),
     "psgd_kron_apply_ns": (ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 6),

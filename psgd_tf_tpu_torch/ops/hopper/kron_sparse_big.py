@@ -4,24 +4,30 @@ and K18: the streamed applies of an arrow left factor.
 
 Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
   - K6, `fused_update_ns` (:377 → `pallas_call` :412, `_kernel_ns_big`
-    :172): (norm, scale), n padded to 128 up to MAX_LANES. The kernel part
-    is one pass over (dX, dG) that emits the per-row diag0 and biasa and
-    the per-column corr and colsum, row m-1 masked (`csrc/kron_sparse_big.cu`).
+    :172): (norm, scale), n padded to 128 up to MAX_LANES. The whole
+    update, the tail the JAX package leaves to XLA included, is one C call
+    (`csrc/kron_sparse_big.cu`, `psgd_kron_ns_update`): one pass over
+    (dX, dG), the second dX pass, the step scales and the balanced
+    rewrites, all on the device.
   - K7, `_fused_update_ns_wide2` (:456 → :494, `_kernel_ns_wide2` :197), and
     K8, `_fused_update_ns_wide_xla` (:524 → :558, `_kernel_ns_wide` :265):
-    the same four reductions for scale sides past MAX_LANES, up to
-    MAX_LANES_NS. One CUDA kernel serves both; its launches are counted
-    under the JAX function that the width would take (WIDE2_MAX_LANES).
+    the same update for scale sides past MAX_LANES, up to MAX_LANES_NS,
+    the same C call with the wide pass in place of K6's and K6's device
+    tail. One CUDA kernel serves both; its launches are counted under the
+    JAX function that the width would take (WIDE2_MAX_LANES).
   - K9, `fused_update_nd` (:598 → `pallas_call` :634, `_kernel_nd_big`
     :298): (norm, dense), n <= MAX_DENSE. The kernel part is A = Ql dG Qr^T
     and Bt = Ql^{-T} dX Qr^{-1} with row m-1 masked (by K3's exact inverse,
     the arrow's rows applied after each product), their row sums diag0 and
     biasa, corr, and the upper triangle of the Gram difference
-    A^T A - Bt^T Bt.
+    A^T A - Bt^T Bt; its tail (two triangular solves, the second dX pass,
+    `_norm_post`) stays torch.
   - K10, `fused_update_ds` (:711 → `pallas_call` :740, `_kernel_ds_big`
-    :675): (dense, scale), m <= MAX_DENSE. The kernel part is A = Ql dG qr,
-    Bt = Ql^{-T} dX / qr (by K3's exact inverse), the column gradient grad2
-    and the Gram difference A A^T - Bt Bt^T summed over every column.
+    :675): (dense, scale), m <= MAX_DENSE. The whole update is one C call
+    (`psgd_kron_ds_update`): K3's inverse, A = Ql dG qr and Bt = Ql^{-T} dX
+    / qr with the column sums of their squares in the products' epilogue,
+    the upper tiles of A A^T - Bt Bt^T, the step scales and the balanced
+    factors, all on the device.
   - K17, `fused_apply_ns` (:848) and `fused_apply_nd` (:928) →
     `_apply_norm_call` (:807 → `pallas_call` :830, `_kernel_apply_norm`
     :768), and K18, `fused_apply_ns_wide` (:893 → :912,
@@ -32,18 +38,18 @@ Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
     their own. One CUDA kernel serves K17's (norm, scale) case and K18,
     unpadded; the (norm, dense) product runs in kron_dd.cu's grouped GEMM.
 
-What the JAX package leaves to XLA stays plain torch here: the balancing,
-the O(m + n) arrow tail (B_last and, for (norm, dense), its two triangular
-solves, the second dX matvec, `_norm_post`) and the (dense, scale) tail
-(triu, the step scales, grad1 @ Ql). Each update returns what the JAX
-function returns: the balanced, updated factors. One difference, shared with K1/K2:
-the step scales saturate at the fp32 max (`linalg.step_scale`), so a zero
-gradient gives a zero update, not NaN.
+Each update returns what the JAX function returns: the balanced, updated
+factors. One difference, shared with K1/K2: the step scales saturate at the
+fp32 max (`linalg.step_scale`), so a zero gradient gives a zero update, not
+NaN. The one-call updates (K6, K7/K8, K10) balance in their finish: rho
+cancels in every gradient term, so they run on the unbalanced factors and
+their rounding differs from the plain versions' at the 1e-7 level.
 
-Each kernel part has a plain torch version here, which the wrappers take
-for CPU tensors; on a CUDA tensor they launch the kernel or raise. Probes
-that arrive transposed (a mirrored layer's dX.T) are read in place by
-K7/K8, K9 and K10.
+Each update has a plain torch version here (`update_ns_plain`,
+`update_ds_plain`, and K9's kernel part `nd_reductions_plain`), which the
+wrappers take for CPU tensors; on a CUDA tensor they launch the kernels or
+raise. Probes that arrive transposed (a mirrored layer's dX.T) are read in
+place by every kernel.
 """
 from __future__ import annotations
 
@@ -89,8 +95,8 @@ def _as_row_major(x):
 # ----------------------------------------------------------------- (norm, scale)
 
 def ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al):
-    """K6's (and K7/K8's) kernel part, plain: (diag0, biasa, corr, colsum) with row m-1
-    masked out of diag0, biasa and colsum (`_kernel_ns_big`)."""
+    """K6's (and K7/K8's) pass, plain: (diag0, biasa, corr, colsum) with row
+    m-1 masked out of diag0, biasa and colsum (`_kernel_ns_big`)."""
     m = dX.shape[0]
     keep = (torch.arange(m, device=dX.device) != m - 1)[:, None]
     dxm = torch.where(keep, dX, 0.0)
@@ -106,43 +112,6 @@ def ns_wide_counter(n: int) -> str:
     that width takes, K7 up to WIDE2_MAX_LANES and K8 past it."""
     wide2 = _lanes(n) <= WIDE2_MAX_LANES
     return "kron_sparse_big_ns_wide2" if wide2 else "kron_sparse_big_ns_wide_xla"
-
-
-def ns_reductions(dX, dG, ql0, ql1, w, qr, dgl, al):
-    """The (norm, scale) kernel part: the plain version for CPU tensors; for
-    CUDA tensors K6's kernel up to MAX_LANES and the wide kernel (K7/K8:
-    lane strips that walk every row, dX and dG read in place when they are
-    transposed views) past it, both in `csrc/kron_sparse_big.cu`."""
-    if not hopper.use_kernel(dX):
-        return ns_reductions_plain(dX, dG, ql0, ql1, w, qr, dgl, al)
-    m, n = dX.shape
-    if _lanes(n) > MAX_LANES_NS:
-        raise ValueError(f"kron_sparse_big_ns: {n} lanes exceed MAX_LANES_NS={MAX_LANES_NS}")
-    vecs = [v.contiguous() for v in (ql0, ql1, w, qr, dgl, al)]  # dgl may be a strided row
-    if dG.shape != (m, n) or [v.shape for v in vecs] != [(m,)] * 3 + [(n,)] * 3:
-        raise ValueError("kron_sparse_big_ns: operand shapes do not agree")
-    lib = _build.lib()
-    f = dict(dtype=torch.float32, device=dX.device)
-    outs = [torch.empty(m, **f), torch.empty(m, **f), torch.empty(n, **f), torch.empty(n, **f)]
-    stream = torch.cuda.current_stream(dX.device).cuda_stream
-    if _lanes(n) <= MAX_LANES:
-        dX, dG = dX.contiguous(), dG.contiguous()
-        hopper.check_operands("kron_sparse_big_ns", dX, dG, *vecs)
-        scratch = torch.empty(lib.psgd_kron_ns_big_scratch_floats(m, n), **f)
-        rc = lib.psgd_kron_ns_big(
-            m, n, *[t.data_ptr() for t in (dX, dG, *vecs, *outs, scratch)], stream)
-        counter = "kron_sparse_big_ns"
-    else:
-        (x, xt), (g, gt) = _as_row_major(dX), _as_row_major(dG)
-        hopper.check_operands("kron_sparse_big_ns_wide", x, g, *vecs)
-        scratch = torch.empty(lib.psgd_kron_ns_wide_scratch_floats(m, n), **f)
-        rc = lib.psgd_kron_ns_wide(
-            m, n, x.data_ptr(), xt, g.data_ptr(), gt,
-            *[t.data_ptr() for t in (*vecs, *outs, scratch)], stream)
-        counter = ns_wide_counter(n)
-    _build.check(rc, f"{counter} kernel")
-    hopper.counts[counter] += 1
-    return tuple(outs)
 
 
 def _norm_post(ql0, ql1, diag, bias, grad2, step, qr, dense):
@@ -163,10 +132,9 @@ def _patch_last(v, last):
     return torch.cat([v[:-1], last.reshape(1).to(v.dtype)])
 
 
-def fused_update_ns(ql, qr, dX, dG, step):
-    """(norm, scale) streaming update; ql (2, m), qr (n,): K6 up to
-    MAX_LANES, K7/K8 past it, as `kron_sparse_big.fused_update_ns` routes.
-    Returns the balanced, updated (ql', qr')."""
+def update_ns_plain(ql, qr, dX, dG, step):
+    """K6/K7/K8's plain version: the (norm, scale) update as the JAX
+    function computes it (balance, the pass, the XLA tail)."""
     rho = torch.sqrt(ql[0].amax() / qr.amax())
     ql = ql / rho
     qr_b = rho * qr
@@ -174,15 +142,51 @@ def fused_update_ns(ql, qr, dX, dG, step):
     dX_last, dG_last = dX[-1], dG[-1]
     A_last = ql0[-1] * dG_last * qr_b
     w = ql1 / (ql0 * ql0[-1])  # w[-1] = 0
-    diag0, biasa, corr, colsum = ns_reductions(dX, dG, ql0, ql1, w, qr_b, dG_last, A_last)
+    diag0, biasa, corr, colsum = ns_reductions_plain(dX, dG, ql0, ql1, w, qr_b, dG_last, A_last)
 
-    # the O(m + n) tail and the second dX pass (XLA in the JAX package)
     B_last = (dX_last / ql0[-1] - corr) / qr_b
     diag = _patch_last(diag0, torch.sum(A_last**2 - B_last**2))
-    btdot = (dX @ (B_last / qr_b)) / ql0
+    btdot = (dX @ (B_last / qr_b)) / ql0  # the second dX pass
     bias = _patch_last(biasa - btdot, biasa.new_zeros(()))
     grad2 = colsum + A_last**2 - B_last**2
     return _norm_post(ql0, ql1, diag, bias, grad2, step, qr_b, dense=False)
+
+
+def _ns_call(ql, qr, dX, dG, step):
+    """K6 (up to MAX_LANES) or K7/K8's update in one C call: allocations
+    and the call, no torch compute op and no host sync."""
+    m, n = dX.shape
+    if _lanes(n) > MAX_LANES_NS:
+        raise ValueError(f"kron_sparse_big_ns: {n} lanes exceed MAX_LANES_NS={MAX_LANES_NS}")
+    if ql.shape != (2, m) or qr.shape != (n,) or dG.shape != (m, n):
+        raise ValueError("kron_sparse_big_ns: operand shapes do not agree")
+    (x, t), (g, tg) = _as_row_major(dX), _as_row_major(dG)
+    if tg != t:  # one layout for the pair (no path gives two)
+        g = dG.T.contiguous() if t else dG.contiguous()
+    wide = _lanes(n) > MAX_LANES
+    counter = ns_wide_counter(n) if wide else "kron_sparse_big_ns"
+    hopper.check_operands(counter, ql, qr, x, g)
+    lib = _build.lib()
+    f = dict(dtype=torch.float32, device=dX.device)
+    out_ql, out_qr = torch.empty(2, m, **f), torch.empty(n, **f)
+    scratch = torch.empty(lib.psgd_kron_ns_update_scratch_floats(m, n, t, int(wide)), **f)
+    rc = lib.psgd_kron_ns_update(
+        m, n, ql.data_ptr(), qr.data_ptr(), x.data_ptr(), g.data_ptr(), t, int(wide), float(step),
+        out_ql.data_ptr(), out_qr.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dX.device).cuda_stream)
+    _build.check(rc, f"{counter} kernel chain")
+    hopper.counts[counter] += 1
+    return out_ql, out_qr
+
+
+def fused_update_ns(ql, qr, dX, dG, step):
+    """(norm, scale) streaming update; ql (2, m), qr (n,): K6 up to
+    MAX_LANES, K7/K8 past it, as `kron_sparse_big.fused_update_ns` routes.
+    Returns the balanced, updated (ql', qr'): the plain version for CPU
+    tensors, one C call for CUDA ones (dX and dG may be transposed views)."""
+    if not hopper.use_kernel(dX):
+        return update_ns_plain(ql, qr, dX, dG, step)
+    return _ns_call(ql, qr, dX, dG, step)
 
 
 # ---------------------------------------------------------------- (norm, dense)
@@ -259,19 +263,29 @@ def fused_update_nd(ql, Qr, dX, dG, step):
 # ---------------------------------------------------------------- (dense, scale)
 
 def ds_reductions_plain(Ql, qr, dX, dG):
-    """K10's kernel part, plain: (grad2, A A^T - Bt Bt^T) with A = Ql dG qr
-    and Bt = Ql^{-T} dX / qr (`_kernel_ds_big`)."""
+    """K10's products and Gram, plain: (grad2, A A^T - Bt Bt^T) with
+    A = Ql dG qr and Bt = Ql^{-T} dX / qr (`_kernel_ds_big`)."""
     A = (Ql @ dG) * qr[None, :]
     Bt = linalg.solve_ut_t(Ql, dX) / qr[None, :]
     return (A * A - Bt * Bt).sum(0), A @ A.T - Bt @ Bt.T
 
 
-def ds_reductions(Ql, qr, dX, dG):
-    """K10's kernel part: the plain version for CPU tensors, the CUDA chain
-    (`csrc/kron_sparse_big.cu`: K3, grouped GEMMs, column sums, split-K
-    Grams) for CUDA tensors. dX and dG may be transposed views."""
-    if not hopper.use_kernel(dX):
-        return ds_reductions_plain(Ql, qr, dX, dG)
+def update_ds_plain(Ql, qr, dX, dG, step):
+    """K10's plain version: the (dense, scale) update as the JAX function
+    computes it (balance, the products and Gram, the XLA tail)."""
+    rho = torch.sqrt(torch.diagonal(Ql).amax() / qr.amax())
+    Ql_b = Ql / rho
+    qr_b = rho * qr
+    grad2, gram = ds_reductions_plain(Ql_b, qr_b, dX, dG)
+    grad1 = linalg.triu(gram)
+    step1 = linalg.step_scale(step, linalg.max_abs(grad1), Ql.dtype)
+    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
+    return Ql_b - step1 * (grad1 @ Ql_b), qr_b - step2 * grad2 * qr_b
+
+
+def _ds_call(Ql, qr, dX, dG, step):
+    """K10's update in one C call: allocations and the call, no torch
+    compute op and no host sync."""
     m, n = dX.shape
     if m > MAX_DENSE:
         raise ValueError(f"kron_sparse_big_ds: dense side {m} exceeds MAX_DENSE={MAX_DENSE}")
@@ -281,31 +295,26 @@ def ds_reductions(Ql, qr, dX, dG):
     hopper.check_operands("kron_sparse_big_ds", Ql, qr, x, g)
     lib = _build.lib()
     f = dict(dtype=torch.float32, device=dX.device)
-    grad2, gram = torch.empty(n, **f), torch.empty(m, m, **f)
-    scratch = torch.empty(lib.psgd_kron_ds_big_scratch_floats(m, n), **f)
-    rc = lib.psgd_kron_ds_big(
-        m, n, Ql.data_ptr(), qr.data_ptr(), x.data_ptr(), xt, g.data_ptr(), gt,
-        grad2.data_ptr(), gram.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dX.device).cuda_stream,
-    )
+    out_ql, out_qr = torch.empty(m, m, **f), torch.empty(n, **f)
+    scratch = torch.empty(lib.psgd_kron_ds_update_scratch_floats(m, n), **f)
+    rc = lib.psgd_kron_ds_update(
+        m, n, Ql.data_ptr(), qr.data_ptr(), x.data_ptr(), xt, g.data_ptr(), gt, float(step),
+        out_ql.data_ptr(), out_qr.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dX.device).cuda_stream)
     _build.check(rc, "kron_sparse_big_ds kernel chain")
     hopper.counts["kron_sparse_big_ds"] += 1
     hopper.counts["tri"] += 1  # the chain's first step is K3
-    return grad2, gram
+    return out_ql, out_qr
 
 
 def fused_update_ds(Ql, qr, dX, dG, step):
     """K10: (dense, scale) streaming update; Ql (m, m) upper-triangular with
     m <= MAX_DENSE, qr (n,). Returns the balanced, updated (Ql', qr'), as
-    `kron_sparse_big.fused_update_ds`."""
-    rho = torch.sqrt(torch.diagonal(Ql).amax() / qr.amax())
-    Ql_b = Ql / rho
-    qr_b = rho * qr
-    grad2, gram = ds_reductions(Ql_b, qr_b, dX, dG)
-    grad1 = linalg.triu(gram)
-    step1 = linalg.step_scale(step, linalg.max_abs(grad1), Ql.dtype)
-    step2 = linalg.step_scale(step, linalg.max_abs(grad2), qr.dtype)
-    return Ql_b - step1 * (grad1 @ Ql_b), qr_b - step2 * grad2 * qr_b
+    `kron_sparse_big.fused_update_ds`: the plain version for CPU tensors,
+    one C call for CUDA ones (dX and dG may be transposed views)."""
+    if not hopper.use_kernel(dX):
+        return update_ds_plain(Ql, qr, dX, dG, step)
+    return _ds_call(Ql, qr, dX, dG, step)
 
 
 # ------------------------------------------------------- the arrow applies

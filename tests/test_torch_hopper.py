@@ -265,27 +265,138 @@ def test_k5_matches_plain(cuda, kind):
         assert a[1, -1].item() == 0.0
 
 
+# the kernels of K6's and K7/K8's one C call, and of K10's
+NS_KERNELS = ("ns_pass_kernel", "ns_wide_vecs_kernel", "ns_wide_kernel", "ns_cols_kernel",
+              "ns_btdot", "ns_rows_kernel", "ns_finish_kernel")
+DS_KERNELS = ("tri_kernel", "gemm_kernel", "ds_sums_kernel", "ds_finish_kernel")
+
+
+def _one_call_update(fmt, st, dx, dg):
+    """One `kron.update` of a K6 or K10 layer on the card: (result, the
+    counters it moved). Every launch is the C call's own: one count of
+    the kernel (and K3's for K10), no other counter."""
+    from psgd_tf_tpu_torch import kron
+
+    kind = "ns" if "norm" in fmt else "ds"
+    name = "kron_sparse_big_ns" if kind == "ns" else "kron_sparse_big_ds"
+    before = dict(hopper.counts)
+    got = kron.update(st, dx, dg, step=0.1)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == ({name: 1} if kind == "ns" else {name: 1, "tri": 1})
+    return got
+
+
+def _check_one_call(fmt, got, ref):
+    """The one-call update against the plain one: 1e-4 of max-abs plain,
+    the arrow's q1[-1] and a dense factor's lower triangle exactly 0."""
+    assert _states_rel([got], [ref]) < 1e-4
+    for q, f in zip((got.ql, got.qr), fmt):
+        assert bool(torch.isfinite(q).all())
+        if f == "norm":
+            assert q[1, -1].item() == 0.0
+        if f == "dense":
+            assert torch.equal(q, torch.triu(q))
+
+
 @pytest.mark.parametrize("fmt,shape", [
     (f, s) for f, s in zip(NMT_FMTS, NMT_REF) if f != ("dense", "dense")], ids=str)
 def test_k6_k10_match_plain_at_reference_shapes(cuda, fmt, shape):
     """K6 ((norm, scale)) and K10 (mirrored (scale, dense), so dX arrives
-    transposed) through `kron.update`, against the plain update."""
+    transposed) through `kron.update` at the reference NMT layers: one C
+    call (one count, K3's for K10, nothing else), against the plain update,
+    two calls equal bit for bit."""
     from psgd_tf_tpu_torch import kron
 
     g = torch.Generator(device=cuda).manual_seed(4)
-    name = "kron_sparse_big_ns" if fmt == ("norm", "scale") else "kron_sparse_big_ds"
     assert kron.route(fmt, shape, cuda) == ("kron_sparse_big:ns" if fmt[0] == "norm"
                                             else "kron_sparse_big:ds")
     (st,), (dx,), (dg,) = _walked_states(g, [fmt], [shape], cuda, steps=2)
-    before = hopper.counts[name]
-    got = kron.update(st, dx, dg, step=0.1)
-    torch.cuda.synchronize()
-    assert hopper.counts[name] == before + 1
+    got = _one_call_update(fmt, st, dx, dg)
     with hopper.disabled():
         ref = kron.update(st, dx, dg, step=0.1)
-    assert _states_rel([got], [ref]) < 1e-4
-    if fmt[0] == "norm":
-        assert got.ql[1, -1].item() == 0.0
+    _check_one_call(fmt, got, ref)
+    again = kron.update(st, dx, dg, step=0.1)
+    assert torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+
+
+@pytest.mark.parametrize("fmt,shape", [
+    (("scale", "norm"), (1024, 1284)),   # mirrored: K6 reads dX.T in place
+    (("scale", "norm"), (4935, 1029)),   # mirrored, ragged rows of the (n, m) memory
+    (("norm", "scale"), (700, 1029)),    # n % 4 = 1: the strided loads
+    (("norm", "scale"), (2, 5000)),      # an arrow of two rows
+    (("norm", "scale"), (10000, 130)),   # two panels a group
+    (("dense", "scale"), (2, 5000)),
+    (("dense", "scale"), (130, 4097)),   # ragged tiles and bands
+    (("dense", "scale"), (1024, 3000)),  # the dense side's cap
+    (("dense", "scale"), (300, 2000)),
+], ids=str)
+def test_k6_k10_one_call_at_edge_shapes(cuda, fmt, shape):
+    """K6 and K10's one C call at shapes beside the NMT layers', through
+    their wrappers (these shapes may route elsewhere in `kron.update`):
+    mirrored, ragged, two rows; against the plain update, bit-repeatable."""
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    (st,), (dx,), (dg,) = _walked_states(g, [fmt], [shape], cuda, steps=2)
+    kind, mirrored, a, b, x, y = kron._oriented(st, dx, dg)
+    fn = kron_sparse_big.fused_update_ns if kind == "ns" else kron_sparse_big.fused_update_ds
+    before = dict(hopper.counts)
+    na, nb = fn(a, b, x, y, 0.1)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    assert moved == ({"kron_sparse_big_ns": 1} if kind == "ns"
+                     else {"kron_sparse_big_ds": 1, "tri": 1})
+    with hopper.disabled():
+        ra, rb = fn(a, b, x, y, 0.1)
+    got = st.replace(ql=nb, qr=na) if mirrored else st.replace(ql=na, qr=nb)
+    ref = st.replace(ql=rb, qr=ra) if mirrored else st.replace(ql=ra, qr=rb)
+    _check_one_call(fmt, got, ref)
+    again = fn(a, b, x, y, 0.1)
+    assert torch.equal(again[0], na) and torch.equal(again[1], nb)
+
+
+@pytest.mark.parametrize("fmt,shape", [(("norm", "scale"), (2305, 1024)),
+                                       (("scale", "dense"), (9414, 256)),
+                                       (("norm", "scale"), (64, 140_001))], ids=str)
+def test_k6_k10_zero_probes_give_the_balanced_factors(cuda, fmt, shape):
+    """A zero probe gives a zero gradient: the step scales saturate, and the
+    update returns the balanced factors, finite (the Pallas kernels' own
+    normalizer gives NaN there)."""
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    (st,), _, _ = _walked_states(g, [fmt], [shape], cuda, steps=2)
+    z = torch.zeros(shape, device=cuda)
+    got = kron.update(st, z, z, step=0.1)
+    with hopper.disabled():
+        ref = kron.update(st, z, z, step=0.1)
+    for q, r in zip((got.ql, got.qr), (ref.ql, ref.qr)):
+        assert bool(torch.isfinite(q).all()) and _rel(q, r) < 1e-6
+
+
+def test_k6_k10_run_only_their_own_kernels(cuda):
+    """torch.profiler over one `kron.update` of each kind: every kernel on
+    the card is the C call's own, no torch elementwise or reduction
+    kernel (the tail runs on the device, in the chain)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psgd_tf_tpu_torch import kron
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for fmt, shape, names in [(("norm", "scale"), (2305, 1024), NS_KERNELS),
+                              (("scale", "dense"), (9414, 256), DS_KERNELS),
+                              (("norm", "scale"), (64, 140_001), NS_KERNELS)]:
+        (st,), (dx,), (dg,) = _walked_states(g, [fmt], [shape], cuda, steps=1)
+        kron.update(st, dx, dg, step=0.1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kron.update(st, dx, dg, step=0.1)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "emset" not in e.name]
+        assert kernels, "the profiler saw no kernel"
+        assert all(any(k in name for k in names) for name in kernels), (shape, kernels)
 
 
 @pytest.mark.parametrize("fmt,shape", [
@@ -322,11 +433,14 @@ def test_k9_matches_plain(cuda, fmt, shape):
     (("norm", "scale"), (2, 131_073), "kron_sparse_big_ns_wide2"),
     (("scale", "norm"), (140_001, 70), "kron_sparse_big_ns_wide2"),
     (("norm", "scale"), (3, (2 << 20) + 129), "kron_sparse_big_ns_wide_xla"),
+    (("norm", "scale"), (512, 1_000_000), "kron_sparse_big_ns_wide2"),
+    (("norm", "scale"), (64, 3_000_017), "kron_sparse_big_ns_wide_xla"),
 ], ids=str)
 def test_k7_k8_match_plain(cuda, fmt, shape, counter):
-    """The wide (norm, scale) kernel through `kron.update`: ragged strips,
-    two rows, a mirrored layer (dX.T views) and one width past K7's cap,
-    against the plain update; the launch counts under the JAX route."""
+    """The wide (norm, scale) pass and K6's device tail, one C call, through
+    `kron.update`: ragged strips, two rows, a mirrored layer (dX.T views),
+    one width past K7's cap and the two bench shapes, against the plain
+    update; the launch counts under the JAX route, bit-repeatable."""
     from psgd_tf_tpu_torch import kron
 
     g = torch.Generator(device=cuda).manual_seed(14)

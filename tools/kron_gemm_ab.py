@@ -24,8 +24,16 @@ over chained calls, TF32 off), at the shapes of the paths:
     (2305, 1024), and the five layers PSGD's default formats give that
     model (K9's launches on its path), summed;
   - K10, (dense, scale): the reference NMT model's three such layers
-    (mirrored (scale, dense): K10 reads dX^T), summed, through
-    `kron.update` and its kernel part alone (`ds_reductions`);
+    (mirrored (scale, dense): K10 reads dX^T), summed and one by one,
+    through `kron.update` (and its kernel part alone, `ds_reductions`,
+    where the tree has one);
+  - K6, (norm, scale): the reference NMT model's three such layers, summed
+    and one by one, through `kron.update`; K7 at (512, 1,000,000) and K8 at
+    (64, 3,000,017), through `kron.update`;
+  - the reference NMT model's PSGD step under its hand formats (K10 x3, K6
+    x3, K2 a step), the same step from the same state each call (its
+    probes reseeded), FD Hvp, as `chip_smoke.py` drives it: 1000 / ms is
+    its steps/s;
   - K17 nd, `kron_sparse_big.fused_apply_nd` at (131072, 512);
   - K1, `kron.update_multi` on LeNet5's five (dense, dense) layers and on
     the toy NMT model's seven layers of mixed kinds;
@@ -44,8 +52,10 @@ over chained calls, TF32 off), at the shapes of the paths:
 
 Each chain prints its ms (the median of five windows, and the least), its
 device ms ("queued": calls enqueued behind a spinning kernel, so the
-host's enqueue never starves the card) and its max relative difference
-from the plain version on the same inputs, and, after the four runs,
+host's enqueue never starves the card), its host ms a call (the host clock
+around chained calls, no synchronise: the enqueue) and its max relative
+difference from the plain version on the same inputs, and, after the four
+runs,
 whether this tree's output equals the other tree's bit for bit (or up to
 the sign of zeros).
 This tree also times the GEMM alone through its test entry
@@ -79,6 +89,7 @@ import tempfile
 from pathlib import Path
 
 K9_SHAPES = [(131072, 512), (2305, 1024)]
+WIDE_NS = [(512, 1_000_000), (64, 3_000_017)]  # K7's and K8's bench shapes
 K17_SHAPE = (131072, 512)
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
 MULTI_18 = LENET5 * 3 + [(1, 10), (300, 7), (64, 64)]
@@ -129,6 +140,21 @@ def _time_queued(torch, fn, reps, windows=5):
         out.append(a.elapsed_time(b) / reps)
     out.sort()
     return out[len(out) // 2]
+
+
+def _host_ms(torch, fn, reps):
+    """Host ms a call: the host clock around `reps` chained calls with no
+    synchronise between them (the enqueue the caller waits for)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _flat(out):
@@ -218,6 +244,9 @@ def _chains(torch, dev, only=()):
         out.append((f"K10 {len(ds)} ref NMT layers",
                     lambda: [kron.update(st, dx, dg, 0.1) for st, ((dx,), (dg,)) in
                              zip(ds_states, ds_probes)], 20))
+        for (_, shape), st, ((dx,), (dg,)) in zip(ds, ds_states, ds_probes):
+            out.append((f"K10 {shape}", lambda st=st, dx=dx, dg=dg: kron.update(st, dx, dg, 0.1),
+                        50))
         # K10's kernel part alone on each layer's canonical (dense m, scale n)
         # pair, its probes the transposed views a mirrored layer hands it
         k10 = []
@@ -228,8 +257,26 @@ def _chains(torch, dev, only=()):
             s_ = 0.5 + torch.rand(n, generator=g, device=dev)
             dx, dg = (torch.randn(n, m, generator=g, device=dev).T for _ in range(2))
             k10.append((q, s_, dx, dg))
-        out.append((f"K10 kernel part {len(ds)} ref NMT layers",
-                    lambda: [kron_sparse_big.ds_reductions(*o) for o in k10], 50))
+        if hasattr(kron_sparse_big, "ds_reductions"):
+            out.append((f"K10 kernel part {len(ds)} ref NMT layers",
+                        lambda: [kron_sparse_big.ds_reductions(*o) for o in k10], 50))
+    ns = [(f, s) for f, s in zip(fmts, shapes) if f == ("norm", "scale")]
+    if want(40, "K6"):
+        ns_states = [walked([f], [s])[0] for f, s in ns]
+        ns_probes = [probes([s]) for _, s in ns]
+        out.append((f"K6 {len(ns)} ref NMT layers",
+                    lambda: [kron.update(st, dx, dg, 0.1) for st, ((dx,), (dg,)) in
+                             zip(ns_states, ns_probes)], 20))
+        for (_, shape), st, ((dx,), (dg,)) in zip(ns, ns_states, ns_probes):
+            out.append((f"K6 {shape}", lambda st=st, dx=dx, dg=dg: kron.update(st, dx, dg, 0.1),
+                        50))
+    for k, shape in enumerate(WIDE_NS):
+        name = f"{'K7' if k == 0 else 'K8'} {shape}"
+        if want(41 + k, name):
+            (st,), ((dx,), (dg,)) = walked([("norm", "scale")], [shape]), probes([shape])
+            out.append((name, lambda st=st, dx=dx, dg=dg: kron.update(st, dx, dg, 0.1), 5))
+    if want(43, "NMT ref step"):
+        out.append(("NMT ref step (hand formats)", _nmt_step(torch, dev), 3))
     if want(12, "K17"):
         (ast,) = walked([ND], [K17_SHAPE])
         G = torch.randn(K17_SHAPE, generator=g, device=dev)
@@ -294,6 +341,31 @@ def _chains(torch, dev, only=()):
     return out
 
 
+def _nmt_step(torch, dev):
+    """One PSGD step of the NMT model at the reference widths under its
+    hand formats, as chip_smoke.py's phase 10 drives it (FD Hvp, lr 0.02,
+    clip 1.0, random tokens), from the same state and probes each call:
+    returns the loss."""
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.data import translation
+    from psgd_tf_tpu_torch.models import nmt
+
+    cfg = nmt.ref_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = nmt.init(gen, cfg)
+    opt = PSGD(preconditioner="kron", lr_params=0.02, lr_preconditioner=0.02,
+               grad_clip_max_norm=1.0, exact_hessian_vector_product=False,
+               kron_formats=nmt.kron_formats(cfg))
+    state = opt.init(params)
+    src, tgt = translation.random_tokens(gen, cfg.vocab_src, cfg.vocab_tgt)
+
+    def step():
+        gen.manual_seed(1)
+        return opt.step(nmt.loss, params, state, gen, src, tgt)[2]["loss"]
+
+    return step
+
+
 def _triu(torch, g, dev, n):
     """An upper-triangular factor as the walked Kronecker factors are."""
     u = torch.triu(0.1 / n**0.5 * torch.randn(n, n, generator=g, device=dev), 1)
@@ -349,9 +421,10 @@ def run_tree(tree: str, label: str, dump: str, only=()) -> None:
                   for a, b in zip(got, ref))
         ms, least = _time(torch, call, reps)
         queued = _time_queued(torch, call, min(reps, 40))
+        host = _host_ms(torch, call, reps)
         saved[name] = [t.cpu() for t in got]
-        lines.append(f"{name}: {ms:.4f} ms (least {least:.4f}, queued {queued:.4f}), max rel "
-                     f"diff from plain {rel:.2e}")
+        lines.append(f"{name}: {ms:.4f} ms (least {least:.4f}, queued {queued:.4f}, host "
+                     f"{host:.4f}), max rel diff from plain {rel:.2e}")
         torch.cuda.empty_cache()
     torch.save(saved, dump)
     print(f"== {label} ({Path(tree).resolve()})", flush=True)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of K1's list update and of K3 goes on the card.
+"""Where the time of K1's list update, of K3 and of the streaming
+(norm, scale) and (dense, scale) updates goes on the card.
 
     python3 tools/profile_kron_chain.py
 
@@ -38,6 +39,20 @@ a probe added to each (block 0 stamps %globaltimer as each phase starts,
 every block the kernel's end), built in its own process, and each gap
 between stamps is printed in us (the median call of seven). The library
 itself has no probe.
+
+    python3 tools/profile_kron_chain.py --stream [TREE]
+
+traces the streaming updates through `kron.update`, one layer a case: K6
+at the reference NMT model's three (norm, scale) layers, K10 at its three
+mirrored (scale, dense) layers (dX arrives transposed), K7 at
+(512, 1,000,000) and K8 at (64, 3,000,017), with the host time of
+`kron.update` and of the kernel call inside it (the tree's C entry: the
+kernel part `ns_reductions`/`ds_reductions` where the tree has one, else
+the whole update's `_ns_call`/`_ds_call`), CUDA events over chained calls,
+and each launch queued and synced, as above. TREE is another checkout of
+the repository (for example the parent commit, unpacked with `git
+archive` into a directory `.gitignore` lists); its package is imported
+instead of this one.
 """
 from __future__ import annotations
 
@@ -53,10 +68,14 @@ from pathlib import Path
 
 if "--phases-child" not in sys.argv:
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
+if sys.argv[1:2] == ["--stream"] and len(sys.argv) > 2:
+    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
 CALLS = 200
 TRACED = 20
+# --stream: K7's and K8's layers (bench.py's kron_ns_wide row, and past 2^21 lanes)
+WIDE = [(512, 1_000_000), (64, 3_000_017)]
 
 
 def _kernels(trace_path):
@@ -73,15 +92,15 @@ def _calls(kernels, per_call):
     return [kernels[i:i + per_call] for i in range(0, len(kernels) - per_call + 1, per_call)]
 
 
-def _trace(torch, fn, queued):
-    """Per-launch medians over TRACED calls of fn: [(kernel, us, gap us)],
+def _trace(torch, fn, queued, traced=TRACED):
+    """Per-launch medians over `traced` calls of fn: [(kernel, us, gap us)],
     and the median device span of a call in us."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACED):
+        for _ in range(traced):
             if queued:
                 torch.cuda._sleep(20_000_000)  # ~10 ms of a spinning kernel, not counted
             else:
@@ -92,7 +111,7 @@ def _trace(torch, fn, queued):
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         kernels = [k for k in _kernels(path) if not k[0].startswith("at::cuda::")]
-    per_call = len(kernels) // TRACED
+    per_call = len(kernels) // traced
     calls = _calls(kernels, per_call)
     rows = []
     for i in range(per_call):
@@ -103,28 +122,105 @@ def _trace(torch, fn, queued):
     return rows, span
 
 
-def _host_us(torch, fn):
+def _host_us(torch, fn, calls=CALLS):
     fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
-    us = (time.perf_counter() - t) / CALLS * 1e6
+    us = (time.perf_counter() - t) / calls * 1e6
     torch.cuda.synchronize()
     return us
 
 
-def _event_ms(torch, fn):
+def _event_ms(torch, fn, calls=CALLS):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / CALLS
+    return a.elapsed_time(b) / calls
+
+
+def _report(torch, label, fn, inners, calls, traced, summary):
+    """One case's block: host us of fn and of each (name, call) of
+    `inners` (the calls inside it), CUDA events, and the launches queued
+    and synced."""
+    host = _host_us(torch, fn, calls)
+    inner_host = {name: _host_us(torch, call, calls) for name, call in inners}
+    ev = _event_ms(torch, fn, calls)
+    q_rows, q_span = _trace(torch, fn, True, traced)
+    s_rows, s_span = _trace(torch, fn, False, traced)
+    print(f"== {label}", flush=True)
+    print(f"  host us a call: {host:.1f}" + (" (" + ", ".join(
+        f"{name} alone {us:.1f}" for name, us in inner_host.items()) + ")" if inners else ""),
+        flush=True)
+    print(f"  CUDA events over {calls} chained calls: {ev * 1e3:.1f} us a call", flush=True)
+    for name, rows, span in [("queued", q_rows, q_span), ("synced", s_rows, s_span)]:
+        print(f"  {name}: {len(rows)} launches, device span {span:.1f} us; launches "
+              f"(us, gap before us): " + "; ".join(
+                  f"{r[0].split('(')[0][:48]} {r[1]:.1f} ({r[2]:.1f})" for r in rows),
+              flush=True)
+    summary[label] = dict(host_us=host, inner_host_us=inner_host, event_us=ev * 1e3,
+                          queued_span_us=q_span, synced_span_us=s_span, launches=len(q_rows),
+                          queued_launch_us=[[r[0].split('(')[0][:48], r[1]] for r in q_rows])
+
+
+def _stream() -> int:
+    """--stream: K6, K10, K7 and K8 through `kron.update`, a layer a case."""
+    import torch
+    from psgd_tf_tpu_torch import kron
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import _build, kron_sparse_big as ksb
+
+    if not torch.cuda.is_available():
+        print("profile_kron_chain: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package {Path(ksb.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    ref = nmt.ref_config()
+    cases = [(f, s) for f, s in zip(nmt.kron_formats(ref), nmt.layer_shapes(ref))
+             if f in (("norm", "scale"), ("scale", "dense"))]
+    cases += [(("norm", "scale"), s) for s in WIDE]
+    summary = {}
+    for fmt, shape in cases:
+        st = kron.init(shape, fmt=fmt, init_scale=0.8, device=dev)
+        with hopper.disabled():
+            for _ in range(2):
+                st = kron.update(st, torch.randn(shape, generator=g, device=dev),
+                                 torch.randn(shape, generator=g, device=dev), 0.1)
+        dX, dG = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+        kind, _, a, b, dx, dg = kron._oriented(st, dX, dG)
+        if kind == "ns" and hasattr(ksb, "ns_reductions"):
+            ql0, ql1 = a[0], a[1]
+            w, al = ql1 / (ql0 * ql0[-1]), ql0[-1] * dg[-1] * b
+            inner = lambda: ksb.ns_reductions(dx, dg, ql0, ql1, w, b, dg[-1], al)
+            inner_name = "ns_reductions"
+        elif kind == "ds" and hasattr(ksb, "ds_reductions"):
+            inner, inner_name = (lambda: ksb.ds_reductions(a, b, dx, dg)), "ds_reductions"
+        else:
+            call = getattr(ksb, f"_{kind}_call")
+            inner, inner_name = (lambda: call(a, b, dx, dg, 0.1)), f"_{kind}_call"
+        wide = shape in WIDE
+        label = f"{'K7/K8' if wide else 'K6' if kind == 'ns' else 'K10'} {fmt} {shape}"
+        _report(torch, label, lambda: kron.update(st, dX, dG, 0.1), [(inner_name, inner)],
+                10 if wide else CALLS, 5 if wide else TRACED, summary)
+        del st, dX, dG, dx, dg, a, b
+        torch.cuda.empty_cache()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
 
 
 # --phases: the probe, edits made in a copy of the port (file, old, new)
@@ -256,6 +352,8 @@ def main() -> int:
         return _phases()
     if sys.argv[1:] == ["--phases-child"]:
         return _phases_child()
+    if sys.argv[1:2] == ["--stream"]:
+        return _stream()
     route = None
     if sys.argv[1:2] == ["--route"]:
         route = sys.argv[2]
@@ -300,36 +398,19 @@ def main() -> int:
         args = ([e[0] for e in ents], [e[2] for e in ents], [e[3] for e in ents],
                 [e[4].contiguous() for e in ents], [e[5].contiguous() for e in ents])
         cases.append((label, lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(
-            sts, dxs, dgs, 0.1), lambda args=args: kron_multi.fused_update_multi(*args, 0.1),
-            lambda args=args: kron_dd.launch(*args, 0.1, "kron_multi")))
+            sts, dxs, dgs, 0.1), [
+                ("kron_multi.fused_update_multi", lambda args=args: kron_multi.fused_update_multi(
+                    *args, 0.1)),
+                ("kron_dd.launch", lambda args=args: kron_dd.launch(*args, 0.1, "kron_multi"))]))
     us = [triu_factor(n) for s in LENET5 for n in s]
-    cases.append(("K3 LeNet5's ten factors", lambda: tri.inverse_upper(us), None, None))
+    cases.append(("K3 LeNet5's ten factors", lambda: tri.inverse_upper(us), []))
 
     ctx = kron_dd.forced_route(route) if route else contextlib.nullcontext()
     summary = {}
     with ctx:
-        for label, fn, inner, bare in cases:
-            host = _host_us(torch, fn)
-            inner_host = _host_us(torch, inner) if inner else None
-            bare_host = _host_us(torch, bare) if bare else None
-            ev = _event_ms(torch, fn)
-            q_rows, q_span = _trace(torch, fn, True)
-            s_rows, s_span = _trace(torch, fn, False)
-            print(f"== {label}" + (f" (route forced: {route})" if route else ""), flush=True)
-            print(f"  host us a call: {host:.1f}" + (
-                f" (kron_multi.fused_update_multi alone {inner_host:.1f}, kron_dd.launch alone "
-                f"{bare_host:.1f})" if inner else ""), flush=True)
-            print(f"  CUDA events over {CALLS} chained calls: {ev * 1e3:.1f} us a call",
-                  flush=True)
-            for name, rows, span in [("queued", q_rows, q_span), ("synced", s_rows, s_span)]:
-                print(f"  {name}: {len(rows)} launches, device span {span:.1f} us; launches "
-                      f"(us, gap before us): " + "; ".join(
-                          f"{r[0].split('(')[0][:40]} {r[1]:.1f} ({r[2]:.1f})" for r in rows),
-                      flush=True)
-            summary[label] = dict(host_us=host, inner_host_us=inner_host, launch_host_us=bare_host,
-                                  event_us=ev * 1e3,
-                                  queued_span_us=q_span, synced_span_us=s_span,
-                                  launches=len(q_rows))
+        for label, fn, inners in cases:
+            _report(torch, label + (f" (route forced: {route})" if route else ""), fn, inners,
+                    CALLS, TRACED, summary)
     print(json.dumps(summary))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
