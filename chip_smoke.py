@@ -67,14 +67,15 @@ after:
     1000 steps to a held-out token accuracy above 0.75 (K1 with mixed
     kinds, K3);
   - `hello_psgd.run()`: Rosenbrock with the dense family, 500 steps to a
-    loss below 1e-4 (K11, K3);
+    loss below 1e-4 (K11, one launch a step with K3's phases inside it);
   - `rnn_xor_lra.run()` at the reference widths (SimpleRNN, hidden 30,
     1,021 parameters, rank 10, batch 128, sequences of 16) with the switch
     to the FD Hvp at step 1000, to a train loss below 0.1 (K13);
   - the `UVd` class on the same RNN, 200 steps, switching the Hvp and the
     parameter lr on the way (K13);
   - the dense family on the same RNN at hidden 60 (3,841 parameters), a
-    size the JAX package routes to its streaming dense kernel (K12, K3);
+    size the JAX package routes to its streaming dense kernel (K12, whose
+    first launch is K3's);
   - `all_preconditioners`: the tensor decomposition (400 parameters) under
     each of the seven families, 100 steps each, every one to a loss below
     a tenth of its first (K15 for splu, K11 for dense, K13 for lra, K1 for
@@ -136,6 +137,8 @@ DENSE_K11 = [2, 400, 1021, 1536]
 # the dense RNN's n (hidden 60: 30 full 128-row panels and a one-row
 # panel), then bench.py:617-619
 DENSE_K12 = [3841, 4096, 8192, 16384]
+# one row, one full block (K11's one-block grid), one row past it
+DENSE_EDGE = [1, 128, 129]
 COINS = [(False, False), (False, True), (True, False), (True, True)]  # (balance, update_u)
 RNN_MAX_ITERS = 20000
 UVD_STEPS = 200
@@ -1194,11 +1197,12 @@ def main() -> int:
         check(lra_traj < TOL_TRAJ, f"k13 20-step trajectory vs plain at n={n}")
 
     # 8. K11 at hello_psgd's and the RNN's n and its cap, K12 at the bench
-    #    rows: update and update+apply against the plain rank-2 form
+    #    rows, both at the edge sizes: update and update+apply against the
+    #    plain rank-2 form, two calls bit-equal
     g.manual_seed(8)
     dense_err = {"dense_upd": 0.0, "dense_big": 0.0}
     dense_times, dense_bound = {}, {}
-    for n in DENSE_K11 + DENSE_K12:
+    for n in DENSE_EDGE + DENSE_K11 + DENSE_K12:
         name, mod = ("dense_upd", dense_upd) if n <= dense_upd.MAX_N else ("dense_big", dense_big)
         check(dense.route(n, dev) == name, f"dense route at n={n}")
         q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
@@ -1212,25 +1216,27 @@ def main() -> int:
         got = mod.fused_update(q, v, h, 0.1)
         got_q, got_pre = mod.fused_update_apply(q, v, h, gr, 0.1)
         torch.cuda.synchronize()
-        # K3 inverts the chain's 128x128 diagonal blocks, 32 to a launch
-        tri_launches = math.ceil(math.ceil(n / 128) / tri.MAX_FACTORS)
+        # K3 inverts the 128 x 128 diagonal blocks inside K11's one launch,
+        # and as the first of K12's four
         check(hopper.counts[name] == before + 2
-              and hopper.counts["tri"] == before_tri + 2 * tri_launches,
+              and hopper.counts["tri"] == before_tri + (0 if name == "dense_upd" else 2),
               f"{name} and K3 launched at n={n}")
+        again_q, again_pre = mod.fused_update_apply(q, v, h, gr, 0.1)
+        bit_ok = torch.equal(again_q, got_q) and torch.equal(again_pre, got_pre)
         ref_q, ref_pre = dense_upd.update_apply_plain(q, v, h, gr, 0.1)
         pairs = [(got, ref_q), (got_q, ref_q), (got_pre, ref_pre)]
         rel = max(_rel(a, b) for a, b in pairs)
         dense_err[name] = max(dense_err[name], max(_abs(a, b) for a, b in pairs))
         tri_ok = torch.count_nonzero(torch.tril(got_q, -1)).item() == 0
-        check(rel < TOL_K1 and tri_ok, f"{name} vs plain at n={n}")
-        del ref_q, ref_pre
+        check(rel < TOL_K1 and tri_ok and bit_ok, f"{name} vs plain at n={n}, two calls bit-equal")
+        del ref_q, ref_pre, again_q, again_pre
         dense_times[n] = _time_ab(torch, hopper, lambda: dense.update_apply(
             dense.DenseState(Q=q), v, h, gr, 0.1), 5 if n > 8192 else 20)
         # Q's upper triangle read once, Q' written once (out of place, its
         # zeros too), v, h, g read, P' g written; ~8 n^2 FLOPs
         dense_bound[n] = _bound(4 * (n * (n + 1) / 2 + n * n + 4 * n), 8.0 * n * n)
         print(f"{name}: n={n} max rel err {rel:.3e} (tol {TOL_K1:.0e}), lower part exactly 0: "
-              f"{tri_ok}; update+apply kernel {dense_times[n][0]:.4f} ms, plain "
+              f"{tri_ok}, two calls bit-equal: {bit_ok}; update+apply kernel {dense_times[n][0]:.4f} ms, plain "
               f"{dense_times[n][1]:.4f} ms, bound {dense_bound[n][0]:.4f} ms "
               f"({dense_bound[n][1]})", flush=True)
     n = DENSE_K11[1]
@@ -2046,8 +2052,8 @@ def main() -> int:
           f"(bar 1e-4), {out['steps'] / seconds:.1f} steps/s (host clock, init included)",
           flush=True)
     check(dense.route(2, dev) == "dense_upd", "hello_psgd routes to K11")
-    check(out["success"] and counts["dense_upd"] == out["steps"] == 500,
-          "hello_psgd: loss below 1e-4 in 500 steps, one K11 launch per step")
+    check(out["success"] and counts["dense_upd"] == out["steps"] == 500 and counts["tri"] == 0,
+          "hello_psgd: loss below 1e-4 in 500 steps, one K11 launch per step (K3 inside it)")
 
     # 13. path: the delayed-XOR RNN with lra at the reference widths, the
     #     switch to the FD Hvp at step 1000
@@ -2162,8 +2168,10 @@ def main() -> int:
         if kern is None:
             check(sum(counts.values()) == 0, f"all_preconditioners {fam}: no kernel launched")
         else:
-            check(counts[kern] == out["steps"] == 100,
-                  f"all_preconditioners {fam}: one {kern} launch per step")
+            check(counts[kern] == out["steps"] == 100
+                  and (fam != "dense" or counts["tri"] == 0),
+                  f"all_preconditioners {fam}: one {kern} launch per step"
+                  + (" (K3 inside it)" if fam == "dense" else ""))
 
     # 17. path: splu on the NMT model at the reference widths (FD Hvp, lr
     #     0.02, clip 1.0, random ids): past K15's cap, so K16. The kernel

@@ -77,7 +77,8 @@ _SIGNATURES = {
     "psgd_tri_solve": (ctypes.c_int, [ctypes.c_int] * 5 + [_IP, ctypes.c_int] + [_P] * 5),
     "psgd_dense_scratch_floats": (ctypes.c_size_t, [ctypes.c_int]),
     "psgd_dense_update": (
-        ctypes.c_int, [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P],
+        ctypes.c_int,
+        [ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, ctypes.c_int, _P],
     ),
     "psgd_lra_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 8),

@@ -6,11 +6,11 @@ Replaces `psgd_tf_tpu/ops/pallas/dense_big.py` `fused_update` (:351) and
 pass), :290 (`_maxabs_kernel` :152), :317 (`_update_kernel` :169, the
 reverse running sums) and :332 (`_update_apply_kernel` :204, plus P' g).
 
-The function is K11's (`dense_upd`), and so is the chain on the card
-(`csrc/dense.cu`): K11's VMEM residency has no counterpart in a Hopper
-block, so both stream Q. This module keeps the JAX entry points and cap,
-so the route `dense_big` and its launch count read as in the JAX package.
-The plain versions are K11's.
+The function is K11's (`dense_upd`), and so are the phases on the card
+(`csrc/dense.cu`): K12 launches them as four kernels whatever n (K3's
+phases, pass 1, the normalizer, pass 2), K11 as one. This module keeps the
+JAX entry points and cap, so the route `dense_big` and its launch count
+read as in the JAX package. The plain versions are K11's.
 """
 from __future__ import annotations
 

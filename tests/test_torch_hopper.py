@@ -921,7 +921,7 @@ def test_lra_corner_a_pivots_on_card(cuda, coins):
     assert torch.isfinite(coef).all() and _rel(coef, rcoef) < 1e-4 and _rel(scal, rscal) < 1e-6
 
 
-@pytest.mark.parametrize("n", [2, 1021, 1536, 4096])
+@pytest.mark.parametrize("n", [1, 2, 128, 129, 400, 1021, 1536, 3841, 4096, 16384])
 def test_k11_k12_match_plain(cuda, n):
     g = torch.Generator(device=cuda).manual_seed(6)
     q = torch.triu(0.02 * torch.randn(n, n, generator=g, device=cuda)) + 0.8 * torch.eye(n, device=cuda)
@@ -1027,20 +1027,73 @@ def test_k13_past_rank_32_matches_plain(cuda, n, r):
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 200, 1537, 2000, 3841, 4097])
 def test_k11_k12_edge_shapes(cuda, n):
     """A single row, ragged panels and chunks, one past K11's cap, the
-    dense RNN's n (a one-row last panel), and 33 panels (two K3 launches)."""
+    dense RNN's n (a one-row last panel), and 33 panels."""
     g = torch.Generator(device=cuda).manual_seed(11)
     q = torch.triu(0.05 * torch.randn(n, n, generator=g, device=cuda)) + 0.8 * torch.eye(n, device=cuda)
     v, h, grad = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
     mod = dense_upd if n <= dense_upd.MAX_N else dense_big
     before_tri = hopper.counts["tri"]
     got_q, got_pre = mod.fused_update_apply(q, v, h, grad, 0.1)
-    panels = (n + 127) // 128  # K3 inverts them, MAX_FACTORS to a launch
-    assert hopper.counts["tri"] == before_tri + (panels + tri.MAX_FACTORS - 1) // tri.MAX_FACTORS
+    # K3 runs inside K11's one launch, and as K12's first launch
+    assert hopper.counts["tri"] == before_tri + (0 if mod is dense_upd else 1)
     ref_q, ref_pre = dense_upd.update_apply_plain(q, v, h, grad, 0.1)
     assert _rel(got_q, ref_q) < 1e-4 and _rel(got_pre, ref_pre) < 1e-4
     assert torch.count_nonzero(torch.tril(got_q, -1)).item() == 0
     z = torch.zeros(n, device=cuda)
     assert torch.equal(mod.fused_update(q, z, z, 0.1), q)  # a zero probe: a zero update
+
+
+def _dense_case(g, n, dev):
+    q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev)) + 0.8 * torch.eye(n, device=dev)
+    return q, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+
+
+@pytest.mark.parametrize("mod,n", [(dense_upd, 2), (dense_upd, 400), (dense_upd, 1536),
+                                   (dense_big, 400), (dense_big, 3841), (dense_big, 16384)],
+                         ids=lambda x: getattr(x, "__name__", str(x)).split(".")[-1])
+def test_k11_k12_one_count_bit_repeat_zero_probes(cuda, mod, n):
+    """One count a call (K12's first launch is K3's and counts one `tri`),
+    two calls bit-equal (no float atomics in any sum), and zero probes:
+    the step scale saturates, Q' is Q exactly and P' g is Q^T Q g."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, (v, h, grad) = _dense_case(g, n, cuda)
+    before = dict(hopper.counts)
+    got = mod.fused_update_apply(q, v, h, grad, 0.1)
+    torch.cuda.synchronize()
+    moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+    name = "dense_upd" if mod is dense_upd else "dense_big"
+    assert moved == ({name: 1} if mod is dense_upd else {name: 1, "tri": 1})
+    again = mod.fused_update_apply(q, v, h, grad, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(mod.fused_update(q, v, h, 0.1), got[0])
+    z = torch.zeros(n, device=cuda)
+    zq, zpre = mod.fused_update_apply(q, z, z, grad, 0.1)
+    assert torch.equal(zq, q)
+    assert _rel(zpre, q.T @ (q @ grad)) < 1e-4
+
+
+def test_k11_is_one_launch_and_k12_launches_do_not_grow(cuda):
+    """torch.profiler over single calls: a K11 call is one kernel launch
+    (no memset either) at n = 2, 400 and 1536, and a K12 call launches as
+    many kernels at n = 3841 as at 16384."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+
+    def launches(mod, n):
+        q, (v, h, grad) = _dense_case(g, n, cuda)
+        mod.fused_update_apply(q, v, h, grad, 0.1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mod.fused_update_apply(q, v, h, grad, 0.1)
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    for n in (2, 400, 1536):
+        kernels = launches(dense_upd, n)
+        assert len(kernels) == 1 and "dense_mono_kernel" in kernels[0], (n, kernels)
+    small, big = launches(dense_big, 3841), launches(dense_big, 16384)
+    assert len(small) == len(big) <= 10 and all("dense_" in k for k in small + big), (small, big)
 
 
 # ------------------------------------------------ the sparse-LU family (K15, K16)

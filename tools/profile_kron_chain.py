@@ -53,6 +53,25 @@ and each launch queued and synced, as above. TREE is another checkout of
 the repository (for example the parent commit, unpacked with `git
 archive` into a directory `.gitignore` lists); its package is imported
 instead of this one.
+
+    python3 tools/profile_kron_chain.py --dense-steps
+
+times the steps of K12's pass-1 chain at n = 1536, 3841 and 16384 in a copy
+of the port with %globaltimer stamps added to `csrc/dense.cu` (built in its
+own process, as `--phases` does): a step of the chain (D(p) taking D(p-1)'s
+look-ahead word), D(p)'s look-ahead to b_p, its loads, and the R items'
+path (b_p taken, their running sums put), medians over the panels of a
+call and over five calls.
+
+    python3 tools/profile_kron_chain.py --dense [TREE]
+
+traces the dense family's update (K11 at n = 2, 400 and 1536, K12 at
+n = 3841 and 16384: hello_psgd's, the tensor decomposition's, K11's cap,
+the dense RNN's and K12's cap), update and update + apply each, through
+`dense.update` / `dense.update_apply`, with the host time of the wrapper
+(`dense_upd.launch`) inside it, CUDA events over chained calls, and each
+launch queued and synced, memsets counted as launches. TREE as for
+`--stream`.
 """
 from __future__ import annotations
 
@@ -66,9 +85,9 @@ import tempfile
 import time
 from pathlib import Path
 
-if "--phases-child" not in sys.argv:
+if not any(a in sys.argv for a in ("--phases-child", "--dense-steps-child")):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
-if sys.argv[1:2] == ["--stream"] and len(sys.argv) > 2:
+if sys.argv[1:2] in (["--stream"], ["--dense"]) and len(sys.argv) > 2:
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
@@ -76,14 +95,17 @@ CALLS = 200
 TRACED = 20
 # --stream: K7's and K8's layers (bench.py's kron_ns_wide row, and past 2^21 lanes)
 WIDE = [(512, 1_000_000), (64, 3_000_017)]
+# --dense: hello_psgd's n, the tensor decomposition's, K11's cap, the dense RNN's, K12's cap
+DENSE_N = [2, 400, 1536, 3841, 16384]
 
 
-def _kernels(trace_path):
-    """[(name, start us, end us)] of the device kernels of a chrome trace."""
+def _kernels(trace_path, cats=("kernel",)):
+    """[(name, start us, end us)] of the device kernels of a chrome trace
+    (and its memsets, with cats=("kernel", "gpu_memset"))."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     out = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-           for e in events if e.get("cat") == "kernel"]
+           for e in events if e.get("cat") in cats]
     return sorted(out, key=lambda k: k[1])
 
 
@@ -92,25 +114,30 @@ def _calls(kernels, per_call):
     return [kernels[i:i + per_call] for i in range(0, len(kernels) - per_call + 1, per_call)]
 
 
-def _trace(torch, fn, queued, traced=TRACED):
+def _trace(torch, fn, queued, traced=TRACED, cats=("kernel",)):
     """Per-launch medians over `traced` calls of fn: [(kernel, us, gap us)],
     and the median device span of a call in us."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(traced):
-            if queued:
-                torch.cuda._sleep(20_000_000)  # ~10 ms of a spinning kernel, not counted
-            else:
+    for _ in range(3):  # the profiler now and then returns a trace without the device's events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                if queued:
+                    torch.cuda._sleep(20_000_000)  # ~10 ms of a spinning kernel, not counted
+                else:
+                    torch.cuda.synchronize()
+                fn()
                 torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        kernels = [k for k in _kernels(path) if not k[0].startswith("at::cuda::")]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            kernels = [k for k in _kernels(path, cats) if not k[0].startswith("at::cuda::")]
+        if len(kernels) >= traced:
+            break
+    else:
+        raise RuntimeError(f"profile_kron_chain: {len(kernels)} launches seen in {traced} calls")
     per_call = len(kernels) // traced
     calls = _calls(kernels, per_call)
     rows = []
@@ -146,15 +173,15 @@ def _event_ms(torch, fn, calls=CALLS):
     return a.elapsed_time(b) / calls
 
 
-def _report(torch, label, fn, inners, calls, traced, summary):
+def _report(torch, label, fn, inners, calls, traced, summary, cats=("kernel",)):
     """One case's block: host us of fn and of each (name, call) of
     `inners` (the calls inside it), CUDA events, and the launches queued
     and synced."""
     host = _host_us(torch, fn, calls)
     inner_host = {name: _host_us(torch, call, calls) for name, call in inners}
     ev = _event_ms(torch, fn, calls)
-    q_rows, q_span = _trace(torch, fn, True, traced)
-    s_rows, s_span = _trace(torch, fn, False, traced)
+    q_rows, q_span = _trace(torch, fn, True, traced, cats)
+    s_rows, s_span = _trace(torch, fn, False, traced, cats)
     print(f"== {label}", flush=True)
     print(f"  host us a call: {host:.1f}" + (" (" + ", ".join(
         f"{name} alone {us:.1f}" for name, us in inner_host.items()) + ")" if inners else ""),
@@ -321,7 +348,93 @@ def _phases_child() -> int:
     return 0
 
 
-def _phases() -> int:
+# --dense-steps: stamps in K12's pass 1, edits made in a copy of the port.
+# Item D(p) stamps its start, its loads done, the running sum and the
+# look-ahead taken, b_p formed (rows 0-4); item R(p, 1) its start, its loads
+# done, b_p taken, its words put (rows 5-8); row 9 holds nothing.
+_DENSE_PROBE = """
+__device__ unsigned long long g_dense_stamps[10 * 1024];
+__device__ __forceinline__ void dstamp(int row, int p) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+    if (threadIdx.x == 0 && p < 1024) g_dense_stamps[row * 1024 + p] = t;
+}
+extern "C" int probe_dense(unsigned long long* out) {
+    return (int)cudaMemcpyFromSymbol(out, g_dense_stamps, sizeof(g_dense_stamps));
+}
+#define DP 128 """
+_DENSE_EDITS = [
+    ("csrc/dense.cu", "#define DP 128 ", _DENSE_PROBE),
+    ("csrc/dense.cu", """    const bool two = c1 < nb;
+    const size_t row0""", """    const bool two = c1 < nb;
+    if (k <= 1) dstamp(k ? 5 : 0, p);
+    const size_t row0"""),
+    ("csrc/dense.cu", """    d_wait_copies();
+    __syncthreads();
+    if (k) d_rowdots""", """    d_wait_copies();
+    __syncthreads();
+    if (k <= 1) dstamp(k ? 6 : 1, p);
+    if (k) d_rowdots"""),
+    ("csrc/dense.cu", """            if (p >= 1) acc += d_take(A.la + (size_t)(p - 1) * DP + j);""",
+     """            dstamp(2, p);
+            if (p >= 1) acc += d_take(A.la + (size_t)(p - 1) * DP + j);
+            dstamp(3, p);"""),
+    ("csrc/dense.cu", """        if (t < DP) {
+            d_put(A.bw + (size_t)p * DP + t, sb[t]);""", """        dstamp(4, p);
+        if (t < DP) {
+            d_put(A.bw + (size_t)p * DP + t, sb[t]);"""),
+    ("csrc/dense.cu", """        if (t < DP) sb[t] = d_take(A.bw + (size_t)p * DP + t);
+        __syncthreads();""", """        if (t < DP) sb[t] = d_take(A.bw + (size_t)p * DP + t);
+        if (k == 1) dstamp(7, p);
+        __syncthreads();"""),
+    ("csrc/dense.cu", """                d_put(A.cw + (size_t)p * n + cc, (p ? d_take(A.cw + (size_t)(p - 1) * n + cc) : 0.f) + cv);
+        }""", """                d_put(A.cw + (size_t)p * n + cc, (p ? d_take(A.cw + (size_t)(p - 1) * n + cc) : 0.f) + cv);
+        }
+        if (k == 1) dstamp(8, p);"""),
+]
+
+
+def _dense_steps_child() -> int:
+    """In the probed copy: the steps of K12's pass-1 chain."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from psgd_tf_tpu_torch.ops.hopper import _build, dense_big
+
+    lib = _build.lib()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n in (1536, 3841, 16384):
+        q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        q += 0.8 * torch.eye(n, device=dev)
+        v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+        rows = []
+        for _ in range(5):  # five calls, the medians over panels of each, then of the calls
+            dense_big.fused_update_apply(q, v, h, gr, 0.1)
+            torch.cuda.synchronize()
+            buf = np.zeros(10 * 1024, dtype=np.uint64)
+            lib.probe_dense(ctypes.c_void_p(buf.ctypes.data))
+            nb = (n + 127) // 128
+            t = buf.reshape(10, 1024)[:9, :nb].astype(np.int64) / 1e3
+            m = lambda x: float(np.median(x))
+            rows.append([m(np.diff(t[3, 1:])), m(t[4, 1:] - t[3, 1:]), m(t[1] - t[0]),
+                         m(t[7, :nb - 2] - t[4, :nb - 2]), m(t[8, :nb - 2] - t[7, :nb - 2]),
+                         m(t[3, 2:] - t[2, 2:])])
+        r = np.median(np.array(rows), axis=0)
+        print(f"K12 n={n}, pass 1, us (medians over panels, then over five calls): a step of "
+              f"the chain (D(p) taking the look-ahead) {r[0]:.2f}; D(p) look-ahead taken to b_p "
+              f"formed {r[1]:.2f}; D(p) start to loads done {r[2]:.2f}; D(p) b_p formed to "
+              f"R(p, 1) taking it {r[3]:.2f}; R(p, 1) b_p taken to its words put {r[4]:.2f}; "
+              f"D(p) running sum taken to look-ahead taken {r[5]:.2f}", flush=True)
+        del q
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _probed(edits, child: str) -> int:
+    """Run this script with `child` in a copy of the port with `edits`
+    (file, old, new) made, built in its own process."""
     import shutil
 
     here = Path(__file__).resolve().parents[1]
@@ -329,17 +442,59 @@ def _phases() -> int:
         dst = Path(tmp) / "psgd_tf_tpu_torch"
         shutil.copytree(here / "psgd_tf_tpu_torch", dst,
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        for rel, old, new in _EDITS:
+        for rel, old, new in edits:
             f = dst / rel
             text = f.read_text()
             if text.count(old) != 1:
                 raise SystemExit(f"profile_kron_chain: {old[:40]!r} is not in {rel} once")
             f.write_text(text.replace(old, new))
-        rc = subprocess.run([sys.executable, __file__, "--phases-child"], cwd=tmp,
+        rc = subprocess.run([sys.executable, __file__, child], cwd=tmp,
                             env={**os.environ, "PYTHONPATH": tmp}).returncode
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return rc
+
+
+def _dense() -> int:
+    """--dense: K11 and K12 through `dense.update(_apply)`, a size a case."""
+    import torch
+    from psgd_tf_tpu_torch import dense
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import _build, dense_upd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package {Path(dense_upd.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    summary = {}
+    for n in DENSE_N:
+        q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        q += 0.8 * torch.eye(n, device=dev)
+        with hopper.disabled():
+            for _ in range(2):
+                q = dense_upd.fused_update(q, *(torch.randn(n, generator=g, device=dev)
+                                                for _ in range(2)), 0.1)
+        v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+        st = dense.DenseState(Q=q)
+        name = dense.route(n, dev)
+        big = n > 8192
+        for label, fn, inner in [
+                ("update", lambda: dense.update(st, v, h, 0.1),
+                 lambda: dense_upd.launch(name, n, q, v, h, None, 0.1)),
+                ("update+apply", lambda: dense.update_apply(st, v, h, gr, 0.1),
+                 lambda: dense_upd.launch(name, n, q, v, h, gr, 0.1))]:
+            _report(torch, f"{name} n={n} {label}", fn, [("dense_upd.launch", inner)],
+                    20 if big else CALLS, 5 if big else TRACED, summary,
+                    ("kernel", "gpu_memset"))
+        del q, st
+        torch.cuda.empty_cache()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
 
 
 def main() -> int:
@@ -349,11 +504,17 @@ def main() -> int:
         print("profile_kron_chain: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["--phases"]:
-        return _phases()
+        return _probed(_EDITS, "--phases-child")
     if sys.argv[1:] == ["--phases-child"]:
         return _phases_child()
+    if sys.argv[1:] == ["--dense-steps"]:
+        return _probed(_DENSE_EDITS, "--dense-steps-child")
+    if sys.argv[1:] == ["--dense-steps-child"]:
+        return _dense_steps_child()
     if sys.argv[1:2] == ["--stream"]:
         return _stream()
+    if sys.argv[1:2] == ["--dense"]:
+        return _dense()
     route = None
     if sys.argv[1:2] == ["--route"]:
         route = sys.argv[2]

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time K19 (the blocked triangular solve) and K13 (the lra update) of two
-checkouts of the port on one card, or sweep K19's schedule on this one.
+checkouts of the port on one card, or sweep K19's schedule on this one, or
+time K11 and K12 (the dense update) of two checkouts.
 
     python3 tools/tri_lra_ab.py OTHER_TREE
     python3 tools/tri_lra_ab.py --sweep
+    python3 tools/tri_lra_ab.py --dense OTHER_TREE
 
 Run from the root of the repository on a machine with one CUDA card.
 OTHER_TREE is another checkout of the repository (for example the parent
@@ -19,6 +21,16 @@ over chained calls, TF32 off):
     side as nrhs, four orientations) in ms a call;
   - K13, `lra.update_apply` at n = 400, 1,021 and 2^20, r = 10, in ms a call
     and in host ms a call (the host clock around 20 calls, no synchronise).
+
+`--dense` times the dense update of both trees, in the same order: K11 at
+n = 2, 400 and 1536 and K12 at n = 3841 and 16384 (hello_psgd's, the
+tensor decomposition's, K11's cap, the dense RNN's, K12's cap), update
+(`dense.update`) and update + apply (`dense.update_apply`) each: ms a call
+chained (CUDA events over chained calls), ms a call queued (the calls
+enqueued behind a spinning kernel: the device's own time), host us a call
+(the host clock around calls with no synchronise) and launches a call
+(`torch.profiler`, memsets counted), each timing the median of five
+windows.
 
 `--sweep` times this tree's K19 by schedule: the leaf rows NB (64, 128,
 256), the right-looking order `tri.schedule` builds against a recursive
@@ -110,6 +122,79 @@ def run_tree(tree: str, label: str) -> None:
     print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
 
 
+DENSE_N = [2, 400, 1536, 3841, 16384]
+
+
+def _median_windows(fn, windows=5):
+    vals = sorted(fn() for _ in range(windows))
+    return vals[len(vals) // 2]
+
+
+def _queued(torch, fn, reps):
+    """ms a call of `reps` calls enqueued behind a spinning kernel."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _host_us(torch, fn, reps):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _launches(torch, fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def run_dense(tree: str, label: str) -> None:
+    """Time K11 and K12 with the port of `tree`."""
+    torch, dev, g = _setup(tree)
+    from psgd_tf_tpu_torch import dense
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import dense_upd
+
+    out = []
+    for n in DENSE_N:
+        q = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        q += 0.8 * torch.eye(n, device=dev)
+        with hopper.disabled():
+            for _ in range(2):
+                q = dense_upd.fused_update(q, *(torch.randn(n, generator=g, device=dev)
+                                                for _ in range(2)), 0.1)
+        v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+        st = dense.DenseState(Q=q)
+        big = n > 8192
+        for what, fn in (("update", lambda: dense.update(st, v, h, 0.1)),
+                         ("update+apply", lambda: dense.update_apply(st, v, h, gr, 0.1))):
+            chained = _median_windows(lambda: _time(torch, fn, 5 if big else 50))
+            queued = _median_windows(lambda: _queued(torch, fn, 5 if big else 20))
+            host = _median_windows(lambda: _host_us(torch, fn, 5 if big else 50))
+            out.append(f"{dense.route(n, dev)} n={n} {what}: chained {chained:.4f} ms, queued "
+                       f"{queued:.4f} ms, host {host:.1f} us a call, {_launches(torch, fn)} launches")
+        del q, st
+        torch.cuda.empty_cache()
+    print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
+
+
 def _recursive(tri, n, lower, trans, nb):
     """The recursive split as schedule records: leaves of nb rows, one
     update a split, S read from B until an update has written the rows."""
@@ -181,11 +266,15 @@ def sweep() -> None:
 
 
 def main() -> None:
-    if len(sys.argv) == 4 and sys.argv[1] == "--tree":
-        run_tree(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] in ("--tree", "--dense-tree"):
+        (run_tree if sys.argv[1] == "--tree" else run_dense)(sys.argv[2], sys.argv[3])
         return
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--dense":
+        for tree, label in ((sys.argv[2], "other"), (".", "this"), (".", "this"),
+                            (sys.argv[2], "other")):
+            subprocess.run([sys.executable, __file__, "--dense-tree", tree, label], check=True)
     elif len(sys.argv) == 2:
         for tree, label in ((sys.argv[1], "other"), (".", "this"), (".", "this"),
                             (sys.argv[1], "other")):
