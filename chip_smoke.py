@@ -85,7 +85,8 @@ after:
     fused apply entry and the one-launch kernel on that run's last state
     and probes;
   - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
-    group at n = 2^20, r = 10, pipelined off and on, against K13;
+    group at n = 2^20, r = 10, pipelined off and on, against K13, and the
+    sharded K16 there against K16's fused apply, each timed;
   - S2, two gloo ranks sharing the card (spawned; NCCL refuses two ranks
     on one device): K14 at n = 2^20 and 1,000,003 and the sharded K16 at
     2^20 and 100,003, r = 10, gathered and held against the single-process
@@ -146,6 +147,9 @@ DENSE_RNN_STEPS = 50
 SPLU_K15 = [400, 1 << 16]        # the tensor decomposition's n, and bench.py:615
 SPLU_K16 = [100_003, 1 << 20]    # a ragged n past K15's cap, and bench.py:616
 SPLU_NMT_STEPS = 10
+# K16 at ragged n on both sides of the rank-32 kernels' staged tiles (odd
+# n: each row of Lt and U12 starts at each 16-byte alignment in turn)
+SPLU_RAGGED = [(100_001, 1), (100_001, 3), (131_071, 32), (100_002, 33)]
 # the fused apply entry and the one-launch kernel (phase 8c): K15's n,
 # bench.py's 65,536 and 2^20 and a ragged n at r = 10, then r = 1 and 32
 SPLU_APPLY = [(400, 10), (1 << 16, 10), (100_003, 10), (1 << 20, 10), (100_003, 1),
@@ -1269,7 +1273,8 @@ def main() -> int:
 
     # 8b. K15 at the tensor decomposition's n and bench.py's 65,536, K16 at a
     #     ragged n past the cap and bench.py's 2^20, all r = 10: update and
-    #     update+apply against the chain's plain stages and the direct form
+    #     update+apply against the chain's plain stages and the direct form;
+    #     then K16 at SPLU_RAGGED (ranks 1 to 33 at odd n)
     def splu_case(n, r=10):
         """A walked state (`splu.walked_state`) and fresh v, h, g."""
         return splu.walked_state(n, r, g, dev), [torch.randn(n, generator=g, device=dev)
@@ -1327,6 +1332,33 @@ def main() -> int:
               f"{splu_times[n][1]:.4f} ms, bound {splu_bounds[n][0]:.4f} ms "
               f"({splu_bounds[n][1]}); the direct form's update+apply {direct_ms:.4f} ms",
               flush=True)
+    # K16 at SPLU_RAGGED: update and update + apply against the plain
+    # chain, one count each, bit-repeatable; zero probes on a balanced state
+    # (L = U = 0.7 I) leave it exact
+    for n, r in SPLU_RAGGED:
+        st, (v, h, gr) = splu_case(n, r)
+        before = dict(hopper.counts)
+        got = splu_upd.fused_update(*fields(st), v, h, 0.05)
+        fused = splu_upd.fused_update(*fields(st), v, h, 0.05, g=gr)
+        torch.cuda.synchronize()
+        moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
+        with hopper.disabled():
+            ref = splu_upd.fused_update(*fields(st), v, h, 0.05, g=gr)
+        pairs = list(zip(got, ref[:4])) + list(zip(fused, ref))
+        rel = max(_rel(a, b) for a, b in pairs)
+        splu_err["splu_upd"] = max(splu_err["splu_upd"], max(_abs(a, b) for a, b in pairs))
+        again = splu_upd.fused_update(*fields(st), v, h, 0.05)
+        same = all(torch.equal(a, b) for a, b in zip(again, got))
+        zst, z = splu.init(n, rank=r, init_scale=0.7, device=dev), torch.zeros(n, device=dev)
+        zero_ok = all(torch.equal(a, b) for a, b in zip(
+            splu_upd.fused_update(*fields(zst), z, z, 0.05), fields(zst)))
+        print(f"splu_upd ragged: n={n} r={r} update and update+apply max rel err {rel:.3e} "
+              f"(tol {TOL_K1:.0e}), launches {moved}, bit-equal again {same}, zero probes leave "
+              f"a balanced state exact {zero_ok}", flush=True)
+        check(rel < TOL_K1 and same and zero_ok
+              and moved == {"splu_upd": 1, "splu_upd_apply": 1},
+              f"splu_upd at ragged n={n} r={r}")
+        del st, got, fused, ref, again, zst
     for n in (SPLU_K15[0], SPLU_K16[0]):
         kst, _ = splu_case(n)
         pst = kst
@@ -2291,7 +2323,7 @@ def main() -> int:
     # 18. S1: K14 on a one-rank NCCL group (the shard wrapper with no
     #     exchange) at n = 2^20, r = 10, update + apply, pipelined off and on,
     #     against its plain chain (the same call under disabled()) and K13
-    #     on the same inputs and coins
+    #     on the same inputs and coins; the sharded K16 there against K16
     import torch.distributed as dist
 
     from psgd_tf_tpu_torch.parallel import make_mesh, policies
@@ -2331,6 +2363,25 @@ def main() -> int:
               f"pipelined {s1_ms['k14 pipelined']:.4f} ms", flush=True)
         check(max(s1_rel, s1_plain) <= TOL_K1, "s1: K14 on one rank vs plain and K13")
         del st, v, h, gr
+        # the sharded K16 on the same rank at r = 10, update + apply, against
+        # its plain chain and K16's fused apply, each timed: a world of one
+        # exchanges nothing, so the two differ by the entries' own work
+        n = SHARD_SPLU[0]
+        st, (v, h, gr) = splu_case(n)
+        fs = fields(st)
+        got = splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh1, None, gr)
+        with hopper.disabled():
+            plain = splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh1, None, gr)
+        ref = splu_upd.fused_update(*fs, v, h, 0.05, g=gr)
+        rel = max(max(_rel(a, b), _rel(a, c)) for a, b, c in zip(got, plain, ref))
+        s1_k16 = {"sharded": _time(torch, lambda: splu_upd.fused_update_sharded(
+            *fs, v, h, 0.05, mesh1, None, gr), 50),
+                  "k16": _time(torch, lambda: splu_upd.fused_update(*fs, v, h, 0.05, g=gr), 50)}
+        print(f"s1: the sharded K16 on one NCCL rank, n={n} r=10: max rel err {rel:.3e} against "
+              f"its plain chain and K16 (tol {TOL_K1:.0e}); update+apply sharded "
+              f"{s1_k16['sharded']:.4f} ms, K16's fused apply {s1_k16['k16']:.4f} ms", flush=True)
+        check(rel < TOL_K1, "s1: the sharded K16 at r=10 vs plain and K16")
+        del st, fs, got, plain, ref
         # K14 and the sharded K16 past rank 32 (their rank-generic entries) at
         # RANK_BENCH, against their plain chains and the one-process kernels
         n, r = RANK_BENCH

@@ -1,7 +1,7 @@
 // The rank-generic pieces of the lra (K13/K14) and splu (K15/K16) chains:
 // what their rank-32 kernels hold in registers and in one warp, sized by r.
 //
-// Past rank 32 a Gram of (2r + 2) or (3r + 3) rows no longer fits a
+// Past rank 32 a Gram of 2r + 2 rows no longer fits a
 // thread's pair registers, nor a rank-space vector one warp's lanes, so
 // both files switch (on the host, by r) to:
 //   - Grams through kron_dd.cu's grouped GEMM (gram_launch): Z's row
@@ -23,7 +23,8 @@
 //     8.25 (13.16 of 15.90). The 128 x 128 tiles ran slower at each (lra's
 //     stage-1 Gram alone at r = 64 2.94 against 2.12 ms, splu's 6.06
 //     against 2.44): the thin blocks against the staged rows fill a
-//     tile's width with zeros;
+//     tile's width with zeros. splu's stage-1 Gram up to SPLU_G_MAX_RANK
+//     is now summed from splu.cu's own staged tile instead;
 //   - block-wide rank-space algebra (rg_*): one block of RG_THREADS
 //     threads, every vector a length-r array that thread k, k + RG_THREADS,
 //     ... own, read by all after a barrier; r x r matrices read where they

@@ -18,10 +18,12 @@
 // The state at n = 65,536 (r = 10) is ~5.2 MB, far past a block's 227 KB of
 // shared memory, so both kernels are one fixed chain of launches on one
 // stream, with no host synchronisation:
-//   stage 1   per lane Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2] (3r + 3
-//             rows, w = 1/(l3 u3)); the Gram entries the algebra reads
-//             (2r^2 + 5r of them), and max l3, max u3 for the balance;
-//   reduce    the blocks' partial Grams summed in block order, a warp a pair;
+//   stage 1   per lane Y = [L2^T; U2 w; dx2 w; l3 u3 dg2] (2r + 2 rows,
+//             w = 1/(l3 u3)); the upper triangle of Y Y^T, which holds every
+//             entry the algebra reads (JAX's Z also has the rows U2 and dg2:
+//             its U2 dg2 is read here as (U2 w) . (l3 u3 dg2), equal to
+//             rounding), and max l3, max u3 for the balance;
+//   reduce    the blocks' partial Grams summed in block order, a warp an entry;
 //   corner A  one warp, lane k holding row k of the rank space: the four
 //             r x r triangular solves (substitution, one shuffle a row),
 //             Ug1, Qg1, iUtx1, iQtx1, LtQg1, Pg1, iLiQtx1, iPx1, max|gl1|,
@@ -45,44 +47,60 @@
 // host all-reduces over the ranks holding the tail's other lanes (the end
 // of this file).
 //
-// What bounds it on this card: memory. The update + apply reads Lt, U12
-// (their tails), l3, u3, v, h, g and writes the new state and P' g: about
-// (4rn + 10n) floats, 13 MB (3.9 us at 3.35 TB/s) at n = 65,536, r = 10;
-// the update alone (4rn + 6n), 193 MB (58 us) at 2^20. This version reads
-// the tail factors in stages 1, 2 and 3 (and the new ones in stage 4): ~2x
-// that, and the Gram sums read shared memory twice per FMA. At small n the
-// chain's short launches (six for the update, nine with g) bound it.
+// What bounds it on this card: memory. The update reads the tails of Lt
+// and U12, l3, u3, v and h and writes the new state, (4r + 6) floats a lane
+// at the least: 193 MB (58 us at 3.35 TB/s) at n = 2^20, r = 10; with g
+// (4r + 10) floats. The chain reads the tail in each of stages 1, 2 and 3:
+// 376 MB at 2^20, r = 10. At small n its short launches (six for the
+// update, nine with g) bound it.
+//
+// The design. Each streaming pass stages tiles of 256 lanes of every row
+// of the tail in shared memory by cp.async, the next tile's copies in
+// flight while one is read; row k of the tail starts at k n + r, so each
+// row is copied in 16-byte chunks as it lies and read at its own offset,
+// and the new tail goes back in 16-byte stores put together from the
+// aligned tile. Stage 1's lanes are scaled into Y, aligned, and Y Y^T is
+// summed in 4 x 4 register tiles of its upper triangle, 64 FMAs for eight
+// 16-byte shared loads (the pairs of the earlier kernel read two 4-byte
+// values an FMA); the tile's lane quads are split over the threads left
+// when the tiles are few, their sums added in slice order, so a run
+// repeats itself bit for bit. Stage 3 with g writes the new tail into Y
+// and sums the apply's Gram there. At n = 2^20 (NVIDIA H100 80GB HBM3,
+// 700 W, tools/tri_lra_ab.py --splu): the update 0.255 ms at r = 10 (its
+// passes 2.1-2.2 TB/s), 0.94 at r = 32, 2.05 at r = 64, 6.76 at r = 128.
 //
 // Ranks: up to SPLU_MAX_RANK (32) the kernels above, a warp holding a
-// rank-space vector and each thread its share of the Gram's pairs; past it
-// the host runs the rank-generic chain (splu_update_g, the same C entry
-// points, the sharded ones too), with no cap below what device memory sets.
-// Its Grams run in kron_dd.cu's grouped GEMM (rank_space.cuh). Its
-// scratch: the GEMM's bands, the larger of gram_part_floats for
-// z = 3r + 3 and 2r + 2 (at most 256 z^2 floats, a band per >= 256 lanes:
-// under 1/256 of the state's 2 r n), the staged rows (r + 3)(n - r)
-// (U2 w and three more: about half the state's), the two reduced Grams
-// (3r + 3)^2 + (2r + 2)^2, the rank space 19 r + 8 and, past RG_SMEM of
-// shared memory (r > ~3200), the corners' workspace 16 r. At n = 2^20
-// (H100 80GB HBM3, 700 W, tools/kron_gemm_ab.py --gram and --generic):
-// the update 3.35 ms at r = 64, 8.25 at r = 128; the generic chain forced
-// at r = 10 runs 2.23 ms against the rank-32 chain's 0.29, which is why
-// both stay. The one-launch kernel keeps r <= 32.
+// rank-space vector; past it the host runs the rank-generic chain
+// (splu_update_g, the same C entry points, the sharded ones too), with no
+// cap below what device memory sets. Its stage-1 Gram up to
+// SPLU_G_MAX_RANK is the same staged design in 8 x 8 register tiles
+// (tiles of SPLU_G_TILE lanes, the Gram's tiles in y-slices of 256 over
+// the grid); past it, and for the apply's Gram, kron_dd.cu's grouped GEMM
+// (rank_space.cuh) over the rows the state holds read in place and the
+// others staged. Its scratch: the partial tiles (splu_g1_blocks x 64
+// floats a tile) or the GEMM's bands, the apply's bands (at most 256 z^2
+// floats, z = 2r + 2), the staged rows 2 (n - r) (r (n - r) more past
+// SPLU_G_MAX_RANK), the two reduced Grams 2 z^2, the rank space 19 r + 8
+// and, past RG_SMEM of shared memory (r > ~3200), the corners' workspace
+// 16 r. The one-launch kernel keeps r <= 32.
 #include "psgd.cuh"
 #include "rank_space.cuh"
 
 #include <cooperative_groups.h>
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
 
-#define SPLU_TILE 256            // lanes of a tile = threads of a streaming block
+#define SPLU_TILE 256            // threads of a streaming block, and lanes of a rank-32 tile
 #define SPLU_MAX_RANK 32
 #define SPLU_LD (SPLU_MAX_RANK + 1)
-#define SPLU_MAX_BLOCKS 1024     // grid cap of the streaming passes (bounds the partials)
-#define SPLU_MAX_PAIRS1 (2 * SPLU_MAX_RANK * SPLU_MAX_RANK + 5 * SPLU_MAX_RANK)
-#define SPLU_MAX_PAIRS2 (SPLU_MAX_RANK * (SPLU_MAX_RANK + 1) / 2 + 2 * SPLU_MAX_RANK)
-#define SPLU_PPT1 ((SPLU_MAX_PAIRS1 + SPLU_TILE - 1) / SPLU_TILE)
-#define SPLU_PPT2 ((SPLU_MAX_PAIRS2 + SPLU_TILE - 1) / SPLU_TILE)
+#define SPLU_MAX_BLOCKS 528      // grid cap of the streaming passes (bounds the partials)
+#define SPLU_MAX_BLOCKS3 1024    // stage 3's without g (no partials)
+#define SPLU_S1_WIDE_RANK 16     // the rank-32 stage 1: 256-lane tiles up to it, 128 past
+#define SPLU_G_TILE 64           // lanes of a tile of the rank-generic stage-1 Gram
+#define SPLU_G_BLOCKS 264        // its blocks' cap (bounds its partials)
+#define SPLU_G_TS 8              // the side of its Gram tiles
+#define SPLU_G_MAX_RANK 128      // past it the staged tiles outgrow shared memory
 #define SPLU_NCOEF 8
 
 // the rank-space state passed between the launches (in scratch)
@@ -96,109 +114,273 @@ struct SpluRank {
 };
 
 __device__ __forceinline__ float splu_neg_inf() { return __int_as_float(0xff800000); }
-__host__ __device__ __forceinline__ int splu_npairs1(int r) { return 2 * r * r + 5 * r; }
-__host__ __device__ __forceinline__ int splu_npairs2(int r) { return r * (r + 1) / 2 + 2 * r; }
 
-// the idx-th pair (a <= b) of an r x r symmetric block, row-major
-__device__ __forceinline__ void splu_sym(int r, int idx, int& a, int& b) {
+// the idx-th pair (a <= b) of a q x q symmetric block, row-major
+__host__ __device__ __forceinline__ void splu_sym(int q, int idx, int& a, int& b) {
     a = 0;
-    while (idx >= r - a) {
-        idx -= r - a;
+    while (idx >= q - a) {
+        idx -= q - a;
         ++a;
     }
     b = a + idx;
 }
 
-// The Gram entries the algebra reads, as rows (a, b) of Z.
-// which = 1, stage 1: rows L2^T 0..r-1, U2 w r..2r-1, U2 2r..3r-1, dx2 w 3r,
-//   dg2 3r+1, l3 u3 dg2 3r+2; pairs (L, L) sym, (L, W) full, (W, W) sym,
-//   (L, X), (L, G), (W, X), (U, D).
-// which = 2, the apply: rows L2^T' 0..r-1, U2' r..2r-1, l3' u3' g2 2r, g2
-//   2r+1; pairs (L', L') sym, (L', l3' u3' g2), (U', g2).
-__device__ void splu_pair(int which, int r, int idx, int& a, int& b) {
-    const int T = r * (r + 1) / 2;
-    if (idx < T) {
-        splu_sym(r, idx, a, b);
-        return;
-    }
-    idx -= T;
-    if (which == 2) {
-        if (idx < r) {
-            a = idx;
-            b = 2 * r;
-        } else {
-            a = idx;  // r + (idx - r)
-            b = 2 * r + 1;
-        }
-        return;
-    }
-    if (idx < r * r) {
-        a = idx / r;
-        b = r + idx % r;
-        return;
-    }
-    idx -= r * r;
-    if (idx < T) {
-        splu_sym(r, idx, a, b);
-        a += r;
-        b += r;
-        return;
-    }
-    idx -= T;
-    const int seg = idx / r, i = idx % r;
-    if (seg == 0) {
-        a = i;
-        b = 3 * r;
-    } else if (seg == 1) {
-        a = i;
-        b = 3 * r + 2;
-    } else if (seg == 2) {
-        a = r + i;
-        b = 3 * r;
-    } else {
-        a = 2 * r + i;
-        b = 3 * r + 1;
-    }
+// ------------------------------------------------------------ the staged tile
+// A streaming block stages LT tail lanes of the state at a time in shared
+// memory (S, two of them: the next tile's copies in flight while one is
+// read), LT + 4 floats a row: rows 0..r-1 the tail of Lt, r..2r-1 the
+// tail of U12, 2r v, 2r + 1 h, 2r + 2 l3, 2r + 3 u3 and (stage 3 with g)
+// 2r + 4 g. Row k of Lt starts at k n + r, so each row has its own
+// alignment: its 16-byte chunks are copied as they lie (cp.async, every
+// copy of the tile in flight at once), lane j of row i at S[i LD + sh[i] +
+// j], sh[i] the segment's misalignment in floats. A Gram's rows are put
+// together aligned in Y, lane by lane, zeros past the tile's lanes and in
+// the padding to a whole tile: stage 1's Y = [L2^T; U2 w; dx2 w; l3 u3
+// dg2], the apply's [L2^T'; U2'; l3' u3' g2; g2].
+
+// the rows of stage 1's Gram padded to a multiple of ts
+__host__ __device__ __forceinline__ int splu_pad(int r, int ts) {
+    return (2 * r + 1 + ts) / ts * ts;
 }
 
-template <int PPT>
-struct SpluPairs {
-    int a[PPT], b[PPT], count;
+// the floats of a block's staged tiles of lt lanes: two S (one in flight
+// while the other is read), sh, and with y the Gram's rows Y in ts x ts
+// tiles (rows 2r..2r+3 for the apply's tiles against its last two rows);
+// at least a block's ts^2 accumulators a thread, for their sum over the
+// lane slices
+__host__ __device__ __forceinline__ int splu_tile_floats(int r, int lt, bool y, int ts) {
+    const int ld = lt + 4, yr = splu_pad(r, ts) > 2 * r + 4 ? splu_pad(r, ts) : 2 * r + 4;
+    const int f = 2 * (2 * r + 5) * ld + (2 * r + 8) / 4 * 4 + (y ? yr * ld : 0);
+    return f > SPLU_TILE * ts * ts ? f : SPLU_TILE * ts * ts;
+}
+
+struct SpluTile {
+    float *S[2], *Y;
+    int* sh;
 };
 
-// this thread's pairs: the k-th is pair threadIdx.x + k * SPLU_TILE
-template <int PPT>
-__device__ void splu_my_pairs(int which, int r, int npairs, SpluPairs<PPT>& P) {
-    P.count = 0;
-    for (int idx = threadIdx.x; idx < npairs && P.count < PPT; idx += SPLU_TILE) {
-        splu_pair(which, r, idx, P.a[P.count], P.b[P.count]);
-        ++P.count;
+__device__ __forceinline__ SpluTile splu_tile_carve(float* zs, int r, int lt) {
+    const int s = (2 * r + 5) * (lt + 4);
+    SpluTile T;
+    T.S[0] = zs;
+    T.S[1] = zs + s;
+    T.sh = reinterpret_cast<int*>(zs + 2 * s);
+    T.Y = zs + 2 * s + (2 * r + 8) / 4 * 4;
+    return T;
+}
+
+struct SpluSrc {
+    const float *lt, *u12, *v, *h, *l3, *u3, *g;  // g null: no g row
+    int n, r;
+};
+
+// staged row i's segment at tail lane base
+__device__ __forceinline__ const float* splu_src_row(const SpluSrc& s, int i, int base) {
+    const int r = s.r;
+    if (i < r) return s.lt + (size_t)i * s.n + r + base;
+    if (i < 2 * r) return s.u12 + (size_t)(i - r) * s.n + r + base;
+    switch (i - 2 * r) {
+        case 0: return s.v + r + base;
+        case 1: return s.h + r + base;
+        case 2: return s.l3 + base;
+        case 3: return s.u3 + base;
+        default: return s.g + r + base;
     }
 }
 
-// acc[k] += sum over the tile's lanes of zs[a_k] * zs[b_k]
-template <int PPT>
-__device__ __forceinline__ void splu_add_pairs(const float* zs, const SpluPairs<PPT>& P, float* acc) {
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-        if (k >= P.count) break;
-        const float* za = zs + P.a[k] * (SPLU_TILE + 1);
-        const float* zb = zs + P.b[k] * (SPLU_TILE + 1);
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        for (int l = 0; l < SPLU_TILE; l += 4) {
-            s0 += za[l] * zb[l];
-            s1 += za[l + 1] * zb[l + 1];
-            s2 += za[l + 2] * zb[l + 2];
-            s3 += za[l + 3] * zb[l + 3];
+__device__ __forceinline__ void splu_cp16(float* dst, const float* src, bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 16 : 0));
+}
+
+// The tile at tail lane base (`len` lanes) into S, in flight as one group:
+// each chunk that holds a lane of its row's segment (zeros for the
+// others); the caller waits (splu_cp_wait) and synchronises before reading
+// S. Nothing where base is past the tail (an empty group).
+template <int LT>
+__device__ void splu_stage_fetch(const SpluSrc& s, int base, float* S, const SpluTile& T) {
+    const int len = min(LT, s.n - s.r - base);
+    constexpr int QS = LT / 4 + 1, LD = LT + 4;
+    const int items = len > 0 ? (2 * s.r + 4 + (s.g ? 1 : 0)) * QS : 0;
+    for (int it = threadIdx.x; it < items; it += SPLU_TILE) {
+        const int i = it / QS, x = it % QS;
+        const float* p = splu_src_row(s, i, base);
+        const int sh = (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+        if (x == 0) T.sh[i] = sh;  // the same at every tile of a row
+        splu_cp16(S + i * LD + 4 * x, p - sh + 4 * x, 4 * x < sh + len);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait for this thread's copies but the last group started (the next tile's)
+__device__ __forceinline__ void splu_cp_wait() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// row i of S at one lane
+struct SpluCol {
+    float* p;  // S + lane
+    const int* sh;
+    __device__ __forceinline__ float& operator()(int i) const {
+        return p[i * (SPLU_TILE + 4) + sh[i]];
+    }
+};
+
+// rows 2r + 2 .. splu_pad(r, ts) - 1 of Y to zero (the Gram's padding)
+template <int LT>
+__device__ void splu_zero_pad(int r, int ts, float* Y) {
+    constexpr int LD = LT + 4;
+    for (int e = threadIdx.x; e < (splu_pad(r, ts) - 2 * r - 2) * LD; e += SPLU_TILE)
+        Y[(2 * r + 2) * LD + e] = 0.f;
+}
+
+// row[pos..pos+3] (pos >= 0) by 16-byte shared loads of the aligned quads
+// that hold them
+__device__ __forceinline__ float4 splu_ld4(const float* row, int pos) {
+    const int k = pos & 3;
+    const float4 a = *reinterpret_cast<const float4*>(row + pos - k);
+    if (!k) return a;
+    const float4 b = *reinterpret_cast<const float4*>(row + pos - k + 4);
+    return k == 1 ? make_float4(a.y, a.z, a.w, b.x)
+                  : k == 2 ? make_float4(a.z, a.w, b.x, b.y) : make_float4(a.w, b.x, b.y, b.z);
+}
+
+// The new tail of the tile into the state's segments at tail lane base
+// (`len` lanes): rows 0..2r-1 of A (lane j of row k at A[k LD + j], or at
+// A[k LD + sh[k] + j] in S), l3' and u3' from rows 2r + 2, 2r + 3 of S.
+// Destination chunk x of a row (from its aligned base) is one 16-byte
+// store where it lies inside the segment, scalar stores at its ends.
+__device__ void splu_stage_out(int n, int r, int base, int len, const float* A, bool a_in_s,
+                               const float* S, const SpluTile& T, float* lt_out, float* l3_out,
+                               float* u12_out, float* u3_out) {
+    constexpr int LD = SPLU_TILE + 4, QO = SPLU_TILE / 4 + 1;
+    for (int it = threadIdx.x; it < (2 * r + 2) * QO; it += SPLU_TILE) {
+        const int i = it / QO, x = it % QO, k = i < 2 * r ? i : i + 2;
+        float* p = k < r       ? lt_out + (size_t)k * n + r + base
+                   : k < 2 * r ? u12_out + (size_t)(k - r) * n + r + base
+                   : k == 2 * r + 2 ? l3_out + base
+                                    : u3_out + base;
+        const float* src = (k < 2 * r ? A : S) + k * LD;
+        const int sh = k < 2 * r && !a_in_s ? 0 : T.sh[k];  // lane j at src[sh + j]
+        const float* row = src + sh;
+        const int j = 4 * x - (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+        if (j >= 0 && j + 3 < len) {
+            *reinterpret_cast<float4*>(p + j) = splu_ld4(src, sh + j);
+        } else {
+            for (int e = 0; e < 4; ++e)
+                if (j + e >= 0 && j + e < len) p[j + e] = row[j + e];
         }
-        acc[k] += (s0 + s1) + (s2 + s3);
     }
 }
 
-// this thread's sums into the block's row `out` of the partials
-template <int PPT>
-__device__ __forceinline__ void splu_store_pairs(const SpluPairs<PPT>& P, const float* acc, float* out) {
-    for (int k = 0; k < P.count; ++k) out[(int)threadIdx.x + k * SPLU_TILE] = acc[k];
+// ------------------------------------------------------------ the Gram's tiles
+// A thread accumulates whole ts x ts tiles of a Gram over the staged rows:
+// per lane quad 2 ts 16-byte shared loads for 4 ts^2 FMAs (4 x 4 tiles in
+// the rank-32 kernels, 8 x 8 in the rank-generic stage 1). which = 1,
+// stage 1: the upper triangle of Y = rows 0..2r+1 (zero past them), in
+// tiles (ti <= tj) over splu_pad(r, ts) / ts row blocks; which = 2, the
+// apply (ts = 4): the upper triangle of L2^T' (rows 0..r-1) over ceil(r /
+// 4) quads, then each quad of [L2^T'; U2'] against rows 2r, 2r + 1 (l3'
+// u3' g2, g2). Every entry the corner algebra reads lies in one tile.
+
+__host__ __device__ __forceinline__ int splu_tiles(int which, int r, int ts) {
+    const int q = which == 1 ? splu_pad(r, ts) / ts : (r + 3) / 4;
+    return q * (q + 1) / 2 + (which == 1 ? 0 : (r + 1) / 2);
+}
+
+// tile t's first rows (a0, b0)
+__device__ __forceinline__ void splu_tile(int which, int r, int ts, int t, int& a0, int& b0) {
+    const int q = which == 1 ? splu_pad(r, ts) / ts : (r + 3) / 4, up = q * (q + 1) / 2;
+    if (t < up) {
+        splu_sym(q, t, a0, b0);
+        a0 *= ts;
+        b0 *= ts;
+    } else {
+        a0 = 4 * (t - up);
+        b0 = 2 * r;
+    }
+}
+
+// whether entry (i, j) of tile t (rows a0, b0) is written into the
+// (2r + 2)-square Gram: one writer an entry, the upper half of a diagonal
+// tile, and the apply's two parts kept apart
+__device__ __forceinline__ bool splu_tile_owns(int which, int r, int t, int i, int j, int a0,
+                                               int b0) {
+    const int a = a0 + i, b = b0 + j, z = 2 * r + 2;
+    if (a >= z || b >= z || (a0 == b0 && i > j)) return false;
+    const int q = (r + 3) / 4;
+    return which == 1 || (t < q * (q + 1) / 2 ? b < r : a < 2 * r);
+}
+
+// This thread's share of a Gram's tiles: y-slice y of the tiles holds
+// SPLU_TILE of them, and each tile takes ks threads, thread s of them the
+// lane quads s, s + ks, ..., starting at a rotation fixed by its tile
+// (spreads the shared-memory banks).
+struct SpluGramPlan {
+    int a0, b0, tile, mine, slice, ks, first, count;
+};
+
+template <int LT, int TS>
+__device__ void splu_gram_plan(int which, int r, int y, SpluGramPlan& P) {
+    const int t = threadIdx.x;
+    P.first = y * SPLU_TILE;
+    P.count = min(splu_tiles(which, r, TS) - P.first, SPLU_TILE);
+    P.ks = min(SPLU_TILE / P.count, LT / 4);
+    P.slice = t % P.ks;
+    P.tile = P.first + t / P.ks;
+    P.mine = t / P.ks < P.count;
+    if (P.mine) splu_tile(which, r, TS, P.tile, P.a0, P.b0);
+}
+
+// acc += this thread's tile's products over the staged lanes of its quads
+template <int LT, int TS>
+__device__ __forceinline__ void splu_gram_acc(const float* zs, const SpluGramPlan& P,
+                                              float (&acc)[TS * TS]) {
+    constexpr int LD = LT + 4;
+    const int nq = (LT / 4 - P.slice + P.ks - 1) / P.ks;
+    if (!P.mine || nq <= 0) return;
+    const int rot = P.tile % nq;
+    for (int m0 = 0; m0 < nq; ++m0) {
+        const int m = m0 + rot < nq ? m0 + rot : m0 + rot - nq, l = 4 * (P.slice + P.ks * m);
+        float4 A[TS];
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+            A[i] = *reinterpret_cast<const float4*>(zs + (P.a0 + i) * LD + l);
+#pragma unroll
+        for (int j = 0; j < TS; ++j) {
+            const float4 B = *reinterpret_cast<const float4*>(zs + (P.b0 + j) * LD + l);
+#pragma unroll
+            for (int i = 0; i < TS; ++i) {
+                float& c = acc[TS * i + j];
+                c = fmaf(A[i].x, B.x, c);
+                c = fmaf(A[i].y, B.y, c);
+                c = fmaf(A[i].z, B.z, c);
+                c = fmaf(A[i].w, B.w, c);
+            }
+        }
+    }
+}
+
+// The block's partial Gram into out (TS^2 floats a tile, tile-major): with
+// ks > 1 the slices' sums added in slice order through zs (256 TS^2
+// floats; barriers, every thread calls it), else each tile as it is
+template <int TS>
+__device__ void splu_gram_out(const SpluGramPlan& P, const float (&acc)[TS * TS], float* out,
+                              float* zs) {
+    constexpr int E = TS * TS;
+    if (P.ks == 1) {
+        if (P.mine)
+            for (int e = 0; e < E; ++e) out[(size_t)P.tile * E + e] = acc[e];
+        return;
+    }
+    __syncthreads();
+    for (int e = 0; e < E; ++e) zs[threadIdx.x * E + e] = P.mine ? acc[e] : 0.f;
+    __syncthreads();
+    for (int e = threadIdx.x; e < P.count * E; e += SPLU_TILE) {
+        const float* p = zs + (e / E) * P.ks * E + e % E;
+        float s = 0.f;
+        for (int k = 0; k < P.ks; ++k) s += p[k * E];
+        out[(size_t)P.first * E + e] = s;
+    }
 }
 
 // max over the block (blockDim == SPLU_TILE); every thread gets the result
@@ -219,92 +401,112 @@ __device__ __forceinline__ float splu_block_max(float v, float* red) {
 // kernel (the end of this file) walks the same blocks with fewer CTAs, so
 // both compute the same partials in the same order.
 
-// Block b of stage 1: its partial Gram (row b of part) and max l3, max u3
+// Block b of stage 1 (y-slice y of the Gram's TS x TS tiles): its partial
+// Gram of Y = [L2^T; U2 w; dx2 w; l3 u3 dg2], w = 1 / (l3 u3) (row b of
+// part, splu_tiles(1, r, TS) TS^2 floats), and with y = 0 max l3, max u3
 // (maxpart[2b], [2b + 1]) over the tail lanes below nvalid alone: the lanes
 // past it are the 1-padding of a sharded tail (JAX splu_upd.py:928-944).
-// zs holds (3r + 3) rows of SPLU_TILE + 1 floats, red SPLU_TILE / 32.
-__device__ void splu_stage1_block(int b, int nblk, int n, int r, int nvalid, const float* lt,
-                                  const float* l3, const float* u12, const float* u3,
-                                  const float* v, const float* h, float* part, float* maxpart,
-                                  float* zs, float* red) {
-    const int nt = n - r, npairs = splu_npairs1(r), t = threadIdx.x, ld = SPLU_TILE + 1;
-    SpluPairs<SPLU_PPT1> P;
-    splu_my_pairs(1, r, npairs, P);
-    float acc[SPLU_PPT1];
+// The algebra's (U2, dg2) is (U2 w, l3 u3 dg2) here, equal to rounding.
+// The next tile's copies are in flight while this one is summed.
+template <int LT, int TS>
+__device__ void splu_stage1_block(int b, int nblk, int y, const SpluSrc& s, int nvalid,
+                                  float* part, float* maxpart, float* zs, float* red) {
+    constexpr int LD = LT + 4, GROUPS = SPLU_TILE / LT;
+    const int r = s.r, nt = s.n - r, z = 2 * r + 2, step = nblk * LT;
+    const SpluTile T = splu_tile_carve(zs, r, LT);
+    SpluGramPlan P;
+    splu_gram_plan<LT, TS>(1, r, y, P);
+    float acc[TS * TS];
 #pragma unroll
-    for (int k = 0; k < SPLU_PPT1; ++k) acc[k] = 0.f;
+    for (int e = 0; e < TS * TS; ++e) acc[e] = 0.f;
     float ml = splu_neg_inf(), mu = splu_neg_inf();
-    for (int base = b * SPLU_TILE; base < nt; base += nblk * SPLU_TILE) {
-        const int j = base + t;
-        const bool ok = j < nt;
-        float w = 0.f, x = 0.f, d = 0.f, lud = 0.f;
-        if (ok) {
-            const float l = l3[j], u = u3[j], lu = l * u;
-            if (j < nvalid) {
+    splu_zero_pad<LT>(r, TS, T.Y);
+    splu_stage_fetch<LT>(s, b * LT, T.S[0], T);
+    for (int base = b * LT, cur = 0; base < nt; base += step, cur ^= 1) {
+        const int len = min(LT, nt - base);
+        const float* S = T.S[cur];
+        splu_stage_fetch<LT>(s, base + step, T.S[cur ^ 1], T);
+        splu_cp_wait();
+        __syncthreads();
+        {  // lane j of Y: L2^T, U2 w, dx2 w, l3 u3 dg2, zeros past len; rows
+           // k = g, g + GROUPS, ... by the GROUPS threads of the lane
+            const int j = threadIdx.x % LT, g = threadIdx.x / LT;
+            const float l = S[z * LD + T.sh[z] + j], u = S[(z + 1) * LD + T.sh[z + 1] + j];
+            const bool ok = j < len;
+            const float lu = ok ? l * u : 0.f, w = ok ? 1.f / lu : 0.f;
+            if (g == 0 && ok && base + j < nvalid) {
                 ml = fmaxf(ml, l);
                 mu = fmaxf(mu, u);
             }
-            w = 1.f / lu;
-            x = v[r + j] * w;
-            d = h[r + j];
-            lud = lu * d;
+            for (int k = g; k < z; k += GROUPS) {
+                const float x = ok ? S[k * LD + T.sh[k] + j] : 0.f;
+                T.Y[k * LD + j] = k < r ? x : x * (k == 2 * r + 1 ? lu : w);
+            }
         }
-        for (int k = 0; k < r; ++k) {
-            const size_t off = (size_t)k * n + r + j;
-            const float lk = ok ? lt[off] : 0.f, uk = ok ? u12[off] : 0.f;
-            zs[k * ld + t] = lk;
-            zs[(r + k) * ld + t] = uk * w;
-            zs[(2 * r + k) * ld + t] = uk;
+        __syncthreads();
+        splu_gram_acc<LT, TS>(T.Y, P, acc);
+    }
+    splu_gram_out<TS>(P, acc, part + (size_t)b * splu_tiles(1, r, TS) * TS * TS, zs);
+    if (y == 0) {
+        ml = splu_block_max(ml, red);
+        mu = splu_block_max(mu, red);
+        if (threadIdx.x == 0) {
+            maxpart[2 * b] = ml;
+            maxpart[2 * b + 1] = mu;
         }
-        zs[3 * r * ld + t] = x;
-        zs[(3 * r + 1) * ld + t] = d;
-        zs[(3 * r + 2) * ld + t] = lud;
-        __syncthreads();
-        splu_add_pairs(zs, P, acc);
-        __syncthreads();
     }
-    splu_store_pairs(P, acc, part + (size_t)b * npairs);
-    ml = splu_block_max(ml, red);
-    mu = splu_block_max(mu, red);
-    if (t == 0) {
-        maxpart[2 * b] = ml;
-        maxpart[2 * b + 1] = mu;
-    }
+    __syncthreads();  // the one-launch kernel's next body reuses the tile
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage1_kernel(
-    int n, int r, int nvalid, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, float* __restrict__ part, float* __restrict__ maxpart) {
-    extern __shared__ float zs[];
+// the rank-32 kernels' stage 1 in tiles of LT lanes (splu_s1_wide)
+template <int LT>
+__global__ void __launch_bounds__(SPLU_TILE, 3) splu_stage1_kernel(SpluSrc s, int nvalid,
+                                                                float* __restrict__ part,
+                                                                float* __restrict__ maxpart) {
+    extern __shared__ float4 zs4[];
     __shared__ float red[SPLU_TILE / 32];
-    splu_stage1_block(blockIdx.x, gridDim.x, n, r, nvalid, lt, l3, u12, u3, v, h, part, maxpart,
-                      zs, red);
+    splu_stage1_block<LT, 4>(blockIdx.x, gridDim.x, 0, s, nvalid, part, maxpart,
+                             reinterpret_cast<float*>(zs4), red);
 }
 
-// gram[a, b] = gram[b, a] = the sum over blocks, in block order, of pair
-// e = (a, b); called by one whole warp
-__device__ void splu_reduce_pair(int which, int r, int zdim, int npairs, int blocks, int e,
-                                 const float* part, float* gram) {
+// the rank-generic chain's stage 1 (r <= SPLU_G_MAX_RANK): tiles of
+// SPLU_G_TILE lanes, the Gram in SPLU_G_TS-square tiles, one a thread, in
+// y-slices of SPLU_TILE tiles over the grid's y
+__global__ void __launch_bounds__(SPLU_TILE, 2) splu_stage1_g_kernel(SpluSrc s, int nvalid,
+                                                                  float* __restrict__ part,
+                                                                  float* __restrict__ maxpart) {
+    extern __shared__ float4 zs4[];
+    __shared__ float red[SPLU_TILE / 32];
+    splu_stage1_block<SPLU_G_TILE, SPLU_G_TS>(blockIdx.x, gridDim.x, blockIdx.y, s, nvalid, part,
+                                              maxpart, reinterpret_cast<float*>(zs4), red);
+}
+
+// gram[a, b] = gram[b, a] = the sum over blocks, in block order, of entry e
+// of the partials (np floats a block) where its tile owns it; one warp
+__device__ void splu_reduce_entry(int which, int r, int ts, int np, int blocks, int e,
+                                  const float* part, float* gram) {
+    int a0, b0;
+    const int t = e / (ts * ts), i = e / ts % ts, j = e % ts;
+    splu_tile(which, r, ts, t, a0, b0);
+    if (!splu_tile_owns(which, r, t, i, j, a0, b0)) return;  // uniform across the warp
     const int lane = threadIdx.x & 31;
     float s = 0.f;
-    for (int k = lane; k < blocks; k += 32) s += part[(size_t)k * npairs + e];
+    for (int k = lane; k < blocks; k += 32) s += part[(size_t)k * np + e];
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
     if (lane == 0) {
-        int a, b;
-        splu_pair(which, r, e, a, b);
-        gram[a * zdim + b] = s;
-        gram[b * zdim + a] = s;
+        const int z = 2 * r + 2, a = a0 + i, b = b0 + j;
+        gram[a * z + b] = s;
+        gram[b * z + a] = s;
     }
 }
 
-// one warp a pair
-__global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int zdim, int npairs,
-                                                          int blocks, const float* __restrict__ part,
+// one warp an entry of the partials
+__global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int ts, int blocks,
+                                                          const float* __restrict__ part,
                                                           float* __restrict__ gram) {
+    const int np = splu_tiles(which, r, ts) * ts * ts;
     const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    if (e >= npairs) return;  // uniform across the warp
-    splu_reduce_pair(which, r, zdim, npairs, blocks, e, part, gram);
+    if (e < np) splu_reduce_entry(which, r, ts, np, blocks, e, part, gram);
 }
 
 // out[w] = the max over blocks of maxpart[2 b + w], w = 0, 1; one warp
@@ -391,7 +593,7 @@ __device__ void splu_corner_a(int n, int r, int blocks, const float* lt, const f
     float* buf = ws + 5 * SPLU_SQ;
     float *vq = buf + 32, *viq = vq + 32, *vpg = viq + 32, *vdg = vpg + 32, *vdx = vdg + 32,
           *vipx = vdx + 32;
-    const int k = threadIdx.x, zdim = 3 * r + 3;
+    const int k = threadIdx.x, zdim = 2 * r + 2;
     const bool on = k < r;
     splu_load_corner(n, r, lt, u12, L1, U1);
     for (int e = k; e < r * r; e += 32) {
@@ -402,10 +604,10 @@ __device__ void splu_corner_a(int n, int r, int blocks, const float* lt, const f
     }
     __syncwarp();
     const float dx1 = on ? v[k] : 0.f, dg1 = on ? h[k] : 0.f;
-    const float U2_dg = on ? gram[(2 * r + k) * zdim + 3 * r + 1] : 0.f;
-    const float L2t_dxw = on ? gram[k * zdim + 3 * r] : 0.f;
-    const float L2t_lug = on ? gram[k * zdim + 3 * r + 2] : 0.f;
-    const float U2_w2dx = on ? gram[(r + k) * zdim + 3 * r] : 0.f;
+    const float U2_dg = on ? gram[(r + k) * zdim + 2 * r + 1] : 0.f;  // as (U2 w, l3 u3 dg2)
+    const float L2t_dxw = on ? gram[k * zdim + 2 * r] : 0.f;
+    const float L2t_lug = on ? gram[k * zdim + 2 * r + 1] : 0.f;
+    const float U2_w2dx = on ? gram[(r + k) * zdim + 2 * r] : 0.f;
 
     const float Ug1 = splu_mv(U1, false, dg1, r, buf) + U2_dg;
     const float Qg1 = splu_mv(L1, false, Ug1, r, buf);
@@ -481,14 +683,21 @@ __device__ void splu_load_coef(float (*c)[W], const float (*src)[W], int r) {
     for (int e = threadIdx.x; e < r * W; e += SPLU_TILE) c[e / W][e % W] = src[e / W][e % W];
 }
 
-__device__ __forceinline__ void splu_images(int n, int r, int j, const float* __restrict__ lt,
-                                            const float* __restrict__ u12, float lu, float w,
+// one lane's column of L2^T or U2 read in place: row k at p[k ld]
+struct SpluDirect {
+    const float* p;
+    size_t ld;
+    __device__ __forceinline__ float operator()(int k) const { return p[k * ld]; }
+};
+
+// one lane's tail images from its columns of L2^T and U2
+template <class Col>
+__device__ __forceinline__ void splu_images(int r, const Col& lt, const Col& u12, float lu, float w,
                                             float dx, float dg, const float (*c)[SPLU_NCOEF],
                                             float& qg2, float& iqtx2, float& pg2, float& ipx2) {
     float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
     for (int k = 0; k < r; ++k) {
-        const size_t off = (size_t)k * n + r + j;
-        const float lk = lt[off], uk = u12[off];
+        const float lk = lt(k), uk = u12(k);
         p0 += c[k][0] * lk;
         p1 += c[k][1] * uk;
         p2 += c[k][2] * uk;
@@ -500,42 +709,57 @@ __device__ __forceinline__ void splu_images(int n, int r, int j, const float* __
     ipx2 = w * (iqtx2 - p3);
 }
 
+// |gl2|, |gl3| and |gu2|, |gu3| of one lane folded into ml, mu
+__device__ __forceinline__ void splu_lane_max(int r, float qg2, float iqtx2, float pg2, float ipx2,
+                                              float dx, float dg, const float (*c)[SPLU_NCOEF],
+                                              float& ml, float& mu) {
+    ml = fmaxf(ml, fabsf(qg2 * qg2 - iqtx2 * iqtx2));
+    mu = fmaxf(mu, fabsf(pg2 * dg - dx * ipx2));
+    for (int k = 0; k < r; ++k) {
+        ml = fmaxf(ml, fabsf(c[k][4] * qg2 - c[k][5] * iqtx2));
+        mu = fmaxf(mu, fabsf(c[k][6] * dg - c[k][7] * ipx2));
+    }
+}
+
 // Block b of stage 2: max(|gl2|, |gl3|), max(|gu2|, |gu3|) over its lanes
-// into maxpart[2b], [2b + 1]; c = coef2 in shared memory
-__device__ void splu_stage2_block(int b, int nblk, int n, int r, const float* lt, const float* l3,
-                                  const float* u12, const float* u3, const float* v,
-                                  const float* h, const float (*c)[SPLU_NCOEF], float* maxpart,
-                                  float* red) {
-    const int nt = n - r;
+// into maxpart[2b], [2b + 1]; c = coef2 in shared memory, zs a staged tile
+__device__ void splu_stage2_block(int b, int nblk, const SpluSrc& s, const float (*c)[SPLU_NCOEF],
+                                  float* maxpart, float* zs, float* red) {
+    const int r = s.r, nt = s.n - r, z = 2 * r + 2, t = threadIdx.x, step = nblk * SPLU_TILE;
+    const SpluTile T = splu_tile_carve(zs, r, SPLU_TILE);
     float ml = 0.f, mu = 0.f;
-    for (int j = b * SPLU_TILE + threadIdx.x; j < nt; j += nblk * SPLU_TILE) {
-        const float lu = l3[j] * u3[j], w = 1.f / lu, dx = v[r + j], dg = h[r + j];
-        float qg2, iqtx2, pg2, ipx2;
-        splu_images(n, r, j, lt, u12, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
-        ml = fmaxf(ml, fabsf(qg2 * qg2 - iqtx2 * iqtx2));
-        mu = fmaxf(mu, fabsf(pg2 * dg - dx * ipx2));
-        for (int k = 0; k < r; ++k) {
-            ml = fmaxf(ml, fabsf(c[k][4] * qg2 - c[k][5] * iqtx2));
-            mu = fmaxf(mu, fabsf(c[k][6] * dg - c[k][7] * ipx2));
+    splu_stage_fetch<SPLU_TILE>(s, b * SPLU_TILE, T.S[0], T);
+    for (int base = b * SPLU_TILE, cur = 0; base < nt; base += step, cur ^= 1) {
+        const int len = min(SPLU_TILE, nt - base);
+        const SpluCol L{T.S[cur] + t, T.sh}, U{T.S[cur] + r * (SPLU_TILE + 4) + t, T.sh + r};
+        splu_stage_fetch<SPLU_TILE>(s, base + step, T.S[cur ^ 1], T);
+        splu_cp_wait();
+        __syncthreads();
+        if (t < len) {
+            const float lu = L(z) * L(z + 1), w = 1.f / lu, dx = L(2 * r), dg = L(2 * r + 1);
+            float qg2, iqtx2, pg2, ipx2;
+            splu_images(r, L, U, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+            splu_lane_max(r, qg2, iqtx2, pg2, ipx2, dx, dg, c, ml, mu);
         }
+        __syncthreads();
     }
     ml = splu_block_max(ml, red);
     mu = splu_block_max(mu, red);
-    if (threadIdx.x == 0) {
+    if (t == 0) {
         maxpart[2 * b] = ml;
         maxpart[2 * b + 1] = mu;
     }
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const SpluRank* __restrict__ rk, float* __restrict__ maxpart) {
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(SpluSrc s,
+                                                                const SpluRank* __restrict__ rk,
+                                                                float* __restrict__ maxpart) {
+    extern __shared__ float4 zs4[];
     __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
     __shared__ float red[SPLU_TILE / 32];
-    splu_load_coef(c, rk->coef2, r);
+    splu_load_coef(c, rk->coef2, s.r);
     __syncthreads();
-    splu_stage2_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, c, maxpart, red);
+    splu_stage2_block(blockIdx.x, gridDim.x, s, c, maxpart, reinterpret_cast<float*>(zs4), red);
 }
 
 // ----------------------------------------------------------------- corner B
@@ -625,74 +849,82 @@ __global__ void __launch_bounds__(32) splu_corner_b_kernel(
 
 // ------------------------------------------------------------------ stage 3
 
-// Block b of stage 3: the new tail of its lanes; with g also its partial
-// apply Gram (row b of part). c = coef3 in shared memory, zs (2r + 2) rows
-// of SPLU_TILE + 1 floats.
-__device__ void splu_stage3_block(int b, int nblk, int n, int r, const float* lt, const float* l3,
-                                  const float* u12, const float* u3, const float* v,
-                                  const float* h, const float* g, const float (*c)[SPLU_NCOEF],
+// Block b of stage 3: the new tail of its lanes; with g (s.g) also its
+// partial apply Gram of [L2^T'; U2'; l3' u3' g2; g2] (row b of part,
+// splu_tiles(2, r, 4) x 16 floats). c = coef3 in shared memory, zs a staged
+// tile, the new values written over the old before they go out.
+__device__ void splu_stage3_block(int b, int nblk, const SpluSrc& s, const float (*c)[SPLU_NCOEF],
                                   float sl, float su, float inv_rho, float rho, float* lt_out,
                                   float* l3_out, float* u12_out, float* u3_out, float* part,
                                   float* zs) {
-    const int t = threadIdx.x, nt = n - r, ld = SPLU_TILE + 1, npairs = splu_npairs2(r);
-    SpluPairs<SPLU_PPT2> P;
-    P.count = 0;
-    if (g) splu_my_pairs(2, r, npairs, P);
-    float acc[SPLU_PPT2];
-#pragma unroll
-    for (int k = 0; k < SPLU_PPT2; ++k) acc[k] = 0.f;
-    for (int base = b * SPLU_TILE; base < nt; base += nblk * SPLU_TILE) {
-        const int j = base + t;
-        if (j < nt) {
-            const float l = l3[j], u = u3[j], lu = l * u, w = 1.f / lu, dx = v[r + j], dg = h[r + j];
+    constexpr int LD = SPLU_TILE + 4;
+    const int r = s.r, nt = s.n - r, z = 2 * r + 2, t = threadIdx.x, step = nblk * SPLU_TILE;
+    const bool g = s.g != nullptr;
+    const SpluTile T = splu_tile_carve(zs, r, SPLU_TILE);
+    SpluGramPlan P;
+    float acc[16];
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+    if (g) {
+        splu_gram_plan<SPLU_TILE, 4>(2, r, 0, P);
+        splu_zero_pad<SPLU_TILE>(r, 4, T.Y);
+    }
+    splu_stage_fetch<SPLU_TILE>(s, b * SPLU_TILE, T.S[0], T);
+    for (int base = b * SPLU_TILE, cur = 0; base < nt; base += step, cur ^= 1) {
+        const int len = min(SPLU_TILE, nt - base);
+        float* S = T.S[cur];
+        const SpluCol L{S + t, T.sh}, U{S + r * (SPLU_TILE + 4) + t, T.sh + r};
+        splu_stage_fetch<SPLU_TILE>(s, base + step, T.S[cur ^ 1], T);
+        splu_cp_wait();
+        __syncthreads();
+        // the new tail of lane t over the old in S, or with g into Y (lane t
+        // of row k at Y[k LD + t], zeros past len), with l3' u3' g2 and g2
+        float* Y = T.Y + t;
+        if (t < len) {
+            const float l = L(z), u = L(z + 1), lu = l * u, w = 1.f / lu;
+            const float dx = L(2 * r), dg = L(2 * r + 1);
             float qg2, iqtx2, pg2, ipx2;
-            splu_images(n, r, j, lt, u12, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+            splu_images(r, L, U, lu, w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
             const float gl3 = qg2 * qg2 - iqtx2 * iqtx2, gu3 = pg2 * dg - dx * ipx2;
             for (int k = 0; k < r; ++k) {
-                const size_t off = (size_t)k * n + r + j;
-                const float lk = lt[off], uk = u12[off];
+                const float lk = L(k), uk = U(k);
                 const float nl = inv_rho * (lk - (c[k][4] * qg2 - c[k][5] * iqtx2) - sl * gl3 * lk);
                 const float nu = rho * (uk - (c[k][6] * dg - c[k][7] * ipx2) - su * gu3 * uk);
-                lt_out[off] = nl;
-                u12_out[off] = nu;
-                if (g) {
-                    zs[k * ld + t] = nl;
-                    zs[(r + k) * ld + t] = nu;
-                }
+                (g ? Y[k * LD] : L(k)) = nl;
+                (g ? Y[(r + k) * LD] : U(k)) = nu;
             }
             const float nl3 = inv_rho * (l - sl * gl3 * l), nu3 = rho * (u - su * gu3 * u);
-            l3_out[j] = nl3;
-            u3_out[j] = nu3;
+            L(z) = nl3;
+            L(z + 1) = nu3;
             if (g) {
-                const float gj = g[r + j];
-                zs[2 * r * ld + t] = nl3 * nu3 * gj;
-                zs[(2 * r + 1) * ld + t] = gj;
+                const float gj = L(z + 2);
+                Y[2 * r * LD] = nl3 * nu3 * gj;
+                Y[(2 * r + 1) * LD] = gj;
             }
         } else if (g) {
-            for (int k = 0; k < 2 * r + 2; ++k) zs[k * ld + t] = 0.f;
+            for (int k = 0; k < z; ++k) Y[k * LD] = 0.f;
         }
-        if (g) {
-            __syncthreads();
-            splu_add_pairs(zs, P, acc);
-            __syncthreads();
-        }
+        __syncthreads();
+        splu_stage_out(s.n, r, base, len, g ? T.Y : S, !g, S, T, lt_out, l3_out, u12_out, u3_out);
+        if (g) splu_gram_acc<SPLU_TILE, 4>(T.Y, P, acc);
+        __syncthreads();
     }
-    if (g) splu_store_pairs(P, acc, part + (size_t)b * npairs);
+    if (g) {
+        splu_gram_out<4>(P, acc, part + (size_t)b * splu_tiles(2, r, 4) * 16, zs);
+        __syncthreads();  // the one-launch kernel's next body reuses the tile
+    }
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const float* __restrict__ g, const SpluRank* __restrict__ rk,
-    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
-    float* __restrict__ u3_out, float* __restrict__ part) {
-    extern __shared__ float zs[];
+__global__ void __launch_bounds__(SPLU_TILE, 3) splu_stage3_kernel(
+    SpluSrc s, const SpluRank* __restrict__ rk, float* __restrict__ lt_out,
+    float* __restrict__ l3_out, float* __restrict__ u12_out, float* __restrict__ u3_out,
+    float* __restrict__ part) {
+    extern __shared__ float4 zs4[];
     __shared__ float c[SPLU_MAX_RANK][SPLU_NCOEF];
-    splu_load_coef(c, rk->coef3, r);
+    splu_load_coef(c, rk->coef3, s.r);
     __syncthreads();
-    splu_stage3_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, g, c, rk->scal[0],
-                      rk->scal[1], rk->scal[2], rk->scal[3], lt_out, l3_out, u12_out, u3_out, part,
-                      zs);
+    splu_stage3_block(blockIdx.x, gridDim.x, s, c, rk->scal[0], rk->scal[1], rk->scal[2],
+                      rk->scal[3], lt_out, l3_out, u12_out, u3_out, part,
+                      reinterpret_cast<float*>(zs4));
 }
 
 // ------------------------------------------------------- corner C, stage 4
@@ -759,19 +991,20 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
 
 // ------------------------------------------------ any rank: the generic chain
 // Past SPLU_MAX_RANK the host runs the same chain with the rank-generic
-// pieces of rank_space.cuh: stage 1's Gram through the grouped GEMM
-// (gram_launch) over the tail lanes of Z = [L2^T; U2 w; U2; dx2 w; dg2;
-// l3 u3 dg2], the upper triangle over [L2^T; U2 w] and the first 3r rows
-// against the last three, L2^T and U2 read in place and U2 w and the last
-// three rows staged by splu_rows_kernel; max l3, max u3 in a pass of
-// their own; the corners on one block with the rank-space vectors strided
-// over its threads; stages 2-4 reading their coefficients in place (the
-// same block bodies as the chain's); and the apply's Gram over the new
-// tail, Z = [L2^T'; U2'; l3' u3' g2; g2], after stage 3.
+// pieces: stage 1's Gram from the staged tile in 8 x 8 register tiles
+// (tiles of SPLU_G_TILE lanes, one Gram tile a thread, y-slices of
+// SPLU_TILE of them over the grid's y, max l3 and u3 in the same pass) up to
+// SPLU_G_MAX_RANK, past it through the grouped GEMM (gram_launch) over Y =
+// [L2^T; U2 w; dx2 w; l3 u3 dg2], L2^T read in place and the other rows
+// staged by splu_rows_kernel, with max l3 and u3 in a pass of their own;
+// the corners on one block with the rank-space vectors strided over its
+// threads; stages 2-4 one lane a thread, its column read in place; and the
+// apply's Gram over the new tail, Z = [L2^T'; U2'; l3' u3' g2; g2],
+// through the GEMM after stage 3.
 
 // The rows of a Gram the state does not hold, over the tail lanes j < nt:
-// stage 1's (g null) w (r, nt) = U2 w and e (3, nt) = [dx2 w; dg2;
-// l3 u3 dg2], w = 1 / (l3 u3); the apply's e (2, nt) = [l3 u3 g2; g2]
+// stage 1's (g null) w (r, nt) = U2 w and e (2, nt) = [dx2 w; l3 u3 dg2],
+// w = 1 / (l3 u3); the apply's e (2, nt) = [l3 u3 g2; g2]
 __global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
                                                               const float* __restrict__ l3,
                                                               const float* __restrict__ u12,
@@ -792,23 +1025,20 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
     const float lu = l3[j] * u3[j], wj = 1.f / lu;
     for (int k = 0; k < r; ++k) w[(size_t)k * nt + j] = u12[(size_t)k * n + off] * wj;
     e[j] = v[off] * wj;
-    e[(size_t)nt + j] = h[off];
-    e[2 * (size_t)nt + j] = lu * h[off];
+    e[(size_t)nt + j] = h[off] * lu;
 }
 
-// stage 1's Gram (3r + 3, 3r + 3): L2^T and U2 (rows n apart from column
-// r) read in place, U2 w (w) and the last three rows (e) staged
-static GramPlan splu_gram1_plan(int n, int r, const float* lt, const float* u12, const float* w,
-                                const float* e) {
+// stage 1's Gram (2r + 2, 2r + 2) past SPLU_G_MAX_RANK: L2^T (rows n apart
+// from column r) read in place, U2 w (w) and the last two rows (e) staged
+static GramPlan splu_gram1_plan(int n, int r, const float* lt, const float* w, const float* e) {
     const int nt = n - r;
-    const float *ltt = lt ? lt + r : nullptr, *ut = u12 ? u12 + r : nullptr;
-    GramPlan p = gram_plan(3 * r + 3, nt);
+    const float* ltt = lt ? lt + r : nullptr;
+    GramPlan p = gram_plan(2 * r + 2, nt);
     gram_add(p, ltt, n, 0, r, ltt, n, 0, r);
     gram_add(p, ltt, n, 0, r, w, nt, r, r);
     gram_add(p, w, nt, r, r, w, nt, r, r);
-    gram_add(p, ltt, n, 0, r, e, nt, 3 * r, 3);
-    gram_add(p, w, nt, r, r, e, nt, 3 * r, 3);
-    gram_add(p, ut, n, 2 * r, r, e, nt, 3 * r, 3);
+    gram_add(p, ltt, n, 0, r, e, nt, 2 * r, 2);
+    gram_add(p, w, nt, r, r, e, nt, 2 * r, 2);
     return p;
 }
 
@@ -863,7 +1093,7 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
     extern __shared__ float sm[];
     __shared__ float red[RG_THREADS / 32];
     float* b = in_smem ? sm : ws;
-    const int z = 3 * r + 3;
+    const int z = 2 * r + 2;
     float *dx1 = b, *dg1 = b + r, *Ug1 = b + 2 * r, *Qg1 = b + 3 * r, *iUtx1 = b + 4 * r,
           *iQtx1 = b + 5 * r, *LtQg1 = b + 6 * r, *Pg1 = b + 7 * r, *iLiQtx1 = b + 8 * r,
           *iPx1 = b + 9 * r, *w1 = b + 10 * r, *w2 = b + 11 * r;
@@ -874,22 +1104,22 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
         dg1[k] = h[k];
     }
     rg_mv(Ug1, U1, dg1, r);
-    RG_FOR(k, r) Ug1[k] += gram[(size_t)(2 * r + k) * z + 3 * r + 1];
+    RG_FOR(k, r) Ug1[k] += gram[(size_t)(r + k) * z + 2 * r + 1];  // as (U2 w, l3 u3 dg2)
     rg_mv(Qg1, L1, Ug1, r);
     RG_FOR(k, r) iUtx1[k] = dx1[k];
     rg_solve(iUtx1, U1.t(), true, r);
     rg_mv(w1, GLW, iUtx1, r);
-    RG_FOR(k, r) iQtx1[k] = iUtx1[k] - (gram[(size_t)k * z + 3 * r] - w1[k]);
+    RG_FOR(k, r) iQtx1[k] = iUtx1[k] - (gram[(size_t)k * z + 2 * r] - w1[k]);
     rg_solve(iQtx1, L1.t(), false, r);
     rg_mv(w1, GLL, Ug1, r);
     rg_mv(LtQg1, L1.t(), Qg1, r);
-    RG_FOR(k, r) LtQg1[k] += w1[k] + gram[(size_t)k * z + 3 * r + 2];
+    RG_FOR(k, r) LtQg1[k] += w1[k] + gram[(size_t)k * z + 2 * r + 1];
     rg_mv(Pg1, U1.t(), LtQg1, r);
     RG_FOR(k, r) iLiQtx1[k] = iQtx1[k];
     rg_solve(iLiQtx1, L1, true, r);
     rg_mv(w1, GWW, iUtx1, r);
     rg_mv(w2, GLW.t(), iLiQtx1, r);
-    RG_FOR(k, r) iPx1[k] = iLiQtx1[k] - ((gram[(size_t)(r + k) * z + 3 * r] - w1[k]) - w2[k]);
+    RG_FOR(k, r) iPx1[k] = iLiQtx1[k] - ((gram[(size_t)(r + k) * z + 2 * r] - w1[k]) - w2[k]);
     rg_solve(iPx1, U1, false, r);
 
     // max|gl1| over the lower triangle, max|gu1| over the upper; the balance
@@ -1030,15 +1260,28 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_c_g_kernel(
     }
 }
 
-// stages 2-4 on any rank: the chain's block bodies, the coefficients read
-// in place
+// stages 2 and 3 on any rank: one lane a thread, its column read in place,
+// the coefficients in the scratch
 __global__ void __launch_bounds__(SPLU_TILE) splu_stage2_g_kernel(
     int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
     const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
     const float* __restrict__ h, const float* __restrict__ coef2, float* __restrict__ maxpart) {
     __shared__ float red[SPLU_TILE / 32];
-    splu_stage2_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h,
-                      reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef2), maxpart, red);
+    const float(*c)[SPLU_NCOEF] = reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef2);
+    float ml = 0.f, mu = 0.f;
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < n - r; j += gridDim.x * SPLU_TILE) {
+        const float lu = l3[j] * u3[j], w = 1.f / lu, dx = v[r + j], dg = h[r + j];
+        float qg2, iqtx2, pg2, ipx2;
+        splu_images(r, SpluDirect{lt + r + j, (size_t)n}, SpluDirect{u12 + r + j, (size_t)n}, lu,
+                    w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+        splu_lane_max(r, qg2, iqtx2, pg2, ipx2, dx, dg, c, ml, mu);
+    }
+    ml = splu_block_max(ml, red);
+    mu = splu_block_max(mu, red);
+    if (threadIdx.x == 0) {
+        maxpart[2 * blockIdx.x] = ml;
+        maxpart[2 * blockIdx.x + 1] = mu;
+    }
 }
 
 __global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
@@ -1047,9 +1290,23 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
     const float* __restrict__ h, const float* __restrict__ coef3, const float* __restrict__ scal,
     float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
     float* __restrict__ u3_out) {
-    splu_stage3_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, nullptr,
-                      reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef3), scal[0], scal[1],
-                      scal[2], scal[3], lt_out, l3_out, u12_out, u3_out, nullptr, nullptr);
+    const float(*c)[SPLU_NCOEF] = reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef3);
+    const float sl = scal[0], su = scal[1], inv_rho = scal[2], rho = scal[3];
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < n - r; j += gridDim.x * SPLU_TILE) {
+        const float l = l3[j], u = u3[j], lu = l * u, w = 1.f / lu, dx = v[r + j], dg = h[r + j];
+        float qg2, iqtx2, pg2, ipx2;
+        splu_images(r, SpluDirect{lt + r + j, (size_t)n}, SpluDirect{u12 + r + j, (size_t)n}, lu,
+                    w, dx, dg, c, qg2, iqtx2, pg2, ipx2);
+        const float gl3 = qg2 * qg2 - iqtx2 * iqtx2, gu3 = pg2 * dg - dx * ipx2;
+        for (int k = 0; k < r; ++k) {
+            const size_t off = (size_t)k * n + r + j;
+            const float lk = lt[off], uk = u12[off];
+            lt_out[off] = inv_rho * (lk - (c[k][4] * qg2 - c[k][5] * iqtx2) - sl * gl3 * lk);
+            u12_out[off] = rho * (uk - (c[k][6] * dg - c[k][7] * ipx2) - su * gu3 * uk);
+        }
+        l3_out[j] = inv_rho * (l - sl * gl3 * l);
+        u3_out[j] = rho * (u - su * gu3 * u);
+    }
 }
 
 __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_g_kernel(
@@ -1064,12 +1321,27 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_g_kernel(
 
 // ------------------------------------------------------------------ host side
 
-static size_t splu_smem1(int r) { return sizeof(float) * (size_t)(3 * r + 3) * (SPLU_TILE + 1); }
-static size_t splu_smem3(int r) { return sizeof(float) * (size_t)(2 * r + 2) * (SPLU_TILE + 1); }
+static size_t splu_smem(int r, int lt, bool y, int ts = 4) {
+    return sizeof(float) * (size_t)splu_tile_floats(r, lt, y, ts);
+}
 
-static int splu_blocks(int nt) {
+// blocks of the streaming passes (and the one-launch kernel's), and of
+// stage 3 without g
+static int splu_blocks(int nt, int most = SPLU_MAX_BLOCKS) {
     const int tiles = (nt + SPLU_TILE - 1) / SPLU_TILE;
-    return tiles < SPLU_MAX_BLOCKS ? tiles : SPLU_MAX_BLOCKS;
+    return tiles < most ? tiles : most;
+}
+static int splu_blocks3(int nt) { return splu_blocks(nt, SPLU_MAX_BLOCKS3); }
+
+// stage 1 of the rank-32 kernels takes 256-lane tiles up to rank
+// SPLU_S1_WIDE_RANK and 128-lane tiles past it, where its Gram's tiles
+// outweigh its copies and a smaller staged tile fits two blocks a SM
+__host__ __device__ static bool splu_s1_wide(int r) { return r <= SPLU_S1_WIDE_RANK; }
+
+__host__ __device__ static SpluSrc splu_src(int n, int r, const float* lt, const float* l3,
+                                            const float* u12, const float* u3, const float* v,
+                                            const float* h, const float* g) {
+    return SpluSrc{lt, u12, v, h, l3, u3, g, n, r};
 }
 
 struct SpluScratch {
@@ -1078,9 +1350,10 @@ struct SpluScratch {
 };
 
 static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
-    const size_t blocks = splu_blocks(n - r), z1 = 3 * r + 3, z2 = 2 * r + 2;
-    const size_t sizes[] = {blocks * splu_npairs1(r), 2 * blocks, z1 * z1, 2 * blocks,
-                            blocks * splu_npairs2(r), z2 * z2, sizeof(SpluRank) / sizeof(float)};
+    const size_t blocks = splu_blocks(n - r), z = 2 * r + 2;
+    const size_t sizes[] = {blocks * splu_tiles(1, r, 4) * 16, 2 * blocks, z * z, 2 * blocks,
+                            blocks * splu_tiles(2, r, 4) * 16, z * z,
+                            sizeof(SpluRank) / sizeof(float)};
     float** slots[] = {&s->part1, &s->max1, &s->gram1, &s->max2, &s->part2, &s->gram2, nullptr};
     size_t off = 0;
     for (int k = 0; k < 7; ++k) {
@@ -1093,6 +1366,21 @@ static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
     return off;
 }
 
+// Stage 1 (the rank-32 kernels): the reduced Gram into gram and the
+// maxima's partials (splu_blocks of them) into s.max1
+static void splu_stage1(const SpluSrc& src, int nvalid, const SpluScratch& s, float* gram,
+                        cudaStream_t stream) {
+    const int r = src.r, blocks = splu_blocks(src.n - r), np = splu_tiles(1, r, 4) * 16;
+    if (splu_s1_wide(r))
+        splu_stage1_kernel<SPLU_TILE><<<blocks, SPLU_TILE, splu_smem(r, SPLU_TILE, true), stream>>>(
+            src, nvalid, s.part1, s.max1);
+    else
+        splu_stage1_kernel<SPLU_TILE / 2>
+            <<<blocks, SPLU_TILE, splu_smem(r, SPLU_TILE / 2, true), stream>>>(src, nvalid, s.part1,
+                                                                               s.max1);
+    splu_reduce_kernel<<<(np * 32 + 255) / 256, 256, 0, stream>>>(1, r, 4, blocks, s.part1, gram);
+}
+
 // ------------------------------------------------- the one-launch schedule
 // Replaces psgd_tf_tpu/ops/pallas/splu_upd.py `fused_update_apply_mono`
 // (:533) → its pallas_call (:582, `_mono_kernel` :301): the whole update and
@@ -1102,7 +1390,7 @@ static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
 // are not yet written back. Here it is one cooperative launch of a resident
 // grid (cudaLaunchCooperativeKernel): each CTA walks the chain's blocks
 // b = blockIdx.x, blockIdx.x + gridDim.x, ... < splu_blocks(nt) and runs the
-// chain's own block bodies, so every partial Gram row and every maximum is
+// chain's own block bodies, so every partial Gram tile and every maximum is
 // the chain's; a grid-wide barrier (cg::this_grid().sync()) stands at each
 // of the chain's launch boundaries, where warp 0 of CTA 0 runs the corner
 // bodies (with __syncwarp alone) and the other threads wait at the next
@@ -1113,9 +1401,10 @@ static size_t splu_carve(int n, int r, float* base, SpluScratch* s) {
 // What bounds it: the same bytes as the chain's update + apply
 // (chip_smoke.splu_work(n, apply=True)): memory at large n, latency at
 // small n. The design trades the chain's nine launches for one and eight
-// grid barriers; one kernel holds every stage, so its registers and dynamic
-// shared memory are those of the largest (stage 1's (3r + 3) x 257 floats,
-// 102 KB at r = 32), which sets how many CTAs a SM holds. The grid is
+// grid barriers; one kernel holds every stage, so its registers (capped at
+// two CTAs a SM) and dynamic shared memory are those of the largest (stage
+// 3's staged tiles with g: 215,680 bytes at r = 32, 78,224 at r = 10),
+// which sets how many CTAs a SM holds. The grid is
 // min(splu_blocks(nt), SMs x that occupancy): grid.sync() needs every CTA
 // resident, and a launch the card refuses is returned, never replaced.
 
@@ -1130,7 +1419,7 @@ struct SpluMono {
 };
 
 static size_t splu_smem_mono(int r) {
-    const size_t zs = (size_t)(3 * r + 3) * (SPLU_TILE + 1);
+    const size_t zs = splu_tile_floats(r, SPLU_TILE, true, 4);
     return sizeof(float) * (SPLU_MONO_HEAD + (zs > SPLU_CORNER_A ? zs : SPLU_CORNER_A));
 }
 
@@ -1138,9 +1427,10 @@ static size_t splu_smem_mono(int r) {
 // all, and only the corner bodies sit behind a branch (warp 0 of CTA 0).
 // Buffers written inside the launch are read through plain pointers (no
 // __restrict__, no read-only cache).
-__global__ void __launch_bounds__(SPLU_TILE) splu_mono_kernel(SpluMono a) {
+__global__ void __launch_bounds__(SPLU_TILE, 2) splu_mono_kernel(SpluMono a) {
     namespace cg = cooperative_groups;
-    extern __shared__ float sm[];
+    extern __shared__ float4 sm4[];
+    float* sm = reinterpret_cast<float*>(sm4);
     float(*c)[SPLU_NCOEF] = reinterpret_cast<float(*)[SPLU_NCOEF]>(sm);
     float* red = sm + SPLU_MAX_RANK * SPLU_NCOEF;
     float* work = sm + SPLU_MONO_HEAD;  // a stage's tile, or a corner's workspace
@@ -1149,21 +1439,26 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_mono_kernel(SpluMono a) {
     const bool corner = blockIdx.x == 0 && threadIdx.x < 32;
     const SpluScratch s = a.s;
     SpluRank* rk = s.rk;
+    const SpluSrc src = splu_src(n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, nullptr);
 
-    for (int b = blockIdx.x; b < nb; b += gridDim.x)
-        splu_stage1_block(b, nb, n, r, nt, a.lt, a.l3, a.u12, a.u3, a.v, a.h, s.part1, s.max1,
-                          work, red);
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+        if (splu_s1_wide(r))
+            splu_stage1_block<SPLU_TILE, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
+        else
+            splu_stage1_block<SPLU_TILE / 2, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
+    }
     grid.sync();
-    const int warps = (gridDim.x * SPLU_TILE) >> 5, np1 = splu_npairs1(r), np2 = splu_npairs2(r);
+    const int warps = (gridDim.x * SPLU_TILE) >> 5;
+    const int np1 = splu_tiles(1, r, 4) * 16, np2 = splu_tiles(2, r, 4) * 16;
     for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np1; e += warps)
-        splu_reduce_pair(1, r, 3 * r + 3, np1, nb, e, s.part1, s.gram1);
+        splu_reduce_entry(1, r, 4, np1, nb, e, s.part1, s.gram1);
     grid.sync();
     if (corner) splu_corner_a(n, r, nb, a.lt, a.u12, a.v, a.h, s.gram1, s.max1, rk, work);
     grid.sync();
     splu_load_coef(c, rk->coef2, r);
     __syncthreads();
     for (int b = blockIdx.x; b < nb; b += gridDim.x)
-        splu_stage2_block(b, nb, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, c, s.max2, red);
+        splu_stage2_block(b, nb, src, c, s.max2, work, red);
     grid.sync();
     if (corner)
         splu_corner_b(n, r, nb, a.step, a.lt, a.u12, a.h, s.max2, rk, a.lt_out, a.u12_out, work);
@@ -1171,12 +1466,14 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_mono_kernel(SpluMono a) {
     splu_load_coef(c, rk->coef3, r);
     __syncthreads();
     const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
+    SpluSrc src3 = src;
+    src3.g = a.g;
     for (int b = blockIdx.x; b < nb; b += gridDim.x)
-        splu_stage3_block(b, nb, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, a.g, c, sl, su, inv_rho,
-                          rho, a.lt_out, a.l3_out, a.u12_out, a.u3_out, s.part2, work);
+        splu_stage3_block(b, nb, src3, c, sl, su, inv_rho, rho, a.lt_out, a.l3_out, a.u12_out,
+                          a.u3_out, s.part2, work);
     grid.sync();
     for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np2; e += warps)
-        splu_reduce_pair(2, r, 2 * r + 2, np2, nb, e, s.part2, s.gram2);
+        splu_reduce_entry(2, r, 4, np2, nb, e, s.part2, s.gram2);
     grid.sync();
     if (corner) splu_corner_c(n, r, a.lt_out, a.u12_out, a.g, s.gram2, rk, a.pre, work);
     grid.sync();
@@ -1190,11 +1487,17 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_mono_kernel(SpluMono a) {
 static cudaError_t splu_smem_attrs() {
     static bool done = false;
     if (done) return cudaSuccess;
-    cudaError_t e = cudaFuncSetAttribute(splu_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)splu_smem1(SPLU_MAX_RANK));
+    const int tile = (int)splu_smem(SPLU_MAX_RANK, SPLU_TILE, true);
+    const void* staged[] = {(const void*)splu_stage1_kernel<SPLU_TILE>,
+                            (const void*)splu_stage1_kernel<SPLU_TILE / 2>,
+                            (const void*)splu_stage2_kernel, (const void*)splu_stage3_kernel};
+    cudaError_t e = cudaSuccess;
+    for (const void* k : staged)
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile);
     if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(splu_stage3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)splu_smem3(SPLU_MAX_RANK));
+        e = cudaFuncSetAttribute(splu_stage1_g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)splu_smem(SPLU_G_MAX_RANK, SPLU_G_TILE, true, SPLU_G_TS));
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(splu_mono_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)splu_smem_mono(SPLU_MAX_RANK));
@@ -1209,25 +1512,36 @@ static cudaError_t splu_smem_attrs() {
 
 static bool splu_generic(int r) { return r > SPLU_MAX_RANK; }
 
+// the generic stage 1's blocks (and its maxima's partials): tiles of
+// SPLU_G_TILE lanes up to SPLU_G_MAX_RANK, the lumax pass's past it
+static int splu_g1_blocks(int n, int r) {
+    const int nt = n - r;
+    if (r > SPLU_G_MAX_RANK) return splu_blocks(nt);
+    const int tiles = (nt + SPLU_G_TILE - 1) / SPLU_G_TILE;
+    return tiles < SPLU_G_BLOCKS ? tiles : SPLU_G_BLOCKS;
+}
+
 // The generic chain's scratch: the corners' workspace where it outgrows
-// shared memory (first: the sharded entries find it at offset 0), the
-// GEMM's bands (stage 1's, then the apply's: gram_part_floats, at most
-// 256 z^2 floats, under 1/256 of the state's), the two reduced Grams, the
-// maxima, the rank space and the staged rows, U2 w and three more
-// ((r + 3)(n - r) floats, about half the state's)
+// shared memory (first: the sharded entries find it at offset 0), stage
+// 1's partial Gram tiles (or past SPLU_G_MAX_RANK the GEMM's bands) and the
+// apply's bands (gram_part_floats, at most 256 z^2 floats), the two reduced
+// Grams, the maxima, the rank space, and the staged rows: the apply's two
+// and, past SPLU_G_MAX_RANK, stage 1's U2 w
 struct SpluScratchG {
     float *ws, *part, *max1, *gram1, *max2, *gram2, *w, *e;
     SpluRankG rk;
 };
 
 static size_t splu_carve_g(int n, int r, float* base, SpluScratchG* s) {
-    const size_t nt = n - r, blocks = splu_blocks((int)nt), z1 = 3 * r + 3, z2 = 2 * r + 2;
-    const size_t p1 = gram_part_floats(splu_gram1_plan(n, r, nullptr, nullptr, nullptr, nullptr));
+    const size_t nt = n - r, z = 2 * r + 2, b1 = splu_g1_blocks(n, r);
+    const bool staged = r <= SPLU_G_MAX_RANK;
+    const size_t p1 = staged ? b1 * splu_tiles(1, r, SPLU_G_TS) * SPLU_G_TS * SPLU_G_TS
+                             : gram_part_floats(splu_gram1_plan(n, r, nullptr, nullptr, nullptr));
     const size_t p2 = gram_part_floats(splu_gram2_plan(n, r, nullptr, nullptr, nullptr));
     const size_t ws = rg_in_smem(splu_corner_floats(r)) ? 0 : splu_corner_floats(r);
-    const size_t sizes[] = {ws, p1 > p2 ? p1 : p2, 2 * blocks, z1 * z1, 2 * blocks, z2 * z2,
-                            8 * (size_t)r, 8 * (size_t)r, (size_t)r, 2 * (size_t)r, 8, r * nt,
-                            3 * nt};
+    const size_t sizes[] = {ws, p1 > p2 ? p1 : p2, 2 * b1, z * z, 2 * (size_t)splu_blocks((int)nt),
+                            z * z, 8 * (size_t)r, 8 * (size_t)r, (size_t)r, 2 * (size_t)r, 8,
+                            staged ? 0 : r * nt, 2 * nt};
     float** slots[] = {&s->ws, &s->part, &s->max1, &s->gram1, &s->max2, &s->gram2,
                        &s->rk.coef2, &s->rk.coef3, &s->rk.ipx1, &s->rk.coef4, &s->rk.scal, &s->w,
                        &s->e};
@@ -1273,21 +1587,39 @@ static void splu_corner_c_g(int n, int r, const float* lt_out, const float* u12_
         n, r, lt_out, u12_out, g, gram2, s.rk, pre, s.ws, rg_in_smem(fl));
 }
 
-// Stage 1's Gram (g null) or the apply's over the new tail: the staged
-// rows, then the GEMM's bands and their sums into gram
-static void splu_gram_g(int n, int r, const float* lt, const float* l3, const float* u12,
-                        const float* u3, const float* v, const float* h, const float* g,
-                        const SpluScratchG& s, float* gram, cudaStream_t stream) {
-    const int nt = n - r;
+// Stage 1 past SPLU_MAX_RANK: the reduced Gram into gram and the maxima's
+// partials (splu_g1_blocks of them) into s.max1
+static void splu_stage1_g(const SpluSrc& src, int nvalid, const SpluScratchG& s, float* gram,
+                          cudaStream_t stream) {
+    const int n = src.n, r = src.r, nt = n - r, blocks = splu_g1_blocks(n, r);
+    if (r <= SPLU_G_MAX_RANK) {
+        const int tiles = splu_tiles(1, r, SPLU_G_TS);
+        splu_stage1_g_kernel<<<dim3(blocks, (tiles + SPLU_TILE - 1) / SPLU_TILE), SPLU_TILE,
+                               splu_smem(r, SPLU_G_TILE, true, SPLU_G_TS), stream>>>(
+            src, nvalid, s.part, s.max1);
+        splu_reduce_kernel<<<(unsigned)(((size_t)tiles * SPLU_G_TS * SPLU_G_TS * 32 + 255) / 256),
+                             256, 0, stream>>>(1, r, SPLU_G_TS, blocks, s.part, gram);
+        return;
+    }
     splu_rows_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
-        n, r, l3, u12, u3, v, h, g, s.w, s.e);
-    gram_launch(g ? splu_gram2_plan(n, r, lt, u12, s.e) : splu_gram1_plan(n, r, lt, u12, s.w, s.e),
-                s.part, gram, stream);
+        n, r, src.l3, src.u12, src.u3, src.v, src.h, nullptr, s.w, s.e);
+    gram_launch(splu_gram1_plan(n, r, src.lt, s.w, s.e), s.part, gram, stream);
+    splu_lumax_kernel<<<blocks, SPLU_TILE, 0, stream>>>(nt, nvalid, src.l3, src.u3, s.max1);
 }
 
-// The chain past SPLU_MAX_RANK: stage 1's staged rows, Gram bands and their
-// sum, max l3 and u3, corner A, stage 2, corner B, stage 3 and, with g, the
-// apply's rows, bands and sum, corner C and stage 4
+// the apply's Gram over the new tail past SPLU_MAX_RANK: its two staged
+// rows, then the GEMM's bands and their sums into gram
+static void splu_gram2_g(int n, int r, const float* lt_out, const float* l3_out,
+                         const float* u12_out, const float* u3_out, const float* g,
+                         const SpluScratchG& s, float* gram, cudaStream_t stream) {
+    const int nt = n - r;
+    splu_rows_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
+        n, r, l3_out, u12_out, u3_out, nullptr, nullptr, g, s.w, s.e);
+    gram_launch(splu_gram2_plan(n, r, lt_out, u12_out, s.e), s.part, gram, stream);
+}
+
+// The chain past SPLU_MAX_RANK: stage 1, corner A, stage 2, corner B,
+// stage 3 and, with g, the apply's Gram, corner C and stage 4
 static int splu_update_g(int n, int r, const float* lt, const float* l3, const float* u12,
                          const float* u3, const float* v, const float* h, const float* g,
                          float step, float* lt_out, float* l3_out, float* u12_out, float* u3_out,
@@ -1295,17 +1627,15 @@ static int splu_update_g(int n, int r, const float* lt, const float* l3, const f
     SpluScratchG s;
     splu_carve_g(n, r, scratch, &s);
     const int nt = n - r, blocks = splu_blocks(nt);
-    splu_gram_g(n, r, lt, l3, u12, u3, v, h, nullptr, s, s.gram1, stream);
-    splu_lumax_kernel<<<blocks, SPLU_TILE, 0, stream>>>(nt, nt, l3, u3, s.max1);
-    splu_corner_a_g(n, r, blocks, lt, u12, v, h, s.gram1, s.max1, s, stream);
+    splu_stage1_g(splu_src(n, r, lt, l3, u12, u3, v, h, nullptr), nt, s, s.gram1, stream);
+    splu_corner_a_g(n, r, splu_g1_blocks(n, r), lt, u12, v, h, s.gram1, s.max1, s, stream);
     splu_stage2_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk.coef2,
                                                            s.max2);
     splu_corner_b_g(n, r, blocks, step, lt, u12, h, s.max2, s, lt_out, u12_out, stream);
-    splu_stage3_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk.coef3,
-                                                           s.rk.scal, lt_out, l3_out, u12_out,
-                                                           u3_out);
+    splu_stage3_g_kernel<<<splu_blocks3(nt), SPLU_TILE, 0, stream>>>(
+        n, r, lt, l3, u12, u3, v, h, s.rk.coef3, s.rk.scal, lt_out, l3_out, u12_out, u3_out);
     if (g) {
-        splu_gram_g(n, r, lt_out, l3_out, u12_out, u3_out, nullptr, nullptr, g, s, s.gram2, stream);
+        splu_gram2_g(n, r, lt_out, l3_out, u12_out, u3_out, g, s, s.gram2, stream);
         splu_corner_c_g(n, r, lt_out, u12_out, g, s.gram2, s, pre, stream);
         splu_stage4_g_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
             n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk.coef4, pre);
@@ -1334,21 +1664,21 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
     SpluScratch s;
     splu_carve(n, r, static_cast<float*>(scratch), &s);
     const int nt = n - r, blocks = splu_blocks(nt);
-    const int np1 = splu_npairs1(r), np2 = splu_npairs2(r);
+    const SpluSrc src = splu_src(n, r, lt, l3, u12, u3, v, h, nullptr);
 
-    splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(n, r, nt, lt, l3, u12, u3, v, h,
-                                                                    s.part1, s.max1);
-    splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(1, r, 3 * r + 3, np1, blocks,
-                                                                   s.part1, s.gram1);
+    splu_stage1(src, nt, s, s.gram1, stream);
     splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, blocks, lt, u12, v, h, s.gram1, s.max1, s.rk);
-    splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk, s.max2);
+    splu_stage2_kernel<<<blocks, SPLU_TILE, splu_smem(r, SPLU_TILE, false), stream>>>(src, s.rk,
+                                                                                     s.max2);
     splu_corner_b_kernel<<<1, 32, 0, stream>>>(n, r, blocks, step, lt, u12, h, s.max2, s.rk, lt_out,
                                                u12_out);
-    splu_stage3_kernel<<<blocks, SPLU_TILE, g ? splu_smem3(r) : 0, stream>>>(
-        n, r, lt, l3, u12, u3, v, h, g, s.rk, lt_out, l3_out, u12_out, u3_out, s.part2);
+    splu_stage3_kernel<<<g ? blocks : splu_blocks3(nt), SPLU_TILE, splu_smem(r, SPLU_TILE, g),
+                         stream>>>(splu_src(n, r, lt, l3, u12, u3, v, h, g), s.rk, lt_out, l3_out,
+                                   u12_out, u3_out, s.part2);
     if (g) {
-        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 2 * r + 2, np2, blocks,
-                                                                       s.part2, s.gram2);
+        const int np2 = splu_tiles(2, r, 4) * 16;
+        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 4, blocks, s.part2,
+                                                                       s.gram2);
         splu_corner_c_kernel<<<1, 32, 0, stream>>>(n, r, lt_out, u12_out, g, s.gram2, s.rk, o(prep));
         splu_stage4_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
             n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk, o(prep));
@@ -1430,8 +1760,8 @@ extern "C" int psgd_splu_mono(int n, int r, const void* ltp, const void* l3p, co
 // entry to the next. Between entries the host sums gram1 and gram2 and
 // takes the max of max1 and max2 over the ranks.
 
-// stage 1: gram1 (3r+3, 3r+3) (the entries the algebra reads; the rest are
-// left as the caller filled them) and max1 = (max l3, max u3) of the valid
+// stage 1: gram1 (2r+2, 2r+2) (every entry up to rank SPLU_G_MAX_RANK, the
+// ones the algebra reads past it) and max1 = (max l3, max u3) of the valid
 // lanes, -inf where there is none
 extern "C" int psgd_splu_sharded_stage1(int n, int r, int nvalid, const void* ltp, const void* l3p,
                                         const void* u12p, const void* u3p, const void* vp,
@@ -1442,23 +1772,21 @@ extern "C" int psgd_splu_sharded_stage1(int n, int r, int nvalid, const void* lt
     if (e != cudaSuccess) return (int)e;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
-    const int nt = n - r, blocks = splu_blocks(nt), np1 = splu_npairs1(r);
+    const SpluSrc src = splu_src(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), nullptr);
     float* maxp;
+    int blocks;
     if (splu_generic(r)) {
         SpluScratchG s;
         splu_carve_g(n, r, static_cast<float*>(scratch), &s);
-        splu_gram_g(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), nullptr, s,
-                    static_cast<float*>(gram1), stream);
-        splu_lumax_kernel<<<blocks, SPLU_TILE, 0, stream>>>(nt, nvalid, f(l3p), f(u3p), s.max1);
+        splu_stage1_g(src, nvalid, s, static_cast<float*>(gram1), stream);
         maxp = s.max1;
+        blocks = splu_g1_blocks(n, r);
     } else {
         SpluScratch s;
         splu_carve(n, r, static_cast<float*>(scratch), &s);
-        splu_stage1_kernel<<<blocks, SPLU_TILE, splu_smem1(r), stream>>>(
-            n, r, nvalid, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.part1, s.max1);
-        splu_reduce_kernel<<<(np1 * 32 + 255) / 256, 256, 0, stream>>>(
-            1, r, 3 * r + 3, np1, blocks, s.part1, static_cast<float*>(gram1));
+        splu_stage1(src, nvalid, s, static_cast<float*>(gram1), stream);
         maxp = s.max1;
+        blocks = splu_blocks(n - r);
     }
     splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, -INFINITY, maxp, static_cast<float*>(max1));
     return (int)cudaGetLastError();
@@ -1489,8 +1817,8 @@ extern "C" int psgd_splu_sharded_stage2(int n, int r, const void* ltp, const voi
         splu_carve(n, r, static_cast<float*>(scratch), &s);
         splu_corner_a_kernel<<<1, 32, 0, stream>>>(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1),
                                                    f(max1), s.rk);
-        splu_stage2_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p),
-                                                             f(vp), f(hp), s.rk, s.max2);
+        splu_stage2_kernel<<<blocks, SPLU_TILE, splu_smem(r, SPLU_TILE, false), stream>>>(
+            splu_src(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), nullptr), s.rk, s.max2);
         maxp = s.max2;
     }
     splu_maxfold_kernel<<<1, 32, 0, stream>>>(blocks, 0.f, maxp, static_cast<float*>(max2));
@@ -1498,8 +1826,8 @@ extern "C" int psgd_splu_sharded_stage2(int n, int r, const void* ltp, const voi
 }
 
 // corner B and stage 3: the new corner and this rank's new tail; with g
-// (non-null) also gram2 (2r+2, 2r+2), the apply Gram over this rank's tail;
-// max2 is the maxima over all ranks
+// (non-null) also gram2 (2r+2, 2r+2), the apply Gram over this rank's tail
+// (the entries the algebra reads); max2 is the maxima over all ranks
 extern "C" int psgd_splu_sharded_stage3(int n, int r, const void* ltp, const void* l3p,
                                         const void* u12p, const void* u3p, const void* vp,
                                         const void* hp, const void* gp, float step, const void* max2,
@@ -1511,34 +1839,35 @@ extern "C" int psgd_splu_sharded_stage3(int n, int r, const void* ltp, const voi
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto o = [](void* p) { return static_cast<float*>(p); };
-    const int nt = n - r, blocks = splu_blocks(nt), np2 = splu_npairs2(r);
+    const int nt = n - r, blocks = splu_blocks(nt);
     const float* g = f(gp);
     if (splu_generic(r)) {
         SpluScratchG s;
         splu_carve_g(n, r, static_cast<float*>(scratch), &s);
         splu_corner_b_g(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s, o(lt_outp), o(u12_outp),
                         stream);
-        splu_stage3_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(
+        splu_stage3_g_kernel<<<splu_blocks3(nt), SPLU_TILE, 0, stream>>>(
             n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.rk.coef3, s.rk.scal, o(lt_outp),
             o(l3_outp), o(u12_outp), o(u3_outp));
         if (g)
-            splu_gram_g(n, r, o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), nullptr, nullptr, g,
-                        s, o(gram2), stream);
+            splu_gram2_g(n, r, o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), g, s, o(gram2),
+                         stream);
         return (int)cudaGetLastError();
     }
     SpluScratch s;
     splu_carve(n, r, static_cast<float*>(scratch), &s);
     splu_corner_b_kernel<<<1, 32, 0, stream>>>(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s.rk,
                                                o(lt_outp), o(u12_outp));
-    splu_stage3_kernel<<<blocks, SPLU_TILE, g ? splu_smem3(r) : 0, stream>>>(
-        n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), g, s.rk, o(lt_outp), o(l3_outp),
-        o(u12_outp), o(u3_outp), s.part2);
-    if (g)
-        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 2 * r + 2, np2, blocks,
-                                                                       s.part2, o(gram2));
+    splu_stage3_kernel<<<g ? blocks : splu_blocks3(nt), SPLU_TILE, splu_smem(r, SPLU_TILE, g),
+                         stream>>>(splu_src(n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), g),
+                                   s.rk, o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), s.part2);
+    if (g) {
+        const int np2 = splu_tiles(2, r, 4) * 16;
+        splu_reduce_kernel<<<(np2 * 32 + 255) / 256, 256, 0, stream>>>(2, r, 4, blocks, s.part2,
+                                                                       o(gram2));
+    }
     return (int)cudaGetLastError();
 }
-
 // corner C and stage 4: pre = P' g on the corner and on this rank's tail;
 // gram2 is the sum over all ranks
 extern "C" int psgd_splu_sharded_stage4(int n, int r, const void* lt_outp, const void* l3_outp,

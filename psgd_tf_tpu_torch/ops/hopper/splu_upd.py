@@ -25,11 +25,16 @@ equal to the chain's result bit for bit. Neither is routed: JAX's
 The state stays at its logical shapes, which the kernels read in place:
 Lt (r, n) = [L1^T | L2^T], U12 (r, n) = [U1 | U2], l3 and u3 (n - r,);
 the tail is lanes r.. of every row, and the ragged last tile is masked.
+Up to rank 32 each streaming stage copies tiles of 256 lanes of every row
+into shared memory in the widest pieces the row's own alignment allows,
+all in flight at once, and writes the new tail back in 16-byte stores.
 The chain (`csrc/splu.cu`, one C entry point, all on one stream):
 
-  stage 1   Gram Z Z^T of Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2],
-            w = 1/(l3 u3), only the entries the algebra reads, as
-            per-block partials summed in a fixed order; max l3, max u3
+  stage 1   Gram Y Y^T of Y = [L2^T; U2 w; dx2 w; l3 u3 dg2], w =
+            1/(l3 u3), in 4 x 4 tiles of its upper triangle, as per-block
+            partials summed in a fixed order; max l3, max u3. The
+            algebra's U2 dg2 is read as (U2 w) . (l3 u3 dg2), equal to
+            rounding (JAX's Z also holds the rows U2 and dg2)
   corner A  the four r x r triangular solves and the rank-space vectors
             (Ug1, Qg1, iUtx1, iQtx1, LtQg1, Pg1, iLiQtx1, iPx1), max|gl1|,
             max|gu1|, the balance rho from the signed maxima
@@ -90,14 +95,13 @@ def _max0(x: torch.Tensor) -> torch.Tensor:
 
 
 def stage1_plain(Lt, l3, U12, u3, v, h, nvalid=None):
-    """(Z Z^T, [max l3, max u3]) with Z = [L2^T; U2 w; U2; dx2 w; dg2; l3 u3 dg2];
+    """(Y Y^T, [max l3, max u3]) with Y = [L2^T; U2 w; dx2 w; l3 u3 dg2];
     the maxima over the first `nvalid` tail lanes (all by default)."""
     r = U12.shape[0]
-    U2 = U12[:, r:]
     lu = l3 * u3
     w = 1.0 / lu
-    z = torch.cat([Lt[:, r:], U2 * w, U2, (v[r:] * w)[None], h[r:][None], (lu * h[r:])[None]])
-    return z @ z.T, torch.stack([_max0(l3[:nvalid]), _max0(u3[:nvalid])])
+    y = torch.cat([Lt[:, r:], U12[:, r:] * w, (v[r:] * w)[None], (lu * h[r:])[None]])
+    return y @ y.T, torch.stack([_max0(l3[:nvalid]), _max0(u3[:nvalid])])
 
 
 def corner_a_plain(Lt, U12, v, h, gram, maxs3):
@@ -106,11 +110,10 @@ def corner_a_plain(Lt, U12, v, h, gram, maxs3):
     r = U12.shape[0]
     L1, U1 = Lt[:, :r].T, U12[:, :r]
     dx1, dg1 = v[:r], h[:r]
-    iL, iW, iU = slice(0, r), slice(r, 2 * r), slice(2 * r, 3 * r)
-    iX, iD, iG = 3 * r, 3 * r + 1, 3 * r + 2
+    iL, iW, iX, iG = slice(0, r), slice(r, 2 * r), 2 * r, 2 * r + 1
     G_LW, G_LL, G_WW = gram[iL, iW], gram[iL, iL], gram[iW, iW]
 
-    Ug1 = U1 @ dg1 + gram[iU, iD]
+    Ug1 = U1 @ dg1 + gram[iW, iG]  # U2 dg2 as (U2 w) . (l3 u3 dg2)
     Qg1 = L1 @ Ug1
     iUtx1 = linalg.solve_ut_t(U1, dx1)
     iQtx1 = linalg.solve_lt_t(L1, iUtx1 - (gram[iL, iX] - G_LW @ iUtx1))
@@ -326,8 +329,8 @@ def launch_sharded(Lt, l3, U12, u3, v, h, step, nvalid, mesh, g=None):
     f = dict(dtype=torch.float32, device=Lt.device)
     stream = torch.cuda.current_stream(Lt.device).cuda_stream
     scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), **f)
-    z1, z2 = 3 * r + 3, 2 * r + 2
-    gram1, max1, max2 = torch.zeros(z1, z1, **f), torch.empty(2, **f), torch.empty(2, **f)
+    z = 2 * r + 2
+    gram1, max1, max2 = torch.empty(z, z, **f), torch.empty(2, **f), torch.empty(2, **f)
     p = lambda x: x.data_ptr() if x is not None else None
     state = [p(x) for x in (Lt, l3, U12, u3, v, h)]
     _build.check(lib.psgd_splu_sharded_stage1(n, r, nvalid, *state, p(gram1), p(max1), p(scratch),
@@ -337,7 +340,7 @@ def launch_sharded(Lt, l3, U12, u3, v, h, step, nvalid, mesh, g=None):
                                               stream), f"{name} stage 2")
     max2 = mesh.pmax(max2)
     new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
-    gram2 = torch.zeros(z2, z2, **f) if g is not None else None
+    gram2 = torch.empty(z, z, **f) if g is not None else None
     _build.check(lib.psgd_splu_sharded_stage3(
         n, r, *state, p(g), float(step), p(max2), p(new_lt), p(new_l3), p(new_u12), p(new_u3),
         p(gram2), p(scratch), stream), f"{name} stage 3")

@@ -1144,6 +1144,43 @@ def test_k15_k16_match_plain(cuda, n, r):
     assert all(torch.equal(a, b) for a, b in zip(again, got_k15))
 
 
+# ragged n (odd: each row of Lt and U12 starts at each 16-byte alignment in
+# turn; n - r = 1 to 3 mod 4) on both sides of the rank-32 kernels
+SPLU_RAGGED = [(100_001, 1), (100_001, 3), (100_003, 10), (131_071, 32), (100_002, 33),
+               (100_001, 64)]
+
+
+@pytest.mark.parametrize("n,r", SPLU_RAGGED)
+def test_k16_ragged_match_plain_bit_repeat_zero_probes(cuda, n, r):
+    """K16's staged passes and Gram tiles (past rank 32 the streamed Gram):
+    update and update + apply within 1e-4 of the plain chain, one count
+    each, the update equal to the fused apply's first four outputs and to
+    itself again bit for bit; zero probes on a balanced state (L = U = 0.7 I)
+    leave it exact."""
+    from psgd_tf_tpu_torch.groups import splu
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    before = dict(hopper.counts)
+    got = splu_upd.fused_update(*fields, v, h, 0.05)
+    fused = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]} == {
+        "splu_upd": 1, "splu_upd_apply": 1}
+    with hopper.disabled():
+        plain = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    for a, b in zip(got, plain[:4]):
+        assert _rel(a, b) < 1e-4
+    for a, b in zip(fused, plain, strict=True):
+        assert _rel(a, b) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, fused[:4]))
+    assert all(torch.equal(a, b) for a, b in zip(got, splu_upd.fused_update(*fields, v, h, 0.05)))
+    zst, z = splu.init(n, rank=r, init_scale=0.7, device=cuda), torch.zeros(n, device=cuda)
+    zf = (zst.Lt, zst.l3, zst.U12, zst.u3)
+    assert all(torch.equal(a, b) for a, b in zip(splu_upd.fused_update(*zf, z, z, 0.05), zf))
+
+
 def test_splu_kernels_reject_what_they_do_not_take(cuda):
     from psgd_tf_tpu_torch.groups import splu
 
@@ -1195,7 +1232,8 @@ def test_k15_k16_past_rank_32_match_plain(cuda, n, r):
     assert all(torch.equal(a, b) for a, b in zip(again, fused))
 
 
-@pytest.mark.parametrize("n,r", [(400, 10), (100_003, 1), (100_003, 32), (1 << 20, 10)])
+@pytest.mark.parametrize("n,r", [(400, 10), (100_003, 1), (100_003, 32), (1 << 20, 10),
+                                 (100_001, 3)])
 def test_fused_apply_and_mono_match_plain(cuda, n, r):
     """The fused apply entry (the chain with g) and the one-launch kernel:
     mono equal to the chain bit for bit, both within 1e-4 of the plain
@@ -1334,7 +1372,8 @@ def test_k14_one_rank_matches_k13(one_rank, n, coins, pipelined):
         assert _rel(a, c) < 1e-4
 
 
-@pytest.mark.parametrize("n,r", [(11, 10), (400, 10), (100_003, 10), (3_000, 32)])
+@pytest.mark.parametrize("n,r", [(11, 10), (400, 10), (100_003, 10), (3_000, 32), (100_001, 3),
+                                 (100_002, 33)])
 def test_sharded_k16_one_rank_matches_k16(one_rank, n, r):
     """The sharded K16's four entry points against its own plain chain
     with the same reductions and against K16's one entry, update + apply;

@@ -72,6 +72,19 @@ the dense RNN's and K12's cap), update and update + apply each, through
 (`dense_upd.launch`) inside it, CUDA events over chained calls, and each
 launch queued and synced, memsets counted as launches. TREE as for
 `--stream`.
+
+    python3 tools/profile_kron_chain.py --splu [TREE]
+
+traces the sparse-LU family's update the same way: K16 (`splu.update`) at
+n = 2^20 with r = 10, 32, 33 and 64, at the reference NMT's n =
+12,424,273 (r = 10) and at LeNet5's n (44,426, r = 10: K15 there), the
+fused apply (`splu_upd.fused_update(g=...)`) and the one-launch kernel at
+2^20, r = 10, K15's update + apply at n = 65,536 and 400, then, on a
+one-rank NCCL group, the sharded K16 at 2^20 with r = 10 and 64, update
+and update + apply, beside K16 and its fused apply on the same state, and
+K14 at 2^20, r = 10, beside K13. Each case gives the host us of the call
+and of the wrapper inside it, the events, and every launch queued and
+synced (memsets and torch's fills counted). TREE as for `--stream`.
 """
 from __future__ import annotations
 
@@ -87,7 +100,7 @@ from pathlib import Path
 
 if not any(a in sys.argv for a in ("--phases-child", "--dense-steps-child")):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
-if sys.argv[1:2] in (["--stream"], ["--dense"]) and len(sys.argv) > 2:
+if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"]) and len(sys.argv) > 2:
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
@@ -97,6 +110,10 @@ TRACED = 20
 WIDE = [(512, 1_000_000), (64, 3_000_017)]
 # --dense: hello_psgd's n, the tensor decomposition's, K11's cap, the dense RNN's, K12's cap
 DENSE_N = [2, 400, 1536, 3841, 16384]
+# --splu: (n, r) of K16's update: bench.py:616's n at the rank-32 chain's
+# ranks and past it, the reference NMT's n, LeNet5's n
+SPLU_N = [(1 << 20, 10), (1 << 20, 32), (1 << 20, 33), (1 << 20, 64), (12_424_273, 10),
+          (44_426, 10)]
 
 
 def _kernels(trace_path, cats=("kernel",)):
@@ -497,6 +514,91 @@ def _dense() -> int:
     return 0
 
 
+def _splu() -> int:
+    """--splu: K16, K15, the fused apply, mono, the sharded K16 and K14."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from psgd_tf_tpu_torch.groups import lra, splu
+    from psgd_tf_tpu_torch.ops.hopper import _build, lra_upd, splu_upd
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package {Path(splu_upd.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    cats = ("kernel", "gpu_memset")
+    summary = {}
+
+    def case(n, r):
+        st = splu.walked_state(n, r, g, dev)
+        return st, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+
+    def fields(st):
+        return st.Lt, st.l3, st.U12, st.u3
+
+    def report(label, fn, inners, big):
+        _report(torch, label, fn, inners, 10 if big else CALLS, 5 if big else TRACED, summary,
+                cats)
+
+    for n, r in SPLU_N:
+        st, (v, h, gr) = case(n, r)
+        name = splu.route(r, n, dev)
+        big = n >= 1 << 20
+        report(f"{name} n={n} r={r} update", lambda: splu.update(st, v, h, 0.05),
+               [("splu_upd.launch", lambda: splu_upd.launch(name, *fields(st), v, h, 0.05))], big)
+        if (n, r) == (1 << 20, 10):
+            report(f"splu_upd_apply n={n} r={r} update+apply",
+                   lambda: splu_upd.fused_update(*fields(st), v, h, 0.05, g=gr), [], big)
+            report(f"splu_upd_mono n={n} r={r} update+apply",
+                   lambda: splu_upd.fused_update_apply_mono(*fields(st), v, h, gr, 0.05), [], big)
+        del st, v, h, gr
+        torch.cuda.empty_cache()
+    for n in (1 << 16, 400):
+        st, (v, h, gr) = case(n, 10)
+        report(f"splu_one n={n} r=10 update+apply",
+               lambda: splu.update_apply(st, v, h, gr, 0.05),
+               [("splu_upd.launch", lambda: splu_upd.launch("splu_one", *fields(st), v, h, 0.05,
+                                                            gr))], False)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1, shard=1, device=dev)
+        n = 1 << 20
+        for r in (10, 64):
+            st, (v, h, gr) = case(n, r)
+            fs = fields(st)
+            for what, gg in (("update", None), ("update+apply", gr)):
+                report(f"splu_upd_sharded one NCCL rank n={n} r={r} {what}",
+                       lambda: splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh, None, gg),
+                       [("launch_sharded", lambda: splu_upd.launch_sharded(
+                           *fs, v, h, 0.05, n - r, mesh, gg))], True)
+                report(f"{'splu_upd' if gg is None else 'splu_upd_apply'} n={n} r={r} {what}",
+                       lambda: splu_upd.fused_update(*fs, v, h, 0.05, g=gg), [], True)
+            del st, fs, v, h, gr
+            torch.cuda.empty_cache()
+        st = lra.init(torch.Generator().manual_seed(n), n, rank=10, init_scale=0.8, device=dev)
+        v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+        report(f"lra_upd_sharded (K14) one NCCL rank n={n} r=10 update+apply",
+               lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, gr, 0.05,
+                                                          (False, True), mesh), [], True)
+        report(f"lra_upd (K13) n={n} r=10 update+apply",
+               lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, (False, True)),
+               [], True)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -515,6 +617,8 @@ def main() -> int:
         return _stream()
     if sys.argv[1:2] == ["--dense"]:
         return _dense()
+    if sys.argv[1:2] == ["--splu"]:
+        return _splu()
     route = None
     if sys.argv[1:2] == ["--route"]:
         route = sys.argv[2]

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time K19 (the blocked triangular solve) and K13 (the lra update) of two
 checkouts of the port on one card, or sweep K19's schedule on this one, or
-time K11 and K12 (the dense update) of two checkouts.
+time K11 and K12 (the dense update), or the sparse-LU update (K15, K16 and
+the sharded K16), of two checkouts.
 
     python3 tools/tri_lra_ab.py OTHER_TREE
     python3 tools/tri_lra_ab.py --sweep
     python3 tools/tri_lra_ab.py --dense OTHER_TREE
+    python3 tools/tri_lra_ab.py --splu OTHER_TREE
 
 Run from the root of the repository on a machine with one CUDA card.
 OTHER_TREE is another checkout of the repository (for example the parent
@@ -31,6 +33,14 @@ enqueued behind a spinning kernel: the device's own time), host us a call
 (the host clock around calls with no synchronise) and launches a call
 (`torch.profiler`, memsets counted), each timing the median of five
 windows.
+
+`--splu` times the sparse-LU update of both trees, in the same order and
+the same four ways: K16 (`splu.update`) at n = 2^20 with r = 10, 32, 33,
+64 and 128 and at the reference NMT's n = 12,424,273 (r = 10), its fused
+apply (`splu_upd.fused_update(g=...)`) and the one-launch kernel at 2^20,
+r = 10, K15's update + apply at n = 65,536 and 400, and on a one-rank NCCL
+group the sharded K16 at 2^20 with r = 10 and 64, update and update +
+apply.
 
 `--sweep` times this tree's K19 by schedule: the leaf rows NB (64, 128,
 256), the right-looking order `tri.schedule` builds against a recursive
@@ -195,6 +205,69 @@ def run_dense(tree: str, label: str) -> None:
     print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
 
 
+SPLU_N = [(1 << 20, 10), (1 << 20, 32), (1 << 20, 33), (1 << 20, 64), (1 << 20, 128),
+          (12_424_273, 10)]
+
+
+def run_splu(tree: str, label: str) -> None:
+    """Time K15, K16, the fused apply, mono and the sharded K16 with the
+    port of `tree`."""
+    import socket
+
+    torch, dev, g = _setup(tree)
+    import torch.distributed as dist
+    from psgd_tf_tpu_torch.groups import splu
+    from psgd_tf_tpu_torch.ops.hopper import splu_upd
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    out = []
+
+    def case(n, r):
+        st = splu.walked_state(n, r, g, dev)
+        return st, (st.Lt, st.l3, st.U12, st.u3), [torch.randn(n, generator=g, device=dev)
+                                                   for _ in range(3)]
+
+    def timed(what, fn, big):
+        chained = _median_windows(lambda: _time(torch, fn, 5 if big else 50))
+        queued = _median_windows(lambda: _queued(torch, fn, 5 if big else 20))
+        host = _median_windows(lambda: _host_us(torch, fn, 5 if big else 50))
+        out.append(f"{what}: chained {chained:.4f} ms, queued {queued:.4f} ms, host {host:.1f} "
+                   f"us a call, {_launches(torch, fn)} launches")
+
+    for n, r in SPLU_N:
+        st, fs, (v, h, gr) = case(n, r)
+        timed(f"{splu.route(r, n, dev)} n={n} r={r} update", lambda: splu.update(st, v, h, 0.05),
+              True)
+        if (n, r) == (1 << 20, 10):
+            timed(f"splu_upd_apply n={n} r={r} update+apply",
+                  lambda: splu_upd.fused_update(*fs, v, h, 0.05, g=gr), True)
+            timed(f"splu_upd_mono n={n} r={r} update+apply",
+                  lambda: splu_upd.fused_update_apply_mono(*fs, v, h, gr, 0.05), True)
+        del st, fs, v, h, gr
+        torch.cuda.empty_cache()
+    for n in (1 << 16, 400):
+        st, fs, (v, h, gr) = case(n, 10)
+        timed(f"splu_one n={n} r=10 update+apply", lambda: splu.update_apply(st, v, h, gr, 0.05),
+              False)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1, shard=1, device=dev)
+        n = 1 << 20
+        for r in (10, 64):
+            st, fs, (v, h, gr) = case(n, r)
+            for what, gg in (("update", None), ("update+apply", gr)):
+                timed(f"splu_upd_sharded one NCCL rank n={n} r={r} {what}",
+                      lambda: splu_upd.fused_update_sharded(*fs, v, h, 0.05, mesh, None, gg), True)
+            del st, fs, v, h, gr
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
+
+
 def _recursive(tri, n, lower, trans, nb):
     """The recursive split as schedule records: leaves of nb rows, one
     update a split, S read from B until an update has written the rows."""
@@ -266,15 +339,17 @@ def sweep() -> None:
 
 
 def main() -> None:
-    if len(sys.argv) == 4 and sys.argv[1] in ("--tree", "--dense-tree"):
-        (run_tree if sys.argv[1] == "--tree" else run_dense)(sys.argv[2], sys.argv[3])
+    runs = {"--tree": run_tree, "--dense-tree": run_dense, "--splu-tree": run_splu}
+    if len(sys.argv) == 4 and sys.argv[1] in runs:
+        runs[sys.argv[1]](sys.argv[2], sys.argv[3])
         return
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep()
-    elif len(sys.argv) == 3 and sys.argv[1] == "--dense":
+    elif len(sys.argv) == 3 and sys.argv[1] in ("--dense", "--splu"):
         for tree, label in ((sys.argv[2], "other"), (".", "this"), (".", "this"),
                             (sys.argv[2], "other")):
-            subprocess.run([sys.executable, __file__, "--dense-tree", tree, label], check=True)
+            subprocess.run([sys.executable, __file__, sys.argv[1] + "-tree", tree, label],
+                           check=True)
     elif len(sys.argv) == 2:
         for tree, label in ((sys.argv[1], "other"), (".", "this"), (".", "this"),
                             (sys.argv[1], "other")):
