@@ -23,11 +23,12 @@ after:
 
   - the sparse-LU family's fused apply entry (`splu_upd.fused_update(g=...)`,
     the chain with g) and its one-launch kernel (`fused_update_apply_mono`,
-    one cooperative launch), which no optimizer routes, through their own
-    entry points at n = 400, 65,536, 100,003 and 2^20 (r = 10) and 100,003
-    at r = 1 and 32: each against the plain chain and the direct form
-    followed by `splu.apply`, mono against the chain bit for bit, timed
-    beside the routed pair (`splu.update_apply`) and the plain chain;
+    one launch at any rank), which no optimizer routes, through their own
+    entry points at n = 400, 65,536, 100,003 and 2^20 (r = 10), 100,003
+    at r = 1, 32 and 64 and 6,000 at r = 256: each against the plain chain
+    and the direct form followed by `splu.apply`, mono against the chain
+    bit for bit, timed beside the routed pair (`splu.update_apply`) and
+    the plain chain;
   - LeNet5 with five (dense, dense) Kronecker preconditioners, exact Hvp,
     batch 64, the `mnist_lenet5` hyperparameters, on procedural digits
     (K1 with kind dd, K3); then 20 steps of the same with a bf16 Kronecker
@@ -153,7 +154,10 @@ SPLU_RAGGED = [(100_001, 1), (100_001, 3), (131_071, 32), (100_002, 33)]
 # the fused apply entry and the one-launch kernel (phase 8c): K15's n,
 # bench.py's 65,536 and 2^20 and a ragged n at r = 10, then r = 1 and 32
 SPLU_APPLY = [(400, 10), (1 << 16, 10), (100_003, 10), (1 << 20, 10), (100_003, 1),
-              (100_003, 32)]
+              (100_003, 32), (100_003, 64), (6_000, 256)]
+# K15's A/B (phase 8b): bench.py:615's n, the tensor decomposition's and
+# past rank 32, update + apply under each schedule of the one launch
+K15_AB = [(400, 10), (1 << 16, 10), (400, 64)]
 K9_BENCH = (131072, 512)        # bench.py:678-683, the kron_nd row
 K9_MIRROR = (700, 1500)         # a (dense, norm) layer: K9 gets dX^T
 # (format, shape, counter): bench.py's kron_ns_wide row, a ragged mirrored
@@ -1274,7 +1278,8 @@ def main() -> int:
     # 8b. K15 at the tensor decomposition's n and bench.py's 65,536, K16 at a
     #     ragged n past the cap and bench.py's 2^20, all r = 10: update and
     #     update+apply against the chain's plain stages and the direct form;
-    #     then K16 at SPLU_RAGGED (ranks 1 to 33 at odd n)
+    #     then K16 at SPLU_RAGGED (ranks 1 to 33 at odd n); then K15's one
+    #     launch timed at K15_AB under each of its schedules
     def splu_case(n, r=10):
         """A walked state (`splu.walked_state`) and fresh v, h, g."""
         return splu.walked_state(n, r, g, dev), [torch.randn(n, generator=g, device=dev)
@@ -1359,6 +1364,33 @@ def main() -> int:
               and moved == {"splu_upd": 1, "splu_upd_apply": 1},
               f"splu_upd at ragged n={n} r={r}")
         del st, got, fused, ref, again, zst
+    # K15's one launch at K15_AB: queued (behind a spinning kernel: the
+    # card's own time) and chained, under the library's pick and each
+    # forced schedule, all bit-equal to the chain (K16's kernels); the
+    # plain chain; host us a call
+    for n, r in K15_AB:
+        st, (v, h, gr) = splu_case(n, r)
+        fn = lambda: splu_one.fused_update_apply(*fields(st), v, h, gr, 0.05)
+        chain = splu_upd.launch("splu_upd", *fields(st), v, h, 0.05, gr)
+        row, bit = [], True
+        for sched in ("auto", "grid", "cluster"):
+            one = lambda: splu_upd.launch_mono("splu_one", *fields(st), v, h, 0.05, gr,
+                                               schedule=sched)
+            bit &= all(torch.equal(a, b) for a, b in zip(one(), chain, strict=True))
+            grid = splu_upd.mono_grid(n, r, schedule=sched)
+            row.append(f"{sched} ({grid['schedule']}, {grid['grid']} CTAs) queued "
+                       f"{_time_queued(torch, one, 20):.4f} chained "
+                       f"{_time_median(torch, one, 100):.4f}")
+        chain_q = _time_queued(torch, lambda: splu_upd.launch("splu_upd", *fields(st), v, h,
+                                                              0.05, gr), 20)
+        with hopper.disabled():
+            plain_ms = _time(torch, fn, 20)
+        host_us = _host_ms(torch, fn, 100) * 1e3
+        print(f"splu_one one launch: n={n} r={r} update+apply ms: {'; '.join(row)}; the chain "
+              f"of launches queued {chain_q:.4f}; plain {plain_ms:.4f}; host {host_us:.1f} us a "
+              f"call; every schedule bit-equal to the chain {bit}", flush=True)
+        check(bit, f"splu_one one launch bit-equal to the chain at n={n} r={r}")
+        del st, chain
     for n in (SPLU_K15[0], SPLU_K16[0]):
         kst, _ = splu_case(n)
         pst = kst
@@ -1374,7 +1406,7 @@ def main() -> int:
 
     # 8c. path: the sparse-LU fused apply entry (`splu_upd.fused_update(g=...)`,
     #     the chain with g) and the one-launch kernel (`fused_update_apply_mono`,
-    #     one cooperative launch), which no optimizer routes (as in the JAX
+    #     one launch, past rank 32 too), which no optimizer routes (as in the JAX
     #     package), through their own entry points at SPLU_APPLY; then each
     #     against the plain chain and the direct form followed by `splu.apply`,
     #     mono against the chain bit for bit, and the timings beside the routed
@@ -1973,13 +2005,26 @@ def main() -> int:
         elif shape in ref_shapes:
             acc["nmt_ms"] += ms
             acc["nmt_plain_ms"] += plain_ms
+        extra = ""
+        if fmt == ND and shape in (K9_BENCH, *ref_shapes):
+            # the product alone in cuBLAS (fp32, TF32 off): a yardstick, no
+            # PyTorch call computes the arrow's apply
+            R = st.qr.T @ st.qr
+            gemm_ms = _time(torch, lambda: torch.mm(G, R), reps)
+            extra = f", cuBLAS's product G R alone {gemm_ms:.4f} ms"
+            if shape == K9_BENCH:
+                acc["gemm_ms"] = gemm_ms
+            else:
+                acc["nmt_gemm_ms"] = acc.get("nmt_gemm_ms", 0.0) + gemm_ms
         print(f"{name}: {shape} max rel err {rel:.3e} against the plain chain, {rel_apply:.3e} "
               f"against kron.apply (tol {TOL_K1:.0e}), max abs err {err:.3e}, repeats bit for "
               f"bit {again}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})", flush=True)
+              f"({bound[1]}){extra}", flush=True)
     for name in ("kron_sparse_big_apply_ns", "kron_sparse_big_apply_nd"):
+        gemm = unrouted[name].get("nmt_gemm_ms")
         print(f"{name}: the NMT layers summed, kernel {unrouted[name]['nmt_ms']:.4f} ms, plain "
-              f"{unrouted[name]['nmt_plain_ms']:.4f} ms", flush=True)
+              f"{unrouted[name]['nmt_plain_ms']:.4f} ms"
+              + (f", cuBLAS's products alone {gemm:.4f} ms" if gemm else ""), flush=True)
     del apply_states, apply_gs, apply_outs
     torch.cuda.empty_cache()
 

@@ -1205,24 +1205,39 @@ extern "C" int psgd_kron_ns_update(int m, int n, const void* ql, const void* qr,
 //   and row m-1 also gets sum_i q1_i z_i (the arrow's last column).
 // The TPU kernel streams row panels in grid order and carries sum q1 z in
 // VMEM: row m-1 lies in the last panel, so the sum is complete when that
-// panel is written. Blocks here run in no order, so each block (a strip of
-// AP_STRIP lanes by a chunk of rows) writes its strip's partial sum to a
-// (chunks, n) scratch, and a last small launch adds the partials to row
-// m-1 in chunk order: no atomics, a run repeats itself bit for bit.
-// Nothing is padded: lanes past n and rows past m are masked, so K18 is
-// K17's (norm, scale) kernel on a wider grid (the JAX package's 128-lane
-// and row-block padding exists for the TPU's tiling alone).
-// What bounds it: (norm, scale) memory, G read once and the output written
-// once (8 m n bytes: 4.1 GB at (512, 10^6), 1.22 ms at 3.35 TB/s); each
-// thread keeps AP_ROWS x AP_LANES loads in flight. (norm, dense)
-// operations, the product by R (2 m n^2 FLOPs: 68.7 GFLOP at
-// (131072, 512), 1.03 ms at the fp32 peak): a prologue launch of the same
-// kernel writes preG = Ql G, kron_dd.cu's grouped GEMM (128 x 128 fp32
-// SIMT tiles at this size) writes Z = preG R into the output, and the
-// kernel rewrites Z in place (each element read and written by one thread):
-// 2.36 ms at (131072, 512), from 4.46-4.49 with the old 64 x 64 GEMM,
-// against 1.41 for cuBLAS's fp32 product alone (H100 80GB HBM3, 700 W,
-// tools/kron_gemm_ab.py).
+// panel is written. Blocks here run in no order, so each block writes its
+// partial sums over its rows to a (row blocks, n) scratch, and a last
+// small launch adds the partials to row m-1 in a fixed order: no atomics,
+// a run repeats itself bit for bit. Nothing is padded: lanes past n and
+// rows past m are masked (the JAX package's 128-lane and row-block padding
+// exists for the TPU's tiling alone).
+//
+// (norm, scale), K17 ns and K18: apply_ns_kernel, a block a strip of
+// AP_STRIP lanes by a chunk of rows, each thread AP_ROWS x AP_LANES loads in
+// flight. What bounds it: memory, G read once and the output written once
+// (8 m n bytes: 4.1 GB at (512, 10^6), 1.22 ms at 3.35 TB/s).
+//
+// (norm, dense), K17 nd: apply_nd_kernel, a GEMM of its own, as the TPU
+// kernel computes the product inside its pallas_call. What bounds it:
+// operations, the product by R (2 m n^2 FLOPs: 68.7 GFLOP at (131072, 512),
+// 1.03 ms at the fp32 peak). The chain before it wrote preG = Ql G into an
+// (m, n) scratch, ran kron_dd.cu's grouped GEMM into the output and
+// rewrote the output in place: four launches and two extra streams of
+// 268 MB at (131072, 512), 2.44 ms queued of which the GEMM 1.97 (H100 80GB
+// HBM3, 700 W, tools/profile_kron_chain.py --apply-nd). Here the arrow
+// lives in the GEMM's A-operand load, each element of a row tile formed as
+// q0_i G_ik + q1_i G_{m-1,k} on its way to shared memory (the G_{m-1} strip
+// of each k-step staged once per block beside R's slab), and out_i = q0_i
+// z_i and each tile's column sums of q1_i z_i in its epilogue: G is read
+// once, the output written once, no (m, n) intermediate, two launches
+// (the product, then apply_nd_last_kernel adds the row tiles' sums to row
+// m-1 in tile order). The tile: 128 x 128 outputs a block (64 x 64 where
+// those tiles would not give every SM four), 256 threads of 8 x 8 (4 x 4)
+// fp32 SIMT FMAs each, as kron_dd.cu's; K steps of ND_BK = 16 through two
+// shared-memory stages, the next step's G loads (16 bytes along K where
+// n % 4 == 0 and the pointers are aligned, else 4) held in registers and
+// R's slab copied by cp.async while the current step's FMAs run. Each
+// output is one FMA chain over k, rising.
 
 #define AP_THREADS 256
 #define AP_LANES 4                         // lanes a thread owns, AP_THREADS apart
@@ -1231,16 +1246,11 @@ extern "C" int psgd_kron_ns_update(int m, int n, const void* ql, const void* qr,
 #define AP_MIN_ROWS 16                     // fewest rows a chunk takes
 #define AP_TARGET_BLOCKS (132 * 8)         // one wave of 256-thread blocks on 132 SMs
 
-enum ApplyMode { AP_NS = 0, AP_PRE = 1, AP_ND = 2 };
-
-// grid (strips, chunks). AP_NS: src = G, out = q0 z with
-// z = (q0 g + q1 G_{m-1}) qr^2; AP_PRE: src = G, out = preG = q0 g + q1 G_{m-1};
-// AP_ND: src = Z (may be out itself), out = q0 z. AP_NS and AP_ND write the
-// block's partial sum_i q1_i z_i of each lane to pcol[chunk n + j].
-template <int MODE>
-__global__ void __launch_bounds__(AP_THREADS) apply_norm_kernel(
-    int m, int n, int rows, const float* src, const float* __restrict__ ql,
-    const float* __restrict__ qr, float* out, float* __restrict__ pcol) {
+// grid (strips, chunks): out = q0 z with z = (q0 g + q1 G_{m-1}) qr^2, and
+// the block's partial sum_i q1_i z_i of each lane in pcol[chunk n + j]
+__global__ void __launch_bounds__(AP_THREADS) apply_ns_kernel(
+    int m, int n, int rows, const float* __restrict__ src, const float* __restrict__ ql,
+    const float* __restrict__ qr, float* __restrict__ out, float* __restrict__ pcol) {
     const float* q0 = ql;
     const float* q1 = ql + m;
     const int r0 = blockIdx.y * rows, r1 = min(m, r0 + rows);
@@ -1251,9 +1261,9 @@ __global__ void __launch_bounds__(AP_THREADS) apply_norm_kernel(
     for (int c = 0; c < AP_LANES; ++c) {
         j[c] = (size_t)blockIdx.x * AP_STRIP + c * AP_THREADS + threadIdx.x;
         ok[c] = j[c] < (size_t)n;
-        const float q = (MODE == AP_NS && ok[c]) ? qr[j[c]] : 1.f;
+        const float q = ok[c] ? qr[j[c]] : 1.f;
         rr[c] = q * q;
-        gl[c] = (MODE != AP_ND && ok[c]) ? src[(size_t)(m - 1) * n + j[c]] : 0.f;
+        gl[c] = ok[c] ? src[(size_t)(m - 1) * n + j[c]] : 0.f;
         acc[c] = 0.f;
     }
     for (int i0 = r0; i0 < r1; i0 += AP_ROWS) {
@@ -1270,14 +1280,12 @@ __global__ void __launch_bounds__(AP_THREADS) apply_norm_kernel(
             const float a = q0[i], b = q1[i];
 #pragma unroll
             for (int c = 0; c < AP_LANES; ++c) {
-                const float pre = MODE == AP_ND ? v[r][c] : a * v[r][c] + b * gl[c];
-                const float z = MODE == AP_NS ? pre * rr[c] : pre;
-                if (ok[c]) out[(size_t)i * n + j[c]] = MODE == AP_PRE ? pre : a * z;
+                const float z = (a * v[r][c] + b * gl[c]) * rr[c];
+                if (ok[c]) out[(size_t)i * n + j[c]] = a * z;
                 acc[c] += b * z;
             }
         }
     }
-    if (MODE == AP_PRE) return;
 #pragma unroll
     for (int c = 0; c < AP_LANES; ++c)
         if (ok[c]) pcol[(size_t)blockIdx.y * n + j[c]] = acc[c];
@@ -1305,16 +1313,230 @@ static void apply_grid(int m, int n, int& strips, int& chunks, int& rows) {
     chunks = (m + rows - 1) / rows;
 }
 
-extern "C" size_t psgd_kron_apply_scratch_floats(int m, int n, int dense) {
-    int strips, chunks, rows;
-    apply_grid(m, n, strips, chunks, rows);
-    return psgd_align4((size_t)chunks * n) + (dense ? (size_t)m * n : 0);
+#define ND_BK 16        // K depth of a step
+#define ND_THREADS 256
+
+template <int Q>
+struct NdTile {
+    static constexpr int BM = 64 * Q, BN = 64 * Q, LDA = BM + 4, LDB = BN + 4;
+    // a stage: A's slab As[k][i] (transformed), R's Bs[k][j], the G_{m-1} strip
+    static constexpr int SA = ND_BK * LDA, SB = ND_BK * LDB, STAGE = SA + SB + ND_BK;
+};
+
+__device__ __forceinline__ void nd_cp16(float* dst, const float* src, int bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
 
-static int apply_tail(int m, int n, int chunks, const float* pcol, float* out,
-                      cudaStream_t stream) {
-    apply_last_row_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, chunks, pcol, out);
-    return (int)cudaGetLastError();
+__device__ __forceinline__ void nd_cp4(float* dst, const float* src, bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 4 : 0));
+}
+
+// 16 bytes of x[0..3] where the first `valid` lie in range (zeros past them)
+__device__ __forceinline__ void nd_cp_quad(float* dst, const float* x, int valid, bool vec,
+                                           const float* any) {
+    if (vec) {
+        nd_cp16(dst, valid > 0 ? x : any, 4 * max(0, min(4, valid)));
+    } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) nd_cp4(dst + e, e < valid ? x + e : any, e < valid);
+    }
+}
+
+// One output tile of P G (the product and out_i = q0_i z_i), and its column
+// sums of q1_i z_i into pcol's row (row0 / BM); grid: the tiles, row-major
+// (a row's column tiles adjacent: they share G's rows in L2). vec: n % 4 ==
+// 0 and G, R, out 16-byte aligned.
+template <int Q>
+__global__ void __launch_bounds__(ND_THREADS, 2) apply_nd_kernel(
+    int m, int n, const float* __restrict__ G, const float* __restrict__ ql,
+    const float* __restrict__ R, float* __restrict__ out, float* __restrict__ pcol, int vec) {
+    using T = NdTile<Q>;
+    __shared__ __align__(16) float sm[2 * T::STAGE];
+    const int tiles_n = (n + T::BN - 1) / T::BN;
+    const int row0 = blockIdx.x / tiles_n * T::BM, col0 = blockIdx.x % tiles_n * T::BN;
+    const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+    const float *q0 = ql, *q1 = ql + m, *gl = G + (size_t)(m - 1) * n;
+
+    // A: Q quads a thread, rows row0 + ar + 64 u, lanes 4 ac .. 4 ac + 3 of the step
+    const int ar = t / 4, ac = t % 4;
+    float qa0[Q], qa1[Q];
+    float4 ra[Q];
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+        const int i = row0 + ar + 64 * u;
+        qa0[u] = i < m ? q0[i] : 0.f;
+        qa1[u] = i < m ? q1[i] : 0.f;
+    }
+    auto load_a = [&](int k0) {
+        const int k = k0 + 4 * ac;
+#pragma unroll
+        for (int u = 0; u < Q; ++u) {
+            const int i = row0 + ar + 64 * u;
+            const float* p = G + (size_t)i * n + k;
+            if (i >= m) {
+                ra[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            } else if (vec && k + 3 < n) {
+                ra[u] = *reinterpret_cast<const float4*>(p);
+            } else {
+                ra[u].x = k < n ? p[0] : 0.f;
+                ra[u].y = k + 1 < n ? p[1] : 0.f;
+                ra[u].z = k + 2 < n ? p[2] : 0.f;
+                ra[u].w = k + 3 < n ? p[3] : 0.f;
+            }
+        }
+    };
+    // R's slab (ND_BK x BN) and the G_{m-1} strip of the step at k0, in flight
+    auto load_b = [&](float* st, int k0) {
+        float* Bs = st + T::SA;
+#pragma unroll
+        for (int u = 0; u < Q; ++u) {
+            const int e = t + ND_THREADS * u, kk = e / (16 * Q), jq = e % (16 * Q) * 4;
+            const int gk = k0 + kk, gj = col0 + jq;
+            nd_cp_quad(Bs + kk * T::LDB + jq, R + (size_t)gk * n + gj, gk < n ? n - gj : 0,
+                       vec, R);
+        }
+        if (t < ND_BK / 4) nd_cp_quad(st + T::SA + T::SB + 4 * t, gl + k0 + 4 * t,
+                                      n - k0 - 4 * t, vec, R);
+        asm volatile("cp.async.commit_group;\n" ::);
+    };
+    // the transformed quads into the stage's As[k][i]
+    auto store_a = [&](float* st) {
+        const float4 g = *reinterpret_cast<const float4*>(st + T::SA + T::SB + 4 * ac);
+#pragma unroll
+        for (int u = 0; u < Q; ++u) {
+            float* a = st + 4 * ac * T::LDA + ar + 64 * u;
+            a[0] = fmaf(qa0[u], ra[u].x, qa1[u] * g.x);
+            a[T::LDA] = fmaf(qa0[u], ra[u].y, qa1[u] * g.y);
+            a[2 * T::LDA] = fmaf(qa0[u], ra[u].z, qa1[u] * g.z);
+            a[3 * T::LDA] = fmaf(qa0[u], ra[u].w, qa1[u] * g.w);
+        }
+    };
+
+    float acc[4 * Q][4 * Q];
+#pragma unroll
+    for (int i = 0; i < 4 * Q; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * Q; ++j) acc[i][j] = 0.f;
+    const int steps = (n + ND_BK - 1) / ND_BK;
+    load_a(0);
+    load_b(sm, 0);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    store_a(sm);
+    __syncthreads();
+    for (int s = 0; s < steps; ++s) {
+        float* cur = sm + (s & 1) * T::STAGE;
+        float* nxt = sm + ((s & 1) ^ 1) * T::STAGE;
+        const bool more = s + 1 < steps;
+        if (more) {
+            load_a((s + 1) * ND_BK);
+            load_b(nxt, (s + 1) * ND_BK);
+        }
+        const float *As = cur, *Bs = cur + T::SA;
+#pragma unroll
+        for (int kk = 0; kk < ND_BK; ++kk) {
+            float a[4 * Q], b[4 * Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+                const float4 x = *reinterpret_cast<const float4*>(As + kk * T::LDA + q * 64 + ty * 4);
+                const float4 y = *reinterpret_cast<const float4*>(Bs + kk * T::LDB + q * 64 + tx * 4);
+                a[4 * q] = x.x, a[4 * q + 1] = x.y, a[4 * q + 2] = x.z, a[4 * q + 3] = x.w;
+                b[4 * q] = y.x, b[4 * q + 1] = y.y, b[4 * q + 2] = y.z, b[4 * q + 3] = y.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 4 * Q; ++i)
+#pragma unroll
+                for (int j = 0; j < 4 * Q; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+        }
+        if (more) {
+            asm volatile("cp.async.wait_group 0;\n" ::);
+            __syncthreads();  // the G_{m-1} strip has landed for every thread
+            store_a(nxt);
+        }
+        __syncthreads();
+    }
+
+    // epilogue: out_i = q0_i z_i; the tile's column sums of q1_i z_i, each
+    // thread's rows in order, then the 16 row groups in order, into pcol
+    float cs[4 * Q];
+#pragma unroll
+    for (int j = 0; j < 4 * Q; ++j) cs[j] = 0.f;
+#pragma unroll
+    for (int ii = 0; ii < 4 * Q; ++ii) {
+        const int i = row0 + (ii / 4) * 64 + ty * 4 + ii % 4;
+        if (i >= m) continue;
+        const float a0 = q0[i], a1 = q1[i];
+        float* o = out + (size_t)i * n;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int j = col0 + q * 64 + tx * 4;
+            float z[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                z[e] = a0 * acc[ii][4 * q + e];
+                cs[4 * q + e] += a1 * acc[ii][4 * q + e];
+            }
+            if (vec && j + 3 < n) {
+                *reinterpret_cast<float4*>(o + j) = make_float4(z[0], z[1], z[2], z[3]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (j + e < n) o[j + e] = z[e];
+            }
+        }
+    }
+    float* red = sm;  // [16][BN]: free since the loop's last barrier
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[ty * T::BN + q * 64 + tx * 4 + e] = cs[4 * q + e];
+    __syncthreads();
+    float* prow = pcol + (size_t)(blockIdx.x / tiles_n) * n;
+    for (int c = t; c < T::BN; c += ND_THREADS) {
+        float sum = 0.f;
+#pragma unroll
+        for (int y = 0; y < 16; ++y) sum += red[y * T::BN + c];
+        if (col0 + c < n) prow[col0 + c] = sum;
+    }
+}
+
+// out[m-1, j] += the sum of pcol[c, j] over the row tiles c: 32 columns a
+// block, warp w summing the tiles c = w, w + 8, ... in order (coalesced
+// rows), then the eight warps' sums in warp order
+__global__ void __launch_bounds__(256) apply_nd_last_kernel(int m, int n, int tiles,
+                                                            const float* __restrict__ pcol,
+                                                            float* __restrict__ out) {
+    __shared__ float part[8][32];
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32, j = blockIdx.x * 32 + lane;
+    float s = 0.f;
+    if (j < n)
+        for (int c = w; c < tiles; c += 8) s += pcol[(size_t)c * n + j];
+    part[w][lane] = s;
+    __syncthreads();
+    if (w == 0 && j < n) {
+        float t = part[0][lane];
+        for (int k = 1; k < 8; ++k) t += part[k][lane];
+        out[(size_t)(m - 1) * n + j] += t;
+    }
+}
+
+// the (norm, dense) tile: 128 x 128 where those tiles give every SM four,
+// else 64 x 64 (at the NMT layers, (1281, 1024) to (9414, 256), the 64 x 64
+// tiles ran 0.049-0.249 ms against 0.056-0.281 for 128 x 128: H100 80GB
+// HBM3, 700 W)
+static int apply_nd_side(int m, int n) {
+    const long long big = (long long)((m + 127) / 128) * ((n + 127) / 128);
+    return big >= 4LL * gemm_sms() ? 128 : 64;
+}
+
+extern "C" size_t psgd_kron_apply_scratch_floats(int m, int n, int dense) {
+    if (dense) return psgd_align4((size_t)((m + 63) / 64) * n);  // a row of sums a 64-row tile at most
+    int strips, chunks, rows;
+    apply_grid(m, n, strips, chunks, rows);
+    return psgd_align4((size_t)chunks * n);
 }
 
 extern "C" int psgd_kron_apply_ns(int m, int n, const void* g, const void* ql, const void* qr,
@@ -1325,31 +1547,30 @@ extern "C" int psgd_kron_apply_ns(int m, int n, const void* g, const void* ql, c
     apply_grid(m, n, strips, chunks, rows);
     float* pcol = static_cast<float*>(scratch);
     float* o = static_cast<float*>(out);
-    apply_norm_kernel<AP_NS><<<dim3(strips, chunks), AP_THREADS, 0, stream>>>(
+    apply_ns_kernel<<<dim3(strips, chunks), AP_THREADS, 0, stream>>>(
         m, n, rows, static_cast<const float*>(g), static_cast<const float*>(ql),
         static_cast<const float*>(qr), o, pcol);
-    return apply_tail(m, n, chunks, pcol, o, stream);
+    apply_last_row_kernel<<<(n + 255) / 256, 256, 0, stream>>>(m, n, chunks, pcol, o);
+    return (int)cudaGetLastError();
 }
 
+// r: R = Qr^T Qr (n, n); scratch: psgd_kron_apply_scratch_floats(m, n, 1)
 extern "C" int psgd_kron_apply_nd(int m, int n, const void* g, const void* ql, const void* r,
                                   void* out, void* scratch, void* stream_ptr) {
-    // the GEMM's grid counts its tiles (64 x 64 at most) in an int
-    if (m < 1 || n < 1 || (size_t)((m + 63) / 64) * ((n + 63) / 64) > (size_t)INT_MAX)
-        return (int)cudaErrorInvalidValue;
+    if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+    const int side = apply_nd_side(m, n);
+    const long long tiles = (long long)((m + side - 1) / side) * ((n + side - 1) / side);
+    if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    int strips, chunks, rows;
-    apply_grid(m, n, strips, chunks, rows);
-    float* pcol = static_cast<float*>(scratch);
-    float* pre = pcol + psgd_align4((size_t)chunks * n);
+    const float *G = static_cast<const float*>(g), *q = static_cast<const float*>(ql),
+                *R = static_cast<const float*>(r);
     float* o = static_cast<float*>(out);
-    const float* q = static_cast<const float*>(ql);
-    const dim3 grid(strips, chunks);
-    apply_norm_kernel<AP_PRE><<<grid, AP_THREADS, 0, stream>>>(
-        m, n, rows, static_cast<const float*>(g), q, nullptr, pre, nullptr);
-    GemmBatch gb;
-    gb.count = 1;
-    gb.p[0] = gemm_prob(pre, 0, n, static_cast<const float*>(r), 0, n, o, m, n, n);
-    launch_gemms(gb, stream);
-    apply_norm_kernel<AP_ND><<<grid, AP_THREADS, 0, stream>>>(m, n, rows, o, q, nullptr, o, pcol);
-    return apply_tail(m, n, chunks, pcol, o, stream);
+    float* pcol = static_cast<float*>(scratch);
+    const int vec = n % 4 == 0 && aligned16(G) && aligned16(R) && aligned16(o);
+    if (side == 128)
+        apply_nd_kernel<2><<<(unsigned)tiles, ND_THREADS, 0, stream>>>(m, n, G, q, R, o, pcol, vec);
+    else
+        apply_nd_kernel<1><<<(unsigned)tiles, ND_THREADS, 0, stream>>>(m, n, G, q, R, o, pcol, vec);
+    apply_nd_last_kernel<<<(n + 31) / 32, 256, 0, stream>>>(m, n, (m + side - 1) / side, pcol, o);
+    return (int)cudaGetLastError();
 }

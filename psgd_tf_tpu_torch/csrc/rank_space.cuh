@@ -33,6 +33,7 @@
 //     in the caller's workspace past it.
 #pragma once
 
+#include "gemm_tile.cuh"
 #include "psgd.cuh"
 
 #include <algorithm>
@@ -46,6 +47,9 @@
 #define GRAM_TARGET 2048    // GEMM blocks a Gram's launch aims at (tiles x bands)
 #define GRAM_MAX_SPLITS 256
 #define GRAM_MIN_BAND 256   // lanes of a band at the least
+#define GRAM_TILE 64        // the side of the GEMM tiles a Gram takes (GemmTile<1, 1>)
+static_assert(GemmTile<1, 1>::BM == GRAM_TILE && GemmTile<1, 1>::BN == GRAM_TILE,
+              "gram_launch's tiles are the GEMM's 64 x 64");
 
 // One block of Z Z^T: rows [a0, a0 + ma) of Z against rows [b0, b0 + mb),
 // read as x (ma, lanes) and y (mb, lanes), rows ldx and ldy floats apart.
@@ -76,12 +80,16 @@ static inline void gram_add(GramPlan& p, const float* x, int ldx, int a0, int ma
     p.b[p.count++] = GramBlock{x, y, ldx, ldy, a0, b0, ma, mb};
 }
 
+// the GEMM's output tiles of block B
+__host__ __device__ inline long long gram_block_tiles(const GramBlock& B) {
+    return (long long)((B.ma + GRAM_TILE - 1) / GRAM_TILE) * ((B.mb + GRAM_TILE - 1) / GRAM_TILE);
+}
+
 // the lanes' bands: tiles x bands near GRAM_TARGET, each band at least
 // GRAM_MIN_BAND lanes
 static inline int gram_splits(const GramPlan& p) {
     long long tiles = 0;
-    for (int k = 0; k < p.count; ++k)
-        tiles += (long long)((p.b[k].ma + 63) / 64) * ((p.b[k].mb + 63) / 64);
+    for (int k = 0; k < p.count; ++k) tiles += gram_block_tiles(p.b[k]);
     long long s = (GRAM_TARGET + tiles - 1) / std::max(1LL, tiles);
     s = std::min<long long>(s, GRAM_MAX_SPLITS);
     s = std::min<long long>(s, std::max(1, p.lanes / GRAM_MIN_BAND));
@@ -97,11 +105,10 @@ static inline size_t gram_part_floats(const GramPlan& p) {
 }
 
 // gram[a][b] = gram[b][a] = the sum of entry (a, b)'s bands in band order,
-// one thread an entry of a block (a <= b on a diagonal block)
-static __global__ void __launch_bounds__(256) gram_sum_kernel(const GramPlan p, int splits,
-                                                              const float* __restrict__ part,
-                                                              float* __restrict__ gram) {
-    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// for entry e of the plan's blocks, one after the other (a <= b on a
+// diagonal block)
+__device__ __forceinline__ void gram_sum_entry(const GramPlan& p, int splits, long long e,
+                                               const float* part, float* gram) {
     size_t off = 0;
     for (int k = 0; k < p.count; ++k) {
         const GramBlock& B = p.b[k];
@@ -122,6 +129,30 @@ static __global__ void __launch_bounds__(256) gram_sum_kernel(const GramPlan p, 
     }
 }
 
+// one thread an entry
+static __global__ void __launch_bounds__(256) gram_sum_kernel(const GramPlan p, int splits,
+                                                              const float* __restrict__ part,
+                                                              float* __restrict__ gram) {
+    gram_sum_entry(p, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x, part, gram);
+}
+
+// Block B as a problem of the grouped GEMM: x y^T over the lanes into c,
+// the upper triangle alone (EPI_TRIU) on a diagonal block
+__host__ __device__ inline GemmProb gram_prob(const GramBlock& B, int lanes, float* c) {
+    GemmProb P = {};
+    P.a = B.x;
+    P.b = B.y;
+    P.c = c;
+    P.tb = 1;
+    P.lda = B.ldx;
+    P.ldb = B.ldy;
+    P.M = B.ma;
+    P.N = B.mb;
+    P.K = lanes;
+    P.epi = B.a0 == B.b0 ? EPI_TRIU : EPI_STORE;
+    return P;
+}
+
 // Both launches of one Gram: every block's bands in one grouped GEMM of
 // 64 x 64 tiles into part (gram_part_floats), then their sums into gram
 static void gram_launch(const GramPlan& p, float* part, float* gram, cudaStream_t stream) {
@@ -131,14 +162,86 @@ static void gram_launch(const GramPlan& p, float* part, float* gram, cudaStream_
     size_t off = 0, entries = 0;
     for (int k = 0; k < p.count; ++k) {
         const GramBlock& B = p.b[k];
-        GemmProb P = gemm_prob(B.x, 0, B.ldx, B.y, 1, B.ldy, part + off, B.ma, B.mb, p.lanes);
-        if (B.a0 == B.b0) P.epi = EPI_TRIU;
-        g.p[g.count++] = P;
+        g.p[g.count++] = gram_prob(B, p.lanes, part + off);
         off += psgd_align4((size_t)splits * B.ma * B.mb);
         entries += (size_t)B.ma * B.mb;
     }
     launch_gemms(g, stream, splits, 1);
     gram_sum_kernel<<<(unsigned)((entries + 255) / 256), 256, 0, stream>>>(p, splits, part, gram);
+}
+
+// The same Gram inside a launch of the caller's own (the one-launch
+// kernels): gram_launch's GEMM blocks as work items, then, after a barrier
+// the caller places, gram_sums. Work item w is problem p's tile t
+// (row-major over its output tiles) in band y = w % splits: the GEMM's own
+// tile body (gemm_tile.cuh) over the GEMM's band, its raw partial product
+// stored where the GEMM's epilogue stores it (band y at part + off_p +
+// y ma mb, zeros below the diagonal of a diagonal block, nothing for a
+// tile wholly below it), so the partials and the Gram are gram_launch's
+// bit for bit. GEMM_THREADS threads; sm: GemmTile<1, 1>::SMEM bytes.
+__device__ __forceinline__ void gram_tile(const GramPlan& p, int splits, long long w, float* part,
+                                          float* sm) {
+    const int y = (int)(w % splits);
+    long long t = w / splits;
+    int k = 0;
+    size_t off = 0;
+    for (; k + 1 < p.count; ++k) {
+        const long long tiles = gram_block_tiles(p.b[k]);
+        if (t < tiles) break;
+        t -= tiles;
+        off += psgd_align4((size_t)splits * p.b[k].ma * p.b[k].mb);
+    }
+    const GemmProb P = gram_prob(p.b[k], p.lanes, part + off);
+    const int tn = (P.N + GRAM_TILE - 1) / GRAM_TILE;
+    const int row0 = (int)(t / tn) * GRAM_TILE, col0 = (int)(t % tn) * GRAM_TILE;
+    const bool triu = P.epi == EPI_TRIU;
+    if (triu && row0 > col0 + GRAM_TILE - 1) return;  // uniform across the block
+    const int kc = ((P.K + splits - 1) / splits + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
+    const int k_lo = y * kc, k_hi = min(P.K, k_lo + kc);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    gemm_tile<1, 1, 0, 1>(P, row0, col0, k_lo, k_hi, sm, acc);
+    __syncthreads();  // the next item's copies reuse sm
+    float* c = P.c + (size_t)y * P.M * P.N;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+        const int i = row0 + ty * 4 + ii;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+            const int j = col0 + tx * 4 + jj;
+            if (i < P.M && j < P.N) c[(size_t)i * P.N + j] = triu && i > j ? 0.f : acc[ii][jj];
+        }
+    }
+}
+
+// the work items of a Gram (gram_tile)
+static inline long long gram_items(const GramPlan& p, int splits) {
+    long long tiles = 0;
+    for (int k = 0; k < p.count; ++k) tiles += gram_block_tiles(p.b[k]);
+    return tiles * splits;
+}
+
+// every work item of a Gram over the launch's blocks
+__device__ __forceinline__ void gram_tiles(const GramPlan& p, int splits, float* part, float* sm) {
+    long long tiles = 0;
+    for (int k = 0; k < p.count; ++k) tiles += gram_block_tiles(p.b[k]);
+    for (long long w = blockIdx.x; w < tiles * splits; w += gridDim.x)
+        gram_tile(p, splits, w, part, sm);
+}
+
+// the Gram from its bands' partials (gram_sum_entry), an entry a thread of
+// the launch
+__device__ __forceinline__ void gram_sums(const GramPlan& p, int splits, const float* part,
+                                          float* gram) {
+    long long entries = 0;
+    for (int k = 0; k < p.count; ++k) entries += (long long)p.b[k].ma * p.b[k].mb;
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < entries;
+         e += (long long)gridDim.x * blockDim.x)
+        gram_sum_entry(p, splits, e, part, gram);
 }
 
 // ------------------------------------------------------ block-wide algebra

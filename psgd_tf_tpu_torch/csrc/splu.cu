@@ -38,10 +38,11 @@
 //   reduce, corner C, stage 4 (with g): P' g of the updated state.
 // The balance rescales L by 1/rho and U by rho; Q, the probe images and the
 // step scales do not change, so it folds into the outputs (JAX :765-784).
-// K16 is stages 1-3, K15 and the fused apply entry the whole chain
-// (ops/hopper/splu_upd.py, splu_one.py); the one-launch kernel runs the same
-// stage and corner bodies in one cooperative launch (its note is below the
-// host side's helpers). No float atomics: a run repeats itself bit for bit. The
+// K16 is stages 1-3 and the fused apply entry the whole chain
+// (ops/hopper/splu_upd.py); K15 (splu_one.py) and the JAX package's
+// one-launch entry run the same stage and corner bodies in one launch, with
+// or without g (the note at "the one-launch schedule"). No float atomics: a
+// run repeats itself bit for bit. The
 // sharded K16 (JAX splu_upd.py `fused_update(mesh=...)` :914) is the same
 // kernels behind four entry points, split at the three reductions that the
 // host all-reduces over the ranks holding the tail's other lanes (the end
@@ -77,12 +78,18 @@
 // (tiles of SPLU_G_TILE lanes, the Gram's tiles in y-slices of 256 over
 // the grid); past it, and for the apply's Gram, kron_dd.cu's grouped GEMM
 // (rank_space.cuh) over the rows the state holds read in place and the
-// others staged. Its scratch: the partial tiles (splu_g1_blocks x 64
-// floats a tile) or the GEMM's bands, the apply's bands (at most 256 z^2
-// floats, z = 2r + 2), the staged rows 2 (n - r) (r (n - r) more past
+// others staged. Its corners run on one block: the r x r operands staged
+// in shared memory while they fit (splu_corner_mats), the four triangular
+// solves of corner A by 32-row blocks against the diagonal blocks'
+// inverses (splu_inv_blocks, L1's and U1's at once; splu_bsolve: ceil(r /
+// 32) steps of products where row-by-row substitution took r dependent
+// steps, 11-16 us each at r = 64). Its scratch: the partial tiles (splu_g1_blocks x 64 floats a
+// tile) or the GEMM's bands, the apply's bands (at most 256 z^2 floats, z
+// = 2r + 2), the staged rows 2 (n - r) (r (n - r) more past
 // SPLU_G_MAX_RANK), the two reduced Grams 2 z^2, the rank space 19 r + 8
-// and, past RG_SMEM of shared memory (r > ~3200), the corners' workspace
-// 16 r. The one-launch kernel keeps r <= 32.
+// and, past RG_SMEM of shared memory, the corners' workspace
+// (splu_corner_floats). The one-launch kernels run the same pieces at
+// every rank.
 #include "psgd.cuh"
 #include "rank_space.cuh"
 
@@ -384,6 +391,26 @@ __device__ void splu_gram_out(const SpluGramPlan& P, const float (&acc)[TS * TS]
 }
 
 // max over the block (blockDim == SPLU_TILE); every thread gets the result
+__device__ __forceinline__ float splu_block_max(float v, float* red);
+
+// the maxima's partials of `blocks` blocks folded by the calling block into
+// mx[0], mx[1] (from init): what a corner's lanes fold, a max being exact
+// in any order
+__device__ void splu_fold_max(const float* maxpart, int blocks, float init, float* mx,
+                              float* red) {
+    float a = init, b = init;
+    for (int k = threadIdx.x; k < blocks; k += SPLU_TILE) {
+        a = fmaxf(a, maxpart[2 * k]);
+        b = fmaxf(b, maxpart[2 * k + 1]);
+    }
+    a = splu_block_max(a, red);
+    b = splu_block_max(b, red);
+    if (threadIdx.x == 0) {
+        mx[0] = a;
+        mx[1] = b;
+    }
+}
+
 __device__ __forceinline__ float splu_block_max(float v, float* red) {
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     __syncthreads();
@@ -500,6 +527,48 @@ __device__ void splu_reduce_entry(int which, int r, int ts, int np, int blocks, 
     }
 }
 
+// The same sum as splu_reduce_entry's, by one thread: lane l's running sum
+// over the blocks l, l + 32, ..., then the shuffle-down tree's adds in
+// order, so the entry is the warp's bit for bit (the one-launch kernels
+// take it where their warps are fewer than the entries)
+__device__ void splu_reduce_entry_thread(int which, int r, int ts, int np, int blocks, int e,
+                                         const float* part, float* gram) {
+    int a0, b0;
+    const int t = e / (ts * ts), i = e / ts % ts, j = e % ts;
+    splu_tile(which, r, ts, t, a0, b0);
+    if (!splu_tile_owns(which, r, t, i, j, a0, b0)) return;
+    float v[32];
+#pragma unroll
+    for (int l = 0; l < 32; ++l) v[l] = 0.f;
+    for (int k0 = 0; k0 < blocks; k0 += 32)
+#pragma unroll
+        for (int l = 0; l < 32; ++l)
+            if (k0 + l < blocks) v[l] += part[(size_t)(k0 + l) * np + e];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int l = 0; l < o; ++l) v[l] += v[l + o];
+    const int z = 2 * r + 2, a = a0 + i, b = b0 + j;
+    gram[a * z + b] = v[0];
+    gram[b * z + a] = v[0];
+}
+
+// Every owned entry of a Gram's partials summed over the launch's threads:
+// a warp an entry where the warps are as many as the entries, else a thread
+// an entry (the same bits)
+__device__ void splu_reduce_all(int which, int r, int ts, int blocks, const float* part,
+                                float* gram) {
+    const int np = splu_tiles(which, r, ts) * ts * ts;
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x, threads = gridDim.x * blockDim.x;
+    if (np <= threads / 32) {
+        for (int e = tid >> 5; e < np; e += threads >> 5)
+            splu_reduce_entry(which, r, ts, np, blocks, e, part, gram);
+    } else {
+        for (int e = tid; e < np; e += threads)
+            splu_reduce_entry_thread(which, r, ts, np, blocks, e, part, gram);
+    }
+}
+
 // one warp an entry of the partials
 __global__ void __launch_bounds__(256) splu_reduce_kernel(int which, int r, int ts, int blocks,
                                                           const float* __restrict__ part,
@@ -572,22 +641,34 @@ __device__ __forceinline__ float splu_warp_max(float v) {
     return v;
 }
 
-// L1 (lower) and U1 (upper) of an (r, n) pair into shared memory:
-// L1[i][j] = lt[j, i], U1[i][j] = u12[i, j]
-__device__ void splu_load_corner(int n, int r, const float* lt, const float* u12,
-                                 float (*L1)[SPLU_LD], float (*U1)[SPLU_LD]) {
-    for (int e = threadIdx.x; e < r * r; e += 32) {
+// What corner `which` (0: A, 1: B, 2: C) reads of the r x r blocks into ws,
+// by the calling block's threads threadIdx.x, + nthr, ... (the caller
+// synchronises): L1 (lower) and U1 (upper) of an (r, n) pair, L1[i][j] =
+// lt[j, i] (read along i), U1[i][j] = u12[i, j]; then for A the Gram's
+// blocks G_LW, G_LL, G_WW, for C the apply Gram's G_LL
+__device__ void splu_corner_load(int which, int n, int r, const float* lt, const float* u12,
+                                 const float* gram, float* ws, int nthr) {
+    SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK, *G = U1 + SPLU_MAX_RANK;
+    const int z = 2 * r + 2;
+    for (int e = threadIdx.x; e < r * r; e += nthr) {
         const int i = e / r, j = e % r;
-        L1[i][j] = lt[(size_t)j * n + i];
+        L1[j][i] = lt[(size_t)i * n + j];
         U1[i][j] = u12[(size_t)i * n + j];
+        if (which == 0) {
+            G[i][j] = gram[i * z + r + j];                                    // G_LW
+            G[SPLU_MAX_RANK + i][j] = gram[i * z + j];                        // G_LL
+            G[2 * SPLU_MAX_RANK + i][j] = gram[(r + i) * z + r + j];          // G_WW
+        } else if (which == 2) {
+            G[i][j] = gram[i * z + j];                                        // G_LL
+        }
     }
-    __syncwarp();
 }
 
-// ws: SPLU_CORNER_A floats
+// ws: SPLU_CORNER_A floats; staged: splu_corner_load(0, ...) has filled its
+// blocks (the one-launch kernel, with the whole CTA), else warp 0 loads them
 __device__ void splu_corner_a(int n, int r, int blocks, const float* lt, const float* u12,
                               const float* v, const float* h, const float* gram,
-                              const float* maxpart, SpluRank* rk, float* ws) {
+                              const float* maxpart, SpluRank* rk, float* ws, bool staged) {
     SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK;
     SpluSq *GLW = U1 + SPLU_MAX_RANK, *GLL = GLW + SPLU_MAX_RANK, *GWW = GLL + SPLU_MAX_RANK;
     float* buf = ws + 5 * SPLU_SQ;
@@ -595,13 +676,7 @@ __device__ void splu_corner_a(int n, int r, int blocks, const float* lt, const f
           *vipx = vdx + 32;
     const int k = threadIdx.x, zdim = 2 * r + 2;
     const bool on = k < r;
-    splu_load_corner(n, r, lt, u12, L1, U1);
-    for (int e = k; e < r * r; e += 32) {
-        const int i = e / r, j = e % r;
-        GLW[i][j] = gram[i * zdim + r + j];
-        GLL[i][j] = gram[i * zdim + j];
-        GWW[i][j] = gram[(r + i) * zdim + r + j];
-    }
+    if (!staged) splu_corner_load(0, n, r, lt, u12, gram, ws, 32);
     __syncwarp();
     const float dx1 = on ? v[k] : 0.f, dg1 = on ? h[k] : 0.f;
     const float U2_dg = on ? gram[(r + k) * zdim + 2 * r + 1] : 0.f;  // as (U2 w, l3 u3 dg2)
@@ -672,7 +747,7 @@ __global__ void __launch_bounds__(32) splu_corner_a_kernel(
     const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
     const float* __restrict__ maxpart, SpluRank* __restrict__ rk) {
     __shared__ float ws[SPLU_CORNER_A];
-    splu_corner_a(n, r, blocks, lt, u12, v, h, gram, maxpart, rk, ws);
+    splu_corner_a(n, r, blocks, lt, u12, v, h, gram, maxpart, rk, ws, false);
 }
 
 // ------------------------------------------------------------------ stage 2
@@ -764,17 +839,53 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage2_kernel(SpluSrc s,
 
 // ----------------------------------------------------------------- corner B
 
-// ws: SPLU_CORNER_B floats
+// The balanced corner rewrite from corner B's workspace (L1, U1 and its
+// vectors) and scal = [sl, su, 1/rho, rho], entry (k, j) of L1' and U1'
+// each by the calling block's threads threadIdx.x, + nthr, ... (after a
+// barrier over what corner B wrote):
+//   L1' = (L1 - sl gl1 L1) / rho, gl1 = tril(Qg1 Qg1^T - iQtx1 iQtx1^T),
+//   stored as column k of Lt's corner, exact zeros above the diagonal;
+//   U1' = rho (U1 - su U1 gu1), gu1 = triu(Pg1 dg1^T - dx1 iPx1^T)
+__device__ void splu_corner_b_rows(int n, int r, const float* ws, const float* scal,
+                                   float* lt_out, float* u12_out, int nthr) {
+    const SpluSq *L1 = reinterpret_cast<const SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK;
+    const float* buf = ws + 2 * SPLU_SQ;
+    const float *vq = buf + 32, *viq = vq + 32, *vpg = viq + 32, *vdg = vpg + 32, *vdx = vdg + 32,
+                *vipx = vdx + 32;
+    const float sl = scal[0], su = scal[1], inv_rho = scal[2], rho = scal[3];
+    for (int e = threadIdx.x; e < r * r; e += nthr) {
+        const int k = e / r, j = e % r;
+        float y = 0.f;
+        if (j <= k) {
+            float s = 0.f;
+            for (int q = 0; q <= k; ++q) s += (vq[k] * vq[q] - viq[k] * viq[q]) * L1[q][j];
+            y = inv_rho * (L1[k][j] - sl * s);
+        }
+        lt_out[(size_t)j * n + k] = y;
+        y = 0.f;
+        if (j >= k) {
+            float s = 0.f;
+            for (int q = 0; q <= j; ++q) s += U1[k][q] * (vpg[q] * vdg[j] - vdx[q] * vipx[j]);
+            y = rho * (U1[k][j] - su * s);
+        }
+        u12_out[(size_t)k * n + j] = y;
+    }
+}
+
+// ws: SPLU_CORNER_B floats; staged as corner A's (splu_corner_load(1, ...)),
+// and then the caller writes the rows (splu_corner_b_rows) with its block
 __device__ void splu_corner_b(int n, int r, int blocks, float step, const float* lt,
                               const float* u12, const float* h, const float* maxpart, SpluRank* rk,
-                              float* lt_out, float* u12_out, float* ws) {
+                              float* lt_out, float* u12_out, float* ws, bool staged,
+                              bool out = true) {
     SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK;
     float* buf = ws + 2 * SPLU_SQ;
     float *vq = buf + 32, *viq = vq + 32, *vpg = viq + 32, *vdg = vpg + 32, *vdx = vdg + 32,
           *vipx = vdx + 32;
     const int k = threadIdx.x;
     const bool on = k < r;
-    splu_load_corner(n, r, lt, u12, L1, U1);
+    if (!staged) splu_corner_load(1, n, r, lt, u12, nullptr, ws, 32);
+    __syncwarp();
     float ml = 0.f, mu = 0.f;
     for (int b = k; b < blocks; b += 32) {
         ml = fmaxf(ml, maxpart[2 * b]);
@@ -811,31 +922,14 @@ __device__ void splu_corner_b(int n, int r, int blocks, float step, const float*
         o[5] = c5;
         o[6] = c6;
         o[7] = c7;
-        // row k of L1' = (L1 - sl gl1 L1) / rho, gl1 = tril(Qg1 Qg1^T - iQtx1 iQtx1^T),
-        // stored as column k of Lt's corner; exact zeros above the diagonal
-        for (int j = 0; j < r; ++j) {
-            float y = 0.f;
-            if (j <= k) {
-                float s = 0.f;
-                for (int q = 0; q <= k; ++q) s += (vq[k] * vq[q] - viq[k] * viq[q]) * L1[q][j];
-                y = inv_rho * (L1[k][j] - sl * s);
-            }
-            lt_out[(size_t)j * n + k] = y;
-        }
-        // row k of U1' = rho (U1 - su U1 gu1), gu1 = triu(Pg1 dg1^T - dx1 iPx1^T)
-        for (int j = 0; j < r; ++j) {
-            float y = 0.f;
-            if (j >= k) {
-                float s = 0.f;
-                for (int q = 0; q <= j; ++q) s += U1[k][q] * (vpg[q] * vdg[j] - vdx[q] * vipx[j]);
-                y = rho * (U1[k][j] - su * s);
-            }
-            u12_out[(size_t)k * n + j] = y;
-        }
     }
     if (k == 0) {
         rk->scal[0] = sl;
         rk->scal[1] = su;
+    }
+    if (out && !staged) {
+        __syncwarp();
+        splu_corner_b_rows(n, r, ws, rk->scal, lt_out, u12_out, 32);
     }
 }
 
@@ -844,7 +938,7 @@ __global__ void __launch_bounds__(32) splu_corner_b_kernel(
     const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
     SpluRank* __restrict__ rk, float* __restrict__ lt_out, float* __restrict__ u12_out) {
     __shared__ float ws[SPLU_CORNER_B];
-    splu_corner_b(n, r, blocks, step, lt, u12, h, maxpart, rk, lt_out, u12_out, ws);
+    splu_corner_b(n, r, blocks, step, lt, u12, h, maxpart, rk, lt_out, u12_out, ws, false);
 }
 
 // ------------------------------------------------------------------ stage 3
@@ -929,16 +1023,15 @@ __global__ void __launch_bounds__(SPLU_TILE, 3) splu_stage3_kernel(
 
 // ------------------------------------------------------- corner C, stage 4
 
-// ws: SPLU_CORNER_C floats
+// ws: SPLU_CORNER_C floats; staged as corner A's (splu_corner_load(2, ...))
 __device__ void splu_corner_c(int n, int r, const float* lt_out, const float* u12_out,
                               const float* g, const float* gram2, SpluRank* rk, float* pre,
-                              float* ws) {
+                              float* ws, bool staged, bool out = true) {
     SpluSq *L1 = reinterpret_cast<SpluSq*>(ws), *U1 = L1 + SPLU_MAX_RANK, *GLL = U1 + SPLU_MAX_RANK;
     float* buf = ws + 3 * SPLU_SQ;
     const int k = threadIdx.x, zdim = 2 * r + 2;
     const bool on = k < r;
-    splu_load_corner(n, r, lt_out, u12_out, L1, U1);
-    for (int e = k; e < r * r; e += 32) GLL[e / r][e % r] = gram2[(e / r) * zdim + e % r];
+    if (!staged) splu_corner_load(2, n, r, lt_out, u12_out, gram2, ws, 32);
     __syncwarp();
     const float g1 = on ? g[k] : 0.f;
     const float U2g = on ? gram2[(r + k) * zdim + 2 * r + 1] : 0.f;
@@ -948,7 +1041,7 @@ __device__ void splu_corner_c(int n, int r, const float* lt_out, const float* u1
     const float LtQg1 = splu_mv(L1, true, Qg1, r, buf) + splu_mv(GLL, false, Ug1, r, buf) + L2lug;
     const float pre1 = splu_mv(U1, true, LtQg1, r, buf);
     if (on) {
-        pre[k] = pre1;
+        if (out) pre[k] = pre1;
         rk->coef4[k][0] = Ug1;
         rk->coef4[k][1] = LtQg1;
     }
@@ -959,7 +1052,7 @@ __global__ void __launch_bounds__(32) splu_corner_c_kernel(
     const float* __restrict__ g, const float* __restrict__ gram2, SpluRank* __restrict__ rk,
     float* __restrict__ pre) {
     __shared__ float ws[SPLU_CORNER_C];
-    splu_corner_c(n, r, lt_out, u12_out, g, gram2, rk, pre, ws);
+    splu_corner_c(n, r, lt_out, u12_out, g, gram2, rk, pre, ws, false);
 }
 
 // tail lane j of P' g: U2'^T LtQg1' + l3' u3' (L2' Ug1' + l3' u3' g2); c = coef4
@@ -1005,17 +1098,11 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_kernel(
 // The rows of a Gram the state does not hold, over the tail lanes j < nt:
 // stage 1's (g null) w (r, nt) = U2 w and e (2, nt) = [dx2 w; l3 u3 dg2],
 // w = 1 / (l3 u3); the apply's e (2, nt) = [l3 u3 g2; g2]
-__global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
-                                                              const float* __restrict__ l3,
-                                                              const float* __restrict__ u12,
-                                                              const float* __restrict__ u3,
-                                                              const float* __restrict__ v,
-                                                              const float* __restrict__ h,
-                                                              const float* __restrict__ g,
-                                                              float* __restrict__ w,
-                                                              float* __restrict__ e) {
-    const int nt = n - r, j = blockIdx.x * SPLU_TILE + threadIdx.x;
-    if (j >= nt) return;
+__device__ __forceinline__ void splu_rows_lane(int j, int n, int r, const float* l3,
+                                               const float* u12, const float* u3, const float* v,
+                                               const float* h, const float* g, float* w,
+                                               float* e) {
+    const int nt = n - r;
     const size_t off = (size_t)r + j;
     if (g) {
         e[j] = l3[j] * u3[j] * g[off];
@@ -1026,6 +1113,19 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
     for (int k = 0; k < r; ++k) w[(size_t)k * nt + j] = u12[(size_t)k * n + off] * wj;
     e[j] = v[off] * wj;
     e[(size_t)nt + j] = h[off] * lu;
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_rows_kernel(int n, int r,
+                                                              const float* __restrict__ l3,
+                                                              const float* __restrict__ u12,
+                                                              const float* __restrict__ u3,
+                                                              const float* __restrict__ v,
+                                                              const float* __restrict__ h,
+                                                              const float* __restrict__ g,
+                                                              float* __restrict__ w,
+                                                              float* __restrict__ e) {
+    const int j = blockIdx.x * SPLU_TILE + threadIdx.x;
+    if (j < n - r) splu_rows_lane(j, n, r, l3, u12, u3, v, h, g, w, e);
 }
 
 // stage 1's Gram (2r + 2, 2r + 2) past SPLU_G_MAX_RANK: L2^T (rows n apart
@@ -1056,23 +1156,28 @@ static GramPlan splu_gram2_plan(int n, int r, const float* lt, const float* u12,
 
 // Block b of a grid of nblk: max l3, max u3 over its tail lanes below
 // nvalid (maxpart[2b], [2b + 1]; -inf where it has none)
-__global__ void __launch_bounds__(SPLU_TILE) splu_lumax_kernel(int nt, int nvalid,
-                                                               const float* __restrict__ l3,
-                                                               const float* __restrict__ u3,
-                                                               float* __restrict__ maxpart) {
-    __shared__ float red[SPLU_TILE / 32];
+__device__ void splu_lumax_block(int b, int nblk, int nt, int nvalid, const float* l3,
+                                 const float* u3, float* maxpart, float* red) {
     float ml = splu_neg_inf(), mu = splu_neg_inf();
-    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt && j < nvalid;
-         j += gridDim.x * SPLU_TILE) {
+    for (int j = b * SPLU_TILE + threadIdx.x; j < nt && j < nvalid; j += nblk * SPLU_TILE) {
         ml = fmaxf(ml, l3[j]);
         mu = fmaxf(mu, u3[j]);
     }
     ml = splu_block_max(ml, red);
     mu = splu_block_max(mu, red);
     if (threadIdx.x == 0) {
-        maxpart[2 * blockIdx.x] = ml;
-        maxpart[2 * blockIdx.x + 1] = mu;
+        maxpart[2 * b] = ml;
+        maxpart[2 * b + 1] = mu;
     }
+    __syncthreads();  // red is read by the next block max
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_lumax_kernel(int nt, int nvalid,
+                                                               const float* __restrict__ l3,
+                                                               const float* __restrict__ u3,
+                                                               float* __restrict__ maxpart) {
+    __shared__ float red[SPLU_TILE / 32];
+    splu_lumax_block(blockIdx.x, gridDim.x, nt, nvalid, l3, u3, maxpart, red);
 }
 
 // the generic chain's rank space (in the scratch): coef2, coef3 (r, 8),
@@ -1082,23 +1187,156 @@ struct SpluRankG {
 };
 
 #define SPLU_GVECS 16
-static size_t splu_corner_floats(int r) { return (size_t)SPLU_GVECS * r; }
+#define SPLU_DINV (32 * 33)  // a 32 x 32 diagonal block's inverse, rows 33 apart
 
-// Corner A on any rank: corner A's algebra (splu_corner_a), its vectors in
-// dynamic shared memory or in ws (in_smem = 0)
-__global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
-    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
-    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
-    const float* __restrict__ maxpart, SpluRankG rk, float* ws, int in_smem) {
-    extern __shared__ float sm[];
-    __shared__ float red[RG_THREADS / 32];
-    float* b = in_smem ? sm : ws;
-    const int z = 2 * r + 2;
+// the floats of the inverses of L1's and U1's diagonal 32 x 32 blocks
+__host__ __device__ __forceinline__ long long splu_dinv_floats(int r) {
+    return 2LL * ((r + 31) / 32) * SPLU_DINV;
+}
+
+// How many of a generic corner's r x r operands sit in its workspace after
+// its vectors and the diagonal blocks' inverses: 5 (corner A's L1, U1 and
+// Gram blocks G_LW, G_LL, G_WW; C's L1', U1' and G_LL), 2 (L1 and U1) or
+// none (read where they lie), by what fits in RG_SMEM
+__host__ __device__ __forceinline__ int splu_corner_mats(int r) {
+    const long long v = (long long)SPLU_GVECS * r + splu_dinv_floats(r), m = (long long)r * (r + 1);
+    if ((v + 5 * m) * 4 <= RG_SMEM) return 5;
+    if ((v + 2 * m) * 4 <= RG_SMEM) return 2;
+    return 0;
+}
+static size_t splu_corner_floats(int r) {
+    return (size_t)SPLU_GVECS * r + (size_t)splu_dinv_floats(r) +
+           (size_t)splu_corner_mats(r) * r * (r + 1);
+}
+
+// e -> (e / r, e % r) for e < r r, in 32 bits where r r fits in them
+__device__ __forceinline__ void splu_rc(long long e, int r, int& a, int& c) {
+    if (r <= 46340) {
+        const unsigned q = (unsigned)e / (unsigned)r;
+        a = (int)q;
+        c = (int)((unsigned)e - q * (unsigned)r);
+    } else {
+        a = (int)(e / r);
+        c = (int)(e % r);
+    }
+}
+
+// M's r x r entries into dst, rows r + 1 apart (a row and a column a thread
+// each fall on distinct banks), read along M's unit stride; dst as an RMat.
+// dst is in shared memory: a corner stages only while its workspace fits
+// RG_SMEM (splu_corner_mats), and its callers then pass shared memory. The
+// copies go by cp.async, all of a thread's in flight at once: a
+// load-then-store loop waits an L2 round trip an element wherever the
+// compiler cannot prove M and dst apart (inside the one-launch kernels,
+// whose buffers are written in the launch: 24 us against 8.6 for corner
+// A's five operands at r = 64, measured on an H100). The caller's next
+// barrier (every rg_mv opens with one) publishes it.
+__device__ RMat splu_stage_sq(float* dst, RMat M, int r) {
+    const bool cols = M.rs == 1;  // M(i, j) contiguous along i
+    for (long long e = threadIdx.x; e < (long long)r * r; e += RG_THREADS) {
+        int a, c;
+        splu_rc(e, r, a, c);
+        const int i = cols ? c : a, j = cols ? a : c;
+        gemm_cp4(dst + (size_t)i * (r + 1) + j, M.p + i * M.rs + j * M.cs, true);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return RMat{dst, r + 1, 1};
+}
+
+// The inverses of the diagonal 32 x 32 blocks of the lower-triangular L
+// and the upper-triangular U into iL and iU (block p at p SPLU_DINV, rows
+// 33 apart, zeros off its triangle), a column a thread of a block, L's
+// and U's columns side by side over the block's threads: x solves T x =
+// e_c by substitution
+__device__ void splu_inv_blocks(RMat L, RMat U, int r, float* iL, float* iU) {
+    const int nb = (r + 31) / 32;
+    for (int tt = threadIdx.x; tt < 2 * nb * 32; tt += RG_THREADS) {
+        const bool lower = tt < nb * 32;
+        const int t = lower ? tt : tt - nb * 32;
+        const RMat M = lower ? L : U;
+        float* dinv = lower ? iL : iU;
+        const int p = t >> 5, c = t & 31, r0 = 32 * p, w = min(32, r - r0);
+        float* D = dinv + p * SPLU_DINV;
+        for (int i = 0; i < 32; ++i) D[i * 33 + c] = 0.f;
+        if (c >= w) continue;
+        D[c * 33 + c] = 1.f / M(r0 + c, r0 + c);
+        if (lower) {
+            for (int i = c + 1; i < w; ++i) {
+                float s = 0.f;
+                for (int k = c; k < i; ++k) s += M(r0 + i, r0 + k) * D[k * 33 + c];
+                D[i * 33 + c] = -s / M(r0 + i, r0 + i);
+            }
+        } else {
+            for (int i = c - 1; i >= 0; --i) {
+                float s = 0.f;
+                for (int k = i + 1; k <= c; ++k) s += M(r0 + i, r0 + k) * D[k * 33 + c];
+                D[i * 33 + c] = -s / M(r0 + i, r0 + i);
+            }
+        }
+    }
+}
+
+// b <- M^{-1} b, M lower or upper triangular, by 32-row blocks on warp 0:
+// block p's right side t = b_p - (M's off-diagonal rows of p) y, then y_p =
+// D_p t with D_p the block's inverse (dinv; its transpose where dt, for a
+// solve by M^T), so a solve is ceil(r / 32) steps of products, not r rows
+// of substitution
+__device__ void splu_bsolve(float* b, RMat M, bool lower, int r, const float* dinv, bool dt) {
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x, nb = (r + 31) / 32;
+        for (int s = 0; s < nb; ++s) {
+            const int p = lower ? s : nb - 1 - s, r0 = 32 * p, w = min(32, r - r0);
+            const int i = r0 + lane;
+            float t = 0.f;
+            if (lane < w) {
+                t = b[i];
+                if (lower)
+                    for (int k = 0; k < r0; ++k) t -= M(i, k) * b[k];
+                else
+                    for (int k = r0 + w; k < r; ++k) t -= M(i, k) * b[k];
+            }
+            const float* D = dinv + p * SPLU_DINV;
+            float y = 0.f;
+            for (int j = 0; j < w; ++j) {
+                const float tj = __shfl_sync(0xffffffffu, t, j);
+                y += (dt ? D[j * 33 + lane] : D[lane * 33 + j]) * tj;
+            }
+            __syncwarp();
+            if (lane < w) b[i] = y;
+            __syncwarp();
+        }
+    }
+    __syncthreads();
+}
+
+// Corner A on any rank: corner A's algebra (splu_corner_a) on one block of
+// RG_THREADS threads, its vectors in b (splu_corner_floats(r) floats:
+// dynamic shared memory, or the scratch past RG_SMEM); red: RG_THREADS / 32
+// floats
+__device__ void splu_corner_a_g(int n, int r, int blocks, const float* lt, const float* u12,
+                                const float* v, const float* h, const float* gram,
+                                const float* maxpart, SpluRankG rk, float* b, float* red) {
+    const int z = 2 * r + 2, nm = splu_corner_mats(r);
     float *dx1 = b, *dg1 = b + r, *Ug1 = b + 2 * r, *Qg1 = b + 3 * r, *iUtx1 = b + 4 * r,
           *iQtx1 = b + 5 * r, *LtQg1 = b + 6 * r, *Pg1 = b + 7 * r, *iLiQtx1 = b + 8 * r,
           *iPx1 = b + 9 * r, *w1 = b + 10 * r, *w2 = b + 11 * r;
-    const RMat L1{lt, 1, n}, U1{u12, n, 1};  // L1[i][j] = lt[j, i], U1[i][j] = u12[i, j]
-    const RMat GLW{gram + r, z, 1}, GLL{gram, z, 1}, GWW{gram + (size_t)r * z + r, z, 1};
+    float *iL = b + SPLU_GVECS * r, *iU = iL + splu_dinv_floats(r) / 2,
+          *mat = b + SPLU_GVECS * r + splu_dinv_floats(r);
+    const size_t sq = (size_t)r * (r + 1);
+    RMat L1{lt, 1, n}, U1{u12, n, 1};  // L1[i][j] = lt[j, i], U1[i][j] = u12[i, j]
+    RMat GLW{gram + r, z, 1}, GLL{gram, z, 1}, GWW{gram + (size_t)r * z + r, z, 1};
+    if (nm >= 2) {
+        L1 = splu_stage_sq(mat, L1, r);
+        U1 = splu_stage_sq(mat + sq, U1, r);
+    }
+    if (nm >= 5) {
+        GLW = splu_stage_sq(mat + 2 * sq, GLW, r);
+        GLL = splu_stage_sq(mat + 3 * sq, GLL, r);
+        GWW = splu_stage_sq(mat + 4 * sq, GWW, r);
+    }
+    __syncthreads();
+    splu_inv_blocks(L1, U1, r, iL, iU);
     RG_FOR(k, r) {
         dx1[k] = v[k];
         dg1[k] = h[k];
@@ -1107,20 +1345,20 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
     RG_FOR(k, r) Ug1[k] += gram[(size_t)(r + k) * z + 2 * r + 1];  // as (U2 w, l3 u3 dg2)
     rg_mv(Qg1, L1, Ug1, r);
     RG_FOR(k, r) iUtx1[k] = dx1[k];
-    rg_solve(iUtx1, U1.t(), true, r);
+    splu_bsolve(iUtx1, U1.t(), true, r, iU, true);
     rg_mv(w1, GLW, iUtx1, r);
     RG_FOR(k, r) iQtx1[k] = iUtx1[k] - (gram[(size_t)k * z + 2 * r] - w1[k]);
-    rg_solve(iQtx1, L1.t(), false, r);
+    splu_bsolve(iQtx1, L1.t(), false, r, iL, true);
     rg_mv(w1, GLL, Ug1, r);
     rg_mv(LtQg1, L1.t(), Qg1, r);
     RG_FOR(k, r) LtQg1[k] += w1[k] + gram[(size_t)k * z + 2 * r + 1];
     rg_mv(Pg1, U1.t(), LtQg1, r);
     RG_FOR(k, r) iLiQtx1[k] = iQtx1[k];
-    rg_solve(iLiQtx1, L1, true, r);
+    splu_bsolve(iLiQtx1, L1, true, r, iL, false);
     rg_mv(w1, GWW, iUtx1, r);
     rg_mv(w2, GLW.t(), iLiQtx1, r);
     RG_FOR(k, r) iPx1[k] = iLiQtx1[k] - ((gram[(size_t)(r + k) * z + 2 * r] - w1[k]) - w2[k]);
-    rg_solve(iPx1, U1, false, r);
+    splu_bsolve(iPx1, U1, false, r, iU, false);
 
     // max|gl1| over the lower triangle, max|gu1| over the upper; the balance
     // from the signed maxima of diag(L1) and l3, diag(U1) and u3
@@ -1160,19 +1398,29 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
     }
 }
 
-// Corner B on any rank (splu_corner_b): the step scales, coef3 and the
-// balanced corner rewrite L1', U1', one output entry a thread
-__global__ void __launch_bounds__(RG_THREADS) splu_corner_b_g_kernel(
-    int n, int r, int blocks, float step, const float* __restrict__ lt,
-    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
-    SpluRankG rk, float* __restrict__ lt_out, float* __restrict__ u12_out, float* ws,
-    int in_smem) {
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_a_g_kernel(
+    int n, int r, int blocks, const float* __restrict__ lt, const float* __restrict__ u12,
+    const float* __restrict__ v, const float* __restrict__ h, const float* __restrict__ gram,
+    const float* __restrict__ maxpart, SpluRankG rk, float* ws, int in_smem) {
     extern __shared__ float sm[];
     __shared__ float red[RG_THREADS / 32];
-    float* b = in_smem ? sm : ws;
+    splu_corner_a_g(n, r, blocks, lt, u12, v, h, gram, maxpart, rk, in_smem ? sm : ws, red);
+}
+
+// Corner B on any rank (splu_corner_b): the step scales, coef3 and the
+// balanced corner rewrite L1', U1', one output entry a thread; b and red as
+// corner A's
+__device__ void splu_corner_b_g(int n, int r, int blocks, float step, const float* lt,
+                                const float* u12, const float* h, const float* maxpart,
+                                SpluRankG rk, float* lt_out, float* u12_out, float* b, float* red) {
     float *vq = b, *viq = b + r, *vpg = b + 2 * r, *vdx = b + 3 * r, *vipx = b + 4 * r,
           *vdg = b + 5 * r, *c4 = b + 6 * r, *c5 = b + 7 * r, *c6 = b + 8 * r, *c7 = b + 9 * r;
-    const RMat L1{lt, 1, n}, U1{u12, n, 1};
+    RMat L1{lt, 1, n}, U1{u12, n, 1};
+    if (splu_corner_mats(r) >= 2) {
+        float* mat = b + SPLU_GVECS * r + splu_dinv_floats(r);
+        L1 = splu_stage_sq(mat, L1, r);
+        U1 = splu_stage_sq(mat + (size_t)r * (r + 1), U1, r);
+    }
     float ml = 0.f, mu = 0.f;
     for (int q = threadIdx.x; q < blocks; q += RG_THREADS) {
         ml = fmaxf(ml, maxpart[2 * q]);
@@ -1212,7 +1460,8 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_b_g_kernel(
     // columns of Lt's corner; U1' = rho (U1 - su U1 gu1), gu1 = triu(Pg1 dg1^T
     // - dx1 iPx1^T); exact zeros off their triangles
     for (long long e = threadIdx.x; e < (long long)r * r; e += RG_THREADS) {
-        const int k = (int)(e / r), j = (int)(e % r);
+        int k, j;
+        splu_rc(e, r, k, j);
         float y = 0.f;
         if (j <= k) {
             float s = 0.f;
@@ -1234,17 +1483,32 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_b_g_kernel(
     }
 }
 
-// Corner C on any rank (splu_corner_c): P' g on the corner and coef4
-__global__ void __launch_bounds__(RG_THREADS) splu_corner_c_g_kernel(
-    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
-    const float* __restrict__ g, const float* __restrict__ gram2, SpluRankG rk,
-    float* __restrict__ pre, float* ws, int in_smem) {
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_b_g_kernel(
+    int n, int r, int blocks, float step, const float* __restrict__ lt,
+    const float* __restrict__ u12, const float* __restrict__ h, const float* __restrict__ maxpart,
+    SpluRankG rk, float* __restrict__ lt_out, float* __restrict__ u12_out, float* ws,
+    int in_smem) {
     extern __shared__ float sm[];
-    float* b = in_smem ? sm : ws;
+    __shared__ float red[RG_THREADS / 32];
+    splu_corner_b_g(n, r, blocks, step, lt, u12, h, maxpart, rk, lt_out, u12_out,
+                    in_smem ? sm : ws, red);
+}
+
+// Corner C on any rank (splu_corner_c): P' g on the corner and coef4; b as
+// corner A's
+__device__ void splu_corner_c_g(int n, int r, const float* lt_out, const float* u12_out,
+                                const float* g, const float* gram2, SpluRankG rk, float* pre,
+                                float* b) {
     float *g1 = b, *Ug1 = b + r, *Qg1 = b + 2 * r, *LtQg1 = b + 3 * r, *w1 = b + 4 * r,
-          *w2 = b + 5 * r;
-    const int z = 2 * r + 2;
-    const RMat L1{lt_out, 1, n}, U1{u12_out, n, 1}, GLL{gram2, z, 1};
+          *w2 = b + 5 * r, *mat = b + SPLU_GVECS * r + splu_dinv_floats(r);
+    const int z = 2 * r + 2, nm = splu_corner_mats(r);
+    const size_t sq = (size_t)r * (r + 1);
+    RMat L1{lt_out, 1, n}, U1{u12_out, n, 1}, GLL{gram2, z, 1};
+    if (nm >= 2) {
+        L1 = splu_stage_sq(mat, L1, r);
+        U1 = splu_stage_sq(mat + sq, U1, r);
+    }
+    if (nm >= 5) GLL = splu_stage_sq(mat + 2 * sq, GLL, r);
     RG_FOR(k, r) g1[k] = g[k];
     rg_mv(Ug1, U1, g1, r);
     RG_FOR(k, r) Ug1[k] += gram2[(size_t)(r + k) * z + 2 * r + 1];
@@ -1260,16 +1524,24 @@ __global__ void __launch_bounds__(RG_THREADS) splu_corner_c_g_kernel(
     }
 }
 
-// stages 2 and 3 on any rank: one lane a thread, its column read in place,
-// the coefficients in the scratch
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_g_kernel(
-    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
-    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const float* __restrict__ coef2, float* __restrict__ maxpart) {
-    __shared__ float red[SPLU_TILE / 32];
+__global__ void __launch_bounds__(RG_THREADS) splu_corner_c_g_kernel(
+    int n, int r, const float* __restrict__ lt_out, const float* __restrict__ u12_out,
+    const float* __restrict__ g, const float* __restrict__ gram2, SpluRankG rk,
+    float* __restrict__ pre, float* ws, int in_smem) {
+    extern __shared__ float sm[];
+    splu_corner_c_g(n, r, lt_out, u12_out, g, gram2, rk, pre, in_smem ? sm : ws);
+}
+
+// stages 2-4 on any rank: one lane a thread, its column read in place, the
+// coefficients in the scratch; block b of a grid of nblk takes the lanes
+// b SPLU_TILE + t, stepping nblk SPLU_TILE
+__device__ void splu_stage2_g_block(int b, int nblk, int n, int r, const float* lt,
+                                    const float* l3, const float* u12, const float* u3,
+                                    const float* v, const float* h, const float* coef2,
+                                    float* maxpart, float* red) {
     const float(*c)[SPLU_NCOEF] = reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef2);
     float ml = 0.f, mu = 0.f;
-    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < n - r; j += gridDim.x * SPLU_TILE) {
+    for (int j = b * SPLU_TILE + threadIdx.x; j < n - r; j += nblk * SPLU_TILE) {
         const float lu = l3[j] * u3[j], w = 1.f / lu, dx = v[r + j], dg = h[r + j];
         float qg2, iqtx2, pg2, ipx2;
         splu_images(r, SpluDirect{lt + r + j, (size_t)n}, SpluDirect{u12 + r + j, (size_t)n}, lu,
@@ -1279,20 +1551,28 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage2_g_kernel(
     ml = splu_block_max(ml, red);
     mu = splu_block_max(mu, red);
     if (threadIdx.x == 0) {
-        maxpart[2 * blockIdx.x] = ml;
-        maxpart[2 * blockIdx.x + 1] = mu;
+        maxpart[2 * b] = ml;
+        maxpart[2 * b + 1] = mu;
     }
+    __syncthreads();  // red is read by the next block max
 }
 
-__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage2_g_kernel(
     int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
     const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
-    const float* __restrict__ h, const float* __restrict__ coef3, const float* __restrict__ scal,
-    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
-    float* __restrict__ u3_out) {
+    const float* __restrict__ h, const float* __restrict__ coef2, float* __restrict__ maxpart) {
+    __shared__ float red[SPLU_TILE / 32];
+    splu_stage2_g_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, coef2, maxpart, red);
+}
+
+__device__ void splu_stage3_g_block(int b, int nblk, int n, int r, const float* lt,
+                                    const float* l3, const float* u12, const float* u3,
+                                    const float* v, const float* h, const float* coef3,
+                                    const float* scal, float* lt_out, float* l3_out,
+                                    float* u12_out, float* u3_out) {
     const float(*c)[SPLU_NCOEF] = reinterpret_cast<const float(*)[SPLU_NCOEF]>(coef3);
     const float sl = scal[0], su = scal[1], inv_rho = scal[2], rho = scal[3];
-    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < n - r; j += gridDim.x * SPLU_TILE) {
+    for (int j = b * SPLU_TILE + threadIdx.x; j < n - r; j += nblk * SPLU_TILE) {
         const float l = l3[j], u = u3[j], lu = l * u, w = 1.f / lu, dx = v[r + j], dg = h[r + j];
         float qg2, iqtx2, pg2, ipx2;
         splu_images(r, SpluDirect{lt + r + j, (size_t)n}, SpluDirect{u12 + r + j, (size_t)n}, lu,
@@ -1307,6 +1587,16 @@ __global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
         l3_out[j] = inv_rho * (l - sl * gl3 * l);
         u3_out[j] = rho * (u - su * gu3 * u);
     }
+}
+
+__global__ void __launch_bounds__(SPLU_TILE) splu_stage3_g_kernel(
+    int n, int r, const float* __restrict__ lt, const float* __restrict__ l3,
+    const float* __restrict__ u12, const float* __restrict__ u3, const float* __restrict__ v,
+    const float* __restrict__ h, const float* __restrict__ coef3, const float* __restrict__ scal,
+    float* __restrict__ lt_out, float* __restrict__ l3_out, float* __restrict__ u12_out,
+    float* __restrict__ u3_out) {
+    splu_stage3_g_block(blockIdx.x, gridDim.x, n, r, lt, l3, u12, u3, v, h, coef3, scal, lt_out,
+                        l3_out, u12_out, u3_out);
 }
 
 __global__ void __launch_bounds__(SPLU_TILE) splu_stage4_g_kernel(
@@ -1381,109 +1671,6 @@ static void splu_stage1(const SpluSrc& src, int nvalid, const SpluScratch& s, fl
     splu_reduce_kernel<<<(np * 32 + 255) / 256, 256, 0, stream>>>(1, r, 4, blocks, s.part1, gram);
 }
 
-// ------------------------------------------------- the one-launch schedule
-// Replaces psgd_tf_tpu/ops/pallas/splu_upd.py `fused_update_apply_mono`
-// (:533) → its pallas_call (:582, `_mono_kernel` :301): the whole update and
-// P' g in one launch. The TPU kernel is a sequential grid of 4 nb steps that
-// sweeps the tail four times, with the corner algebra at the steps nb, 2 nb
-// and 3 nb; its stage 4 recomputes the new tail because its output blocks
-// are not yet written back. Here it is one cooperative launch of a resident
-// grid (cudaLaunchCooperativeKernel): each CTA walks the chain's blocks
-// b = blockIdx.x, blockIdx.x + gridDim.x, ... < splu_blocks(nt) and runs the
-// chain's own block bodies, so every partial Gram tile and every maximum is
-// the chain's; a grid-wide barrier (cg::this_grid().sync()) stands at each
-// of the chain's launch boundaries, where warp 0 of CTA 0 runs the corner
-// bodies (with __syncwarp alone) and the other threads wait at the next
-// barrier. Stage 4 reads the new tail that stage 3 wrote, visible after the
-// barrier. The result equals the chain's (`psgd_splu_update` with g) bit for
-// bit at every n and r.
-//
-// What bounds it: the same bytes as the chain's update + apply
-// (chip_smoke.splu_work(n, apply=True)): memory at large n, latency at
-// small n. The design trades the chain's nine launches for one and eight
-// grid barriers; one kernel holds every stage, so its registers (capped at
-// two CTAs a SM) and dynamic shared memory are those of the largest (stage
-// 3's staged tiles with g: 215,680 bytes at r = 32, 78,224 at r = 10),
-// which sets how many CTAs a SM holds. The grid is
-// min(splu_blocks(nt), SMs x that occupancy): grid.sync() needs every CTA
-// resident, and a launch the card refuses is returned, never replaced.
-
-#define SPLU_MONO_HEAD (SPLU_MAX_RANK * SPLU_NCOEF + 32)  // the coefficients, the block max
-
-struct SpluMono {
-    int n, r, blocks;
-    float step;
-    const float *lt, *l3, *u12, *u3, *v, *h, *g;
-    float *lt_out, *l3_out, *u12_out, *u3_out, *pre;
-    SpluScratch s;
-};
-
-static size_t splu_smem_mono(int r) {
-    const size_t zs = splu_tile_floats(r, SPLU_TILE, true, 4);
-    return sizeof(float) * (SPLU_MONO_HEAD + (zs > SPLU_CORNER_A ? zs : SPLU_CORNER_A));
-}
-
-// Every thread of the grid runs every line here: the barriers are reached by
-// all, and only the corner bodies sit behind a branch (warp 0 of CTA 0).
-// Buffers written inside the launch are read through plain pointers (no
-// __restrict__, no read-only cache).
-__global__ void __launch_bounds__(SPLU_TILE, 2) splu_mono_kernel(SpluMono a) {
-    namespace cg = cooperative_groups;
-    extern __shared__ float4 sm4[];
-    float* sm = reinterpret_cast<float*>(sm4);
-    float(*c)[SPLU_NCOEF] = reinterpret_cast<float(*)[SPLU_NCOEF]>(sm);
-    float* red = sm + SPLU_MAX_RANK * SPLU_NCOEF;
-    float* work = sm + SPLU_MONO_HEAD;  // a stage's tile, or a corner's workspace
-    cg::grid_group grid = cg::this_grid();
-    const int n = a.n, r = a.r, nb = a.blocks, nt = n - r;
-    const bool corner = blockIdx.x == 0 && threadIdx.x < 32;
-    const SpluScratch s = a.s;
-    SpluRank* rk = s.rk;
-    const SpluSrc src = splu_src(n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, nullptr);
-
-    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
-        if (splu_s1_wide(r))
-            splu_stage1_block<SPLU_TILE, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
-        else
-            splu_stage1_block<SPLU_TILE / 2, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
-    }
-    grid.sync();
-    const int warps = (gridDim.x * SPLU_TILE) >> 5;
-    const int np1 = splu_tiles(1, r, 4) * 16, np2 = splu_tiles(2, r, 4) * 16;
-    for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np1; e += warps)
-        splu_reduce_entry(1, r, 4, np1, nb, e, s.part1, s.gram1);
-    grid.sync();
-    if (corner) splu_corner_a(n, r, nb, a.lt, a.u12, a.v, a.h, s.gram1, s.max1, rk, work);
-    grid.sync();
-    splu_load_coef(c, rk->coef2, r);
-    __syncthreads();
-    for (int b = blockIdx.x; b < nb; b += gridDim.x)
-        splu_stage2_block(b, nb, src, c, s.max2, work, red);
-    grid.sync();
-    if (corner)
-        splu_corner_b(n, r, nb, a.step, a.lt, a.u12, a.h, s.max2, rk, a.lt_out, a.u12_out, work);
-    grid.sync();
-    splu_load_coef(c, rk->coef3, r);
-    __syncthreads();
-    const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
-    SpluSrc src3 = src;
-    src3.g = a.g;
-    for (int b = blockIdx.x; b < nb; b += gridDim.x)
-        splu_stage3_block(b, nb, src3, c, sl, su, inv_rho, rho, a.lt_out, a.l3_out, a.u12_out,
-                          a.u3_out, s.part2, work);
-    grid.sync();
-    for (int e = (blockIdx.x * SPLU_TILE + threadIdx.x) >> 5; e < np2; e += warps)
-        splu_reduce_entry(2, r, 4, np2, nb, e, s.part2, s.gram2);
-    grid.sync();
-    if (corner) splu_corner_c(n, r, a.lt_out, a.u12_out, a.g, s.gram2, rk, a.pre, work);
-    grid.sync();
-    float(*c4)[2] = reinterpret_cast<float(*)[2]>(sm);
-    splu_load_coef(c4, rk->coef4, r);
-    __syncthreads();
-    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt; j += gridDim.x * SPLU_TILE)
-        splu_stage4_lane(j, n, r, c4, a.lt_out, a.l3_out, a.u12_out, a.u3_out, a.g, a.pre);
-}
-
 static cudaError_t splu_smem_attrs() {
     static bool done = false;
     if (done) return cudaSuccess;
@@ -1498,9 +1685,6 @@ static cudaError_t splu_smem_attrs() {
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(splu_stage1_g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)splu_smem(SPLU_G_MAX_RANK, SPLU_G_TILE, true, SPLU_G_TS));
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(splu_mono_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)splu_smem_mono(SPLU_MAX_RANK));
     const void* corners[] = {(const void*)splu_corner_a_g_kernel, (const void*)splu_corner_b_g_kernel,
                              (const void*)splu_corner_c_g_kernel};
     for (const void* k : corners)
@@ -1562,7 +1746,7 @@ extern "C" size_t psgd_splu_scratch_floats(int n, int r) {
     return splu_carve(n, r, nullptr, &s);
 }
 
-static void splu_corner_a_g(int n, int r, int blocks, const float* lt, const float* u12,
+static void splu_corner_a_g_launch(int n, int r, int blocks, const float* lt, const float* u12,
                             const float* v, const float* h, const float* gram, const float* maxs,
                             const SpluScratchG& s, cudaStream_t stream) {
     const size_t fl = splu_corner_floats(r);
@@ -1570,7 +1754,7 @@ static void splu_corner_a_g(int n, int r, int blocks, const float* lt, const flo
         n, r, blocks, lt, u12, v, h, gram, maxs, s.rk, s.ws, rg_in_smem(fl));
 }
 
-static void splu_corner_b_g(int n, int r, int blocks, float step, const float* lt,
+static void splu_corner_b_g_launch(int n, int r, int blocks, float step, const float* lt,
                             const float* u12, const float* h, const float* maxs,
                             const SpluScratchG& s, float* lt_out, float* u12_out,
                             cudaStream_t stream) {
@@ -1579,7 +1763,7 @@ static void splu_corner_b_g(int n, int r, int blocks, float step, const float* l
         n, r, blocks, step, lt, u12, h, maxs, s.rk, lt_out, u12_out, s.ws, rg_in_smem(fl));
 }
 
-static void splu_corner_c_g(int n, int r, const float* lt_out, const float* u12_out,
+static void splu_corner_c_g_launch(int n, int r, const float* lt_out, const float* u12_out,
                             const float* g, const float* gram2, const SpluScratchG& s, float* pre,
                             cudaStream_t stream) {
     const size_t fl = splu_corner_floats(r);
@@ -1628,15 +1812,16 @@ static int splu_update_g(int n, int r, const float* lt, const float* l3, const f
     splu_carve_g(n, r, scratch, &s);
     const int nt = n - r, blocks = splu_blocks(nt);
     splu_stage1_g(splu_src(n, r, lt, l3, u12, u3, v, h, nullptr), nt, s, s.gram1, stream);
-    splu_corner_a_g(n, r, splu_g1_blocks(n, r), lt, u12, v, h, s.gram1, s.max1, s, stream);
+    splu_corner_a_g_launch(n, r, splu_g1_blocks(n, r), lt, u12, v, h, s.gram1, s.max1, s,
+                           stream);
     splu_stage2_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, lt, l3, u12, u3, v, h, s.rk.coef2,
                                                            s.max2);
-    splu_corner_b_g(n, r, blocks, step, lt, u12, h, s.max2, s, lt_out, u12_out, stream);
+    splu_corner_b_g_launch(n, r, blocks, step, lt, u12, h, s.max2, s, lt_out, u12_out, stream);
     splu_stage3_g_kernel<<<splu_blocks3(nt), SPLU_TILE, 0, stream>>>(
         n, r, lt, l3, u12, u3, v, h, s.rk.coef3, s.rk.scal, lt_out, l3_out, u12_out, u3_out);
     if (g) {
         splu_gram2_g(n, r, lt_out, l3_out, u12_out, u3_out, g, s, s.gram2, stream);
-        splu_corner_c_g(n, r, lt_out, u12_out, g, s.gram2, s, pre, stream);
+        splu_corner_c_g_launch(n, r, lt_out, u12_out, g, s.gram2, s, pre, stream);
         splu_stage4_g_kernel<<<(nt + SPLU_TILE - 1) / SPLU_TILE, SPLU_TILE, 0, stream>>>(
             n, r, lt_out, l3_out, u12_out, u3_out, g, s.rk.coef4, pre);
     }
@@ -1686,65 +1871,484 @@ extern "C" int psgd_splu_update(int n, int r, const void* ltp, const void* l3p, 
     return (int)cudaGetLastError();
 }
 
-// The one-launch kernel's grid for a rank-r state over n parameters:
-// out = {grid, CTAs a SM holds, SMs, registers a thread}. Fails where the
-// card takes no cooperative launch or holds no CTA of the kernel. The card's
-// answers are kept per device and rank after the first query.
-extern "C" int psgd_splu_mono_grid(int n, int r, int* out) {
-    if (r < 1 || r > SPLU_MAX_RANK || n - r < 1) return (int)cudaErrorInvalidValue;
-    static int known_dev = -1, known[SPLU_MAX_RANK + 1][3];  // per_sm, SMs, registers; 0: not asked
+// ------------------------------------------------- the one-launch schedule
+// Replaces psgd_tf_tpu/ops/pallas/splu_upd.py `fused_update_apply_mono`
+// (:533) → its pallas_call (:582, `_mono_kernel` :301), the whole update and
+// P' g in one launch at any rank, and psgd_tf_tpu/ops/pallas/splu_one.py
+// `_call` (:223) → its pallas_call (:286), the same with or without g over
+// a state that stays resident (K15). The TPU kernel is a sequential grid of
+// 4 nb steps that sweeps the tail four times, with the corner algebra at
+// the steps nb, 2 nb and 3 nb. Here one launch of a resident grid walks
+// the chain's blocks b = blockIdx.x, blockIdx.x + gridDim.x, ... and runs
+// the chain's own block bodies, so every partial Gram tile and every
+// maximum is the chain's, and the result equals the chain's
+// (`psgd_splu_update`, with or without g) bit for bit at every n and r. A
+// barrier stands at each of the chain's launch boundaries, where CTA 0 runs
+// the corner bodies (warp 0 the rank-32 ones, after the CTA has staged their
+// r x r blocks in shared memory) and the other CTAs wait at the next
+// barrier. Stage 4 reads the new tail that stage 3 wrote, after the barrier.
+// Up to SPLU_MAX_RANK it is splu_mono_kernel, past it splu_mono_g_kernel
+// with the rank-generic chain's bodies: stage 1's streamed 8 x 8 Gram tiles
+// up to SPLU_G_MAX_RANK, the block-wide corners (their vectors in shared
+// memory while they fit in RG_SMEM, in the scratch past it), stages 2-4 a
+// lane a thread, and the Grams the chain takes through kron_dd.cu's grouped
+// GEMM (the apply's, and stage 1's past SPLU_G_MAX_RANK) as that GEMM's
+// work items between barriers (rank_space.cuh's gram_tiles, the GEMM's own
+// tile body from gemm_tile.cuh, then gram_sums), so the partial tiles and
+// the Gram are the GEMM's.
+//
+// The schedule (the barrier) is picked by the host from the work's size,
+// or forced by the caller (SPLU_GRID, SPLU_CLUSTER):
+//   grid     a cooperative launch of min(work, SMs x the CTAs a SM holds)
+//            CTAs, grid.sync() between phases (the earlier one-launch
+//            kernel's schedule);
+//   cluster  a thread-block cluster of min(work, SPLU_MAX_CLUSTER) CTAs
+//            (one CTA at one block of work; up to 16 where the card holds
+//            such a cluster, else 8), the cluster's hardware barrier
+//            between phases, a gpu-scope fence on either side.
+// The partials stay in the scratch (L2 at these sizes) in both schedules,
+// so both give the same bits.
+//
+// What bounds it: the same bytes as the chain (chip_smoke.splu_work): memory
+// at large n; at K15's sizes (a state of at most ~14 MB, held by the 50 MB
+// L2 after the first pass) the corners, the barriers and the host's enqueue.
+// One launch trades the chain's six to eleven launches for one and up to
+// eight (past rank 128 with g, twelve) barriers. One kernel holds every
+// stage, so its registers (capped at two CTAs a SM up to SPLU_MAX_RANK,
+// one past it, where two spilled) and dynamic shared
+// memory are those of the largest: at r <= 32 stage 3's staged tiles with g
+// (215,680 bytes at r = 32, 78,224 at r = 10); past it stage 1's streamed
+// tile (214,976 at r = 128), or the corners' vectors (16 r floats) past
+// SPLU_G_MAX_RANK. A launch the card refuses is returned, never replaced.
+
+// the coefficients, the block max, a CTA's own rank space (replicated corners)
+#define SPLU_RANK_FLOATS ((int)(sizeof(SpluRank) / sizeof(float) + 3) / 4 * 4)
+#define SPLU_MONO_HEAD (SPLU_MAX_RANK * SPLU_NCOEF + 32 + SPLU_RANK_FLOATS)
+#define SPLU_REP_BLOCKS 4  // the rank-32 kernel replicates its corners up to these blocks
+#define SPLU_MONO_G_HEAD 32                               // the generic kernel's block max
+#define SPLU_MAX_CLUSTER 16
+
+enum SpluSched { SPLU_AUTO = -1, SPLU_GRID = 0, SPLU_CLUSTER = 1 };
+
+// the barrier between two phases of a one-launch kernel; every thread of
+// the launch reaches it
+template <int SCHED>
+__device__ __forceinline__ void splu_phase_sync() {
+    namespace cg = cooperative_groups;
+    if constexpr (SCHED == SPLU_GRID) {
+        cg::this_grid().sync();
+    } else {
+        __syncthreads();
+        if (threadIdx.x == 0) __threadfence();
+        cg::this_cluster().sync();
+        if (threadIdx.x == 0) __threadfence();
+        __syncthreads();
+    }
+}
+
+struct SpluMono {
+    int n, r, blocks;
+    float step;
+    const float *lt, *l3, *u12, *u3, *v, *h, *g;  // g null: the update alone
+    float *lt_out, *l3_out, *u12_out, *u3_out, *pre;
+    SpluScratch s;
+};
+
+static size_t splu_smem_mono(int r) {
+    const size_t zs = splu_tile_floats(r, SPLU_TILE, true, 4);
+    const size_t corner = SPLU_CORNER_A + (2 * SPLU_MAX_RANK + 2) * (2 * SPLU_MAX_RANK + 2);
+    return sizeof(float) * (SPLU_MONO_HEAD + (zs > corner ? zs : corner));
+}
+
+// Up to SPLU_MAX_RANK. Every thread of the launch runs every line here: the
+// barriers are reached by all, and only the corners sit behind a branch
+// (a CTA stages, its warp 0 computes). Buffers written inside the launch
+// are read through plain pointers (no __restrict__, no read-only cache).
+// Up to SPLU_REP_BLOCKS blocks (n up to ~1k) every CTA replicates the
+// reductions and corners into its own shared memory (the same sums in the
+// same order, so the same bits; CTA 0 alone writes the corner's outputs):
+// four barriers fewer. Past it CTA 0 runs them between barriers.
+template <int SCHED>
+__global__ void __launch_bounds__(SPLU_TILE, 2) splu_mono_kernel(const __grid_constant__ SpluMono a) {
+    extern __shared__ float4 sm4[];
+    float* sm = reinterpret_cast<float*>(sm4);
+    float(*c)[SPLU_NCOEF] = reinterpret_cast<float(*)[SPLU_NCOEF]>(sm);
+    float* red = sm + SPLU_MAX_RANK * SPLU_NCOEF;
+    float* work = sm + SPLU_MONO_HEAD;  // a stage's tile, or a corner's workspace
+    const int n = a.n, r = a.r, nb = a.blocks, nt = n - r;
+    const bool rep = nb <= SPLU_REP_BLOCKS, cta0 = blockIdx.x == 0;
+    const bool mine = rep || cta0, corner = mine && threadIdx.x < 32;
+    const SpluScratch s = a.s;
+    SpluRank* rk = rep ? reinterpret_cast<SpluRank*>(red + 32) : s.rk;
+    float* gram = work + SPLU_CORNER_A;  // a replicating CTA's own Gram
+    const SpluSrc src = splu_src(n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, nullptr);
+
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+        if (splu_s1_wide(r))
+            splu_stage1_block<SPLU_TILE, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
+        else
+            splu_stage1_block<SPLU_TILE / 2, 4>(b, nb, 0, src, nt, s.part1, s.max1, work, red);
+    }
+    splu_phase_sync<SCHED>();
+    if (rep) {
+        const int np = splu_tiles(1, r, 4) * 16;
+        for (int e = threadIdx.x; e < np; e += SPLU_TILE)
+            splu_reduce_entry_thread(1, r, 4, np, nb, e, s.part1, gram);
+        __syncthreads();
+    } else {
+        splu_reduce_all(1, r, 4, nb, s.part1, s.gram1);
+        gram = s.gram1;
+        splu_phase_sync<SCHED>();
+    }
+    float* mx = red + 16;  // a corner's maxima, folded by its CTA
+    if (mine) {
+        splu_corner_load(0, n, r, a.lt, a.u12, gram, work, SPLU_TILE);
+        splu_fold_max(s.max1, nb, splu_neg_inf(), mx, red);
+        __syncthreads();
+    }
+    if (corner) splu_corner_a(n, r, 1, a.lt, a.u12, a.v, a.h, gram, mx, rk, work, true);
+    if (rep) __syncthreads();
+    else splu_phase_sync<SCHED>();
+    splu_load_coef(c, rk->coef2, r);
+    __syncthreads();
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+        splu_stage2_block(b, nb, src, c, s.max2, work, red);
+    splu_phase_sync<SCHED>();
+    if (mine) {
+        splu_corner_load(1, n, r, a.lt, a.u12, nullptr, work, SPLU_TILE);
+        splu_fold_max(s.max2, nb, 0.f, mx, red);
+        __syncthreads();
+    }
+    if (corner)
+        splu_corner_b(n, r, 1, a.step, a.lt, a.u12, a.h, mx, rk, a.lt_out, a.u12_out, work,
+                      true, cta0);
+    if (mine) __syncthreads();
+    if (cta0) splu_corner_b_rows(n, r, work, rk->scal, a.lt_out, a.u12_out, SPLU_TILE);
+    if (rep) __syncthreads();
+    else splu_phase_sync<SCHED>();
+    splu_load_coef(c, rk->coef3, r);
+    __syncthreads();
+    const float sl = rk->scal[0], su = rk->scal[1], inv_rho = rk->scal[2], rho = rk->scal[3];
+    SpluSrc src3 = src;
+    src3.g = a.g;
+    for (int b = blockIdx.x; b < nb; b += gridDim.x)
+        splu_stage3_block(b, nb, src3, c, sl, su, inv_rho, rho, a.lt_out, a.l3_out, a.u12_out,
+                          a.u3_out, s.part2, work);
+    if (!a.g) return;
+    splu_phase_sync<SCHED>();
+    gram = work + SPLU_CORNER_A;
+    if (rep) {
+        const int np = splu_tiles(2, r, 4) * 16;
+        for (int e = threadIdx.x; e < np; e += SPLU_TILE)
+            splu_reduce_entry_thread(2, r, 4, np, nb, e, s.part2, gram);
+        __syncthreads();
+    } else {
+        splu_reduce_all(2, r, 4, nb, s.part2, s.gram2);
+        gram = s.gram2;
+        splu_phase_sync<SCHED>();
+    }
+    if (mine) {
+        splu_corner_load(2, n, r, a.lt_out, a.u12_out, gram, work, SPLU_TILE);
+        __syncthreads();
+    }
+    if (corner) splu_corner_c(n, r, a.lt_out, a.u12_out, a.g, gram, rk, a.pre, work, true, cta0);
+    if (rep) __syncthreads();
+    else splu_phase_sync<SCHED>();
+    float(*c4)[2] = reinterpret_cast<float(*)[2]>(sm);
+    splu_load_coef(c4, rk->coef4, r);
+    __syncthreads();
+    for (int j = blockIdx.x * SPLU_TILE + threadIdx.x; j < nt; j += gridDim.x * SPLU_TILE)
+        splu_stage4_lane(j, n, r, c4, a.lt_out, a.l3_out, a.u12_out, a.u3_out, a.g, a.pre);
+}
+
+struct SpluMonoG {
+    int n, r;
+    int blocks;   // stage 2's (its maxima's partials): splu_blocks(nt)
+    int b1, ys;   // stage 1's blocks (its maxima's partials) and y-slices
+    int blocks3;  // stage 3's: splu_blocks3(nt)
+    int splits1, splits2, corner_smem;
+    float step;
+    const float *lt, *l3, *u12, *u3, *v, *h, *g;  // g null: the update alone
+    float *lt_out, *l3_out, *u12_out, *u3_out, *pre;
+    SpluScratchG s;
+    GramPlan p1, p2;  // stage 1's Gram past SPLU_G_MAX_RANK, the apply's
+};
+
+// Past SPLU_MAX_RANK: the rank-generic chain (splu_update_g) in one launch.
+template <int SCHED>
+__global__ void __launch_bounds__(SPLU_TILE, 1) splu_mono_g_kernel(const __grid_constant__ SpluMonoG a) {
+    static_assert(SPLU_TILE == RG_THREADS, "CTA 0 runs the block-wide corners");
+    extern __shared__ float4 sm4[];
+    float* sm = reinterpret_cast<float*>(sm4);
+    float* red = sm;
+    float* work = sm + SPLU_MONO_G_HEAD;  // a stage's tile, a Gram tile, or a corner's vectors
+    const int n = a.n, r = a.r, nt = n - r;
+    const SpluScratchG& s = a.s;
+    const int lane0 = blockIdx.x * SPLU_TILE + threadIdx.x, lanes = gridDim.x * SPLU_TILE;
+    float* cws = a.corner_smem ? work : s.ws;
+
+    if (r <= SPLU_G_MAX_RANK) {
+        const SpluSrc src = splu_src(n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, nullptr);
+        for (int w = blockIdx.x; w < a.b1 * a.ys; w += gridDim.x)
+            splu_stage1_block<SPLU_G_TILE, SPLU_G_TS>(w % a.b1, a.b1, w / a.b1, src, nt, s.part,
+                                                      s.max1, work, red);
+        splu_phase_sync<SCHED>();
+        splu_reduce_all(1, r, SPLU_G_TS, a.b1, s.part, s.gram1);
+    } else {
+        for (int j = lane0; j < nt; j += lanes)
+            splu_rows_lane(j, n, r, a.l3, a.u12, a.u3, a.v, a.h, nullptr, s.w, s.e);
+        for (int b = blockIdx.x; b < a.b1; b += gridDim.x)
+            splu_lumax_block(b, a.b1, nt, nt, a.l3, a.u3, s.max1, red);
+        splu_phase_sync<SCHED>();
+        gram_tiles(a.p1, a.splits1, s.part, work);
+        splu_phase_sync<SCHED>();
+        gram_sums(a.p1, a.splits1, s.part, s.gram1);
+    }
+    splu_phase_sync<SCHED>();
+    if (blockIdx.x == 0)
+        splu_corner_a_g(n, r, a.b1, a.lt, a.u12, a.v, a.h, s.gram1, s.max1, s.rk, cws, red);
+    splu_phase_sync<SCHED>();
+    for (int b = blockIdx.x; b < a.blocks; b += gridDim.x)
+        splu_stage2_g_block(b, a.blocks, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, s.rk.coef2,
+                            s.max2, red);
+    splu_phase_sync<SCHED>();
+    if (blockIdx.x == 0)
+        splu_corner_b_g(n, r, a.blocks, a.step, a.lt, a.u12, a.h, s.max2, s.rk, a.lt_out,
+                        a.u12_out, cws, red);
+    splu_phase_sync<SCHED>();
+    for (int b = blockIdx.x; b < a.blocks3; b += gridDim.x)
+        splu_stage3_g_block(b, a.blocks3, n, r, a.lt, a.l3, a.u12, a.u3, a.v, a.h, s.rk.coef3,
+                            s.rk.scal, a.lt_out, a.l3_out, a.u12_out, a.u3_out);
+    if (!a.g) return;
+    splu_phase_sync<SCHED>();
+    for (int j = lane0; j < nt; j += lanes)
+        splu_rows_lane(j, n, r, a.l3_out, a.u12_out, a.u3_out, nullptr, nullptr, a.g, s.w, s.e);
+    splu_phase_sync<SCHED>();
+    gram_tiles(a.p2, a.splits2, s.part, work);
+    splu_phase_sync<SCHED>();
+    gram_sums(a.p2, a.splits2, s.part, s.gram2);
+    splu_phase_sync<SCHED>();
+    if (blockIdx.x == 0)
+        splu_corner_c_g(n, r, a.lt_out, a.u12_out, a.g, s.gram2, s.rk, a.pre, cws);
+    splu_phase_sync<SCHED>();
+    for (int j = lane0; j < nt; j += lanes)
+        splu_stage4_lane(j, n, r, reinterpret_cast<const float(*)[2]>(s.rk.coef4), a.lt_out,
+                         a.l3_out, a.u12_out, a.u3_out, a.g, a.pre);
+}
+
+static size_t splu_smem_mono_g(int r) {
+    size_t f = GemmTile<1, 1>::SMEM / sizeof(float);
+    if (r <= SPLU_G_MAX_RANK) f = std::max(f, (size_t)splu_tile_floats(r, SPLU_G_TILE, true, SPLU_G_TS));
+    const size_t cf = splu_corner_floats(r);
+    if (rg_in_smem(cf)) f = std::max(f, cf);
+    return sizeof(float) * (SPLU_MONO_G_HEAD + f);
+}
+
+// One-launch kernel k of the four: (generic ? 2 : 0) + schedule
+static const void* splu_mono_fn(int k) {
+    static const void* fns[4] = {
+        (const void*)splu_mono_kernel<SPLU_GRID>, (const void*)splu_mono_kernel<SPLU_CLUSTER>,
+        (const void*)splu_mono_g_kernel<SPLU_GRID>, (const void*)splu_mono_g_kernel<SPLU_CLUSTER>};
+    return fns[k];
+}
+
+// the dynamic shared memory each kernel may take, raised once per device
+static cudaError_t splu_mono_attrs(int dev) {
+    static unsigned long long done = 0;  // a bit per device
+    if (dev < 64 && (done >> dev & 1)) return cudaSuccess;
+    const int most[2] = {(int)splu_smem_mono(SPLU_MAX_RANK),
+                         (int)std::max(splu_smem_mono_g(SPLU_G_MAX_RANK),
+                                       sizeof(float) * SPLU_MONO_G_HEAD + RG_SMEM)};
+    cudaError_t e = cudaSuccess;
+    for (int k = 0; k < 4 && e == cudaSuccess; ++k) {
+        e = cudaFuncSetAttribute(splu_mono_fn(k), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most[k / 2]);
+        if (e == cudaSuccess && k % 2 == SPLU_CLUSTER)
+            e = cudaFuncSetAttribute(splu_mono_fn(k), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (e == cudaSuccess && dev < 64) done |= 1ULL << dev;
+    return e;
+}
+
+// What the card answers for kernel k at smem bytes: CTAs a SM (grid) or the
+// cluster's size (cluster), SMs, registers; kept per device, kernel and
+// shared memory after the first query
+struct SpluOcc {
+    int dev, k;
+    size_t smem;
+    int q[3];
+};
+
+static cudaError_t splu_mono_occ(int k, size_t smem, int* q) {
+    static SpluOcc known[64];
+    static int nknown = 0;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    for (int i = 0; i < nknown; ++i)
+        if (known[i].dev == dev && known[i].k == k && known[i].smem == smem) {
+            for (int j = 0; j < 3; ++j) q[j] = known[i].q[j];
+            return cudaSuccess;
+        }
+    int coop = 0, sms = 0, per = 0;
+    cudaFuncAttributes attr;
+    e = splu_mono_attrs(dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, splu_mono_fn(k));
+    if (e != cudaSuccess) return e;
+    if (k % 2 == SPLU_GRID) {
+        if (!coop) return cudaErrorNotSupported;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, splu_mono_fn(k), SPLU_TILE, smem);
+        if (e != cudaSuccess) return e;
+        if (per < 1) return cudaErrorCooperativeLaunchTooLarge;
+    } else {
+        for (per = SPLU_MAX_CLUSTER; per >= 1; per /= 2) {  // the largest cluster the card holds
+            cudaLaunchConfig_t cfg = {};
+            cudaLaunchAttribute at;
+            at.id = cudaLaunchAttributeClusterDimension;
+            at.val.clusterDim.x = per;
+            at.val.clusterDim.y = at.val.clusterDim.z = 1;
+            cfg.gridDim = dim3(per);
+            cfg.blockDim = dim3(SPLU_TILE);
+            cfg.dynamicSmemBytes = smem;
+            cfg.attrs = &at;
+            cfg.numAttrs = 1;
+            int clusters = 0;
+            e = cudaOccupancyMaxActiveClusters(&clusters, splu_mono_fn(k), &cfg);
+            if (e != cudaSuccess) return e;
+            if (clusters >= 1) break;
+        }
+        if (per < 1) return cudaErrorLaunchOutOfResources;
+    }
+    const int q3[3] = {per, sms, attr.numRegs};
+    for (int j = 0; j < 3; ++j) q[j] = q3[j];
+    if (nknown < 64) known[nknown++] = SpluOcc{dev, k, smem, {q3[0], q3[1], q3[2]}};
+    return cudaSuccess;
+}
+
+// The generic one-launch kernel's sizes for a rank-r state over n
+// parameters (its Grams' plans without pointers), with g or without, and
+// its work: the most blocks or work items of any phase
+static void splu_mono_args(int n, int r, bool has_g, SpluMonoG& a, long long& work) {
+    const int nt = n - r;
+    a.n = n;
+    a.r = r;
+    a.blocks = splu_blocks(nt);
+    a.b1 = splu_g1_blocks(n, r);
+    a.ys = r <= SPLU_G_MAX_RANK ? (splu_tiles(1, r, SPLU_G_TS) + SPLU_TILE - 1) / SPLU_TILE : 1;
+    a.blocks3 = splu_blocks3(nt);
+    a.corner_smem = rg_in_smem(splu_corner_floats(r));
+    a.splits1 = a.splits2 = 1;
+    work = std::max<long long>((long long)a.b1 * a.ys, a.blocks3);
+    if (r <= SPLU_G_MAX_RANK)  // its reduction: an entry a thread
+        work = std::max<long long>(work, ((long long)splu_tiles(1, r, SPLU_G_TS) * SPLU_G_TS *
+                                          SPLU_G_TS + SPLU_TILE - 1) / SPLU_TILE);
+    if (r > SPLU_G_MAX_RANK) {
+        a.p1 = splu_gram1_plan(n, r, nullptr, nullptr, nullptr);
+        a.splits1 = gram_splits(a.p1);
+        work = std::max(work, gram_items(a.p1, a.splits1));
+    }
+    if (has_g) {
+        a.p2 = splu_gram2_plan(n, r, nullptr, nullptr, nullptr);
+        a.splits2 = gram_splits(a.p2);
+        work = std::max(work, gram_items(a.p2, a.splits2));
+    }
+}
+
+// The schedule and grid of the one launch for a rank-r state over n
+// parameters, with or without g: out = {grid, CTAs a SM (grid) or the
+// largest cluster the card holds (cluster), SMs, registers a thread,
+// schedule}.
+// sched: SPLU_AUTO picks by the work (the most blocks of any phase), or
+// forces one. Fails where the card takes no such launch.
+extern "C" int psgd_splu_mono_grid(int n, int r, int has_g, int sched, int* out) {
+    if (r < 1 || n - r < 1 || sched < SPLU_AUTO || sched > SPLU_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    long long work;
+    size_t smem;
+    if (splu_generic(r)) {
+        SpluMonoG a;
+        splu_mono_args(n, r, has_g != 0, a, work);
+        smem = splu_smem_mono_g(r);
+    } else {
+        work = splu_blocks(n - r);
+        smem = splu_smem_mono(r);
+    }
+    // by measurement (H100 80GB HBM3, 700 W, tools/tri_lra_ab.py --splu,
+    // queued K15 update + apply): at (400, 10), two blocks, the cluster
+    // 0.0459-0.0461 ms, the grid 0.0484-0.0487; at (65,536, 10) the grid
+    // 0.0592, the 16-CTA cluster 0.311; at (400, 64), 39 CTAs of work, the
+    // grid 0.236-0.239, the cluster 0.243
+    if (sched == SPLU_AUTO) sched = work <= SPLU_MAX_CLUSTER ? SPLU_CLUSTER : SPLU_GRID;
+    int q[3];
+    const cudaError_t e = splu_mono_occ((splu_generic(r) ? 2 : 0) + sched, smem, q);
     if (e != cudaSuccess) return (int)e;
-    if (dev != known_dev) {
-        for (int k = 0; k <= SPLU_MAX_RANK; ++k) known[k][0] = known[k][1] = known[k][2] = 0;
-        known_dev = dev;
-    }
-    int* q = known[r];
-    if (!q[1]) {
-        int coop = 0, per_sm = 0, sms = 0;
-        cudaFuncAttributes attr;
-        e = splu_smem_attrs();
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, splu_mono_kernel, SPLU_TILE,
-                                                              splu_smem_mono(r));
-        if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, splu_mono_kernel);
-        if (e != cudaSuccess) return (int)e;
-        if (!coop) return (int)cudaErrorNotSupported;
-        if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-        q[0] = per_sm;
-        q[1] = sms;
-        q[2] = attr.numRegs;
-    }
-    const int blocks = splu_blocks(n - r), most = q[0] * q[1];
-    out[0] = blocks < most ? blocks : most;
+    const long long most = sched == SPLU_GRID ? (long long)q[0] * q[1] : q[0];
+    out[0] = (int)std::max(1LL, std::min(work, most));
     out[1] = q[0];
     out[2] = q[1];
     out[3] = q[2];
+    out[4] = sched;
     return (int)cudaSuccess;
 }
 
-// The update and pre = P' g in one cooperative launch; the arguments as
-// psgd_splu_update's, g required. Returns the launch's error: a grid the
-// card does not hold resident is refused, and nothing else runs.
+template <class Args>
+static cudaError_t splu_mono_launch(int k, int grid, size_t smem, const Args& a,
+                                    cudaStream_t stream) {
+    const void* fn = splu_mono_fn(k);
+    Args copy = a;
+    void* args[] = {&copy};
+    if (k % 2 == SPLU_GRID)
+        return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(SPLU_TILE), args, smem, stream);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at;
+    at.id = cudaLaunchAttributeClusterDimension;
+    at.val.clusterDim.x = grid;
+    at.val.clusterDim.y = at.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(SPLU_TILE);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &at;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelExC(&cfg, fn, args);
+}
+
+// The update (and with g non-null pre = P' g) in one launch; the arguments
+// as psgd_splu_update's, then the schedule (SPLU_AUTO, or one forced).
+// Returns the launch's error: a launch the card refuses runs nothing.
 extern "C" int psgd_splu_mono(int n, int r, const void* ltp, const void* l3p, const void* u12p,
                               const void* u3p, const void* vp, const void* hp, const void* gp,
                               float step, void* lt_outp, void* l3_outp, void* u12_outp,
-                              void* u3_outp, void* prep, void* scratch, void* stream_ptr) {
-    if (!gp) return (int)cudaErrorInvalidValue;
-    int grid[4];
-    cudaError_t e = (cudaError_t)psgd_splu_mono_grid(n, r, grid);
+                              void* u3_outp, void* prep, void* scratch, int sched,
+                              void* stream_ptr) {
+    int grid[5];
+    cudaError_t e = (cudaError_t)psgd_splu_mono_grid(n, r, gp != nullptr, sched, grid);
     if (e != cudaSuccess) return (int)e;
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto o = [](void* p) { return static_cast<float*>(p); };
-    SpluMono a = {n, r, splu_blocks(n - r), step, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp),
-                  f(gp), o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), o(prep), {}};
-    splu_carve(n, r, static_cast<float*>(scratch), &a.s);
-    void* args[] = {&a};
-    e = cudaLaunchCooperativeKernel((const void*)splu_mono_kernel, dim3(grid[0]), dim3(SPLU_TILE),
-                                    args, splu_smem_mono(r), static_cast<cudaStream_t>(stream_ptr));
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int k = (splu_generic(r) ? 2 : 0) + grid[4];
+    if (splu_generic(r)) {
+        SpluMonoG a;
+        long long work;
+        splu_mono_args(n, r, gp != nullptr, a, work);
+        a.step = step;
+        a.g = f(gp);
+        a.lt = f(ltp), a.l3 = f(l3p), a.u12 = f(u12p), a.u3 = f(u3p), a.v = f(vp), a.h = f(hp);
+        a.lt_out = o(lt_outp), a.l3_out = o(l3_outp), a.u12_out = o(u12_outp);
+        a.u3_out = o(u3_outp), a.pre = o(prep);
+        splu_carve_g(n, r, o(scratch), &a.s);
+        if (r > SPLU_G_MAX_RANK) a.p1 = splu_gram1_plan(n, r, a.lt, a.s.w, a.s.e);
+        if (a.g) a.p2 = splu_gram2_plan(n, r, a.lt_out, a.u12_out, a.s.e);
+        e = splu_mono_launch(k, grid[0], splu_smem_mono_g(r), a, stream);
+    } else {
+        SpluMono a = {n, r, splu_blocks(n - r), step, f(ltp), f(l3p), f(u12p), f(u3p), f(vp),
+                      f(hp), f(gp), o(lt_outp), o(l3_outp), o(u12_outp), o(u3_outp), o(prep), {}};
+        splu_carve(n, r, o(scratch), &a.s);
+        e = splu_mono_launch(k, grid[0], splu_smem_mono(r), a, stream);
+    }
     const cudaError_t last = cudaGetLastError();  // clears the launch's error either way
     return (int)(e != cudaSuccess ? e : last);
 }
@@ -1808,7 +2412,8 @@ extern "C" int psgd_splu_sharded_stage2(int n, int r, const void* ltp, const voi
     if (splu_generic(r)) {
         SpluScratchG s;
         splu_carve_g(n, r, static_cast<float*>(scratch), &s);
-        splu_corner_a_g(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1), f(max1), s, stream);
+        splu_corner_a_g_launch(n, r, 1, f(ltp), f(u12p), f(vp), f(hp), f(gram1), f(max1), s,
+                               stream);
         splu_stage2_g_kernel<<<blocks, SPLU_TILE, 0, stream>>>(n, r, f(ltp), f(l3p), f(u12p), f(u3p),
                                                                f(vp), f(hp), s.rk.coef2, s.max2);
         maxp = s.max2;
@@ -1844,8 +2449,8 @@ extern "C" int psgd_splu_sharded_stage3(int n, int r, const void* ltp, const voi
     if (splu_generic(r)) {
         SpluScratchG s;
         splu_carve_g(n, r, static_cast<float*>(scratch), &s);
-        splu_corner_b_g(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s, o(lt_outp), o(u12_outp),
-                        stream);
+        splu_corner_b_g_launch(n, r, 1, step, f(ltp), f(u12p), f(hp), f(max2), s, o(lt_outp),
+                               o(u12_outp), stream);
         splu_stage3_g_kernel<<<splu_blocks3(nt), SPLU_TILE, 0, stream>>>(
             n, r, f(ltp), f(l3p), f(u12p), f(u3p), f(vp), f(hp), s.rk.coef3, s.rk.scal, o(lt_outp),
             o(l3_outp), o(u12_outp), o(u3_outp));
@@ -1884,7 +2489,7 @@ extern "C" int psgd_splu_sharded_stage4(int n, int r, const void* lt_outp, const
     if (splu_generic(r)) {
         SpluScratchG s;
         splu_carve_g(n, r, static_cast<float*>(scratch), &s);
-        splu_corner_c_g(n, r, f(lt_outp), f(u12_outp), f(gp), f(gram2), s, pre, stream);
+        splu_corner_c_g_launch(n, r, f(lt_outp), f(u12_outp), f(gp), f(gram2), s, pre, stream);
         splu_stage4_g_kernel<<<tiles, SPLU_TILE, 0, stream>>>(
             n, r, f(lt_outp), f(l3_outp), f(u12_outp), f(u3_outp), f(gp), s.rk.coef4, pre);
         return (int)cudaGetLastError();

@@ -31,13 +31,14 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     single-block corner kernels; any rank (a rank-generic chain past 32,
     as splu's, `csrc/rank_space.cuh`).
   - splu_one / splu_upd: the sparse-LU family's update with the fused
-    apply (K15) and its streaming update (K16): one chain with the corner
-    algebra in single-warp kernels, `csrc/splu.cu`, counted under the JAX
-    package's two routes; `splu_upd.fused_update(g=...)`, the same chain
-    with the apply as an entry of its own (`splu_upd_apply`), and
-    `splu_upd.fused_update_apply_mono`, the whole chain in one cooperative
-    launch (`splu_upd_mono`), which no path routes (as in the JAX
-    package).
+    apply (K15: one launch a call, the chain's bodies between barriers)
+    and its streaming update (K16: one chain with the corner algebra on
+    the device), `csrc/splu.cu`, counted under the JAX package's two
+    routes; `splu_upd.fused_update(g=...)`, the chain with the apply as an
+    entry of its own (`splu_upd_apply`), and
+    `splu_upd.fused_update_apply_mono`, the whole update and apply in one
+    launch at any rank (`splu_upd_mono`, K15's kernel), which no path
+    routes (as in the JAX package).
   - lra_upd.fused_update(_apply)_sharded (K14) and
     splu_upd.fused_update_sharded (the sharded K16): the same stage
     kernels on each rank's slice of the lanes, with the rank-space

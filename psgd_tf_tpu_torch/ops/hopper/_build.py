@@ -96,9 +96,10 @@ _SIGNATURES = {
     "psgd_splu_update": (
         ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 7,
     ),
-    "psgd_splu_mono_grid": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, _IP]),
+    "psgd_splu_mono_grid": (ctypes.c_int, [ctypes.c_int] * 4 + [_IP]),
     "psgd_splu_mono": (
-        ctypes.c_int, [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 7,
+        ctypes.c_int,
+        [ctypes.c_int, ctypes.c_int] + [_P] * 7 + [ctypes.c_float] + [_P] * 6 + [ctypes.c_int, _P],
     ),
     "psgd_splu_sharded_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 10),
     "psgd_splu_sharded_stage2": (ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 11),

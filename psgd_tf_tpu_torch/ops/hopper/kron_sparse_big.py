@@ -36,7 +36,8 @@ Replaces `psgd_tf_tpu/ops/pallas/kron_sparse_big.py`:
     outside its kernel). Unrouted, as in the JAX package: `groups/kron.apply`
     keeps the plain chain for every pair, and these are entry points of
     their own. One CUDA kernel serves K17's (norm, scale) case and K18,
-    unpadded; the (norm, dense) product runs in kron_dd.cu's grouped GEMM.
+    unpadded; the (norm, dense) case is a GEMM kernel of its own with the
+    arrow in its operand load and its epilogue.
 
 Each update returns what the JAX function returns: the balanced, updated
 factors. One difference, shared with K1/K2: the step scales saturate at the
@@ -377,8 +378,10 @@ def fused_apply_ns_wide(ql, qr, G):
 def fused_apply_nd(ql, Qr, G):
     """K17: (norm, dense) P G; ql (2, m), Qr (n, n) upper-triangular,
     G (m, n). R = Qr^T Qr is one torch product (O(n^3), off the streaming
-    path, as JAX forms it outside its kernel); the kernel chain forms
-    preG = Ql G, Z = preG R in kron_dd.cu's grouped GEMM, and Ql^T Z."""
+    path, as JAX forms it outside its kernel); then two launches
+    (`csrc/kron_sparse_big.cu`, `apply_nd_kernel`): the product Z = (Ql G) R
+    with Ql's rows formed in its operand load and out_i = q0_i z_i with the
+    arrow's column sums in its epilogue, and the sums added to row m - 1."""
     if not hopper.use_kernel(G):
         return apply_nd_plain(ql, Qr, G)
     return _apply("nd", ql, Qr.T @ Qr, G, "kron_sparse_big_apply_nd")

@@ -17,8 +17,9 @@ stage 3 with the apply Gram of the new factors) and :843
 with g, its corner C and stage 4, counted as `splu_upd_apply`.
 `fused_update_apply_mono` replaces JAX's one-launch schedule
 (`fused_update_apply_mono` :533 → :582, `_mono_kernel` :301): the same
-stage and corner bodies in one cooperative launch (`splu_upd_mono`),
-equal to the chain's result bit for bit. Neither is routed: JAX's
+stage and corner bodies in one launch at any rank (`splu_upd_mono`,
+`launch_mono`, which K15 shares with or without g), equal to the chain's
+result bit for bit. Neither is routed: JAX's
 `groups/splu.update_apply` runs the streaming update and then the apply
 (`psgd_tf_tpu/groups/splu.py:384-409`), and so does the port's.
 
@@ -73,7 +74,10 @@ import torch
 from psgd_tf_tpu_torch.ops import hopper, linalg
 from psgd_tf_tpu_torch.ops.hopper import _build
 
-MONO_MAX_RANK = 32  # the one-launch kernel's cap (SPLU_MAX_RANK in csrc/splu.cu)
+# the one launch's schedules (csrc/splu.cu, SpluSched): the host's pick by the
+# work's size, or one forced (`launch_mono(..., schedule=...)`)
+SCHEDULES = {"auto": -1, "grid": 0, "cluster": 1}
+_scratch_floats: dict[tuple[int, int], int] = {}  # the chain's scratch per (n, r)
 
 
 # ------------------------------------------------------------ the stages, plain
@@ -227,10 +231,10 @@ def chain_plain(Lt, l3, U12, u3, v, h, step, g=None, nvalid=None, psum=_identity
 
 # ------------------------------------------------------------ the chain, kernels
 
-def _check(name, Lt, l3, U12, u3, v, h, g, max_rank=None):
+def _check(name, Lt, l3, U12, u3, v, h, g):
     r, n = U12.shape
-    if r < 1 or (max_rank is not None and r > max_rank):
-        raise ValueError(f"{name}: rank {r} must be in [1, {max_rank or 'n - 1'}]")
+    if r < 1:
+        raise ValueError(f"{name}: rank {r} must be at least 1")
     if n - r < 1:
         raise ValueError(f"{name}: needs n - r >= 1, got n = {n}, r = {r}")
     vecs = [v, h] + ([g] if g is not None else [])
@@ -240,20 +244,24 @@ def _check(name, Lt, l3, U12, u3, v, h, g, max_rank=None):
     hopper.check_operands(name, Lt, l3, U12, u3, *vecs)
 
 
-def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None, entry: str = "psgd_splu_update"):
+def _scratch(lib, n: int, r: int, device) -> torch.Tensor:
+    floats = _scratch_floats.get((n, r))
+    if floats is None:
+        floats = _scratch_floats[(n, r)] = lib.psgd_splu_scratch_floats(n, r)
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None):
     """The chain of `csrc/splu.cu` on CUDA tensors: (Lt', l3', U12', u3',
-    P' g or None), or with `entry="psgd_splu_mono"` (g required) the same
-    in one cooperative launch. Counts one launch of `name`; a launch the
-    card refuses raises; the one-launch kernel takes ranks up to
-    MONO_MAX_RANK, the chain any."""
-    _check(name, Lt, l3, U12, u3, v, h, g,
-           MONO_MAX_RANK if entry == "psgd_splu_mono" else None)
+    P' g or None). Counts one launch of `name`; a launch the card refuses
+    raises."""
+    _check(name, Lt, l3, U12, u3, v, h, g)
     r, n = U12.shape
     lib = _build.lib()
     new_lt, new_l3, new_u12, new_u3 = (torch.empty_like(x) for x in (Lt, l3, U12, u3))
     pre = torch.empty_like(v) if g is not None else None
-    scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), dtype=torch.float32, device=Lt.device)
-    rc = getattr(lib, entry)(
+    scratch = _scratch(lib, n, r, Lt.device)
+    rc = lib.psgd_splu_update(
         n, r, Lt.data_ptr(), l3.data_ptr(), U12.data_ptr(), u3.data_ptr(), v.data_ptr(),
         h.data_ptr(), g.data_ptr() if g is not None else None, float(step), new_lt.data_ptr(),
         new_l3.data_ptr(), new_u12.data_ptr(), new_u3.data_ptr(),
@@ -263,6 +271,43 @@ def launch(name: str, Lt, l3, U12, u3, v, h, step, g=None, entry: str = "psgd_sp
     _build.check(rc, f"{name} kernel launch")
     hopper.counts[name] += 1
     return new_lt, new_l3, new_u12, new_u3, pre
+
+
+def launch_mono(name: str, Lt, l3, U12, u3, v, h, step, g=None, *, schedule: str = "auto"):
+    """The same update (and with g, P' g) in one launch of `csrc/splu.cu`'s
+    one-launch kernels (`psgd_splu_mono`), at any rank, bit-equal to
+    `launch`: (Lt', l3', U12', u3', P' g or None). The outputs are views of
+    one allocation; the schedule is the library's pick ('auto') or the one
+    named ('grid', 'cluster': the A/B of the schedules, and the card tests'
+    check that both give the same bits). Counts one launch of `name`; a
+    launch the card refuses raises."""
+    _check(name, Lt, l3, U12, u3, v, h, g)
+    sched = _schedule(schedule)
+    r, n = U12.shape
+    nt = n - r
+    lib = _build.lib()
+    out = torch.empty(2 * r * n + 2 * nt + (n if g is not None else 0), dtype=torch.float32,
+                      device=Lt.device)
+    new_lt, new_u12 = out[:2 * r * n].view(2, r, n).unbind()
+    new_l3, new_u3 = out[2 * r * n:2 * r * n + 2 * nt].view(2, nt).unbind()
+    pre = out[2 * r * n + 2 * nt:] if g is not None else None
+    scratch = _scratch(lib, n, r, Lt.device)
+    rc = lib.psgd_splu_mono(
+        n, r, Lt.data_ptr(), l3.data_ptr(), U12.data_ptr(), u3.data_ptr(), v.data_ptr(),
+        h.data_ptr(), g.data_ptr() if g is not None else None, float(step), new_lt.data_ptr(),
+        new_l3.data_ptr(), new_u12.data_ptr(), new_u3.data_ptr(),
+        pre.data_ptr() if pre is not None else None, scratch.data_ptr(), sched,
+        torch.cuda.current_stream(Lt.device).cuda_stream,
+    )
+    _build.check(rc, f"{name} kernel launch")
+    hopper.counts[name] += 1
+    return new_lt, new_l3, new_u12, new_u3, pre
+
+
+def _schedule(name: str) -> int:
+    if name not in SCHEDULES:
+        raise ValueError(f"splu one launch: schedule {name!r} not in {sorted(SCHEDULES)}")
+    return SCHEDULES[name]
 
 
 def run(name: str, Lt, l3, U12, u3, v, h, step, g=None):
@@ -293,25 +338,29 @@ def fused_update_apply_mono_plain(Lt, l3, U12, u3, v, h, g, step):
     return chain_plain(Lt, l3, U12, u3, v, h, step, g)
 
 
-def mono_grid(n: int, r: int) -> dict[str, int]:
-    """The cooperative launch `fused_update_apply_mono` makes for a rank-r
-    state over n parameters on the current card: its grid, the CTAs a SM
-    holds at its shared memory, the SMs and the registers a thread."""
-    out = _build.int_array([0] * 4)
-    _build.check(_build.lib().psgd_splu_mono_grid(n, r, out), "splu_upd_mono grid")
-    return dict(zip(("grid", "per_sm", "sms", "regs"), out))
+def mono_grid(n: int, r: int, g: bool = True, *, schedule: str = "auto") -> dict:
+    """The one launch `launch_mono` makes for a rank-r state over n
+    parameters (with or without g, under `schedule`) on the current card:
+    its schedule, its grid, the CTAs a SM holds at its shared memory (grid)
+    or the largest cluster the card holds (cluster), the SMs and the
+    registers a thread."""
+    out = _build.int_array([0] * 5)
+    _build.check(_build.lib().psgd_splu_mono_grid(n, r, int(g), _schedule(schedule), out),
+                 "splu one launch grid")
+    names = {v: k for k, v in SCHEDULES.items()}
+    return dict(zip(("grid", "per_sm", "sms", "regs"), out[:4]), schedule=names[out[4]])
 
 
 def fused_update_apply_mono(Lt, l3, U12, u3, v, h, g, step):
     """One update and P' g of the updated state in one launch: (Lt', l3',
-    U12', u3', P' g), JAX's contract (`splu_upd.py:533-537`). The plain
-    version for CPU tensors and inside `hopper.disabled()`; for CUDA
-    tensors one cooperative launch (`psgd_splu_mono`), counted as
-    `splu_upd_mono`, which raises if the card refuses it. No path routes
-    it, as in the JAX package."""
+    U12', u3', P' g), JAX's contract (`splu_upd.py:533-537`), at any rank.
+    The plain version for CPU tensors and inside `hopper.disabled()`; for
+    CUDA tensors one launch (`launch_mono`), counted as `splu_upd_mono`,
+    which raises if the card refuses it. No path routes it, as in the JAX
+    package."""
     if not hopper.use_kernel(Lt):
         return fused_update_apply_mono_plain(Lt, l3, U12, u3, v, h, g, step)
-    return launch("splu_upd_mono", Lt, l3, U12, u3, v, h, step, g, entry="psgd_splu_mono")
+    return launch_mono("splu_upd_mono", Lt, l3, U12, u3, v, h, step, g)
 
 
 # ------------------------------------------------------------ the sharded K16
@@ -328,7 +377,7 @@ def launch_sharded(Lt, l3, U12, u3, v, h, step, nvalid, mesh, g=None):
     lib = _build.lib()
     f = dict(dtype=torch.float32, device=Lt.device)
     stream = torch.cuda.current_stream(Lt.device).cuda_stream
-    scratch = torch.empty(lib.psgd_splu_scratch_floats(n, r), **f)
+    scratch = _scratch(lib, n, r, Lt.device)
     z = 2 * r + 2
     gram1, max1, max2 = torch.empty(z, z, **f), torch.empty(2, **f), torch.empty(2, **f)
     p = lambda x: x.data_ptr() if x is not None else None

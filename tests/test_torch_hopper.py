@@ -468,6 +468,19 @@ def test_k7_k8_match_plain(cuda, fmt, shape, counter):
     ("fused_apply_nd", ("norm", "dense"), (900, 70)),
     ("fused_apply_nd", ("norm", "dense"), (1500, 200)),
     ("fused_apply_nd", ("norm", "dense"), (3, 65)),
+    # K17 nd's GEMM: bench.py's (131072, 512) (128 x 128 tiles), the
+    # reference NMT's five (norm, dense) layers under auto, m = 1 and 2 (row
+    # m - 1 both an ordinary row and the arrow's), n odd, m past a tile
+    ("fused_apply_nd", ("norm", "dense"), (131072, 512)),
+    ("fused_apply_nd", ("norm", "dense"), (9414, 256)),
+    ("fused_apply_nd", ("norm", "dense"), (1281, 1024)),
+    ("fused_apply_nd", ("norm", "dense"), (2048, 10)),
+    ("fused_apply_nd", ("norm", "dense"), (4935, 256)),
+    ("fused_apply_nd", ("norm", "dense"), (2305, 1024)),
+    ("fused_apply_nd", ("norm", "dense"), (1, 7)),
+    ("fused_apply_nd", ("norm", "dense"), (2, 65)),
+    ("fused_apply_nd", ("norm", "dense"), (130, 67)),
+    ("fused_apply_nd", ("norm", "dense"), (1000, 333)),
 ], ids=str)
 def test_k17_k18_match_plain(cuda, entry, fmt, shape):
     """The streamed arrow applies at ragged shapes (partial strips and row
@@ -1295,10 +1308,16 @@ def test_fused_apply_and_mono_reject_what_they_do_not_take(cuda):
 
     entries = [lambda *f: splu_upd.fused_update(*f[:6], 0.1, g=f[6]),
                lambda *f: splu_upd.fused_update_apply_mono(*f, 0.1)]
-    st = splu.init(100, rank=splu_upd.MONO_MAX_RANK + 1, device=cuda)
+    # r = 33, past the rank-32 kernels: the one-launch kernel takes it (as
+    # JAX's takes any rank), bit-equal to the fused apply entry
+    g = torch.Generator(device=cuda).manual_seed(16)
+    st, (v, h, grad) = _splu_case(g, 100, 33, cuda)
+    fused, mono = (entry(st.Lt, st.l3, st.U12, st.u3, v, h, grad) for entry in entries)
+    assert all(torch.equal(a, b) for a, b in zip(mono, fused, strict=True))
+    with hopper.disabled():
+        plain = entries[1](st.Lt, st.l3, st.U12, st.u3, v, h, grad)
+    assert all(_rel(a, b) < 1e-4 for a, b in zip(mono, plain, strict=True))
     z = torch.zeros(100, device=cuda)
-    with pytest.raises(ValueError, match="rank"):  # the one-launch kernel alone keeps a cap
-        entries[1](st.Lt, st.l3, st.U12, st.u3, z, z, z)
     st = splu.init(10, rank=10, device=cuda)  # n - r = 0: no tail
     z10 = torch.zeros(10, device=cuda)
     for entry in entries:
@@ -1314,6 +1333,102 @@ def test_fused_apply_and_mono_reject_what_they_do_not_take(cuda):
             with pytest.raises(ValueError, match="float32"):
                 entry(*args)
             assert dict(hopper.counts) == before
+
+
+@pytest.mark.parametrize("n,r", [(20_000, 33), (20_003, 40), (100_003, 64), (30_001, 128),
+                                 (6_000, 256)])
+def test_mono_past_rank_32_bit_equal_to_the_fused_apply(cuda, n, r):
+    """The one-launch kernel past the rank-32 kernels (its rank-generic
+    bodies, the GEMM's Gram tiles in a body of its own past rank 128 and
+    for the apply): bit-equal to the fused apply entry (the chain with g)
+    under every schedule, within 1e-4 of the plain chain, one count a call,
+    repeating itself bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    fused = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    before = dict(hopper.counts)
+    mono = splu_upd.fused_update_apply_mono(*fields, v, h, grad, 0.05)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]} == {
+        "splu_upd_mono": 1}
+    assert all(torch.equal(a, b) for a, b in zip(mono, fused, strict=True))
+    with hopper.disabled():
+        plain = splu_upd.fused_update(*fields, v, h, 0.05, g=grad)
+    assert all(_rel(a, b) < 1e-4 for a, b in zip(mono, plain, strict=True))
+    for schedule in ("grid", "cluster"):
+        again = splu_upd.launch_mono("splu_upd_mono", *fields, v, h, 0.05, grad,
+                                     schedule=schedule)
+        assert all(torch.equal(a, b) for a, b in zip(again, fused, strict=True)), schedule
+
+
+def _k15_sizes():
+    """(n, r) of K15's card test: r = 1, 10, 32, 33 and 64, from n = r + 1
+    to the largest n where `splu_one.fits(r, n)` holds, and one between."""
+    out = []
+    for r in (1, 10, 32, 33, 64):
+        hi = r + 1
+        while splu_one.fits(r, 2 * hi):
+            hi *= 2
+        step = hi
+        while step > 1:  # the largest n that fits, by bisection
+            step //= 2
+            if splu_one.fits(r, hi + step):
+                hi += step
+        out += [(r + 1, r), ((r + 1 + hi) // 2 | 1, r), (hi, r)]
+    return out
+
+
+@pytest.mark.parametrize("n,r", _k15_sizes())
+def test_k15_one_launch_matches_plain(cuda, n, r):
+    """K15 (`splu_one.fused_update`, `fused_update_apply`) is one launch a
+    call, with and without g, one count each: within 1e-4 of the plain
+    chain and of the direct form, the update alone equal to the first four
+    outputs with g, both equal bit for bit to the chain (K16's kernels,
+    `splu_upd.launch`), the corner triangles exact, repeating bit for bit,
+    the same bits under every schedule; torch.profiler sees one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psgd_tf_tpu_torch.groups import splu
+
+    assert splu_one.fits(r, n) and splu.route(r, n, cuda) == "splu_one"
+    g = torch.Generator(device=cuda).manual_seed(24)
+    st, (v, h, grad) = _splu_case(g, n, r, cuda)
+    fields = (st.Lt, st.l3, st.U12, st.u3)
+    before = dict(hopper.counts)
+    upd = splu_one.fused_update(*fields, v, h, 0.05)
+    both = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]} == {
+        "splu_one": 2}
+    with hopper.disabled():
+        plain = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    direct = splu.update_plain(st, v, h, 0.05)
+    assert all(_rel(a, b) < 1e-4 for a, b in zip(both, plain, strict=True))
+    assert all(_rel(a, b) < 1e-4 for a, b in zip(upd, (direct.Lt, direct.l3, direct.U12,
+                                                       direct.u3)))
+    assert all(torch.equal(a, b) for a, b in zip(upd, both[:4]))
+    chain = splu_upd.launch("splu_upd", *fields, v, h, 0.05, grad)
+    assert all(torch.equal(a, b) for a, b in zip(both, chain, strict=True))
+    L1, U1 = both[0][:, :r].T, both[2][:, :r]
+    assert torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
+    again = splu_one.fused_update_apply(*fields, v, h, grad, 0.05)
+    assert all(torch.equal(a, b) for a, b in zip(again, both, strict=True))
+    for schedule in ("grid", "cluster"):
+        other = splu_upd.launch_mono("splu_one", *fields, v, h, 0.05, grad, schedule=schedule)
+        assert all(torch.equal(a, b) for a, b in zip(other, both, strict=True)), schedule
+    for call in (lambda: splu_one.fused_update(*fields, v, h, 0.05),
+                 lambda: splu_one.fused_update_apply(*fields, v, h, grad, 0.05)):
+        for _ in range(3):  # the profiler now and then returns a trace without the device's events
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 1 and "splu_mono" in kernels[0], kernels
 
 
 def test_all_preconditioners_routes_through_the_kernels(cuda):

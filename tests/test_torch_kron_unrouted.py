@@ -42,6 +42,10 @@ def _walked(rng, fmt, shape, steps=3):
     (("norm", "scale"), (80, 34000)),   # the lane-streaming regime
     (("norm", "dense"), (900, 70)),
     (("norm", "dense"), (1500, 200)),
+    # K17 nd's GEMM tiles at ragged edges: m = 2 (row m - 1 is both an
+    # ordinary row and the arrow's), n odd; m past a tile, n odd
+    (("norm", "dense"), (2, 65)),
+    (("norm", "dense"), (130, 67)),
 ], ids=str)
 def test_streamed_apply_matches_jax(fmt, shape):
     rng = np.random.default_rng(sum(shape))

@@ -92,6 +92,23 @@ def test_k15_chain_matches_pallas_interpret(n, r):
     assert torch.equal(L1, torch.tril(L1)) and torch.equal(U1, torch.triu(U1))
 
 
+@pytest.mark.parametrize("g_too", [False, True])
+def test_k15_one_launch_entries_past_rank_32_match_pallas_interpret(g_too):
+    """K15's entries (one launch on the card, the chain's plain stages here)
+    at r = 40 and a ragged n against `splu_one.fused_update` in interpret
+    mode, with and without g; the update alone equal bit for bit to the
+    first four outputs with g."""
+    n, r = 257, 40
+    jst, (v, h, g) = _walked(n, r, 7 * n + r)
+    want = jsplu_one.fused_update(jst.Lt, jst.l3, jst.U12, jst.u3, v, h, 0.05, TINY,
+                                  interpret=True, g=g if g_too else None)
+    st = _port(jst)
+    both = splu_one.fused_update_apply(*_fields(st), _t(v), _t(h), _t(g), 0.05)
+    got = both if g_too else splu_one.fused_update(*_fields(st), _t(v), _t(h), 0.05)
+    _close_state(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], both[:4], strict=True))
+
+
 def test_k16_chain_matches_stream_interpret():
     """The streaming regime at (3000, 5): JAX's padded SpLUStreamState (its
     cap patched, as tests/test_groups.py forces it) through its logical

@@ -27,7 +27,9 @@ TOL = dict(rtol=2e-5, atol=2e-6)
 # (9000, 3), where the JAX kernels' tail spans two 8192-lane grid steps
 APPLY_SHAPES = [(64, 6), (130, 4), (100, 10), (48, 1), (200, 16), (9000, 3)]
 # tests/test_pallas.py:695's shapes, then two grid steps
-MONO_SHAPES = [(100, 10), (300, 4), (48, 1), (9000, 3)]
+# the JAX tests' shapes and ranks past 32, where the card's one launch runs
+# the rank-generic chain's bodies
+MONO_SHAPES = [(100, 10), (300, 4), (48, 1), (9000, 3), (200, 40), (300, 64)]
 
 
 def _t(a):

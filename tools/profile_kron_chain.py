@@ -79,12 +79,21 @@ traces the sparse-LU family's update the same way: K16 (`splu.update`) at
 n = 2^20 with r = 10, 32, 33 and 64, at the reference NMT's n =
 12,424,273 (r = 10) and at LeNet5's n (44,426, r = 10: K15 there), the
 fused apply (`splu_upd.fused_update(g=...)`) and the one-launch kernel at
-2^20, r = 10, K15's update + apply at n = 65,536 and 400, then, on a
+2^20, r = 10, K15's update and update + apply at (n, r) = (65,536, 10),
+(400, 10) and (400, 64), then, on a
 one-rank NCCL group, the sharded K16 at 2^20 with r = 10 and 64, update
 and update + apply, beside K16 and its fused apply on the same state, and
 K14 at 2^20, r = 10, beside K13. Each case gives the host us of the call
 and of the wrapper inside it, the events, and every launch queued and
 synced (memsets and torch's fills counted). TREE as for `--stream`.
+
+    python3 tools/profile_kron_chain.py --apply-nd [TREE]
+
+traces K17's (norm, dense) apply (`kron_sparse_big.fused_apply_nd`) the
+same way at bench.py's (131072, 512) and at the reference NMT's five
+(norm, dense) layers under the default formats, with the host us of the
+entry and of its C call, CUDA events, and each launch queued and synced.
+TREE as for `--stream`.
 """
 from __future__ import annotations
 
@@ -100,7 +109,7 @@ from pathlib import Path
 
 if not any(a in sys.argv for a in ("--phases-child", "--dense-steps-child")):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
-if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"]) and len(sys.argv) > 2:
+if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"], ["--apply-nd"]) and len(sys.argv) > 2:
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
@@ -114,6 +123,10 @@ DENSE_N = [2, 400, 1536, 3841, 16384]
 # ranks and past it, the reference NMT's n, LeNet5's n
 SPLU_N = [(1 << 20, 10), (1 << 20, 32), (1 << 20, 33), (1 << 20, 64), (12_424_273, 10),
           (44_426, 10)]
+# --splu: K15's (n, r): bench.py:615's n, the tensor decomposition's, and past rank 32
+K15_N = [(1 << 16, 10), (400, 10), (400, 64)]
+# --apply-nd: bench.py:678-683's kron_nd row
+APPLY_ND = (131072, 512)
 
 
 def _kernels(trace_path, cats=("kernel",)):
@@ -558,12 +571,15 @@ def _splu() -> int:
                    lambda: splu_upd.fused_update_apply_mono(*fields(st), v, h, gr, 0.05), [], big)
         del st, v, h, gr
         torch.cuda.empty_cache()
-    for n in (1 << 16, 400):
-        st, (v, h, gr) = case(n, 10)
-        report(f"splu_one n={n} r=10 update+apply",
+    # K15's wrapper: the one launch where the tree has it, else the chain
+    k15 = getattr(splu_upd, "launch_mono", splu_upd.launch)
+    for n, r in K15_N:
+        st, (v, h, gr) = case(n, r)
+        report(f"splu_one n={n} r={r} update", lambda: splu.update(st, v, h, 0.05),
+               [(k15.__name__, lambda: k15("splu_one", *fields(st), v, h, 0.05))], False)
+        report(f"splu_one n={n} r={r} update+apply",
                lambda: splu.update_apply(st, v, h, gr, 0.05),
-               [("splu_upd.launch", lambda: splu_upd.launch("splu_one", *fields(st), v, h, 0.05,
-                                                            gr))], False)
+               [(k15.__name__, lambda: k15("splu_one", *fields(st), v, h, 0.05, gr))], False)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -599,6 +615,44 @@ def _splu() -> int:
     return 0
 
 
+def _apply_nd() -> int:
+    """--apply-nd: K17 (norm, dense) through `kron_sparse_big.fused_apply_nd`."""
+    import torch
+    from psgd_tf_tpu_torch import kron
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops.hopper import _build, kron_sparse_big as ksb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package {Path(ksb.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    ref = nmt.layer_shapes(nmt.ref_config())
+    shapes = [APPLY_ND] + [s for s in ref if kron.auto_format(s) == ("norm", "dense")]
+    summary = {}
+    for m, n in shapes:
+        ql = torch.stack([0.8 + 0.2 * torch.rand(m, generator=g, device=dev),
+                          0.05 * torch.randn(m, generator=g, device=dev)])
+        qr = torch.triu(0.02 / n**0.5 * torch.randn(n, n, generator=g, device=dev))
+        qr += 0.8 * torch.eye(n, device=dev)
+        G = torch.randn(m, n, generator=g, device=dev)
+        R = qr.T @ qr
+        big = m * n > 10**7
+        call = getattr(ksb, "_apply_nd_call", None)
+        inner = (lambda: call(ql, R, G)) if call else \
+            (lambda: ksb._apply("nd", ql, R, G, "kron_sparse_big_apply_nd"))
+        _report(torch, f"K17 nd {(m, n)}", lambda: ksb.fused_apply_nd(ql, qr, G),
+                [("C call", inner)], 20 if big else CALLS, 5 if big else TRACED, summary)
+        del ql, qr, G, R
+        torch.cuda.empty_cache()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -619,6 +673,8 @@ def main() -> int:
         return _dense()
     if sys.argv[1:2] == ["--splu"]:
         return _splu()
+    if sys.argv[1:2] == ["--apply-nd"]:
+        return _apply_nd()
     route = None
     if sys.argv[1:2] == ["--route"]:
         route = sys.argv[2]
