@@ -85,6 +85,24 @@ after:
     10, FD Hvp, lr 0.02), 10 steps, past K15's cap (K16); then K16, the
     fused apply entry and the one-launch kernel on that run's last state
     and probes;
+  - the NMT workload's corpus mode, `nmt_attention.run(data_path=...)`,
+    at the reference widths (embed 256, units 1024) on an 8,000-line
+    corpus in the spa-eng format written from a seed (Zipf-drawn words
+    over 9,400 Spanish and 4,900 English forms, both fitted vocabularies
+    past 512 words): one epoch of 100 steps (K10 x3, K6 x3, K2, K3), then
+    20 of its steps with the kernels and under `disabled()`, the first 3
+    losses held within 5e-4;
+  - LeNet5 on MNIST-sized IDX files (60,000 + 10,000 images rendered
+    from `synthetic_hard`, the train files gzipped): the native decoder
+    built with g++ and held against the Python decode, then
+    `mnist_lenet5.run(data_dir=...)`, 50 steps (K1, K3);
+  - checkpoint resume on the card (`utils.checkpoint`): 5 steps, save,
+    restore into a fresh init on the card, 5 more, against 10
+    uninterrupted steps, for LeNet5 under kron (K1, K3; its convolutions
+    with cuDNN's deterministic algorithms, the default's spread printed)
+    and the K4 path's NMT model (K4);
+  - the CLI: `python -m psgd_tf_tpu_torch list`, and `run hello_psgd
+    --set steps=120` on the card (K11) through `runpy`, as `-m` runs it;
   - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
     group at n = 2^20, r = 10, pipelined off and on, against K13, and the
     sharded K16 there against K16's fused apply, each timed;
@@ -114,10 +132,14 @@ line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 LENET_STEPS = 200
@@ -220,6 +242,12 @@ RANK_BENCH = (1 << 20, 64)
 RANK_DECOMP_STEPS = 20
 NMT_RANK = 64
 NMT_RANK_STEPS = 5
+# the staged-data paths (phases 17c-17f): a spa-eng-format corpus of 8,000
+# lines (one epoch of 100 steps at batch 64), a loss trace of 20 of its steps
+# each way, LeNet5 on MNIST-sized IDX files
+STAGED_NMT_LINES = 8000
+STAGED_NMT_TRACE = 20
+IDX_STEPS = 50
 
 
 def _rel(a, b) -> float:
@@ -590,16 +618,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
+    import numpy as np
+
     from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra, splu
-    from psgd_tf_tpu_torch.data import mnist, translation, xor
+    from psgd_tf_tpu_torch.data import mnist, native, spa_eng, translation, xor
     from psgd_tf_tpu_torch.models import lenet5, lstm, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import (_build, dense_big, dense_upd, kron_dd, kron_multi,
                                               kron_sparse, kron_sparse_big, lra_upd, splu_one,
                                               splu_upd, tri)
     from psgd_tf_tpu_torch.optim.psgd import KronPrecond
+    from psgd_tf_tpu_torch.utils import _tree, checkpoint
     from psgd_tf_tpu_torch.workloads import (all_preconditioners, hello_psgd, lstm_xor,
-                                             nmt_attention, rnn_xor_lra)
+                                             mnist_lenet5, nmt_attention, rnn_xor_lra)
+
+    # the staged files' writers the port's tests use (spa-eng-format
+    # corpora, MNIST's IDX files)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_staged_files import corpus_lines, write_idx
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2365,6 +2401,254 @@ def main() -> int:
               f"NMT reference {fam} rank {NMT_RANK}: one {name} launch a step, losses agree")
     torch.cuda.empty_cache()
 
+    # 17c. path: the NMT workload's corpus mode (`data_path`) at the
+    #      reference widths, on a generated corpus in the spa-eng format
+    #      (english<TAB>spanish, accents, '¿'/'¡', an attribution column on
+    #      some lines; Zipf-drawn words over the reference's vocabulary sizes):
+    #      8,000 lines, one epoch of 100 steps at batch 64, then a loss trace
+    #      of its first steps with the kernels and under disabled()
+    staged = tempfile.TemporaryDirectory(prefix="psgd_staged_")
+    corpus = os.path.join(staged.name, "spa.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write("\n".join(corpus_lines(17, STAGED_NMT_LINES, n_spa=9400, n_eng=4900)))
+    ds = spa_eng.load(corpus, num_examples=STAGED_NMT_LINES)
+    vocab = (len(ds.src_tok.word_index), len(ds.tgt_tok.word_index))
+    staged_cfg = nmt_attention.real_config(ds)
+    staged_shapes = nmt.layer_shapes(staged_cfg)
+    routes = [kron.route(f, s, dev) for f, s in zip(nmt_fmts, staged_shapes)]
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = nmt_attention.run(data_path=corpus, epochs=1, num_examples=STAGED_NMT_LINES, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(hopper.counts)
+    path_counts()
+    steps = out["steps"]
+
+    def staged_trace(n):
+        """The corpus run's first `n` steps, as `run()` takes them: (losses,
+        steps/s after NMT_REF_WARMUP on CUDA events)."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = nmt.init(gen, staged_cfg)
+        _, state, step = nmt_attention.optimizer(params, staged_cfg, 0.02, False, 0, None)
+        losses = []
+
+        def traced(*a):
+            if len(losses) == NMT_REF_WARMUP:
+                ev0.record()
+            res = step(*a)
+            losses.append(res[2]["loss"])
+            return res
+
+        order = itertools.islice(nmt_attention.batch_order(ds.src_train.shape[0], 64, 1, 0), n)
+        nmt_attention.train(traced, params, state, gen,
+                            torch.as_tensor(ds.src_train, dtype=torch.int64, device=dev),
+                            torch.as_tensor(ds.tgt_train, dtype=torch.int64, device=dev), order)
+        ev1.record()
+        ev1.synchronize()
+        return torch.stack(losses).cpu(), (n - NMT_REF_WARMUP) / (ev0.elapsed_time(ev1) / 1e3)
+
+    hopper.reset_counts()
+    k_losses, staged_rate = staged_trace(STAGED_NMT_TRACE)
+    path_counts()
+    with hopper.disabled():
+        p_losses, staged_plain_rate = staged_trace(STAGED_NMT_TRACE)
+    trace_rel = _rel(k_losses[:3], p_losses[:3])
+    print(f"nmt staged: corpus {STAGED_NMT_LINES} lines, vocabularies {vocab[0]} (spa) and "
+          f"{vocab[1]} (eng) words, model {tuple(staged_cfg)}, routes {routes}, {steps} steps, "
+          f"launches {({k: c for k, c in counts.items() if c})}, loss {out['loss']:.4f}, val "
+          f"loss {out['val_loss']:.4f}, val token accuracy {out['token_accuracy']:.4f}; "
+          f"run() {seconds:.1f} s (load, init, {steps} steps and val); the first 3 steps' "
+          f"losses differ from disabled()'s by {trace_rel:.3e} relative (tol "
+          f"{TOL_TRAJ:.0e}), {STAGED_NMT_TRACE} steps by {_rel(k_losses, p_losses):.3e}; "
+          f"{staged_rate:.2f} steps/s with kernels, {staged_plain_rate:.2f} under disabled()",
+          flush=True)
+    check(min(vocab) > 512, "NMT staged: both fitted vocabularies exceed 512 words")
+    check(routes == ["kron_sparse_big:ds", "kron_sparse_big:ns", "kron_sparse_big:ds", "kron_dd",
+                     "kron_sparse_big:ds", "kron_sparse_big:ns", "kron_sparse_big:ns"],
+          f"NMT staged routes {routes}")
+    check(steps == STAGED_NMT_LINES * 4 // 5 // 64, "NMT staged: one epoch of full batches")
+    per_step = {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
+                "tri": 4 - row_mono, "kron_mono": row_mono}
+    check(counts == {k: per_step.get(k, 0) * steps for k in counts},
+          f"NMT staged: launches per step {per_step} and no other")
+    check(math.isfinite(out["loss"]) and math.isfinite(out["val_loss"])
+          and 0.0 <= out["token_accuracy"] <= 1.0, "NMT staged: finite losses, accuracy in [0, 1]")
+    check(trace_rel < TOL_TRAJ, "NMT staged: kernel and plain losses agree over 3 steps")
+    check(vocab == (out["vocab_src"] - 1, out["vocab_tgt"] - 1), "NMT staged: run()'s vocabularies")
+    del ds
+
+    # 17d. path: LeNet5 on MNIST-sized IDX files: 60,000 + 10,000 images
+    #      rendered from synthetic_hard to uint8 (the train files gzipped),
+    #      decoded natively and in Python, then mnist_lenet5.run(data_dir=...)
+    idx_dir = pathlib.Path(staged.name, "mnist")
+    idx_dir.mkdir()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    t0 = time.perf_counter()
+    for split, n, gz in [("train", 60_000, True), ("t10k", 10_000, False)]:
+        x, y = mnist.synthetic_hard(gen, n)
+        write_idx(idx_dir, split, (x[..., 0] * 255.0).round().to(torch.uint8).cpu().numpy(),
+                  y.to(torch.uint8).cpu().numpy(), gz)
+    write_s = time.perf_counter() - t0
+    built = native.available()
+    check(built, "LeNet5 IDX: the native decoder builds (g++)")
+    t0 = time.perf_counter()
+    nat = mnist.load_idx(str(idx_dir))
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = mnist.load_idx_python(str(idx_dir))
+    py_s = time.perf_counter() - t0
+    # the native decode multiplies by the fp32 1/255, Python divides in fp64
+    # and rounds: at most one fp32 spacing apart
+    decode_err = max(float(np.abs(a - b).max()) for a, b in zip(nat, py))
+    same_shape = [a.shape for a in nat] == [a.shape for a in py] == [
+        (60_000, 28, 28, 1), (60_000,), (10_000, 28, 28, 1), (10_000,)]
+    check(built and same_shape and decode_err <= 6e-8 and np.array_equal(nat[1], py[1])
+          and np.array_equal(nat[3], py[3]), "LeNet5 IDX: native and Python decodes agree")
+    del nat, py
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = mnist_lenet5.run(data_dir=str(idx_dir), epochs=1, steps_per_epoch=IDX_STEPS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(hopper.counts)
+    path_counts()
+    print(f"lenet5 idx: wrote 70,000 images in {write_s:.1f} s; decode native {nat_s:.3f} s, "
+          f"Python {py_s:.3f} s, max diff {decode_err:.3e}, labels equal; run(data_dir) "
+          f"{IDX_STEPS} steps, launches {({k: c for k, c in counts.items() if c})}, loss "
+          f"{out['loss']:.4f}, best_test_error {out['best_test_error']:.4f} on the 10,000 t10k "
+          f"images (the 0.007 bar is for real MNIST), {seconds:.2f} s (decode, init, steps, "
+          f"eval)", flush=True)
+    check(counts["kron_multi"] == IDX_STEPS
+          and counts["tri"] == IDX_STEPS * (1 - lenet_mono)
+          and counts["kron_mono"] == IDX_STEPS * lenet_mono,
+          "LeNet5 IDX: K1 (with its K3, or its one launch) once per step")
+    check(math.isfinite(out["loss"]) and out["steps"] == IDX_STEPS, "LeNet5 IDX: finite loss")
+
+    # 17e. path: checkpoint resume on the card: 10 uninterrupted steps
+    #      against 5, save, restore into a fresh init on the card, 5 more;
+    #      LeNet5 under kron (K1, K3) and the K4 path's NMT (K4)
+    ckpt_dir = os.path.join(staged.name, "ckpt")
+
+    def lenet_case():
+        gen = torch.Generator(device=dev).manual_seed(29)
+        params = lenet5.init(gen)
+        opt = PSGD(preconditioner="kron", kron_formats=dd, lr_params=0.1, lr_preconditioner=0.1,
+                   grad_clip_max_norm=0.1 * math.sqrt(n_params))
+        return opt, params, gen, lambda gen: mnist.synthetic_hard(gen, 64), lenet5.loss
+
+    def k4_case():
+        gen = torch.Generator(device=dev).manual_seed(31)
+        params = nmt.init(gen, k4_cfg)
+        opt = PSGD(preconditioner="kron", lr_params=0.05, lr_preconditioner=0.05,
+                   grad_clip_max_norm=1.0)
+        batch = lambda gen: translation.random_tokens(gen, k4_cfg.vocab_src, k4_cfg.vocab_tgt)
+        return opt, params, gen, batch, nmt.loss
+
+    def walk(opt, params, state, gen, batch, loss, n):
+        for _ in range(n):
+            params, state, _ = opt.step(loss, params, state, gen, *batch(gen))
+        return params, state
+
+    def flat(tree):
+        return torch.cat([t.flatten().float() for t in _tree.tensors(tree)])
+
+    def spread(case):
+        """(the end of one uninterrupted 10-step run, the max abs difference
+        between two such runs)."""
+        ends = []
+        for _ in range(2):
+            opt, params, gen, batch, loss = case()
+            ends.append(flat(walk(opt, params, opt.init(params), gen, batch, loss, 10)))
+        return ends[0], (ends[0] - ends[1]).abs().max().item()
+
+    # LeNet5's convolutions take cuDNN's default algorithms, whose gradients
+    # need not repeat bit for bit: the resume is held with cuDNN's
+    # deterministic ones, and the default's spread is printed beside it
+    for name, case, counter, conv in [("lenet5 kron", lenet_case, "kron_multi", True),
+                                      ("nmt k4", k4_case, "kron_dd_batched", False)]:
+        hopper.reset_counts()
+        note = ""
+        if conv:
+            note = f"; with cuDNN's default algorithms two runs differ by {spread(case)[1]:.3e}"
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = conv or was
+        try:
+            end10, bound = spread(case)
+            opt, params, gen, batch, loss = case()
+            params, state = walk(opt, params, opt.init(params), gen, batch, loss, 5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(ckpt_dir, 5, {"params": params, "opt": state, "gen": gen},
+                            force=True)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = os.path.getsize(os.path.join(ckpt_dir, "5", "state.pt"))
+            _, like_params, like_gen, _, _ = case()
+            like = {"params": like_params, "opt": opt.init(like_params), "gen": like_gen}
+            t0 = time.perf_counter()
+            r = checkpoint.restore(ckpt_dir, like=like)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            on_card = all(t.device.type == "cuda" for t in _tree.tensors(r))
+            on_card = on_card and r["gen"].device.type == "cuda"
+            resumed = flat(walk(opt, r["params"], r["opt"], r["gen"], batch, loss, 5))
+        finally:
+            torch.cuda.synchronize()
+            torch.backends.cudnn.deterministic = was
+        err = (resumed - end10).abs().max().item()
+        counts = dict(hopper.counts)
+        path_counts()
+        stacked = isinstance(r["opt"].precond, KronPrecond)
+        print(f"checkpoint {name}: {resumed.numel()} values (params and state), resumed 5 + 5 "
+              f"steps against 10: max diff {err:.3e}; two uninterrupted runs differ by "
+              f"{bound:.3e}{' (cuDNN deterministic)' if conv else ''}{note}; save "
+              f"{save_ms:.1f} ms ({nbytes} bytes), restore onto the card {restore_ms:.1f} ms; "
+              f"stacked bucket {stacked}; launches {({k: c for k, c in counts.items() if c})}",
+              flush=True)
+        check(on_card and err <= bound and counts[counter] == (50 if conv else 30)
+              and (stacked == (counter == "kron_dd_batched")),
+              f"checkpoint {name}: the resumed run equals the uninterrupted one")
+
+    # 17f. the CLI: `python -m psgd_tf_tpu_torch list`, then `run hello_psgd
+    #      --set steps=120` on the card through the entry `python -m` takes
+    #      (runpy), reporting its launch counts on stderr
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    listed = subprocess.run([sys.executable, "-m", "psgd_tf_tpu_torch", "list"], cwd=root,
+                            env=env, capture_output=True, text=True, timeout=300)
+    list_s = time.perf_counter() - t0
+    names = [l.split(":")[0] for l in listed.stdout.strip().splitlines()]
+    wrapper = ("import atexit, json, runpy, sys\n"
+               "from psgd_tf_tpu_torch.ops import hopper\n"
+               "atexit.register(lambda: print('launches ' + json.dumps(hopper.counts), "
+               "file=sys.stderr))\n"
+               "runpy.run_module('psgd_tf_tpu_torch', run_name='__main__', alter_sys=True)\n")
+    t0 = time.perf_counter()
+    ran = subprocess.run([sys.executable, "-c", wrapper, "run", "hello_psgd", "--set", "steps=120"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    run_s = time.perf_counter() - t0
+    try:
+        result = json.loads(ran.stdout.strip().splitlines()[-1])
+        cli_counts = json.loads([l for l in ran.stderr.splitlines()
+                                 if l.startswith("launches ")][-1].split(" ", 1)[1])
+    except (IndexError, ValueError):
+        result, cli_counts = {}, {}
+    print(f"cli: list rc {listed.returncode} ({len(names)} workloads, {list_s:.1f} s); run "
+          f"hello_psgd --set steps=120 rc {ran.returncode}, result {result}, launches "
+          f"{({k: c for k, c in cli_counts.items() if c})} ({run_s:.1f} s, process start "
+          f"included)", flush=True)
+    check(listed.returncode == 0 and names == ["hello_psgd", "all_preconditioners",
+                                               "mnist_lenet5", "lstm_xor", "rnn_xor_lra",
+                                               "nmt_attention"], "cli: list")
+    check(ran.returncode in (0, 1) and result.get("steps") == 120
+          and ran.returncode == (0 if result.get("success") else 1)
+          and cli_counts.get("dense_upd") == 120,
+          f"cli: run hello_psgd on the card (K11 once a step); stderr {ran.stderr[-2000:]!r}")
+    staged.cleanup()
+
     # 18. S1: K14 on a one-rank NCCL group (the shard wrapper with no
     #     exchange) at n = 2^20, r = 10, update + apply, pipelined off and on,
     #     against its plain chain (the same call under disabled()) and K13
@@ -2450,10 +2734,14 @@ def main() -> int:
         s1_rank["k16"] = _time_ab(torch, hopper, lambda: splu_upd.fused_update_sharded(
             *fs, v, h, 0.05, mesh1, None, gr), 10)
         del st, fs, got, plain, ref
+        z = 2 * r + 2
+        k14_b = _bound(4 * (4 * r * n + 6 * n), 2 * 2 * z * z * n + 30 * r * n)  # as 8d's K13
+        k16s_b = _bound(*splu_work(n, r, apply=True))
         print(f"s1: past rank 32, n={n} r={r} on one NCCL rank: K14 and the sharded K16 max rel "
               f"err {rel:.3e} against their plain chains and K13/K16 (tol {TOL_K1:.0e}); update"
-              f"+apply K14 {s1_rank['k14'][0]:.4f} ms (plain {s1_rank['k14'][1]:.4f}), sharded "
-              f"K16 {s1_rank['k16'][0]:.4f} ms (plain {s1_rank['k16'][1]:.4f})", flush=True)
+              f"+apply K14 {s1_rank['k14'][0]:.4f} ms (plain {s1_rank['k14'][1]:.4f}, bound "
+              f"{k14_b[0]:.4f} ms ({k14_b[1]})), sharded K16 {s1_rank['k16'][0]:.4f} ms (plain "
+              f"{s1_rank['k16'][1]:.4f}, bound {k16s_b[0]:.4f} ms ({k16s_b[1]}))", flush=True)
         check(rel < TOL_K1, f"s1: K14 and the sharded K16 at r={r} vs plain and one process")
     finally:
         dist.destroy_process_group()

@@ -1,14 +1,20 @@
-"""MNIST-style 28x28 procedural digit data.
+"""MNIST-style 28x28 digit data: procedural sets and the IDX file reader.
 
-Counterpart of `psgd_tf_tpu/data/mnist.py` (`synthetic`, `synthetic_hard`):
-digits rendered from the same glyph bitmaps with the same augmentations,
-drawn from a `torch.Generator` on an explicit device. The random bits differ
-from JAX's, so the images differ; the distribution is the same.
+Counterpart of `psgd_tf_tpu/data/mnist.py`. `synthetic` and
+`synthetic_hard` render digits from the same glyph bitmaps with the same
+augmentations, drawn from a `torch.Generator` on an explicit device. The
+random bits differ from JAX's, so the images differ; the distribution is
+the same. Both return images (n, 28, 28, 1) float in [0, 1] (NHWC, as the
+JAX package) and int64 labels.
 
-Both return images (n, 28, 28, 1) float in [0, 1] (NHWC, as the JAX
-package) and int64 labels.
+`load_idx` reads MNIST's IDX files (plain or .gz) on the host into numpy,
+with the JAX package's arrays: images (n, 28, 28, 1) float32, int32 labels.
 """
 from __future__ import annotations
+
+import gzip
+import os
+import struct
 
 import numpy as np
 import torch
@@ -232,3 +238,59 @@ def synthetic_hard(generator: torch.Generator, n: int, dtype=torch.float32):
 
     imgs = torch.clamp(amp * imgs + ramp + noise, 0.0, 1.0).to(dtype)
     return imgs[..., None], labels
+
+
+def load_idx(data_dir: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Read staged MNIST idx(.gz) files: (x_train, y_train, x_test, y_test),
+    images (n, 28, 28, 1) float32 in [0, 1], int32 labels, numpy on the host.
+
+    Decodes with the native C++ decoder (`data.native`) when it builds;
+    otherwise, and on a file the native path refuses, with the Python path
+    below, which is also its oracle: both give the same arrays."""
+    from psgd_tf_tpu_torch.data import native
+
+    if native.available():
+        def pair(img_name, lab_name):
+            x = native.decode_idx_images(os.path.join(data_dir, img_name))
+            y = native.decode_idx_labels(os.path.join(data_dir, lab_name))
+            return x.reshape(-1, 28, 28, 1), y
+
+        try:
+            xtr, ytr = pair("train-images-idx3-ubyte", "train-labels-idx1-ubyte")
+            xte, yte = pair("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")
+            return xtr, ytr, xte, yte
+        except (FileNotFoundError, ValueError):
+            pass  # the Python path names the missing file or the bad magic
+    return load_idx_python(data_dir)
+
+
+def load_idx_python(data_dir: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """`load_idx`'s pure-Python decode."""
+    def _open(name):
+        for fname in (name, name + ".gz"):
+            path = os.path.join(data_dir, fname)
+            if os.path.exists(path):
+                return gzip.open(path, "rb") if fname.endswith(".gz") else open(path, "rb")
+        raise FileNotFoundError(f"{name}[.gz] not in {data_dir}")
+
+    def _images(name):
+        with _open(name) as f:
+            magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+            if magic != 2051:
+                raise ValueError(f"bad idx magic {magic}")
+            buf = np.frombuffer(f.read(n * rows * cols), dtype=np.uint8)
+        return (buf.reshape(n, rows, cols, 1) / 255.0).astype(np.float32)
+
+    def _labels(name):
+        with _open(name) as f:
+            magic, n = struct.unpack(">II", f.read(8))
+            if magic != 2049:
+                raise ValueError(f"bad idx magic {magic}")
+            return np.frombuffer(f.read(n), dtype=np.uint8).astype(np.int32)
+
+    return (
+        _images("train-images-idx3-ubyte"),
+        _labels("train-labels-idx1-ubyte"),
+        _images("t10k-images-idx3-ubyte"),
+        _labels("t10k-labels-idx1-ubyte"),
+    )

@@ -34,7 +34,10 @@ def test_import_leaves_jax_out():
         "psgd_tf_tpu_torch.workloads.nmt_attention, psgd_tf_tpu_torch.interop, "
         "psgd_tf_tpu_torch.workloads.hello_psgd, psgd_tf_tpu_torch.workloads.rnn_xor_lra, "
         "psgd_tf_tpu_torch.workloads.all_preconditioners, psgd_tf_tpu_torch.workloads.lstm_xor, "
-        "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big, psgd_tf_tpu_torch.parallel\n"
+        "psgd_tf_tpu_torch.ops.hopper.kron_sparse_big, psgd_tf_tpu_torch.parallel, "
+        "psgd_tf_tpu_torch.__main__, psgd_tf_tpu_torch.config, psgd_tf_tpu_torch.utils, "
+        "psgd_tf_tpu_torch.utils.checkpoint, psgd_tf_tpu_torch.workloads, "
+        "psgd_tf_tpu_torch.data.spa_eng, psgd_tf_tpu_torch.data.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'psgd_tf_tpu.'))"
         " or m == 'psgd_tf_tpu']\n"
         "assert not bad, bad\n"
@@ -1670,3 +1673,78 @@ def test_gemm_k_splits_sum_to_the_product(cuda, splits):
     band, _ = kron_dd.gemm(M, N, kb, a[kc:kc + kb].contiguous(), 1, b[kc:kc + kb].contiguous(), 0,
                            epi="triu")
     assert torch.equal(part[1], band)
+
+
+# --------------------------------------------------------------- staged data and resume
+
+def _k4_nmt_steps(params, state, opt, g, n):
+    from psgd_tf_tpu_torch.data import translation
+    from psgd_tf_tpu_torch.models import nmt
+
+    for _ in range(n):
+        src, tgt = translation.random_tokens(g, 1100, 1030)
+        params, state, _ = opt.step(nmt.loss, params, state, g, src, tgt)
+    return params, state
+
+
+def test_checkpoint_resume_of_a_k4_bucket(cuda, tmp_path):
+    """The NMT model at embed 16 / units 32 under PSGD's defaults (its four
+    (dense, dense) layers stacked: K4): 5 steps, save, restore into a fresh
+    init on the card, 5 more, against 10 uninterrupted steps. Bit-equal,
+    or within what two uninterrupted runs differ by."""
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.optim.psgd import KronPrecond
+    from psgd_tf_tpu_torch.utils import _tree, checkpoint
+
+    cfg = nmt.Config(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
+    opt = PSGD(preconditioner="kron", lr_params=0.05, lr_preconditioner=0.05,
+               grad_clip_max_norm=1.0)
+
+    def fresh():
+        g = torch.Generator(device=cuda).manual_seed(0)
+        params = nmt.init(g, cfg)
+        return params, opt.init(params), g
+
+    def flat(tree):
+        return torch.cat([t.flatten().float() for t in _tree.tensors(tree)])
+
+    runs = []
+    for _ in range(2):
+        params, state, g = fresh()
+        assert isinstance(state.precond, KronPrecond)
+        runs.append(flat(_k4_nmt_steps(params, state, opt, g, 10)))
+    bound = (runs[0] - runs[1]).abs().max().item()
+    params, state, g = fresh()
+    params, state = _k4_nmt_steps(params, state, opt, g, 5)
+    checkpoint.save(str(tmp_path), 5, {"params": params, "opt": state, "gen": g})
+    like_params, like_state, like_g = fresh()
+    r = checkpoint.restore(str(tmp_path), like={"params": like_params, "opt": like_state,
+                                                "gen": like_g})
+    assert r["params"][0].device.type == "cuda" and r["gen"].device.type == "cuda"
+    before = hopper.counts["kron_dd_batched"]
+    resumed = flat(_k4_nmt_steps(r["params"], r["opt"], opt, r["gen"], 5))
+    assert hopper.counts["kron_dd_batched"] == before + 5
+    assert (resumed - runs[0]).abs().max().item() <= bound
+
+
+def test_nmt_data_path_at_the_reference_widths(cuda, tmp_path):
+    """The corpus mode at embed 256 / units 1024 on a generated corpus whose
+    vocabularies pass 512: each update takes K10 x3, K6 x3 and K2."""
+    from psgd_tf_tpu_torch.data import spa_eng
+    from psgd_tf_tpu_torch.workloads import nmt_attention
+    from torch_staged_files import corpus_lines
+
+    path = tmp_path / "spa.txt"
+    path.write_text("\n".join(corpus_lines(3, 1000, n_spa=9400, n_eng=4900)), encoding="utf-8")
+    ds = spa_eng.load(str(path), num_examples=None)
+    assert min(ds.src_tok.vocab_size, ds.tgt_tok.vocab_size) > 513
+    hopper.reset_counts()
+    out = nmt_attention.run(data_path=str(path), epochs=1, num_examples=None, device=cuda)
+    steps = ds.src_train.shape[0] // 64
+    assert out["steps"] == steps
+    assert hopper.counts["kron_sparse_big_ds"] == 3 * steps
+    assert hopper.counts["kron_sparse_big_ns"] == 3 * steps
+    assert hopper.counts["kron_dd"] == steps
+    assert np.isfinite(out["loss"]) and np.isfinite(out["val_loss"])
+    assert 0.0 <= out["token_accuracy"] <= 1.0

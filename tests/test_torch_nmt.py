@@ -234,11 +234,14 @@ def test_reference_width_tokens_stay_in_their_vocabularies():
     assert int(tgt.min()) >= 3 and int(tgt.max()) < 4935
 
 
-def test_workload_refuses_what_it_cannot_run():
+def test_workload_refuses_what_it_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="vocab_tgt"):
         nmt_attention.run(steps=1, cfg=nmt.ref_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="corpus"):
-        nmt_attention.run(data_path="spa-eng.zip", device="cpu")
+    # the corpus mode refuses the synthetic knobs and a missing corpus, as JAX
+    with pytest.raises(ValueError, match="synthetic task only"):
+        nmt_attention.run(data_path="spa-eng.zip", steps=20, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        nmt_attention.run(data_path=str(tmp_path / "spa-eng.zip"), device="cpu")
 
 
 @pytest.mark.parametrize("exact_hvp", [False, True], ids=["fd", "exact"])
