@@ -115,7 +115,15 @@ after:
     the NMT model at the reference widths on mesh (data=1, shard=2) under
     lra (10 steps: K14) and splu (5 steps: the sharded K16), each against
     the same run in one process; then the toy NMT workload on
-    (data=2, shard=1), 20 steps against `run()` (K1, the batch over data).
+    (data=2, shard=1), 20 steps against `run()` (K1, the batch over data);
+  - S4, tensor-parallel parameters (`build_sharded_step(param_specs=...)`)
+    on those ranks: the same model with its embeddings and RNN weights
+    split over shard (7,345,408 of its parameters; each rank holds and
+    returns its slices), under kron with the hand formats (K10 x3, K6 x3,
+    K2, K3 a step on each rank) and lra (K14), 10 steps each, against the
+    same steps in one process; the payload of the collectives per step by
+    axis beside `overlap.comm_model`'s, and steps/s with the split and
+    without it.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. TF32 is off for matmuls and convolutions, so every comparison
@@ -132,6 +140,7 @@ line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -219,6 +228,13 @@ SHARD_NMT_STEPS = 20
 # the sharded step's last state against one process's, per family
 SHARD_FIELDS = {"lra": ("UV", "d"), "splu": ("Lt", "l3", "U12", "u3")}
 TOL_SHARD_NMT = 5e-4
+# S4, tensor-parallel parameters on the same ranks: the reference NMT's
+# embeddings and RNN weights split over `shard` (7,345,408 of its 12,424,273
+# parameters); attention and the fc (1025, 4935), which shard = 2 divides
+# on neither side, replicate. kron (the hand formats) and lra, rank 10
+TP_SPECS = [("shard", None), (None, "shard"), None, None, (None, "shard"), (None, "shard"), None]
+TP_STEPS = 10
+TP_FIELDS = {"kron": ("ql", "qr"), "lra": ("UV", "d")}
 WORKER_TIMEOUT = 600
 # the unrouted Kronecker kernels (K17-K20) beyond the paths' shapes: the
 # (norm, scale) apply at bench.py's (65536, 8192) kron_ns row, the wide
@@ -444,22 +460,26 @@ def _spawn(job, world, *args):
     return [out[r] for r in range(world)]
 
 
-def _nmt_ref_run(fam, steps, mesh=None, rank=10):
+def _nmt_ref_run(fam, steps, mesh=None, rank=10, specs=None, around=contextlib.nullcontext):
     """`steps` steps of the NMT model at the reference widths under `fam`
-    (rank 10 unless given), FD Hvp, random ids, batch 64, lr 0.02, clip 1.0,
-    from seed 0:
-    with a mesh through `build_sharded_step`, else `PSGD.step` on card 0.
+    (rank 10 unless given; kron with the reference's hand formats), FD Hvp,
+    random ids, batch 64, lr 0.02, clip 1.0, from seed 0:
+    with a mesh through `build_sharded_step` (with `specs` as its
+    tensor-parallel `param_specs`: the step takes and returns this rank's
+    slices), else `PSGD.step` on card 0; `around()` is a context entered
+    for the steps alone.
     Returns (losses, the launch counts of the run, steps/s after two, the
     parameters' change over the run as one flat vector, the largest
     |parameter| at the start, the last state: this rank's slice of it with
-    a mesh)."""
+    a mesh, the shapes of the parameters the last step returned)."""
     import torch
 
     from psgd_tf_tpu_torch import PSGD
     from psgd_tf_tpu_torch.data import translation
     from psgd_tf_tpu_torch.models import nmt
     from psgd_tf_tpu_torch.ops import hopper
-    from psgd_tf_tpu_torch.parallel import build_sharded_step, shard_state
+    from psgd_tf_tpu_torch.parallel import (build_sharded_step, gather_params, shard_params,
+                                            shard_state)
 
     dev = mesh.device if mesh is not None else torch.device("cuda")
     cfg = nmt.ref_config()
@@ -467,28 +487,182 @@ def _nmt_ref_run(fam, steps, mesh=None, rank=10):
     params = nmt.init(gen, cfg)
     first = torch.cat([p.flatten() for p in params])
     opt = PSGD(preconditioner=fam, rank=rank, lr_params=0.02, lr_preconditioner=0.02,
-               grad_clip_max_norm=1.0, exact_hessian_vector_product=False)
+               grad_clip_max_norm=1.0, exact_hessian_vector_product=False,
+               kron_formats=nmt.kron_formats(cfg))
     state = opt.init(params)
     if mesh is not None:
-        step = build_sharded_step(opt, nmt.loss, mesh, state, params)
+        step = build_sharded_step(opt, nmt.loss, mesh, state, params, param_specs=specs)
         state = shard_state(mesh, state)
+        if specs is not None:
+            params = shard_params(mesh, params, specs)
     else:
         step = lambda *a: opt.step(nmt.loss, *a)
     batches = [translation.random_tokens(gen, cfg.vocab_src, cfg.vocab_tgt) for _ in range(steps)]
     losses = []
     torch.cuda.synchronize()
     hopper.reset_counts()
-    for i, (src, tgt) in enumerate(batches):
-        if i == 2:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        params, state, aux = step(params, state, gen, src, tgt)
-        losses.append(aux["loss"])
-    torch.cuda.synchronize()
+    with around():
+        for i, (src, tgt) in enumerate(batches):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            params, state, aux = step(params, state, gen, src, tgt)
+            losses.append(aux["loss"])
+        torch.cuda.synchronize()
     rate = (steps - 2) / (time.perf_counter() - t0)
     counts = dict(hopper.counts)
+    shapes = [tuple(p.shape) for p in params]
+    if specs is not None:
+        params = gather_params(mesh, params, specs)
     delta = torch.cat([p.flatten() for p in params]) - first
-    return [float(x) for x in losses], counts, rate, delta, first.abs().max().item(), state
+    return ([float(x) for x in losses], counts, rate, delta, first.abs().max().item(), state,
+            shapes)
+
+
+def _s4(rank, mesh, out):
+    """S4 on one of the two gloo ranks of `_sharded_job`: the reference NMT
+    with TP_SPECS (this rank holds its slices of the split leaves), under
+    kron and lra, against the same steps in one process on rank 0 as in S3;
+    kron also on the mesh without specs (S3 runs lra so). The collectives
+    are counted by axis: the elements a rank receives in the gathers of
+    split leaves (`all_gather_dims`) and all-reduces over `data`
+    (`data_mean`, the loss aside), and the flat family's rank-space
+    all-reduces and lane gathers (P g) over `shard`. Fills out["tp_kron_rep"],
+    out["tp_kron"] and out["tp_lra"]."""
+    import torch
+
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.parallel import _collectives, overlap, policies
+
+    moved = {}
+    real = {k: getattr(_collectives, k) for k in ("all_gather_dims", "data_mean", "psum",
+                                                   "pmax", "psum_async", "all_gather_lanes")}
+
+    def counting(key, name, size_of):
+        def call(*a, **k):
+            moved[key] = moved.get(key, 0) + size_of(*a)
+            return real[name](*a, **k)
+        return call
+
+    counters = {
+        "all_gather_dims": counting("shard, split leaves", "all_gather_dims",
+                                    lambda xs, dims, grp, size, rk: (size - 1) * sum(
+                                        x.numel() for x in xs)),
+        "data_mean": counting("data", "data_mean", lambda m, ts: 0 if m is None or m.data == 1
+                              else sum(t.numel() for t in ts[1:])),
+        "psum": counting("shard, rank space", "psum", lambda x, grp, size: x.numel()),
+        "pmax": counting("shard, rank space", "pmax", lambda x, grp, size: x.numel()),
+        "psum_async": counting("shard, rank space", "psum_async", lambda x, grp, size, op=None:
+                               x.numel()),
+        "all_gather_lanes": counting("shard, lanes", "all_gather_lanes",
+                                     lambda x, grp, size, rk: (size - 1) * x.numel())}
+
+    @contextlib.contextmanager
+    def counted():
+        for name, fn in counters.items():
+            setattr(_collectives, name, fn)
+        try:
+            yield
+        finally:
+            for name, fn in real.items():
+                setattr(_collectives, name, fn)
+
+    rep = _nmt_ref_run("kron", TP_STEPS, mesh)
+    out["tp_kron_rep"] = dict(losses=rep[0], counts=rep[1], rate=rep[2])
+    del rep
+    torch.cuda.empty_cache()
+    shapes_ref = nmt.layer_shapes(nmt.ref_config())
+    for fam, fields in TP_FIELDS.items():
+        moved.clear()
+        losses, counts, rate, delta, p_max, local, shapes = _nmt_ref_run(
+            fam, TP_STEPS, mesh, specs=TP_SPECS, around=counted)
+        full = policies.gather_state(mesh, local, delta.numel()).precond
+        del local
+        res = dict(losses=losses, counts=counts, rate=rate, shapes=shapes,
+                   moved={k: 4 * v / TP_STEPS for k, v in moved.items()},
+                   model=overlap.comm_model(fam, rank=10, param_shapes=shapes_ref,
+                                            param_specs=TP_SPECS,
+                                            mesh_shape={"data": mesh.data, "shard": mesh.shard}))
+        if rank == 0:
+            torch.cuda.empty_cache()
+            ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state, _ = _nmt_ref_run(
+                fam, TP_STEPS)
+            spacing = 2.0 ** math.ceil(math.log2(p_max)) * torch.finfo(torch.float32).eps
+            pairs = (list(zip(full, ref_state.precond)) if fam == "kron"
+                     else [(full, ref_state.precond)])
+            res.update(ref=(ref_losses, ref_counts, ref_rate), delta_err=_abs(delta, ref_delta),
+                       delta_tol=TP_STEPS * spacing, delta_max=ref_delta.abs().max().item(),
+                       state_rel=max(_rel(getattr(a, f), getattr(b, f))
+                                     for a, b in pairs for f in fields))
+            del ref_delta, ref_state
+        out[f"tp_{fam}"] = res
+        del delta, full
+        torch.cuda.empty_cache()
+
+
+def _s4_report(torch, ranks, check, launches, smi):
+    """Prints S4's results from `_sharded_job`'s ranks, checks them and adds
+    their launches to `launches`. With data = 1 a rank's gradient and Hvp
+    are already the means: the step gathers the split parameters alone, one
+    of the three gathers a split leaf that comm_model charges a mesh with
+    data > 1."""
+    from psgd_tf_tpu_torch.models import nmt
+
+    r0 = ranks[0]
+    for r in ranks:
+        for name, n in r["tp_kron_rep"]["counts"].items():
+            launches[name] += n
+    tp_ranks = {fam: [r[f"tp_{fam}"] for r in ranks] for fam in TP_FIELDS}
+    tp_shapes = [tuple(d // 2 if spec is not None and spec[k] == "shard" else d
+                       for k, d in enumerate(shape))
+                 for shape, spec in zip(nmt.layer_shapes(nmt.ref_config()), TP_SPECS)]
+    per_step = {"kron": {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1},
+                "lra": {"lra_upd_sharded": 1}}
+    for fam, res_ranks in tp_ranks.items():
+        res = res_ranks[0]
+        losses, ref, model, moved = res["losses"], res["ref"], res["model"], res["moved"]
+        counts = [r["counts"] for r in res_ranks]
+        for c in counts:
+            for name, n in c.items():
+                launches[name] += n
+        trace = _rel(torch.tensor(losses), torch.tensor(ref[0]))
+        no_tp = r0["tp_kron_rep"]["rate"] if fam == "kron" else r0["nmt_lra"]["rate"]
+        split_bytes = model["tp_gather_bytes_per_step"] / 3
+        print(f"s4: NMT reference widths, {fam}, {len(TP_SPECS) - TP_SPECS.count(None)} of 7 "
+              f"leaves split over shard ({model['n_params']} parameters; each rank holds "
+              f"{sum(math.prod(s) for s, sp in zip(tp_shapes, TP_SPECS) if sp)} elements of the "
+              f"split ones), mesh (data=1, shard=2), {TP_STEPS} steps: "
+              f"launches per rank {[({k: v for k, v in c.items() if v}) for c in counts]}; "
+              f"returned slices {res['shapes']}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"against one process: loss trace max rel diff {trace:.3e}, {fam} state max rel "
+              f"diff {res['state_rel']:.3e} (tol {TOL_TRAJ:.0e} each), parameter change max abs "
+              f"diff {res['delta_err']:.3e} (tol {res['delta_tol']:.3e}; the largest change "
+              f"{res['delta_max']:.3e})", flush=True)
+        print(f"s4: {fam} payload per step and rank, bytes: {moved}; comm_model "
+              f"(data=1, shard=2): dp_bytes_per_step "
+              f"{model['dp_bytes_per_step']}, tp_gather_bytes_per_step "
+              f"{model['tp_gather_bytes_per_step']} (the parameters' gather alone "
+              f"{split_bytes:.0f}), shard_bytes_per_step {model['shard_bytes_per_step']}; "
+              f"{res['rate']:.2f} steps/s with TP, {no_tp:.2f} on the same mesh without "
+              f"({'the replicated kron run' if fam == 'kron' else 'S3'}), {ref[2]:.2f} in one "
+              f"process; {smi}", flush=True)
+        want = {k: n * TP_STEPS for k, n in per_step[fam].items()}
+        if fam == "kron":
+            rep_trace = _rel(torch.tensor(r0["tp_kron_rep"]["losses"]), torch.tensor(ref[0]))
+            print(f"s4: kron on the same mesh without specs: loss trace max rel diff against "
+                  f"one process {rep_trace:.3e} (tol {TOL_TRAJ:.0e})", flush=True)
+            check(rep_trace <= TOL_TRAJ and all(r["tp_kron_rep"]["counts"] == ref[1]
+                                                for r in ranks),
+                  "s4: the replicated kron step on the mesh: its launches and trace")
+        check(all({k: c[k] for k in want} == want for c in counts)
+              and (fam != "kron" or all(c == ref[1] for c in counts)),
+              f"s4: the TP {fam} step's launches on each rank ({want}, as in one process)")
+        check(max(trace, res["state_rel"]) <= TOL_TRAJ and res["delta_err"] <= res["delta_tol"]
+              and all(r["losses"] == losses for r in res_ranks)
+              and all(r["shapes"] == tp_shapes for r in res_ranks)
+              and moved.get("shard, split leaves") == split_bytes and not moved.get("data"),
+              f"s4: the TP {fam} step: the trace, the parameters and the state as in one "
+              f"process, the returned slices and one gather of the split parameters a step")
 
 
 def _sharded_job(rank, world):
@@ -496,14 +670,16 @@ def _sharded_job(rank, world):
     sharded K16 against their plain chains with the same reductions and
     against the single-process kernels (S2), the sharded step at the
     reference widths under lra and splu against the same run in one
-    process, which rank 0 makes after the sharded one (S3), and the toy
-    NMT workload with its batch over `data`."""
+    process, which rank 0 makes after the sharded one (S3), the same with
+    tensor-parallel parameters under kron and lra (S4), and the toy NMT
+    workload with its batch over `data`."""
     import torch
 
     from psgd_tf_tpu_torch.groups import lra, splu
+    from psgd_tf_tpu_torch.models import nmt
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import lra_upd, splu_upd
-    from psgd_tf_tpu_torch.parallel import make_mesh, policies
+    from psgd_tf_tpu_torch.parallel import _collectives, make_mesh, overlap, policies
     from psgd_tf_tpu_torch.workloads import nmt_attention
 
     mesh = make_mesh(data=1, shard=world, device="cuda:0")
@@ -589,13 +765,13 @@ def _sharded_job(rank, world):
     # parameter changes may differ by up to a spacing of fp32 at the
     # largest |p| a step (two roundings of half a spacing), and little else.
     for fam, steps in (("lra", SHARD_LRA_STEPS), ("splu", SHARD_SPLU_STEPS)):
-        losses, counts, rate, delta, p_max, local = _nmt_ref_run(fam, steps, mesh)
+        losses, counts, rate, delta, p_max, local, _ = _nmt_ref_run(fam, steps, mesh)
         full = policies.gather_state(mesh, local, delta.numel()).precond
         del local
         res = dict(losses=losses, counts=counts, rate=rate)
         if rank == 0:
             torch.cuda.empty_cache()
-            ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state = _nmt_ref_run(fam, steps)
+            ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state, _ = _nmt_ref_run(fam, steps)
             spacing = 2.0 ** math.ceil(math.log2(p_max)) * torch.finfo(torch.float32).eps
             res.update(ref=(ref_losses, ref_counts, ref_rate), delta_err=_abs(delta, ref_delta),
                        delta_tol=steps * spacing, delta_max=ref_delta.abs().max().item(),
@@ -605,6 +781,7 @@ def _sharded_job(rank, world):
         out[f"nmt_{fam}"] = res
         del delta, full
         torch.cuda.empty_cache()
+    _s4(rank, mesh, out)
     dp = make_mesh(data=world, shard=1, device="cuda:0")
     hopper.reset_counts()
     out["toy_dp"] = nmt_attention.run(steps=SHARD_NMT_STEPS, mesh=dp)
@@ -2384,13 +2561,13 @@ def main() -> int:
     #      steps under disabled()
     for fam, name in [("lra", "lra_upd"), ("splu", "splu_upd")]:
         torch.cuda.empty_cache()
-        losses, counts, rate, _, _, last = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
+        losses, counts, rate, _, _, last, _ = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
         path_counts()
         n_state = (last.precond.UV if fam == "lra" else last.precond.Lt).shape[1]
         del last
         torch.cuda.empty_cache()
         with hopper.disabled():
-            plain_losses, _, plain_rate, _, _, _ = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
+            plain_losses, _, plain_rate, *_ = _nmt_ref_run(fam, NMT_RANK_STEPS, rank=NMT_RANK)
         loss_rel = _rel(torch.tensor(losses), torch.tensor(plain_losses))
         print(f"nmt ref {fam} rank {NMT_RANK}: n={n_state}, {NMT_RANK_STEPS} steps, launches "
               f"{({k: c for k, c in counts.items() if c})}, loss {losses[0]:.4f} -> "
@@ -2747,15 +2924,16 @@ def main() -> int:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # 19. S2 and S3 on two gloo ranks sharing the card: K14 and the sharded
+    # 19. S2-S4 on two gloo ranks sharing the card: K14 and the sharded
     #     K16 against the single-process kernels; the sharded step at the
-    #     reference widths (lra, then splu) against the single-process runs
+    #     reference widths (lra, then splu; then kron and lra with
+    #     tensor-parallel parameters) against the single-process runs
     #     below; the toy NMT workload with its batch over `data`
     ref_toy = nmt_attention.run(steps=SHARD_NMT_STEPS, device=dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = _spawn(_sharded_job, 2)
-    print(f"s2/s3: two gloo ranks sharing the card ({ranks[0]['backend']}: all_reduce takes "
+    print(f"s2-s4: two gloo ranks sharing the card ({ranks[0]['backend']}: all_reduce takes "
           f"the CUDA tensors; the ring's send/recv hops stage their payload through host "
           f"memory), {time.perf_counter() - t0:.1f} s", flush=True)
     r0 = ranks[0]
@@ -2800,6 +2978,7 @@ def main() -> int:
               and all(r[f"nmt_{fam}"]["losses"] == losses for r in ranks),
               f"s3: the sharded {fam} step: one {name} launch a step on each rank, the trace, "
               f"the parameters and the state as in one process")
+    _s4_report(torch, ranks, check, launches, smi)
     toy = r0["toy_dp"]
     toy_err = max(abs(toy[k] - ref_toy[k]) for k in ("loss", "first_loss", "token_accuracy"))
     path_launch = {k: v for k, v in r0["toy_dp_counts"].items() if v}

@@ -59,6 +59,9 @@ flat families hold their rank-local slice of the state and call the
 sharded wrappers, which all-reduce over `mesh`'s `shard` group. Dense and
 Kronecker states replicate: every rank runs the same kernel on its full
 copy, with no wrapper (JAX's `replicated_call` has nothing to do here).
+`sharding(mesh, param_specs)` also carries the tensor-parallel specs of
+`parallel.build_sharded_step` to the optimizer's all-reduce over `data`
+(`param_specs()`).
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ counts: dict[str, int] = {
 }
 _disabled_depth = 0
 _shard_mesh = None
+_shard_specs = None
 
 
 def reset_counts() -> None:
@@ -96,22 +100,29 @@ def disabled():
 
 
 @contextlib.contextmanager
-def sharding(mesh):
+def sharding(mesh, param_specs=None):
     """Run the flat families sharded over `mesh` (a `parallel.Mesh`) inside
     this context: their states are rank-local slices (`parallel.shard_state`)
-    and their rank-space reductions all-reduce over `mesh`'s shard group."""
-    global _shard_mesh
-    prev = _shard_mesh
-    _shard_mesh = mesh
+    and their rank-space reductions all-reduce over `mesh`'s shard group.
+    `param_specs`, aligned with the parameters the step takes, names the
+    leaves split over `shard` (`parallel.policies.shard_params`)."""
+    global _shard_mesh, _shard_specs
+    prev = _shard_mesh, _shard_specs
+    _shard_mesh, _shard_specs = mesh, param_specs
     try:
         yield
     finally:
-        _shard_mesh = prev
+        _shard_mesh, _shard_specs = prev
 
 
 def shard_ctx():
     """The active mesh of `sharding()`, or None."""
     return _shard_mesh
+
+
+def param_specs():
+    """The tensor-parallel parameter specs of `sharding()`, or None."""
+    return _shard_specs
 
 
 def use_kernel(x: torch.Tensor | torch.device | str) -> bool:

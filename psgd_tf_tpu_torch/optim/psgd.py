@@ -35,9 +35,12 @@ the loss, gradients and Hvps are averaged over the mesh's `data` ranks in
 one all-reduce, and a flat family's state is this rank's slice: every rank
 draws the full probe from its identically seeded generator and takes its
 slice, the family updates and applies on the slice, and P g is gathered to
-full length over `shard`. The parameters replicate. The coins come from
-CPU generators seeded alike on every rank, so every rank branches alike.
-The Kronecker states replicate and their step does not change.
+full length over `shard`. The parameters are full inside the step; under
+tensor-parallel specs (`hopper.sharding(mesh, param_specs)`) only the
+split leaves' slices are averaged over `data` and the means gathered back.
+The coins come from CPU generators seeded alike on every rank, so every
+rank branches alike. The Kronecker states replicate and their step does
+not change.
 """
 from __future__ import annotations
 
@@ -363,17 +366,26 @@ class PSGD:
 
 def _data_mean(loss, grads, hvs=None):
     """(loss, grads, hvs) averaged over the data ranks of the sharding
-    context's mesh, in one all-reduce; as they are outside it."""
+    context's mesh, in one all-reduce; as they are outside it. Under
+    tensor-parallel specs (`hopper.param_specs()`) the all-reduce carries
+    this rank's slice of each split gradient and Hvp, and one gather over
+    `shard` joins the means."""
     mesh = hopper.shard_ctx()
     if mesh is None or mesh.data == 1:
         return loss, grads, hvs
-    from psgd_tf_tpu_torch.parallel import _collectives
+    from psgd_tf_tpu_torch.parallel import _collectives, policies  # late: policies imports this
 
-    grads = list(grads)
-    extra = list(hvs) if hvs is not None else []
-    out = _collectives.data_mean(mesh, [loss] + grads + extra)
     k = len(grads)
-    return out[0], out[1:1 + k], (out[1 + k:] if hvs is not None else None)
+    leaves = list(grads) + (list(hvs) if hvs is not None else [])
+    specs = hopper.param_specs()
+    if specs is not None:
+        specs = list(specs) * (len(leaves) // k)
+        leaves = policies.shard_params(mesh, leaves, specs)
+    out = _collectives.data_mean(mesh, [loss] + leaves)
+    loss, leaves = out[0], out[1:]
+    if specs is not None:
+        leaves = policies.gather_params(mesh, leaves, specs)
+    return loss, leaves[:k], (leaves[k:] if hvs is not None else None)
 
 
 def _matrix_shape(shape: Sequence[int]) -> tuple[int, int]:

@@ -5,16 +5,19 @@ group of a `parallel.Mesh`:
 
   psum, pmax         all-reduce (sum, max) of a tensor, in place on a copy
   all_gather_lanes   the ranks' equal-length slices, concatenated in rank order
+  all_gather_dims    the ranks' slices of several tensors, each concatenated
+                     along its own axis, in one collective
   ring_hop           one hop of a ring: send to the next rank, receive from
                      the previous one
   data_mean          one all-reduce of the loss, gradients and Hvps over `data`
 
 A group of one rank returns its input and calls nothing. Under gloo a CUDA
 tensor goes to `all_reduce` as it is (gloo takes CUDA tensors there), and
-`all_gather_lanes` is an all-reduce of a zero-filled full vector, so it
-needs nothing else. gloo has no send/recv for CUDA tensors: `ring_hop`
-stages that hop's payload alone through host memory (a rank-space Gram,
-a few KB). A kernel's input or output never moves to the host.
+`all_gather_lanes` and `all_gather_dims` are an all-reduce of a
+zero-filled full buffer, so they need nothing else. gloo has no send/recv
+for CUDA tensors: `ring_hop` stages that hop's payload alone through host
+memory (a rank-space Gram, a few KB). A kernel's input or output never
+moves to the host.
 """
 from __future__ import annotations
 
@@ -62,6 +65,10 @@ def all_gather_lanes(x: torch.Tensor, group, size: int, rank: int) -> torch.Tens
     """(size * len(x),): every rank's 1-D `x`, in rank order."""
     if size == 1:
         return x
+    return _gather_flat(x, group, size, rank)
+
+
+def _gather_flat(x: torch.Tensor, group, size: int, rank: int) -> torch.Tensor:
     k = x.shape[0]
     if dist.get_backend(group) == "nccl":
         out = x.new_empty(size * k)
@@ -70,6 +77,23 @@ def all_gather_lanes(x: torch.Tensor, group, size: int, rank: int) -> torch.Tens
     out = x.new_zeros(size * k)
     out[rank * k:(rank + 1) * k] = x
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_gather_dims(xs: list[torch.Tensor], dims: list[int], group, size: int,
+                    rank: int) -> list[torch.Tensor]:
+    """[every rank's xs[i], concatenated along axis dims[i] in rank order],
+    in one collective: the tensors travel raveled in one buffer, and each
+    rank receives (size - 1) * sum(x.numel()) elements of it."""
+    if size == 1 or not xs:
+        return list(xs)
+    sizes = [x.numel() for x in xs]
+    flat = _gather_flat(torch.cat([x.reshape(-1) for x in xs]), group, size, rank)
+    rows = flat.reshape(size, -1).split(sizes, 1)
+    out = []
+    for x, d, r in zip(xs, dims, rows):
+        full = r.reshape((size,) + x.shape).movedim(0, d)  # (..., size, x.shape[d], ...)
+        out.append(full.reshape(x.shape[:d] + (size * x.shape[d],) + x.shape[d + 1:]))
     return out
 
 

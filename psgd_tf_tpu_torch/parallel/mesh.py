@@ -4,7 +4,8 @@ Counterpart of `psgd_tf_tpu/parallel/mesh.py:19-46`. Axes:
   data  - batch parallelism: the loss, gradients and Hvps all-reduce here;
   shard - preconditioner-state partitioning: the lanes of the flat
           families' states; the rank-space Grams and max-abs step
-          normalizers all-reduce here.
+          normalizers all-reduce here; tensor-parallel parameters split
+          and gather here.
 
 Ranks lie on the mesh as JAX lays devices: rank i is at data coordinate
 i // shard and shard coordinate i % shard. `make_mesh` runs inside an
@@ -46,6 +47,10 @@ class Mesh:
 
     def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         return _collectives.all_gather_lanes(x, self.shard_group, self.shard, self.shard_rank)
+
+    def all_gather_dims(self, xs: list[torch.Tensor], dims: list[int]) -> list[torch.Tensor]:
+        return _collectives.all_gather_dims(xs, dims, self.shard_group, self.shard,
+                                            self.shard_rank)
 
 
 def make_mesh(data: int | None = None, shard: int = 1, backend: str | None = None,

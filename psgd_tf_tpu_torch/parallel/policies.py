@@ -12,7 +12,10 @@ placement per family:
   lra    : the columns of UV and d over `shard`.
   kron   : every factor replicates (a list of KronStates or a KronPrecond).
 
-Parameters replicate and batches shard their leading axis over `data`.
+Parameters replicate unless `build_sharded_step`'s `param_specs` split
+them over `shard` (`shard_params`, `gather_params`: the counterpart of
+the JAX step's `NamedSharding` placement of the parameters), and batches
+shard their leading axis over `data`.
 Torch has no `NamedSharding`: `precond_sharding` returns the same structure
 with a placement spec in each field, as a tuple in the JAX package's
 `PartitionSpec` order (`()` replicated, `("shard",)` lanes, `(None,
@@ -180,3 +183,62 @@ def gather_vec(mesh, precond, y: torch.Tensor, n: int) -> torch.Tensor:
         mod = xmat if isinstance(precond, xmat.XMatState) else shift
         return mod._unfold(_gather(mesh, yf, n // 2), yc[None] if precond.odd else None)
     return y
+
+
+# ------------------------------------------------------------ tensor-parallel parameters
+
+def _spec_axis(spec, ndim: int) -> int | None:
+    """The axis that `spec` splits over `shard`, or None (replicated).
+    `spec` is None or a tuple in `PartitionSpec` order whose entries are
+    None or "shard"."""
+    if spec is None:
+        return None
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} names {len(spec)} axes of a {ndim}-D parameter")
+    if "data" in spec:
+        raise NotImplementedError(f"spec {spec} splits a parameter over data: not ported "
+                                  "(ROADMAP queue 1 item 6, parameters over data)")
+    if any(entry not in (None, "shard") for entry in spec):
+        raise ValueError(f"spec {spec}: each entry is None or 'shard'")
+    if spec.count("shard") > 1:
+        raise ValueError(f"spec {spec} names 'shard' on more than one axis")
+    return spec.index("shard") if "shard" in spec else None
+
+
+def _spec_axes(params, specs) -> list[int | None]:
+    params, specs = list(params), list(specs)
+    if len(specs) != len(params):
+        raise ValueError(f"param_specs has {len(specs)} entries for {len(params)} parameters")
+    return [_spec_axis(s, p.dim()) for p, s in zip(params, specs)]
+
+
+def shard_params(mesh, params, specs) -> list[torch.Tensor]:
+    """Full parameters -> this rank's slice of each along its spec's axis;
+    replicated leaves as they are. Raises ValueError where `specs` does not
+    align with `params`, has an entry other than None and "shard", or
+    splits a dimension that `mesh.shard` does not divide (as JAX's jit
+    does), and NotImplementedError for a split over `data`."""
+    params = list(params)
+    out = []
+    for i, (p, a) in enumerate(zip(params, _spec_axes(params, specs))):
+        if a is not None:
+            if p.shape[a] % mesh.shard:
+                raise ValueError(f"parameter {i} of shape {tuple(p.shape)}: dimension {a} "
+                                 f"({p.shape[a]}) is not divisible by shard={mesh.shard}")
+            k = p.shape[a] // mesh.shard
+            p = p.narrow(a, mesh.shard_rank * k, k).contiguous()
+        out.append(p)
+    return out
+
+
+def gather_params(mesh, local, specs) -> list[torch.Tensor]:
+    """This rank's slices (as `shard_params` lays them) -> the full
+    parameters, the same on every rank, in one gather over `shard`."""
+    out = list(local)
+    axes = _spec_axes(out, specs)
+    split = [i for i, a in enumerate(axes) if a is not None]
+    for i, full in zip(split, mesh.all_gather_dims([out[i] for i in split],
+                                                   [axes[i] for i in split])):
+        out[i] = full
+    return out

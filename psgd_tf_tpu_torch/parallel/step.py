@@ -8,7 +8,7 @@ loss, gradients and Hvps are averaged over `data` in one all-reduce, and
 the optimizer step runs inside `hopper.sharding(mesh)`, where the flat
 families hold their rank-local state (`policies.shard_state`) and reduce
 their rank-space quantities over `shard` (K14, the sharded K16). The
-parameters replicate.
+parameters replicate, or split over `shard` where `param_specs` says so.
 """
 from __future__ import annotations
 
@@ -30,12 +30,26 @@ def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, par
     the same probes. Every positional batch argument (or those `batch_axes`
     names) is split along its leading axis over `data`, which must divide
     it. `state` selects the family's policy (it raises for a state with
-    none). Tensor-parallel `param_specs` are not ported."""
-    if param_specs is not None:
-        raise NotImplementedError(
-            "tensor-parallel param_specs are not ported (ROADMAP queue 1: tensor-parallel "
-            "parameters)")
+    none).
+
+    `param_specs` (a list aligned with the full `params`; each entry None,
+    replicated, or a tuple in `PartitionSpec` order naming "shard" on one
+    axis, e.g. `(None, "shard")`) makes the parameters tensor-parallel: the
+    step then takes and returns each split parameter as this rank's slice
+    (`policies.shard_params`). Inside it gathers the split parameters over
+    `shard` (one gather), runs `loss_fn`, the probes and the Hvp on the full
+    parameters, averages only this rank's slice of each split gradient and
+    Hvp over `data` (with the replicated leaves and the loss, one
+    all-reduce) and gathers the means over `shard` (one gather; with
+    data = 1 a rank's gradient is already the mean, and neither runs). The
+    family's step then runs as without specs: Kronecker factors replicate
+    on the full matrices, lra and splu take their lane slices. A dimension
+    that `mesh.shard` does not divide raises ValueError, as JAX's jit does;
+    a spec over `data` raises NotImplementedError."""
     policies.state_sharding(mesh, state)
+    if param_specs is not None:
+        param_specs = list(param_specs)
+        local_shapes = [p.shape for p in policies.shard_params(mesh, params, param_specs)]
 
     def take(i, x):
         if batch_axes is not None and i not in batch_axes:
@@ -48,8 +62,17 @@ def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, par
 
     def step(params, local_state, generator, *batch, probes=None, coins=None):
         local = [take(i, x) for i, x in enumerate(batch)]
-        with hopper.sharding(mesh):
-            return opt.step(loss_fn, params, local_state, generator, *local, probes=probes,
-                            coins=coins)
+        if param_specs is not None:
+            shapes = [p.shape for p in params]
+            if shapes != local_shapes:
+                raise ValueError(f"the step takes this rank's parameter slices {local_shapes}, "
+                                 f"got {shapes}")
+            params = policies.gather_params(mesh, params, param_specs)
+        with hopper.sharding(mesh, param_specs):
+            params, local_state, aux = opt.step(loss_fn, params, local_state, generator, *local,
+                                                probes=probes, coins=coins)
+        if param_specs is not None:
+            params = policies.shard_params(mesh, params, param_specs)
+        return params, local_state, aux
 
     return step

@@ -362,8 +362,13 @@ def test_nmt_attention_run_with_a_mesh_matches_run(cases):
 
 
 def test_build_sharded_step_refusals(cases):
-    """Tensor-parallel `param_specs` are not ported and say so; a batch
-    that `data` does not divide raises."""
+    """Tensor-parallel `param_specs` that split a dimension `shard` does not
+    divide raise ValueError, as JAX's jit does for (3, 5) under
+    P(None, "shard") over shard = 2; so do specs that do not align with the
+    params; a spec over `data` is not ported and says so; a batch that
+    `data` does not divide raises."""
     for out in cases["errors"]:
-        assert "tensor-parallel" in out["param_specs"] and "ROADMAP" in out["param_specs"]
+        assert "dimension 1 (5) is not divisible by shard=2" in out["indivisible"]
+        assert "2 entries for 1 parameters" in out["misaligned"]
+        assert "data" in out["data"] and "ROADMAP" in out["data"]
         assert "divisible by data=2" in out["batch"]

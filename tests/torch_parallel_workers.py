@@ -211,6 +211,16 @@ def mlp_loss(ws, x):
     return torch.mean(torch.sum(y * y, dim=-1))
 
 
+def mean_sq_loss(ws, x):
+    """The three-layer tanh MLP of `tests/test_parallel.py:304-354`."""
+    import torch
+
+    y = x
+    for w in ws:
+        y = torch.tanh(y @ w)
+    return torch.mean(y ** 2)
+
+
 def row_loss(ws, x):
     """One (out, in) layer read as rows, `tests/test_parallel.py:404-444`."""
     import torch
@@ -227,10 +237,13 @@ def linear_loss(p, x):
 
 def job_train(rank, world, data, shard, runs):
     """Each run: a PSGD with `opt` kwargs on a model (`loss`: 'nmt', 'mlp',
-    'row' or 'linear'), through `build_sharded_step` on mesh (data, shard)
-    from the given params, batches and per-step probes and coins. Returns
-    per run the losses, the final params, the gathered flat family state
-    and how often each sharded wrapper was called."""
+    'mean_sq', 'row' or 'linear'), through `build_sharded_step` on mesh
+    (data, shard) from the given params, batches and per-step probes and
+    coins, with the run's tensor-parallel `specs` if it has them (the step
+    then takes and returns this rank's slices). Returns per run the losses,
+    the final params (gathered), the shapes of the params the step
+    returned, the gathered flat family state and how often each sharded
+    wrapper was called."""
     from psgd_tf_tpu_torch import PSGD, interop
     from psgd_tf_tpu_torch.models import nmt
     from psgd_tf_tpu_torch.ops import hopper
@@ -238,7 +251,8 @@ def job_train(rank, world, data, shard, runs):
     from psgd_tf_tpu_torch.optim.psgd import KronPrecond
     from psgd_tf_tpu_torch.parallel import build_sharded_step, make_mesh, policies
 
-    losses_fn = {"nmt": nmt.loss, "mlp": mlp_loss, "row": row_loss, "linear": linear_loss}
+    losses_fn = {"nmt": nmt.loss, "mlp": mlp_loss, "mean_sq": mean_sq_loss, "row": row_loss,
+                 "linear": linear_loss}
     mesh = make_mesh(data=data, shard=shard, device="cpu")
     calls = {"lra_sharded": 0, "splu_sharded": 0}
     orig = (lra_upd.fused_update_apply_sharded, splu_upd.fused_update_sharded)
@@ -261,8 +275,12 @@ def job_train(rank, world, data, shard, runs):
             state = opt.init(params, seed=run.get("seed", 0))
             if "precond" in run:
                 state = state.replace(precond=_build_state(*run["precond"]))
-            step = build_sharded_step(opt, losses_fn[run["loss"]], mesh, state, params)
+            specs = run.get("specs")
+            step = build_sharded_step(opt, losses_fn[run["loss"]], mesh, state, params,
+                                      param_specs=specs)
             state = policies.shard_state(mesh, state)
+            if specs is not None:
+                params = policies.shard_params(mesh, params, specs)
             losses = []
             for batch, probes, coins in zip(run["batches"], run["probes"], run["coins"]):
                 batch = [_t(b).long() if b.dtype.kind == "i" else _t(b) for b in batch]
@@ -270,9 +288,12 @@ def job_train(rank, world, data, shard, runs):
                 params, state, aux = step(params, state, None, *batch, probes=probes,
                                           coins=coins)
                 losses.append(aux["loss"].item())
+            shapes = [tuple(p.shape) for p in params]
+            if specs is not None:
+                params = policies.gather_params(mesh, params, specs)
             n = sum(p.numel() for p in params)
             flat = not isinstance(state.precond, (list, KronPrecond))
-            out.append(dict(losses=losses, params=[_np(p) for p in params],
+            out.append(dict(losses=losses, params=[_np(p) for p in params], shapes=shapes,
                             precond=interop.global_arrays(mesh, state.precond, n) if flat
                             else None, calls=dict(calls), counts=dict(hopper.counts)))
     finally:
@@ -304,24 +325,96 @@ def job_nmt_run(rank, world, data, shard, steps):
 
 
 def job_errors(rank, world):
-    """build_sharded_step's refusals: tensor-parallel specs, a ragged batch."""
+    """build_sharded_step's refusals: tensor-parallel specs that split a
+    dimension `shard` does not divide, that do not align with the params or
+    that split over `data`; a ragged batch."""
     import torch
 
     from psgd_tf_tpu_torch import PSGD
     from psgd_tf_tpu_torch.parallel import build_sharded_step, make_mesh, policies
 
     mesh = make_mesh(data=world, shard=1, device="cpu")
+    tp = make_mesh(data=1, shard=world, device="cpu")
     params = [torch.zeros(4)]
     opt = PSGD(preconditioner="diag")
     state = opt.init(params)
     out = {}
-    try:
-        build_sharded_step(opt, linear_loss, mesh, state, params, param_specs=[("shard",)])
-    except NotImplementedError as e:
-        out["param_specs"] = str(e)
+    odd = [torch.zeros(3, 5)]
+    for key, ps, specs, err in [("indivisible", odd, [(None, "shard")], ValueError),
+                                ("misaligned", params, [None, ("shard",)], ValueError),
+                                ("data", params, [("data",)], NotImplementedError)]:
+        try:
+            build_sharded_step(opt, linear_loss, tp, opt.init(ps), ps, param_specs=specs)
+        except err as e:
+            out[key] = str(e)
     step = build_sharded_step(opt, linear_loss, mesh, state, params)
     try:
         step(params, policies.shard_state(mesh, state), torch.Generator(), torch.ones(3, 4))
     except ValueError as e:
         out["batch"] = str(e)
+    return out
+
+
+def job_tp_roundtrip(rank, world, meshes, leaves):
+    """`policies.shard_params` then `gather_params` on each mesh (data,
+    shard) over all the leaves at once. Returns per mesh this rank's shard
+    coordinate, each local slice, each gathered leaf and whether each
+    replicated leaf came back as the same tensor."""
+    from psgd_tf_tpu_torch.parallel import make_mesh, policies
+
+    out = {}
+    for data, shard in meshes:
+        mesh = make_mesh(data=data, shard=shard, device="cpu")
+        full = [_t(x) for x, _ in leaves]
+        specs = [spec for _, spec in leaves]
+        local = policies.shard_params(mesh, full, specs)
+        back = policies.gather_params(mesh, local, specs)
+        out[(data, shard)] = dict(
+            shard_rank=mesh.shard_rank, local=[_np(x) for x in local],
+            full=[_np(x) for x in back],
+            same=[spec is not None or (a is b is c) for a, b, c, spec in
+                  zip(full, local, back, specs)])
+    return out
+
+
+def job_tp_payload(rank, world, data, shard, runs):
+    """One TP step of each run (as `job_train` takes them, on the MLP) on
+    mesh (data, shard), with `_collectives` wrapped to count the elements
+    this rank receives in the gathers over `shard` (`all_gather_dims`) and
+    the elements it all-reduces over `data` (`data_mean`, the loss aside)."""
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.parallel import _collectives, build_sharded_step, make_mesh, policies
+
+    mesh = make_mesh(data=data, shard=shard, device="cpu")
+    moved = {"shard": 0, "data": 0}
+    orig = (_collectives.all_gather_dims, _collectives.data_mean)
+
+    def gather(xs, dims, group, size, rank_):
+        moved["shard"] += (size - 1) * sum(x.numel() for x in xs)
+        return orig[0](xs, dims, group, size, rank_)
+
+    def mean(mesh, tensors):
+        if mesh is not None and mesh.data > 1:
+            assert tensors[0].numel() == 1  # the loss
+            moved["data"] += sum(t.numel() for t in tensors[1:])
+        return orig[1](mesh, tensors)
+
+    out = []
+    for run in runs:
+        params = [_t(w) for w in run["params"]]
+        opt = PSGD(**run["opt"])
+        state = opt.init(params)
+        if "precond" in run:
+            state = state.replace(precond=_build_state(*run["precond"]))
+        step = build_sharded_step(opt, mlp_loss, mesh, state, params, param_specs=run["specs"])
+        state = policies.shard_state(mesh, state)
+        params = policies.shard_params(mesh, params, run["specs"])
+        moved.update(shard=0, data=0)
+        _collectives.all_gather_dims, _collectives.data_mean = gather, mean
+        try:
+            step(params, state, None, _t(run["batches"][0][0]),
+                 probes=[_t(p) for p in run["probes"][0]], coins=run["coins"][0])
+        finally:
+            _collectives.all_gather_dims, _collectives.data_mean = orig
+        out.append(dict(moved))
     return out
