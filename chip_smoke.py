@@ -204,11 +204,12 @@ STREAM_EDGE = [(("scale", "norm"), (1024, 2305)), (("norm", "scale"), (700, 1029
                (("norm", "scale"), (2, 5000)), (("dense", "scale"), (2, 5000)),
                (("scale", "dense"), (4097, 130))]
 # K4's stacks: the ragged bucket of tests/test_kron_batched.py, the JAX
-# package's crossover stacks (psgd_tf_tpu/optim/psgd.py:113-120; B = 24
-# spans two chains of at most 16 layers), four layers at the side cap
+# package's crossover stacks (psgd_tf_tpu/optim/psgd.py:113-120), four
+# layers at the side cap, and BERT-base's query, key, value and attention
+# output layers, 12 of each (K1 unbatched takes them in three chains)
 K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
               ("B=6 (200, 256)", [(200, 256)] * 6), ("B=24 (200, 256)", [(200, 256)] * 24),
-              ("B=4 (1000, 1000)", [(1000, 1000)] * 4)]
+              ("B=4 (1000, 1000)", [(1000, 1000)] * 4), ("B=48 (768, 768)", [(768, 768)] * 48)]
 # the NMT model at the widths where its four (dense, dense) layers share a
 # (128, 128) bucket under PSGD's defaults (tests/test_torch_nmt.py's config)
 K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
@@ -1003,7 +1004,8 @@ def main() -> int:
 
     # 3c. K4 on stacked (dense, dense) buckets (K4_BUCKETS and the K4 path's
     #     bucket): one update from a walked stack against the plain version,
-    #     a 20-step trajectory from 0.8 I, the padding exact identity; timed
+    #     one chain and one K3 a call at every B, the inputs unchanged, a
+    #     20-step trajectory from 0.8 I, the padding exact identity; timed
     #     through kron.update_batched with the kernel and plain, as K1 over
     #     the same layers unbatched (kron.update_multi), and the wrapper alone
     g.manual_seed(32)
@@ -1028,25 +1030,22 @@ def main() -> int:
             for _ in range(3):
                 bst = kron.update_batched(bst, *probes(shapes), step=0.1)
         dxs, dgs = probes(shapes)
-        chains = math.ceil(len(shapes) / kron_dd.MAX_LAYERS)
-        monos = sum(kron_dd.route(["dd"] * len(c), [m for m, _ in c], [n for _, n in c]) == "mono"
-                    for c in (shapes[i:i + kron_dd.MAX_LAYERS]
-                              for i in range(0, len(shapes), kron_dd.MAX_LAYERS)))
+        ql0, qr0 = bst.ql.clone(), bst.qr.clone()
         before = dict(hopper.counts)
         got = kron.update_batched(bst, dxs, dgs, step=0.1)
         torch.cuda.synchronize()
         moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
-        want = {"kron_dd_batched": chains, "tri": chains - monos, "kron_mono": monos}
-        check(moved == {k: v for k, v in want.items() if v},
-              f"k4 {name}: {chains} chain(s), {monos} of them one launch, the others with their "
-              f"K3: {moved}")
+        check(moved == {"kron_dd_batched": 1, "tri": 1},
+              f"k4 {name}: one chain and one K3 a call: {moved}")
         with hopper.disabled():
             ref = kron.update_batched(bst, dxs, dgs, step=0.1)
         rel = max(_rel(got.ql, ref.ql), _rel(got.qr, ref.qr))
         err = max(_abs(got.ql, ref.ql), _abs(got.qr, ref.qr))
         k4_err = max(k4_err, err)
         exact = padding_exact(got.ql, ms) and padding_exact(got.qr, ns)
-        check(rel < TOL_K1 and exact, f"k4 vs plain at {name}")
+        kept = torch.equal(bst.ql, ql0) and torch.equal(bst.qr, qr0)
+        check(rel < TOL_K1 and exact and kept, f"k4 vs plain at {name}, inputs unchanged {kept}")
+        del ql0, qr0
         kb = pb = kron.init_batched(shapes, init_scale=0.8, device=dev)
         for _ in range(20):
             dx_, dg_ = probes(shapes)
@@ -1066,12 +1065,14 @@ def main() -> int:
                                                                   0.1), reps)
         work = [_kron_work(DD, s) for s in shapes]
         bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        k4_launches = kron_dd.batched_launches(ms, ns, bst.ql.shape[1], bst.qr.shape[1], dev)
         print(f"kron_dd_batched: {name}, stacks {tuple(bst.ql.shape)} {tuple(bst.qr.shape)}, max "
               f"rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err {err:.3e}, padding exact "
-              f"{exact}; 20 steps max rel err {traj:.3e} (tol {TOL_TRAJ:.0e}), padding exact "
-              f"{traj_exact}; update_batched kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, K1 "
-              f"unbatched {k1_ms:.4f} ms, the wrapper alone {alone:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+              f"{exact}, inputs unchanged {kept}; 20 steps max rel err {traj:.3e} (tol "
+              f"{TOL_TRAJ:.0e}), padding exact {traj_exact}; update_batched kernel {ms_k:.4f} ms, "
+              f"plain {ms_p:.4f} ms, K1 unbatched {k1_ms:.4f} ms, the wrapper alone {alone:.4f} "
+              f"ms ({k4_launches} launches a call), bound {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
         if shapes is k4_path_bucket:
             k4_ms, k4_plain_ms, k4_bound = ms_k, ms_p, bound
         del bst, got, ref, kb, pb, singles, dx, dg
@@ -1140,14 +1141,14 @@ def main() -> int:
 
     # 5b. K1's chain on its two routes, forced (kron_dd.forced_route): the
     #     chain of grouped launches and the one cooperative launch, bit for
-    #     bit, through each entry point (K1, K2, K4 at its strides, K5, K20),
-    #     each against plain and timed three ways; a forced one launch on a
-    #     list whose products take the 128 x 128 tiles raises
+    #     bit, through each entry point (K1, K2, K5, K20; K4's stacked chain
+    #     takes no route), each against plain and timed three ways; a
+    #     forced one launch on a list whose products take the 128 x 128
+    #     tiles raises
     g.manual_seed(52)
     route_lists = [("K1 LeNet5", "multi", [DD] * 5, LENET5),
                    ("K1 toy NMT", "multi", nmt_fmts, toy_shapes),
                    ("K1 decomposition", "multi", decomp_fmts, decomp_shapes),
-                   ("K4 path bucket", "batched", [DD] * len(k4_path_bucket), k4_path_bucket),
                    ("K20 16 layers", "k20", [DD] * 16, MULTI_18[:16]),
                    ("K2 (1, 10)", "k2", [DD], [(1, 10)])]
     route_lists += [(f"K5 {kind} (130, 65)", kind, [fmt], [(130, 65)]) for kind, fmt in
@@ -1155,32 +1156,23 @@ def main() -> int:
     route_err = 0.0
     route_times = {}
     for name, entry_kind, fmts, shapes in route_lists:
-        if entry_kind == "batched":
-            bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
-            with hopper.disabled():
-                for _ in range(3):
-                    bst = kron.update_batched(bst, *probes(shapes), step=0.1)
-            dxs, dgs = probes(shapes)
-            fn = lambda bst=bst, dxs=dxs, dgs=dgs: kron.update_batched(bst, dxs, dgs, step=0.1)
-            counter = "kron_dd_batched"
+        sts = walked_states(fmts, shapes)
+        dxs, dgs = probes(shapes)
+        if entry_kind == "multi":
+            fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(sts, dxs, dgs, step=0.1)
+            counter = "kron_multi"
+        elif entry_kind == "k20":
+            fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron_dd.fused_update_multi(
+                [s.ql for s in sts], [s.qr for s in sts], dxs, dgs, 0.1)
+            counter = "kron_dd_multi"
+        elif entry_kind == "k2":
+            fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0]: kron_dd.fused_update(
+                st.ql, st.qr, dx, dg, 0.1)
+            counter = "kron_dd"
         else:
-            sts = walked_states(fmts, shapes)
-            dxs, dgs = probes(shapes)
-            if entry_kind == "multi":
-                fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(sts, dxs, dgs, step=0.1)
-                counter = "kron_multi"
-            elif entry_kind == "k20":
-                fn = lambda sts=sts, dxs=dxs, dgs=dgs: kron_dd.fused_update_multi(
-                    [s.ql for s in sts], [s.qr for s in sts], dxs, dgs, 0.1)
-                counter = "kron_dd_multi"
-            elif entry_kind == "k2":
-                fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0]: kron_dd.fused_update(
-                    st.ql, st.qr, dx, dg, 0.1)
-                counter = "kron_dd"
-            else:
-                fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0], f=kron_sparse.FUSED_UPDATE[entry_kind]: f(
-                    st.ql, st.qr, dx, dg, 0.1)
-                counter = "kron_sparse"
+            fn = lambda st=sts[0], dx=dxs[0], dg=dgs[0], f=kron_sparse.FUSED_UPDATE[entry_kind]: f(
+                st.ql, st.qr, dx, dg, 0.1)
+            counter = "kron_sparse"
         outs, moved = {}, {}
         for route in ("chain", "mono"):
             with kron_dd.forced_route(route):
@@ -1200,7 +1192,7 @@ def main() -> int:
                      and moved["chain"].get("tri", 0) == (moved["chain"][counter] if has_dense else 0))
         check(bit and rel < TOL_K1 and counts_ok,
               f"one launch vs chain at {name}: bit-equal {bit}, rel err {rel:.3e}, launches {moved}")
-        reps = 20 if entry_kind == "batched" else 100
+        reps = 100
         with kron_dd.forced_route("chain"):
             chain_ms = _time_median(torch, fn, reps)
         with kron_dd.forced_route("mono"):
@@ -2065,12 +2057,8 @@ def main() -> int:
           f"{({k: c for k, c in counts.items() if c})}, loss {losses[0].item():.4f} -> "
           f"{losses[-1].item():.4f}, {k4_rate:.2f} steps/s with kernels", flush=True)
     check(layout == (((1, 2, 3, 5),), (0, 4, 6)), f"K4 path: one bucket of four: {layout}")
-    # per step: one K4 chain (one launch, or with its K3), two K9 (each with
-    # its K3), one K10 (with its K3)
-    k4_mono = int(kron_dd.route(["dd"] * len(k4_path_bucket), [m for m, _ in k4_path_bucket],
-                                [n for _, n in k4_path_bucket]) == "mono")
-    per_step = {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1,
-                "tri": 4 - k4_mono, "kron_mono": k4_mono}
+    # per step: one K4 chain with its K3, two K9 and one K10 (each with its K3)
+    per_step = {"kron_dd_batched": 1, "kron_sparse_big_nd": 2, "kron_sparse_big_ds": 1, "tri": 4}
     check(counts == {k: per_step.get(k, 0) * K4_PATH_STEPS for k in counts},
           f"K4 path: launches per step {per_step} and no other")
     check(bool(torch.isfinite(losses).all()), "K4 path: finite losses")
@@ -3021,7 +3009,7 @@ def main() -> int:
         entry("kron_multi", "kron_dd.cu", "kron_multi.py:222", max(k1_abs, mix_abs, dec_abs),
               k1_ms, k1_plain_ms, k1_bound),
         entry("kron_dd", "kron_dd.cu", "kron_dd.py:181", k2_abs, k2_ms, k2_plain_ms, k2_bound),
-        entry("kron_dd_batched", "kron_dd.cu", "kron_dd.py:252", k4_err, k4_ms, k4_plain_ms,
+        entry("kron_dd_batched", "kron_batched.cu", "kron_dd.py:252", k4_err, k4_ms, k4_plain_ms,
               k4_bound),
         entry("tri", "tri.cu", "tri.py:94", k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
         entry("kron_sparse", "kron_dd.cu", "kron_sparse.py:293", k5_abs, k5_ms, k5_plain_ms,

@@ -22,11 +22,17 @@
 
 #include "psgd.cuh"
 
+#include <cfloat>
 #include <cstdint>
 
 #define GEMM_BK 16       // K depth of a pipeline stage
 #define GEMM_THREADS 256
 #define GEMM_STAGES 3
+// The K split of the small chains' 64 x 64 tiles (K1's list_splits in
+// kron_dd.cu, K4's stages in kron_batched.cu): bands of about KRON_SPLIT_K,
+// at most KRON_MAX_SPLITS of them, summed by a launch of their own
+#define KRON_SPLIT_K 64
+#define KRON_MAX_SPLITS 8
 
 template <int QM, int QN>
 struct GemmTile {
@@ -147,4 +153,22 @@ __device__ __forceinline__ void gemm_tile(const GemmProb& P, int row0, int col0,
         else gemm_stage<QM, QN, true>(As, As + T::SIDE_A, tx, ty, acc);
     }
     asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// The update epilogue's step scale, s = min(step / (max|grad| + tiny),
+// FLT_MAX), from the max|grad| slot's float bits
+__device__ __forceinline__ float step_scale(float step, const unsigned int* mx) {
+    return fminf(step / (__uint_as_float(*mx) + psgd_tiny()), FLT_MAX);
+}
+
+// The block's max of v (every thread calls it; red: a float a warp)
+__device__ __forceinline__ float block_reduce_max(float v, float* red) {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    __syncthreads();
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = -INFINITY;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, red[w]);
+    return v;
 }

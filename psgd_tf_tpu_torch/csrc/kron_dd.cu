@@ -1,6 +1,6 @@
-// K1/K2/K5: the Kronecker factor update for a list of layers of mixed kinds;
-// K4, the stacked (dense, dense) bucket, is the same chain over the stack
-// (its entry point at the end of this file).
+// K1/K2/K5/K20: the Kronecker factor update for a list of layers of mixed
+// kinds. K4, the stacked (dense, dense) bucket, runs the same stages over a
+// whole stack in kron_batched.cu, on this file's K3 and GEMM tile bodies.
 //
 // Replaces psgd_tf_tpu/ops/pallas/kron_multi.py `fused_update_multi` (:222,
 // its pallas_call at :202, kinds dd/ds/nd/ns), psgd_tf_tpu/ops/pallas/
@@ -109,19 +109,18 @@
 #include <initializer_list>
 #include <utility>
 
-#define KRON_MAX_SPLITS 8  // K1's K split: the most bands a product (list_splits)
 
 enum Kind { KIND_DD = 0, KIND_DS = 1, KIND_ND = 2, KIND_NS = 3 };
 static inline bool left_arrow(int k) { return k == KIND_ND || k == KIND_NS; }
 static inline bool right_scale(int k) { return k == KIND_DS || k == KIND_NS; }
 
 struct BalanceLayer {
-    const float* ql;   // dense: (m, m) at row stride ldl; arrow: (2, m), ldl = m
-    const float* qr;   // dense: (n, n) at row stride ldr; scale: (n,), ldr = n
-    float* qlb;        // the balanced copies, tight
+    const float* ql;   // dense: (m, m); arrow: (2, m)
+    const float* qr;   // dense: (n, n); scale: (n,)
+    float* qlb;        // the balanced copies
     float* qrb;
     unsigned int* mx;  // two max|grad| slots, zeroed here
-    int m, n, arrow, scale, ldl, ldr;
+    int m, n, arrow, scale;
 };
 
 struct BalanceBatch {
@@ -184,29 +183,9 @@ __device__ __forceinline__ int find_job(const int* prefix, int count, int t) {
     return p;
 }
 
-__device__ __forceinline__ float step_scale(float step, const unsigned int* mx) {
-    return fminf(step / (__uint_as_float(*mx) + psgd_tiny()), FLT_MAX);
-}
-
-__device__ __forceinline__ float block_reduce_max(float v, float* red) {
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    v = -INFINITY;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, red[w]);
-    return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
-}
-
-// Element e of a tight (rows, w) copy, read from rows of stride ld.
-__device__ __forceinline__ float strided(const float* q, size_t e, int w, int ld) {
-    return ld == w ? q[e] : q[(e / w) * ld + e % w];
 }
 
 // The stage bodies: each runs one block of its stage (every thread of the
@@ -220,9 +199,9 @@ __device__ __forceinline__ void balance_body(const BalanceBatch& b, int bx, int 
     const BalanceLayer L = b.l[by];
     float ml = -INFINITY, mr = -INFINITY;
     for (int i = threadIdx.x; i < L.m; i += blockDim.x)
-        ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.ldl + i]);
+        ml = fmaxf(ml, L.arrow ? L.ql[i] : L.ql[(size_t)i * L.m + i]);
     for (int i = threadIdx.x; i < L.n; i += blockDim.x)
-        mr = fmaxf(mr, L.scale ? L.qr[i] : L.qr[(size_t)i * L.ldr + i]);
+        mr = fmaxf(mr, L.scale ? L.qr[i] : L.qr[(size_t)i * L.n + i]);
     ml = block_reduce_max(ml, red);
     mr = block_reduce_max(mr, red);
     const float rho = sqrtf(ml / mr);
@@ -239,8 +218,7 @@ __device__ __forceinline__ void balance_body(const BalanceBatch& b, int bx, int 
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
             const size_t e = e0 + k * stride;
-            v[k] = e >= total ? 0.f : e < nl ? strided(L.ql, e, L.m, L.ldl)
-                                             : strided(L.qr, e - nl, L.n, L.ldr);
+            v[k] = e >= total ? 0.f : e < nl ? L.ql[e] : L.qr[e - nl];
         }
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
@@ -784,8 +762,6 @@ struct ChainPlan {
 // (tools/kron_gemm_ab.py --route): LeNet5's list 0.112 ms on the device
 // against 0.129 unsplit, K2 at (256, 256) 0.087 against 0.119; with two
 // CTAs an SM allowed, 16 (128, 128) layers took 0.135 against 0.090.
-#define KRON_SPLIT_K 64
-
 static int list_splits(const ChainPlan& c) {
     int kmax = 0;
     long long most = 0;
@@ -802,13 +778,10 @@ static int list_splits(const ChainPlan& c) {
     return s;
 }
 
-// The chain on L layers. S = T = 0: every operand tight (K1, K2, K5).
-// S, T > 0 (K4, kind dd only): layer l's factors are read as the (m, m) and
-// (n, n) corners of (S, S) and (T, T) slots, its probes as the (m, n)
-// corner of an (S, T) slot, at those row strides. The outputs are tight.
+// The chain on L layers, every operand tight (K1, K2, K5, K20).
 static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
-                        void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
-                        float step, float* base, ChainPlan& c) {
+                        void** out_ql, void** out_qr, const int* m, const int* n, float step,
+                        float* base, ChainPlan& c) {
     unsigned int* mx = reinterpret_cast<unsigned int*>(base);
     LayerScratch off[PSGD_MAX_LAYERS];
     const size_t layers = plan(L, kind, m, n, off);
@@ -816,9 +789,6 @@ static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx,
     auto F = [&](size_t o) {
         return reinterpret_cast<float*>(reinterpret_cast<uintptr_t>(base) + o * sizeof(float));
     };
-    // row strides: of the left factor, and of the right factor and the probes
-    auto ldl = [&](int l) { return S ? S : m[l]; };
-    auto ldr = [&](int l) { return T ? T : n[l]; };
     auto add = [](GemmBatch& g, int* phase, const GemmProb& P, int ph) {
         if (phase) phase[g.count] = ph;
         g.p[g.count++] = P;
@@ -831,7 +801,7 @@ static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx,
         const LayerScratch& s = off[l];
         const bool arrow = left_arrow(kind[l]), scale = right_scale(kind[l]);
         c.bal.l[l] = {static_cast<const float*>(ql[l]), static_cast<const float*>(qr[l]),
-                      F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale, ldl(l), ldr(l)};
+                      F(s.qlb), F(s.qrb), mx + 2 * l, m[l], n[l], arrow, scale};
         TriBatch& t = c.tri;
         if (!arrow) { t.u[t.count] = F(s.qlb); t.x[t.count] = F(s.linv); t.n[t.count++] = m[l]; }
         if (!scale) { t.u[t.count] = F(s.qrb); t.x[t.count] = F(s.rinv); t.n[t.count++] = n[l]; }
@@ -860,16 +830,16 @@ static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx,
         const float* DG = static_cast<const float*>(dg[l]);
         const float* DX = static_cast<const float*>(dx[l]);
         if (kind[l] == KIND_DD) {
-            GemmProb t1 = gemm_prob(DG, 0, ldr(l), F(s.qrb), 1, N, F(s.t1), M, N, N);
+            GemmProb t1 = gemm_prob(DG, 0, N, F(s.qrb), 1, N, F(s.t1), M, N, N);
             t1.cut = CUT_B_LOWER;
-            GemmProb w = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.w), M, N, M);
+            GemmProb w = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.w), M, N, M);
             w.cut = CUT_A_LOWER;
             add(c.c1, c.phase1, t1, MONO_EARLY);
             add(c.c1, c.phase1, w, MONO_C1);
         } else if (kind[l] == KIND_DS) {
-            GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, ldr(l), F(s.a), M, N, M);
+            GemmProb pa = gemm_prob(F(s.qlb), 0, M, DG, 0, N, F(s.a), M, N, M);
             pa.epi = EPI_COLMUL; pa.v = F(s.qrb); pa.cut = CUT_A_UPPER;
-            GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, ldr(l), F(s.bt), M, N, M);
+            GemmProb pb = gemm_prob(F(s.linv), 1, M, DX, 0, N, F(s.bt), M, N, M);
             pb.epi = EPI_COLDIV; pb.v = F(s.qrb); pb.cut = CUT_A_LOWER;
             add(c.c1, c.phase1, pa, MONO_EARLY);
             add(c.c1, c.phase1, pb, MONO_C1);
@@ -970,16 +940,16 @@ static void build_chain(int L, const int* kind, void** ql, void** qr, void** dx,
 }
 
 // The scratch floats of a list's chain, its partial products included.
-static size_t chain_floats(int L, const int* kind, const int* m, const int* n, int S, int T) {
+static size_t chain_floats(int L, const int* kind, const int* m, const int* n) {
     void* none[PSGD_MAX_LAYERS] = {};
     ChainPlan c;
-    build_chain(L, kind, none, none, none, none, none, none, m, n, S, T, 0.f, nullptr, c);
+    build_chain(L, kind, none, none, none, none, none, none, m, n, 0.f, nullptr, c);
     return c.floats;
 }
 
 extern "C" size_t psgd_kron_multi_scratch_floats(int L, const int* kind, const int* m, const int* n) {
     if (!valid(L, kind, m, n)) return 0;
-    return chain_floats(L, kind, m, n, 0, 0);
+    return chain_floats(L, kind, m, n);
 }
 
 // a GEMM stage: the grouped GEMM, or, when K is split, its bands' raw
@@ -1121,8 +1091,8 @@ __global__ void __launch_bounds__(256, 1) kron_mono_kernel(const __grid_constant
 }
 
 // the chain's products in FLOPs (2 M N K a product, the cut bands counted
-// whole): a function of the kinds and sides alone (K4's strides change no
-// work); ops/hopper/kron_dd.py `route` mirrors it
+// whole): a function of the kinds and sides alone; ops/hopper/kron_dd.py
+// `route` mirrors it
 static double chain_flops(int L, const int* kind, const int* m, const int* n) {
     double f = 0;
     for (int l = 0; l < L; ++l) {
@@ -1257,11 +1227,11 @@ static cudaError_t launch_mono(ChainPlan& c, float step, cudaStream_t stream) {
 // KRON_MONO_MAX_MFLOP at most), else the chain; `route` forces either. A forced one launch on a list
 // whose products take the 128 x 128 tiles is refused. *took: the route run.
 static int run_chain(int L, const int* kind, void** ql, void** qr, void** dx, void** dg,
-                     void** out_ql, void** out_qr, const int* m, const int* n, int S, int T,
-                     float step, void* scratch, cudaStream_t stream, int route, int* took) {
+                     void** out_ql, void** out_qr, const int* m, const int* n, float step,
+                     void* scratch, cudaStream_t stream, int route, int* took) {
     ChainPlan c;
-    build_chain(L, kind, ql, qr, dx, dg, out_ql, out_qr, m, n, S, T, step,
-                static_cast<float*>(scratch), c);
+    build_chain(L, kind, ql, qr, dx, dg, out_ql, out_qr, m, n, step, static_cast<float*>(scratch),
+                c);
     const bool tiles64 = chain_tiles64(c);
     if (route == ROUTE_AUTO) {
         bool sparse = false;
@@ -1294,123 +1264,8 @@ extern "C" int psgd_kron_multi_update(int L, long long* desc, float step, void* 
     }
     if (!valid(L, kind, m, n)) return (int)cudaErrorInvalidValue;
     int took = 0;
-    const int rc = run_chain(L, kind, ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], m, n, 0, 0,
-                             step, scratch, static_cast<cudaStream_t>(stream_ptr), route, &took);
+    const int rc = run_chain(L, kind, ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], m, n, step,
+                             scratch, static_cast<cudaStream_t>(stream_ptr), route, &took);
     desc[9 * L] = took;
     return rc;
-}
-
-// ---------------------------------------------------------------------------
-// K4: B stacked (dense, dense) layers of one padded bucket.
-//
-// Replaces psgd_tf_tpu/ops/pallas/kron_dd.py `fused_update_batched` (:252,
-// its pallas_call at :294): ql (B, S, S), qr (B, T, T), dx and dg (B, S, T),
-// layer i's true (m_i, n_i) in the corners, identity (factors) and zeros
-// (probes) beyond. The Pallas grid runs K2's body on each padded layer,
-// with the balancing maxima masked to (m_i, n_i) and 128-block Newton
-// inverses over the whole padded side. Here the stack goes through the
-// same chain as K1, PSGD_MAX_LAYERS layers at a time, each layer's
-// pointers at its slot and its row strides S, T: the chain works on the
-// true corner alone, so the maxima are masked by construction and no solve
-// or product runs over the padding. The chain writes each updated corner
-// tight into the scratch; a last launch copies it into its slot of the
-// fresh output stacks, with exact identity beyond (1 on the diagonal, 0
-// elsewhere). Storing the corners straight into the slots needs a row
-// stride in the grouped GEMM's descriptor, which made every chain sharing
-// it (K1, K9, K10) up to 25% slower. The input stacks are not written (no
-// in-place alias: the port's states are functional). Bound on this card as
-// K1 is: latency, a fixed chain of small grouped launches per 16 layers.
-
-struct SlotJob {
-    const float* corner;  // (d, d), tight: what the chain wrote
-    float* q;             // its (side, side) slot in the output stack
-    int d, side;
-};
-
-struct SlotBatch {
-    SlotJob j[2 * PSGD_MAX_LAYERS];
-    int count;
-};
-
-// grid (blocks per slot, slots)
-__global__ void __launch_bounds__(256) slot_kernel(const SlotBatch b) {
-    const SlotJob J = b.j[blockIdx.y];
-    const size_t total = (size_t)J.side * J.side;
-    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-         e += (size_t)gridDim.x * blockDim.x) {
-        const int i = (int)(e / J.side), j = (int)(e % J.side);
-        J.q[e] = (i < J.d && j < J.d) ? J.corner[(size_t)i * J.d + j] : (i == j ? 1.f : 0.f);
-    }
-}
-
-static bool valid_batched(int B, int S, int T, const int* m, const int* n) {
-    if (B < 1 || S < 1 || T < 1) return false;
-    for (int i = 0; i < B; ++i)
-        if (m[i] < 1 || m[i] > S || n[i] < 1 || n[i] > T) return false;
-    return true;
-}
-
-// One chunk's scratch in floats: the chain's, then the tight corners from
-// offset *corners on.
-static size_t chunk_floats(int L, int S, int T, const int* m, const int* n, size_t* corners) {
-    const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
-    size_t cur = chain_floats(L, kind, m, n, S, T);
-    *corners = cur;
-    for (int l = 0; l < L; ++l)
-        cur += psgd_align4((size_t)m[l] * m[l]) + psgd_align4((size_t)n[l] * n[l]);
-    return cur;
-}
-
-extern "C" size_t psgd_kron_dd_batched_scratch_floats(int B, int S, int T, const int* m,
-                                                      const int* n) {
-    if (!valid_batched(B, S, T, m, n)) return 0;
-    size_t most = 0, corners;
-    for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS)
-        most = std::max(most, chunk_floats(std::min(PSGD_MAX_LAYERS, B - b0), S, T, m + b0, n + b0,
-                                           &corners));
-    return most;
-}
-
-// route as psgd_kron_multi_update's, a chunk at a time; *monos: the chunks
-// that took the one launch
-extern "C" int psgd_kron_dd_batched_update(int B, int S, int T, void* ql, void* qr, void* dx,
-                                           void* dg, void* out_ql, void* out_qr, const int* m,
-                                           const int* n, float step, void* scratch,
-                                           void* stream_ptr, int route, int* monos) {
-    if (!valid_batched(B, S, T, m, n) || route < ROUTE_AUTO || route > ROUTE_MONO)
-        return (int)cudaErrorInvalidValue;
-    monos[0] = 0;
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int kind[PSGD_MAX_LAYERS] = {};  // KIND_DD
-    const size_t ss = (size_t)S * S, tt = (size_t)T * T, st = (size_t)S * T;
-    auto at = [](void* p, size_t floats) { return static_cast<float*>(p) + floats; };
-    // the chunks run one after another on the stream and share the scratch
-    for (int b0 = 0; b0 < B; b0 += PSGD_MAX_LAYERS) {
-        const int L = std::min(PSGD_MAX_LAYERS, B - b0);
-        size_t corner0;
-        chunk_floats(L, S, T, m + b0, n + b0, &corner0);
-        float* corner = static_cast<float*>(scratch) + corner0;
-        void *pql[PSGD_MAX_LAYERS], *pqr[PSGD_MAX_LAYERS], *pdx[PSGD_MAX_LAYERS],
-             *pdg[PSGD_MAX_LAYERS], *oql[PSGD_MAX_LAYERS], *oqr[PSGD_MAX_LAYERS];
-        SlotBatch slots;
-        slots.count = 0;
-        for (int l = 0; l < L; ++l) {
-            const size_t i = (size_t)(b0 + l);
-            const int ml = m[b0 + l], nl = n[b0 + l];
-            pql[l] = at(ql, i * ss); pqr[l] = at(qr, i * tt);
-            pdx[l] = at(dx, i * st); pdg[l] = at(dg, i * st);
-            oql[l] = corner; corner += psgd_align4((size_t)ml * ml);
-            oqr[l] = corner; corner += psgd_align4((size_t)nl * nl);
-            slots.j[slots.count++] = {static_cast<const float*>(oql[l]), at(out_ql, i * ss), ml, S};
-            slots.j[slots.count++] = {static_cast<const float*>(oqr[l]), at(out_qr, i * tt), nl, T};
-        }
-        int took = 0;
-        const int rc = run_chain(L, kind, pql, pqr, pdx, pdg, oql, oqr, m + b0, n + b0, S, T, step,
-                                 scratch, stream, route, &took);
-        if (rc) return rc;
-        monos[0] += took == ROUTE_MONO;
-        const int blocks = std::min(64, std::max(1, (int)((std::max(ss, tt) + 4095) / 4096)));
-        slot_kernel<<<dim3(blocks, slots.count), 256, 0, stream>>>(slots);
-    }
-    return (int)cudaGetLastError();
 }

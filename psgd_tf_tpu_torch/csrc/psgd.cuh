@@ -10,7 +10,7 @@
 #include <cstddef>
 
 // Most layers one kron_dd chain takes; K1's Python wrapper splits longer
-// lists, K4's C entry point longer stacks.
+// lists (K4's stacked chain, kron_batched.cu, takes any B).
 #define PSGD_MAX_LAYERS 16
 // Most triangular factors one tri launch inverts (two per layer).
 #define PSGD_MAX_TRI (2 * PSGD_MAX_LAYERS)
@@ -37,6 +37,28 @@ void plan_tri_inv(TriBatch& b);
 // Launch the exact inverse of every factor of `b` on `stream` (tri.cu).
 // The caller fills u, x, n and count; this fills the plan.
 void launch_tri_inv(TriBatch& b, cudaStream_t stream);
+
+// K3 on a stack of 2B factors (K4, kron_batched.cu): side 0 holds layer
+// i's left factor at u[0] + i stride[0], side 1 its right one at u[1] +
+// i stride[1], each (n, n) at row stride ld[side], its inverse at the same
+// place in x[side]. Factor p (p < B: left of layer p, else right of layer
+// p - B) has side sides[p]. The plan is prefix sums over the 2B factors:
+// of the 32-row leaves (leaves, 2B + 1 ints) and of each level's 32 x 32
+// product tiles (level, levels rows of 2B + 1). The pointers are the
+// card's, or the host's copy of the same plan where the host reads it.
+struct TriStack {
+    const float* u[2];
+    float* x[2];
+    size_t stride[2];
+    int ld[2];
+    const int* sides;
+    const int* leaves;
+    const int* level;
+    int levels, B;
+};
+// Launch K3 on every factor of `dev` in one cooperative launch (tri.cu);
+// `host` is the same stack with its plan's pointers on the host.
+void launch_tri_stack(const TriStack& dev, const TriStack& host, cudaStream_t stream);
 
 // The grouped fp32 GEMM of kron_dd.cu:
 //   C (M x N) = op(a) op(b) [- op(a2) op(b2)],  op(X) = X or X^T by flag.
@@ -101,3 +123,15 @@ __device__ __forceinline__ float psgd_tiny() { return __int_as_float(1); }
 
 // Scratch carving: floats rounded up to a multiple of 4 (16-byte alignment).
 __host__ __device__ static inline size_t psgd_align4(size_t x) { return (x + 3) & ~(size_t)3; }
+
+// The last p in [lo, hi) with prefix[p] <= t, by bisection of a rising
+// prefix sum: the job holding task t (a job with no task repeats its
+// prefix and is passed over)
+__host__ __device__ inline int psgd_bisect(const int* prefix, int lo, int hi, int t) {
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (prefix[mid] <= t) lo = mid;
+        else hi = mid;
+    }
+    return lo;
+}

@@ -70,10 +70,48 @@ void plan_tri_inv(TriBatch& b) {
 }
 
 #define TRI_SMEM (sizeof(float) * TRI_SMEM_FLOATS)
+// the most of a stack's plan (its sides and prefix sums, ints) that K3's
+// stacked kernel copies to shared memory, after the tasks' floats
+#define TRI_STACK_PLAN_INTS 16384
 
-// tri_kernel's resident CTAs on the current card (CTAs a SM x SMs), asked
-// once a device; 0 where the card takes no cooperative launch
-static cudaError_t tri_resident(int* ctas) {
+// The ints of a stack's plan: its 2B sides, then its prefix sums of leaves
+// and of each level's tiles
+static int tri_stack_plan_ints(const TriStack& b) {
+    return 2 * b.B + (b.levels + 1) * (2 * b.B + 1);
+}
+
+// K4's stacked K3: every phase of the stack's plan, a grid barrier between
+// two; the same bodies as tri_kernel's, the factors found by bisection of
+// the plan, read from shared memory where `copy` (each block copies it
+// there first: a walk of the card's memory a lookup would be on the
+// dependent path of every task), else from device memory
+__global__ void __launch_bounds__(TRI_THREADS, 1) tri_stack_kernel(const TriStack b, int phases,
+                                                                   int copy) {
+    extern __shared__ __align__(16) float tsm[];
+    TriStack s = b;
+    if (copy) {
+        int* plan = reinterpret_cast<int*>(tsm + TRI_SMEM_FLOATS);
+        const int row = 2 * b.B + 1;
+        for (int k = threadIdx.x; k < 2 * b.B; k += blockDim.x) plan[k] = b.sides[k];
+        for (int k = threadIdx.x; k < row; k += blockDim.x) plan[2 * b.B + k] = b.leaves[k];
+        for (int k = threadIdx.x; k < b.levels * row; k += blockDim.x)
+            plan[2 * b.B + row + k] = b.level[k];
+        __syncthreads();
+        s.sides = plan;
+        s.leaves = plan + 2 * b.B;
+        s.level = plan + 2 * b.B + row;
+    }
+    for (int ph = 0; ph < phases; ++ph) {
+        if (ph) cooperative_groups::this_grid().sync();
+        tri_phase(s, ph, tsm);
+    }
+}
+
+// A K3 kernel's resident CTAs on the current card (CTAs a SM x SMs) at
+// `smem` bytes of dynamic shared memory, asked once a device and kernel; 0
+// where the card takes no cooperative launch
+template <class Kernel>
+static cudaError_t tri_resident(Kernel kernel, size_t smem, int* ctas) {
     static int known_dev = -1, known = 0;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -83,9 +121,9 @@ static cudaError_t tri_resident(int* ctas) {
         e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
         if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(tri_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TRI_SMEM);
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e == cudaSuccess && coop)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_kernel, TRI_THREADS, TRI_SMEM);
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TRI_THREADS, smem);
         if (e != cudaSuccess) return e;
         known = per_sm * sms;
         known_dev = dev;
@@ -100,11 +138,28 @@ static cudaError_t tri_resident(int* ctas) {
 void launch_tri_inv(TriBatch& b, cudaStream_t stream) {
     plan_tri_inv(b);
     int ctas = 0, ph0 = 0, ph1 = tri_phases(b), most = 1;
-    if (tri_resident(&ctas) != cudaSuccess) return;
+    if (tri_resident(tri_kernel, TRI_SMEM, &ctas) != cudaSuccess) return;
     for (int ph = 0; ph < ph1; ++ph) most = std::max(most, tri_phase_tasks(b, ph));
     void* args[] = {&b, &ph0, &ph1};
     cudaLaunchCooperativeKernel((const void*)tri_kernel, dim3(std::min(most, std::max(ctas, 1))),
                                 dim3(TRI_THREADS), args, TRI_SMEM, stream);
+}
+
+// The stack's phases in one cooperative launch of a resident grid, as
+// large as the largest phase's tasks (counted from the host's copy of the
+// plan). A launch the card refuses is left as the last error.
+void launch_tri_stack(const TriStack& dev, const TriStack& host, cudaStream_t stream) {
+    constexpr size_t most_smem = TRI_SMEM + sizeof(int) * TRI_STACK_PLAN_INTS;
+    int ctas = 0, phases = tri_phases(host), most = 1;
+    if (tri_resident(tri_stack_kernel, most_smem, &ctas) != cudaSuccess) return;
+    for (int ph = 0; ph < phases; ++ph) most = std::max(most, tri_phase_tasks(host, ph));
+    TriStack b = dev;
+    const int ints = tri_stack_plan_ints(host);
+    int copy = ints <= TRI_STACK_PLAN_INTS;
+    void* args[] = {&b, &phases, &copy};
+    cudaLaunchCooperativeKernel((const void*)tri_stack_kernel,
+                                dim3(std::min(most, std::max(ctas, 1))), dim3(TRI_THREADS), args,
+                                TRI_SMEM + (copy ? sizeof(int) * ints : 0), stream);
 }
 
 extern "C" int psgd_tri_inv_upper(int count, void** u, void** x, const int* n, void* stream) {

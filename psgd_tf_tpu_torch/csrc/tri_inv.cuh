@@ -1,7 +1,10 @@
 // K3's device bodies: the exact inverse of a batch of upper-triangular fp32
 // factors by the recursive block form, shared by tri.cu's launches (one a
 // phase) and by kron_dd.cu's one-launch chain (a grid barrier a phase).
-// The design and its measurements are in tri.cu's note.
+// The design and its measurements are in tri.cu's note. A batch is a
+// TriBatch (its factors' pointers and plan in by-value tables) or a
+// TriStack (K4's 2B factors at fixed strides, the plan in a device table):
+// the bodies read either through the accessors below.
 //
 // A factor of side n is cut into 32-row leaves; level l joins pairs of
 // blocks of b = 32 << l rows: pair g spans rows [r0, e), r0 = 2 b g, split
@@ -50,38 +53,75 @@ __host__ __device__ inline int tri_level_tiles(int n, int l) {
     return (pairs - 1) * rt * rt + rt * ((last + TRI_LEAF - 1) / TRI_LEAF);
 }
 
+// One factor as the bodies read it: (n, n) at row stride ld
+struct TriFactor {
+    const float* u;
+    float* x;
+    int n, ld;
+};
+
+// The accessors of a TriBatch: its factors, its prefix sums of leaves and
+// of each level's tiles, and the factor of task t by a walk of a prefix
+__host__ __device__ inline int tri_count(const TriBatch& b) { return b.count; }
+__host__ __device__ inline int tri_levels(const TriBatch& b) { return b.levels; }
+__host__ __device__ inline const int* tri_leaves(const TriBatch& b) { return b.tiles; }
+__host__ __device__ inline const int* tri_level(const TriBatch& b, int l) { return b.level_tiles[l]; }
+__device__ __forceinline__ int tri_find(const TriBatch& b, const int* prefix, int t) {
+    int p = 0;
+    while (p + 1 < b.count && t >= prefix[p + 1]) ++p;
+    return p;
+}
+__device__ __forceinline__ TriFactor tri_factor(const TriBatch& b, int p) {
+    return {b.u[p], b.x[p], b.n[p], b.n[p]};
+}
+
+// A TriStack's: factor p < B is layer p's left factor, p >= B layer
+// p - B's right one; the plan's prefix sums are searched by bisection
+__host__ __device__ inline int tri_count(const TriStack& b) { return 2 * b.B; }
+__host__ __device__ inline int tri_levels(const TriStack& b) { return b.levels; }
+__host__ __device__ inline const int* tri_leaves(const TriStack& b) { return b.leaves; }
+__host__ __device__ inline const int* tri_level(const TriStack& b, int l) {
+    return b.level + (size_t)l * (2 * b.B + 1);
+}
+__device__ __forceinline__ int tri_find(const TriStack& b, const int* prefix, int t) {
+    return psgd_bisect(prefix, 0, 2 * b.B, t);
+}
+__device__ __forceinline__ TriFactor tri_factor(const TriStack& b, int p) {
+    const int side = p >= b.B, i = side ? p - b.B : p;
+    return {b.u[side] + (size_t)i * b.stride[side], b.x[side] + (size_t)i * b.stride[side],
+            b.sides[p], b.ld[side]};
+}
+
 // phases of the batch's plan: the leaves alone, or 2 + 2 L
-__host__ __device__ inline int tri_phases(const TriBatch& b) {
-    return b.levels ? 2 + 2 * b.levels : 1;
+template <class Batch>
+__host__ __device__ inline int tri_phases(const Batch& b) {
+    return tri_levels(b) ? 2 + 2 * tri_levels(b) : 1;
 }
 
 // tasks of phase ph of the batch's plan
-__host__ __device__ inline int tri_phase_tasks(const TriBatch& b, int ph) {
-    if (ph == 0) return (b.tiles[b.count] + TRI_LEAVES_PER_TASK - 1) / TRI_LEAVES_PER_TASK;
+template <class Batch>
+__host__ __device__ inline int tri_phase_tasks(const Batch& b, int ph) {
+    const int count = tri_count(b), levels = tri_levels(b);
+    if (ph == 0) return (tri_leaves(b)[count] + TRI_LEAVES_PER_TASK - 1) / TRI_LEAVES_PER_TASK;
     const int l = (ph - 1) / 2;
-    if (ph == 1 + 2 * b.levels) return b.level_tiles[l - 1][b.count];  // the last zeroing
-    const int own = b.level_tiles[l][b.count];
-    return (ph % 2 && l > 0) ? own + b.level_tiles[l - 1][b.count] : own;
+    if (ph == 1 + 2 * levels) return tri_level(b, l - 1)[count];  // the last zeroing
+    const int own = tri_level(b, l)[count];
+    return (ph % 2 && l > 0) ? own + tri_level(b, l - 1)[count] : own;
 }
 
-__device__ __forceinline__ int tri_find(const int* prefix, int count, int t) {
-    int p = 0;
-    while (p + 1 < count && t >= prefix[p + 1]) ++p;
-    return p;
-}
-
-// The leaf at rows [r0, r0 + 32) of a factor: its inverse, identity-extended
-// past n, by the calling warp; lane c owns column c in registers and the
+// The leaf at rows [r0, r0 + 32) of a factor (row stride ld): its inverse,
+// identity-extended past n, by the calling warp; lane c owns column c in registers and the
 // tile's U is broadcast from `su` (1024 floats). Column-oriented
 // back-substitution: for k = 31 .. 0, x_k = b_k (1 / U_kk), then
 // b_r -= U_rk x_k for every r < k, so each step's FMAs are independent. Writes the whole
 // tile (zeros below its diagonal), rows and columns masked to n.
-__device__ __forceinline__ void tri_leaf(const float* u, float* x, int n, int r0, float* su) {
+__device__ __forceinline__ void tri_leaf(const float* u, float* x, int n, int ld, int r0,
+                                         float* su) {
     const int c = threadIdx.x & 31;
     const int lim = min(TRI_LEAF, n - r0);
 #pragma unroll
     for (int r = 0; r < TRI_LEAF; ++r)  // 32 loads in flight
-        su[r * TRI_LEAF + c] = (r < lim && c < lim) ? u[(size_t)(r0 + r) * n + r0 + c]
+        su[r * TRI_LEAF + c] = (r < lim && c < lim) ? u[(size_t)(r0 + r) * ld + r0 + c]
                                                     : (r == c ? 1.f : 0.f);
     __syncwarp();
     // 1 / U_kk of every row at once, off the substitution's dependent path
@@ -104,7 +144,7 @@ __device__ __forceinline__ void tri_leaf(const float* u, float* x, int n, int r0
     if (c < lim)
 #pragma unroll
         for (int r = 0; r < TRI_LEAF; ++r)
-            if (r < lim) x[(size_t)(r0 + r) * n + r0 + c] = r > c ? 0.f : v[r];
+            if (r < lim) x[(size_t)(r0 + r) * ld + r0 + c] = r > c ? 0.f : v[r];
     __syncwarp();
 }
 
@@ -188,31 +228,37 @@ __device__ __forceinline__ void tri_product(const float* a, int lda, const float
 // One task of phase ph (every thread of the block calls it; sm holds
 // TRI_SMEM_FLOATS floats). Buffers written inside a launch are read through
 // plain pointers.
-__device__ __forceinline__ void tri_task(const TriBatch& b, int ph, int t, float* sm) {
+template <class Batch>
+__device__ __forceinline__ void tri_task(const Batch& b, int ph, int t, float* sm) {
     const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    const int count = tri_count(b);
     if (ph == 0) {
+        const int* leaves = tri_leaves(b);
         const int leaf = t * TRI_LEAVES_PER_TASK + ty;
-        if (leaf < b.tiles[b.count]) {
-            const int p = tri_find(b.tiles, b.count, leaf);
-            tri_leaf(b.u[p], b.x[p], b.n[p], (leaf - b.tiles[p]) * TRI_LEAF,
+        if (leaf < leaves[count]) {
+            const int p = tri_find(b, leaves, leaf);
+            const TriFactor f = tri_factor(b, p);
+            tri_leaf(f.u, f.x, f.n, f.ld, (leaf - leaves[p]) * TRI_LEAF,
                      sm + ty * TRI_LEAF * TRI_LEAF);
         }
         return;
     }
     int l = (ph - 1) / 2, mode = ph % 2 ? 1 : 2;  // 1: P1, 2: P2, 0: zeroing
-    if (ph == 1 + 2 * b.levels) {
+    if (ph == 1 + 2 * tri_levels(b)) {
         l -= 1;
         mode = 0;
-    } else if (mode == 1 && t >= b.level_tiles[l][b.count]) {
-        t -= b.level_tiles[l][b.count];
+    } else if (mode == 1 && t >= tri_level(b, l)[count]) {
+        t -= tri_level(b, l)[count];
         l -= 1;
         mode = 0;
     }
-    const int p = tri_find(b.level_tiles[l], b.count, t);
-    const int n = b.n[p];
-    const float* u = b.u[p];
-    float* x = b.x[p];
-    t -= b.level_tiles[l][p];
+    const int* level = tri_level(b, l);
+    const int p = tri_find(b, level, t);
+    const TriFactor f = tri_factor(b, p);
+    const int n = f.n, ld = f.ld;
+    const float* u = f.u;
+    float* x = f.x;
+    t -= level[p];
     // the pair and the tile: full pairs first, the ragged one last
     const int bs = TRI_LEAF << l, rt = bs / TRI_LEAF, pairs = tri_pairs(n, l);
     const int g = min(t / (rt * rt), pairs - 1);
@@ -223,16 +269,16 @@ __device__ __forceinline__ void tri_task(const TriBatch& b, int ph, int t, float
     float acc[4];
     if (mode == 2) {
         // X12 = -X11 T, T[k][j] = X[s + j][r0 + k]; X11 upper: k >= i0
-        tri_product(x + (size_t)(r0 + i0) * n + r0, n, x + (size_t)(s + j0) * n + r0, n, true, i0,
-                    bs, cols, sm, acc);
+        tri_product(x + (size_t)(r0 + i0) * ld + r0, ld, x + (size_t)(s + j0) * ld + r0, ld, true,
+                    i0, bs, cols, sm, acc);
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-            if (tx < cols) x[(size_t)(r0 + i0 + ty + 8 * q) * n + s + j0 + tx] = -acc[q];
+            if (tx < cols) x[(size_t)(r0 + i0 + ty + 8 * q) * ld + s + j0 + tx] = -acc[q];
         return;
     }
     if (mode == 1) {
         // T = U12 X22; X22 upper: k < j0 + 32
-        tri_product(u + (size_t)(r0 + i0) * n + s, n, x + (size_t)s * n + s + j0, n, false, 0,
+        tri_product(u + (size_t)(r0 + i0) * ld + s, ld, x + (size_t)s * ld + s + j0, ld, false, 0,
                     min(e - s, j0 + TRI_LEAF), cols, sm, acc);
 #pragma unroll
         for (int q = 0; q < 4; ++q) sm[(ty + 8 * q) * TRI_LD + tx] = acc[q];
@@ -243,14 +289,15 @@ __device__ __forceinline__ void tri_task(const TriBatch& b, int ph, int t, float
     for (int q = 0; q < 4; ++q) {
         const int j = ty + 8 * q;
         if (j < cols)
-            x[(size_t)(s + j0 + j) * n + r0 + i0 + tx] = mode ? sm[tx * TRI_LD + j] : 0.f;
+            x[(size_t)(s + j0 + j) * ld + r0 + i0 + tx] = mode ? sm[tx * TRI_LD + j] : 0.f;
     }
     if (mode == 1) __syncthreads();
 }
 
 // Phase ph's tasks t = blockIdx.x, blockIdx.x + gridDim.x, ... (every
 // thread of the block runs every task)
-__device__ __forceinline__ void tri_phase(const TriBatch& b, int ph, float* sm) {
+template <class Batch>
+__device__ __forceinline__ void tri_phase(const Batch& b, int ph, float* sm) {
     const int tasks = tri_phase_tasks(b, ph);
     for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
         tri_task(b, ph, t, sm);

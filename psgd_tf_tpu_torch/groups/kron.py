@@ -21,6 +21,7 @@ route fp32 states to the Hopper kernels as `route` reports. A bucket of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal, Sequence
 
 import torch
@@ -326,12 +327,29 @@ def init_batched(
                           qr=torch.stack([one(n, T) for _, n in shapes]), shapes=shapes)
 
 
+@functools.lru_cache(maxsize=256)
+def _slot_index(shapes: tuple, S: int, T: int, device: torch.device) -> torch.Tensor:
+    """The flat positions in a (B, S, T) stack of every element of the
+    (m_i, n_i) matrices, row-major, one after another."""
+    parts = [(i * S * T + torch.arange(m)[:, None] * T + torch.arange(n)[None, :]).reshape(-1)
+             for i, (m, n) in enumerate(shapes)]
+    return torch.cat(parts).to(device)
+
+
 def stack_padded(mats: Sequence[torch.Tensor], S: int, T: int) -> torch.Tensor:
-    """Zero-pad each (m_i, n_i) matrix into an (S, T) slot and stack."""
-    out = mats[0].new_zeros((len(mats), S, T))
-    for i, x in enumerate(mats):
-        out[i, :x.shape[0], :x.shape[1]] = x
-    return out
+    """Zero-pad each (m_i, n_i) matrix into an (S, T) slot and stack, in a
+    fixed number of launches whatever the count: matrices of one shape by
+    one stack (and one pad where the slot is larger); ragged ones into a
+    zeroed stack by one concatenation and one indexed copy (the index made
+    once a bucket)."""
+    m, n = mats[0].shape
+    if all(x.shape == (m, n) for x in mats):
+        out = torch.stack(list(mats))
+        return out if (m, n) == (S, T) else torch.nn.functional.pad(out, (0, T - n, 0, S - m))
+    out = mats[0].new_zeros(len(mats) * S * T)
+    index = _slot_index(tuple(tuple(x.shape) for x in mats), S, T, out.device)
+    out.index_copy_(0, index, torch.cat([x.reshape(-1) for x in mats]))
+    return out.view(len(mats), S, T)
 
 
 def update_batched(
@@ -346,7 +364,7 @@ def update_batched(
     `_update_dd_padded`) for any other dtype, as the JAX package sends it
     to XLA. `step` is a Python number."""
     S, T = state.ql.shape[1], state.qr.shape[1]
-    dx, dg = stack_padded(dXs, S, T), stack_padded(dGs, S, T)
+    dx, dg = stack_padded([*dXs, *dGs], S, T).unflatten(0, (2, len(dXs)))
     ms = [m for m, _ in state.shapes]
     ns = [n for _, n in state.shapes]
     fn = (kron_dd.fused_update_batched if state.ql.dtype == torch.float32

@@ -12,10 +12,11 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     `kron_multi.fused_update_multi` a whole layer list of any kinds in one
     fixed chain of grouped launches (K1), and
     `kron_dd.fused_update_batched` a stacked, identity-padded bucket of
-    (dense, dense) layers through the same chain (K4). A list with a
-    sparse side (`kron_dd.route`) runs its stage bodies in one cooperative
-    launch instead, counted under 'kron_mono' (the chain's own K3 launch
-    under 'tri').
+    (dense, dense) layers through the same stages over the whole stack
+    (K4, `csrc/kron_batched.cu`, with its K3 counted under 'tri'). A list
+    with a sparse side (`kron_dd.route`) runs its stage bodies in one
+    cooperative launch instead, counted under 'kron_mono' (the chain's own
+    K3 launch under 'tri').
   - kron_sparse_big: the streaming (norm, scale) reductions (K6), their
     wide-lane kernel (K7/K8: one kernel counted under the JAX package's
     two routes), the streaming (norm, dense) chain (K9) and the streaming

@@ -40,13 +40,12 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P, _P, ctypes.c_int],
     ),
-    "psgd_kron_dd_batched_scratch_floats": (
-        ctypes.c_size_t, [ctypes.c_int, ctypes.c_int, ctypes.c_int, _IP, _IP],
+    "psgd_kron_batched_plan": (
+        ctypes.c_int, [ctypes.c_int] * 3 + [_IP, _IP, _IP, ctypes.POINTER(ctypes.c_size_t)],
     ),
     "psgd_kron_dd_batched_update": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [_P] * 6
-        + [_IP, _IP, ctypes.c_float, _P, _P, ctypes.c_int, _IP],
+        [ctypes.c_int] * 3 + [_P] * 6 + [_IP, _IP, _P, ctypes.c_float, _P, _P],
     ),
     "psgd_kron_ns_update_scratch_floats": (ctypes.c_size_t, [ctypes.c_int] * 4),
     "psgd_kron_ns_update": (

@@ -8,11 +8,13 @@ reductions, factor rewrites): a fixed chain of grouped launches, or, for a
 list with a sparse side (`route`), the same stage bodies in one
 cooperative launch with the same bits (`forced_route` picks either for the
 tests and timing tools). `fused_update` here
-is its single (dense, dense) layer entry point (K2), `fused_update_batched`
-its stacked (dense, dense) bucket entry point (K4), `fused_update_multi` its
-(dense, dense) list entry point (K20), `kron_sparse.fused_update_*` its
+is its single (dense, dense) layer entry point (K2), `fused_update_multi`
+its (dense, dense) list entry point (K20), `kron_sparse.fused_update_*` its
 single sparse layer entry points (K5), and `kron_multi.fused_update_multi`
-its list entry point of any kinds (K1).
+its list entry point of any kinds (K1). `fused_update_batched` (K4) runs
+the same stages over a whole stacked (dense, dense) bucket in
+`csrc/kron_batched.cu`: one chain a call at any B, its factors written
+into their slots.
 
 The plain versions follow `psgd_tf_tpu/groups/kron.py` `_update_dd`
 (:107-119) and `_update_dd_padded` (:541-561): triangular solves and plain
@@ -59,10 +61,11 @@ _forced: str | None = None
 
 @contextlib.contextmanager
 def forced_route(route: str):
-    """Run every list of the chain (K1, K2, K4, K5, K20) on `route`,
-    'chain' or 'mono', inside this context, instead of `route()`'s pick:
-    for the card tests and the timing tools; no path uses it. A list whose
-    products take the chain's 128 x 128 tiles raises under 'mono'."""
+    """Run every list of the chain (K1, K2, K5, K20) on `route`, 'chain' or
+    'mono', inside this context, instead of `route()`'s pick: for the card
+    tests and the timing tools; no path uses it. A list whose products take
+    the chain's 128 x 128 tiles raises under 'mono'. K4 has one route, its
+    stacked chain, and takes no part."""
     global _forced
     if route not in ("chain", "mono"):
         raise ValueError(f"forced_route: 'chain' or 'mono', got {route!r}")
@@ -96,7 +99,7 @@ def chain_flops(kinds, ms, ns) -> float:
 
 def route(kinds, ms, ns, sms: int = 132) -> str:
     """The route `csrc/kron_dd.cu` `run_chain` picks for one list of at
-    most MAX_LAYERS layers (K4's strides change no work and take no part):
+    most MAX_LAYERS layers (K4 takes no route: its stacked chain is one):
     'mono', the one cooperative launch, where the sweep of
     `tools/kron_gemm_ab.py --route` measured it faster on the card: a list
     with a sparse side (a layer of kind ds, nd or ns), every GEMM stage of
@@ -253,42 +256,65 @@ def _host_sizes(xs, what: str) -> list[int]:
     return [int(x) for x in xs]
 
 
-def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
-    """K4: the update of B stacked (dense, dense) layers of one padded
-    bucket, ql (B, S, S), qr (B, T, T), dx and dg (B, S, T), layer i's true
-    sides (ms[i], ns[i]) given as host ints or a CPU int tensor. Returns the
-    new (B, S, S) and (B, T, T) stacks, padding exact identity; the inputs
-    are not written. The plain version for CPU tensors; for CUDA tensors
-    the CUDA chain of K1 over the stack, `MAX_LAYERS` layers a chain, each
-    counted under 'kron_dd_batched' (and under 'kron_mono' or, for its own
-    K3 launch, 'tri'). `step` is a Python number."""
-    if not hopper.use_kernel(ql):
-        return update_batched_plain(ql, qr, dx, dg, ms, ns, step)
-    ms, ns = _host_sizes(ms, "ms"), _host_sizes(ns, "ns")
-    B, S, T = ql.shape[0], ql.shape[1], qr.shape[1]
-    if (tuple(ql.shape) != (B, S, S) or tuple(qr.shape) != (B, T, T)
-            or tuple(dx.shape) != (B, S, T) or tuple(dg.shape) != (B, S, T)
-            or len(ms) != B or len(ns) != B
-            or not all(1 <= m <= S for m in ms) or not all(1 <= n <= T for n in ns)):
-        raise ValueError(
-            f"kron_dd_batched: shapes Ql {tuple(ql.shape)}, Qr {tuple(qr.shape)}, "
-            f"dX {tuple(dx.shape)}, dG {tuple(dg.shape)}, sides {ms} x {ns} do not agree"
-        )
-    hopper.check_operands("kron_dd_batched", ql, qr, dx, dg)
+@functools.lru_cache(maxsize=64)
+def _stack_plan(B: int, S: int, T: int, ms: tuple, ns: tuple, device: torch.device):
+    """K4's plan of one bucket on `device`'s card, made once: (its table on
+    the card, the sides as C int arrays, the scratch's floats, the kernels
+    a call launches)."""
+    if len(ms) != B or len(ns) != B or not all(1 <= m <= S for m in ms) or not all(
+            1 <= n <= T for n in ns):
+        raise ValueError(f"kron_dd_batched: sides {list(ms)} x {list(ns)} do not fit a stack of "
+                         f"{B} ({S}, {T}) slots")
     lib = _build.lib()
     mi, ni = _build.int_array(ms), _build.int_array(ns)
-    scratch = torch.empty(lib.psgd_kron_dd_batched_scratch_floats(B, S, T, mi, ni),
-                          dtype=torch.float32, device=ql.device)
+    sizes = (ctypes.c_size_t * 3)()
+    with torch.cuda.device(device):
+        _build.check(lib.psgd_kron_batched_plan(B, S, T, mi, ni, None, sizes), "kron_dd_batched plan")
+        table = (ctypes.c_int * sizes[0])()
+        lib.psgd_kron_batched_plan(B, S, T, mi, ni, table, sizes)
+    return (torch.tensor(list(table), dtype=torch.int32, device=device), mi, ni, sizes[1],
+            sizes[2])
+
+
+def batched_launches(ms, ns, S: int, T: int, device="cuda") -> int:
+    """The kernels one K4 call launches on a bucket of sides (ms, ns) in
+    (S, T) slots: balance, K3, and one or two a GEMM stage, 6 to 10
+    whatever B (`csrc/kron_batched.cu` picks each stage's tiles)."""
+    ms, ns = tuple(int(m) for m in ms), tuple(int(n) for n in ns)
+    return _stack_plan(len(ms), S, T, ms, ns, torch.device(device))[4]
+
+
+def fused_update_batched(ql, qr, dx, dg, ms, ns, step):
+    """K4: the update of B stacked (dense, dense) layers of one padded
+    bucket, ql (B, S, S), qr (B, T, T), dx and dg (B, S, T) (S and T at
+    most 32,768 on the card), layer i's true sides (ms[i], ns[i]) given as
+    host ints or a CPU int tensor. Returns the
+    new (B, S, S) and (B, T, T) stacks, padding exact identity; the inputs
+    are not written. The plain version for CPU tensors; for CUDA tensors
+    one chain of `csrc/kron_batched.cu` over the whole stack at any B (its
+    K3 among its launches), counted once under 'kron_dd_batched' and once
+    under 'tri'. `step` is a Python number."""
+    if not hopper.use_kernel(ql):
+        return update_batched_plain(ql, qr, dx, dg, ms, ns, step)
+    ms, ns = tuple(_host_sizes(ms, "ms")), tuple(_host_sizes(ns, "ns"))
+    B, S, T = ql.shape[0], ql.shape[1], qr.shape[1]
+    if (ql.shape != (B, S, S) or qr.shape != (B, T, T) or dx.shape != (B, S, T)
+            or dg.shape != (B, S, T)):
+        raise ValueError(
+            f"kron_dd_batched: shapes Ql {tuple(ql.shape)}, Qr {tuple(qr.shape)}, "
+            f"dX {tuple(dx.shape)}, dG {tuple(dg.shape)} do not agree")
+    hopper.check_operands("kron_dd_batched", ql, qr, dx, dg)
+    table, mi, ni, floats, _ = _stack_plan(B, S, T, ms, ns, ql.device)
+    scratch = torch.empty(floats, dtype=torch.float32, device=ql.device)
     new_ql, new_qr = torch.empty_like(ql), torch.empty_like(qr)
-    monos = _build.int_array([0])
-    rc = lib.psgd_kron_dd_batched_update(
+    rc = _build.lib().psgd_kron_dd_batched_update(
         B, S, T, ql.data_ptr(), qr.data_ptr(), dx.data_ptr(), dg.data_ptr(), new_ql.data_ptr(),
-        new_qr.data_ptr(), mi, ni, float(step), scratch.data_ptr(),
-        torch.cuda.current_stream(ql.device).cuda_stream, ROUTE_CODE[_forced], monos,
+        new_qr.data_ptr(), mi, ni, table.data_ptr(), float(step), scratch.data_ptr(),
+        torch.cuda.current_stream(ql.device).cuda_stream,
     )
     _build.check(rc, "kron_dd_batched kernel chain")
-    chains = -(-B // MAX_LAYERS)
-    _count("kron_dd_batched", ["dd"], chains, monos[0])
+    hopper.counts["kron_dd_batched"] += 1
+    hopper.counts["tri"] += 1
     return new_ql, new_qr
 
 

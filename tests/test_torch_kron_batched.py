@@ -259,3 +259,88 @@ def test_bf16_batched_state_takes_the_plain_update():
     assert out.ql.dtype == out.qr.dtype == torch.bfloat16
     ref = kron.update_batched(kron.init_batched(SHAPES, device="cpu"), dxs, dgs, 0.1)
     np.testing.assert_allclose(out.ql.float().numpy(), ref.ql.numpy(), atol=3e-2)
+
+
+# a ragged bucket of 18 layers, past the 16 layers of K1's chain: every
+# layer's sides under 128, so all share one (128, 128) bucket
+SHAPES_18 = [(int(m), int(n)) for m, n in
+             np.random.default_rng(10).integers(1, 129, size=(18, 2))]
+
+
+def _stack_padded_loop(mats, S, T):
+    """The slot-by-slot stacking the one indexed copy replaces."""
+    out = mats[0].new_zeros((len(mats), S, T))
+    for i, x in enumerate(mats):
+        out[i, :x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def test_stack_padded_equals_the_loop_at_a_ragged_bucket():
+    """Bit-equal to the slot-by-slot loop: a ragged bucket (the indexed
+    copy), and one of a single shape padded and filling its slots (the
+    stack)."""
+    rng = np.random.default_rng(11)
+    mats = _t([rng.standard_normal(s).astype(np.float32) for s in SHAPES_18])
+    for S, T in [(128, 128), (256, 130)]:
+        got = kron.stack_padded(mats, S, T)
+        assert got.shape == (18, S, T) and got.is_contiguous()
+        assert torch.equal(got, _stack_padded_loop(mats, S, T))
+    same = _t([rng.standard_normal((100, 128)).astype(np.float32) for _ in range(6)])
+    for S, T in [(128, 128), (100, 128)]:
+        got = kron.stack_padded(same, S, T)
+        assert got.shape == (6, S, T) and got.is_contiguous()
+        assert torch.equal(got, _stack_padded_loop(same, S, T))
+    np.testing.assert_array_equal(kron.stack_padded(mats, 128, 128).numpy(),
+                                  np.asarray(jkron.stack_padded(_j(mats), 128, 128)))
+
+
+def test_update_batched_of_18_layers_matches_jax():
+    """A ragged bucket of B = 18 (more than one K1 chain holds): three
+    updates in both packages from the same numpy probes, then one more
+    compared; the padding exact identity."""
+    rng = np.random.default_rng(12)
+    bst, jbst = kron.init_batched(SHAPES_18, device="cpu"), jkron.init_batched(tuple(SHAPES_18))
+    assert bst.ql.shape == (18, 128, 128) == jbst.ql.shape
+    for k in range(4):
+        dxs, dgs = _probes(rng, SHAPES_18)
+        bst = kron.update_batched(bst, _t(dxs), _t(dgs), step=0.1)
+        jbst = jkron.update_batched(jbst, _j(dxs), _j(dgs), step=0.1)
+    np.testing.assert_allclose(bst.ql.numpy(), np.asarray(jbst.ql), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(bst.qr.numpy(), np.asarray(jbst.qr), rtol=1e-4, atol=1e-5)
+    assert _padding_is_identity(bst.ql, [m for m, _ in SHAPES_18])
+    assert _padding_is_identity(bst.qr, [n for _, n in SHAPES_18])
+
+
+def test_optimizer_bucket_of_18_layers_matches_jax(monkeypatch):
+    """Twenty PSGD steps with one stacked bucket of 18 (dense, dense)
+    layers in both packages, the same probes injected into both."""
+    w = [0.1 * a for a in _probes(np.random.default_rng(13), SHAPES_18)[0]]
+    rng = np.random.default_rng(14)
+    probes = [_probes(rng, SHAPES_18)[0] for _ in range(20)]
+    hyper = dict(preconditioner="kron", kron_formats=DD, lr_params=0.05, lr_preconditioner=0.1)
+    jopt = JPSGD(**hyper)
+    jparams = _j(w)
+    jstate = jopt.init(jparams, jax.random.PRNGKey(0))
+    probe = []
+    monkeypatch.setattr(jhvp, "random_like", lambda key, params: probe[0])
+
+    def jstep(params, state, v):
+        probe[:] = [v]
+        return jopt.step(_jloss, params, state, jax.random.PRNGKey(1))
+
+    jstep = jax.jit(jstep)
+    opt = PSGD(**hyper)
+    params = _t(w)
+    state = opt.init(params)
+    assert state.precond.batched_idx == jstate.precond.batched_idx == (tuple(range(18)),)
+    for v in probes:
+        jparams, jstate, jaux = jstep(jparams, jstate, _j(v))
+        params, state, aux = opt.step(_loss, params, state, None, probes=_t(v))
+        assert aux["loss"].item() == pytest.approx(float(jaux["loss"]), rel=5e-4)
+    for a, b in zip(params, jparams, strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-5)
+    (b,), (jb,) = state.precond.batches, jstate.precond.batches
+    np.testing.assert_allclose(b.ql.numpy(), np.asarray(jb.ql), rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(b.qr.numpy(), np.asarray(jb.qr), rtol=5e-4, atol=5e-5)
+    assert _padding_is_identity(b.ql, [m for m, _ in b.shapes])
+    assert _padding_is_identity(b.qr, [n for _, n in b.shapes])

@@ -9,6 +9,7 @@ in two checkouts of the port on one card, or probe this tree's tuning.
     python3 tools/kron_gemm_ab.py --gemm
     python3 tools/kron_gemm_ab.py --route
     python3 tools/kron_gemm_ab.py --tri
+    python3 tools/kron_gemm_ab.py --k4
 
 Run from the root of the repository on a machine with one CUDA card.
 OTHER_TREE is another checkout of the repository (for example the parent
@@ -37,8 +38,11 @@ over chained calls, TF32 off), at the shapes of the paths:
   - K17 nd, `kron_sparse_big.fused_apply_nd` at (131072, 512);
   - K1, `kron.update_multi` on LeNet5's five (dense, dense) layers and on
     the toy NMT model's seven layers of mixed kinds;
-  - K4, `kron.update_batched` on the K4 path's bucket (the NMT model at
-    embed 16, units 32: four (dense, dense) layers in one (128, 128) stack);
+  - K4, `kron.update_batched` on the buckets of `chip_smoke.py`'s phase
+    3c (the K4 path's: the NMT model at embed 16, units 32, four (dense,
+    dense) layers in one (128, 128) stack; the ragged one; B = 6 and 24 of
+    (200, 256); B = 4 of (1000, 1000); B = 48 of (768, 768)), each beside
+    K1 on the same layers unbatched (`kron.update_multi`);
   - K20, `kron_dd.fused_update_multi` on 18 layers (two chains);
   - K2, `kron_dd.fused_update` at (1, 10) and (1024, 1024); K5, the three
     `kron_sparse` kinds at (130, 65);
@@ -78,7 +82,10 @@ whether the two routes' outputs are bit-equal: the paths' lists and a
 sweep of single (dense, dense) layers and dd lists by size, the sweep
 that sets `KRON_MONO_MAX_MFLOP`. `--tri` times K3 and chains that run it
 on this tree and on a copy that launches K3 a phase at a time instead of
-in one cooperative launch. Then the card's name and power limit.
+in one cooperative launch. `--k4` times K4 at its buckets for each rule of
+its GEMM stages' tiles: this tree, then one copy of it a rule with
+`K4_BIG_TILES` edited in `csrc/kron_batched.cu`, each built and run in
+its own process. Then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -94,6 +101,13 @@ K17_SHAPE = (131072, 512)
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
 MULTI_18 = LENET5 * 3 + [(1, 10), (300, 7), (64, 64)]
 K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
+# chip_smoke.py's phase 3c buckets beside the K4 path's
+K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
+              ("B=6 (200, 256)", [(200, 256)] * 6), ("B=24 (200, 256)", [(200, 256)] * 24),
+              ("B=4 (1000, 1000)", [(1000, 1000)] * 4), ("B=48 (768, 768)", [(768, 768)] * 48)]
+# --k4's rules: K4_BIG_TILES, the 128 x 128 tiles an SM a stage's launch
+# needs to take that tile (csrc/kron_batched.cu)
+K4_RULES = [4, 2, 1]
 FLAT = [(1 << 20, 10), (1 << 20, 64)]
 GRAM = (1 << 20, (64, 128))   # --gram's n and ranks
 GRAM_KERNELS = ("gemm_kernel", "gram_sum_kernel", "rows_kernel")  # the Grams' kernels past r = 32
@@ -289,15 +303,21 @@ def _chains(torch, dev, only=()):
             sts, (dxs, dgs) = walked(fl, sh), probes(sh)
             out.append((f"K1 {label}", lambda sts=sts, dxs=dxs, dgs=dgs: kron.update_multi(
                 sts, dxs, dgs, 0.1), 100))
-    if want(15, "K4"):
-        k4_shapes = [s for s in nmt.layer_shapes(nmt.Config(**K4_NMT))
-                     if kron.auto_format(s) == DD]
-        bst = kron.init_batched(k4_shapes, init_scale=0.8, device=dev)
+    k4_path = [s for s in nmt.layer_shapes(nmt.Config(**K4_NMT)) if kron.auto_format(s) == DD]
+    for k, (label, shapes) in enumerate([("path bucket", k4_path)] + K4_BUCKETS):
+        if not want(15 if k == 0 else 50 + k, f"K4 {label}", f"K1 unbatched {label}"):
+            continue
+        bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
         with hopper.disabled():
             for _ in range(2):
-                bst = kron.update_batched(bst, *probes(k4_shapes), step=0.1)
-        bdx, bdg = probes(k4_shapes)
-        out.append(("K4 path bucket", lambda: kron.update_batched(bst, bdx, bdg, 0.1), 100))
+                bst = kron.update_batched(bst, *probes(shapes), step=0.1)
+        bdx, bdg = probes(shapes)
+        reps = 5 if max(max(s) for s in shapes) > 512 else 100
+        out.append((f"K4 {label}", lambda bst=bst, bdx=bdx, bdg=bdg: kron.update_batched(
+            bst, bdx, bdg, 0.1), reps))
+        singles = kron.unbatch(bst)
+        out.append((f"K1 unbatched {label}", lambda singles=singles, bdx=bdx, bdg=bdg:
+                    kron.update_multi(singles, bdx, bdg, 0.1), reps))
     if want(16, "K20"):
         sts20, (dxs20, dgs20) = walked([DD] * len(MULTI_18), MULTI_18), probes(MULTI_18)
         out.append(("K20 18 layers", lambda: kron_dd.fused_update_multi(
@@ -467,6 +487,14 @@ def sweep() -> None:
                 [f"K9 kernel part {shape}" for shape in K9_SHAPES])
 
 
+def k4_rules() -> None:
+    """K4 at its buckets under each rule of its stages' tiles."""
+    src = "psgd_tf_tpu_torch/csrc/kron_batched.cu"
+    runs = [(f"K4_BIG_TILES {t}", [(src, "#define K4_BIG_TILES 4 ", f"#define K4_BIG_TILES {t} ")]
+             if t != 4 else None) for t in K4_RULES]
+    _run_copies(runs, [f"K4 {label}" for label, _ in K4_BUCKETS])
+
+
 def generic() -> None:
     """K13 and K16 at n = 2^20, r = 10: the rank-32 chain (this tree) and
     the rank-generic one (a copy that takes it at every rank)."""
@@ -612,11 +640,6 @@ def route_sweep() -> None:
         sts, (dxs, dgs) = walked(fmts, shapes), probes(shapes)
         return lambda: kron.update_multi(sts, dxs, dgs, 0.1)
 
-    def batched(shapes):
-        bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
-        dxs, dgs = probes(shapes)
-        return lambda: kron.update_batched(bst, dxs, dgs, 0.1)
-
     def single(fmt, shape):
         (st,), ((dx,), (dg,)) = walked([fmt], [shape]), probes([shape])
         if fmt == DD:
@@ -626,13 +649,10 @@ def route_sweep() -> None:
 
     pre = PSGD(preconditioner="kron").init(tensor_decomp.init(g)).precond
     toy = nmt.Config()
-    k4 = [s for s in nmt.layer_shapes(nmt.Config(**K4_NMT)) if kron.auto_format(s) == DD]
     cases = [("K1 LeNet5", multi([DD] * 5, LENET5)),
              ("K1 toy NMT", multi(nmt.kron_formats(toy), nmt.layer_shapes(toy))),
              ("K1 decomposition", multi([st.fmt for st in pre],
                                         [(st.ql.shape[-1], st.qr.shape[-1]) for st in pre])),
-             ("K4 path bucket", batched(k4)),
-             ("K4 B = 24 of (200, 256)", batched([(200, 256)] * 24)),
              ("K20 16 layers", multi([DD] * 16, MULTI_18[:16])),
              ("K2 (1, 10)", single(DD, (1, 10)))]
     cases += [(f"K5 {kind} (130, 65)", single(fmt, (130, 65))) for kind, fmt in
@@ -703,6 +723,8 @@ def main() -> int:
         route_sweep()
     elif sys.argv[1:] == ["--tri"]:
         tri_variants()
+    elif sys.argv[1:] == ["--k4"]:
+        k4_rules()
     elif sys.argv[1:] == ["--gemm"]:
         torch = _setup(str(HERE))
         print("GEMM alone at (131072, 512): " + _gemm_rates(torch, torch.device("cuda")), flush=True)

@@ -94,6 +94,17 @@ same way at bench.py's (131072, 512) and at the reference NMT's five
 (norm, dense) layers under the default formats, with the host us of the
 entry and of its C call, CUDA events, and each launch queued and synced.
 TREE as for `--stream`.
+
+    python3 tools/profile_kron_chain.py --k4 [TREE]
+
+traces K4 through `kron.update_batched` at `chip_smoke.py`'s phase 3c
+buckets (the ragged one, the K4 path's, B = 6 and 24 of (200, 256), B = 4
+of (1000, 1000), B = 48 of (768, 768)), with the host us of the call and
+of the wrapper inside it (`kron_dd.fused_update_batched`, the stacks of dX
+and dG made before), CUDA events over chained calls and each launch queued
+and synced (the stacking's torch kernels among them: each GEMM stage's
+device us at each bucket), then K1 on the same layers unbatched
+(`kron.update_multi`) the same way. TREE as for `--stream`.
 """
 from __future__ import annotations
 
@@ -109,7 +120,8 @@ from pathlib import Path
 
 if not any(a in sys.argv for a in ("--phases-child", "--dense-steps-child")):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
-if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"], ["--apply-nd"]) and len(sys.argv) > 2:
+if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"], ["--apply-nd"], ["--k4"]) and \
+        len(sys.argv) > 2:
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
 LENET5 = [(26, 6), (151, 16), (257, 120), (121, 84), (85, 10)]
@@ -127,6 +139,11 @@ SPLU_N = [(1 << 20, 10), (1 << 20, 32), (1 << 20, 33), (1 << 20, 64), (12_424_27
 K15_N = [(1 << 16, 10), (400, 10), (400, 64)]
 # --apply-nd: bench.py:678-683's kron_nd row
 APPLY_ND = (131072, 512)
+# --k4: chip_smoke.py's phase 3c buckets (the K4 path's is made from its NMT model)
+K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
+              ("B=6 (200, 256)", [(200, 256)] * 6), ("B=24 (200, 256)", [(200, 256)] * 24),
+              ("B=4 (1000, 1000)", [(1000, 1000)] * 4), ("B=48 (768, 768)", [(768, 768)] * 48)]
+K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
 
 
 def _kernels(trace_path, cats=("kernel",)):
@@ -653,6 +670,51 @@ def _apply_nd() -> int:
     return 0
 
 
+def _k4() -> int:
+    """--k4: K4 through `kron.update_batched` at phase 3c's buckets, and K1
+    on the same layers unbatched."""
+    import torch
+    from psgd_tf_tpu_torch import kron
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import _build, kron_dd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package {Path(kron_dd.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    DD = ("dense", "dense")
+    path = [s for s in nmt.layer_shapes(nmt.Config(**K4_NMT)) if kron.auto_format(s) == DD]
+    summary = {}
+    for label, shapes in [("K4 path's bucket", path)] + K4_BUCKETS:
+        ms, ns = [m for m, _ in shapes], [n for _, n in shapes]
+        bst = kron.init_batched(shapes, init_scale=0.8, device=dev)
+        pr = lambda: [torch.randn(s, generator=g, device=dev) for s in shapes]
+        with hopper.disabled():
+            for _ in range(2):
+                bst = kron.update_batched(bst, pr(), pr(), step=0.1)
+        dxs, dgs = pr(), pr()
+        S, T = bst.ql.shape[1], bst.qr.shape[1]
+        dx, dg = kron.stack_padded(dxs, S, T), kron.stack_padded(dgs, S, T)
+        singles = kron.unbatch(bst)
+        big = max(max(s) for s in shapes) > 512
+        calls, traced = (20, 5) if big else (CALLS, TRACED)
+        _report(torch, f"K4 {label}", lambda: kron.update_batched(bst, dxs, dgs, 0.1),
+                [("fused_update_batched", lambda: kron_dd.fused_update_batched(
+                    bst.ql, bst.qr, dx, dg, ms, ns, 0.1))], calls, traced, summary)
+        _report(torch, f"K1 unbatched {label}", lambda: kron.update_multi(singles, dxs, dgs, 0.1),
+                [], calls, traced, summary)
+        del bst, dx, dg, singles, dxs, dgs
+        torch.cuda.empty_cache()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -675,6 +737,8 @@ def main() -> int:
         return _splu()
     if sys.argv[1:2] == ["--apply-nd"]:
         return _apply_nd()
+    if sys.argv[1:2] == ["--k4"]:
+        return _k4()
     route = None
     if sys.argv[1:2] == ["--route"]:
         route = sys.argv[2]
