@@ -51,7 +51,7 @@ after:
   - `lstm_xor` at its reference widths (hidden 30, 7,591 parameters,
     batch 128, sequences of 100): its two (dense, dense) layers ride K1
     with two layers (and K3); a 20-step loss trace with the kernels and
-    under `disabled()`, then 100 steps of `lstm_xor.run()` with the kernels;
+    under `disabled()`, then 50 steps of `lstm_xor.run()` with the kernels;
   - the Kronecker family's unrouted kernels through their own entry
     points, as the JAX package's tests reach them: the streamed arrow
     applies (K17) on the reference NMT's three (norm, scale) layers and its
@@ -123,7 +123,17 @@ after:
     K2, K3 a step on each rank) and lra (K14), 10 steps each, against the
     same steps in one process; the payload of the collectives per step by
     axis beside `overlap.comm_model`'s, and steps/s with the split and
-    without it.
+    without it;
+  - S5, parameters split over `data`, alone or with `shard`, on four gloo
+    ranks sharing the card, mesh (data=2, shard=2): the same model with
+    every spec form (`("data", "shard")`, `(None, ("data", "shard"))`,
+    `("data", None)`, `(None, ("shard", "data"))`, `(None, "data")`:
+    7,365,888 parameters split), batch 64 as 32 a data rank, under kron
+    with the hand formats (K10 x3, K6 x3, K2, K3 a step on each rank) and
+    lra (K14), 10 steps each, against the same steps in one process; the
+    returned blocks, the same losses on all four ranks, the bytes each
+    rank receives a step by axis beside `overlap.comm_model`'s and the
+    port's own arithmetic, the bytes of parameters a rank holds, steps/s.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. TF32 is off for matmuls and convolutions, so every comparison
@@ -215,7 +225,7 @@ K4_BUCKETS = [("ragged", [(26, 6), (121, 84), (85, 10), (100, 128)]),
 K4_NMT = dict(vocab_src=1100, vocab_tgt=1030, embed=16, units=32)
 K4_PATH_STEPS = 30
 LSTM_TRACE_STEPS = 20
-LSTM_STEPS = 100
+LSTM_STEPS = 50
 BF16_STEPS = 20
 # the sharded phases: K14 at bench.py:610's n and a ragged one, the sharded
 # K16 at bench.py:616's n and a ragged one, r = 10; the sharded step at the
@@ -236,6 +246,20 @@ TOL_SHARD_NMT = 5e-4
 TP_SPECS = [("shard", None), (None, "shard"), None, None, (None, "shard"), (None, "shard"), None]
 TP_STEPS = 10
 TP_FIELDS = {"kron": ("ql", "qr"), "lra": ("UV", "d")}
+# the launches a tensor-parallel step makes on each rank, per family
+TP_PER_STEP = {"kron": {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1},
+               "lra": {"lra_upd_sharded": 1}}
+# S5, parameters split over `data`, alone or with `shard`, on four gloo ranks
+# sharing the card, mesh (data=2, shard=2): the reference NMT with every spec
+# form (7,365,888 of its 12,424,273 parameters split; the attention output
+# and the fc, which 4 divides on neither side, replicate), batch 64 split
+# 32 / 32 over data; kron (the hand formats) and lra, rank 10. The layer
+# order of `models/nmt.py`: encoder embedding, encoder RNN, attention in and
+# out, decoder embedding, decoder RNN, fc
+S5_SPECS = [("data", "shard"), (None, ("data", "shard")), ("data", None), None,
+            (None, ("shard", "data")), (None, "data"), None]
+S5_MESH = {"data": 2, "shard": 2}
+S5_STEPS = 10
 WORKER_TIMEOUT = 600
 # the unrouted Kronecker kernels (K17-K20) beyond the paths' shapes: the
 # (norm, scale) apply at bench.py's (65536, 8192) kron_ns row, the wide
@@ -520,85 +544,142 @@ def _nmt_ref_run(fam, steps, mesh=None, rank=10, specs=None, around=contextlib.n
             shapes)
 
 
-def _s4(rank, mesh, out):
-    """S4 on one of the two gloo ranks of `_sharded_job`: the reference NMT
-    with TP_SPECS (this rank holds its slices of the split leaves), under
-    kron and lra, against the same steps in one process on rank 0 as in S3;
-    kron also on the mesh without specs (S3 runs lra so). The collectives
-    are counted by axis: the elements a rank receives in the gathers of
-    split leaves (`all_gather_dims`) and all-reduces over `data`
-    (`data_mean`, the loss aside), and the flat family's rank-space
-    all-reduces and lane gathers (P g) over `shard`. Fills out["tp_kron_rep"],
-    out["tp_kron"] and out["tp_lra"]."""
-    import torch
+def _spec_axes(spec):
+    """Per entry of a tensor-parallel spec, the mesh axes it names."""
+    return [() if e is None else (e,) if isinstance(e, str) else tuple(e) for e in spec or ()]
 
-    from psgd_tf_tpu_torch.models import nmt
-    from psgd_tf_tpu_torch.parallel import _collectives, overlap, policies
 
-    moved = {}
+def _block_shapes(shapes, specs, mesh_shape):
+    """The block of each leaf that a rank holds under `specs`: each
+    dimension divided by the degrees of its entry's axes."""
+    out = []
+    for shape, spec in zip(shapes, specs):
+        shape = list(shape)
+        for k, axes in enumerate(_spec_axes(spec)):
+            shape[k] //= math.prod(mesh_shape[a] for a in axes)
+        out.append(tuple(shape))
+    return out
+
+
+@contextlib.contextmanager
+def _counted_collectives(mesh, moved):
+    """Inside it `_collectives` counts in `moved`, by axis, the elements this
+    rank receives in the gathers of split leaves (`all_gather_dims`, over
+    `shard` or `data`) and all-reduces over `data` (`data_mean`, the loss
+    aside), and the flat family's rank-space all-reduces and lane gathers
+    over `shard`."""
+    from psgd_tf_tpu_torch.parallel import _collectives
+
     real = {k: getattr(_collectives, k) for k in ("all_gather_dims", "data_mean", "psum",
                                                    "pmax", "psum_async", "all_gather_lanes")}
 
-    def counting(key, name, size_of):
+    def counting(name, count):
         def call(*a, **k):
-            moved[key] = moved.get(key, 0) + size_of(*a)
+            key, n = count(*a)
+            if key is not None:
+                moved[key] = moved.get(key, 0) + n
             return real[name](*a, **k)
         return call
 
-    counters = {
-        "all_gather_dims": counting("shard, split leaves", "all_gather_dims",
-                                    lambda xs, dims, grp, size, rk: (size - 1) * sum(
-                                        x.numel() for x in xs)),
-        "data_mean": counting("data", "data_mean", lambda m, ts: 0 if m is None or m.data == 1
-                              else sum(t.numel() for t in ts[1:])),
-        "psum": counting("shard, rank space", "psum", lambda x, grp, size: x.numel()),
-        "pmax": counting("shard, rank space", "pmax", lambda x, grp, size: x.numel()),
-        "psum_async": counting("shard, rank space", "psum_async", lambda x, grp, size, op=None:
-                               x.numel()),
-        "all_gather_lanes": counting("shard, lanes", "all_gather_lanes",
-                                     lambda x, grp, size, rk: (size - 1) * x.numel())}
+    def rank_space(x, grp, *rest):
+        # data_mean's own all-reduce over `data` is counted as data_mean
+        return ("shard, rank space" if grp is mesh.shard_group else None), x.numel()
 
-    @contextlib.contextmanager
-    def counted():
-        for name, fn in counters.items():
+    counters = {
+        "all_gather_dims": counting("all_gather_dims", lambda xs, dims, grp, size, rk: (
+            "shard, split leaves" if grp is mesh.shard_group else "data, split leaves",
+            (size - 1) * sum(x.numel() for x in xs))),
+        "data_mean": counting("data_mean", lambda m, ts: (
+            "data", 0 if m is None or m.data == 1 else sum(t.numel() for t in ts[1:]))),
+        "psum": counting("psum", rank_space), "pmax": counting("pmax", rank_space),
+        "psum_async": counting("psum_async", rank_space),
+        "all_gather_lanes": counting("all_gather_lanes", lambda x, grp, size, rk: (
+            "shard, lanes", (size - 1) * x.numel()))}
+    for name, fn in counters.items():
+        setattr(_collectives, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
             setattr(_collectives, name, fn)
-        try:
-            yield
-        finally:
-            for name, fn in real.items():
-                setattr(_collectives, name, fn)
+
+
+def _tp_run(rank, mesh, fam, specs, steps):
+    """`steps` steps of the reference NMT under `fam` with tensor-parallel
+    `specs` on `mesh` (`_nmt_ref_run`), its collectives counted by axis
+    (bytes a step and rank, `_counted_collectives`) beside
+    `overlap.comm_model`'s; on rank 0 also the same steps in one process
+    (the other ranks wait in their next collective meanwhile) and the run's
+    distance from it: the parameters' change and the gathered last state.
+    Each step rounds p + u to fp32, so the two parameter changes may differ
+    by up to a spacing of fp32 at the largest |p| a step."""
+    import torch
+
+    from psgd_tf_tpu_torch.models import nmt
+    from psgd_tf_tpu_torch.parallel import overlap, policies
+
+    moved = {}
+    losses, counts, rate, delta, p_max, local, shapes = _nmt_ref_run(
+        fam, steps, mesh, specs=specs, around=lambda: _counted_collectives(mesh, moved))
+    full = policies.gather_state(mesh, local, delta.numel()).precond
+    del local
+    res = dict(losses=losses, counts=counts, rate=rate, shapes=shapes,
+               moved={k: 4 * v / steps for k, v in moved.items()},
+               model=overlap.comm_model(fam, rank=10,
+                                        param_shapes=nmt.layer_shapes(nmt.ref_config()),
+                                        param_specs=specs, mesh_shape=mesh.shape))
+    if rank == 0:
+        torch.cuda.empty_cache()
+        ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state, _ = _nmt_ref_run(fam, steps)
+        spacing = 2.0 ** math.ceil(math.log2(p_max)) * torch.finfo(torch.float32).eps
+        pairs = (list(zip(full, ref_state.precond)) if fam == "kron"
+                 else [(full, ref_state.precond)])
+        res.update(ref=(ref_losses, ref_counts, ref_rate), delta_err=_abs(delta, ref_delta),
+                   delta_tol=steps * spacing, delta_max=ref_delta.abs().max().item(),
+                   state_rel=max(_rel(getattr(a, f), getattr(b, f))
+                                 for a, b in pairs for f in TP_FIELDS[fam]))
+        del ref_delta, ref_state
+    del delta, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_checks(torch, fam, res_ranks, want_shapes, launches):
+    """(loss trace max rel diff against one process, launches per rank,
+    whether the launches, the trace, the parameters, the state, the losses
+    on every rank and the returned blocks are as they must be) of one
+    family's `_tp_run` results on every rank; adds their launches to
+    `launches`."""
+    res = res_ranks[0]
+    counts = [r["counts"] for r in res_ranks]
+    for c in counts:
+        for name, n in c.items():
+            launches[name] += n
+    trace = _rel(torch.tensor(res["losses"]), torch.tensor(res["ref"][0]))
+    steps = len(res["losses"])
+    want = {k: n * steps for k, n in TP_PER_STEP[fam].items()}
+    ok_launch = all({k: c[k] for k in want} == want for c in counts) and (
+        fam != "kron" or all(c == res["ref"][1] for c in counts))
+    ok = (ok_launch and max(trace, res["state_rel"]) <= TOL_TRAJ
+          and res["delta_err"] <= res["delta_tol"]
+          and all(r["losses"] == res["losses"] for r in res_ranks)
+          and all(r["shapes"] == want_shapes for r in res_ranks))
+    return trace, [{k: v for k, v in c.items() if v} for c in counts], ok
+
+
+def _s4(rank, mesh, out):
+    """S4 on one of the two gloo ranks of `_sharded_job`: the reference NMT
+    with TP_SPECS (this rank holds its slices of the split leaves), under
+    kron and lra (`_tp_run`), and kron on the mesh without specs (S3 runs
+    lra so). Fills out["tp_kron_rep"], out["tp_kron"] and out["tp_lra"]."""
+    import torch
 
     rep = _nmt_ref_run("kron", TP_STEPS, mesh)
     out["tp_kron_rep"] = dict(losses=rep[0], counts=rep[1], rate=rep[2])
     del rep
     torch.cuda.empty_cache()
-    shapes_ref = nmt.layer_shapes(nmt.ref_config())
-    for fam, fields in TP_FIELDS.items():
-        moved.clear()
-        losses, counts, rate, delta, p_max, local, shapes = _nmt_ref_run(
-            fam, TP_STEPS, mesh, specs=TP_SPECS, around=counted)
-        full = policies.gather_state(mesh, local, delta.numel()).precond
-        del local
-        res = dict(losses=losses, counts=counts, rate=rate, shapes=shapes,
-                   moved={k: 4 * v / TP_STEPS for k, v in moved.items()},
-                   model=overlap.comm_model(fam, rank=10, param_shapes=shapes_ref,
-                                            param_specs=TP_SPECS,
-                                            mesh_shape={"data": mesh.data, "shard": mesh.shard}))
-        if rank == 0:
-            torch.cuda.empty_cache()
-            ref_losses, ref_counts, ref_rate, ref_delta, _, ref_state, _ = _nmt_ref_run(
-                fam, TP_STEPS)
-            spacing = 2.0 ** math.ceil(math.log2(p_max)) * torch.finfo(torch.float32).eps
-            pairs = (list(zip(full, ref_state.precond)) if fam == "kron"
-                     else [(full, ref_state.precond)])
-            res.update(ref=(ref_losses, ref_counts, ref_rate), delta_err=_abs(delta, ref_delta),
-                       delta_tol=TP_STEPS * spacing, delta_max=ref_delta.abs().max().item(),
-                       state_rel=max(_rel(getattr(a, f), getattr(b, f))
-                                     for a, b in pairs for f in fields))
-            del ref_delta, ref_state
-        out[f"tp_{fam}"] = res
-        del delta, full
-        torch.cuda.empty_cache()
+    for fam in TP_FIELDS:
+        out[f"tp_{fam}"] = _tp_run(rank, mesh, fam, TP_SPECS, TP_STEPS)
 
 
 def _s4_report(torch, ranks, check, launches, smi):
@@ -613,27 +694,20 @@ def _s4_report(torch, ranks, check, launches, smi):
     for r in ranks:
         for name, n in r["tp_kron_rep"]["counts"].items():
             launches[name] += n
-    tp_ranks = {fam: [r[f"tp_{fam}"] for r in ranks] for fam in TP_FIELDS}
-    tp_shapes = [tuple(d // 2 if spec is not None and spec[k] == "shard" else d
-                       for k, d in enumerate(shape))
-                 for shape, spec in zip(nmt.layer_shapes(nmt.ref_config()), TP_SPECS)]
-    per_step = {"kron": {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1},
-                "lra": {"lra_upd_sharded": 1}}
-    for fam, res_ranks in tp_ranks.items():
+    tp_shapes = _block_shapes(nmt.layer_shapes(nmt.ref_config()), TP_SPECS,
+                              {"data": 1, "shard": 2})
+    for fam in TP_FIELDS:
+        res_ranks = [r[f"tp_{fam}"] for r in ranks]
         res = res_ranks[0]
         losses, ref, model, moved = res["losses"], res["ref"], res["model"], res["moved"]
-        counts = [r["counts"] for r in res_ranks]
-        for c in counts:
-            for name, n in c.items():
-                launches[name] += n
-        trace = _rel(torch.tensor(losses), torch.tensor(ref[0]))
+        trace, counts, ok = _tp_checks(torch, fam, res_ranks, tp_shapes, launches)
         no_tp = r0["tp_kron_rep"]["rate"] if fam == "kron" else r0["nmt_lra"]["rate"]
         split_bytes = model["tp_gather_bytes_per_step"] / 3
         print(f"s4: NMT reference widths, {fam}, {len(TP_SPECS) - TP_SPECS.count(None)} of 7 "
               f"leaves split over shard ({model['n_params']} parameters; each rank holds "
               f"{sum(math.prod(s) for s, sp in zip(tp_shapes, TP_SPECS) if sp)} elements of the "
               f"split ones), mesh (data=1, shard=2), {TP_STEPS} steps: "
-              f"launches per rank {[({k: v for k, v in c.items() if v}) for c in counts]}; "
+              f"launches per rank {counts}; "
               f"returned slices {res['shapes']}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
               f"against one process: loss trace max rel diff {trace:.3e}, {fam} state max rel "
               f"diff {res['state_rel']:.3e} (tol {TOL_TRAJ:.0e} each), parameter change max abs "
@@ -647,7 +721,6 @@ def _s4_report(torch, ranks, check, launches, smi):
               f"{res['rate']:.2f} steps/s with TP, {no_tp:.2f} on the same mesh without "
               f"({'the replicated kron run' if fam == 'kron' else 'S3'}), {ref[2]:.2f} in one "
               f"process; {smi}", flush=True)
-        want = {k: n * TP_STEPS for k, n in per_step[fam].items()}
         if fam == "kron":
             rep_trace = _rel(torch.tensor(r0["tp_kron_rep"]["losses"]), torch.tensor(ref[0]))
             print(f"s4: kron on the same mesh without specs: loss trace max rel diff against "
@@ -655,15 +728,100 @@ def _s4_report(torch, ranks, check, launches, smi):
             check(rep_trace <= TOL_TRAJ and all(r["tp_kron_rep"]["counts"] == ref[1]
                                                 for r in ranks),
                   "s4: the replicated kron step on the mesh: its launches and trace")
-        check(all({k: c[k] for k in want} == want for c in counts)
-              and (fam != "kron" or all(c == ref[1] for c in counts)),
-              f"s4: the TP {fam} step's launches on each rank ({want}, as in one process)")
-        check(max(trace, res["state_rel"]) <= TOL_TRAJ and res["delta_err"] <= res["delta_tol"]
-              and all(r["losses"] == losses for r in res_ranks)
-              and all(r["shapes"] == tp_shapes for r in res_ranks)
-              and moved.get("shard, split leaves") == split_bytes and not moved.get("data"),
-              f"s4: the TP {fam} step: the trace, the parameters and the state as in one "
+        check(ok and moved.get("shard, split leaves") == split_bytes and not moved.get("data"),
+              f"s4: the TP {fam} step: its launches on each rank ({TP_PER_STEP[fam]} a step, "
+              f"as in one process), the trace, the parameters and the state as in one "
               f"process, the returned slices and one gather of the split parameters a step")
+
+
+def _s5_job(rank, world):
+    """S5 on one of four gloo ranks sharing the card: the reference NMT with
+    S5_SPECS on mesh (data=2, shard=2) under kron and lra (`_tp_run`)."""
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=S5_MESH["data"], shard=S5_MESH["shard"], device="cuda:0")
+    out = {"backend": mesh.backend, "coords": (mesh.data_rank, mesh.shard_rank)}
+    for fam in TP_FIELDS:
+        out[fam] = _tp_run(rank, mesh, fam, S5_SPECS, S5_STEPS)
+    return out
+
+
+def _s5_payload(shapes, specs, mesh_shape):
+    """The elements a rank receives a step, by axis, as the port's
+    collectives move them: the all-reduce over `data` carries of each
+    gradient and Hvp the part its data group holds (a leaf's block, times
+    the `data` degree where `data` splits it); the gathers over `shard`
+    receive (shard - 1) blocks of each parameter that names `shard` and
+    (shard - 1) parts of its gradient and Hvp; the gather over `data` the
+    parameters' remaining (data - 1) parts (a block, times the `shard`
+    degree where `shard` splits it too)."""
+    D, S = mesh_shape["data"], mesh_shape["shard"]
+    out = {"data": 0, "shard, split leaves": 0, "data, split leaves": 0}
+    for block, spec in zip(_block_shapes(shapes, specs, mesh_shape), specs):
+        names = {a for axes in _spec_axes(spec) for a in axes}
+        n = math.prod(block)
+        part = n * (D if "data" in names else 1)
+        out["data"] += 2 * part if D > 1 else 0
+        if "shard" in names:
+            out["shard, split leaves"] += (S - 1) * (n + (2 * part if D > 1 else 0))
+        if "data" in names:
+            out["data, split leaves"] += (D - 1) * n * (S if "shard" in names else 1)
+    return {k: v for k, v in out.items() if v}
+
+
+def _s5_report(torch, ranks, check, launches, smi, s4_rates, seconds):
+    """Prints S5's results from `_s5_job`'s four ranks, checks them and adds
+    their launches to `launches`."""
+    from psgd_tf_tpu_torch.models import nmt
+
+    shapes = nmt.layer_shapes(nmt.ref_config())
+    blocks = _block_shapes(shapes, S5_SPECS, S5_MESH)
+    held = sum(math.prod(b) for b in blocks)
+    n_split = sum(math.prod(s) for s, sp in zip(shapes, S5_SPECS) if sp)
+    want_moved = {k: 4 * v for k, v in _s5_payload(shapes, S5_SPECS, S5_MESH).items()}
+    coords = [r["coords"] for r in ranks]
+    print(f"s5: four gloo ranks sharing the card ({ranks[0]['backend']}), mesh (data=2, "
+          f"shard=2), ranks at {coords}, {seconds:.1f} s with the ranks' start", flush=True)
+    for fam in TP_FIELDS:
+        res_ranks = [r[fam] for r in ranks]
+        res = res_ranks[0]
+        losses, ref, model, moved = res["losses"], res["ref"], res["model"], res["moved"]
+        trace, counts, ok = _tp_checks(torch, fam, res_ranks, blocks, launches)
+        gathers = moved.get("shard, split leaves", 0) + moved.get("data, split leaves", 0)
+        print(f"s5: NMT reference widths, {fam}, {len(S5_SPECS) - S5_SPECS.count(None)} of 7 "
+              f"leaves split over data, shard or both ({n_split} of {model['n_params']} "
+              f"parameters), batch 64 as 32 a data rank, {S5_STEPS} steps: launches per rank "
+              f"{counts}; returned blocks {res['shapes']}; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, the same on all four ranks: "
+              f"{all(r['losses'] == losses for r in res_ranks)}; against one process: loss "
+              f"trace max rel diff {trace:.3e}, {fam} state max rel diff {res['state_rel']:.3e} "
+              f"(tol {TOL_TRAJ:.0e} each), parameter change max abs diff {res['delta_err']:.3e} "
+              f"(tol {res['delta_tol']:.3e}; the largest change {res['delta_max']:.3e})",
+              flush=True)
+        print(f"s5: {fam} bytes each rank receives a step, by axis: {moved} (the port's "
+              f"collectives predict {want_moved} for the split leaves and data); comm_model "
+              f"(data=2, shard=2): dp_bytes_per_step {model['dp_bytes_per_step']} (the port's "
+              f"all-reduce over data {moved.get('data', 0):.0f}, "
+              f"{moved.get('data', 0) - model['dp_bytes_per_step']:+.0f}: of a leaf split over "
+              f"data it carries every data rank's block, as no reduce-scatter runs), "
+              f"tp_gather_bytes_per_step {model['tp_gather_bytes_per_step']} (the port's "
+              f"gathers {gathers:.0f}, {gathers - model['tp_gather_bytes_per_step']:+.0f}: the "
+              f"parameters' gathers move comm_model's {model['tp_gather_bytes_per_step'] / 3:.0f}"
+              f"; the gradient and the Hvp need no gather over data after that all-reduce, "
+              f"and their gathers over shard carry its parts; in all "
+              f"{moved.get('data', 0) + gathers:.0f} against comm_model's "
+              f"{model['dp_bytes_per_step'] + model['tp_gather_bytes_per_step']}), "
+              f"shard_bytes_per_step {model['shard_bytes_per_step']}; {smi}", flush=True)
+        print(f"s5: {fam} {res['rate']:.2f} steps/s after two steps on the four ranks, S4's "
+              f"{s4_rates[fam]:.2f} on two, {ref[2]:.2f} in one process; parameters held at "
+              f"rest by each rank {4 * held} bytes against {4 * model['n_params']} replicated; "
+              f"{smi}", flush=True)
+        check(ok and all(r["moved"].get(k, 0) == v for r in res_ranks
+                         for k, v in want_moved.items()),
+              f"s5: the {fam} step on (data=2, shard=2): its launches on each rank "
+              f"({TP_PER_STEP[fam]} a step, as in one process), the trace, the parameters and "
+              f"the state as in one process, the same losses on all four ranks, the returned "
+              f"blocks and the bytes by axis")
 
 
 def _sharded_job(rank, world):
@@ -796,6 +954,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     import numpy as np
 
     from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra, splu
@@ -2978,6 +3137,14 @@ def main() -> int:
           f"(tol {TOL_SHARD_NMT:.0e}); launches per rank {path_launch}", flush=True)
     check(toy_err <= TOL_SHARD_NMT and path_launch.get("kron_multi") == SHARD_NMT_STEPS,
           "s3: the toy NMT workload over data")
+    s4_rates = {fam: r0[f"tp_{fam}"]["rate"] for fam in TP_FIELDS}
+
+    # 20. S5 on four gloo ranks sharing the card, mesh (data=2, shard=2):
+    #     the reference NMT with parameters split over data, shard or both
+    #     under kron and lra, against the same steps in one process
+    t0 = time.perf_counter()
+    s5 = _spawn(_s5_job, 4)
+    _s5_report(torch, s5, check, launches, smi, s4_rates, time.perf_counter() - t0)
     shard_n = SHARD_LRA[0]
     shard_bound = {
         "lra_upd_sharded": _bound(4 * (4 * 10 * shard_n + 6 * shard_n),
@@ -3063,6 +3230,8 @@ def main() -> int:
                       apply_bounds[n_apply])
                 for name, line, key in [("splu_upd_apply", 814, "apply"),
                                         ("splu_upd_mono", 582, "mono")]]
+    print(f"chip_smoke: every phase passed, {time.perf_counter() - t_main:.1f} s with the build",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

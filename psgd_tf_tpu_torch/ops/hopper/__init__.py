@@ -106,7 +106,8 @@ def sharding(mesh, param_specs=None):
     this context: their states are rank-local slices (`parallel.shard_state`)
     and their rank-space reductions all-reduce over `mesh`'s shard group.
     `param_specs`, aligned with the parameters the step takes, names the
-    leaves split over `shard` (`parallel.policies.shard_params`)."""
+    tensor-parallel leaves and the mesh axes that split them
+    (`parallel.policies.shard_params`); `optim.psgd._data_mean` reads it."""
     global _shard_mesh, _shard_specs
     prev = _shard_mesh, _shard_specs
     _shard_mesh, _shard_specs = mesh, param_specs

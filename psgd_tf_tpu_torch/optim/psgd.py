@@ -366,10 +366,18 @@ class PSGD:
 
 def _data_mean(loss, grads, hvs=None):
     """(loss, grads, hvs) averaged over the data ranks of the sharding
-    context's mesh, in one all-reduce; as they are outside it. Under
-    tensor-parallel specs (`hopper.param_specs()`) the all-reduce carries
-    this rank's slice of each split gradient and Hvp, and one gather over
-    `shard` joins the means."""
+    context's mesh, in one all-reduce; as they are outside it.
+
+    Under tensor-parallel specs (`hopper.param_specs()`) the all-reduce
+    carries, of each gradient and Hvp, the part that the ranks of this
+    rank's data group hold between them (`policies.part` along `shard`
+    alone): this rank's block of a leaf that `data` does not split, every
+    data rank's block of one that it does (those ranks hold different
+    blocks, so their blocks' sum would mix unrelated entries). One gather
+    over `shard` then joins the means; a leaf split over `data` alone needs
+    none. A reduce-scatter over `data` would reduce less of such a leaf
+    but then need a gather over `data` too; this route keeps one collective
+    an axis a step and asks the backend for no reduce-scatter."""
     mesh = hopper.shard_ctx()
     if mesh is None or mesh.data == 1:
         return loss, grads, hvs
@@ -379,12 +387,12 @@ def _data_mean(loss, grads, hvs=None):
     leaves = list(grads) + (list(hvs) if hvs is not None else [])
     specs = hopper.param_specs()
     if specs is not None:
-        specs = list(specs) * (len(leaves) // k)
-        leaves = policies.shard_params(mesh, leaves, specs)
+        layouts = policies.param_layouts(mesh, leaves, list(specs) * (len(leaves) // k))
+        leaves = [policies.part(mesh, x, layout, ("shard",)) for x, layout in zip(leaves, layouts)]
     out = _collectives.data_mean(mesh, [loss] + leaves)
     loss, leaves = out[0], out[1:]
     if specs is not None:
-        leaves = policies.gather_params(mesh, leaves, specs)
+        leaves = policies.join(mesh, leaves, layouts, [{"shard"}] * len(leaves), "shard")
     return loss, leaves[:k], (leaves[k:] if hvs is not None else None)
 
 

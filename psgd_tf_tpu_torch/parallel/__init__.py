@@ -6,9 +6,9 @@ Counterpart of `psgd_tf_tpu/parallel/`: a (data, shard) mesh of ranks
 Hvps all-reduce there); the flat families' states shard their lanes over
 `shard`, where only rank-space quantities cross ranks (the Grams and
 max-abs normalizers of K14 and the sharded K16); dense and Kronecker
-states replicate. Parameters replicate, or split over `shard` where
-`build_sharded_step`'s `param_specs` names them (tensor parallelism:
-`shard_params`, `gather_params`). `overlap` holds the ring reductions and
+states replicate. Parameters replicate, or split over `data`, `shard` or
+both where `build_sharded_step`'s `param_specs` names them (tensor
+parallelism: `shard_params`, `gather_params`). `overlap` holds the ring reductions and
 the model of the bytes a sharded step exchanges.
 """
 from psgd_tf_tpu_torch.parallel.mesh import Mesh, make_mesh

@@ -6,10 +6,14 @@ group of a `parallel.Mesh`:
   psum, pmax         all-reduce (sum, max) of a tensor, in place on a copy
   all_gather_lanes   the ranks' equal-length slices, concatenated in rank order
   all_gather_dims    the ranks' slices of several tensors, each concatenated
-                     along its own axis, in one collective
+                     along its own axis, in one collective (over `shard` or
+                     `data`: the tensor-parallel parameters, gradients and
+                     Hvps)
   ring_hop           one hop of a ring: send to the next rank, receive from
                      the previous one
   data_mean          one all-reduce of the loss, gradients and Hvps over `data`
+                     (of a leaf split over `data`, the part that spans the
+                     data ranks' blocks: `optim.psgd._data_mean`)
 
 A group of one rank returns its input and calls nothing. Under gloo a CUDA
 tensor goes to `all_reduce` as it is (gloo takes CUDA tensors there), and

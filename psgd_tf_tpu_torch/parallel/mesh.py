@@ -4,8 +4,8 @@ Counterpart of `psgd_tf_tpu/parallel/mesh.py:19-46`. Axes:
   data  - batch parallelism: the loss, gradients and Hvps all-reduce here;
   shard - preconditioner-state partitioning: the lanes of the flat
           families' states; the rank-space Grams and max-abs step
-          normalizers all-reduce here; tensor-parallel parameters split
-          and gather here.
+          normalizers all-reduce here.
+Tensor-parallel parameters split and gather over either axis or both.
 
 Ranks lie on the mesh as JAX lays devices: rank i is at data coordinate
 i // shard and shard coordinate i % shard. `make_mesh` runs inside an
@@ -48,9 +48,15 @@ class Mesh:
     def all_gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         return _collectives.all_gather_lanes(x, self.shard_group, self.shard, self.shard_rank)
 
-    def all_gather_dims(self, xs: list[torch.Tensor], dims: list[int]) -> list[torch.Tensor]:
-        return _collectives.all_gather_dims(xs, dims, self.shard_group, self.shard,
-                                            self.shard_rank)
+    def all_gather_dims(self, xs: list[torch.Tensor], dims: list[int],
+                        axis: str = "shard") -> list[torch.Tensor]:
+        """Every rank's xs[i] of this rank's group over `axis`, concatenated
+        along dims[i] in the order of the ranks' coordinates, in one gather."""
+        if axis == "shard":
+            return _collectives.all_gather_dims(xs, dims, self.shard_group, self.shard,
+                                                self.shard_rank)
+        return _collectives.all_gather_dims(xs, dims, self.data_group, self.data,
+                                            self.data_rank)
 
 
 def make_mesh(data: int | None = None, shard: int = 1, backend: str | None = None,

@@ -13,9 +13,10 @@ placement per family:
   kron   : every factor replicates (a list of KronStates or a KronPrecond).
 
 Parameters replicate unless `build_sharded_step`'s `param_specs` split
-them over `shard` (`shard_params`, `gather_params`: the counterpart of
-the JAX step's `NamedSharding` placement of the parameters), and batches
-shard their leading axis over `data`.
+them over `data`, `shard` or both (`shard_params`, `gather_params`: the
+counterpart of the JAX step's `NamedSharding` placement of the
+parameters, blocks in GSPMD's order), and batches shard their leading
+axis over `data`.
 Torch has no `NamedSharding`: `precond_sharding` returns the same structure
 with a placement spec in each field, as a tuple in the JAX package's
 `PartitionSpec` order (`()` replicated, `("shard",)` lanes, `(None,
@@ -33,6 +34,7 @@ columns and the centre (`groups/_pairs.join_local`).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -187,58 +189,112 @@ def gather_vec(mesh, precond, y: torch.Tensor, n: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ tensor-parallel parameters
 
-def _spec_axis(spec, ndim: int) -> int | None:
-    """The axis that `spec` splits over `shard`, or None (replicated).
-    `spec` is None or a tuple in `PartitionSpec` order whose entries are
-    None or "shard"."""
+def _axes(mesh, spec, ndim: int) -> tuple[tuple[str, ...], ...]:
+    """Per dimension of an `ndim`-D parameter, the mesh axes that split it,
+    major first. `spec` is None (replicated) or a tuple in `PartitionSpec`
+    order with at most one entry per leading dimension, each None, an axis
+    name or a tuple of axis names; each mesh axis appears once at most."""
     if spec is None:
-        return None
+        return ((),) * ndim
     spec = tuple(spec)
     if len(spec) > ndim:
         raise ValueError(f"spec {spec} names {len(spec)} axes of a {ndim}-D parameter")
-    if "data" in spec:
-        raise NotImplementedError(f"spec {spec} splits a parameter over data: not ported "
-                                  "(ROADMAP queue 1 item 6, parameters over data)")
-    if any(entry not in (None, "shard") for entry in spec):
-        raise ValueError(f"spec {spec}: each entry is None or 'shard'")
-    if spec.count("shard") > 1:
-        raise ValueError(f"spec {spec} names 'shard' on more than one axis")
-    return spec.index("shard") if "shard" in spec else None
+    out, seen = [], set()
+    for entry in spec:
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in axes:
+            if a not in mesh.shape:
+                raise ValueError(f"spec {spec}: unknown mesh axis {a!r} (the mesh has "
+                                 f"{tuple(mesh.shape)})")
+            if a in seen:
+                raise ValueError(f"spec {spec} names mesh axis {a!r} more than once")
+            seen.add(a)
+        out.append(axes)
+    return tuple(out) + ((),) * (ndim - len(spec))
 
 
-def _spec_axes(params, specs) -> list[int | None]:
+def param_layouts(mesh, params, specs, full: bool = True) -> list[tuple[tuple[str, ...], ...]]:
+    """`_axes` of each parameter. Raises ValueError where `specs` does not
+    align with `params`, a spec is malformed or, for `full` parameters, the
+    product of an entry's degrees does not divide its dimension (as JAX's
+    jit does)."""
     params, specs = list(params), list(specs)
     if len(specs) != len(params):
         raise ValueError(f"param_specs has {len(specs)} entries for {len(params)} parameters")
-    return [_spec_axis(s, p.dim()) for p, s in zip(params, specs)]
+    layouts = [_axes(mesh, s, p.dim()) for p, s in zip(params, specs)]
+    for i, (p, layout) in enumerate(zip(params, layouts)):
+        for k, axes in enumerate(layout if full else ()):
+            degree = math.prod(mesh.shape[a] for a in axes)
+            if p.shape[k] % degree:
+                name = "*".join(axes)
+                raise ValueError(f"parameter {i} of shape {tuple(p.shape)}: dimension {k} "
+                                 f"({p.shape[k]}) is not divisible by {name}={degree}")
+    return layouts
+
+
+def _coord(mesh, axis: str) -> int:
+    return mesh.data_rank if axis == "data" else mesh.shard_rank
+
+
+def part(mesh, x: torch.Tensor, layout, axes) -> torch.Tensor:
+    """This rank's part of the full `x` along the mesh axes `axes`: each
+    dimension that `layout` splits is read as (degree of its first axis,
+    ..., of its last, rest) and indexed at this rank's coordinate on each
+    axis of `axes` (GSPMD's block order: under ("data", "shard") the rank
+    at (d, s) takes block d * shard + s). `x` itself where nothing splits."""
+    for k, dim_axes in enumerate(layout):
+        picked = [a for a in dim_axes if a in axes]
+        if picked:
+            x = x.unflatten(k, [mesh.shape[a] for a in dim_axes] + [-1])
+            x = x[(slice(None),) * k + tuple(_coord(mesh, a) if a in axes else slice(None)
+                                             for a in dim_axes)]
+            x = x.flatten(k, k + len(dim_axes) - len(picked)).contiguous()
+    return x
+
+
+def join(mesh, xs, layouts, held, axis: str) -> list[torch.Tensor]:
+    """The ranks' parts over `axis` joined, for every tensor whose layout
+    names `axis`, in one gather over its group (the rest as they are).
+    `held[i]` is the set of axes that xs[i] is a part along (`part`'s
+    `axes`); the result is a part along `held[i] - {axis}`."""
+    out, todo, dims = list(xs), [], []
+    for i, layout in enumerate(layouts):
+        for k, dim_axes in enumerate(layout):
+            if axis in dim_axes:
+                # the dimension read as the axes it spans after the join,
+                # with a unit axis where `axis` goes: the gather fills it
+                # in rank order, which is the coordinate's order
+                kept = [a for a in dim_axes if a not in held[i] or a == axis]
+                inner = [mesh.shape[a] for a in kept if a != axis]
+                dims.append(k + kept.index(axis))
+                todo.append((i, k, len(kept)))
+                out[i] = out[i].unflatten(k, inner + [-1]).unsqueeze(dims[-1])
+    if todo:
+        for (i, k, n), y in zip(todo, mesh.all_gather_dims([out[i] for i, _, _ in todo], dims,
+                                                            axis)):
+            out[i] = y.flatten(k, k + n)
+    return out
 
 
 def shard_params(mesh, params, specs) -> list[torch.Tensor]:
-    """Full parameters -> this rank's slice of each along its spec's axis;
-    replicated leaves as they are. Raises ValueError where `specs` does not
-    align with `params`, has an entry other than None and "shard", or
-    splits a dimension that `mesh.shard` does not divide (as JAX's jit
-    does), and NotImplementedError for a split over `data`."""
+    """Full parameters -> this rank's block of each (`part` along both
+    axes); replicated leaves as they are. Raises ValueError where
+    `param_layouts` does."""
     params = list(params)
-    out = []
-    for i, (p, a) in enumerate(zip(params, _spec_axes(params, specs))):
-        if a is not None:
-            if p.shape[a] % mesh.shard:
-                raise ValueError(f"parameter {i} of shape {tuple(p.shape)}: dimension {a} "
-                                 f"({p.shape[a]}) is not divisible by shard={mesh.shard}")
-            k = p.shape[a] // mesh.shard
-            p = p.narrow(a, mesh.shard_rank * k, k).contiguous()
-        out.append(p)
-    return out
+    return [part(mesh, p, layout, mesh.shape)
+            for p, layout in zip(params, param_layouts(mesh, params, specs))]
 
 
 def gather_params(mesh, local, specs) -> list[torch.Tensor]:
-    """This rank's slices (as `shard_params` lays them) -> the full
-    parameters, the same on every rank, in one gather over `shard`."""
-    out = list(local)
-    axes = _spec_axes(out, specs)
-    split = [i for i, a in enumerate(axes) if a is not None]
-    for i, full in zip(split, mesh.all_gather_dims([out[i] for i in split],
-                                                   [axes[i] for i in split])):
-        out[i] = full
-    return out
+    """This rank's blocks (as `shard_params` lays them) -> the full
+    parameters, the same on every rank: one gather over `shard` of every
+    leaf that names it, then one over `data` of every leaf that names it.
+    Each axis is gathered in turn, whatever a tuple entry's order: `join`
+    puts each rank's block at its place in GSPMD's block order, so no group
+    over the whole mesh is needed and each rank receives (degree - 1) blocks
+    of a leaf, what `overlap.comm_model` charges a gather."""
+    local = list(local)
+    layouts = param_layouts(mesh, local, specs, full=False)
+    held = [set(mesh.shape) for _ in local]
+    out = join(mesh, local, layouts, held, "shard")
+    return join(mesh, out, layouts, [h - {"shard"} for h in held], "data")

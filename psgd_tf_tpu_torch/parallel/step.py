@@ -8,7 +8,8 @@ loss, gradients and Hvps are averaged over `data` in one all-reduce, and
 the optimizer step runs inside `hopper.sharding(mesh)`, where the flat
 families hold their rank-local state (`policies.shard_state`) and reduce
 their rank-space quantities over `shard` (K14, the sharded K16). The
-parameters replicate, or split over `shard` where `param_specs` says so.
+parameters replicate, or split over `data`, `shard` or both where
+`param_specs` says so.
 """
 from __future__ import annotations
 
@@ -32,20 +33,26 @@ def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, par
     it. `state` selects the family's policy (it raises for a state with
     none).
 
-    `param_specs` (a list aligned with the full `params`; each entry None,
-    replicated, or a tuple in `PartitionSpec` order naming "shard" on one
-    axis, e.g. `(None, "shard")`) makes the parameters tensor-parallel: the
-    step then takes and returns each split parameter as this rank's slice
-    (`policies.shard_params`). Inside it gathers the split parameters over
-    `shard` (one gather), runs `loss_fn`, the probes and the Hvp on the full
-    parameters, averages only this rank's slice of each split gradient and
-    Hvp over `data` (with the replicated leaves and the loss, one
-    all-reduce) and gathers the means over `shard` (one gather; with
-    data = 1 a rank's gradient is already the mean, and neither runs). The
-    family's step then runs as without specs: Kronecker factors replicate
-    on the full matrices, lra and splu take their lane slices. A dimension
-    that `mesh.shard` does not divide raises ValueError, as JAX's jit does;
-    a spec over `data` raises NotImplementedError."""
+    `param_specs` (a list aligned with the full `params`) makes the
+    parameters tensor-parallel. Each entry is None (replicated) or a tuple
+    in `PartitionSpec` order, with at most one entry per leading dimension:
+    None, "data", "shard" or a tuple of both names, the first the major one
+    as in GSPMD (under `("data", "shard")` the rank at (d, s) holds block
+    d * shard + s of that dimension, under `("shard", "data")` block
+    s * data + d); each mesh axis appears once at most. The step takes and
+    returns each split parameter as this rank's block
+    (`policies.shard_params`). Inside it gathers the blocks (one gather over
+    `shard`, then one over `data`), runs `loss_fn`, the probes and the Hvp
+    on the full parameters, averages the gradients and Hvps over `data`
+    (with the loss, one all-reduce that carries of each split leaf the part
+    this rank's data group holds) and joins the means over `shard` (one
+    gather; see `optim.psgd._data_mean`; with data = 1 a rank's gradient is
+    already the mean, and neither runs). The family's step then runs as
+    without specs: Kronecker factors replicate on the full matrices, lra
+    and splu take their lane slices over `shard`. A duplicate or unknown
+    axis name, more entries than dimensions, or a dimension that the
+    product of its entry's degrees does not divide raises ValueError, as
+    JAX's jit does."""
     policies.state_sharding(mesh, state)
     if param_specs is not None:
         param_specs = list(param_specs)
@@ -65,7 +72,7 @@ def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, par
         if param_specs is not None:
             shapes = [p.shape for p in params]
             if shapes != local_shapes:
-                raise ValueError(f"the step takes this rank's parameter slices {local_shapes}, "
+                raise ValueError(f"the step takes this rank's parameter blocks {local_shapes}, "
                                  f"got {shapes}")
             params = policies.gather_params(mesh, params, param_specs)
         with hopper.sharding(mesh, param_specs):

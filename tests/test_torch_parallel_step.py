@@ -362,13 +362,23 @@ def test_nmt_attention_run_with_a_mesh_matches_run(cases):
 
 
 def test_build_sharded_step_refusals(cases):
-    """Tensor-parallel `param_specs` that split a dimension `shard` does not
-    divide raise ValueError, as JAX's jit does for (3, 5) under
-    P(None, "shard") over shard = 2; so do specs that do not align with the
-    params; a spec over `data` is not ported and says so; a batch that
-    `data` does not divide raises."""
+    """Tensor-parallel `param_specs` that split a dimension the degree of
+    its entry does not divide raise ValueError, as JAX's jit does for (3, 5)
+    under P(None, "shard") over shard = 2 and for P(None, ("shard", "data"))
+    on a (32, 4) leaf; so do specs that do not align with the params, that
+    name a mesh axis twice or an axis the mesh lacks; a batch that `data`
+    does not divide raises. A spec over `data` runs: each data rank returns
+    its block of the step's result, which is the one-process step's."""
     for out in cases["errors"]:
         assert "dimension 1 (5) is not divisible by shard=2" in out["indivisible"]
+        assert "dimension 0 (3) is not divisible by data*shard=2" in out["tuple_indivisible"]
         assert "2 entries for 1 parameters" in out["misaligned"]
-        assert "data" in out["data"] and "ROADMAP" in out["data"]
+        assert "names mesh axis 'shard' more than once" in out["twice"]
+        assert "names mesh axis 'data' more than once" in out["twice_in_tuple"]
+        assert "unknown mesh axis 'model'" in out["unknown"]
         assert "divisible by data=2" in out["batch"]
+        run = out["data"]
+        d = run["data_rank"]
+        assert run["block"].shape == (2,)
+        np.testing.assert_allclose(run["block"], run["full"][2 * d:2 * d + 2], rtol=1e-6)
+        assert run["loss"] == pytest.approx(run["ref_loss"], rel=1e-6)

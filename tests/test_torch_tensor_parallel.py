@@ -109,11 +109,13 @@ def _jax_single(c, loss):
     return losses, _np(p)
 
 
-def _jax_tp(c, loss, specs):
+def _jax_tp(c, loss, specs, mesh=(2, 4)):
     """(losses, params) of JAX's `build_sharded_step(param_specs=...)` on
-    (data=2, shard=4), as `tests/test_parallel.py:304-354` runs it."""
-    step = jbuild_sharded_step(c["jopt"], loss, jmake_mesh(data=2, shard=4), c["jstate"],
-                               c["jparams"], donate=False, param_specs=_jspecs(specs))
+    (data, shard) = `mesh`, (2, 4) as `tests/test_parallel.py:304-354` runs
+    it."""
+    step = jbuild_sharded_step(c["jopt"], loss, jmake_mesh(data=mesh[0], shard=mesh[1]),
+                               c["jstate"], c["jparams"], donate=False,
+                               param_specs=_jspecs(specs))
     p, s, losses = c["jparams"], c["jstate"], []
     for batch, k in zip(c["batches"], c["keys"]):
         p, s, aux = step(p, s, k, *batch)
@@ -135,7 +137,7 @@ def _sum_sq(ws, x):
     return jnp.mean(jnp.sum(y * y, axis=-1))
 
 
-def _mlp_case(fam):
+def _mlp_case(fam, specs=MLP_SPECS):
     key = jax.random.PRNGKey(7)
     params = [0.4 * jax.random.normal(jax.random.fold_in(key, i), s)
               for i, s in enumerate(MLP_SHAPES)]
@@ -149,7 +151,7 @@ def _mlp_case(fam):
         port = dict(preconditioner="lra", rank=RANK, **kw)
     return _case(fam, jopt, port, "mean_sq", params, jax.random.fold_in(key, 2),
                  [(x,)] * MLP_STEPS, [jax.random.fold_in(key, 100 + i) for i in range(MLP_STEPS)],
-                 MLP_SPECS)
+                 specs)
 
 
 def _dry_case(fam, steps=DRY_STEPS):
@@ -168,7 +170,7 @@ def _dry_case(fam, steps=DRY_STEPS):
                  [jax.random.fold_in(k_x, 100 + i) for i in range(steps)], DRY_SPECS)
 
 
-def _nmt_case(fam):
+def _nmt_case(fam, specs=NMT_SPECS):
     key = jax.random.PRNGKey(3)
     params = jnmt.init(key, JCFG)
     if fam == "kron":
@@ -181,7 +183,7 @@ def _nmt_case(fam):
     batches = [jtranslation.batch(jax.random.fold_in(key, 200 + i), 16, 8, content_vocab=13)
                for i in range(NMT_STEPS)]
     return _case(fam, jopt, port, "nmt", params, jax.random.fold_in(key, 2), batches,
-                 [jax.random.fold_in(key, 100 + i) for i in range(NMT_STEPS)], NMT_SPECS)
+                 [jax.random.fold_in(key, 100 + i) for i in range(NMT_STEPS)], specs)
 
 
 FAMS = ["kron", "lra"]

@@ -235,6 +235,13 @@ def linear_loss(p, x):
     return torch.sum((x @ p[0]) ** 2)
 
 
+def _loss(name):
+    from psgd_tf_tpu_torch.models import nmt
+
+    return {"nmt": nmt.loss, "mlp": mlp_loss, "mean_sq": mean_sq_loss, "row": row_loss,
+            "linear": linear_loss}[name]
+
+
 def job_train(rank, world, data, shard, runs):
     """Each run: a PSGD with `opt` kwargs on a model (`loss`: 'nmt', 'mlp',
     'mean_sq', 'row' or 'linear'), through `build_sharded_step` on mesh
@@ -245,14 +252,11 @@ def job_train(rank, world, data, shard, runs):
     returned, the gathered flat family state and how often each sharded
     wrapper was called."""
     from psgd_tf_tpu_torch import PSGD, interop
-    from psgd_tf_tpu_torch.models import nmt
     from psgd_tf_tpu_torch.ops import hopper
     from psgd_tf_tpu_torch.ops.hopper import lra_upd, splu_upd
     from psgd_tf_tpu_torch.optim.psgd import KronPrecond
     from psgd_tf_tpu_torch.parallel import build_sharded_step, make_mesh, policies
 
-    losses_fn = {"nmt": nmt.loss, "mlp": mlp_loss, "mean_sq": mean_sq_loss, "row": row_loss,
-                 "linear": linear_loss}
     mesh = make_mesh(data=data, shard=shard, device="cpu")
     calls = {"lra_sharded": 0, "splu_sharded": 0}
     orig = (lra_upd.fused_update_apply_sharded, splu_upd.fused_update_sharded)
@@ -276,7 +280,7 @@ def job_train(rank, world, data, shard, runs):
             if "precond" in run:
                 state = state.replace(precond=_build_state(*run["precond"]))
             specs = run.get("specs")
-            step = build_sharded_step(opt, losses_fn[run["loss"]], mesh, state, params,
+            step = build_sharded_step(opt, _loss(run["loss"]), mesh, state, params,
                                       param_specs=specs)
             state = policies.shard_state(mesh, state)
             if specs is not None:
@@ -326,8 +330,11 @@ def job_nmt_run(rank, world, data, shard, steps):
 
 def job_errors(rank, world):
     """build_sharded_step's refusals: tensor-parallel specs that split a
-    dimension `shard` does not divide, that do not align with the params or
-    that split over `data`; a ragged batch."""
+    dimension the degree of its entry does not divide (one axis, or a tuple
+    of both), that do not align with the params, that name an axis twice or
+    an axis the mesh lacks; a ragged batch. And one step of a spec over
+    `data` on (world, 1): this rank's returned block and the same step in
+    one process on the full batch's first row (every row is the same)."""
     import torch
 
     from psgd_tf_tpu_torch import PSGD
@@ -340,13 +347,25 @@ def job_errors(rank, world):
     state = opt.init(params)
     out = {}
     odd = [torch.zeros(3, 5)]
-    for key, ps, specs, err in [("indivisible", odd, [(None, "shard")], ValueError),
-                                ("misaligned", params, [None, ("shard",)], ValueError),
-                                ("data", params, [("data",)], NotImplementedError)]:
+    for key, m, ps, specs in [("indivisible", tp, odd, [(None, "shard")]),
+                              ("tuple_indivisible", mesh, odd, [(("data", "shard"), None)]),
+                              ("misaligned", tp, params, [None, ("shard",)]),
+                              ("twice", tp, odd, [("shard", "shard")]),
+                              ("twice_in_tuple", mesh, odd, [(("data", "data"),)]),
+                              ("unknown", tp, params, [("model",)])]:
         try:
-            build_sharded_step(opt, linear_loss, tp, opt.init(ps), ps, param_specs=specs)
-        except err as e:
+            build_sharded_step(opt, linear_loss, m, opt.init(ps), ps, param_specs=specs)
+        except ValueError as e:
             out[key] = str(e)
+    p = [torch.linspace(-1.0, 1.0, 4)]
+    x = torch.ones(world, 4)
+    probes = [torch.linspace(0.5, -0.5, 4)]
+    step = build_sharded_step(opt, linear_loss, mesh, state, p, param_specs=[("data",)])
+    block, _, aux = step(policies.shard_params(mesh, p, [("data",)]),
+                         policies.shard_state(mesh, state), None, x, probes=probes)
+    ref, _, ref_aux = opt.step(linear_loss, p, state, None, x[:1], probes=probes)
+    out["data"] = dict(data_rank=mesh.data_rank, block=_np(block[0]), full=_np(ref[0]),
+                       loss=aux["loss"].item(), ref_loss=ref_aux["loss"].item())
     step = build_sharded_step(opt, linear_loss, mesh, state, params)
     try:
         step(params, policies.shard_state(mesh, state), torch.Generator(), torch.ones(3, 4))
@@ -357,9 +376,9 @@ def job_errors(rank, world):
 
 def job_tp_roundtrip(rank, world, meshes, leaves):
     """`policies.shard_params` then `gather_params` on each mesh (data,
-    shard) over all the leaves at once. Returns per mesh this rank's shard
-    coordinate, each local slice, each gathered leaf and whether each
-    replicated leaf came back as the same tensor."""
+    shard) over all the leaves at once. Returns per mesh this rank's data
+    and shard coordinates, each local block, each gathered leaf and whether
+    each replicated leaf came back as the same tensor."""
     from psgd_tf_tpu_torch.parallel import make_mesh, policies
 
     out = {}
@@ -370,7 +389,7 @@ def job_tp_roundtrip(rank, world, meshes, leaves):
         local = policies.shard_params(mesh, full, specs)
         back = policies.gather_params(mesh, local, specs)
         out[(data, shard)] = dict(
-            shard_rank=mesh.shard_rank, local=[_np(x) for x in local],
+            data_rank=mesh.data_rank, shard_rank=mesh.shard_rank, local=[_np(x) for x in local],
             full=[_np(x) for x in back],
             same=[spec is not None or (a is b is c) for a, b, c, spec in
                   zip(full, local, back, specs)])
@@ -378,19 +397,21 @@ def job_tp_roundtrip(rank, world, meshes, leaves):
 
 
 def job_tp_payload(rank, world, data, shard, runs):
-    """One TP step of each run (as `job_train` takes them, on the MLP) on
-    mesh (data, shard), with `_collectives` wrapped to count the elements
-    this rank receives in the gathers over `shard` (`all_gather_dims`) and
-    the elements it all-reduces over `data` (`data_mean`, the loss aside)."""
+    """One TP step of each run (as `job_train` takes them) on mesh (data,
+    shard), with `_collectives` wrapped to count the elements this rank
+    receives in the gathers (`all_gather_dims`) over `shard` and over
+    `data`, and the elements it all-reduces over `data` (`data_mean`, the
+    loss aside)."""
     from psgd_tf_tpu_torch import PSGD
     from psgd_tf_tpu_torch.parallel import _collectives, build_sharded_step, make_mesh, policies
 
     mesh = make_mesh(data=data, shard=shard, device="cpu")
-    moved = {"shard": 0, "data": 0}
+    moved = {"shard": 0, "data": 0, "data gather": 0}
     orig = (_collectives.all_gather_dims, _collectives.data_mean)
 
     def gather(xs, dims, group, size, rank_):
-        moved["shard"] += (size - 1) * sum(x.numel() for x in xs)
+        key = "shard" if group is mesh.shard_group else "data gather"
+        moved[key] += (size - 1) * sum(x.numel() for x in xs)
         return orig[0](xs, dims, group, size, rank_)
 
     def mean(mesh, tensors):
@@ -406,13 +427,14 @@ def job_tp_payload(rank, world, data, shard, runs):
         state = opt.init(params)
         if "precond" in run:
             state = state.replace(precond=_build_state(*run["precond"]))
-        step = build_sharded_step(opt, mlp_loss, mesh, state, params, param_specs=run["specs"])
+        step = build_sharded_step(opt, _loss(run["loss"]), mesh, state, params,
+                                  param_specs=run["specs"])
         state = policies.shard_state(mesh, state)
         params = policies.shard_params(mesh, params, run["specs"])
-        moved.update(shard=0, data=0)
+        moved.update({"shard": 0, "data": 0, "data gather": 0})
         _collectives.all_gather_dims, _collectives.data_mean = gather, mean
         try:
-            step(params, state, None, _t(run["batches"][0][0]),
+            step(params, state, None, *[_t(b) for b in run["batches"][0]],
                  probes=[_t(p) for p in run["probes"][0]], coins=run["coins"][0])
         finally:
             _collectives.all_gather_dims, _collectives.data_mean = orig
