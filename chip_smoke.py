@@ -103,6 +103,13 @@ after:
     and the K4 path's NMT model (K4);
   - the CLI: `python -m psgd_tf_tpu_torch list`, and `run hello_psgd
     --set steps=120` on the card (K11) through `runpy`, as `-m` runs it;
+  - the CLI's `bench` (`psgd_tf_tpu_torch.bench`) in-process, every row at
+    a short chain of two and one rep: the flat families at the JAX bench's
+    n (K13, K15, K16, K12 with its K3; none for diag, xmat, shift and the
+    bf16 lra state), the kron envelope (K9, K6, K7, K10), the toy NMT step
+    (K1), the reference NMT's phases (K10 x3, K6 x3, K2, K3) and LeNet5
+    (K1, K3); each row's launches a chained iteration, its figures, and
+    the headline line's form;
   - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
     group at n = 2^20, r = 10, pipelined off and on, against K13, and the
     sharded K16 there against K16's fused apply, each timed;
@@ -170,8 +177,6 @@ TOL_K3 = 1e-5    # max |X - X_plain| / max |X_plain|: both exact fp32 inverses
 K3_RAGGED = [1, 31, 33, 255, 257, 513, 1025]  # sides past, at and short of K3's 32-row leaves
 TOL_K1 = 1e-4    # one update: GEMM sums in other orders, explicit inverse vs trsm
 TOL_TRAJ = 5e-4  # 20 chained updates: ROADMAP's trajectory bound
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores (TF32 is off)
 # the tensor decomposition's n, the RNN's, and bench.py:610
 LRA_SIZES = [400, 1021, 1 << 20]
 # hello_psgd's n, the tensor decomposition's (three full 128-row panels and
@@ -289,6 +294,8 @@ NMT_RANK_STEPS = 5
 STAGED_NMT_LINES = 8000
 STAGED_NMT_TRACE = 20
 IDX_STEPS = 50
+# the CLI's `bench` (phase 17g): every row's short chain
+BENCH_ITERS = 2
 
 
 def _rel(a, b) -> float:
@@ -360,30 +367,6 @@ def _time_ab(torch, hopper, fn, reps):
         else:
             ms[mode].append(_time(torch, fn, reps))
     return sum(ms["kernel"]) / 2, sum(ms["plain"]) / 2
-
-
-def _bound(nbytes, flops):
-    """(ms, 'bytes' or 'operations'): the least time for the work on the card."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-
-def _kron_work(fmt, shape):
-    """(bytes, FLOPs) of one Kronecker factor update: dX, dG and both
-    factors read once, both factors written once (a dense factor's upper
-    triangle read, the whole written). Per dense side of size k (the other
-    side o): the two products through its triangular factor and its
-    inverse (o k^2 each), the upper triangle of its Gram difference
-    (2 o k^2), the inverse and triu(grad) Q, a product of two triangles
-    (k^3 / 3 each); per sparse side ~6 k o."""
-    m, n = shape
-    side = {"dense": lambda k: k * (k + 1) / 2 + k * k, "scale": lambda k: 2 * k,
-            "norm": lambda k: 4 * k}
-    nbytes = 4 * (2 * m * n + side[fmt[0]](m) + side[fmt[1]](n))
-    flops = 0.0
-    for f, k, o in ((fmt[0], m, n), (fmt[1], n, m)):
-        flops += 4 * k * k * o + 2 * k**3 / 3 if f == "dense" else 6 * k * o
-    return nbytes, flops
 
 
 def _flat_tensors(out):
@@ -957,7 +940,8 @@ def main() -> int:
     t_main = time.perf_counter()
     import numpy as np
 
-    from psgd_tf_tpu_torch import PSGD, UVd, dense, kron, lra, splu
+    from psgd_tf_tpu_torch import PSGD, UVd, bench, dense, kron, lra, splu
+    from psgd_tf_tpu_torch.bench import _bound, family_work, kron_work, splu_work
     from psgd_tf_tpu_torch.data import mnist, native, spa_eng, translation, xor
     from psgd_tf_tpu_torch.models import lenet5, lstm, nmt, rnn, tensor_decomp
     from psgd_tf_tpu_torch.ops import hopper
@@ -1120,7 +1104,7 @@ def main() -> int:
         print(f"k2: {shape} layer max rel err {rel:.3e} (tol {TOL_K1:.0e})", flush=True)
     k2_ms, k2_plain_ms = _time_ab(
         torch, hopper, lambda: kron_dd.fused_update(st.ql, st.qr, dx, dg, 0.1), 200)
-    k2_bound = _bound(*_kron_work(("dense", "dense"), (1, 10)))
+    k2_bound = _bound(*kron_work(("dense", "dense"), (1, 10)))
     print(f"k2 time, (1, 10) layer: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms",
           flush=True)
     check(k2_rel < TOL_K1, "k2 vs plain")
@@ -1222,7 +1206,7 @@ def main() -> int:
         dx, dg = (kron.stack_padded(x, bst.ql.shape[1], bst.qr.shape[1]) for x in (dxs, dgs))
         alone = _time(torch, lambda: kron_dd.fused_update_batched(bst.ql, bst.qr, dx, dg, ms, ns,
                                                                   0.1), reps)
-        work = [_kron_work(DD, s) for s in shapes]
+        work = [kron_work(DD, s) for s in shapes]
         bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
         k4_launches = kron_dd.batched_launches(ms, ns, bst.ql.shape[1], bst.qr.shape[1], dev)
         print(f"kron_dd_batched: {name}, stacks {tuple(bst.ql.shape)} {tuple(bst.qr.shape)}, max "
@@ -1261,7 +1245,7 @@ def main() -> int:
     check(mix_rel < TOL_K1 and arrows_ok, "k1 mixed kinds vs plain")
     k1_ms, k1_plain_ms = _time_ab(
         torch, hopper, lambda: kron.update_multi(states, dxs, dgs, step=0.1), 200)
-    k1_work = [_kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
+    k1_work = [kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
     k1_bound = _bound(sum(w[0] for w in k1_work), sum(w[1] for w in k1_work))
     print(f"k1 time, toy NMT's seven layers: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms",
           flush=True)
@@ -1294,8 +1278,8 @@ def main() -> int:
               flush=True)
     k5_ms = sum(t[0] for t in k5_times.values()) / 3
     k5_plain_ms = sum(t[1] for t in k5_times.values()) / 3
-    k5_work = [_kron_work(f, (130, 65)) for f in [("norm", "scale"), ("dense", "scale"),
-                                                   ("norm", "dense")]]
+    k5_work = [kron_work(f, (130, 65)) for f in [("norm", "scale"), ("dense", "scale"),
+                                                  ("norm", "dense")]]
     k5_bound = _bound(sum(w[0] for w in k5_work) / 3, sum(w[1] for w in k5_work) / 3)
 
     # 5b. K1's chain on its two routes, forced (kron_dd.forced_route): the
@@ -1377,7 +1361,7 @@ def main() -> int:
     print(f"k1 routes: forced one launch at (2176, 2176) raises {refused}", flush=True)
     del big_dd, bdx, bdg
     torch.cuda.empty_cache()
-    toy_work = [_kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
+    toy_work = [kron_work(f, sh) for f, sh in zip(nmt_fmts, toy_shapes)]
     mono_bound = _bound(sum(w[0] for w in toy_work), sum(w[1] for w in toy_work))
 
     # 6. K6 and K10 at the reference NMT layers, through kron.update (the
@@ -1418,7 +1402,7 @@ def main() -> int:
         if (fmt, shape) in ref_cases:
             acc["ms"] += ms
             acc["plain_ms"] += plain_ms
-            nbytes, flops = _kron_work(fmt, shape)
+            nbytes, flops = kron_work(fmt, shape)
             acc["bytes"] += nbytes
             acc["flops"] += flops
         print(f"{name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max abs err "
@@ -1462,7 +1446,7 @@ def main() -> int:
         if shape in nd_shapes:
             k9["nmt_ms"] += ms
             k9["nmt_plain_ms"] += plain_ms
-        bound = _bound(*_kron_work(fmt, shape))
+        bound = _bound(*kron_work(fmt, shape))
         if shape == K9_BENCH:
             k9.update(ms=ms, plain_ms=plain_ms, bound=bound)
         print(f"kron_sparse_big_nd: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}) max "
@@ -1501,7 +1485,7 @@ def main() -> int:
         ms, plain_ms = _time_ab(torch, hopper, call, 10)
         queued = _time_queued(torch, call, 10)
         host = _host_ms(torch, call, 10)
-        bound = _bound(*_kron_work(fmt, shape))
+        bound = _bound(*kron_work(fmt, shape))
         acc = wide.setdefault(name, {"err": 0.0})
         acc["err"] = max(acc["err"], err)
         m, n = shape
@@ -1550,7 +1534,7 @@ def main() -> int:
         lra_times[n] = _time_ab(torch, hopper, call, 50 if n > 10**5 else 200)
         lra_host_ms = _host_ms(torch, call, 20)
         # reads UV, d, v, h, g, writes UV', d', P' g; two Grams of 22 rows
-        lra_bounds[n] = _bound(4 * (4 * 10 * n + 6 * n), 2 * 2 * 22**2 * n + 30 * 10 * n)
+        lra_bounds[n] = _bound(*family_work("lra", n))
         print(f"k13: n={n} r=10, four coin pairs, max rel err {lra_rel:.3e} (tol {TOL_K1:.0e}); "
               f"update+apply kernel {lra_times[n][0]:.4f} ms, plain {lra_times[n][1]:.4f} ms, "
               f"bound {lra_bounds[n][0]:.4f} ms ({lra_bounds[n][1]}); host time "
@@ -1606,7 +1590,7 @@ def main() -> int:
             dense.DenseState(Q=q), v, h, gr, 0.1), 5 if n > 8192 else 20)
         # Q's upper triangle read once, Q' written once (out of place, its
         # zeros too), v, h, g read, P' g written; ~8 n^2 FLOPs
-        dense_bound[n] = _bound(4 * (n * (n + 1) / 2 + n * n + 4 * n), 8.0 * n * n)
+        dense_bound[n] = _bound(*family_work("dense", n))
         print(f"{name}: n={n} max rel err {rel:.3e} (tol {TOL_K1:.0e}), lower part exactly 0: "
               f"{tri_ok}, two calls bit-equal: {bit_ok}; update+apply kernel {dense_times[n][0]:.4f} ms, plain "
               f"{dense_times[n][1]:.4f} ms, bound {dense_bound[n][0]:.4f} ms "
@@ -1651,16 +1635,6 @@ def main() -> int:
 
     def fields(st):
         return st.Lt, st.l3, st.U12, st.u3
-
-    def splu_work(n, r=10, apply=True):
-        """(bytes, FLOPs) of one update (+ apply): Lt, U12, l3, u3, v, h (and
-        g) read once, Lt', U12', l3', u3' (and P' g) written once; the Gram
-        pairs, the tail images and the rewrite."""
-        nt = n - r
-        if apply:
-            flops = 2.0 * (2 * r * r + 5 * r + r * (r + 1) / 2 + 2 * r) * nt + 40 * r * nt
-            return 4 * (4 * r * n + 8 * n), flops
-        return 4 * (4 * r * n + 6 * n), 2.0 * (2 * r * r + 5 * r) * nt + 32 * r * nt
 
     g.manual_seed(81)
     splu_err = {"splu_one": 0.0, "splu_upd": 0.0}
@@ -1917,8 +1891,7 @@ def main() -> int:
     rank_ms["k15"] = _time_ab(torch, hopper, lambda: splu_one.fused_update_apply(
         *fields(st), v, h, gr, 0.05), 100)
     del st
-    z = 2 * r + 2
-    lra_b = _bound(4 * (4 * r * n + 6 * n), 2 * 2 * z * z * n + 30 * r * n)  # as phase 7's
+    lra_b = _bound(*family_work("lra", n, r))  # as phase 7's
     splu_b = _bound(*splu_work(n, r, apply=False))
     k15_b = _bound(*splu_work(n15, r, apply=True))
     print(f"past rank 32, n={n} r={r}: K13 update+apply kernel {rank_ms['k13'][0]:.4f} ms, plain "
@@ -2446,7 +2419,7 @@ def main() -> int:
             qls_, qrs_, dxs_, dgs_, 0.1), 100)
         k1_dd_ms = _time(torch, lambda: kron_multi.fused_update_multi(
             ["dd"] * len(shapes), qls_, qrs_, dxs_, dgs_, 0.1), 100)
-        work = [_kron_work(DD, s) for s in shapes]
+        work = [kron_work(DD, s) for s in shapes]
         bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
         if shapes is LENET5:
             multi = dict(ms=ms, plain_ms=plain_ms, bound=bound)
@@ -2973,6 +2946,47 @@ def main() -> int:
           f"cli: run hello_psgd on the card (K11 once a step); stderr {ran.stderr[-2000:]!r}")
     staged.cleanup()
 
+    # 17g. the CLI's `bench` (`psgd_tf_tpu_torch.bench`): every row in-process
+    #      at a short chain of BENCH_ITERS and one rep, each row's launches a
+    #      chained iteration against the kernels its path runs, its figures
+    #      finite and positive, the result through the last-line formatter
+    t0 = time.perf_counter()
+    hopper.reset_counts()
+    bres = bench.measure(iters=BENCH_ITERS, reps=1)
+    path_counts()
+    bres["card"] = smi
+    k1_step = lambda mono: {"kron_multi": 1, ("kron_mono" if mono else "tri"): 1}
+    ref_step = {k: n for k, n in {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
+                                  "tri": 4 - row_mono, "kron_mono": row_mono}.items() if n}
+    k12 = {"dense_big": 1, "tri": 1}
+    want = {"diag": {}, "xmat": {}, "shift": {}, "lra": {"lra_upd": 1}, "lra_bf16": {},
+            "splu": {"splu_one": 1}, "splu_big": {"splu_upd": 1}, "dense": k12, "dense_8k": k12,
+            "dense_16k": k12, "kron_nd": {"kron_sparse_big_nd": 1, "tri": 1},
+            "kron_ns": {"kron_sparse_big_ns": 1}, "kron_ns_wide": {"kron_sparse_big_ns_wide2": 1},
+            "kron_ds": {"kron_sparse_big_ds": 1, "tri": 1}, "nmt_fd": k1_step(toy_mono),
+            "nmt_ref_grad": {}, "nmt_ref_hvp": {}, "nmt_ref_qupd": ref_step,
+            "nmt_ref_full": ref_step, "lenet5": k1_step(lenet_mono)}
+    for row, w in want.items():
+        got = bres[f"{row}_launches_per_iter"]
+        check(got == w, f"bench {row}: launches a chained iteration {got}, want {w}")
+    bad = [k for k, v in bres.items() if isinstance(v, float) and not math.isfinite(v)
+           or isinstance(v, float) and v <= 0 and not k.endswith("_rel_spread")
+           or k.endswith("_slopes_us") and not all(math.isfinite(x) and x > 0 for x in v)]
+    line = bench.last_line(bres)
+    head = json.loads(line)
+    print(f"bench: {len(want)} rows at chains of {BENCH_ITERS}, one rep, "
+          f"{time.perf_counter() - t0:.1f} s: stream {bres['hbm_stream_gb_per_sec']:.0f} GB/s, "
+          f"fp32 {bres['fp32_peak_flops'] / 1e12:.1f} TFLOP/s, LeNet5 "
+          f"{bres['lenet5_steps_per_sec']:.2f} steps/s, toy NMT {bres['nmt_fd_step_us']:.0f} us, "
+          f"reference NMT {bres['nmt_ref_full_us']:.0f} us a step; routes "
+          f"{bres['nmt_ref_routes']}; last line {len(line)} characters, {len(head['detail'])} "
+          f"detail fields; figures not finite and positive: {bad}", flush=True)
+    check(not bad and len(bres["nmt_ref_routes"]) == 7, "bench: every row's figures")
+    check(len(line) <= bench.LAST_LINE_MAX and set(head) == {"metric", "value", "unit",
+                                                             "vs_baseline", "detail"}
+          and head["metric"] == "lenet5_kron_steps_per_sec" and head["unit"] == "steps/s"
+          and head["vs_baseline"] == 1.0 and head["value"] > 0, "bench: the last line's form")
+
     # 18. S1: K14 on a one-rank NCCL group (the shard wrapper with no
     #     exchange) at n = 2^20, r = 10, update + apply, pipelined off and on,
     #     against its plain chain (the same call under disabled()) and K13
@@ -3058,8 +3072,7 @@ def main() -> int:
         s1_rank["k16"] = _time_ab(torch, hopper, lambda: splu_upd.fused_update_sharded(
             *fs, v, h, 0.05, mesh1, None, gr), 10)
         del st, fs, got, plain, ref
-        z = 2 * r + 2
-        k14_b = _bound(4 * (4 * r * n + 6 * n), 2 * 2 * z * z * n + 30 * r * n)  # as 8d's K13
+        k14_b = _bound(*family_work("lra", n, r))  # as 8d's K13
         k16s_b = _bound(*splu_work(n, r, apply=True))
         print(f"s1: past rank 32, n={n} r={r} on one NCCL rank: K14 and the sharded K16 max rel "
               f"err {rel:.3e} against their plain chains and K13/K16 (tol {TOL_K1:.0e}); update"
@@ -3147,8 +3160,7 @@ def main() -> int:
     _s5_report(torch, s5, check, launches, smi, s4_rates, time.perf_counter() - t0)
     shard_n = SHARD_LRA[0]
     shard_bound = {
-        "lra_upd_sharded": _bound(4 * (4 * 10 * shard_n + 6 * shard_n),
-                                  2 * 2 * 22**2 * shard_n + 30 * 10 * shard_n),
+        "lra_upd_sharded": _bound(*family_work("lra", shard_n)),
         "splu_upd_sharded": _bound(*splu_work(SHARD_SPLU[0], apply=True))}
 
     for name in ("kron_multi", "kron_dd", "kron_dd_batched", "tri", "kron_sparse_big_ns",

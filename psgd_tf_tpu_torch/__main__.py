@@ -6,11 +6,14 @@ Counterpart of `psgd_tf_tpu/__main__.py`:
     python -m psgd_tf_tpu_torch run mnist_lenet5 --set epochs=3 --set lr=0.05
     python -m psgd_tf_tpu_torch run nmt_attention --config my.json
     python -m psgd_tf_tpu_torch run hello_psgd --set device=cpu
+    python -m psgd_tf_tpu_torch bench
 
 A workload runs on the card unless `--set device=cpu` says otherwise. The
 last line of `run`'s output is the result as JSON; the exit code is 0 when
-the result's `success` holds, else 1. There is no `bench` subcommand: the
-port has no benchmark harness yet.
+the result's `success` holds, else 1. `bench` runs `psgd_tf_tpu_torch.bench`
+(the counterpart of the repo-root `bench.py`) on the card: its last line is
+the headline JSON; without a CUDA device, or when a row raises, it exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ def main(argv=None):
         help="override one config key (repeatable)",
     )
 
+    sub.add_parser("bench", help="run the benchmark harness")
+
     args = parser.parse_args(argv)
 
     if args.cmd == "list":
@@ -52,6 +57,11 @@ def main(argv=None):
             mod = importlib.import_module(f"psgd_tf_tpu_torch.workloads.{name}")
             print(f"{name}: {json.dumps(config_mod.schema(mod.run), default=str)}")
         return 0
+
+    if args.cmd == "bench":
+        from psgd_tf_tpu_torch import bench
+
+        return bench.main()
 
     mod = importlib.import_module(f"psgd_tf_tpu_torch.workloads.{args.workload}")
     kwargs = config_mod.load(mod.run, args.config, args.set)

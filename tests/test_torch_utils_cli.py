@@ -190,7 +190,7 @@ def test_cli_list_and_run(capsys):
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["steps"] == 120 and "loss" in result
     assert rc == (0 if result["success"] else 1)
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["bench"])
 
 
