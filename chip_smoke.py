@@ -17,7 +17,11 @@ K6, K7/K8 and K10, each one C call with its tail on the device, through
 `kron.update` at the reference NMT's layers and the bench's wide shapes,
 a mirrored (scale, norm) layer, n % 4 = 1 and two-row layers, each
 repeated bit for bit, with zero probes, and timed chained, on the device
-(queued) and on the host), then drives the port's
+(queued) and on the host; F4: K13 and K14 on an lra state or probe
+holding one NaN or inf and 1,000 K13 calls fed their own P' v past the
+overflow, through `tools/nan_probe.py` in child processes, every output
+non-finite where the plain chain's is and no device fault), then drives
+the port's
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
@@ -111,8 +115,10 @@ after:
     (K1, K3); each row's launches a chained iteration, its figures, and
     the headline line's form;
   - S1: K14 (the lane-sharded lra update + apply) on a one-rank NCCL
-    group at n = 2^20, r = 10, pipelined off and on, against K13, and the
-    sharded K16 there against K16's fused apply, each timed;
+    group at n = 2^20, r = 10, pipelined off and on, against its plain
+    chain and K13, timed beside both and its bound (the kernel line's K14
+    time), at r = 64 the same beside phase 8d's K13, and the sharded K16
+    there against K16's fused apply, each timed;
   - S2, two gloo ranks sharing the card (spawned; NCCL refuses two ranks
     on one device): K14 at n = 2^20 and 1,000,003 and the sharded K16 at
     2^20 and 100,003, r = 10, gathered and held against the single-process
@@ -1551,6 +1557,26 @@ def main() -> int:
         print(f"k13 trajectory: n={n}, 20 steps max rel err {lra_traj:.3e} "
               f"(tol {TOL_TRAJ:.0e})", flush=True)
         check(lra_traj < TOL_TRAJ, f"k13 20-step trajectory vs plain at n={n}")
+
+    # 7b. F4: K13 and K14 on an lra state or probe holding one NaN or inf
+    #     (`tools/nan_probe.py --lra-all`: both rank chains, each call held
+    #     to the plain chain's non-finite entries), then `--chain`: 1,000
+    #     calls of K13 with P' v fed back, past the call where the state
+    #     overflows; each in a child process, since a fault would end its
+    #     CUDA context
+    probe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "nan_probe.py")
+    for args, want in ((["--lra-all"], "ok"), (["--chain"], "calls ran without a device error")):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, probe, *args], capture_output=True, text=True,
+                             timeout=600)
+        lines = [line for line in out.stdout.splitlines() if line.strip()]
+        for line in lines:
+            print(f"f4: {line}", flush=True)
+        print(f"f4: {' '.join(args)} exit code {out.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(out.returncode == 0 and bool(lines) and (
+            all(line.endswith(want) for line in lines) if want == "ok"
+            else want in lines[-1]), f"f4: nan_probe.py {' '.join(args)}")
 
     # 8. K11 at hello_psgd's and the RNN's n and its cap, K12 at the bench
     #    rows, both at the edge sizes: update and update+apply against the
@@ -3018,16 +3044,20 @@ def main() -> int:
                 s1_err = max([s1_err] + [_abs(a, b) for a, b in zip(got, plain)])
         for name, fn in [
             ("k13", lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, (False, True))),
-            ("k14", lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, gr, 0.05,
-                                                               (False, True), mesh1)),
             ("k14 pipelined", lambda: lra_upd.fused_update_apply_sharded(
                 st.UV, st.d, v, h, gr, 0.05, (False, True), mesh1, pipelined=True))]:
             s1_ms[name] = _time(torch, fn, 50)
+        # K14's own time (kernel, plain chain), the kernel line's: one rank
+        # exchanges nothing, so this is the stages' work
+        s1_k14 = _time_ab(torch, hopper, lambda: lra_upd.fused_update_apply_sharded(
+            st.UV, st.d, v, h, gr, 0.05, (False, True), mesh1), 50)
+        k14_b10 = _bound(*family_work("lra", n))
         print(f"s1: K14 on one NCCL rank, n={n} r=10, four coin pairs, pipelined off and on "
               f"({lra_upd.CHUNKS} chunks): max rel err against the plain chain {s1_plain:.3e} "
               f"(max abs {s1_err:.3e}), against K13 {s1_rel:.3e} (tol {TOL_K1:.0e} each); "
-              f"update+apply K13 {s1_ms['k13']:.4f} ms, K14 {s1_ms['k14']:.4f} ms, K14 "
-              f"pipelined {s1_ms['k14 pipelined']:.4f} ms", flush=True)
+              f"update+apply K14 {s1_k14[0]:.4f} ms (plain {s1_k14[1]:.4f}, bound "
+              f"{k14_b10[0]:.4f} ms ({k14_b10[1]})), K13 {s1_ms['k13']:.4f} ms, K14 pipelined "
+              f"{s1_ms['k14 pipelined']:.4f} ms", flush=True)
         check(max(s1_rel, s1_plain) <= TOL_K1, "s1: K14 on one rank vs plain and K13")
         del st, v, h, gr
         # the sharded K16 on the same rank at r = 10, update + apply, against
@@ -3077,7 +3107,8 @@ def main() -> int:
         print(f"s1: past rank 32, n={n} r={r} on one NCCL rank: K14 and the sharded K16 max rel "
               f"err {rel:.3e} against their plain chains and K13/K16 (tol {TOL_K1:.0e}); update"
               f"+apply K14 {s1_rank['k14'][0]:.4f} ms (plain {s1_rank['k14'][1]:.4f}, bound "
-              f"{k14_b[0]:.4f} ms ({k14_b[1]})), sharded K16 {s1_rank['k16'][0]:.4f} ms (plain "
+              f"{k14_b[0]:.4f} ms ({k14_b[1]}); K13 {rank_ms['k13'][0]:.4f} ms, 8d), sharded K16 "
+              f"{s1_rank['k16'][0]:.4f} ms (plain "
               f"{s1_rank['k16'][1]:.4f}, bound {k16s_b[0]:.4f} ms ({k16s_b[1]}))", flush=True)
         check(rel < TOL_K1, f"s1: K14 and the sharded K16 at r={r} vs plain and one process")
     finally:
@@ -3218,9 +3249,10 @@ def main() -> int:
               *splu_times[SPLU_K15[-1]], splu_bounds[SPLU_K15[-1]]),
         entry("splu_upd", "splu.cu", "splu_upd.py:636", splu_err["splu_upd"],
               *splu_times[SPLU_K16[-1]], splu_bounds[SPLU_K16[-1]]),
+        # K14's own time on one NCCL rank (S1); S2's two gloo ranks add
+        # gloo's host-staged transport
         entry("lra_upd_sharded", "lra.cu", "lra_upd.py:487", shard_err["lra_upd_sharded"],
-              r0["lra"][shard_n]["ms"], r0["lra"][shard_n]["plain_ms"],
-              shard_bound["lra_upd_sharded"]),
+              *s1_k14, shard_bound["lra_upd_sharded"]),
         entry("splu_upd_sharded", "splu.cu", "splu_upd.py:914", shard_err["splu_upd_sharded"],
               r0["splu"][SHARD_SPLU[0]]["ms"], r0["splu"][SHARD_SPLU[0]]["plain_ms"],
               shard_bound["splu_upd_sharded"]),

@@ -1,30 +1,31 @@
 // The rank-generic pieces of the lra (K13/K14) and splu (K15/K16) chains:
 // what their rank-32 kernels hold in registers and in one warp, sized by r.
 //
-// Past rank 32 a Gram of 2r + 2 rows no longer fits a
-// thread's pair registers, nor a rank-space vector one warp's lanes, so
-// both files switch (on the host, by r) to:
-//   - Grams through kron_dd.cu's grouped GEMM (gram_launch): Z's row
-//     blocks that the state holds are read in place at their stride, the
-//     rows the algebra builds lane by lane are staged by the caller's own
-//     kernel first; each block pair the algebra reads is one problem of a
-//     single launch of the GEMM's 64 x 64 tiles (the upper triangle alone
-//     on the diagonal), the lanes (K) split into bands over the grid's y,
-//     each band's partial product written to a scratch, and
-//     gram_sum_kernel sums every entry's bands in band order into the
-//     (zdim, zdim) Gram, both halves. No float atomics and a band count
-//     set by the shapes alone, so a run repeats itself bit for bit on any
-//     card, as the rank-32 kernels do. Measured on an H100 80GB HBM3 at
-//     700 W (tools/kron_gemm_ab.py --gram, n = 2^20, torch.profiler): at
-//     r = 64 K13's two Grams take 4.22 ms of its 5.33 (staged rows, bands
-//     and sums; 7.54 of 8.62 in the Gram-tile kernel this replaced, a
-//     4 x 4 micro-tile fed without cp.async), K16's one 2.23 of 3.35 (5.19
-//     of 6.34); at r = 128 10.66 of 13.26 (15.67 of 18.31) and 5.63 of
-//     8.25 (13.16 of 15.90). The 128 x 128 tiles ran slower at each (lra's
-//     stage-1 Gram alone at r = 64 2.94 against 2.12 ms, splu's 6.06
-//     against 2.44): the thin blocks against the staged rows fill a
-//     tile's width with zeros. splu's stage-1 Gram up to SPLU_G_MAX_RANK
-//     is now summed from splu.cu's own staged tile instead;
+// Past rank 32 a rank-space vector no longer fits one warp's lanes, and
+// past the ranks where a staged tile and its 8 x 8 register tiles fit
+// shared memory (lra.cu's LRA_S_MAX_RANK, splu.cu's SPLU_G_MAX_RANK, both
+// 128) a Gram of 2r + 2 rows no longer fits either, so both files switch
+// (on the host, by r) to:
+//   - Grams through kron_dd.cu's grouped GEMM (gram_launch), for lra past
+//     LRA_S_MAX_RANK and for splu's stage 1 past SPLU_G_MAX_RANK and its
+//     apply Gram at every rank past 32: Z's row blocks that the state
+//     holds are read in place at their stride, the rows the algebra
+//     builds lane by lane are staged by the caller's own kernel first;
+//     each block pair the algebra reads is one problem of a single launch
+//     of the GEMM's 64 x 64 tiles (the upper triangle alone on the
+//     diagonal), the lanes (K) split into bands over the grid's y, each
+//     band's partial product written to a scratch, and gram_sum_kernel
+//     sums every entry's bands in band order into the (zdim, zdim) Gram,
+//     both halves. No float atomics and a band count set by the shapes
+//     alone, so a run repeats itself bit for bit on any card, as the
+//     staged kernels do. Measured on an H100 80GB HBM3 at 700 W
+//     (tools/kron_gemm_ab.py --gram, n = 2^20, torch.profiler): at r = 64
+//     lra's two Grams took 4.22 ms of its 5.33 on this route, where its
+//     staged stages now take 2.24 for the whole update + apply (lra.cu);
+//     splu's stage-1 Gram 2.23 of 3.35 before splu.cu's own staged tile
+//     took it. The 128 x 128 tiles ran slower (lra's stage-1 Gram at r =
+//     64 2.94 against 2.12 ms, splu's 6.06 against 2.44): the thin blocks
+//     against the staged rows fill a tile's width with zeros;
 //   - block-wide rank-space algebra (rg_*): one block of RG_THREADS
 //     threads, every vector a length-r array that thread k, k + RG_THREADS,
 //     ... own, read by all after a barrier; r x r matrices read where they

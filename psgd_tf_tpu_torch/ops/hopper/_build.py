@@ -81,7 +81,7 @@ _SIGNATURES = {
     ),
     "psgd_lra_scratch_floats": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
     "psgd_lra_stage1": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 8),
-    "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 12),
+    "psgd_lra_stage3": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 13),
     "psgd_lra_stage4": (ctypes.c_int, [ctypes.c_int] * 3 + [_P] * 9),
     "psgd_lra_corner_a": (
         ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [_P] * 4,

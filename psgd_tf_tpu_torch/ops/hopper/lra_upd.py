@@ -15,15 +15,20 @@ Replaces `psgd_tf_tpu/ops/pallas/lra_upd.py` `fused_update` (:458) and
   corner B  mu_d from max|nablaD|; with g the apply's (t1, t2) = coef4
   stage 4   d' = d - mu_d d nablaD; with g P' g = d' (d' g + t1 U' + t2 V')
 
-On a CUDA tensor the whole chain is one C call (`psgd_lra_update`): five
-launches, the corners as single-block kernels, nothing between them on the
-host; past rank 32 the same entry runs the rank-generic chain of
-`csrc/lra.cu` (the Grams as Gram tiles over lanes), so any rank takes a
-kernel, as in the JAX package. The JAX function draws the rebalance and U-vs-V coins from a key;
+On a CUDA tensor the whole chain is one C call (`psgd_lra_update`): the
+stages streaming staged tiles over a grid sized by the card, the corners
+as single-block kernels, a reduce launch after each streaming Gram where
+more than one block took the lanes (five launches at the RNN's n, seven
+at 2^20), nothing between them on the host; past rank 32 the corners run
+block-wide and past 128 the Grams go through the grouped GEMM
+(`csrc/rank_space.cuh`), so any rank takes a kernel, as in the JAX
+package. The JAX function draws the rebalance and U-vs-V coins from a key;
 here they arrive as host booleans `coins = (balance, update_u)` and go to
 the corner as ints; the U-vs-V choice reaches stage 3 as zeroed
 coefficients, as in JAX. One difference from the Pallas kernels: the step
 scales saturate at the fp32 max (`linalg.step_scale`), as the XLA path does.
+A NaN or inf in the state or a probe propagates as in the plain chain (a
+NaN maximum or norm gives a NaN step scale), and faults no kernel.
 
 Each stage and corner has a plain torch version here (`_Plain`), and the
 kernels' entries are on `_Kernels`. On CPU tensors (and inside
@@ -35,11 +40,12 @@ than fp32, and the independent oracle the chain is held to.
 
 K14 (`fused_update_sharded`, `fused_update_apply_sharded`; JAX :487, :554,
 :467) runs the same kernels one entry at a time on each rank's slice of
-the lanes: the stage-1 Gram and maxima, max|nablaD| and the apply Gram are
-all-reduced over the mesh's shard ranks between them, where JAX psums and
-pmaxes them, and the corners run alike on every rank. Its pipelined mode
-runs stage 1 on lane chunks (the kernels take a row stride) and reduces
-each chunk as soon as it is launched.
+the lanes: the stage-1 Gram and maxima, max|nablaD| (folded by the stage-3
+entry: one float) and the apply Gram are all-reduced over the mesh's shard
+ranks between them, where JAX psums and pmaxes them, and the corners run
+alike on every rank. Its pipelined mode runs stage 1 on lane chunks (the
+kernels take a row stride and rows at any 4-byte offset) and reduces each
+chunk as soon as it is launched. The scratch is made once per shape.
 """
 from __future__ import annotations
 
@@ -171,9 +177,13 @@ def corner_b_plain(ndmax, step, gram2=None):
 
 # ------------------------------------------------------------ the stages, kernels
 
-@functools.lru_cache(maxsize=64)
-def _scratch_floats(n, r):
-    return _build.lib().psgd_lra_scratch_floats(n, r)
+@functools.lru_cache(maxsize=4)
+def _scratch(n, r, device):
+    """The C chain's scratch for (2r, n) on `device`, made once per shape:
+    its size follows the card's SMs (the streaming grids), and a scratch
+    for n lanes serves any stage over at most n (K14's pipelined chunks)."""
+    return torch.empty(_build.lib().psgd_lra_scratch_floats(n, r), dtype=torch.float32,
+                       device=device)
 
 
 class _Kernels:
@@ -192,7 +202,7 @@ class _Kernels:
         self.lib = _build.lib()
         self.n, self.r = n, r2 // 2
         self.f = dict(dtype=torch.float32, device=UV.device)
-        self.scratch = torch.empty(_scratch_floats(n, self.r), **self.f)
+        self.scratch = _scratch(n, self.r, UV.device)
         self.stream = torch.cuda.current_stream(UV.device).cuda_stream
 
     def update(self, UV, d, v, h, step, coins, g=None):
@@ -209,17 +219,15 @@ class _Kernels:
         return new_uv, new_d, pre
 
     def stage1(self, UV, d, h, v, lo=0, hi=None):
-        """Over lanes [lo, hi); a chunk gets its own scratch, so that its
-        block partials survive the next chunk's launch."""
+        """Over lanes [lo, hi) (rows at any 4-byte offset); the entry sums
+        its block partials into `gram` before it returns, so chunks share
+        the scratch."""
         hi = self.n if hi is None else hi
         zdim = 2 * self.r + 2
         gram, maxs = torch.empty(zdim, zdim, **self.f), torch.empty(2, **self.f)
-        whole = (lo, hi) == (0, self.n)
-        scratch = self.scratch if whole else torch.empty(_scratch_floats(hi - lo, self.r),
-                                                         **self.f)
         at = lambda x: x.data_ptr() + 4 * lo
         rc = self.lib.psgd_lra_stage1(hi - lo, self.n, self.r, at(UV), at(d), at(h), at(v),
-                                      gram.data_ptr(), maxs.data_ptr(), scratch.data_ptr(),
+                                      gram.data_ptr(), maxs.data_ptr(), self.scratch.data_ptr(),
                                       self.stream)
         _build.check(rc, "lra_upd stage 1")
         return gram, maxs
@@ -234,16 +242,18 @@ class _Kernels:
         return coef, scal
 
     def stage3(self, UV, d, h, v, coef, scal, g=None):
+        """(UV', nablaD, the apply Gram or None, max|nablaD|): the kernel
+        folds its blocks' maxima, so the host reduces one float."""
         zdim = 2 * self.r + 2
-        new_uv, nd = torch.empty_like(UV), torch.empty_like(d)
+        new_uv, nd, ndmax = torch.empty_like(UV), torch.empty_like(d), torch.empty((), **self.f)
         gram2 = torch.empty(zdim, zdim, **self.f) if g is not None else None
         rc = self.lib.psgd_lra_stage3(
             self.n, self.n, self.r, UV.data_ptr(), d.data_ptr(), h.data_ptr(), v.data_ptr(),
             g.data_ptr() if g is not None else None, coef.data_ptr(), scal.data_ptr(),
             new_uv.data_ptr(), nd.data_ptr(), gram2.data_ptr() if g is not None else None,
-            self.scratch.data_ptr(), self.stream)
+            ndmax.data_ptr(), self.scratch.data_ptr(), self.stream)
         _build.check(rc, "lra_upd stage 3")
-        return new_uv, nd, gram2
+        return new_uv, nd, gram2, ndmax
 
     def corner_b(self, ndmax, step, gram2=None):
         mu_d = torch.empty((), **self.f)
@@ -268,10 +278,16 @@ class _Kernels:
         return new_d, pre
 
 
+def _stage3_plain_max(UV, d, h, v, coef, scal, g=None):
+    """stage3_plain with max|nablaD|, as the kernel's entry returns it."""
+    new_uv, nd, gram2 = stage3_plain(UV, d, h, v, coef, scal, g)
+    return new_uv, nd, gram2, linalg.max_abs(nd)
+
+
 class _Plain:
     stage1 = staticmethod(stage1_plain)
     corner_a = staticmethod(corner_a_plain)
-    stage3 = staticmethod(stage3_plain)
+    stage3 = staticmethod(_stage3_plain_max)
     corner_b = staticmethod(corner_b_plain)
     stage4 = staticmethod(stage4_plain)
 
@@ -338,10 +354,9 @@ def _update(UV, d, v, h, step, coins, g=None, mesh=None, pipelined=False):
         gram, maxs = st.stage1(UV, d, h, v)
         gram, maxs = psum(gram), pmax(maxs)
     coef, scal = st.corner_a(gram, maxs, step, coins)
-    new_uv, nd, gram2 = st.stage3(UV, d, h, v, coef, scal, g)
+    new_uv, nd, gram2, ndmax = st.stage3(UV, d, h, v, coef, scal, g)
     # max|nablaD| over every lane before the d' AXPY
-    mu_d, coef4 = st.corner_b(pmax(linalg.max_abs(nd)), step,
-                              psum(gram2) if g is not None else None)
+    mu_d, coef4 = st.corner_b(pmax(ndmax), step, psum(gram2) if g is not None else None)
     new_d, pre = st.stage4(new_uv, d, nd, mu_d, g, coef4)
     if kernel:
         hopper.counts["lra_upd_sharded"] += 1

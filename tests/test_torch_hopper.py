@@ -1543,6 +1543,65 @@ def test_sharded_k16_one_rank_matches_k16(one_rank, n, r):
         assert _rel(a[..., :c.shape[-1]], c) < 1e-4
 
 
+@pytest.mark.parametrize("kernel", ["k13", "k14"])
+@pytest.mark.parametrize("r", [10, 40])
+@pytest.mark.parametrize("where,value", [("UV", "nan"), ("v", "nan"), ("d", "inf")])
+def test_lra_nonfinite_does_not_fault(cuda, kernel, r, where, value):
+    """F4: one NaN or inf in an lra state or probe, through K13 or K14 (one
+    gloo rank, pipelined off and on) on the rank-32 and the rank-generic
+    chain, in a child process (a fault would end the CUDA context): no
+    fault, non-finite exactly where the plain chain is, the rest within
+    1e-4 (tools/nan_probe.py --lra)."""
+    out = subprocess.run([sys.executable, str(REPO / "tools" / "nan_probe.py"), "--lra", kernel,
+                          "4097", str(r), where, value], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("n", [1, 255, 4097, 1_000_003])
+@pytest.mark.parametrize("r", [1, 10, 32, 33, 64, 128])
+def test_lra_staged_stages_match_plain(one_rank, n, r):
+    """K13 and K14 (one rank, pipelined off and on: chunks at lane offsets
+    that are not multiples of 4) on the staged stages, at ragged n (rows at
+    every 16-byte alignment) and at the ranks where their tiles change,
+    against the plain chain under two coin pairs; two calls bit-equal."""
+    dev = one_rank.device
+    g = torch.Generator(device=dev).manual_seed(21)
+    st, v, h, grad = _lra_case(g, n, r, dev)
+    for coins in COINS[1:3]:
+        with hopper.disabled():
+            ref = lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins)
+        calls = [lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, grad, 0.05, coins),
+                 lambda: (*lra_upd.fused_update(st.UV, st.d, v, h, 0.05, coins), None)]
+        calls += [lambda p=p: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, grad, 0.05,
+                                                                 coins, one_rank, pipelined=p)
+                  for p in (False, True)]
+        calls += [lambda: (*lra_upd.fused_update_sharded(st.UV, st.d, v, h, 0.05, coins,
+                                                         one_rank), None)]
+        for call in calls:
+            got = call()
+            for a, b in zip(got, ref, strict=True):
+                if a is not None:
+                    assert _rel(a, b) < 1e-4
+            again = call()
+            assert all(a is None or torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+@pytest.mark.parametrize("r", [3, 10, 33])
+@pytest.mark.parametrize("lo", [1, 2, 3, 5])
+def test_lra_stage1_at_a_lane_offset(cuda, r, lo):
+    """K14's stage-1 entry over lanes [lo, hi) of rows n apart (each row at
+    its own 16-byte alignment) against `stage1_plain` on the same lanes."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    n = 100_003
+    st, v, h, _ = _lra_case(g, n, r, cuda)
+    k = lra_upd._Kernels(st.UV, st.d, v, h, None)
+    for hi in (lo + 1, lo + 257, n - 2):
+        gram, maxs = k.stage1(st.UV, st.d, h, v, lo, hi)
+        rgram, rmaxs = lra_upd.stage1_plain(st.UV, st.d, h, v, lo, hi)
+        assert _rel(gram, rgram) < 1e-4 and torch.equal(maxs, rmaxs)
+
+
 @pytest.fixture
 def one_nccl_rank(cuda):
     """A one-rank NCCL job on the card."""

@@ -13,9 +13,15 @@ CUDA context unusable:
     case, an inf too), at the sizes the paths and the
     bench give each kernel (K13, K15, K16, K11, K12), beside the plain
     version on the same inputs;
+  - `--lra k13|k14 N R UV|d|v nan|inf`: one lra update + apply and update
+    through K13 or K14 (on a one-rank gloo group, pipelined off and on) at
+    rank R with one non-finite entry in UV, d or v, against the plain chain
+    on the same inputs: the same non-finite entries and the finite ones
+    within 1e-4 of the plain chain's largest; exit code 1 where they differ.
+    `--lra-all` runs LRA_CASES in one process (a fault ends it);
   - `--chain`: lra at n = 2^20, r = 10, its P' v fed back as the next probe
-    for up to 1000 calls, each synchronised: the call at which the state
-    stops being finite, and what the next calls do.
+    for 1000 calls, each synchronised: the call at which the state stops
+    being finite, and that every call ran.
 
 One line a case: finite or not, the kernel's launches, or the error it
 raised.
@@ -29,6 +35,11 @@ import sys
 
 CASES = [("lra", 1 << 20), ("lra", 1021), ("splu", 1 << 16), ("splu", 1 << 20), ("dense", 400),
          ("dense", 4096)]
+# (kernel, n, r, where, value): K13 and K14 on both rank chains, a NaN in
+# the state and in the probe, an inf in d
+LRA_CASES = [(k, n, r, where, value) for k in ("k13", "k14")
+             for n, r in ((1 << 20, 10), (1021, 10), (100_003, 40))
+             for where, value in (("UV", "nan"), ("v", "nan"), ("d", "inf"))]
 
 
 def _state(fam, n, g, dev):
@@ -82,6 +93,76 @@ def case(fam, n, where, value):
         print(f"{head}; kernel raised {e}", flush=True)
 
 
+def _agree(got, want):
+    """'' where got is non-finite exactly where want is and the finite
+    entries agree within 1e-4 of want's largest finite entry; else why not."""
+    import torch
+
+    bad = ~torch.isfinite(want)
+    if not torch.equal(~torch.isfinite(got), bad):
+        return (f"non-finite entries differ ({int((~torch.isfinite(got)).sum())} against "
+                f"{int(bad.sum())})")
+    if bad.all():
+        return ""
+    err = ((got - want)[~bad].abs().max() / want[~bad].abs().max().clamp_min(1e-30)).item()
+    return "" if err < 1e-4 else f"finite entries differ by {err:.3e}"
+
+
+def lra_case(kernel, n, r, where, value, mesh=None):
+    """One K13 or K14 call on a state or probe with one non-finite entry,
+    against the plain chain; True when they agree (a fault raises)."""
+    import torch
+
+    from psgd_tf_tpu_torch import lra
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import lra_upd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(n + r)
+    st = lra.init(g, n, rank=r, init_scale=0.8, device=dev)
+    v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+    UV, d = st.UV.clone(), st.d.clone()
+    target = {"UV": UV.view(-1), "d": d, "v": v}[where]
+    target[target.numel() // 3] = float(value)
+    calls = []
+    for coins in ((False, True), (True, False)):
+        if kernel == "k13":
+            calls += [lambda c=coins: lra_upd.fused_update_apply(UV, d, v, h, gr, 0.05, c),
+                      lambda c=coins: lra_upd.fused_update(UV, d, v, h, 0.05, c)]
+        else:
+            calls += [lambda c=coins, p=p: lra_upd.fused_update_apply_sharded(
+                UV, d, v, h, gr, 0.05, c, mesh, pipelined=p) for p in (False, True)]
+            calls += [lambda c=coins: lra_upd.fused_update_sharded(UV, d, v, h, 0.05, c, mesh)]
+    why = []
+    for call in calls:
+        with hopper.disabled():
+            want = call()
+        got = call()
+        torch.cuda.synchronize()
+        why += [w for w in (_agree(a, b) for a, b in zip(got, want, strict=True)) if w]
+    verdict = "ok" if not why else "MISMATCH " + "; ".join(why[:3])
+    print(f"lra {kernel} n={n} r={r}, one {value} in {where}: {len(calls)} calls, no fault, "
+          f"{verdict}", flush=True)
+    return not why
+
+
+def lra_cases(cases):
+    """lra_case over `cases` in this process, K14 on a one-rank gloo group;
+    exit code 1 if any disagrees."""
+    import torch
+    import torch.distributed as dist
+
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1, shard=1, device=torch.device("cuda"))
+        ok = [lra_case(k, int(n), int(r), where, value, mesh) for k, n, r, where, value in cases]
+    finally:
+        dist.destroy_process_group()
+    sys.exit(0 if all(ok) else 1)
+
+
 def chain(n=1 << 20, calls=1000):
     import torch
 
@@ -102,28 +183,33 @@ def chain(n=1 << 20, calls=1000):
         except RuntimeError as e:
             print(f"lra chain n={n}: call {i} (coins {coins}) raised {e}; the state was first "
                   f"not finite after call {first_bad}", flush=True)
-            return
+            sys.exit(1)
         finite = bool(torch.isfinite(st.UV).all() and torch.isfinite(st.d).all())
         if not finite and first_bad is None:
             first_bad = i
             print(f"lra chain n={n}: state not finite after call {i}, max |v| before it "
                   f"{v.abs().max().item():.3e}", flush=True)
-        if first_bad is not None and i >= first_bad + 5:
-            print(f"lra chain n={n}: five calls on the non-finite state ran", flush=True)
-            return
-    print(f"lra chain n={n}: {calls} calls, state finite", flush=True)
+    print(f"lra chain n={n}: {calls} calls ran without a device error; the state "
+          f"{'stayed finite' if first_bad is None else f'was first not finite after call {first_bad}'}",
+          flush=True)
 
 
 def main():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
     if sys.argv[1:2] == ["--case"]:
         fam, n, where, value = sys.argv[2:6]
         return case(fam, int(n), where, value)
+    if sys.argv[1:2] == ["--lra"]:
+        return lra_cases([sys.argv[2:7]])
+    if sys.argv[1:2] == ["--lra-all"]:
+        return lra_cases(LRA_CASES)
     if sys.argv[1:2] == ["--chain"]:
         return chain()
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     runs = [["--case", fam, str(n), where, "nan"] for fam, n in CASES
-            for where in ("v", "state")] + [["--chain"]]
+            for where in ("v", "state")] + [["--lra", *map(str, c)] for c in LRA_CASES] + [
+        ["--chain"]]
     for args in runs:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), *args], cwd=root, env=env,
                              capture_output=True, text=True, timeout=600)

@@ -87,6 +87,13 @@ K14 at 2^20, r = 10, beside K13. Each case gives the host us of the call
 and of the wrapper inside it, the events, and every launch queued and
 synced (memsets and torch's fills counted). TREE as for `--stream`.
 
+    python3 tools/profile_kron_chain.py --lra [TREE]
+
+traces the lra update the same way: K13 (`lra_upd.fused_update_apply` and
+`fused_update`) at n = 1,021 and 2^20 with r = 10, and at 2^20 with r =
+64, and at 2^20 K14's update + apply on a one-rank NCCL group, memsets
+counted as launches. TREE as for `--stream`.
+
     python3 tools/profile_kron_chain.py --apply-nd [TREE]
 
 traces K17's (norm, dense) apply (`kron_sparse_big.fused_apply_nd`) the
@@ -120,7 +127,8 @@ from pathlib import Path
 
 if not any(a in sys.argv for a in ("--phases-child", "--dense-steps-child")):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repository root
-if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"], ["--apply-nd"], ["--k4"]) and \
+if sys.argv[1:2] in (["--stream"], ["--dense"], ["--splu"], ["--apply-nd"], ["--k4"],
+                     ["--lra"]) and \
         len(sys.argv) > 2:
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))  # the other tree's package first
 
@@ -137,6 +145,8 @@ SPLU_N = [(1 << 20, 10), (1 << 20, 32), (1 << 20, 33), (1 << 20, 64), (12_424_27
           (44_426, 10)]
 # --splu: K15's (n, r): bench.py:615's n, the tensor decomposition's, and past rank 32
 K15_N = [(1 << 16, 10), (400, 10), (400, 64)]
+# --lra: K13's (n, r): the RNN's n, bench.py:610's n at r = 10 and 64
+LRA_N = [(1021, 10), (1 << 20, 10), (1 << 20, 64)]
 # --apply-nd: bench.py:678-683's kron_nd row
 APPLY_ND = (131072, 512)
 # --k4: chip_smoke.py's phase 3c buckets (the K4 path's is made from its NMT model)
@@ -632,6 +642,54 @@ def _splu() -> int:
     return 0
 
 
+def _lra() -> int:
+    """--lra: K13 and K14 (one NCCL rank) at LRA_N."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from psgd_tf_tpu_torch.groups import lra
+    from psgd_tf_tpu_torch.ops.hopper import _build, lra_upd
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    print(f"package {Path(lra_upd.__file__).resolve().parents[3]}; torch {torch.__version__}",
+          flush=True)
+    _build.lib()
+    g = torch.Generator(device=dev).manual_seed(0)
+    summary = {}
+    report = lambda label, fn, big: _report(torch, label, fn, [], 10 if big else CALLS,
+                                            5 if big else TRACED, summary,
+                                            ("kernel", "gpu_memset"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1, shard=1, device=dev)
+        for n, r in LRA_N:
+            st = lra.init(torch.Generator().manual_seed(n), n, rank=r, init_scale=0.8, device=dev)
+            v, h, gr = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+            big = n >= 1 << 20
+            report(f"lra_upd (K13) n={n} r={r} update+apply",
+                   lambda: lra_upd.fused_update_apply(st.UV, st.d, v, h, gr, 0.05, (False, True)),
+                   big)
+            report(f"lra_upd (K13) n={n} r={r} update",
+                   lambda: lra_upd.fused_update(st.UV, st.d, v, h, 0.05, (False, True)), big)
+            if big:
+                report(f"lra_upd_sharded (K14) one NCCL rank n={n} r={r} update+apply",
+                       lambda: lra_upd.fused_update_apply_sharded(
+                           st.UV, st.d, v, h, gr, 0.05, (False, True), mesh), big)
+            del st, v, h, gr
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(summary))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
 def _apply_nd() -> int:
     """--apply-nd: K17 (norm, dense) through `kron_sparse_big.fused_apply_nd`."""
     import torch
@@ -737,6 +795,8 @@ def main() -> int:
         return _splu()
     if sys.argv[1:2] == ["--apply-nd"]:
         return _apply_nd()
+    if sys.argv[1:2] == ["--lra"]:
+        return _lra()
     if sys.argv[1:2] == ["--k4"]:
         return _k4()
     route = None

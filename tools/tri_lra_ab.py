@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time K19 (the blocked triangular solve) and K13 (the lra update) of two
 checkouts of the port on one card, or sweep K19's schedule on this one, or
-time K11 and K12 (the dense update), or the sparse-LU update (K15, K16 and
-the sharded K16), of two checkouts.
+time K11 and K12 (the dense update), the sparse-LU update (K15, K16 and
+the sharded K16), or the lra update (K13, K14), of two checkouts.
 
     python3 tools/tri_lra_ab.py OTHER_TREE
     python3 tools/tri_lra_ab.py --sweep
     python3 tools/tri_lra_ab.py --dense OTHER_TREE
     python3 tools/tri_lra_ab.py --splu OTHER_TREE
+    python3 tools/tri_lra_ab.py --lra OTHER_TREE
 
 Run from the root of the repository on a machine with one CUDA card.
 OTHER_TREE is another checkout of the repository (for example the parent
@@ -44,6 +45,13 @@ tree whose `splu_upd.launch_mono` takes `schedule`, also through that
 entry under each schedule of its one launch), and on a one-rank NCCL
 group the sharded K16 at 2^20 with r = 10 and 64, update and update +
 apply.
+
+`--lra` times the lra update of both trees, in the same order and the
+same four ways: K13 (`lra.update_apply`) at (n, r) = (400, 10), (1,021,
+10), (2^20, 10), (2^20, 32), (2^20, 64) and (2^20, 128), its update
+alone (`lra.update`) at r = 10, and K14 on a one-rank NCCL group
+(`lra_upd.fused_update_apply_sharded`) at n = 2^20, 2^19 and 2^18 (a
+rank's lanes on one, two and four ranks), r = 10, and at 2^20, r = 64.
 
 `--sweep` times this tree's K19 by schedule: the leaf rows NB (64, 128,
 256), the right-looking order `tri.schedule` builds against a recursive
@@ -290,6 +298,65 @@ def run_splu(tree: str, label: str) -> None:
     print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
 
 
+# K13's (n, r): the RNN's, the tensor decomposition's, bench.py:610's, and
+# each tile shape of the staged stages past r = 10
+LRA_N = [(400, 10), (1021, 10), (1 << 20, 10), (1 << 20, 32), (1 << 20, 64), (1 << 20, 128)]
+# K14's lanes on one NCCL rank: bench.py:610's n and a rank's share of it
+# on two and four ranks
+K14_N = [(1 << 20, 10), (1 << 19, 10), (1 << 18, 10), (1 << 20, 64)]
+
+
+def run_lra(tree: str, label: str) -> None:
+    """Time K13 and K14 (one NCCL rank) with the port of `tree`."""
+    import socket
+
+    torch, dev, g = _setup(tree)
+    import torch.distributed as dist
+    from psgd_tf_tpu_torch.groups import lra
+    from psgd_tf_tpu_torch.ops.hopper import lra_upd
+    from psgd_tf_tpu_torch.parallel import make_mesh
+
+    out = []
+
+    def case(n, r):
+        st = lra.init(torch.Generator().manual_seed(n), n, rank=r, init_scale=0.8, device=dev)
+        return st, [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+
+    def timed(what, fn, big):
+        chained = _median_windows(lambda: _time(torch, fn, 10 if big else 50))
+        queued = _median_windows(lambda: _queued(torch, fn, 10 if big else 20))
+        host = _median_windows(lambda: _host_us(torch, fn, 10 if big else 50))
+        out.append(f"{what}: chained {chained:.4f} ms, queued {queued:.4f} ms, host {host:.1f} "
+                   f"us a call, {_launches(torch, fn)} launches")
+
+    for n, r in LRA_N:
+        st, (v, h, gr) = case(n, r)
+        big = n > 10**5
+        timed(f"K13 n={n} r={r} update+apply",
+              lambda: lra.update_apply(st, v, h, gr, 0.05, (False, True)), big)
+        if r == 10:
+            timed(f"K13 n={n} r={r} update", lambda: lra.update(st, v, h, 0.05, (False, True)),
+                  big)
+        del st, v, h, gr
+        torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1, shard=1, device=dev)
+        for n, r in K14_N:
+            st, (v, h, gr) = case(n, r)
+            timed(f"K14 one NCCL rank n={n} r={r} update+apply",
+                  lambda: lra_upd.fused_update_apply_sharded(st.UV, st.d, v, h, gr, 0.05,
+                                                             (False, True), mesh), True)
+            del st, v, h, gr
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"{label} ({Path(tree).resolve()}):\n  " + "\n  ".join(out), flush=True)
+
+
 def _recursive(tri, n, lower, trans, nb):
     """The recursive split as schedule records: leaves of nb rows, one
     update a split, S read from B until an update has written the rows."""
@@ -361,13 +428,14 @@ def sweep() -> None:
 
 
 def main() -> None:
-    runs = {"--tree": run_tree, "--dense-tree": run_dense, "--splu-tree": run_splu}
+    runs = {"--tree": run_tree, "--dense-tree": run_dense, "--splu-tree": run_splu,
+            "--lra-tree": run_lra}
     if len(sys.argv) == 4 and sys.argv[1] in runs:
         runs[sys.argv[1]](sys.argv[2], sys.argv[3])
         return
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep()
-    elif len(sys.argv) == 3 and sys.argv[1] in ("--dense", "--splu"):
+    elif len(sys.argv) == 3 and sys.argv[1] in ("--dense", "--splu", "--lra"):
         for tree, label in ((sys.argv[2], "other"), (".", "this"), (".", "this"),
                             (sys.argv[2], "other")):
             subprocess.run([sys.executable, __file__, sys.argv[1] + "-tree", tree, label],
