@@ -4,6 +4,11 @@ Counterpart of `psgd_tf_tpu/hvp.py`. Parameters and probes are lists (or
 any pytree `torch.func` accepts) of tensors. Probes `v` are unit normals and
 the finite-difference result is rescaled by 1/delta, so exact and FD give
 (v, h) pairs on the same scale.
+
+Spans (`utils.profiling.scope`): `psgd_forward` around each call of
+`loss_fn` (the model's forward; its backward runs after the call returns),
+`psgd_grad` around the gradient at theta, `psgd_hvp` around the FD's
+perturbation, second gradient and difference, or the whole exact pass.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from psgd_tf_tpu_torch.ops import linalg
+from psgd_tf_tpu_torch.utils.profiling import scope
 
 PyTree = Any
 
@@ -28,11 +34,22 @@ def random_like(generator: torch.Generator, params: PyTree, stddev: float = 1.0)
     return pytree.tree_unflatten(probes, spec)
 
 
+def _forward(loss_fn: Callable) -> Callable:
+    """`loss_fn` with each call in a `psgd_forward` span."""
+
+    def forward(*a):
+        with scope("psgd_forward"):
+            return loss_fn(*a)
+
+    return forward
+
+
 def exact(loss_fn: Callable, params: PyTree, v: PyTree, *args):
     """(loss, grad, H v) by forward-over-reverse in one pass:
     `torch.func.jvp` of `torch.func.grad_and_value`."""
-    gv = lambda p: torch.func.grad_and_value(loss_fn)(p, *args)
-    (grads, loss), (hvs, _) = torch.func.jvp(gv, (params,), (v,))
+    gv = lambda p: torch.func.grad_and_value(_forward(loss_fn))(p, *args)
+    with scope("psgd_hvp"):
+        (grads, loss), (hvs, _) = torch.func.jvp(gv, (params,), (v,))
     return loss, grads, hvs
 
 
@@ -42,14 +59,18 @@ def finite_diff(loss_fn: Callable, params: PyTree, v: PyTree, *args, delta: floa
     returned is the unperturbed one, which is what gets preconditioned."""
     if delta is None:
         delta = linalg.delta_scale(pytree.tree_leaves(params)[0].dtype)
-    grads, loss = torch.func.grad_and_value(loss_fn)(params, *args)
-    pert = pytree.tree_map(lambda p, t: p + delta * t, params, v)
-    grads_pert = torch.func.grad(loss_fn)(pert, *args)
-    hvs = pytree.tree_map(lambda a, b: (a - b) / delta, grads_pert, grads)
+    fwd = _forward(loss_fn)
+    with scope("psgd_grad"):
+        grads, loss = torch.func.grad_and_value(fwd)(params, *args)
+    with scope("psgd_hvp"):
+        pert = pytree.tree_map(lambda p, t: p + delta * t, params, v)
+        grads_pert = torch.func.grad(fwd)(pert, *args)
+        hvs = pytree.tree_map(lambda a, b: (a - b) / delta, grads_pert, grads)
     return loss, grads, hvs
 
 
 def grad_only(loss_fn: Callable, params: PyTree, *args):
     """(loss, grad): the branch without a preconditioner update."""
-    grads, loss = torch.func.grad_and_value(loss_fn)(params, *args)
+    with scope("psgd_grad"):
+        grads, loss = torch.func.grad_and_value(_forward(loss_fn))(params, *args)
     return loss, grads

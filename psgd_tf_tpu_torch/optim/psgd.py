@@ -41,6 +41,12 @@ split leaves' slices are averaged over `data` and the means gathered back.
 The coins come from CPU generators seeded alike on every rank, so every
 rank branches alike. The Kronecker states replicate and their step does
 not change.
+
+Spans (`utils.profiling.scope`, read by a profiler that runs): `psgd_step`
+the whole step; `psgd_exchange` the data mean and the gather of P g over
+`shard`; `psgd_q_update` the Q update (with the apply where one sweep does
+both); `psgd_apply` P g. `hvp.py` adds `psgd_grad`, `psgd_hvp` and
+`psgd_forward`.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import torch
 from psgd_tf_tpu_torch import hvp
 from psgd_tf_tpu_torch.groups import dense, diag, kron, lra, shift, splu, xmat
 from psgd_tf_tpu_torch.ops import hopper, linalg
+from psgd_tf_tpu_torch.utils.profiling import scope
 
 _FLAT_FAMILIES = {"dense": dense, "diag": diag, "xmat": xmat, "shift": shift, "splu": splu,
                   "lra": lra}
@@ -222,28 +229,29 @@ class PSGD:
     ):
         """One PSGD step: maybe-update Q, precondition, clip, descend.
         Returns (new_params, new_state, aux); aux values are 0-d tensors."""
-        params = list(params)
-        hyper = state.hyper
-        do_update = state.always_update or (
-            torch.rand((), generator=state.coin).item() < hyper.update_probability
-        )
-        branch = self._flat_step if self.preconditioner != "kron" else self._kron_step
-        loss, grads, precond, pre_grads = branch(
-            loss_fn, params, state, generator, args, do_update, probes, coins)
+        with scope("psgd_step"):
+            params = list(params)
+            hyper = state.hyper
+            do_update = state.always_update or (
+                torch.rand((), generator=state.coin).item() < hyper.update_probability
+            )
+            branch = self._flat_step if self.preconditioner != "kron" else self._kron_step
+            loss, grads, precond, pre_grads = branch(
+                loss_fn, params, state, generator, args, do_update, probes, coins)
 
-        # global-norm clipping
-        sq = sum(torch.sum(g * g) for g in pre_grads)
-        pre_grad_norm = torch.sqrt(sq) + linalg.tiny(self.dtype)
-        lr = hyper.lr_params * linalg.norm_clip_scale(pre_grad_norm, hyper.grad_clip_max_norm)
-        new_params = [p - lr * g.to(p.dtype) for p, g in zip(params, pre_grads)]
-        new_state = state.replace(count=state.count + 1, precond=precond)
-        aux = {
-            "loss": loss,
-            "grad_norm": torch.sqrt(sum(torch.sum(g * g) for g in grads)),
-            "pre_grad_norm": pre_grad_norm,
-            "lr_effective": lr,
-        }
-        return new_params, new_state, aux
+            # global-norm clipping
+            sq = sum(torch.sum(g * g) for g in pre_grads)
+            pre_grad_norm = torch.sqrt(sq) + linalg.tiny(self.dtype)
+            lr = hyper.lr_params * linalg.norm_clip_scale(pre_grad_norm, hyper.grad_clip_max_norm)
+            new_params = [p - lr * g.to(p.dtype) for p, g in zip(params, pre_grads)]
+            new_state = state.replace(count=state.count + 1, precond=precond)
+            aux = {
+                "loss": loss,
+                "grad_norm": torch.sqrt(sum(torch.sum(g * g) for g in grads)),
+                "pre_grad_norm": pre_grad_norm,
+                "lr_effective": lr,
+            }
+            return new_params, new_state, aux
 
     def _kron_step(self, loss_fn, params, state, generator, args, do_update, probes, coins):
         """(loss, grads, precond, pre_grads) of the Kronecker family."""
@@ -258,20 +266,23 @@ class PSGD:
             hs = [_as_matrix(x).to(self.dtype) for x in hvs]
             step = state.hyper.lr_preconditioner
             pc = state.precond
-            if isinstance(pc, KronPrecond):
-                precond = pc.replace(
-                    batches=[kron.update_batched(b, [vs[i] for i in idx], [hs[i] for i in idx],
-                                                 step=step)
-                             for b, idx in zip(pc.batches, pc.batched_idx)],
-                    singles=kron.update_multi(pc.singles, [vs[i] for i in pc.single_idx],
-                                              [hs[i] for i in pc.single_idx], step=step),
-                )
-            else:
-                precond = kron.update_multi(pc, vs, hs, step=step)
+            with scope("psgd_q_update"):
+                if isinstance(pc, KronPrecond):
+                    precond = pc.replace(
+                        batches=[kron.update_batched(b, [vs[i] for i in idx],
+                                                     [hs[i] for i in idx], step=step)
+                                 for b, idx in zip(pc.batches, pc.batched_idx)],
+                        singles=kron.update_multi(pc.singles, [vs[i] for i in pc.single_idx],
+                                                  [hs[i] for i in pc.single_idx], step=step),
+                    )
+                else:
+                    precond = kron.update_multi(pc, vs, hs, step=step)
         else:
             loss, grads, _ = _data_mean(*hvp.grad_only(loss_fn, params, *args))
             precond = state.precond
-        return loss, grads, precond, self._kron_apply(precond, grads)
+        with scope("psgd_apply"):
+            pre = self._kron_apply(precond, grads)
+        return loss, grads, precond, pre
 
     def _kron_apply(self, precond, grads):
         """P g for every parameter tensor, in the preconditioner's dtype."""
@@ -302,7 +313,10 @@ class PSGD:
             from psgd_tf_tpu_torch.parallel import policies  # late: policies imports this module
 
             local = lambda x: policies.slice_vec(mesh, state.precond, x)
-            full = lambda y: policies.gather_vec(mesh, state.precond, y, n)
+
+            def full(y):
+                with scope("psgd_exchange"):
+                    return policies.gather_vec(mesh, state.precond, y, n)
 
         def unravel(flat):
             return [x.reshape(s) for x, s in zip(torch.split(flat, [s.numel() for s in shapes]), shapes)]
@@ -310,7 +324,10 @@ class PSGD:
         if not do_update:
             loss, grads, _ = _data_mean(*hvp.grad_only(loss_fn, params, *args))
             g_flat = _ravel(grads)
-            pre = full(fam.apply(state.precond, local(g_flat.to(self.dtype))))
+            g_loc = local(g_flat.to(self.dtype))
+            with scope("psgd_apply"):
+                pre = fam.apply(state.precond, g_loc)
+            pre = full(pre)
             return loss, grads, state.precond, unravel(pre.to(g_flat.dtype))
 
         if probes is not None:
@@ -338,11 +355,15 @@ class PSGD:
         g_loc = local(g_flat.to(self.dtype))
         if hasattr(fam, "update_apply"):
             # Q update and preconditioning in one sweep (K11-K16)
-            precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_loc,
-                                            step=hyper.lr_preconditioner, **extra)
+            with scope("psgd_q_update"):
+                precond, pre = fam.update_apply(state.precond, v_flat, h_flat, g_loc,
+                                                step=hyper.lr_preconditioner, **extra)
         else:
-            precond = fam.update(state.precond, v_flat, h_flat, step=hyper.lr_preconditioner)
-            pre = fam.apply(precond, g_loc)
+            with scope("psgd_q_update"):
+                precond = fam.update(state.precond, v_flat, h_flat,
+                                     step=hyper.lr_preconditioner)
+            with scope("psgd_apply"):
+                pre = fam.apply(precond, g_loc)
         return loss, grads, precond, unravel(full(pre).to(g_flat.dtype))
 
     # ----------------------------------------------------------------- hyper
@@ -386,13 +407,15 @@ def _data_mean(loss, grads, hvs=None):
     k = len(grads)
     leaves = list(grads) + (list(hvs) if hvs is not None else [])
     specs = hopper.param_specs()
-    if specs is not None:
-        layouts = policies.param_layouts(mesh, leaves, list(specs) * (len(leaves) // k))
-        leaves = [policies.part(mesh, x, layout, ("shard",)) for x, layout in zip(leaves, layouts)]
-    out = _collectives.data_mean(mesh, [loss] + leaves)
-    loss, leaves = out[0], out[1:]
-    if specs is not None:
-        leaves = policies.join(mesh, leaves, layouts, [{"shard"}] * len(leaves), "shard")
+    with scope("psgd_exchange"):
+        if specs is not None:
+            layouts = policies.param_layouts(mesh, leaves, list(specs) * (len(leaves) // k))
+            leaves = [policies.part(mesh, x, layout, ("shard",))
+                      for x, layout in zip(leaves, layouts)]
+        out = _collectives.data_mean(mesh, [loss] + leaves)
+        loss, leaves = out[0], out[1:]
+        if specs is not None:
+            leaves = policies.join(mesh, leaves, layouts, [{"shard"}] * len(leaves), "shard")
     return loss, leaves[:k], (leaves[k:] if hvs is not None else None)
 
 

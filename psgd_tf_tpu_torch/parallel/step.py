@@ -9,7 +9,8 @@ the optimizer step runs inside `hopper.sharding(mesh)`, where the flat
 families hold their rank-local state (`policies.shard_state`) and reduce
 their rank-space quantities over `shard` (K14, the sharded K16). The
 parameters replicate, or split over `data`, `shard` or both where
-`param_specs` says so.
+`param_specs` says so. Under `param_specs` the gather of the blocks and
+the return to them are `psgd_exchange` spans (`utils.profiling.scope`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Callable
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.optim.psgd import PSGD, PSGDState
 from psgd_tf_tpu_torch.parallel import policies
+from psgd_tf_tpu_torch.utils.profiling import scope
 
 
 def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, params: Any,
@@ -74,12 +76,14 @@ def build_sharded_step(opt: PSGD, loss_fn: Callable, mesh, state: PSGDState, par
             if shapes != local_shapes:
                 raise ValueError(f"the step takes this rank's parameter blocks {local_shapes}, "
                                  f"got {shapes}")
-            params = policies.gather_params(mesh, params, param_specs)
+            with scope("psgd_exchange"):
+                params = policies.gather_params(mesh, params, param_specs)
         with hopper.sharding(mesh, param_specs):
             params, local_state, aux = opt.step(loss_fn, params, local_state, generator, *local,
                                                 probes=probes, coins=coins)
         if param_specs is not None:
-            params = policies.shard_params(mesh, params, param_specs)
+            with scope("psgd_exchange"):
+                params = policies.shard_params(mesh, params, param_specs)
         return params, local_state, aux
 
     return step

@@ -1,10 +1,21 @@
-"""Profiling helpers: named scopes on the hot phases and trace capture.
+"""Profiling helpers: named spans on the step's phases, and trace capture.
 
 Counterpart of `psgd_tf_tpu/utils/profiling.py`. `scope(name)` labels a
-region for `torch.profiler` (`record_function`) and, on a CUDA machine, for
-NVTX; `trace(log_dir)` records the enclosed region with `torch.profiler`
+region as an NVTX range (on a CUDA build of PyTorch, for Nsight Systems)
+and, while a `torch.profiler` is recording, as a `record_function` range;
+with no profiler it costs a flag check and, on a CUDA build, the NVTX push
+and pop. `trace(log_dir)` records the enclosed region with `torch.profiler`
 (CPU, and CUDA activity where a card is present) and writes a Chrome trace
-into `log_dir`; `wall_timer` reports a region's host wall clock.
+into `log_dir`, where the spans lie on the same clock as the device's
+operations.
+
+The training step's spans (`optim/psgd.py`, `hvp.py`, `parallel/step.py`):
+`psgd_step` (the whole step), `psgd_forward` (each forward pass of the
+model), `psgd_grad` (the gradient at theta), `psgd_hvp` (the Hvp: the FD
+perturbation, second gradient and difference, or the whole exact pass),
+`psgd_exchange` (the step's collectives outside the preconditioner's
+kernels), `psgd_q_update` (the Q update, with the apply where one sweep
+does both) and `psgd_apply` (P g).
 """
 from __future__ import annotations
 
@@ -15,20 +26,38 @@ from typing import Iterator
 
 import torch
 
+# decided once: NVTX ships with every CUDA build and needs no device
+_NVTX = torch.version.cuda is not None
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-@contextlib.contextmanager
-def scope(name: str) -> Iterator[None]:
-    """A named region: a `torch.profiler` record and an NVTX range. Also
-    usable as a decorator."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
+
+class scope(contextlib.ContextDecorator):
+    """A named region: an NVTX range, and a `torch.profiler` record while a
+    profiler is active. Also usable as a decorator."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def _recreate_cm(self):
+        return scope(self.name)  # a decorated call gets its own, so calls may nest
+
+    def __enter__(self):
+        if _NVTX:
+            torch.cuda.nvtx.range_push(self.name)
+        if _profiler_enabled():
+            self._record = torch.profiler.record_function(self.name)
+            self._record.__enter__()
+
+    def __exit__(self, *exc):
+        if self._record is not None:
+            record, self._record = self._record, None
+            record.__exit__(*exc)
+        if _NVTX:
             torch.cuda.nvtx.range_pop()
+        return False
 
 
 @contextlib.contextmanager
@@ -44,14 +73,3 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
-
-
-@contextlib.contextmanager
-def wall_timer(label: str, sink=print) -> Iterator[None]:
-    """Host wall clock of a region. It waits for nothing itself: call
-    `torch.cuda.synchronize()` at both ends for device time."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sink(f"{label}: {time.perf_counter() - t0:.4f}s")

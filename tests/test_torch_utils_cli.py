@@ -126,10 +126,6 @@ def test_profiling_scope_trace_and_timer(tmp_path):
     files = [p for p in os.listdir(tmp_path) if p.endswith(".pt.trace.json")]
     assert len(files) == 1
     assert "psgd_region" in (tmp_path / files[0]).read_text()
-    lines = []
-    with profiling.wall_timer("region", sink=lines.append):
-        pass
-    assert len(lines) == 1 and lines[0].startswith("region: ") and lines[0].endswith("s")
 
 
 # ------------------------------------------------------------------ config and CLI

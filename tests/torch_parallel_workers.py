@@ -440,3 +440,41 @@ def job_tp_payload(rank, world, data, shard, runs):
             _collectives.all_gather_dims, _collectives.data_mean = orig
         out.append(dict(moved))
     return out
+
+
+def job_spans(rank, world, runs):
+    """Each run: one profiled step of a PSGD with `opt` kwargs on the tanh
+    MLP through `build_sharded_step` on mesh `mesh` (data, shard), with the
+    run's tensor-parallel `specs` if it has them. Returns per run the
+    program's spans a step by name, and how many `psgd_exchange` spans lie
+    inside `psgd_step` and outside it."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from psgd_tf_tpu_torch import PSGD
+    from psgd_tf_tpu_torch.parallel import build_sharded_step, make_mesh, policies
+
+    out = []
+    for run in runs:
+        mesh = make_mesh(data=run["mesh"][0], shard=run["mesh"][1], device="cpu")
+        gen = torch.Generator().manual_seed(11)
+        params = [torch.randn(8, 8, generator=gen) / 3 for _ in range(3)]
+        x = torch.randn(8, 8, generator=gen)
+        opt = PSGD(**run["opt"])
+        state = opt.init(params, seed=2)
+        specs = run.get("specs")
+        step = build_sharded_step(opt, mlp_loss, mesh, state, params, param_specs=specs)
+        state = policies.shard_state(mesh, state)
+        if specs is not None:
+            params = policies.shard_params(mesh, params, specs)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(params, state, torch.Generator().manual_seed(4), x)
+        spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.name.startswith("psgd_")]
+        (outer,) = [s for s in spans if s[0] == "psgd_step"]
+        inside = [s[1] >= outer[1] and s[2] <= outer[2] for s in spans if s[0] == "psgd_exchange"]
+        out.append(dict(counts=dict(collections.Counter(s[0] for s in spans)),
+                        exchange_inside=sum(inside), exchange_outside=len(inside) - sum(inside)))
+    return out
