@@ -52,6 +52,13 @@ after:
     share a (128, 128) bucket and are stacked (K4 with its K3), the
     embeddings take K9, the fc K10; 30 steps with the kernels and under
     `disabled()`;
+  - the NMT model's attention kernels (`ops/hopper/attention.py`, which
+    replace no TPU kernel: a forward and a backward launch a decoder
+    position, the encoder states' gradient once a gradient pass) at toy
+    widths, a ragged U at the A limit and the benchmark cells' 4,096 x 18
+    x 1,024 with A = 10 and 12 positions, against their plain versions,
+    rerun bit for bit, and timed at the cells' shape; every FD path of the
+    NMT model above and below counts their launches with its own;
   - `lstm_xor` at its reference widths (hidden 30, 7,591 parameters,
     batch 128, sequences of 100): its two (dense, dense) layers ride K1
     with two layers (and K3); a 20-step loss trace with the kernels and
@@ -302,6 +309,92 @@ STAGED_NMT_TRACE = 20
 IDX_STEPS = 50
 # the CLI's `bench` (phase 17g): every row's short chain
 BENCH_ITERS = 2
+# the NMT model's attention kernels (`ops/hopper/attention.py`, phase 10f):
+# (B, S, U, A, T) at toy widths (float4 rows), a ragged U at the A limit
+# (float rows) and the benchmark cells' shapes, the last one timed
+ATTN_SHAPES = [(6, 7, 16, 4, 5), (5, 9, 13, 32, 3), (4096, 18, 1024, 10, 12)]
+TOL_ATTN = 1e-4  # fp32 sums of S, U and B x S terms in other orders
+
+
+def _attn_launches(positions: int, passes: int) -> dict:
+    """The attention kernels' launches of `passes` gradient passes of the
+    NMT model over `positions` decoder positions: a forward and a backward
+    a position, the encoder states' gradient once a pass (none under the
+    exact Hvp, whose jvp takes the plain ops)."""
+    return {"attn_fwd": positions * passes, "attn_bwd": positions * passes,
+            "attn_enc_grad": passes}
+
+
+def attention_phase(torch, dev, check) -> dict:
+    """Phase 10f: the attention's three launches against their plain
+    versions at ATTN_SHAPES (masked tails, d ctx as a slice of a wider
+    gradient, as `torch.cat`'s backward gives it), each rerun bit for bit,
+    then timed chained at the cells' shape beside its plain version and its
+    bound. Returns {counter: (max abs err, ms, plain ms, (bound ms, by))}."""
+    from psgd_tf_tpu_torch.bench import _bound
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.ops.hopper import attention
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    errs = {"attn_fwd": 0.0, "attn_bwd": 0.0, "attn_enc_grad": 0.0}
+    for b, s, u, a, t in ATTN_SHAPES:
+        r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        enc, hw, ow, v = r(b, s, u), r(b, a), r(b, s, a), r(a)
+        mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+        for row in range(0, b, 3):
+            mask[row, max(1, s - 1 - row % s):] = False
+        dctx = r(b, 2 * u + 8)[:, :u]
+        weights, dctxs, d_ow, w_enc = torch.softmax(r(b, t, s), 2), r(b, t, u), r(b, s, a), r(u, a)
+        slot, out = torch.empty(b, t, s, device=dev)[:, 1], torch.empty(b, t, u, device=dev)[:, 2]
+        before = dict(hopper.counts)
+        ctx = attention.attend(hw, ow, v, mask, enc, slot)
+        bwd = attention.attend_backward(dctx, enc, slot, hw, ow, v, mask, out)
+        d_enc = attention.enc_grad(weights, dctxs, d_ow, w_enc)
+        bwd2 = attention.attend_backward(dctx, enc, slot, hw, ow, v, mask, out)
+        d_enc2 = attention.enc_grad(weights, dctxs, d_ow, w_enc)
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in hopper.counts.items() if n != before[k]}
+        ref_ctx, ref_w = attention.attend_plain(hw, ow, v, mask, enc)
+        ref_bwd = attention.attend_backward_plain(dctx, enc, slot, hw, ow, v, mask)
+        ref_enc = attention.enc_grad_plain(weights, dctxs, d_ow, w_enc)
+        rel = max(_rel(ctx, ref_ctx), _rel(slot, ref_w), *(_rel(x, y) for x, y in zip(bwd, ref_bwd)),
+                  _rel(d_enc, ref_enc))
+        errs["attn_fwd"] = max(errs["attn_fwd"], _abs(ctx, ref_ctx), _abs(slot, ref_w))
+        errs["attn_bwd"] = max(errs["attn_bwd"], *(_abs(x, y) for x, y in zip(bwd, ref_bwd)))
+        errs["attn_enc_grad"] = max(errs["attn_enc_grad"], _abs(d_enc, ref_enc))
+        same = all(torch.equal(x, y) for x, y in zip(bwd, bwd2)) and torch.equal(d_enc, d_enc2)
+        print(f"attention: (B, S, U, A, T) = {(b, s, u, a, t)}: max rel err {rel:.3e} (tol "
+              f"{TOL_ATTN:.0e}), d ctx stashed exactly {torch.equal(out, dctx)}, reruns bit-equal "
+              f"{same}", flush=True)
+        check(rel < TOL_ATTN and same and torch.equal(out, dctx)
+              and moved == {"attn_fwd": 1, "attn_bwd": 2, "attn_enc_grad": 2},
+              f"attention kernels vs plain at {(b, s, u, a, t)}")
+    # timed at the cells' shape (the last case's operands); the bound
+    # counts each input read once and each output written once
+    f4 = 4
+    rows = {
+        "attn_fwd": (lambda: attention.attend(hw, ow, v, mask, enc, slot),
+                     lambda: attention.attend_plain(hw, ow, v, mask, enc),
+                     f4 * (b * s * u + 2 * b * s * a + b * a + b * u + 2 * b * s) + b * s,
+                     2 * b * s * u + 4 * b * s * a),
+        "attn_bwd": (lambda: attention.attend_backward(dctx, enc, slot, hw, ow, v, mask, out),
+                     lambda: attention.attend_backward_plain(dctx, enc, slot, hw, ow, v, mask),
+                     f4 * (b * s * u + 2 * b * u + 2 * b * s * a + 2 * b * a + b * s) + b * s,
+                     2 * b * s * u + 8 * b * s * a),
+        "attn_enc_grad": (lambda: attention.enc_grad(weights, dctxs, d_ow, w_enc),
+                          lambda: attention.enc_grad_plain(weights, dctxs, d_ow, w_enc),
+                          f4 * (b * t * u + b * t * s + b * s * a + u * a + b * s * u),
+                          2 * b * s * u * (t + a)),
+    }
+    result = {}
+    for name, (kernel, plain, nbytes, flops) in rows.items():
+        ms, plain_ms = _time(torch, kernel, 50), _time(torch, plain, 20)
+        bound = _bound(nbytes, flops)
+        result[name] = (errs[name], ms, plain_ms, bound)
+        print(f"attention time at the cells' shape {ATTN_SHAPES[-1]}: {name} {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{nbytes / ms / 1e9:.0f} GB/s", flush=True)
+    return result
 
 
 def _rel(a, b) -> float:
@@ -2120,7 +2213,8 @@ def main() -> int:
     (row,) = [sh for f, sh in zip(nmt_fmts, ref_shapes) if f == DD]
     row_mono = int(kron_dd.route(["dd"], [row[0]], [row[1]]) == "mono")
     per_step = {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
-                "kron_multi": 0, "tri": 4 - row_mono, "kron_mono": row_mono}
+                "kron_multi": 0, "tri": 4 - row_mono, "kron_mono": row_mono,
+                **_attn_launches(12, 2)}
     for name, n in per_step.items():
         check(counts[name] == n * NMT_REF_STEPS, f"NMT reference: {n} {name} launches per step")
     check(bool(torch.isfinite(losses).all()), "NMT reference: finite losses")
@@ -2139,7 +2233,7 @@ def main() -> int:
     check(routes == [nd, nd, nd, "kron_dd", nd, nd, ns], f"NMT reference auto routes {routes}")
     # per step: five K9 chains (each with its K3), the fc's K6, the row's K2
     per_step = {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, "kron_dd": 1,
-                "tri": 6 - row_mono, "kron_mono": row_mono}
+                "tri": 6 - row_mono, "kron_mono": row_mono, **_attn_launches(12, 2)}
     check(counts == {k: per_step.get(k, 0) * NMT_REF_STEPS for k in counts},
           f"NMT reference auto: launches per step {per_step} and no other")
     check(bool(torch.isfinite(losses).all()), "NMT reference auto: finite losses")
@@ -2227,6 +2321,12 @@ def main() -> int:
           f"{plain_losses[0].item():.4f} -> {plain_losses[-1].item():.4f}; the loss traces differ "
           f"by {loss_rel:.3e} relative (tol {TOL_TRAJ:.0e})", flush=True)
     check(loss_rel < TOL_TRAJ, "K4 path: kernel and plain losses agree")
+
+    # 10f. the NMT model's attention kernels (`ops/hopper/attention.py`) at
+    #      toy widths, a ragged U at the A limit and the cells' shapes
+    hopper.reset_counts()
+    attn_rows = attention_phase(torch, dev, check)
+    path_counts()
 
     # 10e. path: lstm_xor at its reference widths: a loss trace of its
     #      recipe with the kernels and under disabled() from the same start,
@@ -2793,8 +2893,12 @@ def main() -> int:
           f"NMT staged routes {routes}")
     check(steps == STAGED_NMT_LINES * 4 // 5 // 64, "NMT staged: one epoch of full batches")
     per_step = {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
-                "tri": 4 - row_mono, "kron_mono": row_mono}
-    check(counts == {k: per_step.get(k, 0) * steps for k in counts},
+                "tri": 4 - row_mono, "kron_mono": row_mono,
+                **_attn_launches(ds.tgt_train.shape[1] - 1, 2)}
+    # the validation's forward passes launch the attention's forward too
+    check({k: c for k, c in counts.items() if k != "attn_fwd"}
+          == {k: per_step.get(k, 0) * steps for k in counts if k != "attn_fwd"}
+          and counts["attn_fwd"] > per_step["attn_fwd"] * steps,
           f"NMT staged: launches per step {per_step} and no other")
     check(math.isfinite(out["loss"]) and math.isfinite(out["val_loss"])
           and 0.0 <= out["token_accuracy"] <= 1.0, "NMT staged: finite losses, accuracy in [0, 1]")
@@ -2982,6 +3086,8 @@ def main() -> int:
     path_counts()
     bres["card"] = smi
     k1_step = lambda mono: {"kron_multi": 1, ("kron_mono" if mono else "tri"): 1}
+    # bench's toy NMT step: `translation.batch(g, 64, 16)`, targets of 18
+    toy_positions = translation.batch(torch.Generator(device=dev), 64, 16)[1].shape[1] - 1
     ref_step = {k: n for k, n in {"kron_sparse_big_ds": 3, "kron_sparse_big_ns": 3, "kron_dd": 1,
                                   "tri": 4 - row_mono, "kron_mono": row_mono}.items() if n}
     k12 = {"dense_big": 1, "tri": 1}
@@ -2989,9 +3095,11 @@ def main() -> int:
             "splu": {"splu_one": 1}, "splu_big": {"splu_upd": 1}, "dense": k12, "dense_8k": k12,
             "dense_16k": k12, "kron_nd": {"kron_sparse_big_nd": 1, "tri": 1},
             "kron_ns": {"kron_sparse_big_ns": 1}, "kron_ns_wide": {"kron_sparse_big_ns_wide2": 1},
-            "kron_ds": {"kron_sparse_big_ds": 1, "tri": 1}, "nmt_fd": k1_step(toy_mono),
-            "nmt_ref_grad": {}, "nmt_ref_hvp": {}, "nmt_ref_qupd": ref_step,
-            "nmt_ref_full": ref_step, "lenet5": k1_step(lenet_mono)}
+            "kron_ds": {"kron_sparse_big_ds": 1, "tri": 1},
+            "nmt_fd": {**k1_step(toy_mono), **_attn_launches(toy_positions, 2)},
+            "nmt_ref_grad": _attn_launches(12, 1), "nmt_ref_hvp": _attn_launches(12, 2),
+            "nmt_ref_qupd": {**ref_step, **_attn_launches(12, 2)},
+            "nmt_ref_full": {**ref_step, **_attn_launches(12, 2)}, "lenet5": k1_step(lenet_mono)}
     for row, w in want.items():
         got = bres[f"{row}_launches_per_iter"]
         check(got == w, f"bench {row}: launches a chained iteration {got}, want {w}")
@@ -3200,7 +3308,8 @@ def main() -> int:
                  "lra_upd", "dense_upd", "dense_big", "splu_one", "splu_upd",
                  "lra_upd_sharded", "splu_upd_sharded", "kron_sparse_big_apply_ns",
                  "kron_sparse_big_apply_nd", "kron_sparse_big_apply_ns_wide", "tri_solve",
-                 "kron_dd_multi", "splu_upd_apply", "splu_upd_mono", "kron_mono"):
+                 "kron_dd_multi", "splu_upd_apply", "splu_upd_mono", "kron_mono", "attn_fwd",
+                 "attn_bwd", "attn_enc_grad"):
         check(launches[name] > 0, f"{name} launched on the paths")
     if failures:
         print(f"chip_smoke: {len(failures)} phase(s) failed: {failures}", file=sys.stderr)
@@ -3274,6 +3383,12 @@ def main() -> int:
                       apply_bounds[n_apply])
                 for name, line, key in [("splu_upd_apply", 814, "apply"),
                                         ("splu_upd_mono", 582, "mono")]]
+    # the attention's kernels replace no TPU kernel: the JAX package leaves
+    # the model's attention to XLA
+    kernels += [{"name": name, "route": "cuda", "source": src + "attention.cu", "replaces": "none",
+                 "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+                for name, (err, ms, plain_ms, bound) in attn_rows.items()]
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_main:.1f} s with the build",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch._C import _functorch
 
 from psgd_tf_tpu_torch.data.translation import PAD
+from psgd_tf_tpu_torch.ops.hopper import attention
 
 
 class Config(NamedTuple):
@@ -89,24 +91,17 @@ def encode(params, src: torch.Tensor) -> torch.Tensor:
     return torch.stack(hs, dim=1)
 
 
-def attend(params, h: torch.Tensor, enc: torch.Tensor, src_mask: torch.Tensor) -> torch.Tensor:
-    """Additive attention over all positions; PAD positions are masked out
-    of the softmax. Returns the context vector (batch, units)."""
-    w, v = params[2], params[3]
-    units = h.shape[1]
-    hw = h @ w[:units]                              # (batch, attn)
-    ow = enc @ w[units:]                            # (batch, S, attn)
-    score = torch.tanh(hw[:, None, :] + ow) @ v[0]  # (batch, S)
-    score = torch.where(src_mask, score, -torch.inf)
-    weights = torch.softmax(score, dim=1)
-    return torch.einsum("bs,bsu->bu", weights, enc)
+def _forward_mode() -> bool:
+    """True inside a forward-mode transform (`torch.func.jvp`, as
+    `hvp.exact` runs the model): the attention's autograd Functions have no
+    forward-mode rule, so the model takes its plain ops there."""
+    stack = _functorch.get_interpreter_stack()
+    return bool(stack) and any(i.key() == _functorch.TransformType.Jvp for i in stack)
 
 
-def decode_step(params, tok: torch.Tensor, h: torch.Tensor, enc: torch.Tensor,
-                src_mask: torch.Tensor):
-    """One teacher-forced decoder step."""
+def decode_step(params, tok: torch.Tensor, h: torch.Tensor, ctx: torch.Tensor):
+    """One teacher-forced decoder step from the attention's context."""
     w_emb, w_rnn, w_fc = params[4], params[5], params[6]
-    ctx = attend(params, h, enc, src_mask)
     x = torch.cat([ctx, w_emb[tok], h], dim=1)
     h = torch.tanh(x @ w_rnn[:-1] + w_rnn[-1])
     return h @ w_fc[:-1] + w_fc[-1], h
@@ -116,13 +111,35 @@ def _teacher_forced_logits(params, src: torch.Tensor, tgt: torch.Tensor,
                            mask_attention: bool = True) -> torch.Tensor:
     """(batch, T-1, vocab) logits: feed tgt[:, t], predict tgt[:, t+1].
     `mask_attention=False` leaves PAD positions in the attention softmax,
-    as the TF reference does."""
+    as the TF reference does.
+
+    Additive attention over all source positions, PAD positions masked out
+    of the softmax: the encoder states' projection ow = enc W_o does not
+    depend on the decoder state, so it is formed once, before the decoder
+    loop. Each position's score, softmax and context then run through
+    `ops/hopper/attention.py`'s Functions, which read `enc` once a position
+    and form its gradient once a pass; under forward-mode AD, through the
+    same plain ops (`attention.attend_plain`)."""
     src_mask = (src != PAD) if mask_attention else torch.ones_like(src, dtype=torch.bool)
     enc = encode(params, src)
+    units = enc.shape[2]
+    w_h, w_o, v = params[2][:units], params[2][units:], params[3][0]
+    positions = tgt.shape[1] - 1
+    plain = _forward_mode()
+    if plain:
+        ow = enc @ w_o
+    else:
+        stash = attention.Stash(positions)
+        ow = attention.project(enc, w_o, stash)
     h = enc[:, -1, :]  # the decoder starts from the encoder's last state
     logits = []
-    for t in range(tgt.shape[1] - 1):
-        step_logits, h = decode_step(params, tgt[:, t], h, enc, src_mask)
+    for t in range(positions):
+        hw = h @ w_h
+        if plain:
+            ctx = attention.attend_plain(hw, ow, v, src_mask, enc)[0]
+        else:
+            ctx = attention.step(hw, ow, v, src_mask, enc, stash, t)
+        step_logits, h = decode_step(params, tgt[:, t], h, ctx)
         logits.append(step_logits)
     return torch.stack(logits, dim=1)
 

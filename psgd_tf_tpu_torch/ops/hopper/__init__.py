@@ -44,6 +44,10 @@ Counterpart of `psgd_tf_tpu/ops/pallas/`. Kernel inventory:
     splu_upd.fused_update_sharded (the sharded K16): the same stage
     kernels on each rank's slice of the lanes, with the rank-space
     reductions all-reduced by the host between them (`parallel/`).
+  - attention: the NMT decoder's attention over the encoder states
+    (`csrc/attention.cu`, replacing no TPU kernel): a forward and a
+    backward launch a decoder position (`attn_fwd`, `attn_bwd`) and the
+    encoder states' gradient once a backward pass (`attn_enc_grad`).
 
 Dispatch: each wrapper runs its plain PyTorch version for a tensor on the
 CPU (the CPU path, and the oracle the kernels are checked against), and
@@ -78,6 +82,7 @@ counts: dict[str, int] = {
     "kron_dd_multi": 0, "kron_mono": 0,
     "lra_upd": 0, "dense_upd": 0, "dense_big": 0, "splu_one": 0, "splu_upd": 0,
     "lra_upd_sharded": 0, "splu_upd_sharded": 0, "splu_upd_apply": 0, "splu_upd_mono": 0,
+    "attn_fwd": 0, "attn_bwd": 0, "attn_enc_grad": 0,
 }
 _disabled_depth = 0
 _shard_mesh = None

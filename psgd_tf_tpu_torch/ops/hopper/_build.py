@@ -32,6 +32,7 @@ FLAGS = [
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 # C entry points: (restype, argtypes)
 _SIGNATURES = {
     "psgd_tri_inv_upper": (ctypes.c_int, [ctypes.c_int, _PP, _PP, _IP, _P]),
@@ -106,6 +107,15 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 7 + [ctypes.c_float] + [_P] * 8,
     ),
     "psgd_splu_sharded_stage4": (ctypes.c_int, [ctypes.c_int] * 2 + [_P] * 9),
+    "psgd_attn_forward": (
+        ctypes.c_int, [ctypes.c_int] * 4 + [_P] * 6 + [_LL, _P, ctypes.c_int, _P],
+    ),
+    "psgd_attn_backward": (
+        ctypes.c_int,
+        [ctypes.c_int] * 4 + [_P, _LL, _P, _P, _LL] + [_P] * 5 + [_LL] + [_P] * 5
+        + [ctypes.c_int, _P],
+    ),
+    "psgd_attn_enc_grad": (ctypes.c_int, [ctypes.c_int] * 5 + [_P] * 5 + [ctypes.c_int, _P]),
 }
 
 _lib: ctypes.CDLL | None = None

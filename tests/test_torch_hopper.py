@@ -65,10 +65,12 @@ def test_no_jax_import_in_package_source():
 def test_kernel_sources_are_present():
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == {
         "kron_dd.cu", "kron_batched.cu", "kron_sparse_big.cu", "tri.cu", "dense.cu", "lra.cu",
-        "splu.cu"}
+        "splu.cu", "attention.cu"}
     for src in (PKG / "csrc").glob("*.cu"):
         text = src.read_text()
         assert "psgd_tf_tpu/ops/pallas/" in text  # names the kernel it replaces
+    # the model's attention kernels replace none, and say so
+    assert "Replaces no kernel of psgd_tf_tpu/ops/pallas/" in (PKG / "csrc" / "attention.cu").read_text()
     # the streaming file names every Pallas kernel of kron_sparse_big.py it ports
     text = (PKG / "csrc" / "kron_sparse_big.cu").read_text()
     for kernel in ["_kernel_ns_big", "_kernel_ns_wide2", "_kernel_ns_wide", "_kernel_nd_big",
@@ -730,8 +732,12 @@ def test_auto_format_reference_nmt_step_launches_k9(cuda):
     torch.cuda.synchronize()
     moved = {k: c - before[k] for k, c in hopper.counts.items() if c != before[k]}
     k2 = _route_moves("kron_dd", [(["dd"], [1], [10])])  # the row: one launch, or with its K3
+    # and the model's attention: the FD's two gradient passes over 12
+    # decoder positions, a forward and a backward launch a position and the
+    # encoder states' gradient once a pass
     assert moved == {"kron_sparse_big_nd": 5, "kron_sparse_big_ns": 1, **k2,
-                     "tri": k2.get("tri", 0) + 5}
+                     "tri": k2.get("tri", 0) + 5, "attn_fwd": 24, "attn_bwd": 24,
+                     "attn_enc_grad": 2}
     assert np.isfinite(aux["loss"].item())
 
 
