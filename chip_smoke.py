@@ -59,6 +59,14 @@ after:
     x 1,024 with A = 10 and 12 positions, against their plain versions,
     rerun bit for bit, and timed at the cells' shape; every FD path of the
     NMT model above and below counts their launches with its own;
+  - Granite-4.0-H Micro's first ten layers at its published widths
+    (951,991,232 parameters, the benchmark cell granite_h_kron.seq2k's):
+    K6 at each of its (norm, scale) leaf shapes, K10 at each of its
+    (scale, dense) ones, K4 on the bucket of its 27 (64, 1) per-head
+    vectors, each one call against the plain update and again bit for bit;
+    then one `PSGD.step` at 2 x 2,048 tokens (K6 x41, K10 x50, one K4
+    chain, K3 x51 and no other launch), its Q update, apply and descent
+    replayed plain on the step's own gradient and Hvp;
   - `lstm_xor` at its reference widths (hidden 30, 7,591 parameters,
     batch 128, sequences of 100): its two (dense, dense) layers ride K1
     with two layers (and K3); a 20-step loss trace with the kernels and
@@ -314,6 +322,15 @@ BENCH_ITERS = 2
 # (float rows) and the benchmark cells' shapes, the last one timed
 ATTN_SHAPES = [(6, 7, 16, 4, 5), (5, 9, 13, 32, 3), (4096, 18, 1024, 10, 12)]
 TOL_ATTN = 1e-4  # fp32 sums of S, U and B x S terms in other orders
+# Granite-4.0-H Micro at its published widths, its first ten layers (phase
+# 10g: the benchmark cell granite_h_kron.seq2k's leaves and step, 2 x 2,048
+# tokens). Per step under the hand formats: K6 on its 41 (norm, scale)
+# leaves, K10 (each with its K3) on its 50 (scale, dense) ones, one K4 chain
+# (with its stacked K3) on the bucket of its 27 (64, 1) per-head vectors
+GRANITE_LAYERS = 10
+GRANITE_TOKENS = (2, 2048)
+GRANITE_PER_STEP = {"kron_sparse_big_ns": 41, "kron_sparse_big_ds": 50, "kron_dd_batched": 1,
+                    "tri": 51}
 
 
 def _attn_launches(positions: int, passes: int) -> dict:
@@ -395,6 +412,173 @@ def attention_phase(torch, dev, check) -> dict:
               f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
               f"{nbytes / ms / 1e9:.0f} GB/s", flush=True)
     return result
+
+
+def granite_phase(torch, dev, check) -> dict:
+    """Phase 10g: Granite-4.0-H Micro's Kronecker updates at its own
+    leaves. K6 at each distinct (norm, scale) leaf shape, K10 at each
+    (scale, dense) one (mirrored: K10 gets dX^T), each one call from a
+    state walked off 0.8 I against the plain update, the counters it moves,
+    a second call bit-equal; K4 on the 27 (64, 1) vectors' bucket, padded
+    to a (128, 128) stack, likewise, the padding exact identity. Then one
+    `PSGD.step` of the cell's ten layers (FD Hvp, the cell's lr and clip)
+    with the counters zeroed just before: GRANITE_PER_STEP's launches and
+    no other, PSGD's one bucket of the 27 vectors, and the same step's
+    Q update, apply and descent replayed plain on the step's own loss,
+    gradient and Hvp. Returns the step's launches."""
+    from psgd_tf_tpu_torch import PSGD, hvp, kron
+    from psgd_tf_tpu_torch.models import granite_hybrid as gh
+    from psgd_tf_tpu_torch.ops import hopper
+    from psgd_tf_tpu_torch.optim.psgd import KronPrecond
+
+    DD = ("dense", "dense")
+    cfg = gh.micro_config(GRANITE_LAYERS)
+    shapes, fmts = gh.layer_shapes(cfg), gh.kron_formats(cfg)
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def probes(ss):
+        return ([torch.randn(s, generator=g, device=dev) for s in ss],
+                [torch.randn(s, generator=g, device=dev) for s in ss])
+
+    def moved_since(before):
+        torch.cuda.synchronize()
+        return {k: n - before[k] for k, n in hopper.counts.items() if n != before[k]}
+
+    for fmt, shape in sorted({(f, s) for f, s in zip(fmts, shapes) if f != DD}):
+        ns = "norm" in fmt
+        name = "kron_sparse_big_ns" if ns else "kron_sparse_big_ds"
+        want = {name: 1} if ns else {name: 1, "tri": 1}
+        route = "kron_sparse_big:ns" if ns else "kron_sparse_big:ds"
+        check(kron.route(fmt, shape, dev) == route, f"granite {name} route at {fmt} {shape}")
+        st = kron.init(shape, fmt=fmt, init_scale=0.8, device=dev)
+        with hopper.disabled():
+            for _ in range(2):
+                (dx,), (dg,) = probes([shape])
+                st = kron.update(st, dx, dg, step=0.1)
+        (dx,), (dg,) = probes([shape])
+        before = dict(hopper.counts)
+        got = kron.update(st, dx, dg, step=0.1)
+        moved = moved_since(before)
+        with hopper.disabled():
+            ref = kron.update(st, dx, dg, step=0.1)
+        rel = max(_rel(got.ql, ref.ql), _rel(got.qr, ref.qr))
+        again = kron.update(st, dx, dg, step=0.1)
+        same = torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+        finite = bool(torch.isfinite(got.ql).all() and torch.isfinite(got.qr).all())
+        print(f"granite {name}: {fmt} {shape} max rel err {rel:.3e} (tol {TOL_K1:.0e}), launches "
+              f"{moved}, bit-equal again {same}, finite {finite}", flush=True)
+        check(moved == want and rel < TOL_K1 and finite, f"granite {name} vs plain at {shape}")
+        check(same, f"granite {name} two calls bit-equal at {shape}")
+        del st, dx, dg, got, ref, again
+    torch.cuda.empty_cache()
+
+    bucket = [s for f, s in zip(fmts, shapes) if f == DD]
+    check(bucket == [(cfg.ssm_heads, 1)] * 27, f"granite: 27 (64, 1) vectors in (dense, dense)")
+    bst = kron.init_batched(bucket, init_scale=0.8, device=dev)
+    with hopper.disabled():
+        for _ in range(3):
+            bst = kron.update_batched(bst, *probes(bucket), step=0.1)
+    dxs, dgs = probes(bucket)
+    before = dict(hopper.counts)
+    got = kron.update_batched(bst, dxs, dgs, step=0.1)
+    moved = moved_since(before)
+    with hopper.disabled():
+        ref = kron.update_batched(bst, dxs, dgs, step=0.1)
+    rel = max(_rel(got.ql, ref.ql), _rel(got.qr, ref.qr))
+    again = kron.update_batched(bst, dxs, dgs, step=0.1)
+    same = torch.equal(again.ql, got.ql) and torch.equal(again.qr, got.qr)
+    exact = True
+    for q, d in ((got.ql, cfg.ssm_heads), (got.qr, 1)):
+        want = torch.eye(q.shape[1], device=dev).expand(q.shape[0], -1, -1).clone()
+        want[:, :d, :d] = q[:, :d, :d]
+        exact = exact and torch.equal(q, want)
+    print(f"granite kron_dd_batched: 27 x {bucket[0]}, stacks {tuple(got.ql.shape)} "
+          f"{tuple(got.qr.shape)}, max rel err {rel:.3e} (tol {TOL_K1:.0e}), launches {moved}, "
+          f"padding exact {exact}, bit-equal again {same}", flush=True)
+    check(tuple(got.ql.shape) == tuple(got.qr.shape) == (27, 128, 128),
+          "granite K4: a (128, 128) stack of 27")
+    check(moved == {"kron_dd_batched": 1, "tri": 1} and rel < TOL_K1 and exact,
+          "granite K4 vs plain on the 27 vectors' bucket")
+    check(same, "granite K4 two calls bit-equal")
+    del bst, got, ref, again
+
+    # the step: the cell's optimizer settings, fixed probes, random ids
+    params = gh.init(g, cfg)
+    opt = PSGD(preconditioner="kron", lr_params=0.02, lr_preconditioner=0.02,
+               grad_clip_max_norm=1.0, exact_hessian_vector_product=False,
+               preconditioner_update_probability=1.0, kron_formats=fmts)
+    state = opt.init(params)
+    pc = state.precond
+    heads = [i for i, s in enumerate(shapes) if s == (cfg.ssm_heads, 1)]
+    layout = (pc.batched_idx, pc.single_idx) if isinstance(pc, KronPrecond) else None
+    check(layout is not None and [list(b) for b in layout[0]] == [heads]
+          and sorted(layout[1]) == sorted(set(range(len(shapes))) - set(heads)),
+          f"granite PSGD: one bucket of the 27 vectors, {len(shapes) - 27} single factors")
+    tokens = torch.randint(0, cfg.vocab, GRANITE_TOKENS, generator=g, device=dev)
+    v = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    loss_fn = lambda p, t: gh.loss(p, t, cfg)
+    seen = {}
+    fd = hvp.finite_diff
+
+    def captured(*a, **k):
+        seen["out"] = fd(*a, **k)
+        return seen["out"]
+
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    hvp.finite_diff = captured
+    try:
+        ev0.record()
+        new, new_state, aux = opt.step(loss_fn, params, state, None, tokens, probes=v)
+        ev1.record()
+    finally:
+        hvp.finite_diff = fd
+    torch.cuda.synchronize()
+    counts = dict(hopper.counts)
+    step_ms = ev0.elapsed_time(ev1)
+    change = [a - b for a, b in zip(new, params)]
+    del new
+    # the same step's Q update, apply and descent, plain, on its own (loss, g, Hv)
+    hvp.finite_diff = lambda *a, **k: seen["out"]
+    try:
+        with hopper.disabled():
+            plain, plain_state, plain_aux = opt.step(loss_fn, params, state, None, tokens,
+                                                     probes=v)
+    finally:
+        hvp.finite_diff = fd
+    q_rel = 0.0
+    for a, b in zip([*new_state.precond.batches, *new_state.precond.singles],
+                    [*plain_state.precond.batches, *plain_state.precond.singles]):
+        q_rel = max(q_rel, _rel(a.ql, b.ql), _rel(a.qr, b.qr))
+    # each leaf's change against the plain step's: the update's own error
+    # (TOL_K1 of the leaf's largest change) and, since each side rounds p - u
+    # to fp32, a spacing of fp32 at the leaf's largest |p| (two roundings of
+    # half a spacing; the norm weights, dt_bias, A_log and D sit at 1-4 and
+    # move by ~1e-6 a step)
+    eps = torch.finfo(torch.float32).eps
+    worst, worst_leaf = 0.0, None
+    for name, c, p, q in zip(gh.leaf_names(cfg), change, plain, params):
+        d = p - q
+        ratio = ((c - d).abs().max() / (TOL_K1 * d.abs().max() + eps * q.abs().max())).item()
+        if ratio >= worst:
+            worst, worst_leaf = ratio, (name, _rel(c, d))
+    finite = all(bool(torch.isfinite(c).all()) for c in change)
+    print(f"granite step: {GRANITE_LAYERS} layers, {sum(math.prod(s) for s in shapes):,} "
+          f"parameters, tokens {GRANITE_TOKENS}, loss {aux['loss'].item():.4f}, {step_ms:.1f} ms "
+          f"(the first step), launches {({k: c for k, c in counts.items() if c})}; replayed "
+          f"plain: Q max rel err {q_rel:.3e} (tol {TOL_K1:.0e}), the changes' gap at most "
+          f"{worst:.3f} of TOL_K1 of a leaf's change plus a spacing of fp32 at its largest |p| "
+          f"({worst_leaf[0]}, {worst_leaf[1]:.3e} of its change), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    check(counts == {k: GRANITE_PER_STEP.get(k, 0) for k in counts},
+          f"granite step: launches {GRANITE_PER_STEP} and no other")
+    check(q_rel < TOL_K1 and worst <= 1.0 and finite
+          and plain_aux["loss"].item() == aux["loss"].item(),
+          "granite step vs the same step plain")
+    del params, state, change, plain, new_state, plain_state, seen, v
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _rel(a, b) -> float:
@@ -2326,6 +2510,12 @@ def main() -> int:
     #      toy widths, a ragged U at the A limit and the cells' shapes
     hopper.reset_counts()
     attn_rows = attention_phase(torch, dev, check)
+    path_counts()
+
+    # 10g. Granite-4.0-H Micro's leaves (K6, K10, K4) and one PSGD.step of
+    #      its first ten layers at its published widths
+    hopper.reset_counts()
+    granite_phase(torch, dev, check)
     path_counts()
 
     # 10e. path: lstm_xor at its reference widths: a loss trace of its

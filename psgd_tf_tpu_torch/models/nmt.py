@@ -16,10 +16,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch._C import _functorch
 
 from psgd_tf_tpu_torch.data.translation import PAD
 from psgd_tf_tpu_torch.ops.hopper import attention
+from psgd_tf_tpu_torch.utils import transforms
 
 
 class Config(NamedTuple):
@@ -91,14 +91,6 @@ def encode(params, src: torch.Tensor) -> torch.Tensor:
     return torch.stack(hs, dim=1)
 
 
-def _forward_mode() -> bool:
-    """True inside a forward-mode transform (`torch.func.jvp`, as
-    `hvp.exact` runs the model): the attention's autograd Functions have no
-    forward-mode rule, so the model takes its plain ops there."""
-    stack = _functorch.get_interpreter_stack()
-    return bool(stack) and any(i.key() == _functorch.TransformType.Jvp for i in stack)
-
-
 def decode_step(params, tok: torch.Tensor, h: torch.Tensor, ctx: torch.Tensor):
     """One teacher-forced decoder step from the attention's context."""
     w_emb, w_rnn, w_fc = params[4], params[5], params[6]
@@ -118,14 +110,15 @@ def _teacher_forced_logits(params, src: torch.Tensor, tgt: torch.Tensor,
     depend on the decoder state, so it is formed once, before the decoder
     loop. Each position's score, softmax and context then run through
     `ops/hopper/attention.py`'s Functions, which read `enc` once a position
-    and form its gradient once a pass; under forward-mode AD, through the
-    same plain ops (`attention.attend_plain`)."""
+    and form its gradient once a pass; under a `torch.func` transform
+    (`utils.transforms`), through the same plain ops
+    (`attention.attend_plain`)."""
     src_mask = (src != PAD) if mask_attention else torch.ones_like(src, dtype=torch.bool)
     enc = encode(params, src)
     units = enc.shape[2]
     w_h, w_o, v = params[2][:units], params[2][units:], params[3][0]
     positions = tgt.shape[1] - 1
-    plain = _forward_mode()
+    plain = transforms.active()
     if plain:
         ow = enc @ w_o
     else:

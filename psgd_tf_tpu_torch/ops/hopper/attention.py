@@ -41,18 +41,16 @@ warp lane an attention unit); past it the wrappers raise.
 
 `project` and `step` are the autograd Functions the model calls.
 `_Project`'s backward runs after every position's, since each position
-consumes its output `ow`, so the stash is full by then. Neither has a
-forward-mode rule: under `torch.func.jvp` the model takes the plain ops
-(`models/nmt.py`). On CPU tensors the wrappers run their plain versions
-inside the same Functions, so the CPU tests hold the structure to the
-plain ops; on a CUDA tensor they launch the kernels or raise.
+consumes its output `ow`, so the stash is full by then. Both serve plain
+reverse mode: under a `torch.func` transform the model takes the plain
+ops (`models/nmt.py`, `utils.transforms`). On CPU tensors the wrappers
+run their plain versions inside the same Functions, so the CPU tests hold
+the structure to the plain ops; on a CUDA tensor they launch the kernels
+or raise.
 """
 from __future__ import annotations
 
 import torch
-from torch._C import _functorch
-from torch._functorch import pyfunctorch
-from torch.utils import _pytree as pytree
 
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import _build
@@ -204,21 +202,6 @@ class Stash:
         self.done: set[int] = set()
 
 
-def _lowered(fn, *args):
-    """fn(*args) on tensors with storage. A Function's backward under
-    `torch.func.grad` gets its tensors wrapped at the transform's level,
-    which the kernels cannot read: unwrap them, run `fn` one level down,
-    and wrap its tensors back (as functorch runs a Function's forward)."""
-    if not torch._C._are_functorch_transforms_active():
-        return fn(*args)
-    interpreter = pyfunctorch.retrieve_current_functorch_interpreter()
-    level = interpreter.level()
-    with interpreter.lower():
-        out = fn(*pytree.tree_map_only(
-            torch.Tensor, lambda x: _functorch._unwrap_for_grad(x, level), args))
-    return pytree.tree_map_only(torch.Tensor, lambda y: _functorch._wrap_for_grad(y, level), out)
-
-
 def _project_backward(stash, needs, d_ow, enc, w_enc):
     d_enc = d_w = None
     if needs[0]:
@@ -260,7 +243,7 @@ class _Project(torch.autograd.Function):
     def backward(ctx, d_ow):
         enc, w_enc = ctx.saved_tensors
         needs = ctx.needs_input_grad[:2]
-        return (*_lowered(_project_backward, ctx.stash, needs, d_ow, enc, w_enc), None)
+        return (*_project_backward(ctx.stash, needs, d_ow, enc, w_enc), None)
 
 
 class _Step(torch.autograd.Function):
@@ -280,7 +263,7 @@ class _Step(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dctx):
-        d_hw, d_ow, d_v = _lowered(_step_backward, ctx.stash, ctx.t, dctx, *ctx.saved_tensors)
+        d_hw, d_ow, d_v = _step_backward(ctx.stash, ctx.t, dctx, *ctx.saved_tensors)
         return d_hw, d_ow, d_v, None, None, None, None
 
 

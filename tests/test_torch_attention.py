@@ -18,6 +18,7 @@ from psgd_tf_tpu_torch.data.translation import PAD
 from psgd_tf_tpu_torch.models import nmt
 from psgd_tf_tpu_torch.ops import hopper
 from psgd_tf_tpu_torch.ops.hopper import attention
+from psgd_tf_tpu_torch.utils import transforms
 
 torch.set_num_threads(1)
 
@@ -73,6 +74,15 @@ def _close(a, b, tol):
         assert (x - y).abs().max().item() <= tol * scale, ((x - y).abs().max().item(), scale)
 
 
+def _grad_and_value(f, params, *args):
+    """(grads, value) of f by plain reverse mode, as `hvp.finite_diff` and
+    `hvp.grad_only` take them: the route the attention's Functions serve
+    (under a `torch.func` transform the model takes the plain ops)."""
+    leaves = [p.detach().requires_grad_() for p in params]
+    value = f(leaves, *args)
+    return list(torch.autograd.grad(value, leaves)), value.detach()
+
+
 def _logit_loss(mask_attention, weights):
     """A scalar of the logits with either masking, for gradients of the
     unmasked route too (`nmt.loss` masks)."""
@@ -97,8 +107,8 @@ def test_grad_and_value_matches_plain(cfg, mask_attention):
     weights = torch.randn((src.shape[0], tgt.shape[1] - 1, cfg.vocab_tgt),
                           generator=torch.Generator().manual_seed(1), dtype=torch.float64)
     f = _logit_loss(mask_attention, weights)
-    g1, v1 = torch.func.grad_and_value(f)(params, src, tgt, nmt._teacher_forced_logits)
-    g0, v0 = torch.func.grad_and_value(f)(params, src, tgt, _plain_logits)
+    g1, v1 = _grad_and_value(f, params, src, tgt, nmt._teacher_forced_logits)
+    g0, v0 = _grad_and_value(f, params, src, tgt, _plain_logits)
     _close([v1], [v0], TOL)
     _close(g1, g0, TOL)
 
@@ -113,8 +123,8 @@ def test_logits_match_plain_bitwise_on_cpu(mask_attention):
 
 def test_loss_gradient_matches_plain():
     params, _, src, tgt = _inputs(3)
-    g1, l1 = torch.func.grad_and_value(nmt.loss)(params, src, tgt)
-    g0, l0 = torch.func.grad_and_value(_plain_loss)(params, src, tgt)
+    g1, l1 = _grad_and_value(nmt.loss, params, src, tgt)
+    g0, l0 = _grad_and_value(_plain_loss, params, src, tgt)
     _close([l1], [l0], TOL)
     _close(g1, g0, TOL)
 
@@ -184,33 +194,18 @@ def test_routes_by_forward_mode():
             mock.patch.object(attention, "project", wraps=attention.project) as project:
         hvp.finite_diff(nmt.loss, params, probes, src, tgt)
     assert step.call_count == 2 * (tgt.shape[1] - 1) and project.call_count == 2
-    assert not nmt._forward_mode()
+    assert not transforms.active()
 
 
-def test_wrappers_get_tensors_with_storage_under_func_grad():
-    """Under `torch.func.grad` a Function's backward gets its tensors
-    wrapped; the kernels read raw pointers, so the wrappers must get them
-    unwrapped, and give back what the transform expects."""
-    params, probes, src, tgt = _inputs(11)
-    seen = []
-
-    def storage(fn):
-        def checked(*args):
-            seen.append(fn.__name__)
-            for x in args:
-                if isinstance(x, torch.Tensor):
-                    x.data_ptr()  # raises for a functorch wrapper
-            return fn(*args)
-        return checked
-
-    with mock.patch.object(attention, "attend", storage(attention.attend)), \
-            mock.patch.object(attention, "attend_backward", storage(attention.attend_backward)), \
-            mock.patch.object(attention, "enc_grad", storage(attention.enc_grad)):
-        l1, g1, h1 = hvp.finite_diff(nmt.loss, params, probes, src, tgt)
-    positions = tgt.shape[1] - 1
-    assert seen.count("attend") == seen.count("attend_backward") == 2 * positions
-    assert seen.count("enc_grad") == 2
-    l0, g0, h0 = hvp.finite_diff(_plain_loss, params, probes, src, tgt)
+def test_routes_to_plain_ops_under_func_grad():
+    """A caller's own `torch.func.grad` gets the plain ops too: the
+    Functions' kernels read raw storage, which its wrapped tensors lack."""
+    params, _, src, tgt = _inputs(11)
+    with mock.patch.object(attention, "step", side_effect=AssertionError("fused under grad")), \
+            mock.patch.object(attention, "project", side_effect=AssertionError("fused under grad")):
+        g1, l1 = torch.func.grad_and_value(nmt.loss)(params, src, tgt)
+    g0, l0 = _grad_and_value(nmt.loss, params, src, tgt)
+    _close([l1], [l0], TOL)
     _close(g1, g0, TOL)
 
 
@@ -361,19 +356,21 @@ def test_fd_step_at_reference_widths_matches_plain_route(cuda):
 
 
 def test_launch_counts_and_exact_route(cuda):
-    """One `grad_and_value` of the loss at tgt_len 13: 12 forward, 12
-    backward and 1 deferred-gradient launch; `hvp.exact` launches none."""
+    """One gradient of the loss at tgt_len 13 (`hvp.grad_only`): 12
+    forward, 12 backward and 1 deferred-gradient launch; `hvp.exact` and
+    `torch.func.grad` launch none."""
     g = torch.Generator(device=cuda).manual_seed(4)
     params = nmt.init(g, CFG_A10)
     src = torch.randint(3, CFG_A10.vocab_src, (64, 18), generator=g, device=cuda)
     tgt = torch.randint(3, CFG_A10.vocab_tgt, (64, 13), generator=g, device=cuda)
     before = dict(hopper.counts)
-    torch.func.grad_and_value(nmt.loss)(params, src, tgt)
+    hvp.grad_only(nmt.loss, params, src, tgt)
     torch.cuda.synchronize()
     moved = {k: n - before[k] for k, n in hopper.counts.items() if n != before[k]}
     assert moved == {"attn_fwd": 12, "attn_bwd": 12, "attn_enc_grad": 1}
     before = dict(hopper.counts)
     hvp.exact(nmt.loss, params, hvp.random_like(g, params), src, tgt)
+    torch.func.grad_and_value(nmt.loss)(params, src, tgt)
     torch.cuda.synchronize()
     assert dict(hopper.counts) == before
 

@@ -4,11 +4,15 @@ step kind (an FD update step of kron, stacked kron, lra and diag, a
 gradient-only step, an exact-Hvp step). The names and the count of each
 span a step, their nesting, that the step's every CPU op lies inside
 `psgd_step`, that a profiler changes no output bit, that `scope` calls no
-`record_function` while no profiler runs, and `psgd_exchange` on a 2-rank
-gloo mesh."""
+`record_function` while no profiler runs, that the first span leaves a
+profiler's start nothing to import, and `psgd_exchange` on a 2-rank gloo
+mesh."""
 from __future__ import annotations
 
 import collections
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -162,6 +166,32 @@ def test_scope_as_a_decorator_nests():
     ranges = sorted(e.time_range.start for e in prof.events() if e.name == "psgd_outer_test")
     assert len(ranges) >= 2
     assert f(2).item() == 2
+
+
+_FIRST_SPAN = """
+import sys, torch
+from torch.profiler import ProfilerActivity, profile
+from psgd_tf_tpu_torch.utils import profiling
+assert "torch._inductor" not in sys.modules
+x = torch.ones(3, requires_grad=True)
+with profiling.scope("psgd_step"):
+    (g,) = torch.autograd.grad((x * x).sum(), [x])
+assert "torch._inductor" in sys.modules
+before = set(sys.modules)
+with profile(activities=[ProfilerActivity.CPU]):
+    pass
+print(sorted(set(sys.modules) - before))
+"""
+
+
+def test_first_span_leaves_the_profiler_start_nothing_to_import():
+    """A fresh interpreter: importing the module loads no compiler, and
+    after the first span (a step with no `torch.func` call) a profiler's
+    start imports no module, so it starts at once."""
+    out = subprocess.run([sys.executable, "-c", _FIRST_SPAN], capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 # ------------------------------------------------------------------ a 2-rank gloo mesh
